@@ -1,0 +1,327 @@
+"""Graph containers and structure preprocessing (StaGr / PreG / NodePad).
+
+Host code, numpy only — a copy of the reference package's `core/graph.py`
+without the SymG/CacheG packers and the GrAd edge-delta patcher, which the
+port has not reached yet. Tensors appear only where operands go to the
+device (`repro_torch.core.models.build_operands`).
+
+The paper's Step-1 enablement: graphs are preprocessed on the *host*
+(GraphSplit assigns control-heavy structure work to the CPU) into dense,
+statically-shaped operands that the device consumes as plain matmuls.
+
+NodePad: every graph is padded to a fixed *bucket* capacity (a multiple of
+the 128 tile) so one execution plan serves every graph of that size —
+the paper's "one precompiled blob", here one operand shape signature per
+plan (`core.models.ExecutionPlan.trace_count`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+MXU_TILE = 128  # NodePad tile (name kept from the reference); kernels pad to it.
+
+
+@dataclasses.dataclass
+class Graph:
+    """A static graph snapshot. Host-side (numpy) until padded/uploaded."""
+
+    edge_index: np.ndarray  # (2, E) int32, row 0 = src, row 1 = dst
+    num_nodes: int
+    features: np.ndarray  # (N, F) float32
+    labels: Optional[np.ndarray] = None  # (N,) int32
+    train_mask: Optional[np.ndarray] = None  # (N,) bool
+    test_mask: Optional[np.ndarray] = None  # (N,) bool
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.edge_index.shape[1])
+
+
+def required_capacity(num_nodes: int, slack: float = 0.0) -> int:
+    """Single owner of the NodePad admission rule: nodes * (1 + slack).
+
+    `slack` reserves headroom for dynamic node insertion (GrAd) without a
+    recompile — the paper pads Cora 2708 -> 3000. Both the free-form
+    `node_bucket` and the ladder's `bucket_for` round THIS number up, so the
+    slack policy cannot drift between the two call sites.
+    """
+    return int(np.ceil(num_nodes * (1.0 + slack)))
+
+
+def node_bucket(num_nodes: int, *, tile: int = MXU_TILE, slack: float = 0.0) -> int:
+    """NodePad bucket: smallest tile multiple >= required_capacity.
+
+    We pad to tile multiples so the same capacity needs no further padding
+    in the kernel wrappers (`kernels.ops._pad2`).
+    """
+    want = required_capacity(num_nodes, slack)
+    return int(-(-want // tile) * tile)
+
+
+def add_self_loops(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    loops = np.arange(num_nodes, dtype=edge_index.dtype)
+    return np.concatenate([edge_index, np.stack([loops, loops])], axis=1)
+
+
+def dense_adjacency(edge_index: np.ndarray, capacity: int, *, self_loops: bool = True,
+                    num_nodes: Optional[int] = None) -> np.ndarray:
+    """(capacity, capacity) float32 0/1 adjacency; A[dst, src] = 1.
+
+    Padded rows/cols stay zero — the paper's convention '0 = no edge' makes
+    NodePad padding semantically inert.
+    """
+    a = np.zeros((capacity, capacity), dtype=np.float32)
+    src, dst = edge_index
+    a[dst, src] = 1.0
+    if self_loops:
+        n = capacity if num_nodes is None else num_nodes
+        idx = np.arange(n)
+        a[idx, idx] = 1.0
+    return a
+
+
+def gcn_norm_adjacency(edge_index: np.ndarray, num_nodes: int, capacity: int) -> np.ndarray:
+    """PreG: Â = D^-1/2 (A + I) D^-1/2 precomputed on the host.
+
+    The sqrt/recip ops (the NPU's slow-DSP work, TPU's non-MXU scalar work)
+    happen exactly once, offline; the device only ever sees one dense matmul
+    operand. Padded nodes have degree 0 -> their norm rows/cols are 0.
+    """
+    a = dense_adjacency(edge_index, capacity, self_loops=True, num_nodes=num_nodes)
+    deg = a.sum(axis=1)
+    with np.errstate(divide="ignore"):
+        d_inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+    return (d_inv_sqrt[:, None] * a * d_inv_sqrt[None, :]).astype(np.float32)
+
+
+def mean_adjacency(edge_index: np.ndarray, num_nodes: int, capacity: int,
+                   *, self_loops: bool = True) -> np.ndarray:
+    """Row-normalized adjacency (mean aggregation): D^-1 (A [+ I])."""
+    a = dense_adjacency(edge_index, capacity, self_loops=self_loops, num_nodes=num_nodes)
+    deg = a.sum(axis=1, keepdims=True)
+    return (a / np.maximum(deg, 1.0)).astype(np.float32)
+
+
+
+def pad_features(x: np.ndarray, capacity: int) -> np.ndarray:
+    """NodePad: zero-pad node features to the bucket capacity."""
+    n, f = x.shape
+    if n > capacity:
+        raise ValueError(f"graph ({n} nodes) exceeds NodePad capacity {capacity}")
+    if n == capacity:
+        return x.astype(np.float32)
+    out = np.zeros((capacity, f), dtype=np.float32)
+    out[:n] = x
+    return out
+
+
+def pad_labels(y: np.ndarray, capacity: int, *, fill: int = -1) -> np.ndarray:
+    out = np.full((capacity,), fill, dtype=np.int32)
+    out[: y.shape[0]] = y
+    return out
+
+
+@dataclasses.dataclass
+class PaddedGraph:
+    """Device-ready NodePad'ded graph: every array statically (cap, ·)-shaped.
+
+    `norm_adj` is the GrAd *input* form — a runtime operand of the plan,
+    never baked into it — so edge updates re-run only host preprocessing
+    (the paper's recompile-free dynamic-graph path).
+    """
+
+    capacity: int
+    num_nodes: int
+    features: np.ndarray      # (cap, F)
+    norm_adj: np.ndarray      # (cap, cap)  Â (PreG-normalized)
+    adj: np.ndarray           # (cap, cap)  raw 0/1 (no self loops) for GAT masks
+    node_mask: np.ndarray     # (cap,) 1.0 for real nodes
+    labels: Optional[np.ndarray] = None
+    train_mask: Optional[np.ndarray] = None
+    test_mask: Optional[np.ndarray] = None
+
+
+def pad_graph(g: Graph, *, capacity: Optional[int] = None, slack: float = 0.0,
+              norm: str = "gcn") -> PaddedGraph:
+    cap = capacity if capacity is not None else node_bucket(g.num_nodes, slack=slack)
+    if norm == "gcn":
+        na = gcn_norm_adjacency(g.edge_index, g.num_nodes, cap)
+    elif norm == "mean":
+        na = mean_adjacency(g.edge_index, g.num_nodes, cap)
+    else:
+        raise ValueError(f"unknown norm {norm!r}")
+    mask = np.zeros((cap,), dtype=np.float32)
+    mask[: g.num_nodes] = 1.0
+
+    def _pad_bool(m):
+        if m is None:
+            return None
+        out = np.zeros((cap,), dtype=bool)
+        out[: g.num_nodes] = m
+        return out
+
+    return PaddedGraph(
+        capacity=cap,
+        num_nodes=g.num_nodes,
+        features=pad_features(g.features, cap),
+        norm_adj=na,
+        adj=dense_adjacency(g.edge_index, cap, self_loops=False),
+        node_mask=mask,
+        labels=None if g.labels is None else pad_labels(g.labels, cap),
+        train_mask=_pad_bool(g.train_mask),
+        test_mask=_pad_bool(g.test_mask),
+    )
+
+
+# ---------------------------------------------------------------------------
+# BucketLadder — the multi-graph NodePad policy (DESIGN.md §3).
+# One compiled blob per (model, bucket); a graph joins the smallest bucket
+# that holds it, and a growing graph re-buckets (the one legitimate
+# recompile) only when it outgrows its current capacity.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketLadder:
+    """A sorted set of NodePad capacities shared by many graphs.
+
+    `slack` reserves growth headroom at admission: a graph is placed in the
+    smallest bucket >= num_nodes * (1 + slack), so GrAd updates have room
+    before the re-bucket policy has to move it up the ladder.
+    """
+
+    buckets: Tuple[int, ...] = (256, 512, 1024, 2048)
+    slack: float = 0.0
+
+    def __post_init__(self):
+        bs = tuple(sorted(int(b) for b in self.buckets))
+        if not bs:
+            raise ValueError("BucketLadder needs at least one bucket")
+        for b in bs:
+            if b <= 0 or b % MXU_TILE:
+                raise ValueError(
+                    f"bucket {b} is not a positive multiple of the MXU tile "
+                    f"{MXU_TILE} (NodePad buckets must tile-align)")
+        object.__setattr__(self, "buckets", bs)
+
+    def bucket_for(self, num_nodes: int) -> int:
+        """Smallest bucket holding num_nodes (+ admission slack)."""
+        want = required_capacity(num_nodes, self.slack)
+        for b in self.buckets:
+            if want <= b:
+                return b
+        # slack is headroom, not a hard requirement: a graph that fits the
+        # top bucket without slack is still admissible there.
+        if num_nodes <= self.buckets[-1]:
+            return self.buckets[-1]
+        raise ValueError(
+            f"graph with {num_nodes} nodes exceeds the largest bucket "
+            f"{self.buckets[-1]}")
+
+    def pad(self, g: Graph, *, norm: str = "gcn") -> PaddedGraph:
+        return pad_graph(g, capacity=self.bucket_for(g.num_nodes), norm=norm)
+
+    def grow(self, pg: PaddedGraph, edge_index: np.ndarray, num_nodes: int,
+             features: np.ndarray, *, norm: str = "gcn"
+             ) -> Tuple[PaddedGraph, bool]:
+        """GrAd update with re-bucket policy.
+
+        Returns (updated graph, rebucketed). While the graph fits its
+        current capacity this is a pure value update (zero recompiles); once
+        it outgrows the bucket, the graph is re-padded into the next rung —
+        the caller pays exactly one new (model, bucket) compile, which the
+        serving engine counts as a rebucket event.
+        """
+        if num_nodes <= pg.capacity:
+            upd = update_edges(pg, edge_index, num_nodes, norm=norm)
+            upd = dataclasses.replace(
+                upd, features=pad_features(features, pg.capacity))
+            return upd, False
+        # Re-bucket: carry the supervision arrays across the move. Nodes
+        # beyond the old capacity are new and unlabeled (fill -1 / False) —
+        # silently dropping labels/train_mask/test_mask here would strand an
+        # attached graph's evaluation state the first time it climbs.
+        old = pg.capacity
+
+        def _grown(arr, fill, dtype):
+            if arr is None:
+                return None
+            out = np.full((num_nodes,), fill, dtype=dtype)
+            out[:old] = arr[:old]
+            return out
+
+        fresh = Graph(edge_index=edge_index, num_nodes=num_nodes,
+                      features=features,
+                      labels=_grown(pg.labels, -1, np.int32),
+                      train_mask=_grown(pg.train_mask, False, bool),
+                      test_mask=_grown(pg.test_mask, False, bool))
+        cap = self.bucket_for(num_nodes)
+        return pad_graph(fresh, capacity=cap, norm=norm), True
+
+
+@dataclasses.dataclass
+class BatchedGraphs:
+    """Same-bucket PaddedGraphs stacked with a leading batch dimension."""
+
+    capacity: int
+    num_nodes: np.ndarray     # (B,) int32
+    features: np.ndarray      # (B, cap, F)
+    norm_adj: np.ndarray      # (B, cap, cap)
+    adj: np.ndarray           # (B, cap, cap)
+    node_mask: np.ndarray     # (B, cap)
+
+    @property
+    def batch(self) -> int:
+        return int(self.features.shape[0])
+
+
+def stack_padded(pgs: Sequence[PaddedGraph]) -> BatchedGraphs:
+    """Stack PaddedGraphs of one bucket for vmapped batched execution."""
+    if not pgs:
+        raise ValueError("cannot stack an empty graph batch")
+    caps = {pg.capacity for pg in pgs}
+    if len(caps) != 1:
+        raise ValueError(f"mixed NodePad buckets in one batch: {sorted(caps)}")
+    return BatchedGraphs(
+        capacity=pgs[0].capacity,
+        num_nodes=np.asarray([pg.num_nodes for pg in pgs], np.int32),
+        features=np.stack([pg.features for pg in pgs]),
+        norm_adj=np.stack([pg.norm_adj for pg in pgs]),
+        adj=np.stack([pg.adj for pg in pgs]),
+        node_mask=np.stack([pg.node_mask for pg in pgs]),
+    )
+
+
+
+def edge_index_from_adjacency(adj: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Recover the (2, E) edge list from a dense adjacency (A[dst, src]=1)
+    — the full-rebuild fallback's input when only the patched adjacency is
+    on hand."""
+    dst, src = np.nonzero(adj[:num_nodes, :num_nodes])
+    return np.stack([src, dst]).astype(np.int32)
+
+
+def update_edges(pg: PaddedGraph, edge_index: np.ndarray, num_nodes: int,
+                 *, norm: str = "gcn") -> PaddedGraph:
+    """GrAd: rebuild only the runtime mask inputs for an evolved graph.
+
+    No recompilation: shapes are unchanged (same capacity), only array
+    *values* change. Raises if the graph outgrew its bucket (the caller then
+    re-buckets — the one legitimate recompile).
+    """
+    if num_nodes > pg.capacity:
+        raise ValueError(
+            f"graph grew to {num_nodes} nodes > capacity {pg.capacity}; re-bucket")
+    if norm == "gcn":
+        na = gcn_norm_adjacency(edge_index, num_nodes, pg.capacity)
+    else:
+        na = mean_adjacency(edge_index, num_nodes, pg.capacity)
+    mask = np.zeros((pg.capacity,), dtype=np.float32)
+    mask[:num_nodes] = 1.0
+    return dataclasses.replace(
+        pg, num_nodes=num_nodes, norm_adj=na,
+        adj=dense_adjacency(edge_index, pg.capacity, self_loops=False),
+        node_mask=mask)

@@ -1,0 +1,495 @@
+"""GraphServe sync core: multi-graph, multi-bucket GCN serving on one device.
+
+Port of the synchronous serving path of the reference's
+`runtime/gnn_server.py`:
+
+  * NodePad / BucketLadder — every request's graph is padded into one rung
+    of a shared bucket ladder, so each (model, bucket) runs one plan shape.
+  * GraphSplit — padding and PreG normalization happen on the host at
+    submit/query time; the device runs one dense forward per batch.
+  * Batching — same-key requests stack along a leading batch dim at a FIXED
+    width; partial batches repeat the last real request into the junk slots
+    (outputs dropped), so the shapes never change. Batch selection is the
+    reference's best-fill rule with its EDF tie-break (`edf_best_fill_key`).
+  * Fused layers (DESIGN.md §11) — `fusion="layer"` runs each GCN layer
+    through the `fused_gcn_dense` CUDA kernel; `fusion="none"` runs two
+    matmuls per layer, through the `block_matmul` kernel when the model's
+    Techniques set `use_pallas`. Fusion joins the batch key and warmup runs
+    both modes, as in the reference.
+  * Zero-recompile — after `warmup()`, `assert_warm()` holds while requests
+    stay within the ladder: plans count unseen argument signatures
+    (`core.models.ExecutionPlan`).
+
+Attached graphs keep their device operands in a dict keyed by
+(graph_id, structure_version): a repeated query moves no operand bytes.
+Not ported yet (ROADMAP queue 1): quality tiers beyond fp32, GraSp
+backends, CacheG's compact operand pipeline (the engine requires
+`use_cacheg=False`), `update`/`update_delta`, the async scheduler, SLO
+deadlines and sharding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import BucketLadder, Graph, PaddedGraph, pad_graph
+from repro_torch.core.layers import Techniques
+from repro_torch.core.models import (FUSION_MODES, ExecutionPlan, GNNConfig,
+                                     GranniteOperands, PlanKey,
+                                     build_operands, build_plan, init_params,
+                                     stack_operands)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.runtime.clock import WALL, Clock
+
+# Serving techniques for models registered without explicit Techniques.
+DEFAULT_TECHNIQUES: Dict[str, Techniques] = {
+    "gcn": Techniques(stagr=True, grad_dynamic=True, graphsplit=True),
+}
+
+# (model, bucket, tier, agg backend, fusion mode, shard count — 0 unsharded)
+BatchKey = Tuple[str, int, str, str, str, int]
+
+
+def best_fill_key(stats: Dict[BatchKey, Tuple[int, int]], batch_slots: int,
+                  last_dispatch: Optional[Dict[str, int]] = None,
+                  *, replica_slots: int = 1) -> BatchKey:
+    """Pick the batch key to dispatch next (DESIGN.md §9).
+
+    `stats` maps each pending key to `(count, head_order)`. Selection
+    order: best fill (most waiting requests, capped at the key's width),
+    then per-model fairness (the model dispatched longest ago), then FIFO
+    (oldest head request). Sharded keys (`key[5] > 0`) fill
+    `replica_slots`; unsharded keys fill `batch_slots`.
+    """
+    last_dispatch = last_dispatch or {}
+
+    def width(k: BatchKey) -> int:
+        return replica_slots if k[5] else batch_slots
+
+    return min(stats.items(),
+               key=lambda kv: (-min(kv[1][0], width(kv[0])) / width(kv[0]),
+                               last_dispatch.get(kv[0][0], -1),
+                               kv[1][1]))[0]
+
+
+def edf_best_fill_key(stats: Dict[BatchKey, Tuple[int, int, float]],
+                      batch_slots: int,
+                      last_dispatch: Optional[Dict[str, int]] = None,
+                      *, replica_slots: int = 1) -> BatchKey:
+    """Slack-aware variant of `best_fill_key` (DESIGN.md §14): `stats`
+    values are `(count, head_order, min_slack)`; among equal fills the key
+    whose most urgent request expires soonest goes first, then per-model
+    fairness, then FIFO. Deadline-free traffic (slack +inf everywhere)
+    batches exactly as `best_fill_key`."""
+    last_dispatch = last_dispatch or {}
+
+    def width(k: BatchKey) -> int:
+        return replica_slots if k[5] else batch_slots
+
+    return min(stats.items(),
+               key=lambda kv: (-min(kv[1][0], width(kv[0])) / width(kv[0]),
+                               kv[1][2],
+                               last_dispatch.get(kv[0][0], -1),
+                               kv[1][1]))[0]
+
+
+def pending_stats(reqs: Sequence["GNNRequest"]
+                  ) -> Dict[BatchKey, Tuple[int, int]]:
+    """Fold a pending-request sequence into `best_fill_key` stats."""
+    stats: Dict[BatchKey, Tuple[int, int]] = {}
+    for i, r in enumerate(reqs):
+        k = (r.model, r.bucket, r.tier, r.backend, r.fusion, r.shards)
+        c = stats.get(k)
+        stats[k] = (1, i) if c is None else (c[0] + 1, c[1])
+    return stats
+
+
+def edf_pending_stats(reqs: Sequence["GNNRequest"], now: float
+                      ) -> Dict[BatchKey, Tuple[int, int, float]]:
+    """Fold pending requests into `edf_best_fill_key` stats at time `now`."""
+    stats: Dict[BatchKey, Tuple[int, int, float]] = {}
+    for i, r in enumerate(reqs):
+        k = (r.model, r.bucket, r.tier, r.backend, r.fusion, r.shards)
+        slack = (r.deadline_s - now if r.deadline_s is not None
+                 else float("inf"))
+        c = stats.get(k)
+        stats[k] = ((1, i, slack) if c is None
+                    else (c[0] + 1, c[1], min(c[2], slack)))
+    return stats
+
+
+@dataclasses.dataclass
+class GNNRequest:
+    uid: int
+    model: str
+    pg: PaddedGraph
+    ops: GranniteOperands
+    bucket: int
+    submitted_s: float
+    tier: str = "fp32"                     # resolved tier
+    backend: str = "dense"                 # resolved agg backend (§10)
+    fusion: str = "none"                   # resolved fusion mode (§11)
+    deadline_s: Optional[float] = None     # SLO deadlines are not ported:
+    shards: int = 0                        # both stay at their defaults
+    finished_s: float = 0.0
+    done: bool = False
+    preds: Optional[np.ndarray] = None     # (num_nodes,) argmax classes
+    logits: Optional[np.ndarray] = None    # (num_nodes, C) if return_logits
+
+
+@dataclasses.dataclass
+class GraphServeConfig:
+    ladder: BucketLadder = dataclasses.field(default_factory=BucketLadder)
+    batch_slots: int = 4                   # fixed batch width per dispatch
+    return_logits: bool = False
+    use_cacheg: bool = False               # CacheG (§7) is not ported: True
+    # raises; operands are built on the host and uploaded dense
+
+
+@dataclasses.dataclass
+class _ModelEntry:
+    cfg: GNNConfig
+    params: Dict
+    tiers: Dict[str, Techniques]           # tier name -> execution variant
+    default_tier: str
+    default_fusion: str = "none"           # "none" | "layer" (§11)
+
+
+class GraphServe:
+    def __init__(self, sc: Optional[GraphServeConfig] = None, *, seed: int = 0,
+                 clock: Optional[Clock] = None, device: DeviceLike = None):
+        self.sc = sc or GraphServeConfig()
+        if self.sc.use_cacheg:
+            raise NotImplementedError(
+                "CacheG's compact operand pipeline is not ported yet "
+                "(ROADMAP queue 1 item 8); use GraphServeConfig("
+                "use_cacheg=False)")
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.clock = clock if clock is not None else WALL
+        self.models: Dict[str, _ModelEntry] = {}
+        self.queue: List[GNNRequest] = []
+        self.finished: List[GNNRequest] = []
+        self.graphs: Dict[int, Tuple[str, PaddedGraph]] = {}
+        self._graph_version: Dict[int, int] = {}
+        # device operands of attached graphs, keyed by (graph_id, version)
+        self._operands: Dict[Tuple[int, int], GranniteOperands] = {}
+        self._plans: Dict[PlanKey, ExecutionPlan] = {}
+        self._warm_blobs: Optional[int] = None
+        self._uid = 0
+        self._gid = 0
+        self._dispatch_serial = 0
+        self._last_dispatch: Dict[str, int] = {}   # model -> dispatch serial
+        self.metrics = {"batches": 0, "slots_filled": 0, "slots_total": 0,
+                        "latency_s": [], "first_submit_s": None,
+                        "last_finish_s": None, "device_busy_s": 0.0,
+                        "operand_bytes_h2d": 0}
+
+    # ------------------------------------------------------------------ setup
+    def register_model(self, name: str, cfg: GNNConfig,
+                       params: Optional[Dict] = None, *,
+                       techniques: Optional[Techniques] = None,
+                       tiers: Optional[Sequence[str]] = None,
+                       default_tier: str = "fp32",
+                       agg_backend: str = "dense",
+                       fusion: str = "none") -> None:
+        """Register a GCN under `name`.
+
+        `params` (nested dict of tensors on the engine's device, e.g. from
+        `bridge.params_from_jax`) defaults to a seeded init. Only the fp32
+        tier (`tiers=None` or `("fp32",)`) and the dense aggregation
+        backend are ported. `fusion` is the model's default fused-layer
+        mode; requests may override it per call.
+        """
+        if cfg.kind not in DEFAULT_TECHNIQUES:
+            raise NotImplementedError(
+                f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
+                "1 item 7)")
+        if tiers is not None:
+            if techniques is not None:
+                raise ValueError(
+                    "pass per-tier Techniques inside `tiers`, not both "
+                    "`techniques` and `tiers`")
+            if list(tiers) != ["fp32"]:
+                raise NotImplementedError(
+                    f"quality tiers {list(tiers)}: only 'fp32' is ported "
+                    "(QuantGr tiers are ROADMAP queue 1 item 5)")
+        t = techniques if techniques is not None else DEFAULT_TECHNIQUES[cfg.kind]
+        if t.quantgr:
+            raise ValueError("the 'fp32' tier cannot enable QuantGr")
+        if default_tier != "fp32":
+            raise ValueError(f"default tier {default_tier!r} not in ['fp32']")
+        if agg_backend != "dense":
+            raise NotImplementedError(
+                f"agg_backend={agg_backend!r}: only 'dense' is ported (GraSp "
+                "is ROADMAP queue 1 item 6)")
+        if fusion not in FUSION_MODES:
+            raise ValueError(f"unknown fusion mode {fusion!r}; "
+                             f"pick from {FUSION_MODES}")
+        if params is None:
+            params = init_params(torch.Generator().manual_seed(self.seed),
+                                 cfg, device=self.device)
+        for layer in params.values():
+            for k, v in layer.items():
+                if v.device != self.device:
+                    raise ValueError(f"parameter {k!r} lies on {v.device}, "
+                                     f"the engine on {self.device}")
+        self.models[name] = _ModelEntry(cfg=cfg, params=params,
+                                        tiers={"fp32": t},
+                                        default_tier=default_tier,
+                                        default_fusion=fusion)
+
+    def plan_for(self, model: str, bucket: int, tier: Optional[str] = None,
+                 backend: str = "dense", fusion: str = "none"
+                 ) -> ExecutionPlan:
+        # keyed by the plan's full identity, not the (model, tier) names:
+        # params are runtime args, so models with identical (cfg,
+        # techniques, backend, fusion) share one plan per bucket
+        e = self.models[model]
+        t = e.tiers[tier if tier is not None else e.default_tier]
+        key = (e.cfg, bucket, self.sc.batch_slots, t, backend, fusion, 0)
+        if key not in self._plans:
+            self._plans[key] = build_plan(e.cfg, bucket, t,
+                                          batch_size=self.sc.batch_slots,
+                                          backend=backend, fusion=fusion,
+                                          device=self.device)
+        return self._plans[key]
+
+    @property
+    def compiled_blobs(self) -> int:
+        """Distinct argument signatures seen, summed over all plans."""
+        return sum(p.trace_count for p in self._plans.values())
+
+    def warmup(self, *, buckets: Optional[Tuple[int, ...]] = None) -> int:
+        """Run every (model, bucket, tier, fusion) plan once on placeholder
+        inputs of the serving shapes — both fusion modes, as in the
+        reference, so mixed fused/unfused traffic replays warm. On the card
+        this also builds the CUDA kernels. Returns `compiled_blobs`."""
+        buckets = buckets if buckets is not None else self.sc.ladder.buckets
+        b = self.sc.batch_slots
+        warmed: set = set()
+        for bucket in buckets:
+            empty = pad_graph(Graph(edge_index=np.zeros((2, 0), np.int32),
+                                    num_nodes=1,
+                                    features=np.zeros((1, 1), np.float32)),
+                              capacity=bucket)
+            for name, e in self.models.items():
+                single = build_operands(empty, e.cfg, device=self.device)
+                ops = stack_operands([single] * b)
+                x = torch.zeros((b, bucket, e.cfg.in_feats),
+                                dtype=torch.float32, device=self.device)
+                for tier in e.tiers:
+                    for fusion in FUSION_MODES:
+                        plan = self.plan_for(name, bucket, tier, "dense",
+                                             fusion)
+                        if (name, plan.key) in warmed:
+                            continue
+                        warmed.add((name, plan.key))
+                        plan(e.params, x, ops)
+        self._sync()
+        self._warm_blobs = self.compiled_blobs
+        return self._warm_blobs
+
+    def assert_warm(self) -> None:
+        """The zero-recompile contract: no plan saw a new signature since
+        warmup."""
+        if self._warm_blobs is None:
+            raise AssertionError("call warmup() first")
+        if self.compiled_blobs != self._warm_blobs:
+            raise AssertionError(
+                f"recompile after warmup: {self.compiled_blobs} traces vs "
+                f"{self._warm_blobs} at warmup")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ intake
+    def _resolve_tier(self, model: str, tier: Optional[str]) -> str:
+        e = self.models[model]
+        tier = tier if tier is not None else e.default_tier
+        if tier not in e.tiers:
+            raise KeyError(f"model {model!r} has no tier {tier!r} "
+                           f"(registered: {sorted(e.tiers)})")
+        return tier
+
+    def _resolve_fusion(self, model: str, fusion: Optional[str]) -> str:
+        fusion = (fusion if fusion is not None
+                  else self.models[model].default_fusion)
+        if fusion not in FUSION_MODES:
+            raise ValueError(f"unknown fusion mode {fusion!r}; "
+                             f"pick from {FUSION_MODES}")
+        return fusion
+
+    def _device_operands(self, model: str, pg: PaddedGraph
+                         ) -> GranniteOperands:
+        """Build one graph's operands on the host and upload them."""
+        ops = build_operands(pg, self.models[model].cfg, device=self.device)
+        self.metrics["operand_bytes_h2d"] += int(pg.norm_adj.nbytes)
+        return ops
+
+    def _prepare(self, model: str, pg: PaddedGraph,
+                 ops: Optional[GranniteOperands] = None, *,
+                 tier: Optional[str] = None, fusion: Optional[str] = None,
+                 submitted_s: Optional[float] = None) -> GNNRequest:
+        """Host-stage tail shared by every intake path: resolve tier and
+        fusion mode, build operands if the caller did not, assign the uid.
+        Returns the request without queueing it."""
+        now = self.clock.now()
+        submitted_s = submitted_s if submitted_s is not None else now
+        tier = self._resolve_tier(model, tier)
+        fusion = self._resolve_fusion(model, fusion)
+        if ops is None:
+            ops = self._device_operands(model, pg)
+        uid = self._uid
+        self._uid += 1
+        if self.metrics["first_submit_s"] is None:
+            self.metrics["first_submit_s"] = submitted_s
+        return GNNRequest(uid=uid, model=model, pg=pg, ops=ops,
+                          bucket=pg.capacity, submitted_s=submitted_s,
+                          tier=tier, backend="dense", fusion=fusion)
+
+    def _push(self, req: GNNRequest) -> int:
+        self.queue.append(req)
+        return req.uid
+
+    def prepare_submit(self, g: Graph, *, model: str,
+                       tier: Optional[str] = None,
+                       fusion: Optional[str] = None,
+                       submitted_s: Optional[float] = None) -> GNNRequest:
+        """HOST stage of a one-shot request: NodePad padding + operand
+        build and upload."""
+        return self._prepare(model, self.sc.ladder.pad(g), tier=tier,
+                             fusion=fusion, submitted_s=submitted_s)
+
+    def submit(self, g: Graph, *, model: str, tier: Optional[str] = None,
+               fusion: Optional[str] = None) -> int:
+        """One-shot inference request over a static graph."""
+        return self._push(self.prepare_submit(g, model=model, tier=tier,
+                                              fusion=fusion))
+
+    def attach(self, g: Graph, *, model: str) -> int:
+        """Register a graph for repeated queries; returns its graph_id.
+        Operands are built on the first `query()` and kept on the device
+        until `detach()`. A graph above the top bucket raises."""
+        if model not in self.models:
+            raise KeyError(f"unknown model {model!r}")
+        pg = self.sc.ladder.pad(g)
+        gid = self._gid
+        self._gid += 1
+        self.graphs[gid] = (model, pg)
+        self._graph_version[gid] = 0
+        return gid
+
+    def detach(self, graph_id: int) -> None:
+        """Release an attached graph and its device operands."""
+        key = (graph_id, self._graph_version.pop(graph_id, -1))
+        self._operands.pop(key, None)
+        self.graphs.pop(graph_id, None)
+
+    def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
+                      fusion: Optional[str] = None,
+                      submitted_s: Optional[float] = None) -> GNNRequest:
+        """HOST stage of a query over an attached graph: device operands
+        come from the (graph_id, version) cache after the first query."""
+        model, pg = self.graphs[graph_id]
+        key = (graph_id, self._graph_version[graph_id])
+        ops = self._operands.get(key)
+        if ops is None:
+            ops = self._operands[key] = self._device_operands(model, pg)
+        return self._prepare(model, pg, ops, tier=tier, fusion=fusion,
+                             submitted_s=submitted_s)
+
+    def query(self, graph_id: int, *, tier: Optional[str] = None,
+              fusion: Optional[str] = None) -> int:
+        """Enqueue inference over an attached graph (see `prepare_query`)."""
+        return self._push(self.prepare_query(graph_id, tier=tier,
+                                             fusion=fusion))
+
+    # --------------------------------------------------------------- execution
+    def run(self) -> List[GNNRequest]:
+        while self.queue:
+            self._run_batch()
+        return self.finished
+
+    def _run_batch(self) -> None:
+        # best-filling key first, with slack as the tie-break; tier, backend
+        # and fusion mode are part of the key, so a batch never mixes plans
+        key = edf_best_fill_key(edf_pending_stats(self.queue,
+                                                  self.clock.now()),
+                                self.sc.batch_slots, self._last_dispatch)
+        batch = [r for r in self.queue
+                 if (r.model, r.bucket, r.tier, r.backend, r.fusion,
+                     r.shards) == key][:self.sc.batch_slots]
+        taken = {r.uid for r in batch}
+        self.queue = [r for r in self.queue if r.uid not in taken]
+        self._execute_batch(batch)
+
+    def _execute_batch(self, batch: List[GNNRequest]) -> None:
+        """DEVICE stage: one fixed-width dispatch of 1..batch_slots requests
+        sharing one key. Junk slots repeat the last real request so the
+        batch width never changes shape; their outputs are dropped.
+        `device_busy_s` accumulates the wall-clock from the feature upload
+        to the device's completion."""
+        head = batch[0]
+        b = self.sc.batch_slots
+        bkey = (head.model, head.bucket, head.tier, head.backend,
+                head.fusion, 0)
+        t0 = self.clock.now()
+        slots = batch + [batch[-1]] * (b - len(batch))
+        e = self.models[head.model]
+        x = torch.from_numpy(np.stack([r.pg.features for r in slots])
+                             ).to(self.device)
+        ops = stack_operands([r.ops for r in slots])
+        plan = self.plan_for(head.model, head.bucket, head.tier,
+                             head.backend, head.fusion)
+        logits = plan(e.params, x, ops)
+        self._sync()
+        self.clock.on_batch(bkey)
+        now = self.clock.now()
+        host_logits = logits.cpu().numpy()
+        for i, r in enumerate(batch):
+            lg = host_logits[i, : r.pg.num_nodes]
+            r.preds = lg.argmax(axis=-1).astype(np.int32)
+            if self.sc.return_logits:
+                r.logits = lg
+            r.done = True
+            r.finished_s = now
+            self.metrics["latency_s"].append(now - r.submitted_s)
+            self.finished.append(r)
+        self.metrics["batches"] += 1
+        self.metrics["slots_filled"] += len(batch)
+        self.metrics["slots_total"] += b
+        self.metrics["device_busy_s"] += now - t0
+        self.metrics["last_finish_s"] = now
+        self._last_dispatch[head.model] = self._dispatch_serial
+        self._dispatch_serial += 1
+
+    # ---------------------------------------------------------------- metrics
+    def summary(self) -> Dict[str, object]:
+        lat = np.asarray(self.metrics["latency_s"], np.float64)
+        t0, t1 = self.metrics["first_submit_s"], self.metrics["last_finish_s"]
+        span = (t1 - t0) if (t0 is not None and t1 is not None) else 0.0
+        busy = self.metrics["device_busy_s"]
+        return {
+            "device": str(self.device),
+            "requests": len(self.finished),
+            "compiled_blobs": self.compiled_blobs,
+            "batches": self.metrics["batches"],
+            "batch_occupancy": (self.metrics["slots_filled"]
+                                / max(self.metrics["slots_total"], 1)),
+            "device_busy_s": busy,
+            "device_idle_fraction": (max(0.0, 1.0 - busy / span)
+                                     if span > 0 else 0.0),
+            "operand_bytes_h2d": self.metrics["operand_bytes_h2d"],
+            "throughput_rps": (len(self.finished) / span if span > 0
+                               else 0.0),
+            "p50_latency_ms": (float(np.percentile(lat, 50) * 1e3)
+                               if lat.size else 0.0),
+            "p99_latency_ms": (float(np.percentile(lat, 99) * 1e3)
+                               if lat.size else 0.0),
+            "mean_latency_s": float(lat.mean()) if lat.size else 0.0,
+        }

@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (training loops, LLM serving); "
         "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's kernels); "
+        "skips itself elsewhere — run with -m cuda on the card")
 
 
 @pytest.fixture(scope="session")
