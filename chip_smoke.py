@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GCN serving path on one NVIDIA card.
+"""Drive the PyTorch port's GCN serving paths on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -13,13 +13,20 @@ last line; there is no CPU path):
      print ptxas's register/shared-memory lines;
   2. kernels — `block_matmul` and `fused_gcn_dense` against their plain
      PyTorch versions at the serving shapes (4 Cora-sized graphs padded to
-     3072 nodes, features 1433 -> 1536, widths padded to 128);
-  3. serving — a GraphServe on the card with the Cora 2-layer GCN twice:
-     `gcn` with `fusion="layer"` (fused_gcn_dense) and `gcn_mm` with
-     `use_pallas` (block_matmul). Cora and five Planetoid-like graphs go to
-     each model, one graph is attached and queried twice; every logit is
-     held against a forward through the plain versions, and the kernels'
-     launch counts must equal what the dispatched batches imply;
+     3072 nodes, features 1433 -> 1536, widths padded to 128), and
+     `int8_matmul` (the int8 tier's four products) and `fused_gcn_int8`
+     (both layers) at the same shapes with a real Cora calibration, where
+     they must equal their plain versions bit for bit;
+  3. serving — a GraphServe on the card with the Cora 2-layer GCN four
+     times. The fp32 path: `gcn` with `fusion="layer"` (fused_gcn_dense)
+     and `gcn_mm` with `use_pallas` (block_matmul). The int8 path: `gcn_q`
+     (tiers fp32 + int8, `fusion="layer"`, fused_gcn_int8) and `gcn_qmm`
+     (a tier dict with `use_pallas`, int8_matmul), both calibrated on Cora
+     first. Cora and five Planetoid-like graphs go to each model, and one
+     graph per path is attached and queried twice. Each path runs with
+     every launch count set to 0 just before it; the counts read just
+     after must equal what its dispatched batches imply, and every logit
+     is held against a forward through the plain versions;
   4. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound.
 
@@ -46,17 +53,22 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.gnn import gcn  # noqa: E402
 from repro_torch.core.graph import BucketLadder, pad_graph  # noqa: E402
 from repro_torch.core.layers import Techniques  # noqa: E402
+from repro_torch.core.models import (build_operands,  # noqa: E402
+                                     calibrate_tier, derive_tier_operands)
 from repro_torch.data.graphs import cora_like, planetoid_like  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import fused_layers as fl  # noqa: E402
+from repro_torch.kernels import int8_matmul as im  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 and fp32 outside the
-# tensor cores — the fp32 SIMT kernels' roofline.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3, fp32 outside the tensor
+# cores (the fp32 SIMT kernels' roofline) and the int8 tensor cores (the
+# least time any int8 kernel could take).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 LADDER, SLOTS = (1024, 3072), 4
 CAP, FIN_PAD, TILE = 3072, 1536, 128
 PLANETOID_SIZES = (300, 700, 1000, 1800, 2700)
@@ -67,7 +79,17 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                             "src/repro/kernels/block_matmul.py:35"),
            "fused_gcn_dense": ("src/repro_torch/kernels/csrc/"
                                "fused_gcn_dense.cu",
-                               "src/repro/kernels/fused_layers.py:97")}
+                               "src/repro/kernels/fused_layers.py:97"),
+           "int8_matmul": ("src/repro_torch/kernels/csrc/int8_matmul.cu",
+                           "src/repro/kernels/int8_matmul.py:39"),
+           "fused_gcn_int8": ("src/repro_torch/kernels/csrc/"
+                              "fused_gcn_int8.cu",
+                              "src/repro/kernels/fused_layers.py:170")}
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
+            "fused_gcn_dense": (fl, "LAUNCHES"),
+            "int8_matmul": (im, "LAUNCHES"),
+            "fused_gcn_int8": (fl, "INT8_LAUNCHES")}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -101,24 +123,41 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    """(least ms the card needs, what bounds it) at the published peaks."""
-    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(ops, nbytes, peak=FP32_FLOPS_PER_S):
+    """(least ms the card needs, what bounds it) at the published peaks:
+    `ops` at `peak` per second, `nbytes` at the HBM rate."""
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
 def matmul_work(a, b):
-    bsz, m, k = a.shape
+    """(ops, bytes) of one batched product: inputs read once, the float32
+    output written once."""
+    bsz, m, _ = a.shape
     n = b.shape[-1]
-    return 2.0 * bsz * m * n * k, 4.0 * (a.numel() + b.numel() + bsz * m * n)
+    return (2.0 * bsz * m * n * a.shape[-1],
+            nbytes(a, b) + 4.0 * bsz * m * n)
 
 
-def fused_work(adj, x, w):
+def fused_work(adj, x, w, *rest):
     bsz, n, fin = x.shape
     o = w.shape[1]
     flops = 2.0 * bsz * n * fin * o + 2.0 * bsz * n * n * o
-    return flops, 4.0 * (adj.numel() + x.numel() + w.numel() + o + bsz * n * o)
+    return flops, nbytes(adj, x, w, *rest) + 4.0 * bsz * n * o
+
+
+def launches_now():
+    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+
+
+def reset_launches():
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def graphs():
@@ -197,22 +236,86 @@ def main() -> None:
         compare("fused_gcn_dense", label, lambda: fl.fused_gcn_dense(*args),
                 fl.fused_gcn_dense_plain(*args))
 
-    # -------------------------------------------------------- 3. serving
+    # the int8 tier at the same shapes, with a real calibration on Cora
     cfg = gcn("cora")
     params = params_from_jax({"l1": {"w": w1_np, "b": b1_np},
                               "l2": {"w": w2_np, "b": b2_np}}, device=dev)
+    cal = calibrate_tier(params, cfg,
+                         torch.from_numpy(pgs[0].features).to(dev),
+                         build_operands(pgs[0], cfg, device=dev))
+    tops = derive_tier_operands(adj)
+    aq, a_scale = tops.agg_aq, tops.agg_a_scale
+    ones = torch.ones(TILE, device=dev)
+
+    def pad_q(ql, rows):
+        wq = torch.zeros(rows, TILE, dtype=torch.int8, device=dev)
+        wq[:ql.wq.shape[0], :ql.wq.shape[1]] = ql.wq
+        ws = torch.zeros(TILE, device=dev)
+        ws[:ql.w_scale.numel()] = ql.w_scale
+        return wq, ws, ql.x_scale.reshape(1)
+
+    wq1, ws1, xs1 = pad_q(cal["l1"], FIN_PAD)
+    wq2, ws2, xs2 = pad_q(cal["l2"], TILE)
+    hs1, hs2 = cal["agg1_h"].reshape(1), cal["agg2_h"].reshape(1)
+    xq1 = im.quantize_s8(x1, xs1)
+    hq1 = im.quantize_s8(im.int8_matmul_plain(xq1, wq1, xs1, ws1), hs1)
+    q1 = (x1, wq1, (xs1 * ws1).reshape(1, -1), xs1, hs1, aq, a_scale, b1)
+    x2q = fl.fused_gcn_int8_plain(*q1, "relu")           # layer-2 input
+    xq2 = im.quantize_s8(x2q, xs2)
+    hq2 = im.quantize_s8(im.int8_matmul_plain(xq2, wq2, xs2, ws2), hs2)
+    q2 = (x2q, wq2, (xs2 * ws2).reshape(1, -1), xs2, hs2, aq, a_scale, b2)
+    i8_products = {"L1 Xq@Wq": (xq1, wq1, xs1, ws1),
+                   "L1 Aq@Hq": (aq, hq1, 1.0, ones),
+                   "L2 Xq@Wq": (xq2, wq2, xs2, ws2),
+                   "L2 Aq@Hq": (aq, hq2, 1.0, ones)}
+    i8_layers = {"L1 relu": (*q1, "relu"), "L2 none": (*q2, "none")}
+    err.update({"int8_matmul": 0.0, "fused_gcn_int8": 0.0})
+
+    def compare_exact(kernel, label, run, want):
+        mod, attr = COUNTERS[kernel]
+        before = getattr(mod, attr)
+        got = run()
+        check(getattr(mod, attr) == before + 1, f"{kernel} {label}: no launch")
+        torch.cuda.synchronize()
+        diff = (got - want).abs().max().item()
+        print(f"[check] {kernel} {label} {tuple(got.shape)}: max_abs_err "
+              f"{diff:.3e} (must be bit-equal)", flush=True)
+        check(torch.equal(got, want), f"{kernel} {label}: differs from its "
+              f"plain version by up to {diff}")
+        err[kernel] = max(err[kernel], diff)
+
+    for label, args in i8_products.items():
+        compare_exact("int8_matmul", label, lambda: im.int8_matmul(*args),
+                      im.int8_matmul_plain(*args))
+    for label, args in i8_layers.items():
+        compare_exact("fused_gcn_int8", label,
+                      lambda: fl.fused_gcn_int8(*args),
+                      fl.fused_gcn_int8_plain(*args))
+
+    # -------------------------------------------------------- 3. serving
+    base = dict(stagr=True, grad_dynamic=True, graphsplit=True)
     eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
                                       batch_slots=SLOTS, return_logits=True,
                                       use_cacheg=False), seed=0, device=dev)
     eng.register_model("gcn", cfg, params, fusion="layer")
     eng.register_model("gcn_mm", cfg, params, techniques=Techniques(
-        stagr=True, grad_dynamic=True, graphsplit=True, use_pallas=True))
+        **base, use_pallas=True))
+    eng.register_model("gcn_q", cfg, params, tiers=("fp32", "int8"),
+                       default_tier="int8", fusion="layer")
+    eng.register_model("gcn_qmm", cfg, params, tiers={
+        "fp32": Techniques(**base, use_pallas=True),
+        "int8": Techniques(**base, quantgr=True, use_pallas=True)},
+        default_tier="int8")
     t0 = time.perf_counter()
     blobs = eng.warmup()
     print(f"[serve] warmup: {blobs} plan signatures in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for model in ("gcn_q", "gcn_qmm"):
+        deltas = eng.calibrate(model, cora)
+        print(f"[serve] calibrated {model} on Cora: accuracy_delta_vs_fp32 "
+              f"{deltas}", flush=True)
 
-    bm.LAUNCHES = fl.LAUNCHES = 0           # the main path starts here
+    reset_launches()                        # the fp32 path starts here
     t_serve = time.perf_counter()
     for model in ("gcn", "gcn_mm"):
         for g in [cora] + others:
@@ -226,13 +329,14 @@ def main() -> None:
     per_key = Counter((r.model, r.bucket, r.fusion) for r in eng.queue)
     done = eng.run()
     serve_s = time.perf_counter() - t_serve
-    launches = {"block_matmul": bm.LAUNCHES, "fused_gcn_dense": fl.LAUNCHES}
+    launches = launches_now()
 
     batches = {k: -(-n // SLOTS) for k, n in per_key.items()}
-    want = {"fused_gcn_dense": 2 * sum(v for k, v in batches.items()
+    want = {"block_matmul": 4 * sum(v for k, v in batches.items()
+                                    if k[0] == "gcn_mm" and k[2] == "none"),
+            "fused_gcn_dense": 2 * sum(v for k, v in batches.items()
                                        if k[2] == "layer"),
-            "block_matmul": 4 * sum(v for k, v in batches.items()
-                                    if k[0] == "gcn_mm" and k[2] == "none")}
+            "int8_matmul": 0, "fused_gcn_int8": 0}
     print(f"[serve] {len(done)} requests in {sum(batches.values())} batches "
           f"{sorted(batches.items())}; launches {launches}, expected {want}",
           flush=True)
@@ -240,15 +344,16 @@ def main() -> None:
           f"{eng.metrics['batches']} batches dispatched, expected "
           f"{sum(batches.values())}")
     check(launches == want, f"kernel launches {launches} != {want}")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["block_matmul"] > 0 and launches["fused_gcn_dense"] > 0,
           f"a kernel of the path never launched: {launches}")
     check(len(done) == 2 * (1 + len(PLANETOID_SIZES)) + 2,
           f"{len(done)} requests finished")
     eng.assert_warm()
 
+    fp32_done = list(done)
     p1, p2 = params["l1"], params["l2"]
     agree = []
-    for r in done:
+    for r in fp32_done:
         n = r.pg.num_nodes
         check(r.logits is not None and r.logits.shape == (n, 7)
               and np.isfinite(r.logits).all(),
@@ -270,46 +375,165 @@ def main() -> None:
     print(f"[serve] logits of all {len(done)} requests match the plain "
           f"forward (rtol={TOL['rtol']} atol={TOL['atol']}); argmax "
           f"agreement min {min(agree):.4f}", flush=True)
+    summary_keys = ("requests", "batches", "batch_occupancy",
+                    "p50_latency_ms", "p99_latency_ms", "throughput_rps",
+                    "device_busy_s", "device_idle_fraction",
+                    "operand_bytes_h2d", "compiled_blobs", "tier_fallbacks")
     print("[serve] summary " + json.dumps(
-        {k: s[k] for k in ("requests", "batches", "batch_occupancy",
-                           "p50_latency_ms", "p99_latency_ms",
-                           "throughput_rps", "device_busy_s",
-                           "device_idle_fraction", "operand_bytes_h2d",
-                           "compiled_blobs")}
+        {k: s[k] for k in summary_keys}
         | {"wall_s": serve_s, "intake_s": intake_s,
            "run_s": serve_s - intake_s}), flush=True)
 
+    # the int8 path: same traffic to the two int8-tier models
+    metrics0 = {k: eng.metrics[k] for k in ("batches", "device_busy_s",
+                                            "operand_bytes_h2d")}
+    n_done0 = len(eng.finished)
+    reset_launches()                        # the int8 path starts here
+    t_serve = time.perf_counter()
+    for model in ("gcn_q", "gcn_qmm"):
+        for g in [cora] + others:
+            eng.submit(g, model=model)
+    gid = eng.attach(planetoid_like(num_nodes=900, num_edges=1800,
+                                    num_feats=1433, num_classes=7, seed=12),
+                     model="gcn_q")
+    eng.query(gid, tier="int8")
+    eng.query(gid, tier="int8")
+    intake_s = time.perf_counter() - t_serve
+    per_key = Counter((r.model, r.bucket, r.tier, r.fusion)
+                      for r in eng.queue)
+    eng.run()
+    serve_s = time.perf_counter() - t_serve
+    launches_i8 = launches_now()
+    done = eng.finished[n_done0:]
+    batches = {k: -(-n // SLOTS) for k, n in per_key.items()}
+    want = {"block_matmul": 0, "fused_gcn_dense": 0,
+            "int8_matmul": 4 * sum(v for k, v in batches.items()
+                                   if k[0] == "gcn_qmm" and k[2] == "int8"),
+            "fused_gcn_int8": 2 * sum(v for k, v in batches.items()
+                                      if k[0] == "gcn_q" and k[2] == "int8")}
+    print(f"[serve-int8] {len(done)} requests in {sum(batches.values())} "
+          f"batches {sorted(batches.items())}; launches {launches_i8}, "
+          f"expected {want}", flush=True)
+    check({r.tier for r in done} == {"int8"},
+          f"int8 path served tiers {sorted({r.tier for r in done})}")
+    check(eng.metrics["batches"] - metrics0["batches"]
+          == sum(batches.values()), "int8 batch count mismatch")
+    check(launches_i8 == want, f"kernel launches {launches_i8} != {want}")
+    check(launches_i8["int8_matmul"] > 0 and launches_i8["fused_gcn_int8"] > 0,
+          f"an int8 kernel of the path never launched: {launches_i8}")
+    check(len(done) == 2 * (1 + len(PLANETOID_SIZES)) + 2,
+          f"{len(done)} int8 requests finished")
+    check(eng.summary()["tier_fallbacks"] == 0, "an int8 request fell back")
+    check(len(eng._tier_operands) == 1,
+          "the attached graph's int8 A was not derived exactly once")
+    eng.assert_warm()
+
+    i8_err = 0.0
+    for r in done:
+        n = r.pg.num_nodes
+        check(r.logits is not None and r.logits.shape == (n, 7)
+              and np.isfinite(r.logits).all(),
+              f"request {r.uid}: logits missing, misshapen or not finite")
+        c = eng.models[r.model].calibrations["int8"]
+        a = torch.from_numpy(r.pg.norm_adj).to(dev)[None]
+        x = torch.from_numpy(r.pg.features).to(dev)[None]
+        t = derive_tier_operands(a)
+        h = x
+        for layer, (ql, hs, act) in enumerate(
+                ((c["l1"], c["agg1_h"], "relu"),
+                 (c["l2"], c["agg2_h"], "none")), start=1):
+            h = fl.fused_gcn_int8_plain(
+                h, ql.wq, (ql.x_scale * ql.w_scale).reshape(1, -1),
+                ql.x_scale, hs, t.agg_aq, t.agg_a_scale,
+                params[f"l{layer}"]["b"], act)
+        ref = h[0, :n].cpu()
+        got = torch.from_numpy(r.logits)
+        torch.testing.assert_close(got, ref, **TOL)
+        check(np.array_equal(r.preds, ref.argmax(-1).numpy()),
+              f"request {r.uid}: argmax differs from the plain forward")
+        i8_err = max(i8_err, (got - ref).abs().max().item())
+    s = eng.summary()
+    print(f"[serve-int8] logits of all {len(done)} requests match the plain "
+          f"int8 forward (max_abs_err {i8_err:.3e}; rtol={TOL['rtol']} "
+          f"atol={TOL['atol']}); argmax equal", flush=True)
+    busy = s["device_busy_s"] - metrics0["device_busy_s"]
+    span = (max(r.finished_s for r in done)
+            - min(r.submitted_s for r in done))
+    print("[serve-int8] summary " + json.dumps(
+        {"requests": len(done),
+         "batches": s["batches"] - metrics0["batches"],
+         "device_busy_s": busy,
+         "device_idle_fraction": max(0.0, 1.0 - busy / span),
+         "operand_bytes_h2d": (s["operand_bytes_h2d"]
+                               - metrics0["operand_bytes_h2d"]),
+         "compiled_blobs": s["compiled_blobs"],
+         "tier_fallbacks": s["tier_fallbacks"],
+         "wall_s": serve_s, "intake_s": intake_s,
+         "run_s": serve_s - intake_s}), flush=True)
+    print("[serve-int8] accuracy_delta_vs_fp32 "
+          + json.dumps(s["accuracy_delta_vs_fp32"]), flush=True)
+    print("[serve-int8] tier_summary " + json.dumps(eng.tier_summary()),
+          flush=True)
+    launches.update({k: launches_i8[k]
+                     for k in ("int8_matmul", "fused_gcn_int8")})
+
     # ---------------------------------------------------------- 4. times
+    def int_mm(a, b):
+        """torch._int_mm over the same product: per graph when both
+        operands are batched, else with the batch folded into the rows."""
+        if b.dim() == 3:
+            return [torch._int_mm(a[i], b[i]) for i in range(a.shape[0])]
+        return torch._int_mm(a.reshape(-1, a.shape[-1]), b)
+
     rows = []
-    for kernel, cases in (("block_matmul", products), ("fused_gcn_dense",
-                                                       layers)):
+    for kernel, cases in (("block_matmul", products),
+                          ("fused_gcn_dense", layers),
+                          ("int8_matmul", i8_products),
+                          ("fused_gcn_int8", i8_layers)):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "flops": 0.0, "bytes": 0.0}
+        peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
+                else FP32_FLOPS_PER_S)
         for label, args in cases.items():
             if kernel == "block_matmul":
                 a, b = args
                 t_k = time_ms(lambda: bm.block_matmul(a, b))
                 t_p = time_ms(lambda: bm.block_matmul_plain(a, b))
                 t_l = time_ms(lambda: torch.matmul(a, b))
-                flops, nbytes = matmul_work(a, b)
-            else:
+                flops, nbytes_ = matmul_work(a, b)
+            elif kernel == "fused_gcn_dense":
                 t_k = time_ms(lambda: fl.fused_gcn_dense(*args))
                 t_p = time_ms(lambda: fl.fused_gcn_dense_plain(*args))
                 t_l = None
-                flops, nbytes = fused_work(*args[:3])
-            b_ms, b_by = bound(flops, nbytes)
+                flops, nbytes_ = fused_work(*args[:3], args[3])
+            elif kernel == "int8_matmul":
+                a, b, xs, ws = args
+                t_k = time_ms(lambda: im.int8_matmul(*args))
+                t_p = time_ms(lambda: im.int8_matmul_plain(*args))
+                t_l = time_ms(lambda: int_mm(a, b))
+                flops, nbytes_ = matmul_work(a, b)
+                nbytes_ += nbytes(ws)
+            else:
+                x, wq, sw, xs, hs, aq_, as_, bias = args[:8]
+                t_k = time_ms(lambda: fl.fused_gcn_int8(*args))
+                t_p = time_ms(lambda: fl.fused_gcn_int8_plain(*args))
+                t_l = None
+                flops, nbytes_ = fused_work(aq_, x, wq, sw, xs, hs, as_,
+                                            bias)
+            b_ms, b_by = bound(flops, nbytes_, peak)
             print(f"[time] {kernel} {label}: kernel {t_k:.4f} ms, plain "
                   f"{t_p:.4f} ms, library "
                   f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}, bound "
-                  f"{b_ms:.4f} ms ({b_by}); {flops / t_k / 1e9:.1f} TFLOP/s",
+                  f"{b_ms:.4f} ms ({b_by}); {flops / t_k / 1e9:.1f} "
+                  f"T{'OP' if peak == INT8_OPS_PER_S else 'FLOP'}/s",
                   flush=True)
             tot["ms"] += t_k
             tot["plain_ms"] += t_p
             tot["library_ms"] = (None if t_l is None
                                  else tot["library_ms"] + t_l)
             tot["flops"] += flops
-            tot["bytes"] += nbytes
-        b_ms, b_by = bound(tot["flops"], tot["bytes"])
+            tot["bytes"] += nbytes_
+        b_ms, b_by = bound(tot["flops"], tot["bytes"], peak)
         src, replaces = SOURCES[kernel]
         rows.append({"name": kernel, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kernel],

@@ -1,8 +1,9 @@
-"""Bring parameters made outside the port (numpy arrays, for example the
-reference package's weights converted with `np.asarray`) onto a device.
+"""Bring state made outside the port (numpy arrays, for example the
+reference package's weights or tier calibration converted with
+`np.asarray`) onto a device.
 
 Takes the reference's parameter tree `{"l1": {"w", "b"}, "l2": {...}}`
-with numpy leaves; nothing here knows of JAX.
+and its GCN tier calibration with numpy leaves; nothing here knows of JAX.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -20,4 +22,24 @@ def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
     dev = resolve_device(device)
     return {k: (params_from_jax(v, device=dev) if isinstance(v, dict)
                 else torch.from_numpy(np.array(v)).to(dev))
+            for k, v in tree.items()}
+
+
+def calibration_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
+    """A GCN tier calibration in numpy -> the port's `calibrate_tier` form
+    on `device`.
+
+    `tree` holds each QuantizedLinear as a dict of `wq`, `w_scale` and
+    `x_scale` (keys "l1", "l2") and the scalar aggregation scales
+    "agg1_h" and "agg2_h"; values and dtypes are kept exactly, so the port
+    and the reference can run on identical scales.
+    """
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+    return {k: (QuantizedLinear(wq=tensor(v["wq"]),
+                                w_scale=tensor(v["w_scale"]),
+                                x_scale=tensor(v["x_scale"]))
+                if isinstance(v, dict) else tensor(v))
             for k, v in tree.items()}

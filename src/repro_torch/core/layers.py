@@ -1,20 +1,26 @@
-"""GCN layers on the GraNNite dense path (StaGr / PreG), fp32.
+"""GCN layers on the GraNNite dense path (StaGr / PreG), fp32 and QuantGr.
 
 Port of the GCN part of the reference's `core/layers.py`: `Techniques`
 keeps every flag so plan keys compare like the reference's, and the layer
-functions carry the fp32 dense branches only. QuantGr and GraSp inputs
-raise until ROADMAP queue 2's int8 and GraSp kernels (queue 1 items 5-6)
-are ported; the baseline edge-list layers, GAT and SAGE come later too.
+functions carry the fp32 dense branches and the QuantGr branches (int8
+combine and int8 aggregation, through the `int8_matmul` and
+`fused_gcn_int8` kernels on the card). GraSp inputs raise until ROADMAP
+queue 2's GraSp kernels (queue 1 item 6) are ported; the baseline
+edge-list layers, GAT and SAGE come later too.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+
+from .quant import (QuantizedAgg, QuantizedLinear, apply_quantized_agg,
+                    apply_quantized_linear, quantize_agg_dynamic)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,8 +35,8 @@ class Techniques:
     grax1: bool = False        # additive attention mask
     grax2: bool = False        # fused broadcast-add ordering
     grax3: bool = False        # SAGE-max as mask-mul + maxpool
-    use_pallas: bool = False   # route matmuls through the block_matmul kernel
-    # (name kept from the reference so plan keys line up)
+    use_pallas: bool = False   # route matmuls through the block_matmul /
+    # int8_matmul kernels (name kept from the reference so plan keys line up)
 
 
 def glorot(gen: torch.Generator, shape, *, device=None) -> torch.Tensor:
@@ -46,11 +52,7 @@ def gcn_init(gen: torch.Generator, in_feats: int, out_feats: int, *,
             "b": torch.zeros(out_feats, dtype=torch.float32, device=device)}
 
 
-def _dense_only(quant, block_sparse) -> None:
-    if quant is not None:
-        raise NotImplementedError(
-            "QuantGr GCN layers are not ported yet (ROADMAP queue 1 item 5, "
-            "queue 2 int8_matmul / fused_gcn_int8)")
+def _no_grasp(block_sparse) -> None:
     if block_sparse is not None:
         raise NotImplementedError(
             "GraSp aggregation is not ported yet (ROADMAP queue 1 item 6, "
@@ -58,27 +60,88 @@ def _dense_only(quant, block_sparse) -> None:
 
 
 def gcn_grannite(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
-                 t: Techniques, *, quant=None,
+                 t: Techniques, *, quant: Optional[QuantizedLinear] = None,
+                 quant_agg: Optional[QuantizedAgg] = None,
+                 agg_h_scale: Optional[torch.Tensor] = None,
+                 tier_aq: Optional[torch.Tensor] = None,
+                 tier_a_scale: Optional[torch.Tensor] = None,
                  block_sparse=None) -> torch.Tensor:
     """StaGr/PreG path: out = Â @ (X W) + b — two dense matmuls, through
     the `block_matmul` kernel when `t.use_pallas`, else plain matmuls.
 
-    x: (B?, N, Fin); norm_adj: (B?, N, N).
+    QuantGr (`t.quantgr` with `quant`) makes the combine an int8 chain,
+    and the aggregation has three QuantGr forms, identical for the same Â:
+    `quant_agg` (offline QuantizedAgg of one graph); `agg_h_scale` with
+    `tier_aq`/`tier_a_scale` (serving tiers: int8 Â derived once per
+    structure version); or `agg_h_scale` alone (Â quantized in the
+    forward, `quantize_agg_dynamic`). With `t.use_pallas` the int8
+    products run through the `int8_matmul` kernel.
+
+    x: (B?, N, Fin); norm_adj, tier_aq: (B?, N, N); tier_a_scale (B?, N, 1).
     """
-    _dense_only(quant, block_sparse)
-    if t.use_pallas:
+    _no_grasp(block_sparse)
+    if t.quantgr and quant is not None:
+        h = apply_quantized_linear(x, quant, use_kernel=t.use_pallas)
+    elif t.use_pallas:
         h = kops.matmul(x, params["w"])
+    else:
+        h = x @ params["w"]
+
+    if t.quantgr and quant_agg is not None:
+        agg = apply_quantized_agg(quant_agg, h, use_kernel=t.use_pallas)
+    elif t.quantgr and agg_h_scale is not None:
+        if tier_aq is not None:
+            qa = QuantizedAgg(aq=tier_aq, a_scale=tier_a_scale,
+                              h_scale=agg_h_scale)
+        else:
+            qa = quantize_agg_dynamic(norm_adj, agg_h_scale)
+        agg = apply_quantized_agg(qa, h, use_kernel=t.use_pallas)
+    elif t.use_pallas:
         agg = kops.matmul(norm_adj, h)
     else:
-        agg = norm_adj @ (x @ params["w"])
+        agg = norm_adj @ h
     return agg + params["b"]
+
+
+def _apply_act(z: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "relu":
+        return F.relu(z)
+    if activation == "elu":
+        return F.elu(z)
+    if activation == "none":
+        return z
+    raise ValueError(f"unknown activation {activation!r}")
 
 
 def gcn_grannite_fused(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
                        t: Techniques, *, activation: str = "none",
-                       quant=None, block_sparse=None) -> torch.Tensor:
-    """Fused twin of `gcn_grannite`: one `fused_gcn_dense` call per layer,
-    bias and activation in the kernel's epilogue."""
-    _dense_only(quant, block_sparse)
+                       quant: Optional[QuantizedLinear] = None,
+                       quant_agg: Optional[QuantizedAgg] = None,
+                       agg_h_scale: Optional[torch.Tensor] = None,
+                       tier_aq: Optional[torch.Tensor] = None,
+                       tier_a_scale: Optional[torch.Tensor] = None,
+                       block_sparse=None) -> torch.Tensor:
+    """Fused twin of `gcn_grannite`: one kernel call per layer, bias and
+    activation in the kernel's epilogue — `fused_gcn_int8` for QuantGr
+    (same aggregation forms and precedence), else `fused_gcn_dense`."""
+    _no_grasp(block_sparse)
+    if t.quantgr and quant is not None:
+        if quant_agg is not None:
+            qa = quant_agg
+        elif agg_h_scale is not None:
+            if tier_aq is not None:
+                qa = QuantizedAgg(aq=tier_aq, a_scale=tier_a_scale,
+                                  h_scale=agg_h_scale)
+            else:
+                qa = quantize_agg_dynamic(norm_adj, agg_h_scale)
+        else:
+            # no aggregation scales: nothing past the combine can fuse —
+            # the unfused tier math runs with the activation folded here
+            return _apply_act(gcn_grannite(params, x, norm_adj, t,
+                                           quant=quant), activation)
+        qt = (quant.wq, quant.w_scale, quant.x_scale, qa.h_scale, qa.aq,
+              qa.a_scale)
+        return kops.fused_gcn_layer(x, params["w"], params["b"], quant=qt,
+                                    activation=activation)
     return kops.fused_gcn_layer(x, params["w"], params["b"],
                                 norm_adj=norm_adj, activation=activation)

@@ -1,15 +1,18 @@
-"""The paper's 2-layer GCN on the GraNNite dense path, and execution plans.
+"""The paper's 2-layer GCN on the GraNNite dense path, its QuantGr serving
+tiers, and execution plans.
 
 Port of the GCN part of the reference's `core/models.py`. Operands are
 torch tensors on an explicit device; the reference's `vmap` over graphs is
 an explicit leading batch dimension B.
 
 Plan identity keeps the zero-recompile contract without a compiler: an
-`ExecutionPlan` records the shape/dtype/device signature of every call,
+`ExecutionPlan` records the shape/dtype/device signature of every call
+(parameters, features, operands, tier calibration and tier operands),
 and counts one "trace" for each signature it has not seen — exactly the
-calls that would retrace a `jax.jit` in the reference. `GraphServe` sums
-these counts into `compiled_blobs`, so `assert_warm()` still says whether
-serving stayed on the shapes warmup saw.
+calls that would retrace a `jax.jit` in the reference. The tier-operand
+deriver `AggQuantizer` counts the same way. `GraphServe` sums these counts
+into `compiled_blobs`, so `assert_warm()` still says whether serving
+stayed on the shapes warmup saw.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from . import layers
 from .graph import PaddedGraph
 from .layers import Techniques
+from .quant import calibrate_absmax, quantize_linear, quantize_rowwise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +63,10 @@ def init_params(gen: torch.Generator, cfg: GNNConfig, *,
 class GranniteOperands:
     """Host-precomputed (GraphSplit/PreG/StaGr) dense operands on a device.
 
-    Only GCN's `norm_adj` exists in this port; the other fields stay None
-    until GAT/SAGE (masks), GraSp (`block_sparse`) and QuantGr (`quant`)
-    are ported.
+    Only GCN's `norm_adj` is built in this port; the masks stay None until
+    GAT/SAGE, and `block_sparse` until GraSp. `quant` is the per-graph
+    offline QuantGr form (the reference's `calibrate_quant`, not ported):
+    serving tiers carry their calibration beside the operands instead.
     """
     norm_adj: torch.Tensor                # (B?, cap, cap) PreG-normalized
     mask_mult: Optional[torch.Tensor] = None
@@ -100,7 +105,94 @@ def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
     device."""
     if not ops:
         raise ValueError("cannot stack an empty operand batch")
+    if any(o.quant is not None for o in ops):
+        raise ValueError(
+            "per-graph offline QuantGr operands (ops.quant) cannot be "
+            "batched — they bake one graph's Â; serve quantized tiers "
+            "through the model-level calibrate_tier path instead")
     return GranniteOperands(norm_adj=torch.stack([o.norm_adj for o in ops]))
+
+
+@dataclasses.dataclass
+class TierOperands:
+    """Per-(graph, tier) DERIVED operands: GCN's int8 aggregation form, Â
+    row-quantized once per structure version and kept on the device beside
+    the fp32 operands it came from, so an int8 plan reads 1-byte Â rows
+    instead of re-quantizing the 4-byte fp32 Â every query."""
+    agg_aq: torch.Tensor        # (B?, cap, cap) int8 row-quantized Â
+    agg_a_scale: torch.Tensor   # (B?, cap, 1) float32 per-row scales
+
+
+def derive_tier_operands(norm_adj: torch.Tensor) -> TierOperands:
+    """Row-quantize one fp32 Â (`quantize_rowwise`, the rounding rule of
+    every QuantGr aggregation path)."""
+    aq, a_scale = quantize_rowwise(norm_adj)
+    return TierOperands(agg_aq=aq, agg_a_scale=a_scale)
+
+
+def stack_tier_operands(tos: Sequence[TierOperands]) -> TierOperands:
+    """Stack per-graph tier operands into one batched (B, ...) set."""
+    return TierOperands(agg_aq=torch.stack([t.agg_aq for t in tos]),
+                        agg_a_scale=torch.stack([t.agg_a_scale
+                                                 for t in tos]))
+
+
+def _sig(v):
+    """Shape/dtype/device structure of a nested argument: what a jit trace
+    would specialize on."""
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        return (tuple(v.shape), v.dtype, v.device)
+    if isinstance(v, dict):
+        return tuple((k, _sig(v[k])) for k in sorted(v))
+    if isinstance(v, tuple):
+        return tuple(_sig(e) for e in v)
+    if dataclasses.is_dataclass(v):
+        return (type(v).__name__,
+                tuple(_sig(getattr(v, f.name))
+                      for f in dataclasses.fields(v)))
+    raise TypeError(f"unsupported plan argument {type(v).__name__}")
+
+
+@dataclasses.dataclass
+class AggQuantizer:
+    """The tier-operand deriver (the reference's jitted
+    `build_agg_quantizer`), with ExecutionPlan's trace accounting:
+    `trace_count` counts the distinct Â signatures (one per bucket) —
+    GraphServe warms them in `warmup()` and adds the count to
+    `compiled_blobs`."""
+    trace_count: int = 0
+    _seen: Set = dataclasses.field(default_factory=set, repr=False)
+
+    def __call__(self, norm_adj: torch.Tensor) -> TierOperands:
+        sig = _sig(norm_adj)
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self.trace_count += 1
+        return derive_tier_operands(norm_adj)
+
+
+def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,
+                   ops_: GranniteOperands) -> Dict:
+    """Model-level QuantGr calibration for one serving tier (GCN).
+
+    One fp32 forward over the calibration features records the static
+    ranges: per-layer QuantizedLinear weights plus the aggregation
+    activation scales `agg1_h`/`agg2_h`. The result is model-shaped, so one
+    calibration serves every graph of the model; the per-graph int8 Â is
+    the separate derived operand (`derive_tier_operands`).
+    x: (cap, F); ops_ one graph's operands.
+    """
+    _gcn_only(cfg)
+    pre1 = x @ params["l1"]["w"]
+    h1 = torch.relu(layers.gcn_grannite(params["l1"], x, ops_.norm_adj,
+                                        Techniques(stagr=True)))
+    pre2 = h1 @ params["l2"]["w"]
+    return {"l1": quantize_linear(params["l1"]["w"], x),
+            "l2": quantize_linear(params["l2"]["w"], h1),
+            "agg1_h": calibrate_absmax(pre1).scale,
+            "agg2_h": calibrate_absmax(pre2).scale}
 
 
 # Fusion modes (DESIGN.md §11): how a plan executes each LAYER.
@@ -115,32 +207,45 @@ AGG_BACKENDS = ("dense", "grasp")
 
 def forward_grannite(params: Dict, cfg: GNNConfig, x: torch.Tensor,
                      ops_: GranniteOperands, t: Techniques,
+                     quant: Optional[Dict] = None,
+                     tier_ops: Optional[TierOperands] = None,
                      fusion: str = "none") -> torch.Tensor:
     """One dense GraNNite GCN forward over x (B?, cap, F) -> (B?, cap, C).
-    `fusion="layer"` runs each layer through `fused_gcn_dense` with the
-    inter-layer ReLU folded into its epilogue."""
+
+    `quant` is the model-level tier calibration from `calibrate_tier`
+    (read only when `t.quantgr`); `ops_.quant` is the per-graph offline
+    form, which wins when both are present. `tier_ops` carries the derived
+    int8 Â; without it a QuantGr forward quantizes Â itself.
+    `fusion="layer"` runs each layer as one fused kernel call
+    (`fused_gcn_dense` or `fused_gcn_int8`) with the inter-layer ReLU
+    folded into its epilogue.
+    """
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion mode {fusion!r}; pick from "
                          f"{FUSION_MODES}")
     _gcn_only(cfg)
+    tq = (quant or {}) if t.quantgr else {}
+    q = ops_.quant or {}
+    taq = tier_ops.agg_aq if tier_ops is not None else None
+    tas = tier_ops.agg_a_scale if tier_ops is not None else None
+    l1_kw = dict(quant=q.get("l1") or tq.get("l1"), quant_agg=q.get("agg1"),
+                 agg_h_scale=tq.get("agg1_h"), tier_aq=taq,
+                 tier_a_scale=tas, block_sparse=ops_.block_sparse)
+    l2_kw = dict(quant=q.get("l2") or tq.get("l2"), quant_agg=q.get("agg2"),
+                 agg_h_scale=tq.get("agg2_h"), tier_aq=taq,
+                 tier_a_scale=tas, block_sparse=ops_.block_sparse)
     if fusion == "layer":
         h = layers.gcn_grannite_fused(params["l1"], x, ops_.norm_adj, t,
-                                      activation="relu")
+                                      activation="relu", **l1_kw)
         return layers.gcn_grannite_fused(params["l2"], h, ops_.norm_adj, t,
-                                         activation="none")
-    h = torch.relu(layers.gcn_grannite(params["l1"], x, ops_.norm_adj, t))
-    return layers.gcn_grannite(params["l2"], h, ops_.norm_adj, t)
+                                         activation="none", **l2_kw)
+    h = torch.relu(layers.gcn_grannite(params["l1"], x, ops_.norm_adj, t,
+                                       **l1_kw))
+    return layers.gcn_grannite(params["l2"], h, ops_.norm_adj, t, **l2_kw)
 
 
 # (cfg, capacity, batch, techniques, backend, fusion, shards)
 PlanKey = Tuple[GNNConfig, int, int, Techniques, str, str, int]
-
-
-def _signature(params: Dict, x: torch.Tensor, ops_: GranniteOperands):
-    leaves = [params[layer][k] for layer in sorted(params)
-              for k in sorted(params[layer])]
-    return tuple((tuple(v.shape), v.dtype, v.device)
-                 for v in (*leaves, x, ops_.norm_adj))
 
 
 @dataclasses.dataclass
@@ -148,10 +253,13 @@ class ExecutionPlan:
     """One execution recipe: (model config, NodePad bucket, batch width,
     Techniques, aggregation backend, fusion mode).
 
-    Operands and params are runtime arguments, so every graph of a bucket
-    reuses the plan. `trace_count` counts the distinct argument signatures
-    the plan has been called with (what a `jax.jit` would have traced):
-    after warmup, a steady serving loop adds none.
+    Operands, params, the tier calibration `quant` and the tier operands
+    are runtime arguments, so every graph of a bucket reuses the plan.
+    `trace_count` counts the distinct argument signatures the plan has
+    been called with (what a `jax.jit` would have traced): after warmup, a
+    steady serving loop adds none. A QuantGr plan is always called with a
+    calibration (real or a warmup placeholder of the same shapes) and tier
+    operands, a fp32 plan with None for both.
     """
     cfg: GNNConfig
     techniques: Techniques
@@ -170,12 +278,13 @@ class ExecutionPlan:
                 self.backend, self.fusion, self.shards)
 
     def __call__(self, params: Dict, x: torch.Tensor,
-                 ops_: GranniteOperands) -> torch.Tensor:
-        sig = _signature(params, x, ops_)
+                 ops_: GranniteOperands, quant: Optional[Dict] = None,
+                 tier_ops: Optional[TierOperands] = None) -> torch.Tensor:
+        sig = _sig((params, x, ops_, quant, tier_ops))
         if sig not in self._seen:
             self._seen.add(sig)
             self.trace_count += 1
-        return self.fn(params, x, ops_)
+        return self.fn(params, x, ops_, quant, tier_ops)
 
 
 def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
@@ -185,8 +294,10 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
     """Plan for (cfg.kind, capacity, t, backend, fusion) on `device`.
 
     batch_size > 0 is the batched executor: x is (B, cap, F) and the
-    operands carry the same leading B (see `stack_operands`); params are
-    shared. The plan checks that its arguments lie on its device.
+    operands and tier operands carry the same leading B (see
+    `stack_operands`, `stack_tier_operands`); params and the model-level
+    calibration are shared across the batch. The plan checks that its
+    arguments lie on its device.
     """
     if backend not in AGG_BACKENDS:
         raise ValueError(f"unknown aggregation backend {backend!r}; pick "
@@ -204,11 +315,12 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
                          batch_size=batch_size, backend=backend,
                          fusion=fusion)
 
-    def _forward(params, x, ops_):
+    def _forward(params, x, ops_, quant, tier_ops):
         if x.device != dev or ops_.norm_adj.device != dev:
             raise ValueError(f"plan on {dev} called with x on {x.device} "
                              f"and norm_adj on {ops_.norm_adj.device}")
-        return forward_grannite(params, cfg, x, ops_, t, fusion=fusion)
+        return forward_grannite(params, cfg, x, ops_, t, quant=quant,
+                                tier_ops=tier_ops, fusion=fusion)
 
     plan.fn = _forward
     return plan

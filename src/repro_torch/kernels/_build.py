@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ENTRY_POINTS = {
     "block_matmul": ("block_matmul_f32", "ppp" "iiiiii" "ip"),
     "fused_gcn_dense": ("fused_gcn_dense_f32", "pppppp" "iiiii" "ip"),
+    "int8_matmul": ("int8_matmul_s8", "pppp" "iiiiii" "ip"),
+    "fused_gcn_int8": ("fused_gcn_int8_f32", "pppppppppp" "iiiii" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

@@ -2,10 +2,13 @@
 
 Routing is by the tensors' device and nothing else: a wrapper takes its
 plain PyTorch version only when every operand lies on the CPU; otherwise
-the operands must be contiguous float32 CUDA tensors on one card, and the
-kernel launches or an exception says why not. There is no fallback.
+the operands must be contiguous CUDA tensors of the kernel's dtypes on one
+card, and the kernel launches or an exception says why not. There is no
+fallback.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -16,18 +19,21 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def check_cuda_f32(kernel: str, **tensors: torch.Tensor) -> torch.device:
-    """Raise unless every operand is a contiguous float32 tensor on one CUDA
-    device; return that device."""
+def check_cuda(kernel: str, *, int8: Sequence[str] = (),
+               **tensors: torch.Tensor) -> torch.device:
+    """Raise unless every operand is a contiguous tensor on one CUDA device,
+    int8 for the names in `int8` and float32 for the others; return that
+    device."""
     for name, t in tensors.items():
+        want = torch.int8 if name in int8 else torch.float32
         if t.device.type != "cuda":
             raise ValueError(
                 f"{kernel}: {name} lies on {t.device}; the kernel takes CUDA "
                 "tensors, and the plain version runs only when every operand "
                 "lies on the CPU")
-        if t.dtype != torch.float32:
+        if t.dtype != want:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, the kernel "
-                            "takes float32")
+                            f"takes {want}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
     devices = {t.device for t in tensors.values()}

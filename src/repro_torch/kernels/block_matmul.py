@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._launch import check_cuda_f32, check_int32, launch, on_cpu
+from ._launch import check_cuda, check_int32, launch, on_cpu
 
 LAUNCHES = 0                      # kernel launches by `block_matmul`
 
@@ -37,7 +37,7 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor,
     global LAUNCHES
     if on_cpu(a, b):
         return block_matmul_plain(a, b, out_dtype)
-    device = check_cuda_f32("block_matmul", a=a, b=b)
+    device = check_cuda("block_matmul", a=a, b=b)
     if a.dim() not in (2, 3) or b.dim() not in (2, 3):
         raise ValueError(f"block_matmul: operands must be 2-D or 3-D, got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")

@@ -20,6 +20,8 @@
 
 #include <cuda_runtime.h>
 
+#include "activation.cuh"
+
 namespace gcn_port {
 
 constexpr int kBM = 64;                           // tile rows of C
@@ -31,14 +33,6 @@ constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kApad = 4;                          // As row pad: keeps float4
                                                   // reads aligned, cuts the
                                                   // transposed-store conflicts
-
-enum Activation { kActNone = 0, kActRelu = 1, kActElu = 2 };
-
-__device__ __forceinline__ float apply_activation(float z, int act) {
-  if (act == kActRelu) return z > 0.f ? z : 0.f;
-  if (act == kActElu) return z > 0.f ? z : expm1f(z);
-  return z;
-}
 
 static __global__ void __launch_bounds__(kThreads)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,

@@ -1,15 +1,22 @@
-"""Fused per-layer GCN kernel: act(Â @ (X @ W) + b) in one wrapper call.
+"""Fused per-layer GCN kernels: one wrapper call per layer.
 
-Port of the TPU kernel `fused_gcn_dense` (reference
-`kernels/fused_layers.py`) as hand-written CUDA C++ for `sm_90a`
-(`csrc/fused_gcn_dense.cu`). The TPU kernel kept H = X @ W in VMEM, filled
-by row-block 0 and read by the later ones in grid order; a CUDA grid has no
-order, so the port runs a combine launch into an H scratch tensor (L2
-resident at serving widths) and an aggregate launch with bias and
-activation fused into its store. Both launches run on the current stream
-inside one call to `fused_gcn_dense`, which counts one in `LAUNCHES`.
+  * `fused_gcn_dense` — act(Â @ (X @ W) + b), fp32. Port of the TPU kernel
+    `fused_gcn_dense` (reference `kernels/fused_layers.py`) as hand-written
+    CUDA C++ for `sm_90a` (`csrc/fused_gcn_dense.cu`).
+  * `fused_gcn_int8` — the QuantGr layer: X quantized by `x_scale`, the s8
+    dot with Wq, dequantized by `sw` and re-quantized to int8 Hq by
+    `h_scale`, then act(float(Âq @ Hq) * a_scale[row] * h_scale + b). Port
+    of the TPU kernel `fused_gcn_int8` (`csrc/fused_gcn_int8.cu`), bit for
+    bit the plain `fused_gcn_int8_plain`.
 
-The other fused kernels of the reference (int8, GraSp, GAT, SAGE) are not
+Both TPU kernels kept the combine result in VMEM, filled by row-block 0
+and read by the later ones in grid order; a CUDA grid has no order, so
+each port runs a combine launch into a scratch tensor (L2 resident at
+serving widths) and an aggregate launch with the epilogue fused into its
+store. Both launches run on the current stream inside one wrapper call,
+which counts one in `LAUNCHES` (dense) or `INT8_LAUNCHES` (int8).
+
+The other fused kernels of the reference (GraSp, GAT, SAGE) are not
 ported yet.
 """
 from __future__ import annotations
@@ -17,9 +24,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import check_cuda_f32, check_int32, launch, on_cpu
+from ._launch import check_cuda, check_int32, launch, on_cpu
+from .int8_matmul import check_accumulator, int_matmul, quantize_s8
 
 LAUNCHES = 0                      # calls of `fused_gcn_dense` that launched
+INT8_LAUNCHES = 0                 # calls of `fused_gcn_int8` that launched
 ACTIVATIONS = {"none": 0, "relu": 1, "elu": 2}   # the kernel's `act` codes
 
 
@@ -56,8 +65,7 @@ def fused_gcn_dense(norm_adj: torch.Tensor, x: torch.Tensor,
                          f"{sorted(ACTIVATIONS)}")
     if on_cpu(norm_adj, x, w, b):
         return fused_gcn_dense_plain(norm_adj, x, w, b, activation)
-    device = check_cuda_f32("fused_gcn_dense", norm_adj=norm_adj, x=x, w=w,
-                            b=b)
+    device = check_cuda("fused_gcn_dense", norm_adj=norm_adj, x=x, w=w, b=b)
     if x.dim() != 3 or w.dim() != 2:
         raise ValueError(f"fused_gcn_dense: x must be (B, N, Fin) and w "
                          f"(Fin, O), got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -78,4 +86,67 @@ def fused_gcn_dense(norm_adj: torch.Tensor, x: torch.Tensor,
                h.data_ptr(), out.data_ptr(), batch, n, fin, o,
                ACTIVATIONS[activation])
         LAUNCHES += 1
+    return out
+
+
+def fused_gcn_int8_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                         x_scale: torch.Tensor, h_scale: torch.Tensor,
+                         aq: torch.Tensor, a_scale: torch.Tensor,
+                         b: torch.Tensor, activation: str = "none"
+                         ) -> torch.Tensor:
+    """Plain PyTorch version: the unfused int8 chain, one rounding step per
+    op (multiply and add apart, never contracted)."""
+    hq = quantize_s8(int_matmul(quantize_s8(x, x_scale), wq).to(torch.float32)
+                     * sw.reshape(1, -1), h_scale)
+    z = (int_matmul(aq, hq).to(torch.float32) * (a_scale * h_scale)
+         + b.reshape(1, -1))
+    return _act(z, activation)
+
+
+def fused_gcn_int8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                   x_scale: torch.Tensor, h_scale: torch.Tensor,
+                   aq: torch.Tensor, a_scale: torch.Tensor, b: torch.Tensor,
+                   activation: str = "none") -> torch.Tensor:
+    """QuantGr fused layer over a leading batch of graphs.
+
+    x: (B, N, Fin) f32; wq: (Fin, O) s8; sw: (1, O) = x_scale * w_scale;
+    x_scale, h_scale: one-element f32; aq: (B, N, N) s8; a_scale: (B, N, 1)
+    f32; b: (O,) or (1, O). Returns (B, N, O) float32.
+    """
+    global INT8_LAUNCHES
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; pick from "
+                         f"{sorted(ACTIVATIONS)}")
+    operands = dict(x=x, wq=wq, sw=sw, x_scale=x_scale, h_scale=h_scale,
+                    aq=aq, a_scale=a_scale, b=b)
+    if on_cpu(*operands.values()):
+        return fused_gcn_int8_plain(x, wq, sw, x_scale, h_scale, aq, a_scale,
+                                    b, activation)
+    device = check_cuda("fused_gcn_int8", int8=("wq", "aq"), **operands)
+    if x.dim() != 3 or wq.dim() != 2:
+        raise ValueError(f"fused_gcn_int8: x must be (B, N, Fin) and wq "
+                         f"(Fin, O), got {tuple(x.shape)}, {tuple(wq.shape)}")
+    batch, n, fin = x.shape
+    o = wq.shape[1]
+    if (tuple(aq.shape) != (batch, n, n) or wq.shape[0] != fin
+            or a_scale.numel() != batch * n or sw.numel() != o
+            or b.numel() != o or x_scale.numel() != 1
+            or h_scale.numel() != 1):
+        raise ValueError(
+            f"fused_gcn_int8: shapes do not agree: x {tuple(x.shape)}, wq "
+            f"{tuple(wq.shape)}, sw {tuple(sw.shape)}, aq "
+            f"{tuple(aq.shape)}, a_scale {tuple(a_scale.shape)}, b "
+            f"{tuple(b.shape)}, scales {x_scale.numel()}, "
+            f"{h_scale.numel()}")
+    out = torch.empty(batch, n, o, dtype=torch.float32, device=device)
+    if out.numel():
+        check_int32("fused_gcn_int8", batch=batch, n=n, fin=fin, o=o)
+        check_accumulator("fused_gcn_int8", max(fin, n))
+        hq = torch.empty(batch, n, o, dtype=torch.int8, device=device)
+        launch("fused_gcn_int8", _build.load("fused_gcn_int8"), device,
+               x.data_ptr(), wq.data_ptr(), sw.data_ptr(), x_scale.data_ptr(),
+               h_scale.data_ptr(), aq.data_ptr(), a_scale.data_ptr(),
+               b.data_ptr(), hq.data_ptr(), out.data_ptr(), batch, n, fin, o,
+               ACTIVATIONS[activation])
+        INT8_LAUNCHES += 1
     return out

@@ -1,4 +1,5 @@
-"""Public kernel entry points of the port: `matmul` and `fused_gcn_layer`.
+"""Public kernel entry points of the port: `matmul`, `int8_matmul` and
+`fused_gcn_layer` (its dense and QuantGr branches).
 
 Routing follows the tensors' device (`kernels/_launch.py`): CPU tensors run
 the kernels' plain versions, CUDA tensors the hand-written kernels or an
@@ -7,18 +8,19 @@ operands to the 128 tile and strips the result, as the reference's
 `ops._pad2` does (a no-op for NodePad'ded graph operands). Entries accept a
 leading batch dimension, which stands in for the reference's `vmap`.
 
-The other entries of the reference's `ops.py` (int8, GraSp, GAT, SAGE,
-flash attention) are not ported yet.
+The other entries of the reference's `ops.py` (GraSp, GAT, SAGE, flash
+attention) are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from . import int8_matmul as _i8
 from .block_matmul import block_matmul
-from .fused_layers import fused_gcn_dense
+from .fused_layers import fused_gcn_dense, fused_gcn_int8
 
 TILE = 128
 
@@ -41,19 +43,52 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     return out[..., :m, :n]
 
 
-def fused_gcn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                    norm_adj: torch.Tensor,
-                    activation: str = "none") -> torch.Tensor:
-    """Fused dense GCN layer act(Â @ (X @ W) + b) through `fused_gcn_dense`.
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor,
+                x_scale: Union[float, torch.Tensor],
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """QuantGr INT8 datapath through the `int8_matmul` kernel:
+    (B?, M, K) s8 @ (B?, K, N) s8 * x_scale * w_scale[N] -> float32."""
+    m, n = xq.shape[-2], wq.shape[-1]
+    sp = F.pad(w_scale.reshape(-1), (0, (-n) % TILE))
+    out = _i8.int8_matmul(_pad2(xq, TILE, TILE), _pad2(wq, TILE, TILE),
+                          x_scale, sp)
+    return out[..., :m, :n]
 
-    x: (B?, N, Fin); norm_adj: (B?, N, N); w: (Fin, O); b: (O,) or (1, O).
+
+def fused_gcn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                    norm_adj: Optional[torch.Tensor] = None,
+                    quant: Optional[Tuple[torch.Tensor, ...]] = None,
+                    activation: str = "none") -> torch.Tensor:
+    """Fused GCN layer act(aggregate(combine(X)) + b), one kernel call.
+
+    Dense: `norm_adj` (B?, N, N) through `fused_gcn_dense`. QuantGr:
+    `quant` = (wq, w_scale, x_scale, h_scale, aq, a_scale) with aq
+    (B?, N, N) s8 and a_scale (B?, N, 1), through `fused_gcn_int8`; the
+    wrapper folds sw = x_scale * w_scale, as the reference does.
+    x: (B?, N, Fin); w: (Fin, O); b: (O,) or (1, O).
     """
     single = x.dim() == 2
     if single:
-        x, norm_adj = x[None], norm_adj[None]
-    n, o = x.shape[-2], w.shape[-1]
-    out = fused_gcn_dense(_pad2(norm_adj, TILE, TILE), _pad2(x, TILE, TILE),
-                          _pad2(w, TILE, TILE),
-                          _pad2(b.reshape(1, -1), 1, TILE), activation)
+        x = x[None]
+    n = x.shape[-2]
+    b2 = _pad2(b.reshape(1, -1), 1, TILE)
+    if quant is not None:
+        wq, w_scale, x_scale, h_scale, aq, a_scale = quant
+        if single:
+            aq, a_scale = aq[None], a_scale[None]
+        o = wq.shape[-1]
+        sw = (x_scale * w_scale).reshape(1, -1)
+        out = fused_gcn_int8(
+            _pad2(x, TILE, TILE), _pad2(wq, TILE, TILE), _pad2(sw, 1, TILE),
+            x_scale.reshape(1, 1), h_scale.reshape(1, 1),
+            _pad2(aq, TILE, TILE), _pad2(a_scale.reshape(*aq.shape[:-1], 1),
+                                         TILE, 1), b2, activation)
+    else:
+        if single:
+            norm_adj = norm_adj[None]
+        o = w.shape[-1]
+        out = fused_gcn_dense(_pad2(norm_adj, TILE, TILE),
+                              _pad2(x, TILE, TILE), _pad2(w, TILE, TILE), b2,
+                              activation)
     out = out[:, :n, :o]
     return out[0] if single else out

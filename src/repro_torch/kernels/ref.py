@@ -1,11 +1,13 @@
 """Plain torch oracles for the ported kernels, twins of the reference's
-`kernels/ref.py` (`matmul_ref`, and the dense branch of
-`fused_gcn_layer_ref`).
+`kernels/ref.py` (`matmul_ref`, `int8_matmul_ref`, and the dense and
+QuantGr branches of `fused_gcn_layer_ref`).
 
 They take the unpadded shapes the layers see, not the tile-padded ones the
 kernels take, and are written independently of the kernels' plain
 versions (ELU through `torch.nn.functional.elu`), so the parity tests hold
-each path against a second formulation.
+each path against a second formulation. Their one shared piece is the
+exact s8 x s8 -> s32 product `int8_matmul.int_matmul`, which every plain
+int8 product of the port goes through.
 """
 from __future__ import annotations
 
@@ -14,11 +16,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .int8_matmul import int_matmul
+
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     out_dtype = out_dtype or a.dtype
     return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
+
+
+def int8_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, x_scale,
+                    w_scale) -> torch.Tensor:
+    """INT8 x INT8 -> INT32 accumulate -> FP32 rescale."""
+    return int_matmul(xq, wq).to(torch.float32) * (x_scale * w_scale)
 
 
 def _act_ref(z: torch.Tensor, activation: str) -> torch.Tensor:
@@ -32,8 +42,23 @@ def _act_ref(z: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 def fused_gcn_layer_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                        norm_adj: torch.Tensor,
+                        norm_adj: Optional[torch.Tensor] = None, quant=None,
                         activation: str = "none") -> torch.Tensor:
-    """act(Â @ (X @ W) + b) — dense GCN layer twin."""
+    """act(Â @ (X @ W) + b) — dense GCN layer twin.
+
+    quant: optional (wq, w_scale, x_scale, h_scale, aq, a_scale) for the
+    QuantGr tier: quantize X, s8 dot, dequantize, re-quantize H, then
+    Âq @ Hq with the per-row dequant, inlined as in the reference twin.
+    """
+    if quant is not None:
+        wq, w_scale, x_scale, h_scale, aq, a_scale = quant
+        xq = torch.clamp(torch.round(x / x_scale), -127.0, 127.0
+                         ).to(torch.int8)
+        h = int8_matmul_ref(xq, wq, x_scale, w_scale)
+        hq = torch.clamp(torch.round(h / h_scale), -127.0, 127.0
+                         ).to(torch.int8)
+        z = (int_matmul(aq, hq).to(torch.float32) * (a_scale * h_scale)
+             + b.reshape(1, -1))
+        return _act_ref(z, activation)
     h = matmul_ref(x, w, out_dtype=torch.float32)
     return _act_ref(norm_adj @ h + b.reshape(1, -1), activation).to(x.dtype)

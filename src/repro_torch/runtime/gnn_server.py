@@ -11,26 +11,34 @@ Port of the synchronous serving path of the reference's
     width; partial batches repeat the last real request into the junk slots
     (outputs dropped), so the shapes never change. Batch selection is the
     reference's best-fill rule with its EDF tie-break (`edf_best_fill_key`).
+  * Quality tiers (DESIGN.md §8) — a model registers `fp32` and QuantGr
+    tiers (`int8`, `int8+grax`, which aliases `int8` for GCN). A QuantGr
+    tier is calibrated once per (model, tier) (`calibrate()` or
+    `attach(calibrate=True)`), its calibration rides the plan as a shared
+    runtime argument, and each graph's int8 Â is derived once per
+    structure version; an uncalibrated QuantGr tier serves through fp32,
+    counted in `tier_fallbacks`.
   * Fused layers (DESIGN.md §11) — `fusion="layer"` runs each GCN layer
-    through the `fused_gcn_dense` CUDA kernel; `fusion="none"` runs two
-    matmuls per layer, through the `block_matmul` kernel when the model's
-    Techniques set `use_pallas`. Fusion joins the batch key and warmup runs
-    both modes, as in the reference.
+    through one CUDA kernel call (`fused_gcn_dense`, or `fused_gcn_int8`
+    on a QuantGr tier); `fusion="none"` runs two matmuls per layer,
+    through the `block_matmul` / `int8_matmul` kernels when the tier's
+    Techniques set `use_pallas`. Fusion joins the batch key and warmup
+    runs both modes, as in the reference.
   * Zero-recompile — after `warmup()`, `assert_warm()` holds while requests
     stay within the ladder: plans count unseen argument signatures
     (`core.models.ExecutionPlan`).
 
-Attached graphs keep their device operands in a dict keyed by
-(graph_id, structure_version): a repeated query moves no operand bytes.
-Not ported yet (ROADMAP queue 1): quality tiers beyond fp32, GraSp
-backends, CacheG's compact operand pipeline (the engine requires
-`use_cacheg=False`), `update`/`update_delta`, the async scheduler, SLO
-deadlines and sharding.
+Attached graphs keep their device operands, and their derived int8 Â,
+in dicts keyed by (graph_id, structure_version): a repeated query moves no
+operand bytes and quantizes nothing. Not ported yet (ROADMAP queue 1):
+GraSp backends, CacheG's compact operand pipeline (the engine requires
+`use_cacheg=False`), `update`/`update_delta`, the tolerance router and SLO
+governor, the async scheduler and sharding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,9 +46,11 @@ import torch
 from repro_torch.core.graph import BucketLadder, Graph, PaddedGraph, pad_graph
 from repro_torch.core.layers import Techniques
 from repro_torch.core.models import (FUSION_MODES, ExecutionPlan, GNNConfig,
-                                     GranniteOperands, PlanKey,
-                                     build_operands, build_plan, init_params,
-                                     stack_operands)
+                                     AggQuantizer, GranniteOperands, PlanKey,
+                                     TierOperands, build_operands,
+                                     build_plan, calibrate_tier,
+                                     forward_grannite, init_params,
+                                     stack_operands, stack_tier_operands)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime.clock import WALL, Clock
 
@@ -121,6 +131,48 @@ def edf_pending_stats(reqs: Sequence["GNNRequest"], now: float
     return stats
 
 
+def tier_techniques(kind: str) -> Dict[str, Techniques]:
+    """The standard quality-tier registry for one model kind (DESIGN.md §8).
+
+    `fp32` is the exact dense serving path, the accuracy reference every
+    other tier's delta is measured against. `int8` switches the combine
+    matmuls (and, for GCN, the Â aggregation) to QuantGr. `int8+grax` adds
+    the kind's GrAx approximations; GCN has none, so its `int8+grax`
+    aliases the int8 Techniques and shares its plans.
+    """
+    fp32 = {"gcn": Techniques(stagr=True, grad_dynamic=True, graphsplit=True),
+            "gat": Techniques(stagr=True, graphsplit=True, effop=True),
+            "sage": Techniques(stagr=True, graphsplit=True, effop=True)}[kind]
+    int8 = dataclasses.replace(fp32, quantgr=True)
+    grax = {"gcn": int8,
+            "gat": dataclasses.replace(int8, grax1=True, grax2=True),
+            "sage": dataclasses.replace(int8, grax3=True)}[kind]
+    return {"fp32": fp32, "int8": int8, "int8+grax": grax}
+
+
+def _delta_points(base_logits, tier_logits, pg: PaddedGraph) -> float:
+    """`accuracy_delta_vs_fp32` in percentage points, on the held-out batch.
+
+    Labeled calibration graphs score top-1 accuracy on `test_mask` (the
+    held-out split; all labeled nodes when no mask exists); unlabeled ones
+    fall back to argmax agreement with the fp32 tier, shifted so 0.0 still
+    reads "identical predictions" and negative "divergence".
+    """
+    n = pg.num_nodes
+    bp = np.asarray(base_logits)[:n].argmax(-1)
+    tp = np.asarray(tier_logits)[:n].argmax(-1)
+    if pg.labels is not None:
+        labels = np.asarray(pg.labels)[:n]
+        mask = labels >= 0
+        if pg.test_mask is not None and np.asarray(pg.test_mask)[:n].any():
+            mask = mask & np.asarray(pg.test_mask)[:n]
+        if mask.any():
+            acc_b = float((bp[mask] == labels[mask]).mean())
+            acc_t = float((tp[mask] == labels[mask]).mean())
+            return (acc_t - acc_b) * 100.0
+    return (float((tp == bp).mean()) - 1.0) * 100.0
+
+
 @dataclasses.dataclass
 class GNNRequest:
     uid: int
@@ -132,6 +184,7 @@ class GNNRequest:
     tier: str = "fp32"                     # resolved tier
     backend: str = "dense"                 # resolved agg backend (§10)
     fusion: str = "none"                   # resolved fusion mode (§11)
+    tier_ops: Optional[TierOperands] = None  # derived int8 Â (QuantGr GCN)
     deadline_s: Optional[float] = None     # SLO deadlines are not ported:
     shards: int = 0                        # both stay at their defaults
     finished_s: float = 0.0
@@ -156,6 +209,10 @@ class _ModelEntry:
     tiers: Dict[str, Techniques]           # tier name -> execution variant
     default_tier: str
     default_fusion: str = "none"           # "none" | "layer" (§11)
+    # once per (model, tier): calibrate_tier results for QuantGr tiers, and
+    # the measured accuracy_delta_vs_fp32 for every non-fp32 tier
+    calibrations: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+    accuracy_delta: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 class GraphServe:
@@ -177,6 +234,9 @@ class GraphServe:
         self._graph_version: Dict[int, int] = {}
         # device operands of attached graphs, keyed by (graph_id, version)
         self._operands: Dict[Tuple[int, int], GranniteOperands] = {}
+        # derived int8 Â of attached graphs, same keys
+        self._tier_operands: Dict[Tuple[int, int], TierOperands] = {}
+        self._agg_quantizer = AggQuantizer()
         self._plans: Dict[PlanKey, ExecutionPlan] = {}
         self._warm_blobs: Optional[int] = None
         self._uid = 0
@@ -186,42 +246,61 @@ class GraphServe:
         self.metrics = {"batches": 0, "slots_filled": 0, "slots_total": 0,
                         "latency_s": [], "first_submit_s": None,
                         "last_finish_s": None, "device_busy_s": 0.0,
-                        "operand_bytes_h2d": 0}
+                        "operand_bytes_h2d": 0, "tier_fallbacks": 0}
 
     # ------------------------------------------------------------------ setup
     def register_model(self, name: str, cfg: GNNConfig,
                        params: Optional[Dict] = None, *,
                        techniques: Optional[Techniques] = None,
-                       tiers: Optional[Sequence[str]] = None,
+                       tiers: Union[None, Sequence[str],
+                                    Dict[str, Techniques]] = None,
                        default_tier: str = "fp32",
                        agg_backend: str = "dense",
                        fusion: str = "none") -> None:
-        """Register a GCN under `name`.
+        """Register a GCN under `name` with its quality-tier registry.
 
         `params` (nested dict of tensors on the engine's device, e.g. from
-        `bridge.params_from_jax`) defaults to a seeded init. Only the fp32
-        tier (`tiers=None` or `("fp32",)`) and the dense aggregation
-        backend are ported. `fusion` is the model's default fused-layer
-        mode; requests may override it per call.
+        `bridge.params_from_jax`) defaults to a seeded init. `tiers` may be
+        None (the single tier {"fp32": techniques or the default}), a
+        sequence of standard tier names (`tier_techniques`), or a full
+        {name: Techniques} dict; it must hold a non-QuantGr "fp32" tier,
+        the accuracy reference and the uncalibrated fallback. Only the
+        dense aggregation backend is ported. `fusion` is the model's
+        default fused-layer mode; requests may override it per call.
         """
         if cfg.kind not in DEFAULT_TECHNIQUES:
             raise NotImplementedError(
                 f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
                 "1 item 7)")
-        if tiers is not None:
+        if tiers is None:
+            registry = {"fp32": techniques if techniques is not None
+                        else DEFAULT_TECHNIQUES[cfg.kind]}
+        else:
             if techniques is not None:
                 raise ValueError(
                     "pass per-tier Techniques inside `tiers`, not both "
                     "`techniques` and `tiers`")
-            if list(tiers) != ["fp32"]:
-                raise NotImplementedError(
-                    f"quality tiers {list(tiers)}: only 'fp32' is ported "
-                    "(QuantGr tiers are ROADMAP queue 1 item 5)")
-        t = techniques if techniques is not None else DEFAULT_TECHNIQUES[cfg.kind]
-        if t.quantgr:
-            raise ValueError("the 'fp32' tier cannot enable QuantGr")
-        if default_tier != "fp32":
-            raise ValueError(f"default tier {default_tier!r} not in ['fp32']")
+            if isinstance(tiers, dict):
+                registry = dict(tiers)
+            else:
+                std = tier_techniques(cfg.kind)
+                unknown = [tn for tn in tiers if tn not in std]
+                if unknown:
+                    raise ValueError(
+                        f"unknown standard tier name(s) {unknown}; pick "
+                        f"from {sorted(std)} or pass a "
+                        f"{{name: Techniques}} dict")
+                registry = {tn: std[tn] for tn in tiers}
+        if "fp32" not in registry:
+            raise ValueError("tier registry must include 'fp32' (the "
+                             "accuracy reference / calibration fallback)")
+        if registry["fp32"].quantgr:
+            raise ValueError("the 'fp32' tier cannot enable QuantGr — it "
+                             "is the uncalibrated-fallback path; register "
+                             "quantized variants under another tier name")
+        if default_tier not in registry:
+            raise ValueError(f"default tier {default_tier!r} not in "
+                             f"{sorted(registry)}")
         if agg_backend != "dense":
             raise NotImplementedError(
                 f"agg_backend={agg_backend!r}: only 'dense' is ported (GraSp "
@@ -238,7 +317,7 @@ class GraphServe:
                     raise ValueError(f"parameter {k!r} lies on {v.device}, "
                                      f"the engine on {self.device}")
         self.models[name] = _ModelEntry(cfg=cfg, params=params,
-                                        tiers={"fp32": t},
+                                        tiers=registry,
                                         default_tier=default_tier,
                                         default_fusion=fusion)
 
@@ -260,16 +339,25 @@ class GraphServe:
 
     @property
     def compiled_blobs(self) -> int:
-        """Distinct argument signatures seen, summed over all plans."""
-        return sum(p.trace_count for p in self._plans.values())
+        """Distinct argument signatures seen, summed over all plans and the
+        tier-operand deriver (one per bucket with a QuantGr GCN tier)."""
+        return (sum(p.trace_count for p in self._plans.values())
+                + self._agg_quantizer.trace_count)
 
     def warmup(self, *, buckets: Optional[Tuple[int, ...]] = None) -> int:
         """Run every (model, bucket, tier, fusion) plan once on placeholder
         inputs of the serving shapes — both fusion modes, as in the
         reference, so mixed fused/unfused traffic replays warm. On the card
-        this also builds the CUDA kernels. Returns `compiled_blobs`."""
+        this also builds the CUDA kernels.
+
+        QuantGr tiers not yet calibrated warm against a throwaway
+        calibration of the placeholder graph: its shapes depend only on the
+        model config, so the plan replays warm when the real calibration
+        arrives; the placeholder is never stored. These calls also warm the
+        tier-operand deriver. Returns `compiled_blobs`."""
         buckets = buckets if buckets is not None else self.sc.ladder.buckets
         b = self.sc.batch_slots
+        warm_cal: Dict[Tuple[str, str], Dict] = {}
         warmed: set = set()
         for bucket in buckets:
             empty = pad_graph(Graph(edge_index=np.zeros((2, 0), np.int32),
@@ -281,14 +369,25 @@ class GraphServe:
                 ops = stack_operands([single] * b)
                 x = torch.zeros((b, bucket, e.cfg.in_feats),
                                 dtype=torch.float32, device=self.device)
-                for tier in e.tiers:
+                for tier, t in e.tiers.items():
                     for fusion in FUSION_MODES:
+                        # alias tiers (GCN int8+grax == int8) share a plan
                         plan = self.plan_for(name, bucket, tier, "dense",
                                              fusion)
                         if (name, plan.key) in warmed:
                             continue
                         warmed.add((name, plan.key))
-                        plan(e.params, x, ops)
+                        quant = e.calibrations.get(tier)
+                        if quant is None and t.quantgr:
+                            if (name, tier) not in warm_cal:
+                                warm_cal[(name, tier)] = calibrate_tier(
+                                    e.params, e.cfg, x[0], single)
+                            quant = warm_cal[(name, tier)]
+                        tops = None
+                        if self._needs_tier_ops(e, tier):
+                            tops = stack_tier_operands(
+                                [self._agg_quantizer(single.norm_adj)] * b)
+                        plan(e.params, x, ops, quant, tops)
         self._sync()
         self._warm_blobs = self.compiled_blobs
         return self._warm_blobs
@@ -307,14 +406,73 @@ class GraphServe:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ------------------------------------------------------------- calibration
+    def calibrate(self, model: str, g: Graph, *,
+                  force: bool = False) -> Dict[str, float]:
+        """Per-(model, tier) QuantGr calibration and quality audit.
+
+        One fp32 forward over `g` records each QuantGr tier's static scales
+        (`core.models.calibrate_tier`), once per (model, tier): calling
+        again with another graph changes nothing unless `force=True`.
+        Every non-fp32 tier gets its `accuracy_delta_vs_fp32` measured
+        against the fp32 tier on the held-out part of `g`, in percentage
+        points. Adds no plan signature: `assert_warm()` still holds.
+        """
+        return self._calibrate(model, self.sc.ladder.pad(g), force=force)
+
+    def _calibrate(self, model: str, pg: PaddedGraph, *,
+                   force: bool = False) -> Dict[str, float]:
+        e = self.models[model]
+        x = torch.from_numpy(pg.features).to(self.device)
+        ops = base = None
+        # alias tiers (equal Techniques) share one calibration and audit
+        done_cal: Dict[Techniques, Dict] = {}
+        done_delta: Dict[Techniques, float] = {}
+        for tier, t in e.tiers.items():
+            if tier == "fp32" or (not force and tier in e.accuracy_delta
+                                  and (not t.quantgr
+                                       or tier in e.calibrations)):
+                continue
+            if t in done_delta:
+                if t.quantgr:
+                    e.calibrations[tier] = done_cal[t]
+                e.accuracy_delta[tier] = done_delta[t]
+                continue
+            if ops is None:
+                ops = build_operands(pg, e.cfg, device=self.device)
+                base = forward_grannite(e.params, e.cfg, x, ops,
+                                        e.tiers["fp32"]).cpu()
+            if t.quantgr:
+                if force or tier not in e.calibrations:
+                    e.calibrations[tier] = calibrate_tier(e.params, e.cfg,
+                                                          x, ops)
+                done_cal[t] = e.calibrations[tier]
+            out = forward_grannite(e.params, e.cfg, x, ops, t,
+                                   quant=e.calibrations.get(tier)).cpu()
+            done_delta[t] = _delta_points(base, out, pg)
+            e.accuracy_delta[tier] = done_delta[t]
+        return dict(e.accuracy_delta)
+
     # ------------------------------------------------------------------ intake
     def _resolve_tier(self, model: str, tier: Optional[str]) -> str:
+        """Requested tier -> served tier: the model default when
+        unspecified, and fp32 (counted in `tier_fallbacks`, never an error)
+        for a QuantGr tier not yet calibrated."""
         e = self.models[model]
         tier = tier if tier is not None else e.default_tier
         if tier not in e.tiers:
             raise KeyError(f"model {model!r} has no tier {tier!r} "
                            f"(registered: {sorted(e.tiers)})")
+        if e.tiers[tier].quantgr and tier not in e.calibrations:
+            self.metrics["tier_fallbacks"] += 1
+            return "fp32"
         return tier
+
+    @staticmethod
+    def _needs_tier_ops(e: _ModelEntry, tier: str) -> bool:
+        """GCN QuantGr tiers read a per-graph derived operand (the int8 Â);
+        every other tier passes None, consistently per plan."""
+        return e.cfg.kind == "gcn" and e.tiers[tier].quantgr
 
     def _resolve_fusion(self, model: str, fusion: Optional[str]) -> str:
         fusion = (fusion if fusion is not None
@@ -331,26 +489,31 @@ class GraphServe:
         self.metrics["operand_bytes_h2d"] += int(pg.norm_adj.nbytes)
         return ops
 
-    def _prepare(self, model: str, pg: PaddedGraph,
+    def _prepare(self, model: str, pg: PaddedGraph, tier: str,
                  ops: Optional[GranniteOperands] = None, *,
-                 tier: Optional[str] = None, fusion: Optional[str] = None,
+                 tier_ops: Optional[TierOperands] = None,
+                 fusion: Optional[str] = None,
                  submitted_s: Optional[float] = None) -> GNNRequest:
-        """Host-stage tail shared by every intake path: resolve tier and
-        fusion mode, build operands if the caller did not, assign the uid.
+        """Host-stage tail shared by every intake path, for a resolved
+        `tier`: resolve the fusion mode, build operands (and a QuantGr
+        tier's int8 Â, uncached) if the caller did not, assign the uid.
         Returns the request without queueing it."""
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
-        tier = self._resolve_tier(model, tier)
         fusion = self._resolve_fusion(model, fusion)
         if ops is None:
             ops = self._device_operands(model, pg)
+        if tier_ops is None and self._needs_tier_ops(self.models[model], tier):
+            # one-shot request: derive without caching (nothing to key on)
+            tier_ops = self._agg_quantizer(ops.norm_adj)
         uid = self._uid
         self._uid += 1
         if self.metrics["first_submit_s"] is None:
             self.metrics["first_submit_s"] = submitted_s
         return GNNRequest(uid=uid, model=model, pg=pg, ops=ops,
                           bucket=pg.capacity, submitted_s=submitted_s,
-                          tier=tier, backend="dense", fusion=fusion)
+                          tier=tier, backend="dense", fusion=fusion,
+                          tier_ops=tier_ops)
 
     def _push(self, req: GNNRequest) -> int:
         self.queue.append(req)
@@ -362,8 +525,9 @@ class GraphServe:
                        submitted_s: Optional[float] = None) -> GNNRequest:
         """HOST stage of a one-shot request: NodePad padding + operand
         build and upload."""
-        return self._prepare(model, self.sc.ladder.pad(g), tier=tier,
-                             fusion=fusion, submitted_s=submitted_s)
+        return self._prepare(model, self.sc.ladder.pad(g),
+                             self._resolve_tier(model, tier), fusion=fusion,
+                             submitted_s=submitted_s)
 
     def submit(self, g: Graph, *, model: str, tier: Optional[str] = None,
                fusion: Optional[str] = None) -> int:
@@ -371,13 +535,18 @@ class GraphServe:
         return self._push(self.prepare_submit(g, model=model, tier=tier,
                                               fusion=fusion))
 
-    def attach(self, g: Graph, *, model: str) -> int:
+    def attach(self, g: Graph, *, model: str, calibrate: bool = True) -> int:
         """Register a graph for repeated queries; returns its graph_id.
         Operands are built on the first `query()` and kept on the device
-        until `detach()`. A graph above the top bucket raises."""
+        until `detach()`. The first attach to a model with uncalibrated
+        non-fp32 tiers also calibrates them on this graph (`calibrate=False`
+        defers to an explicit `calibrate()`). A graph above the top bucket
+        raises."""
         if model not in self.models:
             raise KeyError(f"unknown model {model!r}")
         pg = self.sc.ladder.pad(g)
+        if calibrate:
+            self._calibrate(model, pg)      # no-op once (model, tier) is done
         gid = self._gid
         self._gid += 1
         self.graphs[gid] = (model, pg)
@@ -388,20 +557,29 @@ class GraphServe:
         """Release an attached graph and its device operands."""
         key = (graph_id, self._graph_version.pop(graph_id, -1))
         self._operands.pop(key, None)
+        self._tier_operands.pop(key, None)
         self.graphs.pop(graph_id, None)
 
     def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
                       fusion: Optional[str] = None,
                       submitted_s: Optional[float] = None) -> GNNRequest:
-        """HOST stage of a query over an attached graph: device operands
-        come from the (graph_id, version) cache after the first query."""
+        """HOST stage of a query over an attached graph: device operands,
+        and a QuantGr tier's int8 Â derived from them, come from the
+        (graph_id, version) caches after the first query."""
         model, pg = self.graphs[graph_id]
         key = (graph_id, self._graph_version[graph_id])
         ops = self._operands.get(key)
         if ops is None:
             ops = self._operands[key] = self._device_operands(model, pg)
-        return self._prepare(model, pg, ops, tier=tier, fusion=fusion,
-                             submitted_s=submitted_s)
+        resolved = self._resolve_tier(model, tier)
+        tops = None
+        if self._needs_tier_ops(self.models[model], resolved):
+            tops = self._tier_operands.get(key)
+            if tops is None:
+                tops = self._tier_operands[key] = self._agg_quantizer(
+                    ops.norm_adj)
+        return self._prepare(model, pg, resolved, ops, tier_ops=tops,
+                             fusion=fusion, submitted_s=submitted_s)
 
     def query(self, graph_id: int, *, tier: Optional[str] = None,
               fusion: Optional[str] = None) -> int:
@@ -444,9 +622,11 @@ class GraphServe:
         x = torch.from_numpy(np.stack([r.pg.features for r in slots])
                              ).to(self.device)
         ops = stack_operands([r.ops for r in slots])
+        tops = (stack_tier_operands([r.tier_ops for r in slots])
+                if slots[0].tier_ops is not None else None)
         plan = self.plan_for(head.model, head.bucket, head.tier,
                              head.backend, head.fusion)
-        logits = plan(e.params, x, ops)
+        logits = plan(e.params, x, ops, e.calibrations.get(head.tier), tops)
         self._sync()
         self.clock.on_batch(bkey)
         now = self.clock.now()
@@ -469,6 +649,26 @@ class GraphServe:
         self._dispatch_serial += 1
 
     # ---------------------------------------------------------------- metrics
+    def tier_summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-tier serving stats from the finished requests (each carries
+        its RESOLVED tier, so fp32 fallbacks count as fp32 here and as
+        `tier_fallbacks` in `summary()`)."""
+        by_tier: Dict[str, List[GNNRequest]] = {}
+        for r in self.finished:
+            by_tier.setdefault(r.tier, []).append(r)
+        out: Dict[str, Dict[str, float]] = {}
+        for tn, reqs in sorted(by_tier.items()):
+            lat = np.asarray([r.finished_s - r.submitted_s for r in reqs])
+            span = (max(r.finished_s for r in reqs)
+                    - min(r.submitted_s for r in reqs))
+            out[tn] = {
+                "requests": len(reqs),
+                "p50_latency_ms": float(np.percentile(lat, 50) * 1e3),
+                "p99_latency_ms": float(np.percentile(lat, 99) * 1e3),
+                "throughput_rps": (len(reqs) / span) if span > 0 else 0.0,
+            }
+        return out
+
     def summary(self) -> Dict[str, object]:
         lat = np.asarray(self.metrics["latency_s"], np.float64)
         t0, t1 = self.metrics["first_submit_s"], self.metrics["last_finish_s"]
@@ -485,6 +685,11 @@ class GraphServe:
             "device_idle_fraction": (max(0.0, 1.0 - busy / span)
                                      if span > 0 else 0.0),
             "operand_bytes_h2d": self.metrics["operand_bytes_h2d"],
+            "tier_fallbacks": self.metrics["tier_fallbacks"],
+            "tiers": self.tier_summary(),
+            "accuracy_delta_vs_fp32": {
+                name: dict(e.accuracy_delta)
+                for name, e in self.models.items() if e.accuracy_delta},
             "throughput_rps": (len(self.finished) / span if span > 0
                                else 0.0),
             "p50_latency_ms": (float(np.percentile(lat, 50) * 1e3)

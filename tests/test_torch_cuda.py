@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
-the port's GraphServe on CUDA against the same engine on the CPU.
+the port's GraphServe on CUDA against the same engine on the CPU, on the
+fp32 tier and on the QuantGr int8 tier.
 
 Every test here carries the `cuda` marker and skips itself where there is
 no card; this file imports no JAX, so it runs on a machine without it:
@@ -7,7 +8,9 @@ no card; this file imports no JAX, so it runs on a machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: fp32 rtol=1e-4, atol=1e-5 — the kernels and cuBLAS (TF32 off)
-sum over K in different orders.
+sum over K in different orders. The int8 kernels take exact integer
+products and the plain versions' rounding steps, so they are held equal
+(`torch.equal`).
 """
 import numpy as np
 import pytest
@@ -16,9 +19,11 @@ import torch
 from repro_torch.core.graph import BucketLadder
 from repro_torch.core.layers import Techniques
 from repro_torch.core.models import GNNConfig
+from repro_torch.core.quant import QuantizedLinear, quantize_rowwise
 from repro_torch.data.graphs import planetoid_like
 from repro_torch.kernels import block_matmul as bm_mod
 from repro_torch.kernels import fused_layers as fl_mod
+from repro_torch.kernels import int8_matmul as im_mod
 from repro_torch.runtime.gnn_server import GraphServe, GraphServeConfig
 
 CARD = dict(rtol=1e-4, atol=1e-5)
@@ -72,6 +77,68 @@ def test_fused_gcn_dense_matches_plain(card, activation):
         **CARD)
 
 
+def _s8(rng, *shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_matches_plain(card):
+    rng = np.random.default_rng(6)
+    full = torch.full((2, 64, 3072), 127, dtype=torch.int8)
+    signs = torch.full((3072, 8), 127, dtype=torch.int8)
+    signs[:, 1::2] = -127                    # |acc| = 3072 * 127**2 > 2**24
+    cases = [  # Xq @ Wq (Wq broadcast), Âq @ Hq (both batched), a ragged
+        # 2-D shape with K not a multiple of 4, extreme accumulators
+        (_s8(rng, 3, 256, 384), _s8(rng, 384, 128), torch.tensor(0.01),
+         torch.rand(128)),
+        (_s8(rng, 3, 256, 256), _s8(rng, 3, 256, 128), 1.0,
+         torch.ones(128)),
+        (_s8(rng, 70, 45), _s8(rng, 45, 30), torch.tensor(0.3),
+         torch.rand(30)),
+        (full, signs, torch.tensor(1e-3), torch.rand(8))]
+    for a, b, xs, ws in cases:
+        a, b, ws = a.to(card), b.to(card), ws.to(card)
+        xs = xs.to(card) if isinstance(xs, torch.Tensor) else xs
+        before = im_mod.LAUNCHES
+        got = im_mod.int8_matmul(a, b, xs, ws)
+        torch.cuda.synchronize()
+        assert im_mod.LAUNCHES == before + 1
+        assert torch.equal(got, im_mod.int8_matmul_plain(a, b, xs, ws))
+
+
+def _quant_layer(rng, batch, n, fin, o, device):
+    """One QuantGr layer's operands, with scales that clip some values."""
+    x = torch.from_numpy(rng.standard_normal((batch, n, fin)
+                                             ).astype(np.float32))
+    wq = _s8(rng, fin, o)
+    w_scale = torch.from_numpy(rng.uniform(2e-3, 6e-3, o).astype(np.float32))
+    x_scale = x.abs().max() / 110.0
+    sw = (x_scale * w_scale).reshape(1, -1)
+    h = im_mod.int8_matmul_plain(im_mod.quantize_s8(x, x_scale), wq,
+                                 x_scale, w_scale)
+    h_scale = h.abs().max() / 140.0
+    adj = torch.from_numpy(np.abs(rng.standard_normal((batch, n, n)) * 0.05
+                                  ).astype(np.float32))
+    aq, a_scale = quantize_rowwise(adj)
+    bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32))
+    return [t.to(device) for t in (x, wq, sw, x_scale.reshape(1),
+                                   h_scale.reshape(1), aq, a_scale, bias)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_fused_gcn_int8_matches_plain(card, activation):
+    rng = np.random.default_rng(7)
+    for shape in ((2, 384, 256, 128), (1, 200, 37, 10)):   # tiled, ragged
+        args = _quant_layer(rng, *shape, card)
+        before = fl_mod.INT8_LAUNCHES
+        got = fl_mod.fused_gcn_int8(*args, activation)
+        torch.cuda.synchronize()
+        assert fl_mod.INT8_LAUNCHES == before + 1
+        assert torch.equal(got, fl_mod.fused_gcn_int8_plain(*args,
+                                                            activation))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_operands(card):
     a = torch.zeros(2, 128, 128, device=card)
@@ -111,4 +178,56 @@ def test_graphserve_on_card_matches_cpu(card):
         assert ran == ((8, 4) if dev.type == "cuda" else (0, 0))
     for uid, logits in out["cpu"].items():
         torch.testing.assert_close(torch.from_numpy(out["cuda"][uid]),
+                                   torch.from_numpy(logits), **CARD)
+
+
+def _calibration_to(cal, device):
+    return {k: (QuantizedLinear(v.wq.to(device), v.w_scale.to(device),
+                                v.x_scale.to(device))
+                if isinstance(v, QuantizedLinear) else v.to(device))
+            for k, v in cal.items()}
+
+
+@pytest.mark.cuda
+def test_int8_tier_graphserve_on_card_matches_cpu(card):
+    cfg = GNNConfig(kind="gcn", in_feats=48, hidden=16, num_classes=5)
+    base = dict(stagr=True, grad_dynamic=True, graphsplit=True)
+    graphs = [planetoid_like(num_nodes=n, num_edges=3 * n, num_feats=48,
+                             num_classes=5, seed=i, train_per_class=2)
+              for i, n in enumerate((60, 120, 200, 250))]
+    out, cals = {}, {}
+    for dev in (torch.device("cpu"), card):
+        eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128, 256)),
+                                          batch_slots=2, return_logits=True),
+                         seed=3, device=dev)
+        eng.register_model("gcn_q", cfg, tiers=("fp32", "int8"),
+                           default_tier="int8", fusion="layer")
+        eng.register_model("gcn_qmm", cfg, tiers={
+            "fp32": Techniques(**base, use_pallas=True),
+            "int8": Techniques(**base, quantgr=True, use_pallas=True)},
+            default_tier="int8")
+        eng.warmup()
+        for name in ("gcn_q", "gcn_qmm"):
+            if dev.type == "cpu":
+                eng.calibrate(name, graphs[3])
+                cals[name] = eng.models[name].calibrations["int8"]
+            else:                      # the same scales on both devices
+                eng.models[name].calibrations["int8"] = _calibration_to(
+                    cals[name], dev)
+        launches = (im_mod.LAUNCHES, fl_mod.INT8_LAUNCHES)
+        for g in graphs:
+            eng.submit(g, model="gcn_q")
+            eng.submit(g, model="gcn_qmm")
+        done = eng.run()
+        out[dev.type] = {r.uid: (r.preds, r.logits) for r in done}
+        assert {r.tier for r in done} == {"int8"}
+        eng.assert_warm()
+        assert eng.summary()["tier_fallbacks"] == 0
+        ran = (im_mod.LAUNCHES - launches[0],
+               fl_mod.INT8_LAUNCHES - launches[1])
+        # 2 buckets x 1 batch per model: 4 int8_matmul or 2 fused per batch
+        assert ran == ((8, 4) if dev.type == "cuda" else (0, 0))
+    for uid, (preds, logits) in out["cpu"].items():
+        np.testing.assert_array_equal(out["cuda"][uid][0], preds)
+        torch.testing.assert_close(torch.from_numpy(out["cuda"][uid][1]),
                                    torch.from_numpy(logits), **CARD)
