@@ -27,8 +27,21 @@ last line; there is no CPU path):
      every launch count set to 0 just before it; the counts read just
      after must equal what its dispatched batches imply, and every logit
      is held against a forward through the plain versions;
-  4. times — CUDA-event times of each kernel, its plain version and the
-     matching library call at the serving shapes, beside the card's bound.
+  4. serve-grasp — a second GraphServe with the same Cora GCN weights on
+     the GraSp backend: `gcn_sp` (`agg_backend="grasp"`,
+     `fusion="layer"`, fused_gcn_grasp) and `gcn_sp_auto`
+     (`agg_backend="auto"`, bitmap_spmm with the combine as x @ w) get five
+     clustered graphs and Cora, `gcn_dense` the clustered graphs, and one
+     clustered graph is attached to `gcn_sp` and queried twice. Before it,
+     `bitmap_spmm` and `fused_gcn_grasp` are held against their plain
+     versions at both buckets' serving shapes and budgets, once with NaN in
+     every padded tail block. Launch counts (set to 0 just before the
+     phase) must match its batch log, `backend_fallbacks` the ineligible
+     forced requests, and every logit the plain forward and the dense
+     model;
+  5. times — CUDA-event times of each kernel, its plain version and the
+     matching library call at the serving shapes, beside the card's bound,
+     and the measured dense and GraSp aggregation times per bucket.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -53,10 +66,17 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.gnn import gcn  # noqa: E402
 from repro_torch.core.graph import BucketLadder, pad_graph  # noqa: E402
 from repro_torch.core.layers import Techniques  # noqa: E402
+from repro_torch.core import costs  # noqa: E402
 from repro_torch.core.models import (build_operands,  # noqa: E402
                                      calibrate_tier, derive_tier_operands)
-from repro_torch.data.graphs import cora_like, planetoid_like  # noqa: E402
+from repro_torch.core.sparsity import (agg_cost_model,  # noqa: E402
+                                       block_stats, compact_block_sparse,
+                                       grasp_max_nnz, select_agg_backend,
+                                       stack_block_sparse)
+from repro_torch.data.graphs import (clustered_like, cora_like,  # noqa: E402
+                                     planetoid_like)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bitmap_spmm as bs  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import fused_layers as fl  # noqa: E402
 from repro_torch.kernels import int8_matmul as im  # noqa: E402
@@ -72,6 +92,7 @@ INT8_OPS_PER_S = 1979e12
 LADDER, SLOTS = (1024, 3072), 4
 CAP, FIN_PAD, TILE = 3072, 1536, 128
 PLANETOID_SIZES = (300, 700, 1000, 1800, 2700)
+CLUSTERED_SIZES = PLANETOID_SIZES
 # fp32 kernel vs cuBLAS fp32 (TF32 off): same products, other summation
 # order over K <= 3072
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -84,12 +105,19 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                            "src/repro/kernels/int8_matmul.py:39"),
            "fused_gcn_int8": ("src/repro_torch/kernels/csrc/"
                               "fused_gcn_int8.cu",
-                              "src/repro/kernels/fused_layers.py:170")}
+                              "src/repro/kernels/fused_layers.py:170"),
+           "bitmap_spmm": ("src/repro_torch/kernels/csrc/bitmap_spmm.cu",
+                           "src/repro/kernels/bitmap_spmm.py:46"),
+           "fused_gcn_grasp": ("src/repro_torch/kernels/csrc/"
+                               "fused_gcn_grasp.cu",
+                               "src/repro/kernels/fused_layers.py:246")}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
             "int8_matmul": (im, "LAUNCHES"),
-            "fused_gcn_int8": (fl, "INT8_LAUNCHES")}
+            "fused_gcn_int8": (fl, "INT8_LAUNCHES"),
+            "bitmap_spmm": (bs, "LAUNCHES"),
+            "fused_gcn_grasp": (fl, "GRASP_LAUNCHES")}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -168,6 +196,60 @@ def graphs():
     return cora, others
 
 
+def clustered(n):
+    """The GraSp traffic: community graphs of 128-node blocks, no cross
+    edges, so every block row of Â holds one non-zero block."""
+    return clustered_like(num_nodes=n, num_feats=1433, num_classes=7,
+                          within_density=0.05, cross_frac=0.0, seed=n)
+
+
+def grasp_batch(graphs, cap, dev):
+    """A 4-graph serving batch at `cap`: Â, the features padded to 1536
+    columns, and the block structure at the bucket budget, derived on the
+    card from Â as the query path derives it."""
+    pgs = [pad_graph(g, capacity=cap) for g in graphs]
+    adj = torch.from_numpy(np.stack([p.norm_adj for p in pgs])).to(dev)
+    x = torch.from_numpy(np.stack([pad_to(p.features, (cap, FIN_PAD))
+                                   for p in pgs])).to(dev)
+    budget = grasp_max_nnz(cap)
+    parts = [compact_block_sparse(a, max_nnz=budget) for a in adj]
+    check(all(int(t.max()) <= budget for _, t in parts),
+          f"a graph of the {cap} batch exceeds the budget {budget}")
+    sp = stack_block_sparse([p for p, _ in parts])
+    return adj, x, (sp.blocks, sp.block_cols, sp.counts)
+
+
+def nan_tail(blocks, cols, counts):
+    """The same blocks with NaN in every padded tail entry (k >= counts)."""
+    b, rb, k = cols.shape
+    live = (torch.arange(k, device=cols.device)[None, None, :]
+            < counts[:, :, None])
+    out = blocks.clone().reshape(b, rb, k, TILE, TILE)
+    out[~live] = float("nan")
+    return out.reshape(blocks.shape)
+
+
+def grasp_work(cols, counts, f, fin=None):
+    """(ops, bytes) of one Â @ H over the real blocks: each real block and
+    its column index read once, each H row block that a real entry names
+    read once (NodePad's blocks are named by none), the output written
+    once. With `fin`, H = X @ W is made on chip: those blocks' X rows are
+    read once and multiplied by W instead; W and b are the caller's."""
+    bsz, rb = counts.shape
+    live = (torch.arange(cols.shape[-1], device=cols.device)[None, None, :]
+            < counts[:, :, None])
+    graph = torch.arange(bsz, device=cols.device)[:, None, None].expand_as(
+        cols)
+    named = torch.unique(graph[live] * rb + cols[live].long()).numel()
+    nnz = float(counts.sum().item())
+    h_rows = float(named * TILE)
+    ops = 2.0 * nnz * TILE * TILE * f
+    moved = 4.0 * (nnz * TILE * TILE + nnz + bsz * rb + bsz * rb * TILE * f)
+    if fin is None:
+        return ops, moved + 4.0 * h_rows * f
+    return ops + 2.0 * h_rows * fin * f, moved + 4.0 * h_rows * fin
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -216,10 +298,11 @@ def main() -> None:
     def compare(kernel, label, run, want):
         # the kernels match cuBLAS bit for bit here, so equal outputs alone
         # would not show that the kernel ran: its counter must move too
-        mod = bm if kernel == "block_matmul" else fl
-        before = mod.LAUNCHES
+        mod, attr = COUNTERS[kernel]
+        before = getattr(mod, attr)
         got = run()
-        check(mod.LAUNCHES == before + 1, f"{kernel} {label}: no launch")
+        check(getattr(mod, attr) == before + 1,
+              f"{kernel} {label}: no launch")
         torch.cuda.synchronize()
         diff = (got - want).abs()
         rel = (diff / want.abs().clamp_min(1e-6)).max().item()
@@ -292,6 +375,43 @@ def main() -> None:
                       lambda: fl.fused_gcn_int8(*args),
                       fl.fused_gcn_int8_plain(*args))
 
+    # the GraSp kernels at both buckets' serving shapes and real budgets:
+    # the 4-graph batches of the serve-grasp phase below (junk slots repeat
+    # a graph), layer 1 (hidden 64 -> 128) and layer 2 (classes 7 -> 128)
+    err.update({"bitmap_spmm": 0.0, "fused_gcn_grasp": 0.0})
+    grasp_batches_in = {1024: (300, 700, 1000, 700),
+                        3072: (1800, 2700, 1800, 2700)}
+    grasp_cases = {}
+    for gcap, sizes in grasp_batches_in.items():
+        adj_g, xg1, st = grasp_batch([clustered(n) for n in sizes], gcap, dev)
+        nan_blocks = nan_tail(*st)
+        hg1 = bm.block_matmul_plain(xg1, w1)
+        xg2 = fl.fused_gcn_grasp_plain(*st, xg1, w1, b1, "relu")
+        hg2 = bm.block_matmul_plain(xg2, w2)
+        print(f"[check] grasp batch at {gcap}: graphs {sizes}, budget "
+              f"{st[1].shape[-1]}, real blocks {int(st[2].sum())} of "
+              f"{st[1].numel()} list entries", flush=True)
+        grasp_cases[gcap] = dict(adj=adj_g, st=st, h1=hg1, h2=hg2, x1=xg1,
+                                 x2=xg2)
+        for label, h in (("L1 A@H", hg1), ("L2 A@H", hg2)):
+            want_g = bs.bitmap_spmm_plain(*st, h)
+            compare("bitmap_spmm", f"{gcap} {label}",
+                    lambda: bs.bitmap_spmm(*st, h), want_g)
+            compare("bitmap_spmm", f"{gcap} {label} NaN tail",
+                    lambda: bs.bitmap_spmm(nan_blocks, *st[1:], h), want_g)
+        for label, xs, ws, bsv, act in (
+                ("L1 none", xg1, w1, b1, "none"),
+                ("L1 relu", xg1, w1, b1, "relu"),
+                ("L1 elu", xg1, w1, b1, "elu"),
+                ("L2 none", xg2, w2, b2, "none")):
+            want_g = fl.fused_gcn_grasp_plain(*st, xs, ws, bsv, act)
+            compare("fused_gcn_grasp", f"{gcap} {label}",
+                    lambda: fl.fused_gcn_grasp(*st, xs, ws, bsv, act), want_g)
+            if act != "elu":
+                compare("fused_gcn_grasp", f"{gcap} {label} NaN tail",
+                        lambda: fl.fused_gcn_grasp(nan_blocks, *st[1:], xs,
+                                                   ws, bsv, act), want_g)
+
     # -------------------------------------------------------- 3. serving
     base = dict(stagr=True, grad_dynamic=True, graphsplit=True)
     eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
@@ -336,7 +456,8 @@ def main() -> None:
                                     if k[0] == "gcn_mm" and k[2] == "none"),
             "fused_gcn_dense": 2 * sum(v for k, v in batches.items()
                                        if k[2] == "layer"),
-            "int8_matmul": 0, "fused_gcn_int8": 0}
+            "int8_matmul": 0, "fused_gcn_int8": 0, "bitmap_spmm": 0,
+            "fused_gcn_grasp": 0}
     print(f"[serve] {len(done)} requests in {sum(batches.values())} batches "
           f"{sorted(batches.items())}; launches {launches}, expected {want}",
           flush=True)
@@ -406,7 +527,8 @@ def main() -> None:
     launches_i8 = launches_now()
     done = eng.finished[n_done0:]
     batches = {k: -(-n // SLOTS) for k, n in per_key.items()}
-    want = {"block_matmul": 0, "fused_gcn_dense": 0,
+    want = {"block_matmul": 0, "fused_gcn_dense": 0, "bitmap_spmm": 0,
+            "fused_gcn_grasp": 0,
             "int8_matmul": 4 * sum(v for k, v in batches.items()
                                    if k[0] == "gcn_qmm" and k[2] == "int8"),
             "fused_gcn_int8": 2 * sum(v for k, v in batches.items()
@@ -477,7 +599,156 @@ def main() -> None:
     launches.update({k: launches_i8[k]
                      for k in ("int8_matmul", "fused_gcn_int8")})
 
-    # ---------------------------------------------------------- 4. times
+    # --------------------------------------------------- 4. serve-grasp
+    eng_sp = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                         batch_slots=SLOTS,
+                                         return_logits=True,
+                                         use_cacheg=False), seed=0,
+                        device=dev)
+    eng_sp.register_model("gcn_sp", cfg, params, agg_backend="grasp",
+                          fusion="layer")
+    eng_sp.register_model("gcn_sp_auto", cfg, params, agg_backend="auto")
+    eng_sp.register_model("gcn_dense", cfg, params, fusion="layer")
+    t0 = time.perf_counter()
+    blobs = eng_sp.warmup()
+    print(f"[serve-grasp] warmup: {blobs} signatures (plans and block "
+          f"compactor) in {time.perf_counter() - t0:.2f} s", flush=True)
+    grasp_graphs = {n: clustered(n) for n in CLUSTERED_SIZES}
+    for label, g in list(grasp_graphs.items()) + [("cora", cora)]:
+        pg = eng_sp.sc.ladder.pad(g)
+        st_ = block_stats(pg.norm_adj)
+        dec = {m: select_agg_backend(
+            pg.capacity, cfg.hidden, nnz_blocks=st_["nnz_blocks"],
+            max_row_nnz=st_["max_row_nnz"], mode=m) for m in ("auto",
+                                                              "grasp")}
+        print(f"[serve-grasp] graph {label}: bucket {pg.capacity}, "
+              f"nnz_blocks {st_['nnz_blocks']}, max_row_nnz "
+              f"{st_['max_row_nnz']}, budget {grasp_max_nnz(pg.capacity)}; "
+              f"auto -> {dec['auto'][0]}, forced -> {dec['grasp'][0]}; "
+              f"modelled dense {dec['auto'][1] * 1e6:.2f} us, grasp "
+              f"{dec['auto'][2] * 1e6:.2f} us", flush=True)
+    batch_log = []
+    execute = eng_sp._execute_batch
+
+    def record(batch):
+        h = batch[0]
+        batch_log.append((h.model, h.bucket, h.backend, h.fusion))
+        execute(batch)
+    eng_sp._execute_batch = record
+    derived = []
+    derive = eng_sp._derive_grasp
+
+    def counted_derive(*args):
+        derived.append(args[1])
+        return derive(*args)
+    eng_sp._derive_grasp = counted_derive
+
+    reset_launches()                        # the grasp path starts here
+    t_serve = time.perf_counter()
+    uid_graph = {}
+    for model in ("gcn_sp", "gcn_sp_auto", "gcn_dense"):
+        for label, g in list(grasp_graphs.items()) + [("cora", cora)]:
+            if model == "gcn_dense" and label == "cora":
+                continue
+            uid_graph[eng_sp.submit(g, model=model)] = label
+    gid = eng_sp.attach(clustered(1800), model="gcn_sp")
+    for _ in range(2):
+        uid_graph[eng_sp.query(gid)] = 1800
+    intake_s = time.perf_counter() - t_serve
+    done = eng_sp.run()
+    serve_s = time.perf_counter() - t_serve
+    launches_sp = launches_now()
+    n_kind = Counter((b[2], b[3]) for b in batch_log)
+    want = {"block_matmul": 0, "int8_matmul": 0, "fused_gcn_int8": 0,
+            "fused_gcn_dense": 2 * n_kind[("dense", "layer")],
+            "bitmap_spmm": 2 * n_kind[("grasp", "none")],
+            "fused_gcn_grasp": 2 * n_kind[("grasp", "layer")]}
+    s = eng_sp.summary()
+    forced_dense = sum(r.model == "gcn_sp" and r.backend == "dense"
+                       for r in done)
+    print(f"[serve-grasp] {len(done)} requests in {len(batch_log)} batches "
+          f"{sorted(Counter(batch_log).items())}; launches {launches_sp}, "
+          f"expected {want}", flush=True)
+    check(launches_sp == want, f"kernel launches {launches_sp} != {want}")
+    check(want["bitmap_spmm"] > 0 and want["fused_gcn_grasp"] > 0,
+          f"a GraSp kernel never launched: {launches_sp}")
+    check(s["grasp_batches"] == n_kind[("grasp", "none")]
+          + n_kind[("grasp", "layer")],
+          f"grasp_batches {s['grasp_batches']} disagrees with the batch log")
+    check(s["backend_fallbacks"] == forced_dense == 1,
+          f"backend_fallbacks {s['backend_fallbacks']}, ineligible forced "
+          f"requests {forced_dense}; expected Cora's one")
+    check(derived == [3072] and len(eng_sp._grasp) == 1,
+          f"the attached graph's structure was derived {len(derived)} times")
+    check(len(done) == 2 * (len(CLUSTERED_SIZES) + 1)
+          + len(CLUSTERED_SIZES) + 2, f"{len(done)} requests finished")
+    eng_sp.assert_warm()
+
+    p1, p2 = params["l1"], params["l2"]
+    sp_err, ties = 0.0, 0
+    by_graph = {}
+    for r in done:
+        n = r.pg.num_nodes
+        check(r.logits is not None and r.logits.shape == (n, 7)
+              and np.isfinite(r.logits).all(),
+              f"request {r.uid}: logits missing, misshapen or not finite")
+        a = torch.from_numpy(r.pg.norm_adj).to(dev)[None]
+        x = torch.from_numpy(r.pg.features).to(dev)[None]
+        if r.backend == "grasp":
+            st_ = tuple(t[None] for t in (r.ops.block_sparse.blocks,
+                                          r.ops.block_sparse.block_cols,
+                                          r.ops.block_sparse.counts))
+            if r.fusion == "layer":
+                h = fl.fused_gcn_grasp_plain(*st_, x, p1["w"], p1["b"],
+                                             "relu")
+                ref = fl.fused_gcn_grasp_plain(*st_, h, p2["w"], p2["b"])
+            else:
+                h = torch.relu(bs.bitmap_spmm_plain(*st_, x @ p1["w"])
+                               + p1["b"])
+                ref = bs.bitmap_spmm_plain(*st_, h @ p2["w"]) + p2["b"]
+        elif r.fusion == "layer":
+            h = fl.fused_gcn_dense_plain(a, x, p1["w"], p1["b"], "relu")
+            ref = fl.fused_gcn_dense_plain(a, h, p2["w"], p2["b"], "none")
+        else:
+            h = torch.relu(a @ (x @ p1["w"]) + p1["b"])
+            ref = a @ (h @ p2["w"]) + p2["b"]
+        ref = ref[0, :n].cpu()
+        got = torch.from_numpy(r.logits)
+        torch.testing.assert_close(got, ref, **TOL)
+        sp_err = max(sp_err, (got - ref).abs().max().item())
+        # argmax equal, except at a tie the tolerance cannot resolve
+        top2 = ref.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= TOL["atol"]
+        ties += int(tie.sum())
+        check(bool((torch.from_numpy(r.preds) == ref.argmax(-1))[~tie]
+                   .all()), f"request {r.uid}: argmax differs")
+        by_graph.setdefault(uid_graph[r.uid], {})[r.model] = got
+    for label, logits in by_graph.items():
+        if "gcn_dense" in logits:
+            for model, got in logits.items():
+                torch.testing.assert_close(got, logits["gcn_dense"], **TOL)
+    print(f"[serve-grasp] logits of all {len(done)} requests match the "
+          f"plain forward (max_abs_err {sp_err:.3e}; rtol={TOL['rtol']} "
+          f"atol={TOL['atol']}); argmax equal ({ties} ties within atol); "
+          f"the grasp logits of each clustered graph match gcn_dense's",
+          flush=True)
+    print("[serve-grasp] summary " + json.dumps(
+        {"requests": len(done), "batches": s["batches"],
+         "grasp_batches": s["grasp_batches"],
+         "backend_fallbacks": s["backend_fallbacks"],
+         "agg_backends": s["agg_backends"],
+         "device_busy_s": s["device_busy_s"],
+         "device_idle_fraction": s["device_idle_fraction"],
+         "operand_bytes_h2d": s["operand_bytes_h2d"],
+         "compiled_blobs": s["compiled_blobs"],
+         "p50_latency_ms": s["p50_latency_ms"],
+         "p99_latency_ms": s["p99_latency_ms"],
+         "wall_s": serve_s, "intake_s": intake_s,
+         "run_s": serve_s - intake_s}), flush=True)
+    launches.update({k: launches_sp[k]
+                     for k in ("bitmap_spmm", "fused_gcn_grasp")})
+
+    # ---------------------------------------------------------- 5. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -485,13 +756,37 @@ def main() -> None:
             return [torch._int_mm(a[i], b[i]) for i in range(a.shape[0])]
         return torch._int_mm(a.reshape(-1, a.shape[-1]), b)
 
+    # the GraSp rows: the 3072 serving batch of clustered graphs. Library
+    # yardstick: torch.sparse.mm of each graph's Â as a 128-block BSR
+    # tensor (a batch of BSR tensors needs equal block counts, which these
+    # graphs do not have, so one call per graph); beside it torch.matmul of
+    # the densified Â, the dense backend's work.
+    g3 = grasp_cases[CAP]
+    sp_cases = {"L1 A@H": (*g3["st"], g3["h1"]),
+                "L2 A@H": (*g3["st"], g3["h2"])}
+    spf_cases = {"L1 relu": (*g3["st"], g3["x1"], w1, b1, "relu"),
+                 "L2 none": (*g3["st"], g3["x2"], w2, b2, "none")}
+    try:
+        bsr = [a.to_sparse_bsr((TILE, TILE)) for a in g3["adj"]]
+        torch.testing.assert_close(
+            torch.stack([torch.sparse.mm(m, h) for m, h in
+                         zip(bsr, g3["h1"])]),
+            bs.bitmap_spmm_plain(*sp_cases["L1 A@H"]), **TOL)
+        bsr_refused = None
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        bsr, bsr_refused = None, f"{type(e).__name__}: {e}"
+        print(f"[time] torch.sparse.mm on a BSR tensor refused: "
+              f"{bsr_refused}", flush=True)
+
     rows = []
     for kernel, cases in (("block_matmul", products),
                           ("fused_gcn_dense", layers),
                           ("int8_matmul", i8_products),
-                          ("fused_gcn_int8", i8_layers)):
+                          ("fused_gcn_int8", i8_layers),
+                          ("bitmap_spmm", sp_cases),
+                          ("fused_gcn_grasp", spf_cases)):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "flops": 0.0, "bytes": 0.0}
+               "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0}
         peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
                 else FP32_FLOPS_PER_S)
         for label, args in cases.items():
@@ -513,6 +808,26 @@ def main() -> None:
                 t_l = time_ms(lambda: int_mm(a, b))
                 flops, nbytes_ = matmul_work(a, b)
                 nbytes_ += nbytes(ws)
+            elif kernel == "bitmap_spmm":
+                h = args[3]
+                t_k = time_ms(lambda: bs.bitmap_spmm(*args))
+                t_p = time_ms(lambda: bs.bitmap_spmm_plain(*args))
+                t_l = (None if bsr is None else time_ms(
+                    lambda: [torch.sparse.mm(m, hi)
+                             for m, hi in zip(bsr, h)]))
+                t_d = time_ms(lambda: torch.matmul(g3["adj"], h))
+                tot["dense_ms"] += t_d
+                print(f"[time] bitmap_spmm {label}: torch.matmul of the "
+                      f"densified A {t_d:.4f} ms", flush=True)
+                flops, nbytes_ = grasp_work(args[1], args[2], h.shape[-1])
+            elif kernel == "fused_gcn_grasp":
+                cols_, counts_, x, w = args[1], args[2], args[3], args[4]
+                t_k = time_ms(lambda: fl.fused_gcn_grasp(*args))
+                t_p = time_ms(lambda: fl.fused_gcn_grasp_plain(*args))
+                t_l = None
+                flops, nbytes_ = grasp_work(cols_, counts_, w.shape[1],
+                                            fin=x.shape[-1])
+                nbytes_ += nbytes(w, args[5])
             else:
                 x, wq, sw, xs, hs, aq_, as_, bias = args[:8]
                 t_k = time_ms(lambda: fl.fused_gcn_int8(*args))
@@ -535,13 +850,42 @@ def main() -> None:
             tot["bytes"] += nbytes_
         b_ms, b_by = bound(tot["flops"], tot["bytes"], peak)
         src, replaces = SOURCES[kernel]
-        rows.append({"name": kernel, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[kernel],
-                     "max_abs_err": err[kernel], "ms": tot["ms"],
-                     "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": tot["library_ms"],
-                     "per": f"one batch of {SLOTS} graphs at {CAP} nodes: "
-                            + ", ".join(cases)})
+        row = {"name": kernel, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[kernel],
+               "max_abs_err": err[kernel], "ms": tot["ms"],
+               "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": tot["library_ms"],
+               "per": f"one batch of {SLOTS} graphs at {CAP} nodes: "
+                      + ", ".join(cases)}
+        if kernel == "bitmap_spmm":
+            row.update(dense_matmul_ms=tot["dense_ms"],
+                       library="torch.sparse.mm per graph on 128-block BSR",
+                       library_refused=bsr_refused)
+        rows.append(row)
+
+    # what replaces the guessed GraSp step overhead of core/costs.py: the
+    # measured dense and GraSp aggregation of each bucket's serving batch
+    for gcap, case in grasp_cases.items():
+        st_, h = case["st"], case["h1"]
+        t_g = time_ms(lambda: bs.bitmap_spmm(*st_, h))
+        t_bm = time_ms(lambda: bm.block_matmul(case["adj"], h))
+        t_mm = time_ms(lambda: torch.matmul(case["adj"], h))
+        bsz, rb, budget = st_[1].shape
+        dense_s, grasp_s = agg_cost_model(
+            gcap, h.shape[-1], nnz_blocks=int(st_[2].sum()) // bsz,
+            max_nnz=budget)
+        flops, nbytes_ = grasp_work(st_[1], st_[2], h.shape[-1])
+        floor_ms = max(flops / costs.FP32_RATE,
+                       nbytes_ / costs.HBM_BW) * 1e3
+        steps = bsz * rb * budget
+        print(f"[agg] bucket {gcap}, batch of {bsz}, F={h.shape[-1]}, "
+              f"budget {budget}: grasp (bitmap_spmm) {t_g:.4f} ms, dense "
+              f"block_matmul {t_bm:.4f} ms, dense torch.matmul {t_mm:.4f} "
+              f"ms; modelled per batch dense {dense_s * bsz * 1e3:.4f} ms, "
+              f"grasp {grasp_s * bsz * 1e3:.4f} ms; measured step overhead "
+              f"{max(t_g - floor_ms, 0.0) / steps * 1e6:.2f} ns over "
+              f"{steps} steps (costs.GRASP_STEP_OVERHEAD_S = "
+              f"{costs.GRASP_STEP_OVERHEAD_S * 1e9:.0f} ns)", flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -2,8 +2,9 @@
 reference package's weights or tier calibration converted with
 `np.asarray`) onto a device.
 
-Takes the reference's parameter tree `{"l1": {"w", "b"}, "l2": {...}}`
-and its GCN tier calibration with numpy leaves; nothing here knows of JAX.
+Takes the reference's parameter tree `{"l1": {"w", "b"}, "l2": {...}}`,
+its GCN tier calibration and its GraSp block structures with numpy leaves;
+nothing here knows of JAX.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import QuantizedLinear
+from repro_torch.core.sparsity import LEAVES, BlockSparse, upload_block_sparse
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -43,3 +45,12 @@ def calibration_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
                                 x_scale=tensor(v["x_scale"]))
                 if isinstance(v, dict) else tensor(v))
             for k, v in tree.items()}
+
+
+def block_sparse_from_jax(sp, *, device: DeviceLike = None) -> BlockSparse:
+    """A reference `BlockSparse` whose leaves are numpy arrays -> the
+    port's structure on `device`, values and dtypes kept exactly."""
+    return upload_block_sparse(BlockSparse(
+        **{f: np.asarray(getattr(sp, f)) for f in LEAVES},
+        block_size=int(sp.block_size),
+        shape=tuple(int(d) for d in sp.shape)), device)

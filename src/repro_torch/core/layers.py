@@ -1,12 +1,13 @@
-"""GCN layers on the GraNNite dense path (StaGr / PreG), fp32 and QuantGr.
+"""GCN layers on the GraNNite path (StaGr / PreG): fp32 dense, QuantGr and
+GraSp.
 
 Port of the GCN part of the reference's `core/layers.py`: `Techniques`
 keeps every flag so plan keys compare like the reference's, and the layer
-functions carry the fp32 dense branches and the QuantGr branches (int8
+functions carry the fp32 dense branches, the QuantGr branches (int8
 combine and int8 aggregation, through the `int8_matmul` and
-`fused_gcn_int8` kernels on the card). GraSp inputs raise until ROADMAP
-queue 2's GraSp kernels (queue 1 item 6) are ported; the baseline
-edge-list layers, GAT and SAGE come later too.
+`fused_gcn_int8` kernels on the card) and the GraSp branches (the
+block-sparse aggregation, through `bitmap_spmm` and `fused_gcn_grasp`).
+The baseline edge-list layers, GAT and SAGE come later.
 """
 from __future__ import annotations
 
@@ -52,13 +53,6 @@ def gcn_init(gen: torch.Generator, in_feats: int, out_feats: int, *,
             "b": torch.zeros(out_feats, dtype=torch.float32, device=device)}
 
 
-def _no_grasp(block_sparse) -> None:
-    if block_sparse is not None:
-        raise NotImplementedError(
-            "GraSp aggregation is not ported yet (ROADMAP queue 1 item 6, "
-            "queue 2 bitmap_spmm / fused_gcn_grasp)")
-
-
 def gcn_grannite(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
                  t: Techniques, *, quant: Optional[QuantizedLinear] = None,
                  quant_agg: Optional[QuantizedAgg] = None,
@@ -68,6 +62,11 @@ def gcn_grannite(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
                  block_sparse=None) -> torch.Tensor:
     """StaGr/PreG path: out = Â @ (X W) + b — two dense matmuls, through
     the `block_matmul` kernel when `t.use_pallas`, else plain matmuls.
+
+    GraSp (`t.grasp` with `block_sparse`, a `core.sparsity.BlockSparse`
+    batched like x) aggregates through the `bitmap_spmm` kernel; the
+    QuantGr aggregation forms take precedence over it, as in the
+    reference.
 
     QuantGr (`t.quantgr` with `quant`) makes the combine an int8 chain,
     and the aggregation has three QuantGr forms, identical for the same Â:
@@ -79,7 +78,6 @@ def gcn_grannite(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
 
     x: (B?, N, Fin); norm_adj, tier_aq: (B?, N, N); tier_a_scale (B?, N, 1).
     """
-    _no_grasp(block_sparse)
     if t.quantgr and quant is not None:
         h = apply_quantized_linear(x, quant, use_kernel=t.use_pallas)
     elif t.use_pallas:
@@ -96,6 +94,8 @@ def gcn_grannite(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
         else:
             qa = quantize_agg_dynamic(norm_adj, agg_h_scale)
         agg = apply_quantized_agg(qa, h, use_kernel=t.use_pallas)
+    elif t.grasp and block_sparse is not None:
+        agg = kops.bitmap_spmm(block_sparse, h)
     elif t.use_pallas:
         agg = kops.matmul(norm_adj, h)
     else:
@@ -123,8 +123,8 @@ def gcn_grannite_fused(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
                        block_sparse=None) -> torch.Tensor:
     """Fused twin of `gcn_grannite`: one kernel call per layer, bias and
     activation in the kernel's epilogue — `fused_gcn_int8` for QuantGr
-    (same aggregation forms and precedence), else `fused_gcn_dense`."""
-    _no_grasp(block_sparse)
+    (same aggregation forms and precedence), `fused_gcn_grasp` for GraSp
+    (`t.grasp` with `block_sparse`), else `fused_gcn_dense`."""
     if t.quantgr and quant is not None:
         if quant_agg is not None:
             qa = quant_agg
@@ -142,6 +142,10 @@ def gcn_grannite_fused(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
         qt = (quant.wq, quant.w_scale, quant.x_scale, qa.h_scale, qa.aq,
               qa.a_scale)
         return kops.fused_gcn_layer(x, params["w"], params["b"], quant=qt,
+                                    activation=activation)
+    if t.grasp and block_sparse is not None:
+        return kops.fused_gcn_layer(x, params["w"], params["b"],
+                                    block_sparse=block_sparse,
                                     activation=activation)
     return kops.fused_gcn_layer(x, params["w"], params["b"],
                                 norm_adj=norm_adj, activation=activation)

@@ -1,5 +1,5 @@
-"""The paper's 2-layer GCN on the GraNNite dense path, its QuantGr serving
-tiers, and execution plans.
+"""The paper's 2-layer GCN on the GraNNite path, its QuantGr serving tiers,
+its GraSp aggregation backend, and execution plans.
 
 Port of the GCN part of the reference's `core/models.py`. Operands are
 torch tensors on an explicit device; the reference's `vmap` over graphs is
@@ -10,23 +10,29 @@ Plan identity keeps the zero-recompile contract without a compiler: an
 (parameters, features, operands, tier calibration and tier operands),
 and counts one "trace" for each signature it has not seen — exactly the
 calls that would retrace a `jax.jit` in the reference. The tier-operand
-deriver `AggQuantizer` counts the same way. `GraphServe` sums these counts
-into `compiled_blobs`, so `assert_warm()` still says whether serving
-stayed on the shapes warmup saw.
+deriver `AggQuantizer` and the GraSp structure deriver `BlockCompactor`
+count the same way. `GraphServe` sums these counts into `compiled_blobs`,
+so `assert_warm()` still says whether serving stayed on the shapes warmup
+saw.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops as kops
 
 from . import layers
 from .graph import PaddedGraph
 from .layers import Techniques
 from .quant import calibrate_absmax, quantize_linear, quantize_rowwise
+from .sparsity import (BlockSparse, block_counts, compact_block_sparse,
+                       pad_block_sparse, stack_block_sparse, to_block_sparse,
+                       upload_block_sparse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +70,8 @@ class GranniteOperands:
     """Host-precomputed (GraphSplit/PreG/StaGr) dense operands on a device.
 
     Only GCN's `norm_adj` is built in this port; the masks stay None until
-    GAT/SAGE, and `block_sparse` until GraSp. `quant` is the per-graph
+    GAT/SAGE. `block_sparse` is the GraSp compacted Â (tensor leaves) that
+    a grasp plan reads, None for a dense plan. `quant` is the per-graph
     offline QuantGr form (the reference's `calibrate_quant`, not ported):
     serving tiers carry their calibration beside the operands instead.
     """
@@ -73,7 +80,7 @@ class GranniteOperands:
     bias_add: Optional[torch.Tensor] = None
     sample_mask: Optional[torch.Tensor] = None
     mean_mask: Optional[torch.Tensor] = None
-    block_sparse: Optional[object] = None
+    block_sparse: Optional[BlockSparse] = None
     quant: Optional[Dict] = None
 
 
@@ -85,9 +92,15 @@ OPERAND_FIELDS = {
 }
 
 
-def build_operands(pg: PaddedGraph, cfg: GNNConfig, *, lean: bool = True,
+def build_operands(pg: PaddedGraph, cfg: GNNConfig, *, grasp: bool = False,
+                   max_nnz: Optional[int] = None,
+                   bitmap: Optional[np.ndarray] = None, lean: bool = True,
                    device: DeviceLike = None) -> GranniteOperands:
-    """Host side of GraphSplit for one padded graph: Â uploaded to `device`.
+    """Host side of GraphSplit for one padded graph: Â uploaded to `device`,
+    with its host-compacted block structure when `grasp`
+    (`to_block_sparse`, reusing `bitmap` from the caller's `block_stats`
+    when given). The lists are as wide as the graph's densest block row,
+    or padded to the bucket budget `max_nnz` so that a batch can stack.
 
     Only the lean build (the fields `cfg.kind` reads) exists in the port.
     """
@@ -96,13 +109,22 @@ def build_operands(pg: PaddedGraph, cfg: GNNConfig, *, lean: bool = True,
         raise NotImplementedError(
             "the full operand build (GAT/SAGE masks) is not ported yet "
             "(ROADMAP queue 1 item 7)")
-    return GranniteOperands(
-        norm_adj=torch.from_numpy(pg.norm_adj).to(resolve_device(device)))
+    dev = resolve_device(device)
+    sp = None
+    if grasp:
+        sp = to_block_sparse(pg.norm_adj, bitmap=bitmap)
+        if max_nnz is not None:
+            sp = pad_block_sparse(sp, max_nnz)
+        sp = upload_block_sparse(sp, dev)
+    return GranniteOperands(norm_adj=torch.from_numpy(pg.norm_adj).to(dev),
+                            block_sparse=sp)
 
 
 def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
     """Stack per-graph operands into one batched (B, ...) set on their
-    device."""
+    device. GraSp structures stack too (`stack_block_sparse`, one budget),
+    all or none per batch: a grasp plan's operands always carry one, a
+    dense plan's never do."""
     if not ops:
         raise ValueError("cannot stack an empty operand batch")
     if any(o.quant is not None for o in ops):
@@ -110,7 +132,15 @@ def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
             "per-graph offline QuantGr operands (ops.quant) cannot be "
             "batched — they bake one graph's Â; serve quantized tiers "
             "through the model-level calibrate_tier path instead")
-    return GranniteOperands(norm_adj=torch.stack([o.norm_adj for o in ops]))
+    with_blocks = [o.block_sparse is not None for o in ops]
+    if any(with_blocks) and not all(with_blocks):
+        raise ValueError(
+            "cannot batch a mix of GraSp and dense operand sets — resolve "
+            "one aggregation backend per batch")
+    return GranniteOperands(
+        norm_adj=torch.stack([o.norm_adj for o in ops]),
+        block_sparse=(stack_block_sparse([o.block_sparse for o in ops])
+                      if all(with_blocks) else None))
 
 
 @dataclasses.dataclass
@@ -139,9 +169,10 @@ def stack_tier_operands(tos: Sequence[TierOperands]) -> TierOperands:
 
 def _sig(v):
     """Shape/dtype/device structure of a nested argument: what a jit trace
-    would specialize on."""
-    if v is None:
-        return None
+    would specialize on. Ints (and tuples of them) are static, as
+    `BlockSparse.block_size` and `.shape` are for a trace."""
+    if v is None or isinstance(v, int):
+        return v
     if isinstance(v, torch.Tensor):
         return (tuple(v.shape), v.dtype, v.device)
     if isinstance(v, dict):
@@ -173,6 +204,37 @@ class AggQuantizer:
         return derive_tier_operands(norm_adj)
 
 
+@dataclasses.dataclass
+class BlockCompactor:
+    """The GraSp structure deriver (the reference's jitted
+    `build_block_compactor`), with ExecutionPlan's trace accounting: each
+    half counts one trace per unseen Â signature — and, for the gather,
+    per budget — which is one per bucket. GraphServe warms both halves in
+    `warmup()` and adds `trace_count` to `compiled_blobs`.
+
+    The structure is derived state: computed on the device from an
+    attached graph's cached fp32 Â once per (graph_id, version). `counts`
+    is the cheap half (one bitmap reduction), enough for the backend rule,
+    so a graph routed dense never pays the gather of `__call__`.
+    """
+    trace_count: int = 0
+    _seen: Set = dataclasses.field(default_factory=set, repr=False)
+
+    def _trace(self, *sig) -> None:
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self.trace_count += 1
+
+    def __call__(self, norm_adj: torch.Tensor, *, max_nnz: int
+                 ) -> Tuple[BlockSparse, torch.Tensor]:
+        self._trace("compact", _sig(norm_adj), max_nnz)
+        return compact_block_sparse(norm_adj, max_nnz=max_nnz)
+
+    def counts(self, norm_adj: torch.Tensor) -> torch.Tensor:
+        self._trace("counts", _sig(norm_adj))
+        return block_counts(norm_adj)
+
+
 def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,
                    ops_: GranniteOperands) -> Dict:
     """Model-level QuantGr calibration for one serving tier (GCN).
@@ -201,7 +263,11 @@ def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,
 #           act). Same math, another execution schedule.
 FUSION_MODES = ("none", "layer")
 
-# Aggregation backends (DESIGN.md §10); only "dense" is ported.
+# Aggregation backends (DESIGN.md §10): how a plan executes Â @ H.
+#   dense — one dense product over the full (cap, cap) operand.
+#   grasp — the block-sparse walk over a compacted structure (the operands
+#           MUST carry `block_sparse`, padded to the bucket's grasp_max_nnz
+#           budget; dense plans must carry None).
 AGG_BACKENDS = ("dense", "grasp")
 
 
@@ -259,7 +325,10 @@ class ExecutionPlan:
     been called with (what a `jax.jit` would have traced): after warmup, a
     steady serving loop adds none. A QuantGr plan is always called with a
     calibration (real or a warmup placeholder of the same shapes) and tier
-    operands, a fp32 plan with None for both.
+    operands, a fp32 plan with None for both. `grasp_ref_fallback` is True
+    for a grasp plan on the CPU, where the aggregation runs the plain
+    version (padded entries multiplied by 0, not skipped); GraphServe
+    counts its requests in `backend_fallbacks`.
     """
     cfg: GNNConfig
     techniques: Techniques
@@ -270,6 +339,7 @@ class ExecutionPlan:
     shards: int = 0                           # sharding is not ported
     fn: Callable = dataclasses.field(default=None, repr=False)
     trace_count: int = 0
+    grasp_ref_fallback: bool = False
     _seen: Set = dataclasses.field(default_factory=set, repr=False)
 
     @property
@@ -298,28 +368,32 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
     `stack_operands`, `stack_tier_operands`); params and the model-level
     calibration are shared across the batch. The plan checks that its
     arguments lie on its device.
+
+    `backend="grasp"` executes the aggregation through the block-sparse
+    path: the tier's Techniques identity (the plan key) is unchanged, the
+    executed Techniques gain `grasp=True`.
     """
     if backend not in AGG_BACKENDS:
         raise ValueError(f"unknown aggregation backend {backend!r}; pick "
                          f"from {AGG_BACKENDS}")
-    if backend != "dense":
-        raise NotImplementedError(
-            "the GraSp aggregation backend is not ported yet (ROADMAP "
-            "queue 1 item 6)")
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion mode {fusion!r}; pick from "
                          f"{FUSION_MODES}")
     _gcn_only(cfg)
     dev = resolve_device(device)
+    exec_t = dataclasses.replace(t, grasp=True) if backend == "grasp" else t
     plan = ExecutionPlan(cfg=cfg, techniques=t, capacity=capacity,
                          batch_size=batch_size, backend=backend,
-                         fusion=fusion)
+                         fusion=fusion,
+                         grasp_ref_fallback=(backend == "grasp" and
+                                             kops.bitmap_spmm_mode(dev)
+                                             == "ref"))
 
     def _forward(params, x, ops_, quant, tier_ops):
         if x.device != dev or ops_.norm_adj.device != dev:
             raise ValueError(f"plan on {dev} called with x on {x.device} "
                              f"and norm_adj on {ops_.norm_adj.device}")
-        return forward_grannite(params, cfg, x, ops_, t, quant=quant,
+        return forward_grannite(params, cfg, x, ops_, exec_t, quant=quant,
                                 tier_ops=tier_ops, fusion=fusion)
 
     plan.fn = _forward

@@ -30,6 +30,8 @@ ENTRY_POINTS = {
     "fused_gcn_dense": ("fused_gcn_dense_f32", "pppppp" "iiiii" "ip"),
     "int8_matmul": ("int8_matmul_s8", "pppp" "iiiiii" "ip"),
     "fused_gcn_int8": ("fused_gcn_int8_f32", "pppppppppp" "iiiii" "ip"),
+    "bitmap_spmm": ("bitmap_spmm_f32", "ppppp" "iiiii" "ip"),
+    "fused_gcn_grasp": ("fused_gcn_grasp_f32", "pppppppp" "iiiiii" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

@@ -20,12 +20,14 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def check_cuda(kernel: str, *, int8: Sequence[str] = (),
+               int32: Sequence[str] = (),
                **tensors: torch.Tensor) -> torch.device:
     """Raise unless every operand is a contiguous tensor on one CUDA device,
-    int8 for the names in `int8` and float32 for the others; return that
-    device."""
+    int8 for the names in `int8`, int32 for those in `int32` and float32
+    for the others; return that device."""
     for name, t in tensors.items():
-        want = torch.int8 if name in int8 else torch.float32
+        want = (torch.int8 if name in int8 else
+                torch.int32 if name in int32 else torch.float32)
         if t.device.type != "cuda":
             raise ValueError(
                 f"{kernel}: {name} lies on {t.device}; the kernel takes CUDA "

@@ -8,16 +8,20 @@
     `h_scale`, then act(float(Âq @ Hq) * a_scale[row] * h_scale + b). Port
     of the TPU kernel `fused_gcn_int8` (`csrc/fused_gcn_int8.cu`), bit for
     bit the plain `fused_gcn_int8_plain`.
+  * `fused_gcn_grasp` — act(Â @ (X @ W) + b) with Â in the GraSp compacted
+    form (`core.sparsity.BlockSparse` leaves). Port of the TPU kernel
+    `fused_gcn_grasp` (`csrc/fused_gcn_grasp.cu`); its aggregation is the
+    block-sparse walk of `bitmap_spmm` (`csrc/bsr_tile.cuh`).
 
-Both TPU kernels kept the combine result in VMEM, filled by row-block 0
-and read by the later ones in grid order; a CUDA grid has no order, so
+The three TPU kernels kept the combine result in VMEM, filled by row-block
+0 and read by the later ones in grid order; a CUDA grid has no order, so
 each port runs a combine launch into a scratch tensor (L2 resident at
 serving widths) and an aggregate launch with the epilogue fused into its
 store. Both launches run on the current stream inside one wrapper call,
-which counts one in `LAUNCHES` (dense) or `INT8_LAUNCHES` (int8).
+which counts one in `LAUNCHES` (dense), `INT8_LAUNCHES` (int8) or
+`GRASP_LAUNCHES` (GraSp).
 
-The other fused kernels of the reference (GraSp, GAT, SAGE) are not
-ported yet.
+The other fused kernels of the reference (GAT, SAGE) are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,10 +29,12 @@ import torch
 
 from . import _build
 from ._launch import check_cuda, check_int32, launch, on_cpu
+from .bitmap_spmm import bitmap_spmm_plain, check_structure
 from .int8_matmul import check_accumulator, int_matmul, quantize_s8
 
 LAUNCHES = 0                      # calls of `fused_gcn_dense` that launched
 INT8_LAUNCHES = 0                 # calls of `fused_gcn_int8` that launched
+GRASP_LAUNCHES = 0                # calls of `fused_gcn_grasp` that launched
 ACTIVATIONS = {"none": 0, "relu": 1, "elu": 2}   # the kernel's `act` codes
 
 
@@ -149,4 +155,61 @@ def fused_gcn_int8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                b.data_ptr(), hq.data_ptr(), out.data_ptr(), batch, n, fin, o,
                ACTIVATIONS[activation])
         INT8_LAUNCHES += 1
+    return out
+
+
+def fused_gcn_grasp_plain(blocks: torch.Tensor, block_cols: torch.Tensor,
+                          counts: torch.Tensor, x: torch.Tensor,
+                          w: torch.Tensor, b: torch.Tensor,
+                          activation: str = "none") -> torch.Tensor:
+    """Plain PyTorch version: the combine, `bitmap_spmm_plain`, bias and
+    activation as separate ops."""
+    agg = bitmap_spmm_plain(blocks, block_cols, counts, torch.matmul(x, w))
+    return _act(agg + b.reshape(1, -1), activation)
+
+
+def fused_gcn_grasp(blocks: torch.Tensor, block_cols: torch.Tensor,
+                    counts: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor, activation: str = "none"
+                    ) -> torch.Tensor:
+    """GraSp fused layer over a leading batch of graphs.
+
+    blocks (B, rb*max_nnz, 128, 128), block_cols (B, rb, max_nnz) int32 and
+    counts (B, rb) int32: the compacted square Â of N = rb*128 rows;
+    x: (B, N, Fin); w: (Fin, O); b: (O,) or (1, O). Returns (B, N, O)
+    float32.
+    """
+    global GRASP_LAUNCHES
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; pick from "
+                         f"{sorted(ACTIVATIONS)}")
+    operands = dict(blocks=blocks, block_cols=block_cols, counts=counts,
+                    x=x, w=w, b=b)
+    if on_cpu(*operands.values()):
+        return fused_gcn_grasp_plain(blocks, block_cols, counts, x, w, b,
+                                     activation)
+    device = check_cuda("fused_gcn_grasp", int32=("block_cols", "counts"),
+                        **operands)
+    check_structure("fused_gcn_grasp", blocks, block_cols, counts)
+    batch, rb, max_nnz = block_cols.shape
+    if x.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"fused_gcn_grasp: x must be (B, N, Fin) and w "
+                         f"(Fin, O), got {tuple(x.shape)}, {tuple(w.shape)}")
+    n, fin = x.shape[1:]
+    o = w.shape[1]
+    if (x.shape[0] != batch or n != rb * 128 or w.shape[0] != fin
+            or b.numel() != o):
+        raise ValueError(
+            f"fused_gcn_grasp: shapes do not agree: {rb} block rows, x "
+            f"{tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
+    out = torch.empty(batch, n, o, dtype=torch.float32, device=device)
+    if out.numel():
+        check_int32("fused_gcn_grasp", n=n, fin=fin, o=o)
+        h = torch.empty_like(out)            # combine scratch, L2 resident
+        launch("fused_gcn_grasp", _build.load("fused_gcn_grasp"), device,
+               blocks.data_ptr(), block_cols.data_ptr(), counts.data_ptr(),
+               x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
+               out.data_ptr(), batch, rb, max_nnz, fin, o,
+               ACTIVATIONS[activation])
+        GRASP_LAUNCHES += 1
     return out

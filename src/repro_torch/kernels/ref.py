@@ -1,6 +1,7 @@
 """Plain torch oracles for the ported kernels, twins of the reference's
-`kernels/ref.py` (`matmul_ref`, `int8_matmul_ref`, and the dense and
-QuantGr branches of `fused_gcn_layer_ref`).
+`kernels/ref.py` (`matmul_ref`, `int8_matmul_ref`, `bitmap_spmm_ref`,
+`bitmap_spmm_block_ref`, the dense and QuantGr branches of
+`fused_gcn_layer_ref`, and `fused_gcn_grasp_layer_ref`).
 
 They take the unpadded shapes the layers see, not the tile-padded ones the
 kernels take, and are written independently of the kernels' plain
@@ -29,6 +30,27 @@ def int8_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, x_scale,
                     w_scale) -> torch.Tensor:
     """INT8 x INT8 -> INT32 accumulate -> FP32 rescale."""
     return int_matmul(xq, wq).to(torch.float32) * (x_scale * w_scale)
+
+
+def bitmap_spmm_ref(dense_a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """GraSp oracle: the block-compacted form must equal the dense matmul."""
+    return (dense_a @ h).to(h.dtype)
+
+
+def bitmap_spmm_block_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
+                          counts: torch.Tensor, h: torch.Tensor, *,
+                          block_size: int) -> torch.Tensor:
+    """GraSp on the compacted form of one graph: gather the H row blocks
+    each entry names, and one einsum over the entries masked by
+    k < counts."""
+    rb, max_nnz = block_cols.shape
+    bs = block_size
+    f = h.shape[1]
+    gathered = h.reshape(-1, bs, f)[block_cols.long()]   # (rb, max_nnz, bs, f)
+    blk = blocks.reshape(rb, max_nnz, bs, bs)
+    mask = (torch.arange(max_nnz)[None, :] < counts[:, None]).to(blocks.dtype)
+    return torch.einsum("rk,rkij,rkjf->rif", mask, blk, gathered
+                        ).reshape(rb * bs, f).to(h.dtype)
 
 
 def _act_ref(z: torch.Tensor, activation: str) -> torch.Tensor:
@@ -62,3 +84,15 @@ def fused_gcn_layer_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         return _act_ref(z, activation)
     h = matmul_ref(x, w, out_dtype=torch.float32)
     return _act_ref(norm_adj @ h + b.reshape(1, -1), activation).to(x.dtype)
+
+
+def fused_gcn_grasp_layer_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
+                              counts: torch.Tensor, x: torch.Tensor,
+                              w: torch.Tensor, b: torch.Tensor, *,
+                              block_size: int,
+                              activation: str = "none") -> torch.Tensor:
+    """GraSp GCN layer twin: combine, then the compacted aggregation."""
+    h = matmul_ref(x, w, out_dtype=torch.float32)
+    agg = bitmap_spmm_block_ref(blocks, block_cols, counts, h,
+                                block_size=block_size)
+    return _act_ref(agg + b.reshape(1, -1), activation).to(x.dtype)

@@ -24,20 +24,34 @@ Port of the synchronous serving path of the reference's
     through the `block_matmul` / `int8_matmul` kernels when the tier's
     Techniques set `use_pallas`. Fusion joins the batch key and warmup
     runs both modes, as in the reference.
+  * GraSp aggregation backend (DESIGN.md §10) — a model registered with
+    `agg_backend="auto"` routes each graph by the density/cost rule
+    (`core.sparsity.select_agg_backend`, H100 constants); `"grasp"` forces
+    the block-sparse path where the graph's structure fits the bucket's
+    `grasp_max_nnz` budget, and counts each ineligible request in
+    `backend_fallbacks`. Grasp batches run `fused_gcn_grasp`
+    (`fusion="layer"`) or `bitmap_spmm` (`fusion="none"`). QuantGr tiers
+    always resolve dense. The backend joins the batch key and warmup runs
+    both backends.
   * Zero-recompile — after `warmup()`, `assert_warm()` holds while requests
     stay within the ladder: plans count unseen argument signatures
     (`core.models.ExecutionPlan`).
 
-Attached graphs keep their device operands, and their derived int8 Â,
-in dicts keyed by (graph_id, structure_version): a repeated query moves no
-operand bytes and quantizes nothing. Not ported yet (ROADMAP queue 1):
-GraSp backends, CacheG's compact operand pipeline (the engine requires
-`use_cacheg=False`), `update`/`update_delta`, the tolerance router and SLO
+Attached graphs keep their device operands, their derived int8 Â and their
+GraSp decision and structure (derived on the device from the cached Â by
+`BlockCompactor`) in dicts keyed by (graph_id, structure_version): a
+repeated query moves no operand bytes, quantizes and compacts nothing. A
+one-shot grasp request builds its structure on the host
+(`to_block_sparse`, padded to the budget) and counts its bytes in
+`operand_bytes_h2d`. Not ported yet (ROADMAP queue 1): CacheG's compact
+operand pipeline (the engine requires `use_cacheg=False`),
+`update`/`update_delta`, the latency bank, the tolerance router and SLO
 governor, the async scheduler and sharding.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -46,11 +60,14 @@ import torch
 from repro_torch.core.graph import BucketLadder, Graph, PaddedGraph, pad_graph
 from repro_torch.core.layers import Techniques
 from repro_torch.core.models import (FUSION_MODES, ExecutionPlan, GNNConfig,
-                                     AggQuantizer, GranniteOperands, PlanKey,
+                                     AggQuantizer, BlockCompactor,
+                                     GranniteOperands, PlanKey,
                                      TierOperands, build_operands,
                                      build_plan, calibrate_tier,
                                      forward_grannite, init_params,
                                      stack_operands, stack_tier_operands)
+from repro_torch.core.sparsity import (BlockSparse, block_stats,
+                                       grasp_max_nnz, select_agg_backend)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime.clock import WALL, Clock
 
@@ -58,6 +75,11 @@ from repro_torch.runtime.clock import WALL, Clock
 DEFAULT_TECHNIQUES: Dict[str, Techniques] = {
     "gcn": Techniques(stagr=True, grad_dynamic=True, graphsplit=True),
 }
+
+# Aggregation-backend serving modes (register_model(agg_backend=...)):
+# "dense" never dispatches GraSp, "auto" routes per graph by the modelled
+# density/cost rule, "grasp" forces the sparse path where eligible.
+AGG_BACKEND_MODES = ("dense", "auto", "grasp")
 
 # (model, bucket, tier, agg backend, fusion mode, shard count — 0 unsharded)
 BatchKey = Tuple[str, int, str, str, str, int]
@@ -208,6 +230,7 @@ class _ModelEntry:
     params: Dict
     tiers: Dict[str, Techniques]           # tier name -> execution variant
     default_tier: str
+    agg_backend: str = "dense"             # "dense" | "auto" | "grasp" (§10)
     default_fusion: str = "none"           # "none" | "layer" (§11)
     # once per (model, tier): calibrate_tier results for QuantGr tiers, and
     # the measured accuracy_delta_vs_fp32 for every non-fp32 tier
@@ -236,7 +259,12 @@ class GraphServe:
         self._operands: Dict[Tuple[int, int], GranniteOperands] = {}
         # derived int8 Â of attached graphs, same keys
         self._tier_operands: Dict[Tuple[int, int], TierOperands] = {}
+        # GraSp decision and structure (None when dense) of attached
+        # graphs, same keys
+        self._grasp: Dict[Tuple[int, int],
+                          Tuple[str, Optional[BlockSparse]]] = {}
         self._agg_quantizer = AggQuantizer()
+        self._block_compactor = BlockCompactor()
         self._plans: Dict[PlanKey, ExecutionPlan] = {}
         self._warm_blobs: Optional[int] = None
         self._uid = 0
@@ -246,7 +274,8 @@ class GraphServe:
         self.metrics = {"batches": 0, "slots_filled": 0, "slots_total": 0,
                         "latency_s": [], "first_submit_s": None,
                         "last_finish_s": None, "device_busy_s": 0.0,
-                        "operand_bytes_h2d": 0, "tier_fallbacks": 0}
+                        "operand_bytes_h2d": 0, "tier_fallbacks": 0,
+                        "grasp_batches": 0, "backend_fallbacks": 0}
 
     # ------------------------------------------------------------------ setup
     def register_model(self, name: str, cfg: GNNConfig,
@@ -264,9 +293,13 @@ class GraphServe:
         None (the single tier {"fp32": techniques or the default}), a
         sequence of standard tier names (`tier_techniques`), or a full
         {name: Techniques} dict; it must hold a non-QuantGr "fp32" tier,
-        the accuracy reference and the uncalibrated fallback. Only the
-        dense aggregation backend is ported. `fusion` is the model's
-        default fused-layer mode; requests may override it per call.
+        the accuracy reference and the uncalibrated fallback.
+        `agg_backend` is the model's GraSp mode (`AGG_BACKEND_MODES`):
+        "dense", "auto" (per-graph density/cost rule) or "grasp" (forced
+        where the structure fits the bucket budget; ineligible graphs
+        serve dense, counted in `backend_fallbacks`). QuantGr tiers always
+        resolve dense. `fusion` is the model's default fused-layer mode;
+        requests may override it per call.
         """
         if cfg.kind not in DEFAULT_TECHNIQUES:
             raise NotImplementedError(
@@ -301,10 +334,9 @@ class GraphServe:
         if default_tier not in registry:
             raise ValueError(f"default tier {default_tier!r} not in "
                              f"{sorted(registry)}")
-        if agg_backend != "dense":
-            raise NotImplementedError(
-                f"agg_backend={agg_backend!r}: only 'dense' is ported (GraSp "
-                "is ROADMAP queue 1 item 6)")
+        if agg_backend not in AGG_BACKEND_MODES:
+            raise ValueError(f"unknown agg_backend mode {agg_backend!r}; "
+                             f"pick from {AGG_BACKEND_MODES}")
         if fusion not in FUSION_MODES:
             raise ValueError(f"unknown fusion mode {fusion!r}; "
                              f"pick from {FUSION_MODES}")
@@ -319,6 +351,7 @@ class GraphServe:
         self.models[name] = _ModelEntry(cfg=cfg, params=params,
                                         tiers=registry,
                                         default_tier=default_tier,
+                                        agg_backend=agg_backend,
                                         default_fusion=fusion)
 
     def plan_for(self, model: str, bucket: int, tier: Optional[str] = None,
@@ -339,16 +372,22 @@ class GraphServe:
 
     @property
     def compiled_blobs(self) -> int:
-        """Distinct argument signatures seen, summed over all plans and the
-        tier-operand deriver (one per bucket with a QuantGr GCN tier)."""
+        """Distinct argument signatures seen, summed over all plans, the
+        tier-operand deriver (one per bucket with a QuantGr GCN tier) and
+        the GraSp block compactor (two per bucket with a grasp-capable
+        model: the counts reduction and the gather)."""
         return (sum(p.trace_count for p in self._plans.values())
-                + self._agg_quantizer.trace_count)
+                + self._agg_quantizer.trace_count
+                + self._block_compactor.trace_count)
 
     def warmup(self, *, buckets: Optional[Tuple[int, ...]] = None) -> int:
-        """Run every (model, bucket, tier, fusion) plan once on placeholder
-        inputs of the serving shapes — both fusion modes, as in the
-        reference, so mixed fused/unfused traffic replays warm. On the card
-        this also builds the CUDA kernels.
+        """Run every (model, bucket, tier, backend, fusion) plan once on
+        placeholder inputs of the serving shapes — both fusion modes, as in
+        the reference, so mixed fused/unfused traffic replays warm. On the
+        card this also builds the CUDA kernels. A grasp-capable model also
+        warms both halves of the block compactor and its grasp plans
+        (non-QuantGr tiers) on a placeholder structure at the bucket's
+        `grasp_max_nnz` budget, so mixed dense/grasp traffic replays warm.
 
         QuantGr tiers not yet calibrated warm against a throwaway
         calibration of the placeholder graph: its shapes depend only on the
@@ -369,10 +408,20 @@ class GraphServe:
                 ops = stack_operands([single] * b)
                 x = torch.zeros((b, bucket, e.cfg.in_feats),
                                 dtype=torch.float32, device=self.device)
+                ops_grasp = None
+                if self._grasp_capable(e):
+                    self._block_compactor.counts(single.norm_adj)
+                    bsp, _ = self._block_compactor(
+                        single.norm_adj, max_nnz=grasp_max_nnz(bucket))
+                    ops_grasp = stack_operands(
+                        [dataclasses.replace(single, block_sparse=bsp)] * b)
                 for tier, t in e.tiers.items():
-                    for fusion in FUSION_MODES:
+                    backends = ("dense",) if (ops_grasp is None or t.quantgr
+                                              ) else ("dense", "grasp")
+                    for backend, fusion in itertools.product(backends,
+                                                             FUSION_MODES):
                         # alias tiers (GCN int8+grax == int8) share a plan
-                        plan = self.plan_for(name, bucket, tier, "dense",
+                        plan = self.plan_for(name, bucket, tier, backend,
                                              fusion)
                         if (name, plan.key) in warmed:
                             continue
@@ -387,7 +436,9 @@ class GraphServe:
                         if self._needs_tier_ops(e, tier):
                             tops = stack_tier_operands(
                                 [self._agg_quantizer(single.norm_adj)] * b)
-                        plan(e.params, x, ops, quant, tops)
+                        plan(e.params, x,
+                             ops_grasp if backend == "grasp" else ops,
+                             quant, tops)
         self._sync()
         self._warm_blobs = self.compiled_blobs
         return self._warm_blobs
@@ -482,27 +533,97 @@ class GraphServe:
                              f"pick from {FUSION_MODES}")
         return fusion
 
-    def _device_operands(self, model: str, pg: PaddedGraph
+    @staticmethod
+    def _grasp_capable(e: _ModelEntry) -> bool:
+        """Whether this model can ever dispatch the GraSp backend: a
+        non-"dense" mode and a kind whose aggregation has a block-sparse
+        form (GCN)."""
+        return e.agg_backend != "dense" and e.cfg.kind == "gcn"
+
+    @staticmethod
+    def _backend_from_stats(e: _ModelEntry, capacity: int,
+                            stats: Dict) -> str:
+        """The density/cost rule (DESIGN.md §10) for one graph at one
+        bucket. `measured=None`: the port has no latency bank yet (ROADMAP
+        queue 3), so the modelled costs decide. A pure decision: fallbacks
+        are counted per request where the decision is used."""
+        mode = "grasp" if e.agg_backend == "grasp" else "auto"
+        choice, _, _ = select_agg_backend(
+            capacity, e.cfg.hidden, nnz_blocks=stats["nnz_blocks"],
+            max_row_nnz=stats["max_row_nnz"], mode=mode, measured=None)
+        return choice
+
+    def _count_forced_fallback(self, e: _ModelEntry, backend: str) -> None:
+        """One request of a forced-grasp model resolved dense (its
+        structure exceeds the bucket budget): count it, per request."""
+        if e.agg_backend == "grasp" and backend == "dense":
+            self.metrics["backend_fallbacks"] += 1
+
+    def _derive_grasp(self, e: _ModelEntry, capacity: int,
+                      norm_adj: torch.Tensor
+                      ) -> Tuple[str, Optional[BlockSparse]]:
+        """Counts-first device-side derivation for an attached graph: the
+        block counts (one read of rb int32 from the card) feed the rule,
+        and only a graph routed grasp pays the block gather."""
+        ct = self._block_compactor.counts(norm_adj).cpu().numpy()
+        stats = {"nnz_blocks": int(ct.sum()),
+                 "max_row_nnz": int(ct.max()) if ct.size else 0}
+        backend = self._backend_from_stats(e, capacity, stats)
+        bsp = None
+        if backend == "grasp":
+            bsp, _ = self._block_compactor(norm_adj,
+                                           max_nnz=grasp_max_nnz(capacity))
+        return backend, bsp
+
+    def _resolve_and_build(self, model: str, tier: str, pg: PaddedGraph
+                           ) -> Tuple[str, GranniteOperands]:
+        """One-shot intake: resolve the request's aggregation backend and
+        build its device operands. QuantGr tiers resolve dense without a
+        scan. Otherwise the rule reads the host `block_stats` of Â, whose
+        bitmap the host structure build then reuses."""
+        e = self.models[model]
+        if not self._grasp_capable(e) or e.tiers[tier].quantgr:
+            return "dense", self._device_operands(model, pg)
+        stats = block_stats(pg.norm_adj)
+        backend = self._backend_from_stats(e, pg.capacity, stats)
+        self._count_forced_fallback(e, backend)
+        return backend, self._device_operands(
+            model, pg, backend=backend, grasp_bitmap=stats["bitmap"])
+
+    def _device_operands(self, model: str, pg: PaddedGraph, *,
+                         backend: str = "dense",
+                         grasp_bitmap: Optional[np.ndarray] = None
                          ) -> GranniteOperands:
-        """Build one graph's operands on the host and upload them."""
-        ops = build_operands(pg, self.models[model].cfg, device=self.device)
-        self.metrics["operand_bytes_h2d"] += int(pg.norm_adj.nbytes)
+        """Build one graph's operands on the host and upload them. A grasp
+        request also compacts Â's blocks on the host (`to_block_sparse`,
+        reusing the rule's bitmap, padded to the bucket budget) and ships
+        the structure; its bytes count in `operand_bytes_h2d`."""
+        grasp = backend == "grasp"
+        ops = build_operands(
+            pg, self.models[model].cfg, grasp=grasp,
+            max_nnz=grasp_max_nnz(pg.capacity) if grasp else None,
+            bitmap=grasp_bitmap, device=self.device)
+        self.metrics["operand_bytes_h2d"] += int(pg.norm_adj.nbytes) + (
+            ops.block_sparse.nbytes if grasp else 0)
         return ops
 
     def _prepare(self, model: str, pg: PaddedGraph, tier: str,
                  ops: Optional[GranniteOperands] = None, *,
+                 backend: str = "dense",
                  tier_ops: Optional[TierOperands] = None,
                  fusion: Optional[str] = None,
                  submitted_s: Optional[float] = None) -> GNNRequest:
         """Host-stage tail shared by every intake path, for a resolved
-        `tier`: resolve the fusion mode, build operands (and a QuantGr
-        tier's int8 Â, uncached) if the caller did not, assign the uid.
+        `tier`: resolve the fusion mode; when the caller passes no
+        operands, resolve the aggregation backend and build them (and a
+        QuantGr tier's int8 Â, uncached); assign the uid. A caller that
+        passes operands passes the `backend` they were derived for.
         Returns the request without queueing it."""
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
         fusion = self._resolve_fusion(model, fusion)
         if ops is None:
-            ops = self._device_operands(model, pg)
+            backend, ops = self._resolve_and_build(model, tier, pg)
         if tier_ops is None and self._needs_tier_ops(self.models[model], tier):
             # one-shot request: derive without caching (nothing to key on)
             tier_ops = self._agg_quantizer(ops.norm_adj)
@@ -512,7 +633,7 @@ class GraphServe:
             self.metrics["first_submit_s"] = submitted_s
         return GNNRequest(uid=uid, model=model, pg=pg, ops=ops,
                           bucket=pg.capacity, submitted_s=submitted_s,
-                          tier=tier, backend="dense", fusion=fusion,
+                          tier=tier, backend=backend, fusion=fusion,
                           tier_ops=tier_ops)
 
     def _push(self, req: GNNRequest) -> int:
@@ -558,14 +679,17 @@ class GraphServe:
         key = (graph_id, self._graph_version.pop(graph_id, -1))
         self._operands.pop(key, None)
         self._tier_operands.pop(key, None)
+        self._grasp.pop(key, None)
         self.graphs.pop(graph_id, None)
 
     def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
                       fusion: Optional[str] = None,
                       submitted_s: Optional[float] = None) -> GNNRequest:
         """HOST stage of a query over an attached graph: device operands,
-        and a QuantGr tier's int8 Â derived from them, come from the
-        (graph_id, version) caches after the first query."""
+        a QuantGr tier's int8 Â, and a grasp-capable model's backend
+        decision and block structure (derived on the card from the cached
+        Â, zero extra bytes) come from the (graph_id, version) caches after
+        the first query."""
         model, pg = self.graphs[graph_id]
         key = (graph_id, self._graph_version[graph_id])
         ops = self._operands.get(key)
@@ -578,8 +702,20 @@ class GraphServe:
             if tops is None:
                 tops = self._tier_operands[key] = self._agg_quantizer(
                     ops.norm_adj)
-        return self._prepare(model, pg, resolved, ops, tier_ops=tops,
-                             fusion=fusion, submitted_s=submitted_s)
+        e = self.models[model]
+        backend = "dense"
+        if self._grasp_capable(e) and not e.tiers[resolved].quantgr:
+            cached = self._grasp.get(key)
+            if cached is None:
+                cached = self._grasp[key] = self._derive_grasp(
+                    e, pg.capacity, ops.norm_adj)
+            backend, bsp = cached
+            self._count_forced_fallback(e, backend)   # per request
+            if backend == "grasp":
+                ops = dataclasses.replace(ops, block_sparse=bsp)
+        return self._prepare(model, pg, resolved, ops, backend=backend,
+                             tier_ops=tops, fusion=fusion,
+                             submitted_s=submitted_s)
 
     def query(self, graph_id: int, *, tier: Optional[str] = None,
               fusion: Optional[str] = None) -> int:
@@ -611,7 +747,9 @@ class GraphServe:
         sharing one key. Junk slots repeat the last real request so the
         batch width never changes shape; their outputs are dropped.
         `device_busy_s` accumulates the wall-clock from the feature upload
-        to the device's completion."""
+        to the device's completion. Every request of a grasp batch whose
+        plan runs the plain form (`grasp_ref_fallback`, the CPU) counts in
+        `backend_fallbacks`."""
         head = batch[0]
         b = self.sc.batch_slots
         bkey = (head.model, head.bucket, head.tier, head.backend,
@@ -643,6 +781,10 @@ class GraphServe:
         self.metrics["batches"] += 1
         self.metrics["slots_filled"] += len(batch)
         self.metrics["slots_total"] += b
+        if head.backend == "grasp":
+            self.metrics["grasp_batches"] += 1
+            if plan.grasp_ref_fallback:
+                self.metrics["backend_fallbacks"] += len(batch)
         self.metrics["device_busy_s"] += now - t0
         self.metrics["last_finish_s"] = now
         self._last_dispatch[head.model] = self._dispatch_serial
@@ -686,6 +828,13 @@ class GraphServe:
                                      if span > 0 else 0.0),
             "operand_bytes_h2d": self.metrics["operand_bytes_h2d"],
             "tier_fallbacks": self.metrics["tier_fallbacks"],
+            # GraSp: each model's mode, the batches that took the sparse
+            # path, and the requests with grasp intent that ran dense
+            # (forced but ineligible, or the plain form on the CPU)
+            "agg_backends": {name: e.agg_backend
+                             for name, e in self.models.items()},
+            "grasp_batches": self.metrics["grasp_batches"],
+            "backend_fallbacks": self.metrics["backend_fallbacks"],
             "tiers": self.tier_summary(),
             "accuracy_delta_vs_fp32": {
                 name: dict(e.accuracy_delta)

@@ -1,6 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the port's GraphServe on CUDA against the same engine on the CPU, on the
-fp32 tier and on the QuantGr int8 tier.
+fp32 tier, on the QuantGr int8 tier and on the GraSp backend.
 
 Every test here carries the `cuda` marker and skips itself where there is
 no card; this file imports no JAX, so it runs on a machine without it:
@@ -20,7 +20,9 @@ from repro_torch.core.graph import BucketLadder
 from repro_torch.core.layers import Techniques
 from repro_torch.core.models import GNNConfig
 from repro_torch.core.quant import QuantizedLinear, quantize_rowwise
-from repro_torch.data.graphs import planetoid_like
+from repro_torch.core.sparsity import compact_block_sparse
+from repro_torch.data.graphs import clustered_like, planetoid_like
+from repro_torch.kernels import bitmap_spmm as bs_mod
 from repro_torch.kernels import block_matmul as bm_mod
 from repro_torch.kernels import fused_layers as fl_mod
 from repro_torch.kernels import int8_matmul as im_mod
@@ -229,5 +231,127 @@ def test_int8_tier_graphserve_on_card_matches_cpu(card):
         assert ran == ((8, 4) if dev.type == "cuda" else (0, 0))
     for uid, (preds, logits) in out["cpu"].items():
         np.testing.assert_array_equal(out["cuda"][uid][0], preds)
+        torch.testing.assert_close(torch.from_numpy(out["cuda"][uid][1]),
+                                   torch.from_numpy(logits), **CARD)
+
+
+def _grasp_structure(rng, batch, rb, max_nnz, device, nan_tail=False):
+    """A random compacted Â of `rb` block rows at budget `max_nnz`: counts
+    from 0 to the budget, distinct random columns, zero tail blocks (or
+    NaN ones)."""
+    counts = rng.integers(0, max_nnz + 1, (batch, rb))
+    counts[0, 0] = max_nnz
+    cols = np.stack([[rng.permutation(rb)[:max_nnz] for _ in range(rb)]
+                     for _ in range(batch)]).astype(np.int32)
+    blocks = np.abs(rng.standard_normal((batch, rb, max_nnz, 128, 128))
+                    * 0.02).astype(np.float32)
+    tail = np.arange(max_nnz)[None, None, :] >= counts[:, :, None]
+    blocks[tail] = np.nan if nan_tail else 0.0
+    return [torch.from_numpy(a).to(device) for a in (
+        blocks.reshape(batch, rb * max_nnz, 128, 128), cols,
+        counts.astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_nnz", [2, 6])
+def test_bitmap_spmm_matches_plain_and_skips_the_tail(card, max_nnz):
+    rng = np.random.default_rng(8 + max_nnz)
+    for f in (128, 64):
+        zero = _grasp_structure(np.random.default_rng(max_nnz), 2, 8,
+                                max_nnz, card)
+        nan = _grasp_structure(np.random.default_rng(max_nnz), 2, 8,
+                               max_nnz, card, nan_tail=True)
+        h = _arr(rng, 2, 8 * 128, f).to(card)
+        want = bs_mod.bitmap_spmm_plain(*zero, h)
+        for blocks, cols, counts in (zero, nan):
+            before = bs_mod.LAUNCHES
+            got = bs_mod.bitmap_spmm(blocks, cols, counts, h)
+            torch.cuda.synchronize()
+            assert bs_mod.LAUNCHES == before + 1
+            torch.testing.assert_close(got, want, **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_fused_gcn_grasp_matches_plain_and_skips_the_tail(card, activation):
+    rng = np.random.default_rng(9)
+    for max_nnz in (2, 6):
+        zero = _grasp_structure(np.random.default_rng(max_nnz), 2, 8,
+                                max_nnz, card)
+        nan = _grasp_structure(np.random.default_rng(max_nnz), 2, 8,
+                               max_nnz, card, nan_tail=True)
+        x = _arr(rng, 2, 8 * 128, 256).to(card)
+        w = _arr(rng, 256, 128, scale=0.06).to(card)
+        bias = _arr(rng, 128).to(card)
+        want = fl_mod.fused_gcn_grasp_plain(*zero, x, w, bias, activation)
+        for structure in (zero, nan):
+            before = fl_mod.GRASP_LAUNCHES
+            got = fl_mod.fused_gcn_grasp(*structure, x, w, bias, activation)
+            torch.cuda.synchronize()
+            assert fl_mod.GRASP_LAUNCHES == before + 1
+            torch.testing.assert_close(got, want, **CARD)
+
+
+@pytest.mark.cuda
+def test_grasp_wrappers_reject_bad_operands(card):
+    blocks, cols, counts = _grasp_structure(np.random.default_rng(0), 1, 4,
+                                            2, card)
+    h = torch.zeros(1, 512, 128, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        bs_mod.bitmap_spmm(blocks, cols.cpu(), counts, h)
+    with pytest.raises(TypeError, match="int32"):
+        bs_mod.bitmap_spmm(blocks, cols.long(), counts, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs_mod.bitmap_spmm(blocks.transpose(2, 3), cols, counts, h)
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        fl_mod.fused_gcn_grasp(blocks, cols, counts,
+                               torch.zeros(1, 256, 128, device=card),
+                               torch.zeros(128, 128, device=card),
+                               torch.zeros(128, device=card))
+    # the device rule: a compacted structure from the card runs the kernel
+    sp, _ = compact_block_sparse(torch.eye(512, device=card), max_nnz=2)
+    before = bs_mod.LAUNCHES
+    out = bs_mod.bitmap_spmm(sp.blocks[None], sp.block_cols[None],
+                             sp.counts[None], h + 1.0)
+    torch.cuda.synchronize()
+    assert bs_mod.LAUNCHES == before + 1 and torch.equal(out, h + 1.0)
+
+
+@pytest.mark.cuda
+def test_grasp_graphserve_on_card_matches_cpu(card):
+    cfg = GNNConfig(kind="gcn", in_feats=48, hidden=16, num_classes=5)
+    graphs = [clustered_like(num_nodes=n, num_feats=48, num_classes=5,
+                             within_density=0.05, seed=n)
+              for n in (300, 700, 1000)]
+    graphs.append(planetoid_like(num_nodes=900, num_edges=36000,
+                                 num_feats=48, num_classes=5, seed=4,
+                                 train_per_class=2))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        eng = GraphServe(GraphServeConfig(ladder=BucketLadder((1024,)),
+                                          batch_slots=2, return_logits=True),
+                         seed=3, device=dev)
+        eng.register_model("sp", cfg, agg_backend="grasp", fusion="layer")
+        eng.register_model("sp_auto", cfg, agg_backend="auto")
+        eng.warmup()
+        launches = (bs_mod.LAUNCHES, fl_mod.GRASP_LAUNCHES)
+        for g in graphs:
+            eng.submit(g, model="sp")
+            eng.submit(g, model="sp_auto")
+        gid = eng.attach(graphs[1], model="sp")
+        eng.query(gid)
+        done = eng.run()
+        out[dev.type] = {r.uid: (r.backend, r.logits) for r in done}
+        eng.assert_warm()
+        s = eng.summary()
+        ran = (bs_mod.LAUNCHES - launches[0],
+               fl_mod.GRASP_LAUNCHES - launches[1])
+        # 4 grasp requests of "sp" (2 batches, 2 fused layers each), 3 of
+        # "sp_auto" (2 batches, 2 layers each)
+        assert ran == ((4, 4) if dev.type == "cuda" else (0, 0))
+        assert s["grasp_batches"] == 4
+        assert s["backend_fallbacks"] == (1 if dev.type == "cuda" else 8)
+    for uid, (backend, logits) in out["cpu"].items():
+        assert out["cuda"][uid][0] == backend
         torch.testing.assert_close(torch.from_numpy(out["cuda"][uid][1]),
                                    torch.from_numpy(logits), **CARD)

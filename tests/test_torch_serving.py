@@ -224,8 +224,8 @@ def test_unported_surfaces_raise():
     eng = tserve.GraphServe(device="cpu")
     cfg = tmodels.GNNConfig(kind="gcn", in_feats=8)
     eng.register_model("q", cfg, tiers=("fp32", "int8"))     # ported now
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        eng.register_model("s", cfg, agg_backend="grasp")
+    with pytest.raises(ValueError, match="agg_backend"):
+        eng.register_model("s", cfg, agg_backend="sparse")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         eng.register_model("a", tmodels.GNNConfig(kind="gat", in_feats=8))
     eng.register_model("ok", cfg, tiers=("fp32",))
