@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GCN serving paths on one NVIDIA card.
+"""Drive the PyTorch port's GCN and GAT serving paths on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -39,7 +39,21 @@ last line; there is no CPU path):
      phase) must match its batch log, `backend_fallbacks` the ineligible
      forced requests, and every logit the plain forward and the dense
      model;
-  5. times — CUDA-event times of each kernel, its plain version and the
+  5. serve-gat — `gat_attention`, `fused_gat_full` and
+     `fused_gat_precombined` against their plain versions at both buckets'
+     4-graph serving shapes (layer 1: 8 heads of 8 over 1433 features;
+     layer 2: 1 head of 7), with NodePad's all -1e9 rows, a 32-row block
+     whose first 64-column tile is all -1e9, and a ragged 1000-node graph
+     through `kernels.ops`; then a third GraphServe with the paper's Cora
+     GAT twice, calibrated on Cora: `gat` (tiers fp32 and int8,
+     `fusion="layer"`: fused_gat_full, fused_gat_precombined) and `gat_mm`
+     (the same tiers with `use_pallas`, `fusion="none"`: gat_attention,
+     and int8_matmul for the int8 combine). Each model and tier gets Cora
+     and the five Planetoid-like graphs, and one 900-node graph attached
+     and queried twice. Launch counts (set to 0 just before the phase)
+     must match its batch log and every logit the plain forward (an int8
+     request layer by layer, see `check_gat_request`);
+  6. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound,
      and the measured dense and GraSp aggregation times per bucket.
 
@@ -63,12 +77,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.bridge import params_from_jax  # noqa: E402
-from repro_torch.configs.gnn import gcn  # noqa: E402
+from repro_torch.configs.gnn import gat, gcn  # noqa: E402
 from repro_torch.core.graph import BucketLadder, pad_graph  # noqa: E402
 from repro_torch.core.layers import Techniques  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
+from repro_torch.core import layers as glayers  # noqa: E402
+from repro_torch.core.quant import apply_quantized_linear  # noqa: E402
 from repro_torch.core.models import (build_operands,  # noqa: E402
-                                     calibrate_tier, derive_tier_operands)
+                                     calibrate_tier, derive_tier_operands,
+                                     stack_operands)
 from repro_torch.core.sparsity import (agg_cost_model,  # noqa: E402
                                        block_stats, compact_block_sparse,
                                        grasp_max_nnz, select_agg_backend,
@@ -79,16 +96,20 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitmap_spmm as bs  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import fused_layers as fl  # noqa: E402
+from repro_torch.kernels import gat_attention as ga  # noqa: E402
 from repro_torch.kernels import int8_matmul as im  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3, fp32 outside the tensor
-# cores (the fp32 SIMT kernels' roofline) and the int8 tensor cores (the
-# least time any int8 kernel could take).
+# cores (the fp32 SIMT kernels' roofline), the int8 tensor cores (the
+# least time any int8 kernel could take) and the special-function units'
+# exp2 (132 SMs x 16 a clock x 1.98 GHz: the GAT softmax's expf).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 LADDER, SLOTS = (1024, 3072), 4
 CAP, FIN_PAD, TILE = 3072, 1536, 128
 PLANETOID_SIZES = (300, 700, 1000, 1800, 2700)
@@ -110,14 +131,27 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                            "src/repro/kernels/bitmap_spmm.py:46"),
            "fused_gcn_grasp": ("src/repro_torch/kernels/csrc/"
                                "fused_gcn_grasp.cu",
-                               "src/repro/kernels/fused_layers.py:246")}
+                               "src/repro/kernels/fused_layers.py:246"),
+           "gat_attention": ("src/repro_torch/kernels/csrc/gat_attention.cu",
+                             "src/repro/kernels/gat_attention.py:42"),
+           "fused_gat_full": ("src/repro_torch/kernels/csrc/"
+                              "fused_gat_full.cu",
+                              "src/repro/kernels/fused_layers.py:334"),
+           "fused_gat_precombined": ("src/repro_torch/kernels/csrc/"
+                                     "fused_gat_precombined.cu",
+                                     "src/repro/kernels/fused_layers.py:394")}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
             "int8_matmul": (im, "LAUNCHES"),
             "fused_gcn_int8": (fl, "INT8_LAUNCHES"),
             "bitmap_spmm": (bs, "LAUNCHES"),
-            "fused_gcn_grasp": (fl, "GRASP_LAUNCHES")}
+            "fused_gcn_grasp": (fl, "GRASP_LAUNCHES"),
+            "gat_attention": (ga, "LAUNCHES"),
+            "fused_gat_full": (fl, "GAT_FULL_LAUNCHES"),
+            "fused_gat_precombined": (fl, "GAT_PRE_LAUNCHES")}
+GAT_HEADS, GAT_F, GAT_CLASSES = 8, 8, 7
+GAT_KERNELS = ("gat_attention", "fused_gat_full", "fused_gat_precombined")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -248,6 +282,59 @@ def grasp_work(cols, counts, f, fin=None):
     if fin is None:
         return ops, moved + 4.0 * h_rows * f
     return ops + 2.0 * h_rows * fin * f, moved + 4.0 * h_rows * fin
+
+
+def gat_layer_np(rng, fin, heads, f):
+    """numpy weights of one GAT layer: w (fin, heads*f), a_src and a_dst
+    (heads, f), and a small random bias."""
+    return {"w": glorot(rng, fin, heads * f), "a_src": glorot(rng, heads, f),
+            "a_dst": glorot(rng, heads, f),
+            "b": (0.1 * rng.standard_normal(heads * f)).astype(np.float32)}
+
+
+def gat_combine(p, x, heads, f, quant=None):
+    """h (B, N, heads, f) and the alpha terms of one GAT layer, through the
+    plain int8 combine when `quant` is given."""
+    h = (x @ p["w"] if quant is None else apply_quantized_linear(x, quant))
+    h = h.reshape(*x.shape[:-1], heads, f)
+    # einsum may return a permuted view on the card; the kernels take
+    # contiguous operands
+    return (h, torch.einsum("...nhf,hf->...nh", h, p["a_dst"]).contiguous(),
+            torch.einsum("...nhf,hf->...nh", h, p["a_src"]).contiguous())
+
+
+def gat_layer_plain(p, x, bias, heads, f, act, quant=None, fused=True):
+    """One GAT layer through the plain versions, as a plan runs it: the fp32
+    fused layer through `fused_gat_full_plain`; an int8 combine, or the
+    unfused `gat_attention` path, as combine, alpha einsums and
+    `fused_gat_precombined_plain` (attention, bias, activation)."""
+    b = p["b"].reshape(heads, f)
+    if quant is None and fused:
+        out = fl.fused_gat_full_plain(x, p["w"].reshape(-1, heads, f),
+                                      p["a_src"], p["a_dst"], bias, b, act)
+    else:
+        out = fl.fused_gat_precombined_plain(
+            *gat_combine(p, x, heads, f, quant), bias, b, act)
+    return out.reshape(*x.shape[:-1], heads * f)
+
+
+def gat_work(h_shape, nbytes_in, fin=0):
+    """(flops, expf count, bytes) of one batched GAT attention: 2*F flops
+    and one expf per (head, row, column), inputs read once and the
+    (B, N, H, F) output written once. With `fin`, the combine H = X @ W
+    too."""
+    bsz, n, heads, f = h_shape
+    flops = 2.0 * heads * bsz * n * n * f + 2.0 * bsz * n * fin * heads * f
+    return flops, float(heads * bsz * n * n), nbytes_in + 4.0 * bsz * n * \
+        heads * f
+
+
+def gat_bound(flops, exps, nbytes_):
+    """(least ms, what bounds it): fp32 flops, SFU expf or HBM bytes."""
+    t_ops = max(flops / FP32_FLOPS_PER_S, exps / SFU_EXP_PER_S)
+    t_bytes = nbytes_ / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> None:
@@ -457,7 +544,7 @@ def main() -> None:
             "fused_gcn_dense": 2 * sum(v for k, v in batches.items()
                                        if k[2] == "layer"),
             "int8_matmul": 0, "fused_gcn_int8": 0, "bitmap_spmm": 0,
-            "fused_gcn_grasp": 0}
+            "fused_gcn_grasp": 0} | dict.fromkeys(GAT_KERNELS, 0)
     print(f"[serve] {len(done)} requests in {sum(batches.values())} batches "
           f"{sorted(batches.items())}; launches {launches}, expected {want}",
           flush=True)
@@ -528,7 +615,7 @@ def main() -> None:
     done = eng.finished[n_done0:]
     batches = {k: -(-n // SLOTS) for k, n in per_key.items()}
     want = {"block_matmul": 0, "fused_gcn_dense": 0, "bitmap_spmm": 0,
-            "fused_gcn_grasp": 0,
+            "fused_gcn_grasp": 0, **dict.fromkeys(GAT_KERNELS, 0),
             "int8_matmul": 4 * sum(v for k, v in batches.items()
                                    if k[0] == "gcn_qmm" and k[2] == "int8"),
             "fused_gcn_int8": 2 * sum(v for k, v in batches.items()
@@ -660,6 +747,7 @@ def main() -> None:
     launches_sp = launches_now()
     n_kind = Counter((b[2], b[3]) for b in batch_log)
     want = {"block_matmul": 0, "int8_matmul": 0, "fused_gcn_int8": 0,
+            **dict.fromkeys(GAT_KERNELS, 0),
             "fused_gcn_dense": 2 * n_kind[("dense", "layer")],
             "bitmap_spmm": 2 * n_kind[("grasp", "none")],
             "fused_gcn_grasp": 2 * n_kind[("grasp", "layer")]}
@@ -748,7 +836,229 @@ def main() -> None:
     launches.update({k: launches_sp[k]
                      for k in ("bitmap_spmm", "fused_gcn_grasp")})
 
-    # ---------------------------------------------------------- 5. times
+    # ------------------------------------------------------ 5. serve-gat
+    # the GAT kernels at both buckets' serving shapes: 4-graph batches
+    # (junk slots repeat a graph), layer 1 (8 heads of 8 over the 1433
+    # features) and layer 2 (1 head of 7 over layer 1's 64); NodePad's rows
+    # are all -1e9, and the "far" masks make rows 64..95's first column
+    # tile all -1e9 (the online softmax's start)
+    gcfg = gat("cora")
+    gat_np = {"l1": gat_layer_np(rng, 1433, GAT_HEADS, GAT_F),
+              "l2": gat_layer_np(rng, GAT_HEADS * GAT_F, 1, GAT_CLASSES)}
+    gparams = params_from_jax(gat_np, device=dev)
+    g1, g2 = gparams["l1"], gparams["l2"]
+    pg_cora = pad_graph(cora, capacity=CAP)
+    gcal = calibrate_tier(gparams, gcfg,
+                          torch.from_numpy(pg_cora.features).to(dev),
+                          build_operands(pg_cora, gcfg, device=dev))
+    err.update(dict.fromkeys(GAT_KERNELS, 0.0))
+    gat_cases = {}
+    for gcap, gs in ((1024, [others[0], others[1], others[2], others[1]]),
+                     (CAP, batch_graphs)):
+        pgs_g = [pad_graph(g, capacity=gcap) for g in gs]
+        bias = stack_operands([build_operands(p, gcfg, device=dev)
+                               for p in pgs_g]).bias_add
+        far = bias.clone()
+        far[:, 64:96, :64] = kops.NEG_INF
+        xg1 = torch.from_numpy(np.stack([p.features for p in pgs_g])).to(dev)
+        xg2 = gat_layer_plain(g1, xg1, bias, GAT_HEADS, GAT_F, "elu")
+        att = {"L1": (*gat_combine(g1, xg1, GAT_HEADS, GAT_F), bias),
+               "L1 far": (*gat_combine(g1, xg1, GAT_HEADS, GAT_F), far),
+               "L2": (*gat_combine(g2, xg2, 1, GAT_CLASSES), bias)}
+        b1g = g1["b"].reshape(GAT_HEADS, GAT_F)
+        b2g = g2["b"].reshape(1, GAT_CLASSES)
+        w1g = g1["w"].reshape(-1, GAT_HEADS, GAT_F)
+        w2g = g2["w"].reshape(-1, 1, GAT_CLASSES)
+        full = {"L1 elu": (xg1, w1g, g1["a_src"], g1["a_dst"], bias, b1g,
+                           "elu"),
+                "L1 far relu": (xg1, w1g, g1["a_src"], g1["a_dst"], far, b1g,
+                                "relu"),
+                "L2 none": (xg2, w2g, g2["a_src"], g2["a_dst"], bias, b2g,
+                            "none")}
+        q1 = gat_combine(g1, xg1, GAT_HEADS, GAT_F, gcal["l1"])
+        xq2 = fl.fused_gat_precombined_plain(*q1, bias, b1g, "elu").reshape(
+            xg1.shape[0], gcap, -1)
+        q2 = gat_combine(g2, xq2, 1, GAT_CLASSES, gcal["l2"])
+        pre = {"L1 elu": (*q1, bias, b1g, "elu"),
+               "L1 far none": (*q1, far, b1g, "none"),
+               "L2 none": (*q2, bias, b2g, "none")}
+        pad_rows = sum(gcap - p.num_nodes for p in pgs_g)
+        print(f"[check] gat batch at {gcap}: graphs "
+              f"{[p.num_nodes for p in pgs_g]}, {pad_rows} all -1e9 padded "
+              f"rows", flush=True)
+        for label, args in att.items():
+            compare("gat_attention", f"{gcap} {label}",
+                    lambda: ga.gat_attention(*args),
+                    ga.gat_attention_plain(*args))
+        for label, args in full.items():
+            compare("fused_gat_full", f"{gcap} {label}",
+                    lambda: fl.fused_gat_full(*args),
+                    fl.fused_gat_full_plain(*args))
+        for label, args in pre.items():
+            compare("fused_gat_precombined", f"{gcap} {label}",
+                    lambda: fl.fused_gat_precombined(*args),
+                    fl.fused_gat_precombined_plain(*args))
+        gat_cases[gcap] = dict(att=att, full=full, pre=pre)
+    # a ragged graph through `kernels.ops`: 1000 nodes, no padding, so the
+    # kernels' 32-row and 64-column tiles end inside the graph and the
+    # fused entry pads to 1024 with -1e9 rows and columns itself
+    pg_r = pad_graph(others[2], capacity=others[2].num_nodes)
+    bias_r = stack_operands([build_operands(pg_r, gcfg, device=dev)] * SLOTS
+                            ).bias_add
+    xr = torch.from_numpy(np.stack([pg_r.features] * SLOTS)).to(dev)
+    qr = gat_combine(g1, xr, GAT_HEADS, GAT_F, gcal["l1"])
+    hr = gat_combine(g1, xr, GAT_HEADS, GAT_F)
+    compare("gat_attention", "ragged 1000 via ops",
+            lambda: kops.gat_attention(*hr, bias_r),
+            ga.gat_attention_plain(*hr, bias_r))
+    compare("fused_gat_full", "ragged 1000 via ops",
+            lambda: kops.fused_gat_layer(
+                xr, g1["w"].reshape(-1, GAT_HEADS, GAT_F), g1["a_src"],
+                g1["a_dst"], bias_r, b1g, activation="elu"),
+            fl.fused_gat_full_plain(xr, g1["w"].reshape(-1, GAT_HEADS, GAT_F),
+                                    g1["a_src"], g1["a_dst"], bias_r, b1g,
+                                    "elu"))
+    compare("fused_gat_precombined", "ragged 1000 via ops",
+            lambda: kops.fused_gat_layer(
+                None, None, g1["a_src"], g1["a_dst"], bias_r, b1g,
+                activation="elu", precombined=qr),
+            fl.fused_gat_precombined_plain(*qr, bias_r, b1g, "elu"))
+    check(max(err[k] for k in GAT_KERNELS) <= TOL["atol"],
+          f"a GAT kernel's max_abs_err exceeds {TOL['atol']}: "
+          f"{ {k: err[k] for k in GAT_KERNELS} }")
+
+    eng_g = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                        batch_slots=SLOTS, return_logits=True,
+                                        use_cacheg=False), seed=0, device=dev)
+    gbase = dict(stagr=True, graphsplit=True, effop=True)
+    eng_g.register_model("gat", gcfg, gparams, tiers=("fp32", "int8"),
+                         fusion="layer")
+    eng_g.register_model("gat_mm", gcfg, gparams, tiers={
+        "fp32": Techniques(**gbase, use_pallas=True),
+        "int8": Techniques(**gbase, quantgr=True, use_pallas=True)})
+    t0 = time.perf_counter()
+    blobs = eng_g.warmup()
+    print(f"[serve-gat] warmup: {blobs} plan signatures in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for model in ("gat", "gat_mm"):
+        deltas = eng_g.calibrate(model, cora)
+        print(f"[serve-gat] calibrated {model} on Cora: "
+              f"accuracy_delta_vs_fp32 {deltas}", flush=True)
+    gat_log = []
+    execute_g = eng_g._execute_batch
+
+    def record_gat(batch):
+        h = batch[0]
+        gat_log.append((h.model, h.tier, h.fusion))
+        execute_g(batch)
+    eng_g._execute_batch = record_gat
+
+    reset_launches()                        # the GAT path starts here
+    t_serve = time.perf_counter()
+    g900 = planetoid_like(num_nodes=900, num_edges=1800, num_feats=1433,
+                          num_classes=7, seed=13)
+    for model in ("gat", "gat_mm"):
+        gid = eng_g.attach(g900, model=model)
+        for tier in ("fp32", "int8"):
+            for g in [cora] + others:
+                eng_g.submit(g, model=model, tier=tier)
+            eng_g.query(gid, tier=tier)
+            eng_g.query(gid, tier=tier)
+    intake_s = time.perf_counter() - t_serve
+    done = eng_g.run()
+    serve_s = time.perf_counter() - t_serve
+    launches_g = launches_now()
+    n_kind = Counter(gat_log)
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "fused_gat_full": 2 * n_kind[("gat", "fp32", "layer")],
+        "fused_gat_precombined": 2 * n_kind[("gat", "int8", "layer")],
+        "gat_attention": 2 * (n_kind[("gat_mm", "fp32", "none")]
+                              + n_kind[("gat_mm", "int8", "none")]),
+        "int8_matmul": 2 * n_kind[("gat_mm", "int8", "none")]}
+    s = eng_g.summary()
+    print(f"[serve-gat] {len(done)} requests in {len(gat_log)} batches "
+          f"{sorted(n_kind.items())}; launches {launches_g}, expected "
+          f"{want}", flush=True)
+    check(launches_g == want, f"kernel launches {launches_g} != {want}")
+    check(all(want[k] > 0 for k in GAT_KERNELS),
+          f"a GAT kernel never launched: {launches_g}")
+    check(len(done) == 2 * 2 * (1 + len(PLANETOID_SIZES) + 2),
+          f"{len(done)} GAT requests finished")
+    check({(r.model, r.tier) for r in done}
+          == {(m, t) for m in ("gat", "gat_mm") for t in ("fp32", "int8")},
+          "a GAT model or tier was not served")
+    check(s["tier_fallbacks"] == 0, "a GAT int8 request fell back")
+    eng_g.assert_warm()
+
+    g_err, flips, q_inputs, ties = 0.0, 0, 0, 0
+    for r in done:
+        n = r.pg.num_nodes
+        check(r.logits is not None
+              and r.logits.shape == (n, GAT_CLASSES)
+              and np.isfinite(r.logits).all(),
+              f"request {r.uid}: logits missing, misshapen or not finite")
+        e = eng_g.models[r.model]
+        t = e.tiers[r.tier]
+        fused = r.fusion == "layer"
+        cal = e.calibrations[r.tier] if t.quantgr else {}
+        x = torch.from_numpy(r.pg.features).to(dev)[None]
+        ops1 = stack_operands([r.ops])
+        h1 = gat_layer_plain(e.params["l1"], x, ops1.bias_add, GAT_HEADS,
+                             GAT_F, "elu", cal.get("l1"), fused)
+        if t.quantgr:
+            # layer 2 rounds layer 1's fp32 output to int8: where the
+            # kernels' and the plain versions' sums straddle a rounding
+            # tie, the step moves and the logits with it. So the int8
+            # request is held layer by layer: layer 1 through the served
+            # kernels against the plain layer 1, then the logits against
+            # the plain layer 2 over the kernels' layer 1.
+            kw = dict(heads=GAT_HEADS, out_feats=GAT_F, quant=cal["l1"])
+            if fused:
+                h1_k = glayers.gat_grannite_fused(
+                    e.params["l1"], x, ops1.bias_add, t, activation="elu",
+                    **kw)
+            else:
+                h1_k = torch.nn.functional.elu(glayers.gat_grannite(
+                    e.params["l1"], x, ops1.mask_mult, ops1.bias_add, t,
+                    **kw))
+            d1 = (h1_k - h1)[0, :n].abs().max().item()
+            check(d1 <= TOL["atol"], f"request {r.uid}: layer 1 differs "
+                  f"from the plain version by {d1}")
+            torch.testing.assert_close(h1_k[0, :n], h1[0, :n], **TOL)
+            xs = cal["l2"].x_scale
+            flips += int((torch.round(h1_k[0, :n] / xs)
+                          != torch.round(h1[0, :n] / xs)).sum())
+            q_inputs += h1[0, :n].numel()
+            h1 = h1_k
+        ref = gat_layer_plain(e.params["l2"], h1, ops1.bias_add, 1,
+                              GAT_CLASSES, "none", cal.get("l2"),
+                              fused)[0, :n].cpu()
+        got = torch.from_numpy(r.logits)
+        d = (got - ref).abs().max().item()
+        check(d <= TOL["atol"], f"request {r.uid}: max_abs_err {d}")
+        torch.testing.assert_close(got, ref, **TOL)
+        g_err = max(g_err, d)
+        top2 = ref.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= TOL["atol"]
+        ties += int(tie.sum())
+        check(bool((torch.from_numpy(r.preds) == ref.argmax(-1))[~tie]
+                   .all()), f"request {r.uid}: argmax differs")
+    print(f"[serve-gat] logits of all {len(done)} requests match the plain "
+          f"forward (max_abs_err {g_err:.3e}; rtol={TOL['rtol']} "
+          f"atol={TOL['atol']}; int8 requests layer by layer, {flips} of "
+          f"{q_inputs} layer-2 int8 inputs one step off the all-plain "
+          f"chain); argmax equal ({ties} ties within atol)", flush=True)
+    print("[serve-gat] summary " + json.dumps(
+        {k: s[k] for k in summary_keys}
+        | {"wall_s": serve_s, "intake_s": intake_s,
+           "run_s": serve_s - intake_s}), flush=True)
+    print("[serve-gat] accuracy_delta_vs_fp32 "
+          + json.dumps(s["accuracy_delta_vs_fp32"]), flush=True)
+    print("[serve-gat] tier_summary " + json.dumps(eng_g.tier_summary()),
+          flush=True)
+    launches.update({k: launches_g[k] for k in GAT_KERNELS})
+
+    # ---------------------------------------------------------- 6. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -778,15 +1088,22 @@ def main() -> None:
         print(f"[time] torch.sparse.mm on a BSR tensor refused: "
               f"{bsr_refused}", flush=True)
 
+    g3g = gat_cases[CAP]
+    gat_att_cases = {k: g3g["att"][k] for k in ("L1", "L2")}
+    gat_full_cases = {k: g3g["full"][k] for k in ("L1 elu", "L2 none")}
+    gat_pre_cases = {k: g3g["pre"][k] for k in ("L1 elu", "L2 none")}
     rows = []
     for kernel, cases in (("block_matmul", products),
                           ("fused_gcn_dense", layers),
                           ("int8_matmul", i8_products),
                           ("fused_gcn_int8", i8_layers),
                           ("bitmap_spmm", sp_cases),
-                          ("fused_gcn_grasp", spf_cases)):
+                          ("fused_gcn_grasp", spf_cases),
+                          ("gat_attention", gat_att_cases),
+                          ("fused_gat_full", gat_full_cases),
+                          ("fused_gat_precombined", gat_pre_cases)):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0}
+               "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0, "exps": 0.0}
         peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
                 else FP32_FLOPS_PER_S)
         for label, args in cases.items():
@@ -828,14 +1145,41 @@ def main() -> None:
                 flops, nbytes_ = grasp_work(cols_, counts_, w.shape[1],
                                             fin=x.shape[-1])
                 nbytes_ += nbytes(w, args[5])
-            else:
+            elif kernel == "fused_gcn_int8":
                 x, wq, sw, xs, hs, aq_, as_, bias = args[:8]
                 t_k = time_ms(lambda: fl.fused_gcn_int8(*args))
                 t_p = time_ms(lambda: fl.fused_gcn_int8_plain(*args))
                 t_l = None
                 flops, nbytes_ = fused_work(aq_, x, wq, sw, xs, hs, as_,
                                             bias)
-            b_ms, b_by = bound(flops, nbytes_, peak)
+            else:
+                # the GAT kernels: no one PyTorch call computes
+                # leaky-ReLU-scored, additively masked attention, so
+                # library_ms is null; the bound counts expf on the SFUs
+                run, plain = {"gat_attention": (ga.gat_attention,
+                                                ga.gat_attention_plain),
+                              "fused_gat_full": (fl.fused_gat_full,
+                                                 fl.fused_gat_full_plain),
+                              "fused_gat_precombined": (
+                                  fl.fused_gat_precombined,
+                                  fl.fused_gat_precombined_plain)}[kernel]
+                t_k = time_ms(lambda: run(*args))
+                t_p = time_ms(lambda: plain(*args))
+                t_l = None
+                tensors = [a for a in args if isinstance(a, torch.Tensor)]
+                if kernel == "fused_gat_full":
+                    x, w3 = args[0], args[1]
+                    h_shape = (*x.shape[:2], *w3.shape[1:])
+                    fin = x.shape[-1]
+                else:
+                    h_shape, fin = tuple(args[0].shape), 0
+                flops, exps, nbytes_ = gat_work(h_shape, nbytes(*tensors),
+                                                fin)
+                tot["exps"] += exps
+            if kernel in GAT_KERNELS:
+                b_ms, b_by = gat_bound(flops, exps, nbytes_)
+            else:
+                b_ms, b_by = bound(flops, nbytes_, peak)
             print(f"[time] {kernel} {label}: kernel {t_k:.4f} ms, plain "
                   f"{t_p:.4f} ms, library "
                   f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}, bound "
@@ -848,7 +1192,10 @@ def main() -> None:
                                  else tot["library_ms"] + t_l)
             tot["flops"] += flops
             tot["bytes"] += nbytes_
-        b_ms, b_by = bound(tot["flops"], tot["bytes"], peak)
+        if kernel in GAT_KERNELS:
+            b_ms, b_by = gat_bound(tot["flops"], tot["exps"], tot["bytes"])
+        else:
+            b_ms, b_by = bound(tot["flops"], tot["bytes"], peak)
         src, replaces = SOURCES[kernel]
         row = {"name": kernel, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[kernel],
@@ -857,6 +1204,10 @@ def main() -> None:
                "bound_by": b_by, "library_ms": tot["library_ms"],
                "per": f"one batch of {SLOTS} graphs at {CAP} nodes: "
                       + ", ".join(cases)}
+        if kernel in GAT_KERNELS:
+            row.update(library="none: no one PyTorch call computes "
+                               "leaky-ReLU-scored additively masked "
+                               "attention")
         if kernel == "bitmap_spmm":
             row.update(dense_matmul_ms=tot["dense_ms"],
                        library="torch.sparse.mm per graph on 128-block BSR",

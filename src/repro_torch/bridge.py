@@ -2,8 +2,9 @@
 reference package's weights or tier calibration converted with
 `np.asarray`) onto a device.
 
-Takes the reference's parameter tree `{"l1": {"w", "b"}, "l2": {...}}`,
-its GCN tier calibration and its GraSp block structures with numpy leaves;
+Takes the reference's parameter trees (GCN `{"l1": {"w", "b"}, "l2":
+{...}}`, GAT `{"l1": {"w", "a_src", "a_dst", "b"}, ...}`), its GCN and GAT
+tier calibrations and its GraSp block structures with numpy leaves;
 nothing here knows of JAX.
 """
 from __future__ import annotations
@@ -28,13 +29,13 @@ def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
 
 
 def calibration_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
-    """A GCN tier calibration in numpy -> the port's `calibrate_tier` form
-    on `device`.
+    """A GCN or GAT tier calibration in numpy -> the port's
+    `calibrate_tier` form on `device`.
 
     `tree` holds each QuantizedLinear as a dict of `wq`, `w_scale` and
-    `x_scale` (keys "l1", "l2") and the scalar aggregation scales
-    "agg1_h" and "agg2_h"; values and dtypes are kept exactly, so the port
-    and the reference can run on identical scales.
+    `x_scale` (keys "l1", "l2") and, for GCN only, the scalar aggregation
+    scales "agg1_h" and "agg2_h"; values and dtypes are kept exactly, so
+    the port and the reference can run on identical scales.
     """
     dev = resolve_device(device)
 

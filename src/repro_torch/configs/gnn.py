@@ -1,5 +1,6 @@
-"""The paper's GCN config (Section V): 2-layer GCN on Cora/Citeseer-shaped
-graphs, hidden width 64. GAT and SAGE arrive with their slice of the port.
+"""The paper's GCN and GAT configs (Section V): 2-layer models on
+Cora/Citeseer-shaped graphs, hidden width 64, GAT 8 heads of 8. SAGE
+arrives with its slice of the port.
 """
 from __future__ import annotations
 
@@ -15,4 +16,10 @@ def gcn(dataset: str = "cora") -> GNNConfig:
     return GNNConfig(kind="gcn", in_feats=f, hidden=64, num_classes=c)
 
 
-GNN_MODELS = {"gcn": gcn}
+def gat(dataset: str = "cora") -> GNNConfig:
+    f, c = ((CORA_FEATS, CORA_CLASSES) if dataset == "cora"
+            else (CITESEER_FEATS, CITESEER_CLASSES))
+    return GNNConfig(kind="gat", in_feats=f, hidden=64, num_classes=c, heads=8)
+
+
+GNN_MODELS = {"gcn": gcn, "gat": gat}

@@ -1,13 +1,16 @@
-"""GCN layers on the GraNNite path (StaGr / PreG): fp32 dense, QuantGr and
-GraSp.
+"""GCN and GAT layers on the GraNNite path (StaGr / PreG / EffOp / GrAx).
 
-Port of the GCN part of the reference's `core/layers.py`: `Techniques`
-keeps every flag so plan keys compare like the reference's, and the layer
-functions carry the fp32 dense branches, the QuantGr branches (int8
-combine and int8 aggregation, through the `int8_matmul` and
+Port of the GCN and GAT parts of the reference's `core/layers.py`:
+`Techniques` keeps every flag so plan keys compare like the reference's.
+The GCN functions carry the fp32 dense branches, the QuantGr branches
+(int8 combine and int8 aggregation, through the `int8_matmul` and
 `fused_gcn_int8` kernels on the card) and the GraSp branches (the
 block-sparse aggregation, through `bitmap_spmm` and `fused_gcn_grasp`).
-The baseline edge-list layers, GAT and SAGE come later.
+The GAT functions carry every branch of the reference's `gat_grannite`
+(the `gat_attention` kernel with `use_pallas`, GrAx1 or exact masking,
+GrAx2 or exact broadcast, the QuantGr int8 combine) and its fused twin
+(`fused_gat_full`, or `fused_gat_precombined` after an int8 combine).
+The baseline edge-list layers and SAGE come later.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
+from . import effop
 from .quant import (QuantizedAgg, QuantizedLinear, apply_quantized_agg,
                     apply_quantized_linear, quantize_agg_dynamic)
 
@@ -37,7 +41,13 @@ class Techniques:
     grax2: bool = False        # fused broadcast-add ordering
     grax3: bool = False        # SAGE-max as mask-mul + maxpool
     use_pallas: bool = False   # route matmuls through the block_matmul /
-    # int8_matmul kernels (name kept from the reference so plan keys line up)
+    # int8_matmul kernels and GAT attention through gat_attention (name
+    # kept from the reference so plan keys line up)
+
+    @staticmethod
+    def full_gat() -> "Techniques":
+        return Techniques(stagr=True, graphsplit=True, effop=True,
+                          grax1=True, grax2=True)
 
 
 def glorot(gen: torch.Generator, shape, *, device=None) -> torch.Tensor:
@@ -149,3 +159,92 @@ def gcn_grannite_fused(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
                                     activation=activation)
     return kops.fused_gcn_layer(x, params["w"], params["b"],
                                 norm_adj=norm_adj, activation=activation)
+
+
+# =========================================================================
+# GAT (single layer, H heads)
+# =========================================================================
+
+def gat_init(gen: torch.Generator, in_feats: int, out_feats: int,
+             heads: int, *, device=None) -> Dict[str, torch.Tensor]:
+    return {"w": glorot(gen, (in_feats, heads * out_feats), device=device),
+            "a_src": glorot(gen, (heads, out_feats), device=device),
+            "a_dst": glorot(gen, (heads, out_feats), device=device),
+            "b": torch.zeros(heads * out_feats, dtype=torch.float32,
+                             device=device)}
+
+
+def _gat_head_feats(params: Dict, x: torch.Tensor, heads: int,
+                    out_feats: int) -> torch.Tensor:
+    h = x @ params["w"]
+    return h.reshape(*x.shape[:-1], heads, out_feats)
+
+
+def _alphas(params: Dict, h: torch.Tensor):
+    """The per-node score terms (alpha_src, alpha_dst), each (B?, N, H)."""
+    return (torch.einsum("...nhf,hf->...nh", h, params["a_src"]),
+            torch.einsum("...nhf,hf->...nh", h, params["a_dst"]))
+
+
+def gat_grannite(params: Dict, x: torch.Tensor, mask_mult: torch.Tensor,
+                 bias_add: torch.Tensor, t: Techniques, *, heads: int,
+                 out_feats: int, concat: bool = True,
+                 quant: Optional[QuantizedLinear] = None) -> torch.Tensor:
+    """EffOp dense GAT: scores as a broadcast add, dense masked softmax,
+    aggregation as a product. GrAx1 picks additive masking, GrAx2 the
+    fused broadcast ordering; `t.use_pallas` runs the whole
+    score -> softmax -> aggregate pipeline through the `gat_attention`
+    kernel. QuantGr quantizes the combine X @ W (through `int8_matmul`
+    with `use_pallas`); scores and softmax stay fp32.
+
+    x: (B?, N, Fin); mask_mult, bias_add: (B?, N, N).
+    """
+    if t.quantgr and quant is not None:
+        h = apply_quantized_linear(x, quant, use_kernel=t.use_pallas)
+        h = h.reshape(*x.shape[:-1], heads, out_feats)
+    else:
+        h = _gat_head_feats(params, x, heads, out_feats)   # (B?, N, H, F)
+    alpha_src, alpha_dst = _alphas(params, h)
+
+    if t.use_pallas:
+        out = kops.gat_attention(h, alpha_dst, alpha_src, bias_add)
+    else:
+        outs = []
+        for hd in range(heads):            # heads unrolled; N x N per head
+            e = effop.broadcast_add_scores(alpha_src[..., hd],
+                                           alpha_dst[..., hd], grax2=t.grax2)
+            e = F.leaky_relu(e, 0.2)
+            if t.grax1:
+                attn = effop.segment_softmax_dense(e, bias_add)
+            else:
+                e = effop.masked_select_exact(e, mask_mult)
+                attn = torch.softmax(e, dim=-1)
+            outs.append(attn @ h[..., hd, :])
+        out = torch.stack(outs, dim=-2)                     # (B?, N, H, F)
+    if concat:
+        return out.reshape(*out.shape[:-2], heads * out_feats) + params["b"]
+    return out.mean(dim=-2)
+
+
+def gat_grannite_fused(params: Dict, x: torch.Tensor, bias_add: torch.Tensor,
+                       t: Techniques, *, heads: int, out_feats: int,
+                       activation: str = "none",
+                       quant: Optional[QuantizedLinear] = None
+                       ) -> torch.Tensor:
+    """Fused twin of `gat_grannite` (concat form): the whole layer through
+    `fused_gat_full` on fp32 tiers; QuantGr keeps the int8 combine outside
+    and fuses attention, bias and activation (`fused_gat_precombined`)."""
+    b = params["b"].reshape(heads, out_feats)
+    if t.quantgr and quant is not None:
+        h = apply_quantized_linear(x, quant, use_kernel=t.use_pallas)
+        h = h.reshape(*x.shape[:-1], heads, out_feats)
+        alpha_src, alpha_dst = _alphas(params, h)
+        out = kops.fused_gat_layer(None, None, params["a_src"],
+                                   params["a_dst"], bias_add, b,
+                                   activation=activation,
+                                   precombined=(h, alpha_dst, alpha_src))
+    else:
+        w3 = params["w"].reshape(x.shape[-1], heads, out_feats)
+        out = kops.fused_gat_layer(x, w3, params["a_src"], params["a_dst"],
+                                   bias_add, b, activation=activation)
+    return out.reshape(*out.shape[:-2], heads * out_feats)

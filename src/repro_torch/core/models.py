@@ -1,9 +1,9 @@
-"""The paper's 2-layer GCN on the GraNNite path, its QuantGr serving tiers,
-its GraSp aggregation backend, and execution plans.
+"""The paper's 2-layer GCN and GAT on the GraNNite path, their QuantGr
+serving tiers, GCN's GraSp aggregation backend, and execution plans.
 
-Port of the GCN part of the reference's `core/models.py`. Operands are
-torch tensors on an explicit device; the reference's `vmap` over graphs is
-an explicit leading batch dimension B.
+Port of the GCN and GAT parts of the reference's `core/models.py`.
+Operands are torch tensors on an explicit device; the reference's `vmap`
+over graphs is an explicit leading batch dimension B.
 
 Plan identity keeps the zero-recompile contract without a compiler: an
 `ExecutionPlan` records the shape/dtype/device signature of every call
@@ -26,7 +26,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 
-from . import layers
+from . import layers, masks
 from .graph import PaddedGraph
 from .layers import Techniques
 from .quant import calibrate_absmax, quantize_linear, quantize_rowwise
@@ -37,7 +37,7 @@ from .sparsity import (BlockSparse, block_counts, compact_block_sparse,
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    kind: str                  # "gcn" | "gat" | "sage" (gcn in this port)
+    kind: str                  # "gcn" | "gat" | "sage" (not SAGE yet)
     in_feats: int
     hidden: int = 64
     num_classes: int = 7
@@ -46,19 +46,30 @@ class GNNConfig:
     max_neighbors: int = 10    # SAGE sampling cap (paper: 10)
 
 
-def _gcn_only(cfg: GNNConfig) -> None:
-    if cfg.kind != "gcn":
+PORTED_KINDS = ("gcn", "gat")
+
+
+def _no_sage(cfg: GNNConfig) -> None:
+    if cfg.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue 1 "
-            "item 7); this port serves GCN")
+            f"item 7); this port serves {PORTED_KINDS}")
 
 
 def init_params(gen: torch.Generator, cfg: GNNConfig, *,
                 device: DeviceLike = None) -> Dict:
-    """GCN parameters from a seeded `torch.Generator` (the port's own init;
-    parity tests bring the reference's weights through `bridge`)."""
-    _gcn_only(cfg)
+    """GCN or GAT parameters from a seeded `torch.Generator` (the port's
+    own init; parity tests bring the reference's weights through
+    `bridge`). GAT: layer 1 has `heads` heads of hidden // heads, layer 2
+    one head of num_classes."""
+    _no_sage(cfg)
     device = resolve_device(device)
+    if cfg.kind == "gat":
+        per_head = cfg.hidden // cfg.heads
+        return {"l1": layers.gat_init(gen, cfg.in_feats, per_head,
+                                      cfg.heads, device=device),
+                "l2": layers.gat_init(gen, cfg.heads * per_head,
+                                      cfg.num_classes, 1, device=device)}
     return {"l1": layers.gcn_init(gen, cfg.in_feats, cfg.hidden,
                                   device=device),
             "l2": layers.gcn_init(gen, cfg.hidden, cfg.num_classes,
@@ -69,15 +80,17 @@ def init_params(gen: torch.Generator, cfg: GNNConfig, *,
 class GranniteOperands:
     """Host-precomputed (GraphSplit/PreG/StaGr) dense operands on a device.
 
-    Only GCN's `norm_adj` is built in this port; the masks stay None until
-    GAT/SAGE. `block_sparse` is the GraSp compacted Â (tensor leaves) that
-    a grasp plan reads, None for a dense plan. `quant` is the per-graph
-    offline QuantGr form (the reference's `calibrate_quant`, not ported):
-    serving tiers carry their calibration beside the operands instead.
+    Only the fields the kind reads are built (`OPERAND_FIELDS`, the
+    reference's lean build); the others stay None where the reference
+    holds (1, 1) placeholders. `block_sparse` is the GraSp compacted Â
+    (tensor leaves) that a grasp plan reads, None for a dense plan.
+    `quant` is the per-graph offline QuantGr form (the reference's
+    `calibrate_quant`, not ported): serving tiers carry their calibration
+    beside the operands instead.
     """
-    norm_adj: torch.Tensor                # (B?, cap, cap) PreG-normalized
-    mask_mult: Optional[torch.Tensor] = None
-    bias_add: Optional[torch.Tensor] = None
+    norm_adj: Optional[torch.Tensor] = None   # (B?, cap, cap) PreG Â (GCN)
+    mask_mult: Optional[torch.Tensor] = None  # GAT exact 0/1 mask
+    bias_add: Optional[torch.Tensor] = None   # GAT GrAx1 0 / -1e9 mask
     sample_mask: Optional[torch.Tensor] = None
     mean_mask: Optional[torch.Tensor] = None
     block_sparse: Optional[BlockSparse] = None
@@ -96,20 +109,28 @@ def build_operands(pg: PaddedGraph, cfg: GNNConfig, *, grasp: bool = False,
                    max_nnz: Optional[int] = None,
                    bitmap: Optional[np.ndarray] = None, lean: bool = True,
                    device: DeviceLike = None) -> GranniteOperands:
-    """Host side of GraphSplit for one padded graph: Â uploaded to `device`,
-    with its host-compacted block structure when `grasp`
+    """Host side of GraphSplit for one padded graph, uploaded to `device`:
+    GCN's Â, with its host-compacted block structure when `grasp`
     (`to_block_sparse`, reusing `bitmap` from the caller's `block_stats`
-    when given). The lists are as wide as the graph's densest block row,
-    or padded to the bucket budget `max_nnz` so that a batch can stack.
+    when given; the lists are as wide as the graph's densest block row, or
+    padded to the bucket budget `max_nnz` so that a batch can stack), or
+    GAT's two masks over the adjacency with self-loops on the real nodes.
 
     Only the lean build (the fields `cfg.kind` reads) exists in the port.
     """
-    _gcn_only(cfg)
+    _no_sage(cfg)
     if not lean:
         raise NotImplementedError(
-            "the full operand build (GAT/SAGE masks) is not ported yet "
+            "the full operand build (the SAGE masks) is not ported yet "
             "(ROADMAP queue 1 item 7)")
     dev = resolve_device(device)
+    if cfg.kind == "gat":
+        awl = masks.adj_with_self_loops(pg.adj, pg.num_nodes)
+        return GranniteOperands(
+            mask_mult=torch.from_numpy(
+                masks.attention_bias_multiplicative(awl)).to(dev),
+            bias_add=torch.from_numpy(
+                masks.attention_bias_additive(awl)).to(dev))
     sp = None
     if grasp:
         sp = to_block_sparse(pg.norm_adj, bitmap=bitmap)
@@ -122,9 +143,10 @@ def build_operands(pg: PaddedGraph, cfg: GNNConfig, *, grasp: bool = False,
 
 def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
     """Stack per-graph operands into one batched (B, ...) set on their
-    device. GraSp structures stack too (`stack_block_sparse`, one budget),
-    all or none per batch: a grasp plan's operands always carry one, a
-    dense plan's never do."""
+    device: each dense field that the sets carry (one model kind per
+    batch, so all or none of them). GraSp structures stack too
+    (`stack_block_sparse`, one budget), all or none per batch: a grasp
+    plan's operands always carry one, a dense plan's never do."""
     if not ops:
         raise ValueError("cannot stack an empty operand batch")
     if any(o.quant is not None for o in ops):
@@ -137,8 +159,15 @@ def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
         raise ValueError(
             "cannot batch a mix of GraSp and dense operand sets — resolve "
             "one aggregation backend per batch")
+    dense = {f: [getattr(o, f) for o in ops]
+             for f in ("norm_adj", "mask_mult", "bias_add")}
+    for f, ts in dense.items():
+        if any(t is None for t in ts) and not all(t is None for t in ts):
+            raise ValueError(f"cannot batch operand sets with and without "
+                             f"{f!r} — one model kind per batch")
     return GranniteOperands(
-        norm_adj=torch.stack([o.norm_adj for o in ops]),
+        **{f: (torch.stack(ts) if ts[0] is not None else None)
+           for f, ts in dense.items()},
         block_sparse=(stack_block_sparse([o.block_sparse for o in ops])
                       if all(with_blocks) else None))
 
@@ -237,16 +266,25 @@ class BlockCompactor:
 
 def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,
                    ops_: GranniteOperands) -> Dict:
-    """Model-level QuantGr calibration for one serving tier (GCN).
+    """Model-level QuantGr calibration for one serving tier.
 
     One fp32 forward over the calibration features records the static
-    ranges: per-layer QuantizedLinear weights plus the aggregation
-    activation scales `agg1_h`/`agg2_h`. The result is model-shaped, so one
-    calibration serves every graph of the model; the per-graph int8 Â is
-    the separate derived operand (`derive_tier_operands`).
-    x: (cap, F); ops_ one graph's operands.
+    ranges: per-layer QuantizedLinear weights ("l1", "l2") plus, for GCN,
+    the aggregation activation scales `agg1_h`/`agg2_h`. GAT's forward is
+    the exact-mask unfused one (`Techniques(effop=True)`), as in the
+    reference. The result is model-shaped, so one calibration serves every
+    graph of the model; GCN's per-graph int8 Â is the separate derived
+    operand (`derive_tier_operands`). x: (cap, F); ops_ one graph's
+    operands.
     """
-    _gcn_only(cfg)
+    _no_sage(cfg)
+    if cfg.kind == "gat":
+        per_head = cfg.hidden // cfg.heads
+        h1 = torch.nn.functional.elu(layers.gat_grannite(
+            params["l1"], x, ops_.mask_mult, ops_.bias_add,
+            Techniques(effop=True), heads=cfg.heads, out_feats=per_head))
+        return {"l1": quantize_linear(params["l1"]["w"], x),
+                "l2": quantize_linear(params["l2"]["w"], h1)}
     pre1 = x @ params["l1"]["w"]
     h1 = torch.relu(layers.gcn_grannite(params["l1"], x, ops_.norm_adj,
                                         Techniques(stagr=True)))
@@ -276,21 +314,40 @@ def forward_grannite(params: Dict, cfg: GNNConfig, x: torch.Tensor,
                      quant: Optional[Dict] = None,
                      tier_ops: Optional[TierOperands] = None,
                      fusion: str = "none") -> torch.Tensor:
-    """One dense GraNNite GCN forward over x (B?, cap, F) -> (B?, cap, C).
+    """One dense GraNNite forward over x (B?, cap, F) -> (B?, cap, C).
 
     `quant` is the model-level tier calibration from `calibrate_tier`
     (read only when `t.quantgr`); `ops_.quant` is the per-graph offline
-    form, which wins when both are present. `tier_ops` carries the derived
-    int8 Â; without it a QuantGr forward quantizes Â itself.
+    form, which wins when both are present. `tier_ops` carries GCN's
+    derived int8 Â; without it a QuantGr GCN forward quantizes Â itself.
     `fusion="layer"` runs each layer as one fused kernel call
-    (`fused_gcn_dense` or `fused_gcn_int8`) with the inter-layer ReLU
-    folded into its epilogue.
+    (`fused_gcn_dense`, `fused_gcn_int8` or `fused_gcn_grasp` for GCN,
+    `fused_gat_full` or `fused_gat_precombined` for GAT) with the
+    inter-layer activation (GCN ReLU, GAT ELU) folded into its epilogue.
+    GAT's layer 2 is one head of `num_classes`.
     """
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion mode {fusion!r}; pick from "
                          f"{FUSION_MODES}")
-    _gcn_only(cfg)
+    _no_sage(cfg)
     tq = (quant or {}) if t.quantgr else {}
+    if cfg.kind == "gat":
+        per_head = cfg.hidden // cfg.heads
+        if fusion == "layer":
+            h = layers.gat_grannite_fused(
+                params["l1"], x, ops_.bias_add, t, heads=cfg.heads,
+                out_feats=per_head, activation="elu", quant=tq.get("l1"))
+            return layers.gat_grannite_fused(
+                params["l2"], h, ops_.bias_add, t, heads=1,
+                out_feats=cfg.num_classes, activation="none",
+                quant=tq.get("l2"))
+        h = torch.nn.functional.elu(layers.gat_grannite(
+            params["l1"], x, ops_.mask_mult, ops_.bias_add, t,
+            heads=cfg.heads, out_feats=per_head, quant=tq.get("l1")))
+        return layers.gat_grannite(params["l2"], h, ops_.mask_mult,
+                                   ops_.bias_add, t, heads=1,
+                                   out_feats=cfg.num_classes,
+                                   quant=tq.get("l2"))
     q = ops_.quant or {}
     taq = tier_ops.agg_aq if tier_ops is not None else None
     tas = tier_ops.agg_a_scale if tier_ops is not None else None
@@ -324,11 +381,11 @@ class ExecutionPlan:
     `trace_count` counts the distinct argument signatures the plan has
     been called with (what a `jax.jit` would have traced): after warmup, a
     steady serving loop adds none. A QuantGr plan is always called with a
-    calibration (real or a warmup placeholder of the same shapes) and tier
-    operands, a fp32 plan with None for both. `grasp_ref_fallback` is True
-    for a grasp plan on the CPU, where the aggregation runs the plain
-    version (padded entries multiplied by 0, not skipped); GraphServe
-    counts its requests in `backend_fallbacks`.
+    calibration (real or a warmup placeholder of the same shapes) and,
+    for GCN, tier operands; a fp32 plan with None for both.
+    `grasp_ref_fallback` is True for a grasp plan on the CPU, where the
+    aggregation runs the plain version (padded entries multiplied by 0,
+    not skipped); GraphServe counts its requests in `backend_fallbacks`.
     """
     cfg: GNNConfig
     techniques: Techniques
@@ -379,7 +436,7 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion mode {fusion!r}; pick from "
                          f"{FUSION_MODES}")
-    _gcn_only(cfg)
+    _no_sage(cfg)
     dev = resolve_device(device)
     exec_t = dataclasses.replace(t, grasp=True) if backend == "grasp" else t
     plan = ExecutionPlan(cfg=cfg, techniques=t, capacity=capacity,
@@ -390,9 +447,11 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
                                              == "ref"))
 
     def _forward(params, x, ops_, quant, tier_ops):
-        if x.device != dev or ops_.norm_adj.device != dev:
-            raise ValueError(f"plan on {dev} called with x on {x.device} "
-                             f"and norm_adj on {ops_.norm_adj.device}")
+        for name, v in [("x", x)] + [(f, getattr(ops_, f))
+                                     for f in OPERAND_FIELDS[cfg.kind]]:
+            if v.device != dev:
+                raise ValueError(f"plan on {dev} called with {name} on "
+                                 f"{v.device}")
         return forward_grannite(params, cfg, x, ops_, exec_t, quant=quant,
                                 tier_ops=tier_ops, fusion=fusion)
 

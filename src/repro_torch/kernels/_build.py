@@ -32,6 +32,10 @@ ENTRY_POINTS = {
     "fused_gcn_int8": ("fused_gcn_int8_f32", "pppppppppp" "iiiii" "ip"),
     "bitmap_spmm": ("bitmap_spmm_f32", "ppppp" "iiiii" "ip"),
     "fused_gcn_grasp": ("fused_gcn_grasp_f32", "pppppppp" "iiiiii" "ip"),
+    "gat_attention": ("gat_attention_f32", "ppppp" "iiii" "ip"),
+    "fused_gat_full": ("fused_gat_full_f32", "pppppppppp" "iiiiii" "ip"),
+    "fused_gat_precombined": ("fused_gat_precombined_f32",
+                              "pppppp" "iiiii" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

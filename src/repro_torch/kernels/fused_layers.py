@@ -12,16 +12,24 @@
     form (`core.sparsity.BlockSparse` leaves). Port of the TPU kernel
     `fused_gcn_grasp` (`csrc/fused_gcn_grasp.cu`); its aggregation is the
     block-sparse walk of `bitmap_spmm` (`csrc/bsr_tile.cuh`).
+  * `fused_gat_full` — the whole fp32 GAT layer: H = X @ W, the alpha
+    terms, act(attention + b) per head. Port of the TPU kernel
+    `fused_gat_full` (`csrc/fused_gat_full.cu`); its attention is the body
+    of `gat_attention` (`csrc/gat_tile.cuh`).
+  * `fused_gat_precombined` — act(attention + b) over an h and alpha made
+    outside (the QuantGr GAT tiers' int8 combine). Port of the TPU kernel
+    `fused_gat_precombined` (`csrc/fused_gat_precombined.cu`).
 
-The three TPU kernels kept the combine result in VMEM, filled by row-block
-0 and read by the later ones in grid order; a CUDA grid has no order, so
-each port runs a combine launch into a scratch tensor (L2 resident at
-serving widths) and an aggregate launch with the epilogue fused into its
-store. Both launches run on the current stream inside one wrapper call,
-which counts one in `LAUNCHES` (dense), `INT8_LAUNCHES` (int8) or
-`GRASP_LAUNCHES` (GraSp).
+The four TPU kernels with a combine kept its result in VMEM, filled by
+row-block 0 and read by the later ones in grid order; a CUDA grid has no
+order, so each port runs a combine launch into a scratch tensor (L2
+resident at serving widths) and an aggregate launch with the epilogue
+fused into its store. Both launches run on the current stream inside one
+wrapper call, which counts one in `LAUNCHES` (dense), `INT8_LAUNCHES`
+(int8), `GRASP_LAUNCHES` (GraSp) or `GAT_FULL_LAUNCHES`;
+`fused_gat_precombined` is one launch, counted in `GAT_PRE_LAUNCHES`.
 
-The other fused kernels of the reference (GAT, SAGE) are not ported yet.
+The fused SAGE kernel of the reference is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,11 +38,14 @@ import torch
 from . import _build
 from ._launch import check_cuda, check_int32, launch, on_cpu
 from .bitmap_spmm import bitmap_spmm_plain, check_structure
+from .gat_attention import check_attention, gat_attention_plain
 from .int8_matmul import check_accumulator, int_matmul, quantize_s8
 
 LAUNCHES = 0                      # calls of `fused_gcn_dense` that launched
 INT8_LAUNCHES = 0                 # calls of `fused_gcn_int8` that launched
 GRASP_LAUNCHES = 0                # calls of `fused_gcn_grasp` that launched
+GAT_FULL_LAUNCHES = 0             # calls of `fused_gat_full` that launched
+GAT_PRE_LAUNCHES = 0              # launches of `fused_gat_precombined`
 ACTIVATIONS = {"none": 0, "relu": 1, "elu": 2}   # the kernel's `act` codes
 
 
@@ -46,6 +57,12 @@ def _act(z: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "none":
         return z
     raise ValueError(f"unknown activation {activation!r}")
+
+
+def _check_activation(activation: str) -> None:
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; pick from "
+                         f"{sorted(ACTIVATIONS)}")
 
 
 def fused_gcn_dense_plain(norm_adj: torch.Tensor, x: torch.Tensor,
@@ -66,9 +83,7 @@ def fused_gcn_dense(norm_adj: torch.Tensor, x: torch.Tensor,
     Returns (B, N, O) float32.
     """
     global LAUNCHES
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}; pick from "
-                         f"{sorted(ACTIVATIONS)}")
+    _check_activation(activation)
     if on_cpu(norm_adj, x, w, b):
         return fused_gcn_dense_plain(norm_adj, x, w, b, activation)
     device = check_cuda("fused_gcn_dense", norm_adj=norm_adj, x=x, w=w, b=b)
@@ -120,9 +135,7 @@ def fused_gcn_int8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     f32; b: (O,) or (1, O). Returns (B, N, O) float32.
     """
     global INT8_LAUNCHES
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}; pick from "
-                         f"{sorted(ACTIVATIONS)}")
+    _check_activation(activation)
     operands = dict(x=x, wq=wq, sw=sw, x_scale=x_scale, h_scale=h_scale,
                     aq=aq, a_scale=a_scale, b=b)
     if on_cpu(*operands.values()):
@@ -180,9 +193,7 @@ def fused_gcn_grasp(blocks: torch.Tensor, block_cols: torch.Tensor,
     float32.
     """
     global GRASP_LAUNCHES
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}; pick from "
-                         f"{sorted(ACTIVATIONS)}")
+    _check_activation(activation)
     operands = dict(blocks=blocks, block_cols=block_cols, counts=counts,
                     x=x, w=w, b=b)
     if on_cpu(*operands.values()):
@@ -212,4 +223,110 @@ def fused_gcn_grasp(blocks: torch.Tensor, block_cols: torch.Tensor,
                out.data_ptr(), batch, rb, max_nnz, fin, o,
                ACTIVATIONS[activation])
         GRASP_LAUNCHES += 1
+    return out
+
+
+def fused_gat_precombined_plain(h: torch.Tensor, alpha_dst: torch.Tensor,
+                                alpha_src: torch.Tensor,
+                                bias_add: torch.Tensor, b: torch.Tensor,
+                                activation: str = "none") -> torch.Tensor:
+    """Plain PyTorch version: `gat_attention_plain`, bias and activation
+    as separate ops."""
+    return _act(gat_attention_plain(h, alpha_dst, alpha_src, bias_add) + b,
+                activation)
+
+
+def fused_gat_precombined(h: torch.Tensor, alpha_dst: torch.Tensor,
+                          alpha_src: torch.Tensor, bias_add: torch.Tensor,
+                          b: torch.Tensor, activation: str = "none"
+                          ) -> torch.Tensor:
+    """QuantGr GAT layer after its combine, over a leading batch of graphs.
+
+    h: (B, N, H, F); alpha_dst, alpha_src: (B, N, H); bias_add: (B, N, N)
+    of 0 / -1e9; b: (H, F). Returns (B, N, H, F) float32.
+    """
+    global GAT_PRE_LAUNCHES
+    _check_activation(activation)
+    operands = dict(h=h, alpha_dst=alpha_dst, alpha_src=alpha_src,
+                    bias_add=bias_add, b=b)
+    if on_cpu(*operands.values()):
+        return fused_gat_precombined_plain(h, alpha_dst, alpha_src, bias_add,
+                                           b, activation)
+    device = check_cuda("fused_gat_precombined", **operands)
+    batch, n, heads, f = check_attention("fused_gat_precombined", h,
+                                         alpha_dst, alpha_src, bias_add)
+    if tuple(b.shape) != (heads, f):
+        raise ValueError(f"fused_gat_precombined: b must be ({heads}, {f}),"
+                         f" got {tuple(b.shape)}")
+    out = torch.empty_like(h)
+    if out.numel():
+        launch("fused_gat_precombined", _build.load("fused_gat_precombined"),
+               device, h.data_ptr(), alpha_dst.data_ptr(),
+               alpha_src.data_ptr(), bias_add.data_ptr(), b.data_ptr(),
+               out.data_ptr(), batch, n, heads, f, ACTIVATIONS[activation])
+        GAT_PRE_LAUNCHES += 1
+    return out
+
+
+def fused_gat_full_plain(x: torch.Tensor, w: torch.Tensor,
+                         a_src: torch.Tensor, a_dst: torch.Tensor,
+                         bias_add: torch.Tensor, b: torch.Tensor,
+                         activation: str = "none") -> torch.Tensor:
+    """Plain PyTorch version: the combine, the alpha einsums, then
+    `fused_gat_precombined_plain`."""
+    fin, heads, f = w.shape
+    h = torch.matmul(x, w.reshape(fin, heads * f)).reshape(
+        *x.shape[:-1], heads, f)
+    alpha_src = torch.einsum("...nhf,hf->...nh", h, a_src)
+    alpha_dst = torch.einsum("...nhf,hf->...nh", h, a_dst)
+    return fused_gat_precombined_plain(h, alpha_dst, alpha_src, bias_add, b,
+                                       activation)
+
+
+def fused_gat_full(x: torch.Tensor, w: torch.Tensor, a_src: torch.Tensor,
+                   a_dst: torch.Tensor, bias_add: torch.Tensor,
+                   b: torch.Tensor, activation: str = "none"
+                   ) -> torch.Tensor:
+    """Whole fp32 GAT layer over a leading batch of graphs.
+
+    x: (B, N, Fin); w: (Fin, H, F); a_src, a_dst, b: (H, F); bias_add:
+    (B, N, N) of 0 / -1e9. Returns (B, N, H, F) float32.
+    """
+    global GAT_FULL_LAUNCHES
+    _check_activation(activation)
+    operands = dict(x=x, w=w, a_src=a_src, a_dst=a_dst, bias_add=bias_add,
+                    b=b)
+    if on_cpu(*operands.values()):
+        return fused_gat_full_plain(x, w, a_src, a_dst, bias_add, b,
+                                    activation)
+    device = check_cuda("fused_gat_full", **operands)
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"fused_gat_full: x must be (B, N, Fin) and w "
+                         f"(Fin, H, F), got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    batch, n, fin = x.shape
+    _, heads, f = w.shape
+    if (w.shape[0] != fin or tuple(a_src.shape) != (heads, f)
+            or tuple(a_dst.shape) != (heads, f)
+            or tuple(b.shape) != (heads, f)):
+        raise ValueError(
+            f"fused_gat_full: shapes do not agree: x {tuple(x.shape)}, w "
+            f"{tuple(w.shape)}, a_src {tuple(a_src.shape)}, a_dst "
+            f"{tuple(a_dst.shape)}, b {tuple(b.shape)}")
+    out = torch.empty(batch, n, heads, f, dtype=torch.float32, device=device)
+    # scratch of the combine launch, read by the attention launch
+    h = torch.empty_like(out)
+    alpha_src = torch.empty(batch, n, heads, dtype=torch.float32,
+                            device=device)
+    alpha_dst = torch.empty_like(alpha_src)
+    check_attention("fused_gat_full", h, alpha_dst, alpha_src, bias_add)
+    if out.numel():
+        check_int32("fused_gat_full", fin=fin)
+        launch("fused_gat_full", _build.load("fused_gat_full"), device,
+               x.data_ptr(), w.data_ptr(), a_src.data_ptr(),
+               a_dst.data_ptr(), bias_add.data_ptr(), b.data_ptr(),
+               h.data_ptr(), alpha_src.data_ptr(), alpha_dst.data_ptr(),
+               out.data_ptr(), batch, n, fin, heads, f,
+               ACTIVATIONS[activation])
+        GAT_FULL_LAUNCHES += 1
     return out

@@ -1,16 +1,21 @@
 """Public kernel entry points of the port: `matmul`, `int8_matmul`,
-`bitmap_spmm` (with `bitmap_spmm_batched` and `bitmap_spmm_mode`) and
-`fused_gcn_layer` (its dense, QuantGr and GraSp branches).
+`bitmap_spmm` (with `bitmap_spmm_batched` and `bitmap_spmm_mode`),
+`gat_attention`, `fused_gcn_layer` (its dense, QuantGr and GraSp branches)
+and `fused_gat_layer` (fp32 and precombined).
 
 Routing follows the tensors' device (`kernels/_launch.py`): CPU tensors run
 the kernels' plain versions, CUDA tensors the hand-written kernels or an
-exception — no environment override and no fallback. Every entry pads its
-operands to the 128 tile and strips the result, as the reference's
-`ops._pad2` does (a no-op for NodePad'ded graph operands). Entries accept a
-leading batch dimension, which stands in for the reference's `vmap`.
+exception — no environment override and no fallback. The GCN entries pad
+their operands to the 128 tile and strip the result, as the reference's
+`ops._pad2` does (a no-op for NodePad'ded graph operands). The GAT entries
+take the head width F as it is: the reference pads F to its 128 lanes,
+the CUDA kernels take any F up to 64, and the stripped result is the same.
+`fused_gat_layer` pads the node dimension to 128 with -1e9 bias rows and
+columns, as the reference does. Entries accept a leading batch dimension,
+which stands in for the reference's `vmap`.
 
-The other entries of the reference's `ops.py` (GAT, SAGE, flash
-attention) are not ported yet.
+The other entries of the reference's `ops.py` (SAGE, flash attention) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +27,10 @@ import torch.nn.functional as F
 from . import int8_matmul as _i8
 from .bitmap_spmm import bitmap_spmm as _bitmap_spmm
 from .block_matmul import block_matmul
-from .fused_layers import fused_gcn_dense, fused_gcn_grasp, fused_gcn_int8
+from .fused_layers import (fused_gat_full, fused_gat_precombined,
+                           fused_gcn_dense, fused_gcn_grasp, fused_gcn_int8)
+from .gat_attention import gat_attention as _gat_attention
+from .ref import NEG_INF
 
 TILE = 128
 
@@ -92,6 +100,19 @@ def bitmap_spmm(block_sparse, h: torch.Tensor) -> torch.Tensor:
 bitmap_spmm_batched = bitmap_spmm
 
 
+def gat_attention(h: torch.Tensor, alpha_dst: torch.Tensor,
+                  alpha_src: torch.Tensor,
+                  bias_add: torch.Tensor) -> torch.Tensor:
+    """Fused EffOp + GrAx1 + GrAx2 GAT attention through the
+    `gat_attention` kernel. h: (B?, N, H, F); alpha_dst, alpha_src:
+    (B?, N, H); bias_add: (B?, N, N). Returns h's shape."""
+    single = h.dim() == 3
+    args = [t[None] if single else t
+            for t in (h, alpha_dst, alpha_src, bias_add)]
+    out = _gat_attention(*(t.contiguous() for t in args))
+    return out[0] if single else out
+
+
 def fused_gcn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     norm_adj: Optional[torch.Tensor] = None,
                     block_sparse=None,
@@ -135,4 +156,50 @@ def fused_gcn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                               _pad2(x, TILE, TILE), _pad2(w, TILE, TILE), b2,
                               activation)
     out = out[:, :n, :o]
+    return out[0] if single else out
+
+
+def _pad_nodes(t: torch.Tensor, npad: int, dim: int) -> torch.Tensor:
+    """Append `npad` zero entries to dimension `dim` (negative) of t."""
+    if not npad:
+        return t.contiguous()
+    pad = [0, 0] * (-dim)
+    pad[-1] = npad
+    return F.pad(t, pad)
+
+
+def fused_gat_layer(x: Optional[torch.Tensor], w: Optional[torch.Tensor],
+                    a_src: torch.Tensor, a_dst: torch.Tensor,
+                    bias_add: torch.Tensor, b: torch.Tensor, *,
+                    activation: str = "none",
+                    precombined: Optional[Tuple[torch.Tensor, ...]] = None
+                    ) -> torch.Tensor:
+    """Fused GAT layer -> (B?, N, H, F), one kernel call.
+
+    x: (B?, N, Fin); w: (Fin, H, F); a_src/a_dst: (H, F); bias_add:
+    (B?, N, N); b: (H, F), through `fused_gat_full`. `precombined` = (h,
+    alpha_dst, alpha_src) for the QuantGr tiers, through
+    `fused_gat_precombined`: the int8 combine runs outside, attention and
+    epilogue stay fused. The node dimension is padded to 128 with -1e9 bias
+    rows and columns (padded columns never win a row's softmax; padded
+    rows are stripped).
+    """
+    single = bias_add.dim() == 2
+    if single:
+        bias_add = bias_add[None]
+    n = bias_add.shape[-1]
+    npad = (-n) % TILE
+    bias_p = F.pad(bias_add, (0, npad, 0, npad), value=NEG_INF)
+    b = b.contiguous()
+    if precombined is not None:
+        h, alpha_dst, alpha_src = (t[None] if single else t
+                                   for t in precombined)
+        out = fused_gat_precombined(
+            _pad_nodes(h, npad, -3), _pad_nodes(alpha_dst, npad, -2),
+            _pad_nodes(alpha_src, npad, -2), bias_p, b, activation)
+    else:
+        out = fused_gat_full(_pad_nodes(x[None] if single else x, npad, -2),
+                             w.contiguous(), a_src.contiguous(),
+                             a_dst.contiguous(), bias_p, b, activation)
+    out = out[:, :n]
     return out[0] if single else out

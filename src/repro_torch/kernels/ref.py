@@ -1,12 +1,16 @@
 """Plain torch oracles for the ported kernels, twins of the reference's
 `kernels/ref.py` (`matmul_ref`, `int8_matmul_ref`, `bitmap_spmm_ref`,
-`bitmap_spmm_block_ref`, the dense and QuantGr branches of
-`fused_gcn_layer_ref`, and `fused_gcn_grasp_layer_ref`).
+`bitmap_spmm_block_ref`, `gat_attention_ref`, the dense and QuantGr
+branches of `fused_gcn_layer_ref`, `fused_gcn_grasp_layer_ref` and
+`fused_gat_layer_ref`).
 
 They take the unpadded shapes the layers see, not the tile-padded ones the
 kernels take, and are written independently of the kernels' plain
-versions (ELU through `torch.nn.functional.elu`), so the parity tests hold
-each path against a second formulation. Their one shared piece is the
+versions (ELU through `torch.nn.functional.elu`, the GAT softmax through
+`core.effop`), so the parity tests hold each path against a second
+formulation. The GAT twins loop over heads, as the reference's
+`fused_gat_layer_ref` does, so one (B?, N, N) score tensor is alive at a
+time. Their one shared piece is the
 exact s8 x s8 -> s32 product `int8_matmul.int_matmul`, which every plain
 int8 product of the port goes through.
 """
@@ -17,7 +21,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import effop
+
 from .int8_matmul import int_matmul
+
+NEG_INF = effop.NEG_INF
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
@@ -51,6 +59,27 @@ def bitmap_spmm_block_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
     mask = (torch.arange(max_nnz)[None, :] < counts[:, None]).to(blocks.dtype)
     return torch.einsum("rk,rkij,rkjf->rif", mask, blk, gathered
                         ).reshape(rb * bs, f).to(h.dtype)
+
+
+def gat_attention_ref(h: torch.Tensor, alpha_dst: torch.Tensor,
+                      alpha_src: torch.Tensor, bias_add: torch.Tensor, *,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """Fused GAT oracle (EffOp + GrAx1 + GrAx2 dense formulation).
+
+    h: (B?, N, H, F); alpha_dst/alpha_src: (B?, N, H); bias_add: (B?, N, N)
+    of 0 / -1e9. out[i, hd] = sum_j softmax_j(leaky(ad[i,hd] + as[j,hd])
+    + bias[i,j]) h[j, hd].
+    """
+    outs = []
+    for hd in range(h.shape[-2]):
+        e = F.leaky_relu(alpha_dst[..., :, None, hd]
+                         + alpha_src[..., None, :, hd], negative_slope)
+        e = e + bias_add
+        e = e - torch.max(e, dim=-1, keepdim=True).values
+        p = torch.exp(e)
+        attn = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-12)
+        outs.append(torch.einsum("...ij,...jf->...if", attn, h[..., hd, :]))
+    return torch.stack(outs, dim=-2)
 
 
 def _act_ref(z: torch.Tensor, activation: str) -> torch.Tensor:
@@ -96,3 +125,31 @@ def fused_gcn_grasp_layer_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
     agg = bitmap_spmm_block_ref(blocks, block_cols, counts, h,
                                 block_size=block_size)
     return _act_ref(agg + b.reshape(1, -1), activation).to(x.dtype)
+
+
+def fused_gat_layer_ref(x: Optional[torch.Tensor], w: Optional[torch.Tensor],
+                        a_src: torch.Tensor, a_dst: torch.Tensor,
+                        bias_add: torch.Tensor, b: torch.Tensor, *,
+                        negative_slope: float = 0.2,
+                        activation: str = "none",
+                        precombined=None) -> torch.Tensor:
+    """Whole-GAT-layer twin through the EffOp catalogue (GrAx1 + GrAx2).
+
+    x: (B?, N, Fin); w: (Fin, H, F); a_src/a_dst: (H, F); b: (H, F) ->
+    (B?, N, H, F). precombined: optional (h, alpha_dst, alpha_src), as the
+    QuantGr tiers make them outside.
+    """
+    if precombined is not None:
+        h, alpha_dst, alpha_src = precombined
+    else:
+        h = torch.einsum("...nf,fhd->...nhd", x, w)
+        alpha_src = torch.einsum("...nhf,hf->...nh", h, a_src)
+        alpha_dst = torch.einsum("...nhf,hf->...nh", h, a_dst)
+    outs = []
+    for hd in range(h.shape[-2]):
+        e = effop.broadcast_add_scores(alpha_src[..., hd], alpha_dst[..., hd],
+                                       grax2=True)
+        e = F.leaky_relu(e, negative_slope)
+        attn = effop.segment_softmax_dense(e, bias_add)      # GrAx1 mask
+        outs.append(attn @ h[..., hd, :] + b[hd])
+    return _act_ref(torch.stack(outs, dim=-2), activation)

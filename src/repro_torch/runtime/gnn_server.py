@@ -1,4 +1,5 @@
-"""GraphServe sync core: multi-graph, multi-bucket GCN serving on one device.
+"""GraphServe sync core: multi-graph, multi-bucket GCN and GAT serving on
+one device.
 
 Port of the synchronous serving path of the reference's
 `runtime/gnn_server.py`:
@@ -22,8 +23,12 @@ Port of the synchronous serving path of the reference's
     through one CUDA kernel call (`fused_gcn_dense`, or `fused_gcn_int8`
     on a QuantGr tier); `fusion="none"` runs two matmuls per layer,
     through the `block_matmul` / `int8_matmul` kernels when the tier's
-    Techniques set `use_pallas`. Fusion joins the batch key and warmup
-    runs both modes, as in the reference.
+    Techniques set `use_pallas`. A GAT layer runs `fused_gat_full` (fp32
+    tiers) or `fused_gat_precombined` after its int8 combine (QuantGr
+    tiers) with `fusion="layer"`, and the `gat_attention` kernel with
+    `fusion="none"` and `use_pallas` (its int8 combine through
+    `int8_matmul`). Fusion joins the batch key and warmup runs both
+    modes, as in the reference.
   * GraSp aggregation backend (DESIGN.md §10) — a model registered with
     `agg_backend="auto"` routes each graph by the density/cost rule
     (`core.sparsity.select_agg_backend`, H100 constants); `"grasp"` forces
@@ -59,8 +64,9 @@ import torch
 
 from repro_torch.core.graph import BucketLadder, Graph, PaddedGraph, pad_graph
 from repro_torch.core.layers import Techniques
-from repro_torch.core.models import (FUSION_MODES, ExecutionPlan, GNNConfig,
+from repro_torch.core.models import (FUSION_MODES, OPERAND_FIELDS,
                                      AggQuantizer, BlockCompactor,
+                                     ExecutionPlan, GNNConfig,
                                      GranniteOperands, PlanKey,
                                      TierOperands, build_operands,
                                      build_plan, calibrate_tier,
@@ -74,6 +80,7 @@ from repro_torch.runtime.clock import WALL, Clock
 # Serving techniques for models registered without explicit Techniques.
 DEFAULT_TECHNIQUES: Dict[str, Techniques] = {
     "gcn": Techniques(stagr=True, grad_dynamic=True, graphsplit=True),
+    "gat": Techniques.full_gat(),
 }
 
 # Aggregation-backend serving modes (register_model(agg_backend=...)):
@@ -286,7 +293,8 @@ class GraphServe:
                        default_tier: str = "fp32",
                        agg_backend: str = "dense",
                        fusion: str = "none") -> None:
-        """Register a GCN under `name` with its quality-tier registry.
+        """Register a GCN or GAT under `name` with its quality-tier
+        registry.
 
         `params` (nested dict of tensors on the engine's device, e.g. from
         `bridge.params_from_jax`) defaults to a seeded init. `tiers` may be
@@ -297,9 +305,11 @@ class GraphServe:
         `agg_backend` is the model's GraSp mode (`AGG_BACKEND_MODES`):
         "dense", "auto" (per-graph density/cost rule) or "grasp" (forced
         where the structure fits the bucket budget; ineligible graphs
-        serve dense, counted in `backend_fallbacks`). QuantGr tiers always
-        resolve dense. `fusion` is the model's default fused-layer mode;
-        requests may override it per call.
+        serve dense, counted in `backend_fallbacks`). QuantGr tiers and
+        GAT (whose aggregation has no block-sparse form) always resolve
+        dense, so a non-"dense" mode on them is a no-op, not an error.
+        `fusion` is the model's default fused-layer mode; requests may
+        override it per call.
         """
         if cfg.kind not in DEFAULT_TECHNIQUES:
             raise NotImplementedError(
@@ -594,16 +604,20 @@ class GraphServe:
                          backend: str = "dense",
                          grasp_bitmap: Optional[np.ndarray] = None
                          ) -> GranniteOperands:
-        """Build one graph's operands on the host and upload them. A grasp
-        request also compacts Â's blocks on the host (`to_block_sparse`,
-        reusing the rule's bitmap, padded to the bucket budget) and ships
-        the structure; its bytes count in `operand_bytes_h2d`."""
+        """Build one graph's operands on the host and upload them: the
+        fields its kind reads (GCN's Â, GAT's two masks), whose bytes count
+        in `operand_bytes_h2d`. A grasp request also compacts Â's blocks on
+        the host (`to_block_sparse`, reusing the rule's bitmap, padded to
+        the bucket budget) and ships the structure, counted too."""
         grasp = backend == "grasp"
+        cfg = self.models[model].cfg
         ops = build_operands(
-            pg, self.models[model].cfg, grasp=grasp,
+            pg, cfg, grasp=grasp,
             max_nnz=grasp_max_nnz(pg.capacity) if grasp else None,
             bitmap=grasp_bitmap, device=self.device)
-        self.metrics["operand_bytes_h2d"] += int(pg.norm_adj.nbytes) + (
+        self.metrics["operand_bytes_h2d"] += sum(
+            getattr(ops, f).numel() * getattr(ops, f).element_size()
+            for f in OPERAND_FIELDS[cfg.kind]) + (
             ops.block_sparse.nbytes if grasp else 0)
         return ops
 

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the port's GraphServe on CUDA against the same engine on the CPU, on the
-fp32 tier, on the QuantGr int8 tier and on the GraSp backend.
+fp32 tier, on the QuantGr int8 tier, on the GraSp backend and for the GAT
+kind.
 
 Every test here carries the `cuda` marker and skips itself where there is
 no card; this file imports no JAX, so it runs on a machine without it:
@@ -10,22 +11,28 @@ no card; this file imports no JAX, so it runs on a machine without it:
 Tolerance: fp32 rtol=1e-4, atol=1e-5 — the kernels and cuBLAS (TF32 off)
 sum over K in different orders. The int8 kernels take exact integer
 products and the plain versions' rounding steps, so they are held equal
-(`torch.equal`).
+(`torch.equal`). The GAT kernels' online softmax sums in another order
+than the plain two-pass one: rtol=1e-4, atol=1e-5 as well. A GAT int8
+request is compared layer by layer (see `test_gat_graphserve_on_card`).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import layers as glayers
 from repro_torch.core.graph import BucketLadder
 from repro_torch.core.layers import Techniques
-from repro_torch.core.models import GNNConfig
+from repro_torch.core.masks import NEG_INF
+from repro_torch.core.models import GNNConfig, stack_operands
 from repro_torch.core.quant import QuantizedLinear, quantize_rowwise
 from repro_torch.core.sparsity import compact_block_sparse
 from repro_torch.data.graphs import clustered_like, planetoid_like
 from repro_torch.kernels import bitmap_spmm as bs_mod
 from repro_torch.kernels import block_matmul as bm_mod
 from repro_torch.kernels import fused_layers as fl_mod
+from repro_torch.kernels import gat_attention as ga_mod
 from repro_torch.kernels import int8_matmul as im_mod
+from repro_torch.kernels import ops as kops
 from repro_torch.runtime.gnn_server import GraphServe, GraphServeConfig
 
 CARD = dict(rtol=1e-4, atol=1e-5)
@@ -355,3 +362,213 @@ def test_grasp_graphserve_on_card_matches_cpu(card):
         assert out["cuda"][uid][0] == backend
         torch.testing.assert_close(torch.from_numpy(out["cuda"][uid][1]),
                                    torch.from_numpy(logits), **CARD)
+
+
+def _gat_bias(rng, batch, n, n_real, device):
+    """GrAx1 masks with NodePad's all -1e9 rows past n_real, and rows
+    64..95 whose first 64-column tile is all -1e9."""
+    adj = rng.random((batch, n, n)) < 0.05
+    adj[:, n_real:] = False
+    adj[:, :, n_real:] = False
+    idx = np.arange(n_real)
+    adj[:, idx, idx] = True
+    adj[:, 64:96, :64] = False
+    return torch.from_numpy(np.where(adj, 0.0, NEG_INF).astype(np.float32)
+                            ).to(device)
+
+
+def _gat_operands(seed, batch, n, heads, f, device, n_real=None):
+    rng = np.random.default_rng(seed)
+    bias = _gat_bias(rng, batch, n, n_real or n - 40, device)
+    return (_arr(rng, batch, n, heads, f).to(device),
+            _arr(rng, batch, n, heads).to(device),
+            _arr(rng, batch, n, heads).to(device), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f,n", [(8, 8, 384), (1, 7, 384),
+                                       (2, 7, 200), (3, 20, 130)])
+def test_gat_attention_matches_plain(card, heads, f, n):
+    # n = 200 and 130 end inside the kernel's 32-row and 64-column tiles
+    h, ad, as_, bias = _gat_operands(heads + f + n, 2, n, heads, f, card)
+    before = ga_mod.LAUNCHES
+    got = ga_mod.gat_attention(h, ad, as_, bias)
+    torch.cuda.synchronize()
+    assert ga_mod.LAUNCHES == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ga_mod.gat_attention_plain(h, ad, as_,
+                                                               bias), **CARD)
+    # a padded row averages h uniformly, as the reference does
+    torch.testing.assert_close(got[0, -1], h[0].mean(dim=0), **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_fused_gat_precombined_matches_plain(card, activation):
+    for heads, f in ((8, 8), (1, 7)):
+        h, ad, as_, bias = _gat_operands(heads, 2, 256, heads, f, card)
+        b = _arr(np.random.default_rng(f), heads, f, scale=0.1).to(card)
+        before = fl_mod.GAT_PRE_LAUNCHES
+        got = fl_mod.fused_gat_precombined(h, ad, as_, bias, b, activation)
+        torch.cuda.synchronize()
+        assert fl_mod.GAT_PRE_LAUNCHES == before + 1
+        torch.testing.assert_close(got, fl_mod.fused_gat_precombined_plain(
+            h, ad, as_, bias, b, activation), **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_fused_gat_full_matches_plain(card, activation):
+    rng = np.random.default_rng(12)
+    for heads, f, fin in ((8, 8, 300), (1, 7, 64), (9, 12, 40)):
+        # 9 heads of 12: attention head groups of 8 and 1, combine tiles
+        # of 5 and 4 whole heads
+        x = _arr(rng, 2, 256, fin).to(card)
+        w = _arr(rng, fin, heads, f, scale=0.1).to(card)
+        a_src, a_dst = (_arr(rng, heads, f).to(card) for _ in range(2))
+        b = _arr(rng, heads, f, scale=0.1).to(card)
+        bias = _gat_bias(rng, 2, 256, 220, card)
+        before = fl_mod.GAT_FULL_LAUNCHES
+        got = fl_mod.fused_gat_full(x, w, a_src, a_dst, bias, b, activation)
+        torch.cuda.synchronize()
+        assert fl_mod.GAT_FULL_LAUNCHES == before + 1
+        torch.testing.assert_close(got, fl_mod.fused_gat_full_plain(
+            x, w, a_src, a_dst, bias, b, activation), **CARD)
+
+
+@pytest.mark.cuda
+def test_ops_fused_gat_layer_pads_ragged_graphs_on_card(card):
+    rng = np.random.default_rng(13)
+    n, fin, heads, f = 200, 48, 8, 8
+    x = _arr(rng, 2, n, fin).to(card)
+    w = _arr(rng, fin, heads, f, scale=0.1).to(card)
+    a_src, a_dst = (_arr(rng, heads, f).to(card) for _ in range(2))
+    b = _arr(rng, heads, f, scale=0.1).to(card)
+    bias = _gat_bias(rng, 2, n, n, card)         # every row real
+    pre = (_arr(rng, 2, n, heads, f).to(card), _arr(rng, 2, n, heads).to(card),
+           _arr(rng, 2, n, heads).to(card))
+    before = (fl_mod.GAT_FULL_LAUNCHES, fl_mod.GAT_PRE_LAUNCHES)
+    got = kops.fused_gat_layer(x, w, a_src, a_dst, bias, b, activation="elu")
+    got_pre = kops.fused_gat_layer(None, None, a_src, a_dst, bias, b,
+                                   activation="elu", precombined=pre)
+    torch.cuda.synchronize()
+    assert (fl_mod.GAT_FULL_LAUNCHES, fl_mod.GAT_PRE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, fl_mod.fused_gat_full_plain(
+        x, w, a_src, a_dst, bias, b, "elu"), **CARD)
+    torch.testing.assert_close(got_pre, fl_mod.fused_gat_precombined_plain(
+        *pre, bias, b, "elu"), **CARD)
+
+
+@pytest.mark.cuda
+def test_gat_wrappers_reject_bad_operands(card):
+    h, ad, as_, bias = _gat_operands(0, 1, 128, 2, 8, card)
+    with pytest.raises(ValueError, match="head width"):
+        ga_mod.gat_attention(torch.zeros(1, 128, 1, 65, device=card),
+                             ad[..., :1].contiguous(),
+                             as_[..., :1].contiguous(), bias)
+    with pytest.raises(TypeError):
+        ga_mod.gat_attention(h.double(), ad, as_, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        ga_mod.gat_attention(h, ad, as_, bias.transpose(1, 2))
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        ga_mod.gat_attention(h, ad, as_, bias[:, :64, :64].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        ga_mod.gat_attention(h, ad.cpu(), as_, bias)
+    with pytest.raises(ValueError, match="b must be"):
+        fl_mod.fused_gat_precombined(h, ad, as_, bias,
+                                     torch.zeros(2, 7, device=card))
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        fl_mod.fused_gat_full(torch.zeros(1, 128, 16, device=card),
+                              torch.zeros(15, 2, 8, device=card),
+                              torch.zeros(2, 8, device=card),
+                              torch.zeros(2, 8, device=card), bias,
+                              torch.zeros(2, 8, device=card))
+
+
+@pytest.mark.cuda
+def test_gat_graphserve_on_card_matches_cpu(card):
+    """GAT fp32 and int8 on the card against the CPU engine, the same
+    calibration on both. fp32 logits are held end to end. An int8
+    request's layer 2 rounds layer 1's output, where the card's online
+    softmax and the CPU's two-pass one may straddle a rounding tie, so it
+    is held layer by layer: layer 1 at CARD, and layer 2 on the CPU's
+    layer-1 output against the CPU logits."""
+    cfg = GNNConfig(kind="gat", in_feats=48, hidden=16, num_classes=5,
+                    heads=2)
+    base = dict(stagr=True, graphsplit=True, effop=True)
+    graphs = [planetoid_like(num_nodes=n, num_edges=3 * n, num_feats=48,
+                             num_classes=5, seed=i, train_per_class=2)
+              for i, n in enumerate((60, 120, 200, 250))]
+    out, engines = {}, {}
+    for side, dev in (("cpu", torch.device("cpu")), ("cuda", card)):
+        eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128, 256)),
+                                          batch_slots=2, return_logits=True),
+                         seed=3, device=dev)
+        eng.register_model("gat", cfg, tiers=("fp32", "int8"),
+                           fusion="layer")
+        eng.register_model("gat_mm", cfg, tiers={
+            "fp32": Techniques(**base, use_pallas=True),
+            "int8": Techniques(**base, quantgr=True, use_pallas=True)})
+        eng.warmup()
+        for name in ("gat", "gat_mm"):
+            if side == "cpu":
+                eng.calibrate(name, graphs[3])
+            else:                      # the same scales on both devices
+                eng.models[name].calibrations["int8"] = _calibration_to(
+                    engines["cpu"].models[name].calibrations["int8"], dev)
+        launches = (ga_mod.LAUNCHES, fl_mod.GAT_FULL_LAUNCHES,
+                    fl_mod.GAT_PRE_LAUNCHES, im_mod.LAUNCHES)
+        for g in graphs:
+            for tier in ("fp32", "int8"):
+                eng.submit(g, model="gat", tier=tier)
+                eng.submit(g, model="gat_mm", tier=tier)
+        done = eng.run()
+        out[side] = {r.uid: r for r in done}
+        engines[side] = eng
+        eng.assert_warm()
+        assert eng.summary()["tier_fallbacks"] == 0
+        ran = (ga_mod.LAUNCHES - launches[0],
+               fl_mod.GAT_FULL_LAUNCHES - launches[1],
+               fl_mod.GAT_PRE_LAUNCHES - launches[2],
+               im_mod.LAUNCHES - launches[3])
+        # per (model, tier): 2 buckets x 1 batch, 2 layers each
+        assert ran == ((8, 4, 4, 4) if side == "cuda" else (0, 0, 0, 0))
+    for uid, r_cpu in out["cpu"].items():
+        r_gpu = out["cuda"][uid]
+        e_gpu, e_cpu = (engines[k].models[r_cpu.model]
+                        for k in ("cuda", "cpu"))
+        t = e_cpu.tiers[r_cpu.tier]
+        if not t.quantgr:
+            torch.testing.assert_close(torch.from_numpy(r_gpu.logits),
+                                       torch.from_numpy(r_cpu.logits),
+                                       **CARD)
+            continue
+        n = r_cpu.pg.num_nodes
+        layer = {}
+        for k, e, r in (("cuda", e_gpu, r_gpu), ("cpu", e_cpu, r_cpu)):
+            x = torch.from_numpy(r.pg.features).to(engines[k].device)[None]
+            ops = stack_operands([r.ops])
+            kw = dict(heads=2, out_feats=8,
+                      quant=e.calibrations["int8"]["l1"])
+            if r.fusion == "layer":
+                h1 = glayers.gat_grannite_fused(
+                    e.params["l1"], x, ops.bias_add, t, activation="elu",
+                    **kw)
+            else:
+                h1 = torch.nn.functional.elu(glayers.gat_grannite(
+                    e.params["l1"], x, ops.mask_mult, ops.bias_add, t, **kw))
+            layer[k] = (h1, ops)
+        torch.testing.assert_close(layer["cuda"][0][0, :n].cpu(),
+                                   layer["cpu"][0][0, :n], **CARD)
+        h1_cpu = layer["cpu"][0].to(card)
+        ops = layer["cuda"][1]
+        kw = dict(heads=1, out_feats=5, quant=e_gpu.calibrations["int8"]["l2"])
+        if r_gpu.fusion == "layer":
+            z = glayers.gat_grannite_fused(e_gpu.params["l2"], h1_cpu,
+                                           ops.bias_add, t, **kw)
+        else:
+            z = glayers.gat_grannite(e_gpu.params["l2"], h1_cpu,
+                                     ops.mask_mult, ops.bias_add, t, **kw)
+        torch.testing.assert_close(z[0, :n].cpu(),
+                                   torch.from_numpy(r_cpu.logits), **CARD)

@@ -38,7 +38,18 @@ def _env():
     return env
 
 
-def test_cpu_forward_leaves_jax_unloaded():
+def test_port_file_list_covers_every_slice():
+    # the modules each slice added are scanned, the numpy-only ones too
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES[:-1]}
+    assert {"core/masks.py", "core/effop.py", "core/sparsity.py",
+            "core/quant.py", "kernels/gat_attention.py",
+            "kernels/fused_layers.py", "runtime/gnn_server.py"} <= names
+
+
+def _serve_on_cpu_without_jax(kind):
+    """Serve one model of `kind` on the CPU, fp32 fused and int8 unfused,
+    in a fresh process; assert that no JAX or reference module loaded."""
     code = (
         "import sys, numpy as np, torch\n"
         "from repro_torch.core.graph import BucketLadder\n"
@@ -48,18 +59,30 @@ def test_cpu_forward_leaves_jax_unloaded():
         "GraphServeConfig\n"
         "eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128,)), "
         "batch_slots=2), device='cpu')\n"
-        "eng.register_model('gcn', GNNConfig(kind='gcn', in_feats=16, "
-        "hidden=8, num_classes=3), fusion='layer')\n"
+        f"eng.register_model('m', GNNConfig(kind='{kind}', in_feats=16, "
+        "hidden=8, num_classes=3, heads=2), tiers=('fp32', 'int8'), "
+        "fusion='layer')\n"
         "eng.warmup()\n"
-        "eng.submit(planetoid_like(num_nodes=50, num_edges=120, num_feats=16,"
-        " num_classes=3, train_per_class=2), model='gcn')\n"
-        "assert eng.run()[0].preds.shape == (50,)\n"
+        "g = planetoid_like(num_nodes=50, num_edges=120, num_feats=16, "
+        "num_classes=3, train_per_class=2)\n"
+        "eng.calibrate('m', g)\n"
+        "eng.submit(g, model='m')\n"
+        "eng.submit(g, model='m', tier='int8', fusion='none')\n"
+        "assert [r.preds.shape for r in eng.run()] == [(50,)] * 2\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_cpu_forward_leaves_jax_unloaded():
+    _serve_on_cpu_without_jax("gcn")
+
+
+def test_cpu_gat_forward_leaves_jax_unloaded():
+    _serve_on_cpu_without_jax("gat")
 
 
 def test_chip_smoke_fails_without_card():

@@ -227,7 +227,7 @@ def test_unported_surfaces_raise():
     with pytest.raises(ValueError, match="agg_backend"):
         eng.register_model("s", cfg, agg_backend="sparse")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        eng.register_model("a", tmodels.GNNConfig(kind="gat", in_feats=8))
+        eng.register_model("a", tmodels.GNNConfig(kind="sage", in_feats=8))
     eng.register_model("ok", cfg, tiers=("fp32",))
     assert list(eng.models) == ["q", "ok"]
     assert set(eng.models["q"].tiers) == {"fp32", "int8"}
