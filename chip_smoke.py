@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GCN and GAT serving paths on one NVIDIA card.
+"""Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths on one
+NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -52,8 +53,23 @@ last line; there is no CPU path):
      and the five Planetoid-like graphs, and one 900-node graph attached
      and queried twice. Launch counts (set to 0 just before the phase)
      must match its batch log and every logit the plain forward (an int8
-     request layer by layer, see `check_gat_request`);
-  6. times — CUDA-event times of each kernel, its plain version and the
+     request layer by layer);
+  6. serve-sage — `sage_max` (bit for bit) and `fused_sage` (mean and max,
+     none and relu) against their plain versions at both buckets' 4-graph
+     serving shapes, with real `sage_sample_adjacency` masks (NodePad's
+     rows empty), a row whose every column is set, and NaN in the pooled
+     rows that no mask row selects; then a fourth GraphServe with the
+     paper's Cora GraphSAGE four times, each calibrated on Cora:
+     `sage_max` (tiers fp32 and int8+grax, `fusion="layer"`: fused_sage;
+     the int8 tier does not fuse), `sage_max_mm` (the same tiers with
+     grax3 and `use_pallas`: sage_max, and int8_matmul for the int8
+     combines), `sage_mean` (fp32 and int8, `fusion="layer"`) and
+     `sage_mean_mm` (`use_pallas`: block_matmul, int8_matmul). Each model
+     and tier gets Cora and the five Planetoid-like graphs, and one
+     900-node graph attached and queried twice. Launch counts (set to 0
+     just before the phase) must match its batch log and every logit the
+     plain forward (an int8 request layer by layer);
+  7. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound,
      and the measured dense and GraSp aggregation times per bucket.
 
@@ -77,7 +93,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.bridge import params_from_jax  # noqa: E402
-from repro_torch.configs.gnn import gat, gcn  # noqa: E402
+from repro_torch.configs.gnn import gat, gcn, sage  # noqa: E402
 from repro_torch.core.graph import BucketLadder, pad_graph  # noqa: E402
 from repro_torch.core.layers import Techniques  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
@@ -99,6 +115,7 @@ from repro_torch.kernels import fused_layers as fl  # noqa: E402
 from repro_torch.kernels import gat_attention as ga  # noqa: E402
 from repro_torch.kernels import int8_matmul as im  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import sage_max as sm  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
 
@@ -139,7 +156,11 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                               "src/repro/kernels/fused_layers.py:334"),
            "fused_gat_precombined": ("src/repro_torch/kernels/csrc/"
                                      "fused_gat_precombined.cu",
-                                     "src/repro/kernels/fused_layers.py:394")}
+                                     "src/repro/kernels/fused_layers.py:394"),
+           "sage_max": ("src/repro_torch/kernels/csrc/sage_max.cu",
+                        "src/repro/kernels/sage_max.py:47"),
+           "fused_sage": ("src/repro_torch/kernels/csrc/fused_sage.cu",
+                          "src/repro/kernels/fused_layers.py:470")}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
@@ -149,9 +170,13 @@ COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_grasp": (fl, "GRASP_LAUNCHES"),
             "gat_attention": (ga, "LAUNCHES"),
             "fused_gat_full": (fl, "GAT_FULL_LAUNCHES"),
-            "fused_gat_precombined": (fl, "GAT_PRE_LAUNCHES")}
+            "fused_gat_precombined": (fl, "GAT_PRE_LAUNCHES"),
+            "sage_max": (sm, "LAUNCHES"),
+            "fused_sage": (fl, "SAGE_LAUNCHES")}
 GAT_HEADS, GAT_F, GAT_CLASSES = 8, 8, 7
 GAT_KERNELS = ("gat_attention", "fused_gat_full", "fused_gat_precombined")
+SAGE_KERNELS = ("sage_max", "fused_sage")
+SAGE_HIDDEN, SAGE_CLASSES = 64, 7
 
 
 def check(cond: bool, msg: str) -> None:
@@ -327,6 +352,69 @@ def gat_work(h_shape, nbytes_in, fin=0):
     flops = 2.0 * heads * bsz * n * n * f + 2.0 * bsz * n * fin * heads * f
     return flops, float(heads * bsz * n * n), nbytes_in + 4.0 * bsz * n * \
         heads * f
+
+
+def sage_layer_np(rng, fin, fout, aggregator):
+    """numpy weights of one SAGE layer: w_self, w_neigh (fin, fout) and a
+    small random bias; max adds the pool combine w_pool (fin, fin) and
+    b_pool."""
+    p = {"w_self": glorot(rng, fin, fout), "w_neigh": glorot(rng, fin, fout),
+         "b": (0.1 * rng.standard_normal(fout)).astype(np.float32)}
+    if aggregator == "max":
+        p["w_pool"] = glorot(rng, fin, fin)
+        p["b_pool"] = (0.1 * rng.standard_normal(fin)).astype(np.float32)
+    return p
+
+
+def sage_pooled(p, x):
+    """The max aggregator's pool combine relu(x @ w_pool + b_pool)."""
+    return torch.relu(x @ p["w_pool"] + p["b_pool"])
+
+
+def sage_layer_plain(p, x, sample, mean, aggregator, act, quant=None):
+    """One SAGE layer through the plain versions, as a plan runs it: the
+    mean product or the pool combine and `sage_max_plain`, then both
+    combines, bias and activation; the combines through the plain int8
+    chain when `quant` (self, neigh, pool) is given."""
+    q = quant or {}
+
+    def lin(v, w, name):
+        return v @ w if name not in q else apply_quantized_linear(v, q[name])
+    if aggregator == "mean":
+        agg = torch.matmul(mean, x)
+    else:
+        agg = sm.sage_max_plain(sample, torch.relu(
+            lin(x, p["w_pool"], "pool") + p["b_pool"]))
+    z = lin(x, p["w_self"], "self") + lin(agg, p["w_neigh"], "neigh") + p["b"]
+    return torch.relu(z) if act == "relu" else z
+
+
+def walk_work(mask, f):
+    """(ops, bytes) of one masked walk over a (B, N, N) mask to F features:
+    a multiply and a max (or one fma, counted as 2) per set entry and
+    feature; the whole mask read once (the scan must read every entry to
+    find the set ones), each feature row that a set entry names read once
+    (NodePad's rows are named by none), the (B, N, F) output written
+    once."""
+    nz = mask != 0
+    bsz, n, _ = mask.shape
+    named = float(nz.any(dim=-2).sum().item())
+    return (2.0 * float(nz.sum().item()) * f,
+            nbytes(mask) + 4.0 * named * f + 4.0 * bsz * n * f)
+
+
+def fused_sage_work(mask, xk, x, w_self, w_neigh, b, aggregator, act):
+    """(ops, bytes) of one fused SAGE layer: the walk's multiply-max (or
+    fma) per set entry and feature, both combines; the mask, X, the
+    weights and the bias read once, for max also each pooled row that a
+    set entry names, and the (B, N, O) output written once."""
+    bsz, n, fin = x.shape
+    o = w_self.shape[1]
+    nz = mask != 0
+    moved = nbytes(mask, x, w_self, w_neigh, b) + 4.0 * bsz * n * o
+    if aggregator == "max":
+        moved += 4.0 * float(nz.any(dim=-2).sum().item()) * fin
+    return 2.0 * float(nz.sum().item()) * fin + 4.0 * bsz * n * fin * o, moved
 
 
 def gat_bound(flops, exps, nbytes_):
@@ -544,7 +632,8 @@ def main() -> None:
             "fused_gcn_dense": 2 * sum(v for k, v in batches.items()
                                        if k[2] == "layer"),
             "int8_matmul": 0, "fused_gcn_int8": 0, "bitmap_spmm": 0,
-            "fused_gcn_grasp": 0} | dict.fromkeys(GAT_KERNELS, 0)
+            "fused_gcn_grasp": 0} | dict.fromkeys(GAT_KERNELS + SAGE_KERNELS,
+                                                   0)
     print(f"[serve] {len(done)} requests in {sum(batches.values())} batches "
           f"{sorted(batches.items())}; launches {launches}, expected {want}",
           flush=True)
@@ -615,7 +704,8 @@ def main() -> None:
     done = eng.finished[n_done0:]
     batches = {k: -(-n // SLOTS) for k, n in per_key.items()}
     want = {"block_matmul": 0, "fused_gcn_dense": 0, "bitmap_spmm": 0,
-            "fused_gcn_grasp": 0, **dict.fromkeys(GAT_KERNELS, 0),
+            "fused_gcn_grasp": 0,
+            **dict.fromkeys(GAT_KERNELS + SAGE_KERNELS, 0),
             "int8_matmul": 4 * sum(v for k, v in batches.items()
                                    if k[0] == "gcn_qmm" and k[2] == "int8"),
             "fused_gcn_int8": 2 * sum(v for k, v in batches.items()
@@ -747,7 +837,7 @@ def main() -> None:
     launches_sp = launches_now()
     n_kind = Counter((b[2], b[3]) for b in batch_log)
     want = {"block_matmul": 0, "int8_matmul": 0, "fused_gcn_int8": 0,
-            **dict.fromkeys(GAT_KERNELS, 0),
+            **dict.fromkeys(GAT_KERNELS + SAGE_KERNELS, 0),
             "fused_gcn_dense": 2 * n_kind[("dense", "layer")],
             "bitmap_spmm": 2 * n_kind[("grasp", "none")],
             "fused_gcn_grasp": 2 * n_kind[("grasp", "layer")]}
@@ -1058,7 +1148,229 @@ def main() -> None:
           flush=True)
     launches.update({k: launches_g[k] for k in GAT_KERNELS})
 
-    # ---------------------------------------------------------- 6. times
+    # ----------------------------------------------------- 6. serve-sage
+    # the SAGE kernels at both buckets' 4-graph serving shapes (junk slots
+    # repeat a graph): the real sampled masks of the serving path (NodePad
+    # rows empty), layer 1 over the 1433 features (max: over the pooled
+    # features, 1433 wide), layer 2 over hidden 64; "dense" sets every
+    # column of row 7 of each graph, "NaN" fills the pooled rows that no
+    # mask row selects (NodePad's)
+    scfg = {agg: sage("cora", agg) for agg in ("mean", "max")}
+    sparams = {agg: params_from_jax(
+        {"l1": sage_layer_np(rng, 1433, SAGE_HIDDEN, agg),
+         "l2": sage_layer_np(rng, SAGE_HIDDEN, SAGE_CLASSES, agg)},
+        device=dev) for agg in ("mean", "max")}
+    err.update(dict.fromkeys(SAGE_KERNELS, 0.0))
+    sage_cases = {}
+    for gcap, gs in ((1024, [others[0], others[1], others[2], others[1]]),
+                     (CAP, batch_graphs)):
+        pgs_s = [pad_graph(g, capacity=gcap) for g in gs]
+        ops_s = stack_operands([build_operands(p, scfg["max"], device=dev)
+                                for p in pgs_s])
+        sample, mean = ops_s.sample_mask, ops_s.mean_mask
+        dense, dense_mean = sample.clone(), mean.clone()
+        dense[:, 7] = 1.0
+        dense_mean[:, 7] = 1.0 / gcap
+        xs1 = torch.from_numpy(np.stack([p.features for p in pgs_s])).to(dev)
+        pmx, pmn = sparams["max"], sparams["mean"]
+        pooled1 = sage_pooled(pmx["l1"], xs1)
+        nan_pooled = pooled1.clone()
+        for i, p in enumerate(pgs_s):
+            nan_pooled[i, p.num_nodes:] = float("nan")
+        xs2_max = sage_layer_plain(pmx["l1"], xs1, sample, mean, "max",
+                                   "relu")
+        xs2_mean = sage_layer_plain(pmn["l1"], xs1, sample, mean, "mean",
+                                    "relu")
+        pooled2 = sage_pooled(pmx["l2"], xs2_max)
+        nnz_row = sample.sum(dim=-1)
+        print(f"[check] sage batch at {gcap}: graphs "
+              f"{[p.num_nodes for p in pgs_s]}, sampled entries per real "
+              f"row <= {int(nnz_row.max())}, "
+              f"{int((nnz_row == 0).sum())} empty (NodePad) rows", flush=True)
+
+        def w(p, layer):
+            q = p[layer]
+            return q["w_self"], q["w_neigh"], q["b"]
+        smax = {"L1": (sample, pooled1), "L1 dense row": (dense, pooled1),
+                "L2": (sample, pooled2)}
+        fsage = {
+            "mean L1 relu": (mean, xs1, xs1, *w(pmn, "l1"), "mean", "relu"),
+            "mean L1 none": (mean, xs1, xs1, *w(pmn, "l1"), "mean", "none"),
+            "mean L1 dense row relu": (dense_mean, xs1, xs1, *w(pmn, "l1"),
+                                       "mean", "relu"),
+            "mean L2 none": (mean, xs2_mean, xs2_mean, *w(pmn, "l2"), "mean",
+                             "none"),
+            "max L1 relu": (sample, pooled1, xs1, *w(pmx, "l1"), "max",
+                            "relu"),
+            "max L1 dense row none": (dense, pooled1, xs1, *w(pmx, "l1"),
+                                      "max", "none"),
+            "max L2 none": (sample, pooled2, xs2_max, *w(pmx, "l2"), "max",
+                            "none")}
+        for label, args in smax.items():
+            compare_exact("sage_max", f"{gcap} {label}",
+                          lambda: sm.sage_max(*args), sm.sage_max_plain(*args))
+        compare_exact("sage_max", f"{gcap} L1 NaN in unselected rows",
+                      lambda: sm.sage_max(sample, nan_pooled),
+                      sm.sage_max_plain(sample, pooled1))
+        check(bool(torch.isnan(sm.sage_max_plain(sample, nan_pooled)).any()),
+              "the plain sage_max did not turn the NaN rows NaN")
+        for label, args in fsage.items():
+            compare("fused_sage", f"{gcap} {label}",
+                    lambda: fl.fused_sage(*args), fl.fused_sage_plain(*args))
+        nan_args = (sample, nan_pooled, *fsage["max L1 relu"][2:])
+        compare("fused_sage", f"{gcap} max L1 relu NaN in unselected rows",
+                lambda: fl.fused_sage(*nan_args),
+                fl.fused_sage_plain(*fsage["max L1 relu"]))
+        sage_cases[gcap] = dict(smax=smax, fsage=fsage, mean=mean, x1=xs1,
+                                x2=xs2_mean)
+    check(err["sage_max"] == 0.0 and err["fused_sage"] <= TOL["atol"],
+          f"a SAGE kernel's max_abs_err is off: "
+          f"{ {k: err[k] for k in SAGE_KERNELS} }")
+
+    eng_s = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                        batch_slots=SLOTS, return_logits=True,
+                                        use_cacheg=False), seed=0, device=dev)
+    sbase = dict(stagr=True, graphsplit=True, effop=True)
+    eng_s.register_model("sage_max", scfg["max"], sparams["max"],
+                         tiers=("fp32", "int8+grax"), fusion="layer")
+    eng_s.register_model("sage_max_mm", scfg["max"], sparams["max"], tiers={
+        "fp32": Techniques(**sbase, grax3=True, use_pallas=True),
+        "int8+grax": Techniques(**sbase, quantgr=True, grax3=True,
+                                use_pallas=True)})
+    eng_s.register_model("sage_mean", scfg["mean"], sparams["mean"],
+                         tiers=("fp32", "int8"), fusion="layer")
+    eng_s.register_model("sage_mean_mm", scfg["mean"], sparams["mean"],
+                         tiers={"fp32": Techniques(**sbase, use_pallas=True),
+                                "int8": Techniques(**sbase, quantgr=True,
+                                                   use_pallas=True)})
+    sage_models = {"sage_max": ("fp32", "int8+grax"),
+                   "sage_max_mm": ("fp32", "int8+grax"),
+                   "sage_mean": ("fp32", "int8"),
+                   "sage_mean_mm": ("fp32", "int8")}
+    t0 = time.perf_counter()
+    blobs = eng_s.warmup()
+    print(f"[serve-sage] warmup: {blobs} plan signatures in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for model in sage_models:
+        deltas = eng_s.calibrate(model, cora)
+        print(f"[serve-sage] calibrated {model} on Cora: "
+              f"accuracy_delta_vs_fp32 {deltas}", flush=True)
+    sage_log = []
+    execute_s = eng_s._execute_batch
+
+    def record_sage(batch):
+        h = batch[0]
+        sage_log.append((h.model, h.tier, h.fusion))
+        execute_s(batch)
+    eng_s._execute_batch = record_sage
+
+    reset_launches()                        # the SAGE path starts here
+    t_serve = time.perf_counter()
+    g900s = planetoid_like(num_nodes=900, num_edges=1800, num_feats=1433,
+                           num_classes=7, seed=14)
+    for model, tiers in sage_models.items():
+        gid = eng_s.attach(g900s, model=model)
+        for tier in tiers:
+            for g in [cora] + others:
+                eng_s.submit(g, model=model, tier=tier)
+            eng_s.query(gid, tier=tier)
+            eng_s.query(gid, tier=tier)
+    intake_s = time.perf_counter() - t_serve
+    done = eng_s.run()
+    serve_s = time.perf_counter() - t_serve
+    launches_s = launches_now()
+    n_kind = Counter(sage_log)
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "fused_sage": 2 * (n_kind[("sage_max", "fp32", "layer")]
+                           + n_kind[("sage_mean", "fp32", "layer")]),
+        "sage_max": 2 * (n_kind[("sage_max_mm", "fp32", "none")]
+                         + n_kind[("sage_max_mm", "int8+grax", "none")]),
+        "block_matmul": 2 * (n_kind[("sage_mean_mm", "fp32", "none")]
+                             + n_kind[("sage_mean_mm", "int8", "none")]),
+        # int8 combines: self, neigh and pool per layer (max), self and
+        # neigh (mean)
+        "int8_matmul": 6 * n_kind[("sage_max_mm", "int8+grax", "none")]
+        + 4 * n_kind[("sage_mean_mm", "int8", "none")]}
+    s = eng_s.summary()
+    print(f"[serve-sage] {len(done)} requests in {len(sage_log)} batches "
+          f"{sorted(n_kind.items())}; launches {launches_s}, expected "
+          f"{want}", flush=True)
+    check(launches_s == want, f"kernel launches {launches_s} != {want}")
+    check(all(want[k] > 0 for k in SAGE_KERNELS),
+          f"a SAGE kernel never launched: {launches_s}")
+    check(len(done) == sum(len(t) for t in sage_models.values())
+          * (1 + len(PLANETOID_SIZES) + 2),
+          f"{len(done)} SAGE requests finished")
+    check({(r.model, r.tier) for r in done}
+          == {(m, t) for m, ts in sage_models.items() for t in ts},
+          "a SAGE model or tier was not served")
+    check(s["tier_fallbacks"] == 0, "a SAGE int8 request fell back")
+    eng_s.assert_warm()
+
+    s_err, flips, q_inputs, ties = 0.0, 0, 0, 0
+    for r in done:
+        n = r.pg.num_nodes
+        check(r.logits is not None
+              and r.logits.shape == (n, SAGE_CLASSES)
+              and np.isfinite(r.logits).all(),
+              f"request {r.uid}: logits missing, misshapen or not finite")
+        e = eng_s.models[r.model]
+        t = e.tiers[r.tier]
+        agg = e.cfg.aggregator
+        cal = e.calibrations[r.tier] if t.quantgr else {}
+        x = torch.from_numpy(r.pg.features).to(dev)[None]
+        ops1 = stack_operands([r.ops])
+        sm_, mn_ = ops1.sample_mask, ops1.mean_mask
+        h1 = sage_layer_plain(e.params["l1"], x, sm_, mn_, agg, "relu",
+                              cal.get("l1"))
+        if t.quantgr:
+            # layer 2 rounds layer 1's fp32 output to int8, as GAT's does:
+            # held layer by layer, layer 1 through the served layer
+            # function against the plain layer 1, then the logits against
+            # the plain layer 2 over the served layer 1
+            kw = dict(aggregator=agg, quant=cal["l1"])
+            if r.fusion == "layer":
+                h1_k = glayers.sage_grannite_fused(
+                    e.params["l1"], x, sm_, mn_, t, activation="relu", **kw)
+            else:
+                h1_k = torch.relu(glayers.sage_grannite(
+                    e.params["l1"], x, sm_, mn_, t, **kw))
+            d1 = (h1_k - h1)[0, :n].abs().max().item()
+            check(d1 <= TOL["atol"], f"request {r.uid}: layer 1 differs "
+                  f"from the plain version by {d1}")
+            xs = cal["l2"]["self"].x_scale
+            flips += int((torch.round(h1_k[0, :n] / xs)
+                          != torch.round(h1[0, :n] / xs)).sum())
+            q_inputs += h1[0, :n].numel()
+            h1 = h1_k
+        ref = sage_layer_plain(e.params["l2"], h1, sm_, mn_, agg, "none",
+                               cal.get("l2"))[0, :n].cpu()
+        got = torch.from_numpy(r.logits)
+        d = (got - ref).abs().max().item()
+        check(d <= TOL["atol"], f"request {r.uid}: max_abs_err {d}")
+        torch.testing.assert_close(got, ref, **TOL)
+        s_err = max(s_err, d)
+        top2 = ref.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= TOL["atol"]
+        ties += int(tie.sum())
+        check(bool((torch.from_numpy(r.preds) == ref.argmax(-1))[~tie]
+                   .all()), f"request {r.uid}: argmax differs")
+    print(f"[serve-sage] logits of all {len(done)} requests match the plain "
+          f"forward (max_abs_err {s_err:.3e}; rtol={TOL['rtol']} "
+          f"atol={TOL['atol']}; int8 requests layer by layer, {flips} of "
+          f"{q_inputs} layer-2 int8 inputs one step off the all-plain "
+          f"chain); argmax equal ({ties} ties within atol)", flush=True)
+    print("[serve-sage] summary " + json.dumps(
+        {k: s[k] for k in summary_keys}
+        | {"wall_s": serve_s, "intake_s": intake_s,
+           "run_s": serve_s - intake_s}), flush=True)
+    print("[serve-sage] accuracy_delta_vs_fp32 "
+          + json.dumps(s["accuracy_delta_vs_fp32"]), flush=True)
+    print("[serve-sage] tier_summary " + json.dumps(eng_s.tier_summary()),
+          flush=True)
+    launches.update({k: launches_s[k] for k in SAGE_KERNELS})
+
+    # ---------------------------------------------------------- 7. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -1088,6 +1400,10 @@ def main() -> None:
         print(f"[time] torch.sparse.mm on a BSR tensor refused: "
               f"{bsr_refused}", flush=True)
 
+    s3 = sage_cases[CAP]
+    sage_max_cases = {k: s3["smax"][k] for k in ("L1", "L2")}
+    sage_fused_cases = {k: s3["fsage"][k] for k in (
+        "mean L1 relu", "mean L2 none", "max L1 relu", "max L2 none")}
     g3g = gat_cases[CAP]
     gat_att_cases = {k: g3g["att"][k] for k in ("L1", "L2")}
     gat_full_cases = {k: g3g["full"][k] for k in ("L1 elu", "L2 none")}
@@ -1101,9 +1417,12 @@ def main() -> None:
                           ("fused_gcn_grasp", spf_cases),
                           ("gat_attention", gat_att_cases),
                           ("fused_gat_full", gat_full_cases),
-                          ("fused_gat_precombined", gat_pre_cases)):
+                          ("fused_gat_precombined", gat_pre_cases),
+                          ("sage_max", sage_max_cases),
+                          ("fused_sage", sage_fused_cases)):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0, "exps": 0.0}
+               "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0, "exps": 0.0,
+               "mean": 0.0, "max": 0.0}
         peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
                 else FP32_FLOPS_PER_S)
         for label, args in cases.items():
@@ -1152,6 +1471,23 @@ def main() -> None:
                 t_l = None
                 flops, nbytes_ = fused_work(aq_, x, wq, sw, xs, hs, as_,
                                             bias)
+            elif kernel == "sage_max":
+                t_k = time_ms(lambda: sm.sage_max(*args))
+                t_p = time_ms(lambda: sm.sage_max_plain(*args))
+                t_l = None
+                flops, nbytes_ = walk_work(args[0], args[1].shape[-1])
+            elif kernel == "fused_sage":
+                t_k = time_ms(lambda: fl.fused_sage(*args))
+                t_p = time_ms(lambda: fl.fused_sage_plain(*args))
+                t_l = None
+                flops, nbytes_ = fused_sage_work(*args)
+                tot[args[6]] += t_k
+                if args[6] == "mean":
+                    # the dense yardstick of the mean walk: M @ X
+                    t_d = time_ms(lambda: torch.matmul(args[0], args[1]))
+                    tot["dense_ms"] += t_d
+                    print(f"[time] fused_sage {label}: torch.matmul of the "
+                          f"mean mask and X {t_d:.4f} ms", flush=True)
             else:
                 # the GAT kernels: no one PyTorch call computes
                 # leaky-ReLU-scored, additively masked attention, so
@@ -1208,6 +1544,16 @@ def main() -> None:
             row.update(library="none: no one PyTorch call computes "
                                "leaky-ReLU-scored additively masked "
                                "attention")
+        if kernel in SAGE_KERNELS:
+            row.update(library="none: no one PyTorch call computes a "
+                               "masked max over a sampled adjacency (GrAx3)"
+                       + (" or the fused SAGE layer"
+                          if kernel == "fused_sage" else ""))
+        if kernel == "fused_sage":
+            row.update(mean_ms=tot["mean"], max_ms=tot["max"],
+                       dense_matmul_ms=tot["dense_ms"],
+                       dense_matmul="torch.matmul(mean_mask, X), both "
+                                    "layers")
         if kernel == "bitmap_spmm":
             row.update(dense_matmul_ms=tot["dense_ms"],
                        library="torch.sparse.mm per graph on 128-block BSR",

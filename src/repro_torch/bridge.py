@@ -3,9 +3,10 @@ reference package's weights or tier calibration converted with
 `np.asarray`) onto a device.
 
 Takes the reference's parameter trees (GCN `{"l1": {"w", "b"}, "l2":
-{...}}`, GAT `{"l1": {"w", "a_src", "a_dst", "b"}, ...}`), its GCN and GAT
-tier calibrations and its GraSp block structures with numpy leaves;
-nothing here knows of JAX.
+{...}}`, GAT `{"l1": {"w", "a_src", "a_dst", "b"}, ...}`, SAGE
+`{"l1": {"w_self", "w_neigh", "b"[, "w_pool", "b_pool"]}, ...}`), its GCN,
+GAT and SAGE tier calibrations and its GraSp block structures with numpy
+leaves; nothing here knows of JAX.
 """
 from __future__ import annotations
 
@@ -29,23 +30,26 @@ def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
 
 
 def calibration_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
-    """A GCN or GAT tier calibration in numpy -> the port's
-    `calibrate_tier` form on `device`.
+    """A tier calibration in numpy -> the port's `calibrate_tier` form on
+    `device`.
 
     `tree` holds each QuantizedLinear as a dict of `wq`, `w_scale` and
-    `x_scale` (keys "l1", "l2") and, for GCN only, the scalar aggregation
-    scales "agg1_h" and "agg2_h"; values and dtypes are kept exactly, so
-    the port and the reference can run on identical scales.
+    `x_scale`: one per layer for GCN and GAT (keys "l1", "l2"), a dict of
+    them per layer for SAGE (`{"l1": {"self": ..., "neigh": ...[,
+    "pool": ...]}, "l2": ...}`); GCN adds the scalar aggregation scales
+    "agg1_h" and "agg2_h". Values and dtypes are kept exactly, so the port
+    and the reference can run on identical scales.
     """
     dev = resolve_device(device)
 
-    def tensor(a):
-        return torch.from_numpy(np.array(a)).to(dev)
-    return {k: (QuantizedLinear(wq=tensor(v["wq"]),
-                                w_scale=tensor(v["w_scale"]),
-                                x_scale=tensor(v["x_scale"]))
-                if isinstance(v, dict) else tensor(v))
-            for k, v in tree.items()}
+    def convert(v):
+        if not isinstance(v, dict):
+            return torch.from_numpy(np.array(v)).to(dev)
+        if "wq" in v:
+            return QuantizedLinear(**{f: convert(v[f])
+                                      for f in ("wq", "w_scale", "x_scale")})
+        return {k: convert(u) for k, u in v.items()}
+    return convert(tree)
 
 
 def block_sparse_from_jax(sp, *, device: DeviceLike = None) -> BlockSparse:

@@ -1,6 +1,7 @@
-"""GCN and GAT layers on the GraNNite path (StaGr / PreG / EffOp / GrAx).
+"""GCN, GAT and GraphSAGE layers on the GraNNite path (StaGr / PreG /
+EffOp / GrAx).
 
-Port of the GCN and GAT parts of the reference's `core/layers.py`:
+Port of the GraNNite parts of the reference's `core/layers.py`:
 `Techniques` keeps every flag so plan keys compare like the reference's.
 The GCN functions carry the fp32 dense branches, the QuantGr branches
 (int8 combine and int8 aggregation, through the `int8_matmul` and
@@ -10,7 +11,12 @@ The GAT functions carry every branch of the reference's `gat_grannite`
 (the `gat_attention` kernel with `use_pallas`, GrAx1 or exact masking,
 GrAx2 or exact broadcast, the QuantGr int8 combine) and its fused twin
 (`fused_gat_full`, or `fused_gat_precombined` after an int8 combine).
-The baseline edge-list layers and SAGE come later.
+The SAGE functions carry every branch of the reference's `sage_grannite`
+(mean through `block_matmul` and max through the `sage_max` kernel with
+`use_pallas`, the exact and GrAx3 masked max, the QuantGr `self`, `neigh`
+and `pool` combines through `int8_matmul`) and its fused twin
+(`fused_sage`; QuantGr SAGE does not fuse). The baseline edge-list layers
+come later.
 """
 from __future__ import annotations
 
@@ -48,6 +54,10 @@ class Techniques:
     def full_gat() -> "Techniques":
         return Techniques(stagr=True, graphsplit=True, effop=True,
                           grax1=True, grax2=True)
+
+    @staticmethod
+    def full_sage() -> "Techniques":
+        return Techniques(stagr=True, graphsplit=True, effop=True, grax3=True)
 
 
 def glorot(gen: torch.Generator, shape, *, device=None) -> torch.Tensor:
@@ -248,3 +258,95 @@ def gat_grannite_fused(params: Dict, x: torch.Tensor, bias_add: torch.Tensor,
         out = kops.fused_gat_layer(x, w3, params["a_src"], params["a_dst"],
                                    bias_add, b, activation=activation)
     return out.reshape(*out.shape[:-2], heads * out_feats)
+
+
+# =========================================================================
+# GraphSAGE (mean / max aggregators)
+# =========================================================================
+
+def sage_init(gen: torch.Generator, in_feats: int, out_feats: int, *,
+              aggregator: str, device=None) -> Dict[str, torch.Tensor]:
+    """w_self, w_neigh (Fin, O) and b; max adds the pool combine w_pool
+    (Fin, Fin) and b_pool."""
+    p = {"w_self": glorot(gen, (in_feats, out_feats), device=device),
+         "w_neigh": glorot(gen, (in_feats, out_feats), device=device),
+         "b": torch.zeros(out_feats, dtype=torch.float32, device=device)}
+    if aggregator == "max":
+        p["w_pool"] = glorot(gen, (in_feats, in_feats), device=device)
+        p["b_pool"] = torch.zeros(in_feats, dtype=torch.float32,
+                                  device=device)
+    return p
+
+
+def _sage_lin(v: torch.Tensor, w: torch.Tensor,
+              ql: Optional[QuantizedLinear], use_kernel: bool
+              ) -> torch.Tensor:
+    if ql is not None:
+        return apply_quantized_linear(v, ql, use_kernel=use_kernel)
+    return v @ w
+
+
+def _sage_pooled(params: Dict, x: torch.Tensor,
+                 ql: Optional[QuantizedLinear], use_kernel: bool
+                 ) -> torch.Tensor:
+    """The max aggregator's pool combine relu(x @ w_pool + b_pool)."""
+    return F.relu(_sage_lin(x, params["w_pool"], ql, use_kernel)
+                  + params["b_pool"])
+
+
+def sage_grannite(params: Dict, x: torch.Tensor, sample_mask: torch.Tensor,
+                  mean_mask: torch.Tensor, t: Techniques, *,
+                  aggregator: str,
+                  quant: Optional[Dict] = None) -> torch.Tensor:
+    """StaGr sampled-adjacency SAGE: mean is the mask product (through
+    `block_matmul` with `t.use_pallas`); max is the pool combine, then the
+    masked max (the `sage_max` kernel with `t.use_pallas` and `t.grax3`,
+    else `effop.masked_max_aggregate`, GrAx3 or exact by `t.grax3`).
+
+    QuantGr quantizes the three combines (`self`, `neigh` and `pool` keys
+    of `quant`, each a QuantizedLinear; through `int8_matmul` with
+    `t.use_pallas`); the aggregation stays fp32.
+
+    x: (B?, N, Fin); sample_mask, mean_mask: (B?, N, N).
+    """
+    q = quant if (t.quantgr and quant is not None) else {}
+    if aggregator == "mean":
+        agg = (kops.matmul(mean_mask, x) if t.use_pallas
+               else mean_mask @ x)
+    elif aggregator == "max":
+        pooled = _sage_pooled(params, x, q.get("pool"), t.use_pallas)
+        if t.use_pallas and t.grax3:
+            agg = kops.sage_max(sample_mask, pooled)
+        else:
+            agg = effop.masked_max_aggregate(pooled, sample_mask,
+                                             grax3=t.grax3)
+    else:
+        raise ValueError(aggregator)
+    return (_sage_lin(x, params["w_self"], q.get("self"), t.use_pallas)
+            + _sage_lin(agg, params["w_neigh"], q.get("neigh"), t.use_pallas)
+            + params["b"])
+
+
+def sage_grannite_fused(params: Dict, x: torch.Tensor,
+                        sample_mask: torch.Tensor, mean_mask: torch.Tensor,
+                        t: Techniques, *, aggregator: str,
+                        activation: str = "none",
+                        quant: Optional[Dict] = None) -> torch.Tensor:
+    """Fused twin of `sage_grannite`: the mean or GrAx3 masked-max
+    aggregation, both combines and the epilogue in one `fused_sage` call
+    (max computes its pooled features first, as the reference does).
+    QuantGr SAGE cannot fuse (the neighbour combine consumes the
+    aggregation and all three combines are int8): the unfused tier math
+    runs with the activation folded here."""
+    if t.quantgr and quant is not None:
+        return _apply_act(sage_grannite(params, x, sample_mask, mean_mask, t,
+                                        aggregator=aggregator, quant=quant),
+                          activation)
+    if aggregator == "mean":
+        return kops.fused_sage_layer(x, params["w_self"], params["w_neigh"],
+                                     params["b"], mean_mask=mean_mask,
+                                     activation=activation)
+    pooled = _sage_pooled(params, x, None, False)
+    return kops.fused_sage_layer(x, params["w_self"], params["w_neigh"],
+                                 params["b"], sample_mask=sample_mask,
+                                 pooled=pooled, activation=activation)

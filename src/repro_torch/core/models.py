@@ -1,7 +1,8 @@
-"""The paper's 2-layer GCN and GAT on the GraNNite path, their QuantGr
-serving tiers, GCN's GraSp aggregation backend, and execution plans.
+"""The paper's 2-layer GCN, GAT and GraphSAGE on the GraNNite path, their
+QuantGr serving tiers, GCN's GraSp aggregation backend, and execution
+plans.
 
-Port of the GCN and GAT parts of the reference's `core/models.py`.
+Port of the GraNNite parts of the reference's `core/models.py`.
 Operands are torch tensors on an explicit device; the reference's `vmap`
 over graphs is an explicit leading batch dimension B.
 
@@ -26,7 +27,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 
-from . import layers, masks
+from . import effop, layers, masks
 from .graph import PaddedGraph
 from .layers import Techniques
 from .quant import calibrate_absmax, quantize_linear, quantize_rowwise
@@ -37,7 +38,7 @@ from .sparsity import (BlockSparse, block_counts, compact_block_sparse,
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    kind: str                  # "gcn" | "gat" | "sage" (not SAGE yet)
+    kind: str                  # "gcn" | "gat" | "sage"
     in_feats: int
     hidden: int = 64
     num_classes: int = 7
@@ -46,23 +47,22 @@ class GNNConfig:
     max_neighbors: int = 10    # SAGE sampling cap (paper: 10)
 
 
-PORTED_KINDS = ("gcn", "gat")
+KINDS = ("gcn", "gat", "sage")
 
 
-def _no_sage(cfg: GNNConfig) -> None:
-    if cfg.kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue 1 "
-            f"item 7); this port serves {PORTED_KINDS}")
+def _check_kind(cfg: GNNConfig) -> None:
+    if cfg.kind not in KINDS:
+        raise ValueError(f"unknown model kind {cfg.kind!r}; pick from "
+                         f"{KINDS}")
 
 
 def init_params(gen: torch.Generator, cfg: GNNConfig, *,
                 device: DeviceLike = None) -> Dict:
-    """GCN or GAT parameters from a seeded `torch.Generator` (the port's
-    own init; parity tests bring the reference's weights through
+    """GCN, GAT or SAGE parameters from a seeded `torch.Generator` (the
+    port's own init; parity tests bring the reference's weights through
     `bridge`). GAT: layer 1 has `heads` heads of hidden // heads, layer 2
-    one head of num_classes."""
-    _no_sage(cfg)
+    one head of num_classes. SAGE-max layers add the pool combine."""
+    _check_kind(cfg)
     device = resolve_device(device)
     if cfg.kind == "gat":
         per_head = cfg.hidden // cfg.heads
@@ -70,6 +70,13 @@ def init_params(gen: torch.Generator, cfg: GNNConfig, *,
                                       cfg.heads, device=device),
                 "l2": layers.gat_init(gen, cfg.heads * per_head,
                                       cfg.num_classes, 1, device=device)}
+    if cfg.kind == "sage":
+        return {"l1": layers.sage_init(gen, cfg.in_feats, cfg.hidden,
+                                       aggregator=cfg.aggregator,
+                                       device=device),
+                "l2": layers.sage_init(gen, cfg.hidden, cfg.num_classes,
+                                       aggregator=cfg.aggregator,
+                                       device=device)}
     return {"l1": layers.gcn_init(gen, cfg.in_feats, cfg.hidden,
                                   device=device),
             "l2": layers.gcn_init(gen, cfg.hidden, cfg.num_classes,
@@ -91,8 +98,8 @@ class GranniteOperands:
     norm_adj: Optional[torch.Tensor] = None   # (B?, cap, cap) PreG Â (GCN)
     mask_mult: Optional[torch.Tensor] = None  # GAT exact 0/1 mask
     bias_add: Optional[torch.Tensor] = None   # GAT GrAx1 0 / -1e9 mask
-    sample_mask: Optional[torch.Tensor] = None
-    mean_mask: Optional[torch.Tensor] = None
+    sample_mask: Optional[torch.Tensor] = None  # SAGE sampled 0/1 mask
+    mean_mask: Optional[torch.Tensor] = None    # SAGE row-normalised mask
     block_sparse: Optional[BlockSparse] = None
     quant: Optional[Dict] = None
 
@@ -103,42 +110,51 @@ OPERAND_FIELDS = {
     "gat": ("mask_mult", "bias_add"),
     "sage": ("sample_mask", "mean_mask"),
 }
+DENSE_FIELDS = ("norm_adj", "mask_mult", "bias_add", "sample_mask",
+                "mean_mask")
 
 
 def build_operands(pg: PaddedGraph, cfg: GNNConfig, *, grasp: bool = False,
                    max_nnz: Optional[int] = None,
-                   bitmap: Optional[np.ndarray] = None, lean: bool = True,
+                   bitmap: Optional[np.ndarray] = None,
                    device: DeviceLike = None) -> GranniteOperands:
     """Host side of GraphSplit for one padded graph, uploaded to `device`:
     GCN's Â, with its host-compacted block structure when `grasp`
     (`to_block_sparse`, reusing `bitmap` from the caller's `block_stats`
     when given; the lists are as wide as the graph's densest block row, or
-    padded to the bucket budget `max_nnz` so that a batch can stack), or
-    GAT's two masks over the adjacency with self-loops on the real nodes.
+    padded to the bucket budget `max_nnz` so that a batch can stack);
+    GAT's two masks over the adjacency with self-loops on the real nodes;
+    SAGE's sampled 0/1 mask (`max_neighbors` per row, drawn with seed 0
+    on every call, as the reference does) and its row-normalised mean
+    mask.
 
-    Only the lean build (the fields `cfg.kind` reads) exists in the port.
+    Only the reference's lean build exists in the port: the fields
+    `cfg.kind` reads (`OPERAND_FIELDS`); the others stay None.
     """
-    _no_sage(cfg)
-    if not lean:
-        raise NotImplementedError(
-            "the full operand build (the SAGE masks) is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+    _check_kind(cfg)
     dev = resolve_device(device)
-    if cfg.kind == "gat":
+    fields = OPERAND_FIELDS[cfg.kind]
+    vals = {}
+    if "norm_adj" in fields:
+        vals["norm_adj"] = pg.norm_adj
+    if "bias_add" in fields:
         awl = masks.adj_with_self_loops(pg.adj, pg.num_nodes)
-        return GranniteOperands(
-            mask_mult=torch.from_numpy(
-                masks.attention_bias_multiplicative(awl)).to(dev),
-            bias_add=torch.from_numpy(
-                masks.attention_bias_additive(awl)).to(dev))
+        vals["mask_mult"] = masks.attention_bias_multiplicative(awl)
+        vals["bias_add"] = masks.attention_bias_additive(awl)
+    if "sample_mask" in fields:
+        sample = masks.sage_sample_adjacency(
+            pg.adj, pg.num_nodes, max_neighbors=cfg.max_neighbors)
+        vals["sample_mask"] = sample
+        vals["mean_mask"] = masks.mean_from_mask(sample)
     sp = None
     if grasp:
         sp = to_block_sparse(pg.norm_adj, bitmap=bitmap)
         if max_nnz is not None:
             sp = pad_block_sparse(sp, max_nnz)
         sp = upload_block_sparse(sp, dev)
-    return GranniteOperands(norm_adj=torch.from_numpy(pg.norm_adj).to(dev),
-                            block_sparse=sp)
+    return GranniteOperands(
+        **{k: torch.from_numpy(v).to(dev) for k, v in vals.items()},
+        block_sparse=sp)
 
 
 def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
@@ -159,8 +175,7 @@ def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
         raise ValueError(
             "cannot batch a mix of GraSp and dense operand sets — resolve "
             "one aggregation backend per batch")
-    dense = {f: [getattr(o, f) for o in ops]
-             for f in ("norm_adj", "mask_mult", "bias_add")}
+    dense = {f: [getattr(o, f) for o in ops] for f in DENSE_FIELDS}
     for f, ts in dense.items():
         if any(t is None for t in ts) and not all(t is None for t in ts):
             raise ValueError(f"cannot batch operand sets with and without "
@@ -272,12 +287,34 @@ def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,
     ranges: per-layer QuantizedLinear weights ("l1", "l2") plus, for GCN,
     the aggregation activation scales `agg1_h`/`agg2_h`. GAT's forward is
     the exact-mask unfused one (`Techniques(effop=True)`), as in the
-    reference. The result is model-shaped, so one calibration serves every
-    graph of the model; GCN's per-graph int8 Â is the separate derived
-    operand (`derive_tier_operands`). x: (cap, F); ops_ one graph's
-    operands.
+    reference. SAGE calibrates nested `self`, `neigh` and (max) `pool`
+    QuantizedLinears per layer; the `neigh` input is the exact
+    aggregation (the -1e9-bias max for max). The result is model-shaped,
+    so one calibration serves every graph of the model; GCN's per-graph
+    int8 Â is the separate derived operand (`derive_tier_operands`).
+    x: (cap, F); ops_ one graph's operands.
     """
-    _no_sage(cfg)
+    if cfg.kind == "sage":
+        t0 = Techniques(effop=True)
+
+        def _layer(p, xin):
+            if cfg.aggregator == "max":
+                pooled = torch.relu(xin @ p["w_pool"] + p["b_pool"])
+                agg = effop.masked_max_aggregate(pooled, ops_.sample_mask,
+                                                 grax3=False)
+            else:
+                agg = ops_.mean_mask @ xin
+            ql = {"self": quantize_linear(p["w_self"], xin),
+                  "neigh": quantize_linear(p["w_neigh"], agg)}
+            if "w_pool" in p:
+                ql["pool"] = quantize_linear(p["w_pool"], xin)
+            return ql
+
+        h1 = torch.relu(layers.sage_grannite(
+            params["l1"], x, ops_.sample_mask, ops_.mean_mask, t0,
+            aggregator=cfg.aggregator))
+        return {"l1": _layer(params["l1"], x),
+                "l2": _layer(params["l2"], h1)}
     if cfg.kind == "gat":
         per_head = cfg.hidden // cfg.heads
         h1 = torch.nn.functional.elu(layers.gat_grannite(
@@ -322,15 +359,29 @@ def forward_grannite(params: Dict, cfg: GNNConfig, x: torch.Tensor,
     derived int8 Â; without it a QuantGr GCN forward quantizes Â itself.
     `fusion="layer"` runs each layer as one fused kernel call
     (`fused_gcn_dense`, `fused_gcn_int8` or `fused_gcn_grasp` for GCN,
-    `fused_gat_full` or `fused_gat_precombined` for GAT) with the
-    inter-layer activation (GCN ReLU, GAT ELU) folded into its epilogue.
-    GAT's layer 2 is one head of `num_classes`.
+    `fused_gat_full` or `fused_gat_precombined` for GAT, `fused_sage` for
+    a fp32 SAGE tier) with the inter-layer activation (GCN and SAGE ReLU,
+    GAT ELU) folded into its epilogue. GAT's layer 2 is one head of
+    `num_classes`.
     """
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion mode {fusion!r}; pick from "
                          f"{FUSION_MODES}")
-    _no_sage(cfg)
     tq = (quant or {}) if t.quantgr else {}
+    if cfg.kind == "sage":
+        masks_ = (ops_.sample_mask, ops_.mean_mask)
+        kw = dict(aggregator=cfg.aggregator)
+        if fusion == "layer":
+            h = layers.sage_grannite_fused(params["l1"], x, *masks_, t,
+                                           activation="relu",
+                                           quant=tq.get("l1"), **kw)
+            return layers.sage_grannite_fused(params["l2"], h, *masks_, t,
+                                              activation="none",
+                                              quant=tq.get("l2"), **kw)
+        h = torch.relu(layers.sage_grannite(params["l1"], x, *masks_, t,
+                                            quant=tq.get("l1"), **kw))
+        return layers.sage_grannite(params["l2"], h, *masks_, t,
+                                    quant=tq.get("l2"), **kw)
     if cfg.kind == "gat":
         per_head = cfg.hidden // cfg.heads
         if fusion == "layer":
@@ -436,7 +487,7 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion mode {fusion!r}; pick from "
                          f"{FUSION_MODES}")
-    _no_sage(cfg)
+    _check_kind(cfg)
     dev = resolve_device(device)
     exec_t = dataclasses.replace(t, grasp=True) if backend == "grasp" else t
     plan = ExecutionPlan(cfg=cfg, techniques=t, capacity=capacity,

@@ -36,6 +36,8 @@ ENTRY_POINTS = {
     "fused_gat_full": ("fused_gat_full_f32", "pppppppppp" "iiiiii" "ip"),
     "fused_gat_precombined": ("fused_gat_precombined_f32",
                               "pppppp" "iiiii" "ip"),
+    "sage_max": ("sage_max_f32", "ppp" "iii" "ip"),
+    "fused_sage": ("fused_sage_f32", "pppppppp" "iiiiii" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

@@ -1,4 +1,4 @@
-"""Fused per-layer GCN kernels: one wrapper call per layer.
+"""Fused per-layer GCN, GAT and SAGE kernels: one wrapper call per layer.
 
   * `fused_gcn_dense` — act(Â @ (X @ W) + b), fp32. Port of the TPU kernel
     `fused_gcn_dense` (reference `kernels/fused_layers.py`) as hand-written
@@ -19,6 +19,10 @@
   * `fused_gat_precombined` — act(attention + b) over an h and alpha made
     outside (the QuantGr GAT tiers' int8 combine). Port of the TPU kernel
     `fused_gat_precombined` (`csrc/fused_gat_precombined.cu`).
+  * `fused_sage` — act(X @ W_self + AGG @ W_neigh + b), AGG the mean
+    aggregation M @ X or the GrAx3 masked max of the pooled features.
+    Port of the TPU kernel `fused_sage` (`csrc/fused_sage.cu`); its
+    aggregation is the row walk of `sage_max` (`csrc/sage_walk.cuh`).
 
 The four TPU kernels with a combine kept its result in VMEM, filled by
 row-block 0 and read by the later ones in grid order; a CUDA grid has no
@@ -28,8 +32,11 @@ fused into its store. Both launches run on the current stream inside one
 wrapper call, which counts one in `LAUNCHES` (dense), `INT8_LAUNCHES`
 (int8), `GRASP_LAUNCHES` (GraSp) or `GAT_FULL_LAUNCHES`;
 `fused_gat_precombined` is one launch, counted in `GAT_PRE_LAUNCHES`.
-
-The fused SAGE kernel of the reference is not ported yet.
+`fused_sage` has the same hazard the other way round (its TPU kernel
+fills a (rows, Fin) aggregation buffer at output strip 0 and reads it at
+every later strip): an aggregate launch into an N x Fin scratch tensor,
+then a combine launch with both K loops in one accumulator and the
+epilogue in its store, counted once in `SAGE_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -40,12 +47,15 @@ from ._launch import check_cuda, check_int32, launch, on_cpu
 from .bitmap_spmm import bitmap_spmm_plain, check_structure
 from .gat_attention import check_attention, gat_attention_plain
 from .int8_matmul import check_accumulator, int_matmul, quantize_s8
+from .sage_max import check_walk, sage_max_plain
 
 LAUNCHES = 0                      # calls of `fused_gcn_dense` that launched
 INT8_LAUNCHES = 0                 # calls of `fused_gcn_int8` that launched
 GRASP_LAUNCHES = 0                # calls of `fused_gcn_grasp` that launched
 GAT_FULL_LAUNCHES = 0             # calls of `fused_gat_full` that launched
 GAT_PRE_LAUNCHES = 0              # launches of `fused_gat_precombined`
+SAGE_LAUNCHES = 0                 # calls of `fused_sage` that launched
+SAGE_AGGREGATORS = ("mean", "max")
 ACTIVATIONS = {"none": 0, "relu": 1, "elu": 2}   # the kernel's `act` codes
 
 
@@ -329,4 +339,64 @@ def fused_gat_full(x: torch.Tensor, w: torch.Tensor, a_src: torch.Tensor,
                out.data_ptr(), batch, n, fin, heads, f,
                ACTIVATIONS[activation])
         GAT_FULL_LAUNCHES += 1
+    return out
+
+
+def fused_sage_plain(mask: torch.Tensor, xk: torch.Tensor, x: torch.Tensor,
+                     w_self: torch.Tensor, w_neigh: torch.Tensor,
+                     b: torch.Tensor, aggregator: str = "mean",
+                     activation: str = "none") -> torch.Tensor:
+    """Plain PyTorch version: the aggregation (`torch.matmul` for mean,
+    `sage_max_plain` for max), both combines, bias and activation as
+    separate ops."""
+    agg = (torch.matmul(mask, xk) if aggregator == "mean"
+           else sage_max_plain(mask, xk))
+    return _act(torch.matmul(x, w_self) + torch.matmul(agg, w_neigh)
+                + b.reshape(1, -1), activation)
+
+
+def fused_sage(mask: torch.Tensor, xk: torch.Tensor, x: torch.Tensor,
+               w_self: torch.Tensor, w_neigh: torch.Tensor, b: torch.Tensor,
+               aggregator: str = "mean", activation: str = "none"
+               ) -> torch.Tensor:
+    """SAGE layer over a leading batch of graphs.
+
+    mask: (B, N, N), the row-normalised `mean_mask` (mean) or the 0/1
+    `sample_mask` (max); xk: (B, N, Fin), X itself (mean) or the pooled
+    features (max, >= 0); x: (B, N, Fin); w_self, w_neigh: (Fin, O); b:
+    (O,) or (1, O). Returns (B, N, O) float32. The mean walk sums
+    m * x[j] in ascending column order with fmaf, as a sequential dense
+    pass would; a NaN in an xk row that the mask never selects is never
+    read (see `sage_max`).
+    """
+    global SAGE_LAUNCHES
+    _check_activation(activation)
+    if aggregator not in SAGE_AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; pick from "
+                         f"{SAGE_AGGREGATORS}")
+    operands = dict(mask=mask, xk=xk, x=x, w_self=w_self, w_neigh=w_neigh,
+                    b=b)
+    if on_cpu(*operands.values()):
+        return fused_sage_plain(mask, xk, x, w_self, w_neigh, b, aggregator,
+                                activation)
+    device = check_cuda("fused_sage", **operands)
+    batch, n, fin = check_walk("fused_sage", mask, xk)
+    o = w_self.shape[-1]
+    if (tuple(x.shape) != (batch, n, fin) or w_self.dim() != 2
+            or tuple(w_self.shape) != (fin, o)
+            or tuple(w_neigh.shape) != (fin, o) or b.numel() != o):
+        raise ValueError(
+            f"fused_sage: shapes do not agree: xk {tuple(xk.shape)}, x "
+            f"{tuple(x.shape)}, w_self {tuple(w_self.shape)}, w_neigh "
+            f"{tuple(w_neigh.shape)}, b {tuple(b.shape)}")
+    out = torch.empty(batch, n, o, dtype=torch.float32, device=device)
+    if out.numel():
+        check_int32("fused_sage", o=o)
+        agg = torch.empty_like(x)            # aggregate scratch, N x Fin
+        launch("fused_sage", _build.load("fused_sage"), device,
+               mask.data_ptr(), xk.data_ptr(), x.data_ptr(),
+               w_self.data_ptr(), w_neigh.data_ptr(), b.data_ptr(),
+               agg.data_ptr(), out.data_ptr(), batch, n, fin, o,
+               int(aggregator == "max"), ACTIVATIONS[activation])
+        SAGE_LAUNCHES += 1
     return out

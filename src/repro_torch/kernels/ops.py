@@ -1,7 +1,8 @@
 """Public kernel entry points of the port: `matmul`, `int8_matmul`,
 `bitmap_spmm` (with `bitmap_spmm_batched` and `bitmap_spmm_mode`),
-`gat_attention`, `fused_gcn_layer` (its dense, QuantGr and GraSp branches)
-and `fused_gat_layer` (fp32 and precombined).
+`gat_attention`, `sage_max`, `fused_gcn_layer` (its dense, QuantGr and
+GraSp branches), `fused_gat_layer` (fp32 and precombined) and
+`fused_sage_layer` (mean and max).
 
 Routing follows the tensors' device (`kernels/_launch.py`): CPU tensors run
 the kernels' plain versions, CUDA tensors the hand-written kernels or an
@@ -11,11 +12,14 @@ their operands to the 128 tile and strip the result, as the reference's
 take the head width F as it is: the reference pads F to its 128 lanes,
 the CUDA kernels take any F up to 64, and the stripped result is the same.
 `fused_gat_layer` pads the node dimension to 128 with -1e9 bias rows and
-columns, as the reference does. Entries accept a leading batch dimension,
-which stands in for the reference's `vmap`.
+columns, as the reference does. The SAGE entries take N, F and Fin as they
+are: the reference pads them with zeros to 128, which adds only zero
+mask entries, zero features and zero weight rows, so the stripped result
+is the same. Entries accept a leading batch dimension, which stands in
+for the reference's `vmap`.
 
-The other entries of the reference's `ops.py` (SAGE, flash attention) are
-not ported yet.
+`flash_attention`, the last entry of the reference's `ops.py`, is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -28,9 +32,11 @@ from . import int8_matmul as _i8
 from .bitmap_spmm import bitmap_spmm as _bitmap_spmm
 from .block_matmul import block_matmul
 from .fused_layers import (fused_gat_full, fused_gat_precombined,
-                           fused_gcn_dense, fused_gcn_grasp, fused_gcn_int8)
+                           fused_gcn_dense, fused_gcn_grasp, fused_gcn_int8,
+                           fused_sage)
 from .gat_attention import gat_attention as _gat_attention
 from .ref import NEG_INF
+from .sage_max import sage_max as _sage_max
 
 TILE = 128
 
@@ -110,6 +116,15 @@ def gat_attention(h: torch.Tensor, alpha_dst: torch.Tensor,
     args = [t[None] if single else t
             for t in (h, alpha_dst, alpha_src, bias_add)]
     out = _gat_attention(*(t.contiguous() for t in args))
+    return out[0] if single else out
+
+
+def sage_max(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """GrAx3 masked max aggregation through the `sage_max` kernel.
+    mask01: (B?, N, N) 0/1; h: (B?, N, F) >= 0. Returns h's shape."""
+    single = h.dim() == 2
+    args = [t[None] if single else t for t in (mask01, h)]
+    out = _sage_max(*(t.contiguous() for t in args))
     return out[0] if single else out
 
 
@@ -202,4 +217,29 @@ def fused_gat_layer(x: Optional[torch.Tensor], w: Optional[torch.Tensor],
                              w.contiguous(), a_src.contiguous(),
                              a_dst.contiguous(), bias_p, b, activation)
     out = out[:, :n]
+    return out[0] if single else out
+
+
+def fused_sage_layer(x: torch.Tensor, w_self: torch.Tensor,
+                     w_neigh: torch.Tensor, b: torch.Tensor, *,
+                     mean_mask: Optional[torch.Tensor] = None,
+                     sample_mask: Optional[torch.Tensor] = None,
+                     pooled: Optional[torch.Tensor] = None,
+                     activation: str = "none") -> torch.Tensor:
+    """Fused SAGE layer act(X @ Wself + AGG @ Wneigh + b), one kernel call
+    (`fused_sage`).
+
+    Mean aggregation: pass `mean_mask`; GrAx3 max aggregation: pass the
+    0/1 `sample_mask` plus the non-negative `pooled` features. x, pooled:
+    (B?, N, Fin); masks (B?, N, N); w_self, w_neigh: (Fin, O); b: (O,) or
+    (1, O).
+    """
+    aggregator = "mean" if mean_mask is not None else "max"
+    mask = mean_mask if mean_mask is not None else sample_mask
+    xk = x if mean_mask is not None else pooled
+    single = x.dim() == 2
+    args = [t[None] if single else t for t in (mask, xk, x)]
+    out = fused_sage(*(t.contiguous() for t in args), w_self.contiguous(),
+                     w_neigh.contiguous(), b.contiguous(), aggregator,
+                     activation)
     return out[0] if single else out

@@ -1,18 +1,18 @@
 """Plain torch oracles for the ported kernels, twins of the reference's
 `kernels/ref.py` (`matmul_ref`, `int8_matmul_ref`, `bitmap_spmm_ref`,
-`bitmap_spmm_block_ref`, `gat_attention_ref`, the dense and QuantGr
-branches of `fused_gcn_layer_ref`, `fused_gcn_grasp_layer_ref` and
-`fused_gat_layer_ref`).
+`bitmap_spmm_block_ref`, `gat_attention_ref`, `sage_max_ref`, the dense
+and QuantGr branches of `fused_gcn_layer_ref`, `fused_gcn_grasp_layer_ref`,
+`fused_gat_layer_ref` and `fused_sage_layer_ref`).
 
 They take the unpadded shapes the layers see, not the tile-padded ones the
 kernels take, and are written independently of the kernels' plain
-versions (ELU through `torch.nn.functional.elu`, the GAT softmax through
-`core.effop`), so the parity tests hold each path against a second
-formulation. The GAT twins loop over heads, as the reference's
-`fused_gat_layer_ref` does, so one (B?, N, N) score tensor is alive at a
-time. Their one shared piece is the
-exact s8 x s8 -> s32 product `int8_matmul.int_matmul`, which every plain
-int8 product of the port goes through.
+versions (ELU through `torch.nn.functional.elu`, the GAT softmax and the
+SAGE masked max through `core.effop`), so the parity tests hold each path
+against a second formulation. The GAT twins loop over heads, as the
+reference's `fused_gat_layer_ref` does, so one (B?, N, N) score tensor is
+alive at a time. Their one shared piece is the exact s8 x s8 -> s32
+product `int8_matmul.int_matmul`, which every plain int8 product of the
+port goes through.
 """
 from __future__ import annotations
 
@@ -80,6 +80,12 @@ def gat_attention_ref(h: torch.Tensor, alpha_dst: torch.Tensor,
         attn = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-12)
         outs.append(torch.einsum("...ij,...jf->...if", attn, h[..., hd, :]))
     return torch.stack(outs, dim=-2)
+
+
+def sage_max_ref(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """GrAx3 oracle: out[i, f] = max_j mask[i, j] * h[j, f] (h >= 0;
+    rows without a neighbour give 0). mask01: (B?, N, N); h: (B?, N, F)."""
+    return effop.masked_max_aggregate(h, mask01, grax3=True)
 
 
 def _act_ref(z: torch.Tensor, activation: str) -> torch.Tensor:
@@ -153,3 +159,19 @@ def fused_gat_layer_ref(x: Optional[torch.Tensor], w: Optional[torch.Tensor],
         attn = effop.segment_softmax_dense(e, bias_add)      # GrAx1 mask
         outs.append(attn @ h[..., hd, :] + b[hd])
     return _act_ref(torch.stack(outs, dim=-2), activation)
+
+
+def fused_sage_layer_ref(mask: torch.Tensor, xk: torch.Tensor,
+                         x: torch.Tensor, w_self: torch.Tensor,
+                         w_neigh: torch.Tensor, b: torch.Tensor, *,
+                         aggregator: str = "mean",
+                         activation: str = "none") -> torch.Tensor:
+    """SAGE layer twin: mean (M @ X) or GrAx3 masked-max aggregation, both
+    combines and the epilogue. xk is X (mean) or the pooled features >= 0
+    (max)."""
+    if aggregator == "mean":
+        agg = mask @ xk
+    else:
+        agg = effop.masked_max_aggregate(xk, mask, grax3=True)
+    return _act_ref(x @ w_self + agg @ w_neigh + b.reshape(1, -1),
+                    activation)

@@ -1,5 +1,5 @@
-"""GraphServe sync core: multi-graph, multi-bucket GCN and GAT serving on
-one device.
+"""GraphServe sync core: multi-graph, multi-bucket GCN, GAT and GraphSAGE
+serving on one device.
 
 Port of the synchronous serving path of the reference's
 `runtime/gnn_server.py`:
@@ -27,8 +27,11 @@ Port of the synchronous serving path of the reference's
     tiers) or `fused_gat_precombined` after its int8 combine (QuantGr
     tiers) with `fusion="layer"`, and the `gat_attention` kernel with
     `fusion="none"` and `use_pallas` (its int8 combine through
-    `int8_matmul`). Fusion joins the batch key and warmup runs both
-    modes, as in the reference.
+    `int8_matmul`). A fp32 SAGE layer runs `fused_sage` with
+    `fusion="layer"` (QuantGr SAGE does not fuse); with `fusion="none"`
+    and `use_pallas` its mean aggregation runs `block_matmul`, its GrAx3
+    max `sage_max`, and its int8 combines `int8_matmul`. Fusion joins the
+    batch key and warmup runs both modes, as in the reference.
   * GraSp aggregation backend (DESIGN.md §10) — a model registered with
     `agg_backend="auto"` routes each graph by the density/cost rule
     (`core.sparsity.select_agg_backend`, H100 constants); `"grasp"` forces
@@ -81,6 +84,7 @@ from repro_torch.runtime.clock import WALL, Clock
 DEFAULT_TECHNIQUES: Dict[str, Techniques] = {
     "gcn": Techniques(stagr=True, grad_dynamic=True, graphsplit=True),
     "gat": Techniques.full_gat(),
+    "sage": Techniques.full_sage(),
 }
 
 # Aggregation-backend serving modes (register_model(agg_backend=...)):
@@ -293,7 +297,7 @@ class GraphServe:
                        default_tier: str = "fp32",
                        agg_backend: str = "dense",
                        fusion: str = "none") -> None:
-        """Register a GCN or GAT under `name` with its quality-tier
+        """Register a GCN, GAT or SAGE under `name` with its quality-tier
         registry.
 
         `params` (nested dict of tensors on the engine's device, e.g. from
@@ -305,16 +309,16 @@ class GraphServe:
         `agg_backend` is the model's GraSp mode (`AGG_BACKEND_MODES`):
         "dense", "auto" (per-graph density/cost rule) or "grasp" (forced
         where the structure fits the bucket budget; ineligible graphs
-        serve dense, counted in `backend_fallbacks`). QuantGr tiers and
-        GAT (whose aggregation has no block-sparse form) always resolve
-        dense, so a non-"dense" mode on them is a no-op, not an error.
+        serve dense, counted in `backend_fallbacks`). QuantGr tiers, GAT
+        and SAGE (whose aggregations have no block-sparse form) always
+        resolve dense, so a non-"dense" mode on them is a no-op, not an
+        error.
         `fusion` is the model's default fused-layer mode; requests may
         override it per call.
         """
         if cfg.kind not in DEFAULT_TECHNIQUES:
-            raise NotImplementedError(
-                f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
-                "1 item 7)")
+            raise ValueError(f"unknown model kind {cfg.kind!r}; pick from "
+                             f"{sorted(DEFAULT_TECHNIQUES)}")
         if tiers is None:
             registry = {"fp32": techniques if techniques is not None
                         else DEFAULT_TECHNIQUES[cfg.kind]}
@@ -605,10 +609,11 @@ class GraphServe:
                          grasp_bitmap: Optional[np.ndarray] = None
                          ) -> GranniteOperands:
         """Build one graph's operands on the host and upload them: the
-        fields its kind reads (GCN's Â, GAT's two masks), whose bytes count
-        in `operand_bytes_h2d`. A grasp request also compacts Â's blocks on
-        the host (`to_block_sparse`, reusing the rule's bitmap, padded to
-        the bucket budget) and ships the structure, counted too."""
+        fields its kind reads (GCN's Â, GAT's two masks, SAGE's sample and
+        mean masks), whose bytes count in `operand_bytes_h2d`. A grasp
+        request also compacts Â's blocks on the host (`to_block_sparse`,
+        reusing the rule's bitmap, padded to the bucket budget) and ships
+        the structure, counted too."""
         grasp = backend == "grasp"
         cfg = self.models[model].cfg
         ops = build_operands(

@@ -1,7 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the port's GraphServe on CUDA against the same engine on the CPU, on the
 fp32 tier, on the QuantGr int8 tier, on the GraSp backend and for the GAT
-kind.
+and SAGE kinds.
 
 Every test here carries the `cuda` marker and skips itself where there is
 no card; this file imports no JAX, so it runs on a machine without it:
@@ -14,6 +14,8 @@ products and the plain versions' rounding steps, so they are held equal
 (`torch.equal`). The GAT kernels' online softmax sums in another order
 than the plain two-pass one: rtol=1e-4, atol=1e-5 as well. A GAT int8
 request is compared layer by layer (see `test_gat_graphserve_on_card`).
+`sage_max` takes the same maxima as its plain version and is held equal;
+`fused_sage` sums in another order than cuBLAS: CARD.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ import torch
 from repro_torch.core import layers as glayers
 from repro_torch.core.graph import BucketLadder
 from repro_torch.core.layers import Techniques
-from repro_torch.core.masks import NEG_INF
+from repro_torch.core.masks import (NEG_INF, mean_from_mask,
+                                    sage_sample_adjacency)
 from repro_torch.core.models import GNNConfig, stack_operands
 from repro_torch.core.quant import QuantizedLinear, quantize_rowwise
 from repro_torch.core.sparsity import compact_block_sparse
@@ -33,6 +36,7 @@ from repro_torch.kernels import fused_layers as fl_mod
 from repro_torch.kernels import gat_attention as ga_mod
 from repro_torch.kernels import int8_matmul as im_mod
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import sage_max as sm_mod
 from repro_torch.runtime.gnn_server import GraphServe, GraphServeConfig
 
 CARD = dict(rtol=1e-4, atol=1e-5)
@@ -572,3 +576,144 @@ def test_gat_graphserve_on_card_matches_cpu(card):
                                      ops.mask_mult, ops.bias_add, t, **kw)
         torch.testing.assert_close(z[0, :n].cpu(),
                                    torch.from_numpy(r_cpu.logits), **CARD)
+
+
+def _sage_masks(rng, batch, n, n_real, device, dense_row=None):
+    """Sampled 0/1 masks (NodePad's rows and columns empty, optionally one
+    row whose every column is set) and their mean masks, on `device`."""
+    sample = []
+    for _ in range(batch):
+        adj = (rng.random((n, n)) < 0.05).astype(np.float32)
+        adj[n_real:] = 0.0
+        adj[:, n_real:] = 0.0
+        m = sage_sample_adjacency(adj, n_real, max_neighbors=10)
+        if dense_row is not None:
+            m[dense_row] = 1.0
+        sample.append(m)
+    sample = np.stack(sample)
+    mean = np.stack([mean_from_mask(m) for m in sample])
+    return (torch.from_numpy(sample).to(device),
+            torch.from_numpy(mean).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(384, 1433), (256, 64), (200, 7)])
+def test_sage_max_matches_plain(card, n, f):
+    rng = np.random.default_rng(n + f)
+    sample, _ = _sage_masks(rng, 2, n, n - 40, card, dense_row=5)
+    for h in (_arr(rng, 2, n, f).abs().to(card),     # the serving domain
+              _arr(rng, 2, n, f).to(card)):          # any sign: equal too
+        before = sm_mod.LAUNCHES
+        got = sm_mod.sage_max(sample, h)
+        torch.cuda.synchronize()
+        assert sm_mod.LAUNCHES == before + 1
+        assert torch.equal(got, sm_mod.sage_max_plain(sample, h))
+    # NaN only in rows of h that no mask row selects (NodePad's, the dense
+    # row left out): the kernel never reads them, the plain version
+    # multiplies them by 0 and turns every output NaN
+    sample, _ = _sage_masks(rng, 2, n, n - 40, card)
+    h = _arr(rng, 2, n, f).abs().to(card)
+    h_nan = h.clone()
+    h_nan[:, n - 40:] = float("nan")
+    assert torch.equal(sm_mod.sage_max(sample, h_nan),
+                       sm_mod.sage_max_plain(sample, h))
+    assert torch.isnan(sm_mod.sage_max_plain(sample, h_nan)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+def test_fused_sage_matches_plain(card, aggregator, activation):
+    rng = np.random.default_rng(len(aggregator) + len(activation))
+    for n, fin, o in ((384, 300, 64), (256, 64, 7), (200, 40, 16)):
+        sample, mean = _sage_masks(rng, 2, n, n - 30, card, dense_row=2)
+        mask = mean if aggregator == "mean" else sample
+        x = _arr(rng, 2, n, fin).to(card)
+        xk = x if aggregator == "mean" else _arr(rng, 2, n, fin).abs().to(card)
+        ws = _arr(rng, fin, o, scale=0.1).to(card)
+        wn = _arr(rng, fin, o, scale=0.1).to(card)
+        b = _arr(rng, o, scale=0.1).to(card)
+        before = fl_mod.SAGE_LAUNCHES
+        got = fl_mod.fused_sage(mask, xk, x, ws, wn, b, aggregator,
+                                activation)
+        torch.cuda.synchronize()
+        assert fl_mod.SAGE_LAUNCHES == before + 1
+        torch.testing.assert_close(got, fl_mod.fused_sage_plain(
+            mask, xk, x, ws, wn, b, aggregator, activation), **CARD)
+
+
+@pytest.mark.cuda
+def test_sage_wrappers_reject_bad_operands(card):
+    sample, _ = _sage_masks(np.random.default_rng(0), 1, 128, 100, card)
+    h = torch.rand(1, 128, 16, device=card)
+    w = torch.zeros(16, 8, device=card)
+    b = torch.zeros(8, device=card)
+    with pytest.raises(TypeError):
+        sm_mod.sage_max(sample, h.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        sm_mod.sage_max(sample.transpose(1, 2), h)
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        sm_mod.sage_max(sample[:, :64, :64].contiguous(), h)
+    with pytest.raises(ValueError, match="CUDA"):
+        sm_mod.sage_max(sample, h.cpu())
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        fl_mod.fused_sage(sample, h, h, torch.zeros(15, 8, device=card), w,
+                          b, "max")
+    with pytest.raises(ValueError, match="aggregator"):
+        fl_mod.fused_sage(sample, h, h, w, w, b, "sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+def test_sage_graphserve_on_card_matches_cpu(card, aggregator):
+    """SAGE fp32 and int8+grax on the card against the CPU engine, the same
+    calibration on both: `fusion="layer"` (fused_sage; the QuantGr tier
+    does not fuse) and `use_pallas` (block_matmul for mean, sage_max for
+    max, int8_matmul for the int8 combines)."""
+    cfg = GNNConfig(kind="sage", in_feats=48, hidden=16, num_classes=5,
+                    aggregator=aggregator)
+    base = dict(stagr=True, graphsplit=True, effop=True, grax3=True)
+    graphs = [planetoid_like(num_nodes=n, num_edges=3 * n, num_feats=48,
+                             num_classes=5, seed=i, train_per_class=2)
+              for i, n in enumerate((60, 120, 200, 250))]
+    out, engines = {}, {}
+    for side, dev in (("cpu", torch.device("cpu")), ("cuda", card)):
+        eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128, 256)),
+                                          batch_slots=2, return_logits=True),
+                         seed=3, device=dev)
+        eng.register_model("sage", cfg, tiers=("fp32", "int8+grax"),
+                           fusion="layer")
+        eng.register_model("sage_mm", cfg, tiers={
+            "fp32": Techniques(**base, use_pallas=True),
+            "int8+grax": Techniques(**base, quantgr=True, use_pallas=True)})
+        eng.warmup()
+        for name in ("sage", "sage_mm"):
+            if side == "cpu":
+                eng.calibrate(name, graphs[3])
+            else:                      # the same scales on both devices
+                eng.models[name].calibrations["int8+grax"] = {
+                    k: _calibration_to(layer, dev) for k, layer in
+                    engines["cpu"].models[name].calibrations[
+                        "int8+grax"].items()}
+        launches = (fl_mod.SAGE_LAUNCHES, sm_mod.LAUNCHES, bm_mod.LAUNCHES,
+                    im_mod.LAUNCHES)
+        for g in graphs:
+            for tier in ("fp32", "int8+grax"):
+                eng.submit(g, model="sage", tier=tier)
+                eng.submit(g, model="sage_mm", tier=tier)
+        done = eng.run()
+        out[side] = {r.uid: r.logits for r in done}
+        engines[side] = eng
+        eng.assert_warm()
+        assert eng.summary()["tier_fallbacks"] == 0
+        ran = (fl_mod.SAGE_LAUNCHES - launches[0],
+               sm_mod.LAUNCHES - launches[1], bm_mod.LAUNCHES - launches[2],
+               im_mod.LAUNCHES - launches[3])
+        # per (model, tier): 2 buckets x 1 batch, 2 layers each; the int8
+        # combines are self and neigh, and pool for max
+        is_max = aggregator == "max"
+        want = (4, 8 * is_max, 8 * (not is_max), 4 * (3 if is_max else 2))
+        assert ran == (want if side == "cuda" else (0, 0, 0, 0))
+    for uid, logits in out["cpu"].items():
+        torch.testing.assert_close(torch.from_numpy(out["cuda"][uid]),
+                                   torch.from_numpy(logits), **CARD)

@@ -497,9 +497,13 @@ def test_gat_config_init_and_operand_guards():
     meta = dataclasses.replace(stacked, bias_add=stacked.bias_add.to("meta"))
     with pytest.raises(ValueError, match="bias_add"):
         plan(p, torch.zeros(3, 128, 1433), meta)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # SAGE is ported: its params init; an unknown kind raises
+    sage = tmodels.init_params(torch.Generator(), tmodels.GNNConfig(
+        kind="sage", in_feats=8, aggregator="max"), device="cpu")
+    assert set(sage["l1"]) == {"w_self", "w_neigh", "b", "w_pool", "b_pool"}
+    with pytest.raises(ValueError, match="unknown model kind"):
         tmodels.init_params(torch.Generator(), tmodels.GNNConfig(
-            kind="sage", in_feats=8), device="cpu")
+            kind="gin", in_feats=8), device="cpu")
 
 
 # ---------------------------------------------------------------- serving

@@ -44,10 +44,11 @@ def test_port_file_list_covers_every_slice():
              for p in PORT_FILES[:-1]}
     assert {"core/masks.py", "core/effop.py", "core/sparsity.py",
             "core/quant.py", "kernels/gat_attention.py",
-            "kernels/fused_layers.py", "runtime/gnn_server.py"} <= names
+            "kernels/sage_max.py", "kernels/fused_layers.py",
+            "runtime/gnn_server.py"} <= names
 
 
-def _serve_on_cpu_without_jax(kind):
+def _serve_on_cpu_without_jax(kind, aggregator="mean"):
     """Serve one model of `kind` on the CPU, fp32 fused and int8 unfused,
     in a fresh process; assert that no JAX or reference module loaded."""
     code = (
@@ -60,8 +61,8 @@ def _serve_on_cpu_without_jax(kind):
         "eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128,)), "
         "batch_slots=2), device='cpu')\n"
         f"eng.register_model('m', GNNConfig(kind='{kind}', in_feats=16, "
-        "hidden=8, num_classes=3, heads=2), tiers=('fp32', 'int8'), "
-        "fusion='layer')\n"
+        f"hidden=8, num_classes=3, heads=2, aggregator='{aggregator}'), "
+        "tiers=('fp32', 'int8'), fusion='layer')\n"
         "eng.warmup()\n"
         "g = planetoid_like(num_nodes=50, num_edges=120, num_feats=16, "
         "num_classes=3, train_per_class=2)\n"
@@ -83,6 +84,11 @@ def test_cpu_forward_leaves_jax_unloaded():
 
 def test_cpu_gat_forward_leaves_jax_unloaded():
     _serve_on_cpu_without_jax("gat")
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+def test_cpu_sage_forward_leaves_jax_unloaded(aggregator):
+    _serve_on_cpu_without_jax("sage", aggregator)
 
 
 def test_chip_smoke_fails_without_card():

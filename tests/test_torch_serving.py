@@ -226,10 +226,11 @@ def test_unported_surfaces_raise():
     eng.register_model("q", cfg, tiers=("fp32", "int8"))     # ported now
     with pytest.raises(ValueError, match="agg_backend"):
         eng.register_model("s", cfg, agg_backend="sparse")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        eng.register_model("a", tmodels.GNNConfig(kind="sage", in_feats=8))
+    eng.register_model("a", tmodels.GNNConfig(kind="sage", in_feats=8))
+    with pytest.raises(ValueError, match="unknown model kind"):
+        eng.register_model("u", tmodels.GNNConfig(kind="gin", in_feats=8))
     eng.register_model("ok", cfg, tiers=("fp32",))
-    assert list(eng.models) == ["q", "ok"]
+    assert list(eng.models) == ["q", "a", "ok"]
     assert set(eng.models["q"].tiers) == {"fp32", "int8"}
 
 
