@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths on one
-NVIDIA card.
+"""Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths and its
+LM server on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -69,9 +69,27 @@ last line; there is no CPU path):
      900-node graph attached and queried twice. Launch counts (set to 0
      just before the phase) must match its batch log and every logit the
      plain forward (an int8 request layer by layer);
-  7. times — CUDA-event times of each kernel, its plain version and the
-     matching library call at the serving shapes, beside the card's bound,
-     and the measured dense and GraSp aggregation times per bucket.
+  7. flash — `flash_attention` against its plain version
+     (`flash_attention_ref`) in fp32 and bf16 at SmolLM's serving shapes (B
+     4, S 64/128/256, 9 query heads over 3 KV heads of 64, causal), a
+     ragged S of 200, gemma2's heads (32 over 16 of 128) with window 64 and
+     softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
+     may reach, and head_dim 32;
+  8. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
+     d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
+     bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
+     warm-up wave per bucket, 12 requests of 16 new tokens (one wave per
+     bucket) with every launch count set to 0 just before; flash_attention
+     must launch 30 times per prefill and nothing else at all, the counters
+     must hold (at most len(buckets) + 1 step callables), and the last
+     wave's prefill logits must match a rerun with the plain attention
+     (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
+     token per bucket, decode ms per step and tokens/s;
+  9. times — CUDA-event times of each kernel, its plain version and the
+     matching library call at the serving shapes, beside the card's bound
+     (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
+     of 128), and the measured dense and GraSp aggregation times per
+     bucket.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -92,7 +110,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.bridge import (lm_params_from_jax,  # noqa: E402
+                                params_from_jax)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.gnn import gat, gcn, sage  # noqa: E402
 from repro_torch.core.graph import BucketLadder, pad_graph  # noqa: E402
 from repro_torch.core.layers import Techniques  # noqa: E402
@@ -111,13 +131,17 @@ from repro_torch.data.graphs import (clustered_like, cora_like,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitmap_spmm as bs  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_layers as fl  # noqa: E402
 from repro_torch.kernels import gat_attention as ga  # noqa: E402
 from repro_torch.kernels import int8_matmul as im  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sage_max as sm  # noqa: E402
+from repro_torch.nn import lm  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
+from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3, fp32 outside the tensor
 # cores (the fp32 SIMT kernels' roofline), the int8 tensor cores (the
@@ -160,7 +184,10 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
            "sage_max": ("src/repro_torch/kernels/csrc/sage_max.cu",
                         "src/repro/kernels/sage_max.py:47"),
            "fused_sage": ("src/repro_torch/kernels/csrc/fused_sage.cu",
-                          "src/repro/kernels/fused_layers.py:470")}
+                          "src/repro/kernels/fused_layers.py:470"),
+           "flash_attention": ("src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:94")}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
@@ -172,11 +199,13 @@ COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gat_full": (fl, "GAT_FULL_LAUNCHES"),
             "fused_gat_precombined": (fl, "GAT_PRE_LAUNCHES"),
             "sage_max": (sm, "LAUNCHES"),
-            "fused_sage": (fl, "SAGE_LAUNCHES")}
+            "fused_sage": (fl, "SAGE_LAUNCHES"),
+            "flash_attention": (fa, "LAUNCHES")}
 GAT_HEADS, GAT_F, GAT_CLASSES = 8, 8, 7
 GAT_KERNELS = ("gat_attention", "fused_gat_full", "fused_gat_precombined")
 SAGE_KERNELS = ("sage_max", "fused_sage")
 SAGE_HIDDEN, SAGE_CLASSES = 64, 7
+LM_KERNELS = ("flash_attention",)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -425,6 +454,369 @@ def gat_bound(flops, exps, nbytes_):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# ------------------------------------------------------------ the LM path
+# bf16 tensor-core peak (H100 SXM data sheet, dense): the flash bound's
+# operation term, as for any attention kernel on this card
+BF16_FLOPS_PER_S = 989e12
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# (B, Sq, Skv, H, KV, D, causal, window, softcap, q_offset), each in fp32
+# and bf16: SmolLM's serving shapes (9 query heads over 3 KV heads of 64),
+# a ragged S, gemma2's heads with its window and softcap, non-causal,
+# q_offset (a prompt's last 64 positions over a 256-key cache), rows that
+# no key may reach, and the reduced configs' head_dim 32
+FLASH_CASES = {
+    "smollm S64": (4, 64, 64, 9, 3, 64, True, None, None, 0),
+    "smollm S128": (4, 128, 128, 9, 3, 64, True, None, None, 0),
+    "smollm S256": (4, 256, 256, 9, 3, 64, True, None, None, 0),
+    "ragged S200": (4, 200, 200, 9, 3, 64, True, None, None, 0),
+    "gemma2 window 64 softcap 50": (1, 256, 256, 32, 16, 128, True, 64,
+                                    50.0, 0),
+    "non-causal": (4, 128, 128, 9, 3, 64, False, None, None, 0),
+    "q_offset 192": (4, 64, 256, 9, 3, 64, True, None, None, 192),
+    "window past the keys": (1, 64, 256, 4, 2, 64, True, 48, None, 250),
+    "head_dim 32": (2, 96, 96, 4, 2, 32, True, None, None, 0),
+}
+FLASH_TIMED = {"serving (B 4, S 256, 9/3 heads of 64)": (4, 256, 256, 9, 3,
+                                                        64),
+               "long (B 1, S 4096, 32/8 heads of 128)": (1, 4096, 4096, 32,
+                                                         8, 128)}
+FLASH_KERNEL = "flash_kernel"         # the __global__ of flash_attention.cu
+LM_ARCH, LM_BUCKETS, LM_MAX_LEN, LM_SLOTS, LM_NEW = (
+    "smollm-135m", (64, 128, 256), 512, 4, 16)
+# prefill logits with the kernel against the plain attention, both bf16
+# through 30 layers: the largest difference relative to the largest |logit|
+LM_LOGIT_BAR = 5e-2
+
+
+def flash_inputs(rng, shape, dtype, dev):
+    b, sq, skv, h, kv, d = shape
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                             ).to(dev, dtype)
+            for s in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d))]
+
+
+def flash_work(q, k, causal=True, window=None, q_offset=0):
+    """(operations, bytes) of one flash_attention call: 4*D per (row,
+    key) pair the inputs need (a row that no key may reach averages every
+    key), q, k, v read and out written once."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qpos = np.arange(sq) + q_offset
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, int)
+    pairs = np.where(lo <= hi, hi - lo + 1, skv).sum()
+    return 4.0 * d * b * h * float(pairs), 2 * nbytes(q) + 2 * nbytes(k)
+
+
+def flash_phase(dev):
+    """[flash]: the kernel against flash_attention_ref on the card at every
+    case in both dtypes. Returns the largest error per dtype."""
+    rng = np.random.default_rng(21)
+    worst = {}
+    for label, (b, sq, skv, h, kv, d, causal, window, cap,
+                off) in FLASH_CASES.items():
+        opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(rng, (b, sq, skv, h, kv, d), dtype, dev)
+            before = fa.LAUNCHES
+            got = fa.flash_attention(q, k, v, **opts)
+            torch.cuda.synchronize()
+            check(fa.LAUNCHES == before + 1, f"[flash] {label}: no launch")
+            want = kref.flash_attention_ref(q, k, v, **opts)
+            e = (got.float() - want.float()).abs().max().item()
+            worst[dtype] = max(worst.get(dtype, 0.0), e)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **FLASH_TOL[dtype])
+            print(f"[flash] {label}, {str(dtype)[6:]}: max_abs_err {e:.3e}",
+                  flush=True)
+    return worst
+
+
+def lm_params_np(cfg, rng):
+    """Random weights of a dense `cfg` in numpy, in the bridge's layout
+    (leaves stacked over superblocks): N(0, 1/fan_in) matrices, a unit
+    normal embedding, norm scales 1 + 0.1 N(0, 1)."""
+    nsb, d, hh, kv = (cfg.num_superblocks, cfg.d_model, cfg.num_heads,
+                      cfg.num_kv_heads)
+    hd, ff = cfg.head_dim_, cfg.d_ff
+
+    def dense(*shape, fan_in):
+        a = rng.standard_normal((nsb, *shape), dtype=np.float32)
+        a *= np.float32(fan_in ** -0.5)
+        return a
+
+    def norm(*lead):
+        return {"scale": (1.0 + 0.1 * rng.standard_normal(
+            (*lead, d))).astype(np.float32)}
+
+    def head_norm():
+        return ((1.0 + 0.1 * rng.standard_normal((nsb, hd))
+                 ).astype(np.float32) if cfg.qk_norm else None)
+
+    stack = []
+    for _ in cfg.superblock:
+        layer = {"pre_norm": norm(nsb),
+                 "mixer": {"wq": dense(d, hh, hd, fan_in=d),
+                           "wk": dense(d, kv, hd, fan_in=d),
+                           "wv": dense(d, kv, hd, fan_in=d),
+                           "wo": dense(hh, hd, d, fan_in=hh * hd),
+                           "q_norm": head_norm(), "k_norm": head_norm()},
+                 "pre_mlp_norm": norm(nsb),
+                 "mlp": {"w_in": dense(d, ff, fan_in=d),
+                         "w_up": dense(d, ff, fan_in=d),
+                         "w_out": dense(ff, d, fan_in=ff)}}
+        if cfg.post_norms:
+            layer.update(post_norm=norm(nsb), post_mlp_norm=norm(nsb))
+        stack.append(layer)
+    embed = rng.standard_normal((cfg.vocab_size, d), dtype=np.float32)
+    unembed = (None if cfg.tie_embeddings else
+               rng.standard_normal((d, cfg.vocab_size), dtype=np.float32)
+               * np.float32(d ** -0.5))
+    return {"embed": embed, "stack": stack, "final_norm": norm(),
+            "unembed": unembed}
+
+
+def device_kernels(fn, iters=1):
+    """The CUDA kernels of `iters` calls of `fn`, from torch.profiler:
+    {kernel name: (own device ms summed, launches)}."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():      # one name may head several entries
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    return out
+
+
+def device_busy(fn):
+    """What torch.profiler recorded of one call: (device ms of its kernels,
+    kernels, device ms and launches of the flash_attention kernel). It may
+    miss launches, so the caller compares the flash launches with the
+    server's counter."""
+    ks = device_kernels(fn)
+    fa_ks = [v for name, v in ks.items() if FLASH_KERNEL in name]
+    return (sum(ms for ms, _ in ks.values()), sum(n for _, n in ks.values()),
+            sum(ms for ms, _ in fa_ks), sum(n for _, n in fa_ks))
+
+
+def queued_ms(fn, iters=20, spin_ms=50.0):
+    """Device ms of one call of `fn` with the host's launch gaps hidden: a
+    spin kernel holds the stream while the host queues every call, so the
+    events time the kernels back to back (torch.profiler misses some of a
+    tight loop's ctypes launches). The spin grows until the host was ahead
+    of the card; None when it never was (a call that waits for the card,
+    or more launches than the card's queue holds)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(5):
+        torch.cuda._sleep(int(spin_ms * 2e6))     # about spin_ms at 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()       # the spin still held the stream
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 4
+    return None
+
+
+def ms_or_not(ms, digits=4):
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def lm_prompts(rng, vocab):
+    """LM_SLOTS prompts per bucket, each wave's lengths inside its bucket
+    (so the waves take 64, 128 and 256 in turn)."""
+    prompts, lo = [], 8
+    for bucket in LM_BUCKETS:
+        prompts += [rng.integers(0, vocab, int(n)).astype(np.int32)
+                    for n in rng.integers(lo, bucket + 1, LM_SLOTS)]
+        lo = bucket + 1
+    return prompts
+
+
+def serve_lm_phase(dev, card):
+    """[serve-lm]: SmolLM-135M at full width served on the card, every
+    prefill's attention through flash_attention. Returns (launches of the
+    run, relative logit error, timings)."""
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    tree = lm_params_np(cfg, rng)
+    params = lm_params_from_jax(tree, device=dev)
+
+    def count(node):
+        if isinstance(node, np.ndarray):
+            return node.size
+        items = node.values() if isinstance(node, dict) else node
+        return sum(count(v) for v in items if v is not None)
+    n_params = count(tree)
+    print(f"[serve-lm] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params:,} parameters (fp32, {cfg.compute_dtype} compute) "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    sc = ServeConfig(buckets=LM_BUCKETS, max_len=LM_MAX_LEN,
+                     batch_slots=LM_SLOTS)
+    warm = Server(cfg, sc, params=params, device=dev)
+    for bucket in LM_BUCKETS:                 # one wave per bucket
+        warm.submit(rng.integers(0, cfg.vocab_size, bucket), max_new_tokens=2)
+        warm.run()
+    prompts = lm_prompts(rng, cfg.vocab_size)
+    server = Server(cfg, sc, params=params, device=dev)
+    for p in prompts:
+        server.submit(p, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launches_now()
+    s = server.summary()
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention": s["prefills"] * cfg.num_layers}
+    print(f"[serve-lm] {len(done)} requests in {s['prefills']} waves; "
+          f"launches {launches}, expected {want}; summary "
+          + json.dumps(s), flush=True)
+    check(launches == want, f"kernel launches {launches} != {want}")
+    check(launches["flash_attention"] == 3 * cfg.num_layers,
+          "flash_attention did not run every prefill layer")
+    check(s["prefills"] == len(LM_BUCKETS)
+          and s["compiled_blobs"] <= len(LM_BUCKETS) + 1
+          and s["requests"] == len(prompts)
+          and s["tokens_out"] == LM_NEW * len(prompts)
+          and s["decode_steps"] == (LM_NEW - 1) * len(LM_BUCKETS),
+          f"server counters {s}")
+    check(sorted(r.uid for r in done) == list(range(len(prompts)))
+          and all(r.output.shape == (LM_NEW,) and r.output.min() >= 0
+                  and r.output.max() < cfg.vocab_size for r in done),
+          "served outputs are not LM_NEW tokens of the vocabulary each")
+
+    # the last wave's prefill again, with the kernel and with the plain
+    # attention, on the same padded tokens
+    wave = done[-LM_SLOTS:]
+    toks = np.zeros((LM_SLOTS, LM_BUCKETS[-1]), np.int32)
+    for i, r in enumerate(wave):
+        toks[i, :len(r.prompt)] = r.prompt
+    toks_d = torch.from_numpy(toks).long().to(dev)
+    sp = server.params                  # the weights the server computes on
+    with torch.inference_mode():
+        got, state = lm.lm_prefill(sp, cfg, toks_d, max_len=LM_MAX_LEN)
+        steps = {"prefill": lambda: lm.lm_prefill(
+            sp, cfg, toks_d, max_len=LM_MAX_LEN),
+            "decode step": lambda: lm.lm_decode_step(
+                sp, cfg, got.argmax(-1), state)}
+        busy = {k: device_busy(fn) for k, fn in steps.items()}
+        kernel = kops.flash_attention
+        kops.flash_attention = kref.flash_attention_ref
+        try:
+            want_l, _ = lm.lm_prefill(sp, cfg, toks_d, max_len=LM_MAX_LEN)
+        finally:
+            kops.flash_attention = kernel
+    check(bool(torch.isfinite(got).all()) and got.shape == (
+        LM_SLOTS, cfg.vocab_size), "prefill logits not finite or misshaped")
+    check(np.array_equal(got.argmax(-1).cpu().numpy(),
+                         [r.output[0] for r in wave]),
+          "the served first tokens differ from a rerun of the prefill")
+    rel = ((got - want_l).abs().max() / want_l.abs().max()).item()
+    same = int((got.argmax(-1) == want_l.argmax(-1)).sum())
+    print(f"[serve-lm] bucket-256 prefill logits, kernel vs plain "
+          f"attention: max |diff| / max |logit| = {rel:.3e} (bar "
+          f"{LM_LOGIT_BAR}), max |logit| {want_l.abs().max().item():.2f}, "
+          f"argmax equal in {same} of {LM_SLOTS}", flush=True)
+    check(rel <= LM_LOGIT_BAR, f"prefill logits differ by {rel}")
+
+    ttft = {}
+    for bucket, sec in server.metrics["ttft_s"]:
+        ttft.setdefault(bucket, []).append(sec * 1e3)
+    step_ms = server.metrics["decode_s"] / s["decode_steps"] * 1e3
+    timing = {"ttft_ms_by_bucket": {b: float(np.mean(v))
+                                    for b, v in ttft.items()},
+              "decode_ms_per_step": step_ms,
+              "decode_tokens_per_s": LM_SLOTS / step_ms * 1e3,
+              "tokens_per_s": s["tokens_out"] / run_s, "run_s": run_s}
+    for b, ms in timing["ttft_ms_by_bucket"].items():
+        print(f"[serve-lm] time to first token, bucket {b} (wave start to "
+              f"its first tokens on the host, 4 slots): {ms:.2f} ms; {card}",
+              flush=True)
+    host_ms = {"prefill": timing["ttft_ms_by_bucket"][LM_BUCKETS[-1]],
+               "decode step": step_ms}
+    for what, (dev_ms, n, fa_ms, fa_n) in busy.items():
+        print(f"[serve-lm] {what} at bucket {LM_BUCKETS[-1]}: {n} device "
+              f"operations, {dev_ms:.3f} ms of device time (torch.profiler) "
+              f"against {host_ms[what]:.3f} ms on the host clock unprofiled"
+              f": device idle share {1 - dev_ms / host_ms[what]:.3f}; "
+              f"{FLASH_KERNEL}: {fa_n} launches recorded, {fa_ms:.3f} ms "
+              f"({fa_ms / dev_ms:.3f} of the device time); {card}",
+              flush=True)
+    timing["device_busy_ms"] = {k: v[0] for k, v in busy.items()}
+    print(f"[serve-lm] decode: {step_ms:.3f} ms per step of {LM_SLOTS} "
+          f"slots, {timing['decode_tokens_per_s']:.1f} tokens/s; whole run "
+          f"{run_s:.3f} s, {timing['tokens_per_s']:.1f} tokens/s; {card}",
+          flush=True)
+    return launches["flash_attention"], rel, timing
+
+
+def flash_row(dev, launches, worst, card):
+    """The kernels-line row of flash_attention: times at the serving and
+    the long shape (bf16, causal), CUDA events; the row's own numbers are
+    the serving shape's."""
+    rng = np.random.default_rng(29)
+    out = {}
+    for label, shape in FLASH_TIMED.items():
+        q, k, v = flash_inputs(rng, shape, torch.bfloat16, dev)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_k = time_ms(lambda: fa.flash_attention(q, k, v))
+        t_p = time_ms(lambda: kref.flash_attention_ref(q, k, v), iters=5)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        t_l = time_ms(sdpa)
+        d_k = queued_ms(lambda: fa.flash_attention(q, k, v))
+        d_l = queued_ms(sdpa)
+        flops, nbytes_ = flash_work(q, k)
+        b_ms, b_by = bound(flops, nbytes_, BF16_FLOPS_PER_S)
+        print(f"[time] flash_attention {label}: kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, library (scaled_dot_product_attention) "
+              f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{flops / t_k / 1e9:.1f} TFLOP/s; {card}", flush=True)
+        print(f"[time] flash_attention {label}, queued behind a spin so "
+              f"that no launch gap counts: kernel {ms_or_not(d_k)}, library "
+              f"{ms_or_not(d_l)}; the event times above are launch-bound where "
+              f"they exceed these; {card}", flush=True)
+        out[label] = (t_k, t_p, t_l, b_ms, b_by, d_k, d_l)
+    t_k, t_p, t_l, b_ms, b_by, d_k, d_l = out[next(iter(FLASH_TIMED))]
+    lt_k, lt_p, lt_l, lb_ms, lb_by, ld_k, ld_l = out[list(FLASH_TIMED)[1]]
+    src, replaces = SOURCES["flash_attention"]
+    return {"name": "flash_attention", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(worst.values()), "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
+            "per": "one causal bf16 prefill call at " + next(iter(FLASH_TIMED)),
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(is_causal, enable_gqa), a yardstick only",
+            "device_ms": d_k, "library_device_ms": d_l,
+            "max_abs_err_fp32": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16],
+            "long": {"shape": list(FLASH_TIMED)[1], "ms": lt_k,
+                     "plain_ms": lt_p, "library_ms": lt_l,
+                     "bound_ms": lb_ms, "bound_by": lb_by,
+                     "device_ms": ld_k, "library_device_ms": ld_l}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -632,7 +1024,7 @@ def main() -> None:
             "fused_gcn_dense": 2 * sum(v for k, v in batches.items()
                                        if k[2] == "layer"),
             "int8_matmul": 0, "fused_gcn_int8": 0, "bitmap_spmm": 0,
-            "fused_gcn_grasp": 0} | dict.fromkeys(GAT_KERNELS + SAGE_KERNELS,
+            "fused_gcn_grasp": 0} | dict.fromkeys(GAT_KERNELS + SAGE_KERNELS + LM_KERNELS,
                                                    0)
     print(f"[serve] {len(done)} requests in {sum(batches.values())} batches "
           f"{sorted(batches.items())}; launches {launches}, expected {want}",
@@ -705,7 +1097,7 @@ def main() -> None:
     batches = {k: -(-n // SLOTS) for k, n in per_key.items()}
     want = {"block_matmul": 0, "fused_gcn_dense": 0, "bitmap_spmm": 0,
             "fused_gcn_grasp": 0,
-            **dict.fromkeys(GAT_KERNELS + SAGE_KERNELS, 0),
+            **dict.fromkeys(GAT_KERNELS + SAGE_KERNELS + LM_KERNELS, 0),
             "int8_matmul": 4 * sum(v for k, v in batches.items()
                                    if k[0] == "gcn_qmm" and k[2] == "int8"),
             "fused_gcn_int8": 2 * sum(v for k, v in batches.items()
@@ -837,7 +1229,7 @@ def main() -> None:
     launches_sp = launches_now()
     n_kind = Counter((b[2], b[3]) for b in batch_log)
     want = {"block_matmul": 0, "int8_matmul": 0, "fused_gcn_int8": 0,
-            **dict.fromkeys(GAT_KERNELS + SAGE_KERNELS, 0),
+            **dict.fromkeys(GAT_KERNELS + SAGE_KERNELS + LM_KERNELS, 0),
             "fused_gcn_dense": 2 * n_kind[("dense", "layer")],
             "bitmap_spmm": 2 * n_kind[("grasp", "none")],
             "fused_gcn_grasp": 2 * n_kind[("grasp", "layer")]}
@@ -1370,7 +1762,15 @@ def main() -> None:
           flush=True)
     launches.update({k: launches_s[k] for k in SAGE_KERNELS})
 
-    # ---------------------------------------------------------- 7. times
+    # ------------------------------------------------ 7-8. flash, serve-lm
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    flash_err = flash_phase(dev)
+    flash_launches, _, _ = serve_lm_phase(dev, card)
+
+    # ---------------------------------------------------------- 9. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -1559,6 +1959,7 @@ def main() -> None:
                        library="torch.sparse.mm per graph on 128-block BSR",
                        library_refused=bsr_refused)
         rows.append(row)
+    rows.append(flash_row(dev, flash_launches, flash_err, card))
 
     # what replaces the guessed GraSp step overhead of core/costs.py: the
     # measured dense and GraSp aggregation of each bucket's serving batch
@@ -1584,10 +1985,7 @@ def main() -> None:
               f"{steps} steps (costs.GRASP_STEP_OVERHEAD_S = "
               f"{costs.GRASP_STEP_OVERHEAD_S * 1e9:.0f} ns)", flush=True)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

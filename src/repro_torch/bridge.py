@@ -5,12 +5,13 @@ reference package's weights or tier calibration converted with
 Takes the reference's parameter trees (GCN `{"l1": {"w", "b"}, "l2":
 {...}}`, GAT `{"l1": {"w", "a_src", "a_dst", "b"}, ...}`, SAGE
 `{"l1": {"w_self", "w_neigh", "b"[, "w_pool", "b_pool"]}, ...}`), its GCN,
-GAT and SAGE tier calibrations and its GraSp block structures with numpy
-leaves; nothing here knows of JAX.
+GAT and SAGE tier calibrations, its GraSp block structures and its LM
+parameters (`lm_params_from_jax`) with numpy leaves; nothing here knows of
+JAX.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -18,6 +19,9 @@ import torch
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.core.sparsity import LEAVES, BlockSparse, upload_block_sparse
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.attention import AttnParams
+from repro_torch.nn.lm import LMParams
+from repro_torch.nn.mlp import MLPParams
 
 
 def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
@@ -59,3 +63,55 @@ def block_sparse_from_jax(sp, *, device: DeviceLike = None) -> BlockSparse:
         **{f: np.asarray(getattr(sp, f)) for f in LEAVES},
         block_size=int(sp.block_size),
         shape=tuple(int(d) for d in sp.shape)), device)
+
+
+def _fields(node: Any) -> Mapping:
+    """A mapping or a named tuple as a mapping."""
+    return node if isinstance(node, Mapping) else node._asdict()
+
+
+def lm_params_from_jax(tree: Any, *, device: DeviceLike = None) -> LMParams:
+    """The reference's `LMParams` as plain containers of numpy arrays (each
+    `Param` replaced by its value; mappings or named tuples with the
+    reference's field names, None where it has None) -> the port's
+    `LMParams` on `device`, values and dtypes kept. The stacked layout is
+    kept: `stack` is a list over superblock positions whose leaves carry
+    the leading num_superblocks axis, so index i of one is index i of the
+    other."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return None if a is None else torch.from_numpy(np.array(a)).to(dev)
+
+    def tensors(node, cls):
+        f = _fields(node)
+        return cls(**{k: tensor(f.get(k)) for k in cls._fields})
+
+    def layer(node):
+        out = {}
+        for k, v in _fields(node).items():
+            if k == "mixer":
+                out[k] = tensors(v, AttnParams)
+            elif k == "mlp":
+                if "w_router" in _fields(v):
+                    raise NotImplementedError(
+                        "MoE layers are not ported yet (ROADMAP queue 1 "
+                        "item 14)")
+                out[k] = tensors(v, MLPParams)
+            elif k.endswith("norm"):
+                out[k] = {n: tensor(a) for n, a in _fields(v).items()}
+            else:
+                raise NotImplementedError(
+                    f"layer field {k!r} is not ported yet (ROADMAP queue 1 "
+                    "item 14)")
+        return out
+
+    f = _fields(tree)
+    if f.get("encoder") is not None:
+        raise NotImplementedError("the encoder is not ported yet (ROADMAP "
+                                  "queue 1 item 14)")
+    return LMParams(embed=tensor(f["embed"]),
+                    stack=[layer(pos) for pos in f["stack"]],
+                    final_norm={n: tensor(a)
+                                for n, a in _fields(f["final_norm"]).items()},
+                    unembed=tensor(f.get("unembed")))

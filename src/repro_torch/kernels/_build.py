@@ -23,7 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry point per library, with its ctypes argument kinds:
-# "p" = pointer or stream (c_void_p), "i" = int (c_int). Every entry point
+# "p" = pointer or stream (c_void_p), "i" = int (c_int), "f" = float
+# (c_float). Every entry point
 # ends with (int device, void* stream) and returns a cudaError_t as int.
 ENTRY_POINTS = {
     "block_matmul": ("block_matmul_f32", "ppp" "iiiiii" "ip"),
@@ -38,8 +39,10 @@ ENTRY_POINTS = {
                               "pppppp" "iiiii" "ip"),
     "sage_max": ("sage_max_f32", "ppp" "iii" "ip"),
     "fused_sage": ("fused_sage_f32", "pppppppp" "iiiiii" "ip"),
+    "flash_attention": ("flash_attention_fwd",
+                        "pppp" "iiiiiiiiii" "ff" "ip"),
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}     # loaded once per process
 

@@ -21,13 +21,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 def check_cuda(kernel: str, *, int8: Sequence[str] = (),
                int32: Sequence[str] = (),
+               floating: torch.dtype = torch.float32,
                **tensors: torch.Tensor) -> torch.device:
     """Raise unless every operand is a contiguous tensor on one CUDA device,
-    int8 for the names in `int8`, int32 for those in `int32` and float32
+    int8 for the names in `int8`, int32 for those in `int32` and of the
+    floating dtype `floating` (float32 unless a kernel takes bfloat16 too)
     for the others; return that device."""
     for name, t in tensors.items():
         want = (torch.int8 if name in int8 else
-                torch.int32 if name in int32 else torch.float32)
+                torch.int32 if name in int32 else floating)
         if t.device.type != "cuda":
             raise ValueError(
                 f"{kernel}: {name} lies on {t.device}; the kernel takes CUDA "

@@ -1,8 +1,8 @@
 """Public kernel entry points of the port: `matmul`, `int8_matmul`,
 `bitmap_spmm` (with `bitmap_spmm_batched` and `bitmap_spmm_mode`),
 `gat_attention`, `sage_max`, `fused_gcn_layer` (its dense, QuantGr and
-GraSp branches), `fused_gat_layer` (fp32 and precombined) and
-`fused_sage_layer` (mean and max).
+GraSp branches), `fused_gat_layer` (fp32 and precombined),
+`fused_sage_layer` (mean and max) and `flash_attention`.
 
 Routing follows the tensors' device (`kernels/_launch.py`): CPU tensors run
 the kernels' plain versions, CUDA tensors the hand-written kernels or an
@@ -16,10 +16,8 @@ columns, as the reference does. The SAGE entries take N, F and Fin as they
 are: the reference pads them with zeros to 128, which adds only zero
 mask entries, zero features and zero weight rows, so the stripped result
 is the same. Entries accept a leading batch dimension, which stands in
-for the reference's `vmap`.
-
-`flash_attention`, the last entry of the reference's `ops.py`, is not
-ported yet.
+for the reference's `vmap`. `flash_attention` takes its shapes as they
+are (the reference's kernel asserts tile multiples).
 """
 from __future__ import annotations
 
@@ -31,6 +29,7 @@ import torch.nn.functional as F
 from . import int8_matmul as _i8
 from .bitmap_spmm import bitmap_spmm as _bitmap_spmm
 from .block_matmul import block_matmul
+from .flash_attention import flash_attention
 from .fused_layers import (fused_gat_full, fused_gat_precombined,
                            fused_gcn_dense, fused_gcn_grasp, fused_gcn_int8,
                            fused_sage)

@@ -2,7 +2,8 @@
 `kernels/ref.py` (`matmul_ref`, `int8_matmul_ref`, `bitmap_spmm_ref`,
 `bitmap_spmm_block_ref`, `gat_attention_ref`, `sage_max_ref`, the dense
 and QuantGr branches of `fused_gcn_layer_ref`, `fused_gcn_grasp_layer_ref`,
-`fused_gat_layer_ref` and `fused_sage_layer_ref`).
+`fused_gat_layer_ref`, `fused_sage_layer_ref` and
+`flash_attention_ref`).
 
 They take the unpadded shapes the layers see, not the tile-padded ones the
 kernels take, and are written independently of the kernels' plain
@@ -175,3 +176,43 @@ def fused_sage_layer_ref(mask: torch.Tensor, xk: torch.Tensor,
         agg = effop.masked_max_aggregate(xk, mask, grax3=True)
     return _act_ref(x @ w_self + agg @ w_neigh + b.reshape(1, -1),
                     activation)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Exact GQA attention, the plain version of `flash_attention`: the
+    CPU path of the wrapper and the card checks' oracle.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H % KV == 0; query head h
+    reads KV head h // (H // KV). `q_offset` is the absolute position of
+    q[:, 0]; `window` keeps keys within `window` positions; `softcap` is
+    gemma2's tanh capping. The arithmetic is the TPU kernel's: scores in
+    float32 from the operands' exact products, times `scale` (default
+    D^-1/2), capped, masked to -1e9 (a number, so a row that no key may
+    reach averages every key uniformly), softmax in float32, the weights
+    rounded to v's dtype, the product summed in float32, the result in q's
+    dtype.
+    """
+    b, sq, hh, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = hh // kvh
+    scale = scale if scale is not None else d ** -0.5
+    kr = k.repeat_interleave(group, dim=2).float()
+    vr = v.repeat_interleave(group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, NEG_INF)
+    attn = torch.softmax(logits, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, vr.float())
+    return out.to(q.dtype)

@@ -1,0 +1,38 @@
+"""Dense MLP blocks (gated SwiGLU/GeGLU or plain), in the compute dtype."""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+from .common import activation, dense_param
+from .config import ArchConfig
+
+
+class MLPParams(NamedTuple):
+    w_in: torch.Tensor                  # (d, ff): the gate when gated
+    w_up: Optional[torch.Tensor]        # (d, ff): gated only
+    w_out: torch.Tensor                 # (ff, d)
+
+
+def mlp_init(cfg: ArchConfig, generator: torch.Generator, *,
+             device: DeviceLike = None) -> MLPParams:
+    device = resolve_device(device)
+    d, ff = cfg.d_model, cfg.d_ff
+    return MLPParams(
+        w_in=dense_param((d, ff), generator, device=device),
+        w_up=(dense_param((d, ff), generator, device=device)
+              if cfg.gated_mlp else None),
+        w_out=dense_param((ff, d), generator, device=device))
+
+
+def mlp_forward(p: MLPParams, cfg: ArchConfig, x: torch.Tensor
+                ) -> torch.Tensor:
+    dt = cfg.dtype
+    act = activation(cfg.act)
+    h = act(x @ p.w_in.to(dt))
+    if p.w_up is not None:
+        h = h * (x @ p.w_up.to(dt))
+    return h @ p.w_out.to(dt)

@@ -16,7 +16,11 @@ than the plain two-pass one: rtol=1e-4, atol=1e-5 as well. A GAT int8
 request is compared layer by layer (see `test_gat_graphserve_on_card`).
 `sage_max` takes the same maxima as its plain version and is held equal;
 `fused_sage` sums in another order than cuBLAS: CARD.
+`flash_attention` sums its online softmax in another order than the plain
+two-pass softmax, and rounds the unnormalised weights to bf16 where the
+plain version rounds the normalised ones: FLASH_TOL per dtype.
 """
+
 import numpy as np
 import pytest
 import torch
@@ -30,13 +34,18 @@ from repro_torch.core.models import GNNConfig, stack_operands
 from repro_torch.core.quant import QuantizedLinear, quantize_rowwise
 from repro_torch.core.sparsity import compact_block_sparse
 from repro_torch.data.graphs import clustered_like, planetoid_like
+from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import bitmap_spmm as bs_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import block_matmul as bm_mod
 from repro_torch.kernels import fused_layers as fl_mod
 from repro_torch.kernels import gat_attention as ga_mod
 from repro_torch.kernels import int8_matmul as im_mod
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import sage_max as sm_mod
+from repro_torch.nn import lm as tlm
+from repro_torch.runtime import server as tserver
 from repro_torch.runtime.gnn_server import GraphServe, GraphServeConfig
 
 CARD = dict(rtol=1e-4, atol=1e-5)
@@ -717,3 +726,100 @@ def test_sage_graphserve_on_card_matches_cpu(card, aggregator):
     for uid, logits in out["cpu"].items():
         torch.testing.assert_close(torch.from_numpy(out["cuda"][uid]),
                                    torch.from_numpy(logits), **CARD)
+
+
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+FLASH_CASES = {
+    # (B, Sq, Skv, H, KV, D, causal, window, softcap, q_offset)
+    "smollm_heads": (2, 128, 128, 9, 3, 64, True, None, None, 0),
+    "ragged_200": (1, 200, 200, 9, 3, 64, True, None, None, 0),
+    "gemma2_window_softcap": (1, 160, 160, 4, 2, 128, True, 64, 50.0, 0),
+    "noncausal": (2, 96, 96, 4, 4, 32, False, None, None, 0),
+    "q_offset": (2, 64, 192, 8, 2, 64, True, None, None, 128),
+    # rows past q position 255 + 48 reach no key: a uniform average
+    "window_past_keys": (1, 64, 256, 4, 2, 32, True, 48, None, 250),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_matches_plain(card, case, dtype):
+    b, sq, skv, h, kv, d, causal, window, cap, off = FLASH_CASES[case]
+    rng = np.random.default_rng(12)
+    q = _arr(rng, b, sq, h, d).to(card, dtype)
+    k = _arr(rng, b, skv, kv, d).to(card, dtype)
+    v = _arr(rng, b, skv, kv, d).to(card, dtype)
+    opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    before = fa_mod.LAUNCHES
+    got = fa_mod.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa_mod.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), kref.flash_attention_ref(q, k, v, **opts).float(),
+        **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_operands(card):
+    q = torch.zeros(1, 64, 4, 64, device=card)
+    k = torch.zeros(1, 64, 2, 64, device=card)
+    with pytest.raises(TypeError):
+        fa_mod.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError):
+        fa_mod.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_mod.flash_attention(q.transpose(1, 2).contiguous().transpose(
+            1, 2), k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_mod.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.cuda
+def test_lm_init_defaults_to_the_card(card):
+    """device=None means the card: every weight of `lm_init` lies there."""
+    params = tlm.lm_init(reduced(get_config("smollm-135m")), seed=1)
+    leaves = [params.embed, *params.final_norm.values()]
+    for layer in params.stack:
+        leaves += [*layer["mixer"], *layer["mlp"], layer["pre_norm"]["scale"]]
+    assert all(t.device == card for t in leaves if t is not None)
+
+
+@pytest.mark.cuda
+def test_lm_server_on_card_prefills_through_the_kernel(card):
+    """A reduced smollm served on the card: one flash_attention launch per
+    layer per prefill, the same counters as on the CPU, and prefill logits
+    that match the CPU's."""
+    cfg = reduced(get_config("smollm-135m"))
+    params = tlm.lm_init(cfg, seed=3, device="cpu")
+    moved = tlm.lm_init(cfg, seed=3, device=card)        # the same draws
+    sc = tserver.ServeConfig(buckets=(16, 32), max_len=40, batch_slots=3)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 512, n) for n in (7, 30, 19, 12, 25)]
+    servers = {}
+    for dev, p in (("cpu", params), (card, moved)):
+        server = tserver.Server(cfg, sc, params=p, device=dev)
+        for prompt in prompts:
+            server.submit(prompt, max_new_tokens=4)
+        before = fa_mod.LAUNCHES
+        server.run()
+        servers[str(dev)] = (server, fa_mod.LAUNCHES - before)
+    (cpu, cpu_launches), (gpu, gpu_launches) = servers.values()
+    assert cpu_launches == 0
+    assert gpu_launches == gpu.summary()["prefills"] * cfg.num_layers == 4
+    counters = ("requests", "compiled_blobs", "prefills", "decode_steps",
+                "tokens_out")
+    assert ({k: gpu.summary()[k] for k in counters}
+            == {k: cpu.summary()[k] for k in counters})
+    toks = torch.from_numpy(np.stack([p[:7] for p in prompts[:3]])).long()
+    want, _ = tlm.lm_prefill(params, cfg, toks, max_len=16)
+    got, _ = tlm.lm_prefill(moved, cfg, toks.to(card), max_len=16)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+

@@ -45,7 +45,10 @@ def test_port_file_list_covers_every_slice():
     assert {"core/masks.py", "core/effop.py", "core/sparsity.py",
             "core/quant.py", "kernels/gat_attention.py",
             "kernels/sage_max.py", "kernels/fused_layers.py",
-            "runtime/gnn_server.py"} <= names
+            "kernels/flash_attention.py", "runtime/gnn_server.py",
+            "runtime/server.py", "launch/serve.py", "configs/smollm_135m.py",
+            "nn/config.py", "nn/common.py", "nn/mlp.py", "nn/attention.py",
+            "nn/transformer.py", "nn/lm.py"} <= names
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):
@@ -89,6 +92,24 @@ def test_cpu_gat_forward_leaves_jax_unloaded():
 @pytest.mark.parametrize("aggregator", ["mean", "max"])
 def test_cpu_sage_forward_leaves_jax_unloaded(aggregator):
     _serve_on_cpu_without_jax("sage", aggregator)
+
+
+def test_cpu_lm_serve_leaves_jax_unloaded():
+    """The LM entry point on a reduced smollm, on the CPU, in a fresh
+    process: it serves and loads no JAX or reference module."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--arch', 'smollm-135m', '--reduced', '--requests', "
+        "'3', '--max-new', '3', '--buckets', '16', '32', '--max-len', "
+        "'40', '--device', 'cpu'])\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert '"tokens_out": 9' in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_chip_smoke_fails_without_card():
