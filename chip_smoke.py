@@ -10,10 +10,16 @@ Phases (any failure raises, and the script exits non-zero without its
 last line; there is no CPU path):
 
   1. build — compile every CUDA kernel of the path from
-     `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel) and
-     print ptxas's register/shared-memory lines;
-  2. kernels — `block_matmul` and `fused_gcn_dense` against their plain
-     PyTorch versions at the serving shapes (4 Cora-sized graphs padded to
+     `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel),
+     print ptxas's register/shared-memory lines, and count the tensor-core
+     instructions of the two redesigned libraries in their SASS
+     (`cuobjdump -sass`): HGMMA and UTMALDG in flash_attention's bf16
+     route, HMMA ... TF32 in block_matmul; a count of 0 fails. Beside
+     them, three timing variants of block_matmul's tile (tc_gemm_tile.cuh's
+     TC_GEMM_PRODUCTS and TC_GEMM_SPLIT), timed in phase 9 (`[breakdown]`);
+  2. kernels — `block_matmul` (3xTF32 on the tensor cores) and
+     `fused_gcn_dense` against their plain PyTorch versions at the serving
+     shapes (4 Cora-sized graphs padded to
      3072 nodes, features 1433 -> 1536, widths padded to 128), and
      `int8_matmul` (the int8 tier's four products) and `fused_gcn_int8`
      (both layers) at the same shapes with a real Cora calibration, where
@@ -70,17 +76,21 @@ last line; there is no CPU path):
      just before the phase) must match its batch log and every logit the
      plain forward (an int8 request layer by layer);
   7. flash — `flash_attention` against its plain version
-     (`flash_attention_ref`) in fp32 and bf16 at SmolLM's serving shapes (B
-     4, S 64/128/256, 9 query heads over 3 KV heads of 64, causal), a
-     ragged S of 200, gemma2's heads (32 over 16 of 128) with window 64 and
+     (`flash_attention_ref`) in fp32 and bf16, each case through the route
+     it takes (bf16 at head dim 64 and 128: the wgmma/TMA kernel; fp32 and
+     head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
+     64/128/256, 9 query heads over 3 KV heads of 64, causal), ragged S of
+     63, 65, 127, 129 and 200, qwen3's heads (32 over 8 of 128) at S 64,
+     65 and 129, gemma2's heads (32 over 16 of 128) with window 64 and
      softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
-     may reach, and head_dim 32;
+     may reach (at head dim 64 and 128), and head_dim 32;
   8. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
      warm-up wave per bucket, 12 requests of 16 new tokens (one wave per
      bucket) with every launch count set to 0 just before; flash_attention
-     must launch 30 times per prefill and nothing else at all, the counters
+     must launch 30 times per prefill, every one on the tensor-core route,
+     and nothing else at all, the counters
      must hold (at most len(buckets) + 1 step callables), and the last
      wave's prefill logits must match a rerun with the plain attention
      (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
@@ -89,13 +99,18 @@ last line; there is no CPU path):
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the measured dense and GraSp aggregation times per
-     bucket.
+     bucket; for the two redesigned kernels also the times queued behind a
+     spin and TFLOP/s; flash_attention's SIMT kernel, which served bf16
+     at head dim 64 and 128 before, timed on the same inputs, and each
+     route's host cost per call; block_matmul's time on its earlier fp32
+     SIMT tile, copied from PERF.md and printed as copied.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -129,6 +144,7 @@ from repro_torch.core.sparsity import (agg_cost_model,  # noqa: E402
 from repro_torch.data.graphs import (clustered_like, cora_like,  # noqa: E402
                                      planetoid_like)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels._launch import launch  # noqa: E402
 from repro_torch.kernels import bitmap_spmm as bs  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -149,6 +165,9 @@ from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
 # exp2 (132 SMs x 16 a clock x 1.98 GHz: the GAT softmax's expf).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# the TF32 tensor cores (dense): block_matmul's 3xTF32 does three TF32
+# products per fp32 product
+TF32_FLOPS_PER_S = 495e12
 INT8_OPS_PER_S = 1979e12
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 LADDER, SLOTS = (1024, 3072), 4
@@ -186,8 +205,25 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
            "fused_sage": ("src/repro_torch/kernels/csrc/fused_sage.cu",
                           "src/repro/kernels/fused_layers.py:470"),
            "flash_attention": ("src/repro_torch/kernels/csrc/"
-                               "flash_attention.cu",
+                               "flash_attention_tc.cu",
                                "src/repro/kernels/flash_attention.py:94")}
+# the two kernels redesigned for the card's tensor cores: their libraries
+# and the SASS instructions that show it (cuobjdump -sass; 0 fails the run)
+SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
+        "block_matmul": {"HMMA TF32": ("HMMA", "TF32")}}
+# block_matmul per 4 x 3072 batch on the fp32 SIMT tile it had before the
+# tensor-core redesign, copied from PERF.md section 6 (table row 1, NVIDIA
+# H100 80GB HBM3, 700 W): that tile is not built any more, so this run
+# prints the number as copied and never as its own
+BLOCK_MATMUL_SIMT_MS = 1.0023
+# timing variants of block_matmul's tile (the switches of tc_gemm_tile.cuh),
+# built beside the libraries and timed on the batch's products: what the
+# split and the two extra products cost. Their results are not block_matmul's
+# (a variant without the split or with one product is not fp32-accurate).
+TILE_VARIANTS = {"3 products, no split": ("-DTC_GEMM_SPLIT=0",),
+                 "1 product": ("-DTC_GEMM_PRODUCTS=1",),
+                 "1 product, no split": ("-DTC_GEMM_PRODUCTS=1",
+                                         "-DTC_GEMM_SPLIT=0")}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
@@ -274,6 +310,51 @@ def launches_now():
 def reset_launches():
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    fa.TC_LAUNCHES = fa.SIMT_LAUNCHES = 0
+
+
+def flash_routes_now():
+    """flash_attention's launches by route."""
+    return {"wgmma": fa.TC_LAUNCHES, "simt": fa.SIMT_LAUNCHES}
+
+
+def start_tile_variants():
+    """Start one nvcc per block_matmul timing variant, into
+    build/repro_torch_kernels/variants/: {label: (process, library)}."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (label, flags) in enumerate(TILE_VARIANTS.items()):
+        lib = out_dir / f"block_matmul_variant{i}.so"
+        procs[label] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(_build.CSRC / "block_matmul.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def bind_tile_variants(procs, logs):
+    """block_matmul's entry point in each built variant library."""
+    symbol, kinds = _build.ENTRY_POINTS["block_matmul"]
+    fns = {}
+    for label, (proc, lib) in procs.items():
+        check(proc.returncode == 0, f"block_matmul variant {label}: nvcc "
+              f"exit {proc.returncode}\n{logs[label]}")
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = [_build._CTYPES[k] for k in kinds]
+        fn.restype = ctypes.c_int
+        fns[label] = fn
+    return fns
+
+
+def run_tile_variant(fn, a, b, out):
+    """One launch of a block_matmul variant, as the wrapper launches the
+    library (a 2-D operand broadcasts), counted nowhere."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    launch("block_matmul", fn, a.device, a.data_ptr(), b.data_ptr(),
+           out.data_ptr(), out.shape[0], m, n, k,
+           m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0)
 
 
 def graphs():
@@ -461,10 +542,12 @@ BF16_FLOPS_PER_S = 989e12
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 # (B, Sq, Skv, H, KV, D, causal, window, softcap, q_offset), each in fp32
-# and bf16: SmolLM's serving shapes (9 query heads over 3 KV heads of 64),
-# a ragged S, gemma2's heads with its window and softcap, non-causal,
+# and bf16 (bf16 at D 64 and 128 takes the tensor-core route, the rest the
+# SIMT one): SmolLM's serving shapes (9 query heads over 3 KV heads of
+# 64), a ragged S, gemma2's heads with its window and softcap, non-causal,
 # q_offset (a prompt's last 64 positions over a 256-key cache), rows that
-# no key may reach, and the reduced configs' head_dim 32
+# no key may reach, the reduced configs' head_dim 32, and Sq = Skv on both
+# sides of the tensor-core key tiles (128 keys at D 64, 64 at D 128)
 FLASH_CASES = {
     "smollm S64": (4, 64, 64, 9, 3, 64, True, None, None, 0),
     "smollm S128": (4, 128, 128, 9, 3, 64, True, None, None, 0),
@@ -476,14 +559,26 @@ FLASH_CASES = {
     "q_offset 192": (4, 64, 256, 9, 3, 64, True, None, None, 192),
     "window past the keys": (1, 64, 256, 4, 2, 64, True, 48, None, 250),
     "head_dim 32": (2, 96, 96, 4, 2, 32, True, None, None, 0),
+    "ragged S63": (4, 63, 63, 9, 3, 64, True, None, None, 0),
+    "ragged S65": (4, 65, 65, 9, 3, 64, True, None, None, 0),
+    "ragged S127": (4, 127, 127, 9, 3, 64, True, None, None, 0),
+    "ragged S129": (4, 129, 129, 9, 3, 64, True, None, None, 0),
+    "qwen3 D128 S64": (2, 64, 64, 32, 8, 128, True, None, None, 0),
+    "qwen3 D128 S65": (2, 65, 65, 32, 8, 128, True, None, None, 0),
+    "qwen3 D128 S129": (2, 129, 129, 32, 8, 128, True, None, None, 0),
+    "D128 window past the keys": (1, 65, 129, 8, 4, 128, False, 30, None,
+                                  120),
 }
 FLASH_TIMED = {"serving (B 4, S 256, 9/3 heads of 64)": (4, 256, 256, 9, 3,
                                                         64),
                "long (B 1, S 4096, 32/8 heads of 128)": (1, 4096, 4096, 32,
                                                          8, 128)}
-FLASH_KERNEL = "flash_kernel"         # the __global__ of flash_attention.cu
+# the __global__ names of flash_attention.cu and flash_attention_tc.cu, as
+# torch.profiler reports them
+FLASH_KERNELS = ("flash_kernel", "flash_tc_kernel")
 LM_ARCH, LM_BUCKETS, LM_MAX_LEN, LM_SLOTS, LM_NEW = (
     "smollm-135m", (64, 128, 256), 512, 4, 16)
+LM_LAYERS_SMOLLM = 30               # flash_attention calls per prefill
 # prefill logits with the kernel against the plain attention, both bf16
 # through 30 layers: the largest difference relative to the largest |logit|
 LM_LOGIT_BAR = 5e-2
@@ -511,7 +606,8 @@ def flash_work(q, k, causal=True, window=None, q_offset=0):
 
 def flash_phase(dev):
     """[flash]: the kernel against flash_attention_ref on the card at every
-    case in both dtypes. Returns the largest error per dtype."""
+    case in both dtypes, through whichever route each takes. Returns the
+    largest error per route."""
     rng = np.random.default_rng(21)
     worst = {}
     for label, (b, sq, skv, h, kv, d, causal, window, cap,
@@ -519,17 +615,23 @@ def flash_phase(dev):
         opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(rng, (b, sq, skv, h, kv, d), dtype, dev)
-            before = fa.LAUNCHES
+            route = fa.flash_route(dtype, d)
+            before = (fa.LAUNCHES, flash_routes_now())
             got = fa.flash_attention(q, k, v, **opts)
             torch.cuda.synchronize()
-            check(fa.LAUNCHES == before + 1, f"[flash] {label}: no launch")
+            want_routes = dict(before[1])
+            want_routes[route] += 1
+            check(fa.LAUNCHES == before[0] + 1
+                  and flash_routes_now() == want_routes,
+                  f"[flash] {label}: no launch on the {route} route")
             want = kref.flash_attention_ref(q, k, v, **opts)
             e = (got.float() - want.float()).abs().max().item()
-            worst[dtype] = max(worst.get(dtype, 0.0), e)
+            key = f"{route} {str(dtype)[6:]}"
+            worst[key] = max(worst.get(key, 0.0), e)
             torch.testing.assert_close(got.float(), want.float(),
                                        **FLASH_TOL[dtype])
-            print(f"[flash] {label}, {str(dtype)[6:]}: max_abs_err {e:.3e}",
-                  flush=True)
+            print(f"[flash] {label}, {str(dtype)[6:]}, {route} route: "
+                  f"max_abs_err {e:.3e}", flush=True)
     return worst
 
 
@@ -597,11 +699,12 @@ def device_kernels(fn, iters=1):
 
 def device_busy(fn):
     """What torch.profiler recorded of one call: (device ms of its kernels,
-    kernels, device ms and launches of the flash_attention kernel). It may
+    kernels, device ms and launches of the flash_attention kernels). It may
     miss launches, so the caller compares the flash launches with the
     server's counter."""
     ks = device_kernels(fn)
-    fa_ks = [v for name, v in ks.items() if FLASH_KERNEL in name]
+    fa_ks = [v for name, v in ks.items()
+             if any(k in name for k in FLASH_KERNELS)]
     return (sum(ms for ms, _ in ks.values()), sum(n for _, n in ks.values()),
             sum(ms for ms, _ in fa_ks), sum(n for _, n in fa_ks))
 
@@ -685,15 +788,21 @@ def serve_lm_phase(dev, card):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = launches_now()
+    routes = flash_routes_now()
     s = server.summary()
     want = dict.fromkeys(COUNTERS, 0) | {
         "flash_attention": s["prefills"] * cfg.num_layers}
     print(f"[serve-lm] {len(done)} requests in {s['prefills']} waves; "
-          f"launches {launches}, expected {want}; summary "
-          + json.dumps(s), flush=True)
+          f"launches {launches}, expected {want}; flash_attention by route "
+          f"{routes}; summary " + json.dumps(s), flush=True)
     check(launches == want, f"kernel launches {launches} != {want}")
     check(launches["flash_attention"] == 3 * cfg.num_layers,
           "flash_attention did not run every prefill layer")
+    # every prefill layer on the tensor cores: bf16 at head dim 64
+    check(fa.flash_route(torch.bfloat16, cfg.head_dim_) == "wgmma"
+          and routes == {"wgmma": cfg.num_layers * s["prefills"], "simt": 0},
+          f"flash_attention routes {routes}: expected {cfg.num_layers} "
+          "tensor-core launches per prefill and no other")
     check(s["prefills"] == len(LM_BUCKETS)
           and s["compiled_blobs"] <= len(LM_BUCKETS) + 1
           and s["requests"] == len(prompts)
@@ -759,7 +868,7 @@ def serve_lm_phase(dev, card):
               f"operations, {dev_ms:.3f} ms of device time (torch.profiler) "
               f"against {host_ms[what]:.3f} ms on the host clock unprofiled"
               f": device idle share {1 - dev_ms / host_ms[what]:.3f}; "
-              f"{FLASH_KERNEL}: {fa_n} launches recorded, {fa_ms:.3f} ms "
+              f"flash_attention: {fa_n} launches recorded, {fa_ms:.3f} ms "
               f"({fa_ms / dev_ms:.3f} of the device time); {card}",
               flush=True)
     timing["device_busy_ms"] = {k: v[0] for k, v in busy.items()}
@@ -770,51 +879,122 @@ def serve_lm_phase(dev, card):
     return launches["flash_attention"], rel, timing
 
 
+def flash_simt(q, k, v, out):
+    """One causal call of the SIMT flash_attention library, launched
+    directly and counted nowhere: the kernel that served bf16 at head dim
+    64 and 128 before the tensor-core route, timed beside it."""
+    b, sq, h, d = q.shape
+    launch("flash_attention", _build.load("flash_attention"), q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+           k.shape[1], h, k.shape[2], d, int(q.dtype == torch.bfloat16), 1,
+           0, 0, d ** -0.5, 0.0)
+
+
+def host_us(fn, calls=100, spin_ms=50.0):
+    """Host microseconds per call of `fn` while a spin holds the stream, so
+    that no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(spin_ms * 2e6))     # about spin_ms at 2 GHz
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def flash_row(dev, launches, worst, card):
-    """The kernels-line row of flash_attention: times at the serving and
-    the long shape (bf16, causal), CUDA events; the row's own numbers are
-    the serving shape's."""
+    """The kernels-line row of flash_attention: times of the tensor-core
+    route at the serving and the long shape (bf16, causal), by CUDA events
+    and queued behind a spin, beside the SIMT kernel that served them
+    before, timed on the same inputs; the row's own numbers are the serving
+    shape's."""
     rng = np.random.default_rng(29)
     out = {}
     for label, shape in FLASH_TIMED.items():
         q, k, v = flash_inputs(rng, shape, torch.bfloat16, dev)
+        check(fa.flash_route(q.dtype, q.shape[-1]) == "wgmma",
+              f"{label} does not take the tensor-core route")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        got = fa.flash_attention(q, k, v)
+        simt_out = torch.empty_like(q)
+        flash_simt(q, k, v, simt_out)
+        torch.testing.assert_close(simt_out.float(), got.float(),
+                                   **FLASH_TOL[torch.bfloat16])
         t_k = time_ms(lambda: fa.flash_attention(q, k, v))
+        t_s = time_ms(lambda: flash_simt(q, k, v, simt_out), iters=10)
         t_p = time_ms(lambda: kref.flash_attention_ref(q, k, v), iters=5)
+
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         t_l = time_ms(sdpa)
         d_k = queued_ms(lambda: fa.flash_attention(q, k, v))
         d_l = queued_ms(sdpa)
+        d_s = queued_ms(lambda: flash_simt(q, k, v, simt_out), iters=10)
         flops, nbytes_ = flash_work(q, k)
         b_ms, b_by = bound(flops, nbytes_, BF16_FLOPS_PER_S)
-        print(f"[time] flash_attention {label}: kernel {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, library (scaled_dot_product_attention) "
-              f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-              f"{flops / t_k / 1e9:.1f} TFLOP/s; {card}", flush=True)
+        print(f"[time] flash_attention {label}, tensor-core route: kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, library "
+              f"(scaled_dot_product_attention) {t_l:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {flops / t_k / 1e9:.1f} TFLOP/s; "
+              f"the SIMT kernel it replaced, on the same inputs {t_s:.4f} "
+              f"ms; {card}", flush=True)
         print(f"[time] flash_attention {label}, queued behind a spin so "
               f"that no launch gap counts: kernel {ms_or_not(d_k)}, library "
-              f"{ms_or_not(d_l)}; the event times above are launch-bound where "
-              f"they exceed these; {card}", flush=True)
-        out[label] = (t_k, t_p, t_l, b_ms, b_by, d_k, d_l)
-    t_k, t_p, t_l, b_ms, b_by, d_k, d_l = out[next(iter(FLASH_TIMED))]
-    lt_k, lt_p, lt_l, lb_ms, lb_by, ld_k, ld_l = out[list(FLASH_TIMED)[1]]
+              f"{ms_or_not(d_l)}, the SIMT kernel {ms_or_not(d_s)}; "
+              f"the event times above are launch-bound where they exceed "
+              f"these; {card}", flush=True)
+        out[label] = {"shape": label, "ms": t_k, "device_ms": d_k,
+                      "plain_ms": t_p, "library_ms": t_l,
+                      "library_device_ms": d_l, "bound_ms": b_ms,
+                      "bound_by": b_by, "tflops": flops / t_k / 1e9,
+                      "tflops_queued": (None if d_k is None
+                                        else flops / d_k / 1e9),
+                      "simt_ms": t_s, "simt_device_ms": d_s}
+        if label == next(iter(FLASH_TIMED)):
+            # the host's cost of a call: the wrapper, and each library's
+            # bare launch; the tensor-core launch encodes three TMA maps
+            tc_fn = _build.load("flash_attention_tc")
+            d = q.shape[-1]
+            host = {
+                "wrapper": host_us(lambda: fa.flash_attention(q, k, v)),
+                "tensor-core launch": host_us(lambda: launch(
+                    "flash_attention", tc_fn, q.device, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), got.data_ptr(), q.shape[0],
+                    q.shape[1], k.shape[1], q.shape[2], k.shape[2], d, 1, 0,
+                    0, d ** -0.5, 0.0)),
+                "SIMT launch": host_us(lambda: flash_simt(q, k, v,
+                                                          simt_out))}
+            enc = host["tensor-core launch"] - host["SIMT launch"]
+            print(f"[time] flash_attention {label}, host us per call while "
+                  f"a spin holds the stream: " + ", ".join(
+                      f"{k_} {v_:.2f}" for k_, v_ in host.items())
+                  + f"; the tensor-core launch's excess over the SIMT one "
+                  f"(its three TMA tensor maps) {enc:.2f} us, "
+                  f"{enc * LM_LAYERS_SMOLLM:.1f} us per SmolLM prefill of "
+                  f"{LM_LAYERS_SMOLLM} calls", flush=True)
+            out[label]["host_us"] = host
+    serve, long_ = (out[k] for k in FLASH_TIMED)
     src, replaces = SOURCES["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max(worst.values()), "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l,
+            "max_abs_err": max(worst.values()), "ms": serve["ms"],
+            "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+            "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
             "per": "one causal bf16 prefill call at " + next(iter(FLASH_TIMED)),
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "(is_causal, enable_gqa), a yardstick only",
-            "device_ms": d_k, "library_device_ms": d_l,
-            "max_abs_err_fp32": worst[torch.float32],
-            "max_abs_err_bf16": worst[torch.bfloat16],
-            "long": {"shape": list(FLASH_TIMED)[1], "ms": lt_k,
-                     "plain_ms": lt_p, "library_ms": lt_l,
-                     "bound_ms": lb_ms, "bound_by": lb_by,
-                     "device_ms": ld_k, "library_device_ms": ld_l}}
+            "kernel_routes": {
+                "wgmma": "bf16 at head dim 64, 128: "
+                         "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                "simt": "fp32, and bf16 at head dim 32: "
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"},
+            "max_abs_err_by_route": worst,
+            "device_ms": serve["device_ms"],
+            "library_device_ms": serve["library_device_ms"],
+            "serving": serve, "long": long_}
 
 
 def main() -> None:
@@ -827,16 +1007,37 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
-    logs = _build.build()
+    variants = start_tile_variants()
+    try:
+        logs = _build.build()
+    finally:                            # no nvcc outlives the script
+        variant_logs = {label: proc.communicate()[0]
+                        for label, (proc, _) in variants.items()}
+    tile_variants = bind_tile_variants(variants, variant_logs)
     print(f"[build] {len(logs)} libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib, log in logs.items():
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"[build] {lib}: {line.strip()}")
+    for label, log in variant_logs.items():
+        for line in log.splitlines():
+            if "ptxas info" in line and "Used" in line:
+                print(f"[build] block_matmul variant ({label}): "
+                      f"{line.strip()}")
+    # the redesigned kernels run on the tensor cores: their SASS says so
+    for lib, patterns in SASS.items():
+        counts = _build.sass_counts(lib, patterns)
+        print(f"[sass] {lib}: {counts} (cuobjdump -sass)", flush=True)
+        check(all(counts.values()), f"{lib}: an instruction of {list(patterns)}"
+              f" is missing from its SASS: {counts}")
 
     # ------------------------------------------------- 2. kernel checks
     rng = np.random.default_rng(0)
@@ -863,8 +1064,10 @@ def main() -> None:
     err = {"block_matmul": 0.0, "fused_gcn_dense": 0.0}
 
     def compare(kernel, label, run, want):
-        # the kernels match cuBLAS bit for bit here, so equal outputs alone
-        # would not show that the kernel ran: its counter must move too
+        # the kernels match their plain versions to the last few bits (the
+        # fp32 SIMT tiles sum in cuBLAS's order and may equal it bit for
+        # bit), so equal outputs alone would not show that the kernel ran:
+        # its counter must move too
         mod, attr = COUNTERS[kernel]
         before = getattr(mod, attr)
         got = run()
@@ -882,6 +1085,22 @@ def main() -> None:
     for label, (a, b) in products.items():
         compare("block_matmul", label, lambda: bm.block_matmul(a, b),
                 bm.block_matmul_plain(a, b))
+    # 3xTF32 keeps fp32 accuracy: against a float64 product of the same
+    # inputs, the largest error relative to the largest |C| is at most
+    # twice that of torch.matmul in fp32 (TF32 off)
+    f64_err = {}
+    for label, (a, b) in products.items():
+        want64 = torch.matmul(a.double(), b.double())
+        top = want64.abs().max()
+        e_k, e_t = (((got.double() - want64).abs().max() / top).item()
+                    for got in (bm.block_matmul(a, b), torch.matmul(a, b)))
+        f64_err[label] = (e_k, e_t)
+        print(f"[check] block_matmul {label} against float64: relative "
+              f"error {e_k:.3e}, torch.matmul's {e_t:.3e} (bar: twice "
+              f"torch.matmul's)", flush=True)
+        check(e_k <= 2 * e_t, f"block_matmul {label}: error {e_k} against "
+              f"float64 exceeds twice torch.matmul's {e_t}")
+        del want64
     for label, args in layers.items():
         compare("fused_gcn_dense", label, lambda: fl.fused_gcn_dense(*args),
                 fl.fused_gcn_dense_plain(*args))
@@ -1763,10 +1982,6 @@ def main() -> None:
     launches.update({k: launches_s[k] for k in SAGE_KERNELS})
 
     # ------------------------------------------------ 7-8. flash, serve-lm
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
     flash_err = flash_phase(dev)
     flash_launches, _, _ = serve_lm_phase(dev, card)
 
@@ -1822,7 +2037,8 @@ def main() -> None:
                           ("fused_sage", sage_fused_cases)):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0, "exps": 0.0,
-               "mean": 0.0, "max": 0.0}
+               "mean": 0.0, "max": 0.0, "device_ms": 0.0,
+               "library_device_ms": 0.0}
         peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
                 else FP32_FLOPS_PER_S)
         for label, args in cases.items():
@@ -1831,7 +2047,21 @@ def main() -> None:
                 t_k = time_ms(lambda: bm.block_matmul(a, b))
                 t_p = time_ms(lambda: bm.block_matmul_plain(a, b))
                 t_l = time_ms(lambda: torch.matmul(a, b))
+                d_k = queued_ms(lambda: bm.block_matmul(a, b))
+                d_l = queued_ms(lambda: torch.matmul(a, b))
                 flops, nbytes_ = matmul_work(a, b)
+                # 3xTF32: three TF32 products per fp32 product
+                tf_ms, tf_by = bound(3 * flops, nbytes_, TF32_FLOPS_PER_S)
+                f32_ms, _ = bound(flops, nbytes_, FP32_FLOPS_PER_S)
+                for key, ms in (("device_ms", d_k),
+                                ("library_device_ms", d_l)):
+                    tot[key] = None if ms is None or tot[key] is None \
+                        else tot[key] + ms
+                print(f"[time] block_matmul {label}: queued behind a spin, "
+                      f"kernel {ms_or_not(d_k)}, torch.matmul "
+                      f"{ms_or_not(d_l)}; bound on the TF32 tensor cores "
+                      f"{tf_ms:.4f} ms ({tf_by}), on fp32 FMA {f32_ms:.4f} "
+                      f"ms; {card}", flush=True)
             elif kernel == "fused_gcn_dense":
                 t_k = time_ms(lambda: fl.fused_gcn_dense(*args))
                 t_p = time_ms(lambda: fl.fused_gcn_dense_plain(*args))
@@ -1914,13 +2144,15 @@ def main() -> None:
                 tot["exps"] += exps
             if kernel in GAT_KERNELS:
                 b_ms, b_by = gat_bound(flops, exps, nbytes_)
+            elif kernel == "block_matmul":
+                b_ms, b_by = tf_ms, tf_by
             else:
                 b_ms, b_by = bound(flops, nbytes_, peak)
             print(f"[time] {kernel} {label}: kernel {t_k:.4f} ms, plain "
                   f"{t_p:.4f} ms, library "
                   f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}, bound "
                   f"{b_ms:.4f} ms ({b_by}); {flops / t_k / 1e9:.1f} "
-                  f"T{'OP' if peak == INT8_OPS_PER_S else 'FLOP'}/s",
+                  f"T{'OP' if peak == INT8_OPS_PER_S else 'FLOP'}/s; {card}",
                   flush=True)
             tot["ms"] += t_k
             tot["plain_ms"] += t_p
@@ -1930,6 +2162,9 @@ def main() -> None:
             tot["bytes"] += nbytes_
         if kernel in GAT_KERNELS:
             b_ms, b_by = gat_bound(tot["flops"], tot["exps"], tot["bytes"])
+        elif kernel == "block_matmul":
+            b_ms, b_by = bound(3 * tot["flops"], tot["bytes"],
+                               TF32_FLOPS_PER_S)
         else:
             b_ms, b_by = bound(tot["flops"], tot["bytes"], peak)
         src, replaces = SOURCES[kernel]
@@ -1954,6 +2189,48 @@ def main() -> None:
                        dense_matmul_ms=tot["dense_ms"],
                        dense_matmul="torch.matmul(mean_mask, X), both "
                                     "layers")
+        if kernel == "block_matmul":
+            f32_ms, f32_by = bound(tot["flops"], tot["bytes"])
+            # what holds the tile: each variant over the same products
+            parts = {"3xTF32 (block_matmul)": tot["device_ms"]}
+            for label, fn in tile_variants.items():
+                ms = 0.0
+                for a, b in cases.values():
+                    out = torch.empty(
+                        a.shape[0] if a.dim() == 3 else b.shape[0],
+                        a.shape[-2], b.shape[-1], device=dev)
+                    d_v = queued_ms(lambda: run_tile_variant(fn, a, b, out))
+                    ms = None if ms is None or d_v is None else ms + d_v
+                parts[label] = ms
+            parts["torch.matmul"] = tot["library_device_ms"]
+            print(f"[breakdown] block_matmul's tile per batch, queued behind "
+                  f"a spin: " + ", ".join(f"{k_} {ms_or_not(v_)}"
+                                          for k_, v_ in parts.items())
+                  + f"; {card}", flush=True)
+            row.update(device_ms=tot["device_ms"],
+                       library_device_ms=tot["library_device_ms"],
+                       library="torch.matmul (fp32, TF32 off), a yardstick "
+                               "only",
+                       tflops=tot["flops"] / tot["ms"] / 1e9,
+                       bound_note="3 TF32 products per product at 495 "
+                                  "TFLOP/s, or the bytes at 3.35 TB/s",
+                       bound_fp32_fma_ms=f32_ms,
+                       rel_err_vs_float64={k: {"kernel": e, "torch.matmul": t}
+                                           for k, (e, t) in f64_err.items()},
+                       tile_variants_device_ms=parts)
+            print(f"[time] block_matmul, the batch's {len(cases)} products: "
+                  f"kernel {tot['ms']:.4f} ms (queued "
+                  f"{ms_or_not(tot['device_ms'])}), torch.matmul "
+                  f"{tot['library_ms']:.4f} ms (queued "
+                  f"{ms_or_not(tot['library_device_ms'])}), plain "
+                  f"{tot['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                  f"3xTF32 on the TF32 tensor cores), {f32_ms:.4f} ms on "
+                  f"fp32 FMA ({f32_by}); {row['tflops']:.1f} TFLOP/s of fp32 "
+                  f"products; {card}", flush=True)
+            print(f"[time] block_matmul per batch on the fp32 SIMT tile "
+                  f"before the tensor-core redesign: {BLOCK_MATMUL_SIMT_MS} "
+                  f"ms, copied from PERF.md (section 6, row 1; NVIDIA H100 "
+                  f"80GB HBM3, 700 W), not measured in this run", flush=True)
         if kernel == "bitmap_spmm":
             row.update(dense_matmul_ms=tot["dense_ms"],
                        library="torch.sparse.mm per graph on 128-block BSR",
@@ -1983,7 +2260,8 @@ def main() -> None:
               f"grasp {grasp_s * bsz * 1e3:.4f} ms; measured step overhead "
               f"{max(t_g - floor_ms, 0.0) / steps * 1e6:.2f} ns over "
               f"{steps} steps (costs.GRASP_STEP_OVERHEAD_S = "
-              f"{costs.GRASP_STEP_OVERHEAD_S * 1e9:.0f} ns)", flush=True)
+              f"{costs.GRASP_STEP_OVERHEAD_S * 1e9:.0f} ns); {card}",
+              flush=True)
 
     print(card)
     print(json.dumps({"kernels": rows}))

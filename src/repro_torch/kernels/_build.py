@@ -41,6 +41,8 @@ ENTRY_POINTS = {
     "fused_sage": ("fused_sage_f32", "pppppppp" "iiiiii" "ip"),
     "flash_attention": ("flash_attention_fwd",
                         "pppp" "iiiiiiiiii" "ff" "ip"),
+    "flash_attention_tc": ("flash_attention_tc_fwd",
+                           "pppp" "iiiiiiiii" "ff" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -95,6 +97,40 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return {name: library_path(name).with_suffix(".log").read_text()
             for name in names}
+
+
+def cuobjdump_path() -> str:
+    """The toolkit's cuobjdump, else the copy Triton ships."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidates = [Path(nvcc_path()).with_name("cuobjdump")]
+    try:
+        import triton
+        candidates.append(Path(triton.__file__).parent / "backends" /
+                          "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    raise RuntimeError("cuobjdump not found (toolkit or triton)")
+
+
+def sass_counts(name: str, patterns: Dict[str, Iterable[str]]
+                ) -> Dict[str, int]:
+    """Count the SASS instructions of one built library (`cuobjdump
+    -sass`): for each key, the lines that hold every word of its pattern,
+    e.g. {"HMMA TF32": ("HMMA", "TF32")}."""
+    path = library_path(name)
+    if not path.exists():
+        build([name])
+    text = subprocess.run([cuobjdump_path(), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    lines = text.splitlines()
+    return {key: sum(all(w in line for w in words) for line in lines)
+            for key, words in patterns.items()}
 
 
 def load(name: str):

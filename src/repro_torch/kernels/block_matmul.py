@@ -2,8 +2,11 @@
 
 Port of the TPU kernel `block_matmul` (reference `kernels/block_matmul.py`)
 as hand-written CUDA C++ for `sm_90a` (`csrc/block_matmul.cu`, tile in
-`csrc/gemm_tile.cuh`): a batched fp32 SIMT GEMM over `blockIdx.z`, where a
-batch stride of 0 broadcasts an operand (the weights of a combine).
+`csrc/tc_gemm_tile.cuh`): a batched GEMM over `blockIdx.z` on the TF32
+tensor cores as 3xTF32 (each fp32 operand split into a TF32 big and small
+part, three products per product), which keeps fp32 accuracy but sums in
+another order than cuBLAS, so the two are not bit-equal. A batch stride
+of 0 broadcasts an operand (the weights of a combine).
 
 `block_matmul` is the wrapper: CPU operands run `block_matmul_plain`, CUDA
 operands launch the kernel or raise. `LAUNCHES` counts kernel launches.

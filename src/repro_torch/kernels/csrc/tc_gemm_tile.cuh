@@ -1,0 +1,304 @@
+// fp32 GEMM on the TF32 tensor cores with fp32 accuracy (3xTF32), for
+// `block_matmul` (sm_90a):
+//
+//   C[z] = A[z] @ B[z]      z = blockIdx.z, row-major fp32 operands
+//
+// 3xTF32: each operand element x is split into big = tf32(x) (cvt.rna:
+// round to nearest, ties away, to 10 mantissa bits) and small =
+// tf32(x - big); each product accumulates a_small*b_big + a_big*b_small +
+// a_big*b_big, the small terms first (as CUTLASS's 3xTF32 does). The
+// dropped a_small*b_small is below 2^-22 of a product. The product is
+// mma.sync m16n8k8 tf32: B is (K x N) with N contiguous, and wgmma takes
+// TF32 operands K-major only, so a wgmma version would first need B
+// transposed; that is later work.
+//
+// The tensor cores truncate as they accumulate, so a chain of products
+// through one accumulator loses more than fp32's round-to-nearest, and
+// the more the longer K is. So each 16-deep
+// piece of K (six products) starts from 0 in a fresh fragment, which is
+// added in fp32 to a partial sum, which goes to the total every 128 of K
+// (a blocked sum). That keeps the error at or below cuBLAS's fp32 SIMT
+// kernel on the serving products and the card tests' shapes.
+//
+// One 128-thread block owns a 64 x 64 tile of C: 4 warps as 2 x 2, each
+// 32 x 32 (2 x 4 m16n8 fragments). K walks in 32-deep slabs through a
+// 3-stage cp.async ring (cp.async.wait_group), so the copies of the next
+// two slabs overlap the products of this one. Each warp splits the
+// fragments it loads. Shared rows are padded (A by 4 floats, B by 8) so
+// the fragment loads hit 32 banks. Ragged edges are zero-filled on load
+// and masked on store, so any M, N, K works. 16-byte copies need
+// 16-byte-aligned rows: where K or N is not a multiple of 4, or a base is
+// not 16-byte aligned, the same kernel is instantiated with 4-byte copies.
+// A batch stride of 0 broadcasts an operand.
+//
+// Two compile-time switches exist only to time the tile's parts (the
+// `[breakdown]` step of chip_smoke.py builds the other settings under
+// build/); the library ships the defaults. TC_GEMM_PRODUCTS 1 keeps only
+// a_big*b_big; TC_GEMM_SPLIT 0 passes each fp32 element to the tensor
+// cores as it is (they read its top 19 bits) instead of splitting it.
+#pragma once
+
+#ifndef TC_GEMM_PRODUCTS
+#define TC_GEMM_PRODUCTS 3
+#endif
+#ifndef TC_GEMM_SPLIT
+#define TC_GEMM_SPLIT 1
+#endif
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gcn_port {
+namespace tc {
+
+constexpr int kBM = 64, kBN = 64;          // block tile of C
+constexpr int kWM = 2, kWN = 2;            // warps along M and N
+constexpr int kThreads = 32 * kWM * kWN;
+constexpr int kMT = kBM / kWM / 16;        // m16 fragments per warp
+constexpr int kNT = kBN / kWN / 8;         // n8 fragments per warp
+constexpr int kBK = 32;                    // K slab per stage
+constexpr int kChain = 16;                 // K per fresh tensor-core chain
+constexpr int kFlush = 128;                // K per partial sum
+constexpr int kStages = 3;
+constexpr int kAStride = kBK + 4;          // floats per A row in shared
+constexpr int kBStride = kBN + 8;          // floats per B row in shared
+constexpr int kStageFloats = kBM * kAStride + kBK * kBStride;
+constexpr int kSmemBytes = kStages * kStageFloats * 4;   // 55,296
+static_assert(kBM * kBK / 4 % kThreads == 0 && kBK * kBN / 4 % kThreads == 0,
+              "every thread copies whole 16-byte chunks of each slab");
+static_assert(kFlush % kBK == 0 && kBK % kChain == 0 && kChain % 8 == 0,
+              "chains and partial sums cover whole slabs");
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? bytes : 0;         // 0 bytes read: zero-fill
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// big = tf32(x), small = tf32(x - big); both as tf32 bit patterns
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+#if TC_GEMM_SPLIT
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+#else
+  big = small = __float_as_uint(x);
+#endif
+}
+
+// c += a b on one m16n8k8 tf32 fragment
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stage the (64 x 32) A slab and (32 x 64) B slab at k0; out-of-range
+// elements are zero-filled. VEC: 16-byte copies (K and N multiples of 4,
+// bases 16-byte aligned), else 4-byte copies.
+template <bool VEC>
+__device__ __forceinline__ void load_slab(const float* __restrict__ A,
+                                          const float* __restrict__ B, int M,
+                                          int N, int K, int row0, int col0,
+                                          int k0, float* stage) {
+  constexpr int W = VEC ? 4 : 1;            // floats per copy
+  const int tid = threadIdx.x;
+  float* as = stage;
+  float* bs = stage + kBM * kAStride;
+#pragma unroll
+  for (int i = 0; i < kBM * kBK / W / kThreads; ++i) {
+    const int id = tid + i * kThreads;
+    const int r = id / (kBK / W), c = (id % (kBK / W)) * W;
+    const int gr = row0 + r, gc = k0 + c;
+    const bool ok = gr < M && gc < K;
+    cp_async(as + r * kAStride + c, ok ? A + (long long)gr * K + gc : A, ok,
+             4 * W);
+  }
+#pragma unroll
+  for (int i = 0; i < kBK * kBN / W / kThreads; ++i) {
+    const int id = tid + i * kThreads;
+    const int r = id / (kBN / W), c = (id % (kBN / W)) * W;
+    const int gr = k0 + r, gc = col0 + c;
+    const bool ok = gr < K && gc < N;
+    cp_async(bs + r * kBStride + c, ok ? B + (long long)gr * N + gc : B, ok,
+             4 * W);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                       float* __restrict__ C, int M, int N, int K,
+                       long long stride_a, long long stride_b) {
+  extern __shared__ __align__(16) float smem[];      // [kStages] slabs
+  A += blockIdx.z * stride_a;
+  B += blockIdx.z * stride_b;
+  C += blockIdx.z * (long long)M * N;
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / kWN) * (kBM / kWM);         // the warp's tile
+  const int wn = (warp % kWN) * (kBN / kWN);
+  const int g = lane / 4, t = lane % 4;
+
+  // acc: the total; mid: the partial sum of the current kFlush of K
+  float acc[kMT][kNT][4], mid[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = mid[i][j][e] = 0.f;
+
+  const int slabs = (K + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slabs)
+      load_slab<VEC>(A, B, M, N, K, row0, col0, s * kBK,
+                     smem + s * kStageFloats);
+    cp_async_commit();                     // one group per slab, even empty
+  }
+  for (int ks = 0; ks < slabs; ++ks) {
+    cp_async_wait<kStages - 2>();          // slab ks has landed
+    __syncthreads();                       // ... for every thread, and
+                                           // slab ks - 1 is consumed
+    const int next = ks + kStages - 1;
+    if (next < slabs)
+      load_slab<VEC>(A, B, M, N, K, row0, col0, next * kBK,
+                     smem + (next % kStages) * kStageFloats);
+    cp_async_commit();
+    const float* a_s = smem + (ks % kStages) * kStageFloats;
+    const float* b_s = a_s + kBM * kAStride;
+#pragma unroll
+    for (int kc = 0; kc < kBK; kc += kChain) {
+      float part[kMT][kNT][4];             // this chain, from 0
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+      for (int k8 = kc; k8 < kc + kChain; k8 += 8) {
+        uint32_t a_big[kMT][4], a_small[kMT][4], b_big[kNT][2],
+            b_small[kNT][2];
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          const float* p = a_s + (wm + 16 * i + g) * kAStride + k8 + t;
+          split_tf32(p[0], a_big[i][0], a_small[i][0]);
+          split_tf32(p[8 * kAStride], a_big[i][1], a_small[i][1]);
+          split_tf32(p[4], a_big[i][2], a_small[i][2]);
+          split_tf32(p[8 * kAStride + 4], a_big[i][3], a_small[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* p = b_s + (k8 + t) * kBStride + wn + 8 * j + g;
+          split_tf32(p[0], b_big[j][0], b_small[j][0]);
+          split_tf32(p[4 * kBStride], b_big[j][1], b_small[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+#if TC_GEMM_PRODUCTS == 3
+            mma_tf32(part[i][j], a_small[i], b_big[j]);
+            mma_tf32(part[i][j], a_big[i], b_small[j]);
+#endif
+            mma_tf32(part[i][j], a_big[i], b_big[j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mid[i][j][e] += part[i][j][e];
+    }
+    if ((ks + 1) % (kFlush / kBK) == 0 || ks + 1 == slabs) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[i][j][e] += mid[i][j][e];
+            mid[i][j][e] = 0.f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm + 16 * i + g + 8 * h;
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int c = col0 + wn + 8 * j + 2 * t;
+        if (c < N) C[(long long)r * N + c] = acc[i][j][2 * h];
+        if (c + 1 < N) C[(long long)r * N + c + 1] = acc[i][j][2 * h + 1];
+      }
+    }
+}
+
+// Whether this library's kernel (by VEC) has opted in to more than 48 KB
+// of shared memory. Internal linkage on purpose: a static local of the
+// template below would be one symbol (GNU unique) across every library
+// built from this header in a process, and a second library would then
+// launch without opting in.
+static bool g_sized[2] = {false, false};
+
+template <bool VEC>
+cudaError_t launch_vec(const float* A, const float* B, float* C, int batch,
+                       int M, int N, int K, long long stride_a,
+                       long long stride_b, cudaStream_t stream) {
+  if (!g_sized[VEC]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_3xtf32_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err != cudaSuccess) return err;
+    g_sized[VEC] = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
+  gemm_3xtf32_kernel<VEC><<<grid, kThreads, kSmemBytes, stream>>>(
+      A, B, C, M, N, K, stride_a, stride_b);
+  return cudaGetLastError();
+}
+
+// Launch one batched product on `stream`; returns cudaGetLastError().
+static inline cudaError_t launch_gemm_3xtf32(const float* A, const float* B,
+                                             float* C, int batch, int M, int N,
+                                             int K, long long stride_a,
+                                             long long stride_b,
+                                             cudaStream_t stream) {
+  const bool vec = K % 4 == 0 && N % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  return vec ? launch_vec<true>(A, B, C, batch, M, N, K, stride_a, stride_b,
+                                stream)
+             : launch_vec<false>(A, B, C, batch, M, N, K, stride_a, stride_b,
+                                 stream);
+}
+
+}  // namespace tc
+}  // namespace gcn_port

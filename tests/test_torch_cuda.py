@@ -9,7 +9,9 @@ no card; this file imports no JAX, so it runs on a machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: fp32 rtol=1e-4, atol=1e-5 — the kernels and cuBLAS (TF32 off)
-sum over K in different orders. The int8 kernels take exact integer
+sum over K in different orders; `block_matmul` runs 3xTF32 on the tensor
+cores and is also held to a float64 product: its largest error, relative
+to the largest |C|, at most twice that of `torch.matmul` in fp32. The int8 kernels take exact integer
 products and the plain versions' rounding steps, so they are held equal
 (`torch.equal`). The GAT kernels' online softmax sums in another order
 than the plain two-pass one: rtol=1e-4, atol=1e-5 as well. A GAT int8
@@ -35,6 +37,7 @@ from repro_torch.core.quant import QuantizedLinear, quantize_rowwise
 from repro_torch.core.sparsity import compact_block_sparse
 from repro_torch.data.graphs import clustered_like, planetoid_like
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import _build
 from repro_torch.kernels import bitmap_spmm as bs_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import block_matmul as bm_mod
@@ -65,13 +68,28 @@ def _arr(rng, *shape, scale=1.0):
                              ).astype(np.float32))
 
 
+def _rel_to_f64(got, a, b):
+    """Largest |got - C| relative to the largest |C|, C the float64 product
+    of the same fp32 inputs."""
+    want = torch.matmul(a.double(), b.double())
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
 @pytest.mark.cuda
 def test_block_matmul_matches_plain(card):
     rng = np.random.default_rng(4)
     cases = [  # X @ W (W broadcast), Â @ H (both batched), a ragged shape
         (_arr(rng, 3, 256, 384, scale=0.05), _arr(rng, 384, 128)),
         (_arr(rng, 3, 256, 256, scale=0.06), _arr(rng, 3, 256, 128)),
-        (_arr(rng, 70, 45), _arr(rng, 45, 30))]
+        (_arr(rng, 70, 45), _arr(rng, 45, 30)),
+        # ragged M, N and K: K odd, K not a multiple of 4 (4-byte copies)
+        (_arr(rng, 2, 129, 37), _arr(rng, 2, 37, 131)),
+        (_arr(rng, 200, 1434, scale=0.05), _arr(rng, 1434, 66)),
+        (_arr(rng, 2, 300, 1433, scale=0.05), _arr(rng, 1433, 64)),
+        # A broadcast over a batched B; K a multiple of 4, N not
+        (_arr(rng, 130, 260), _arr(rng, 3, 260, 70)),
+        # the GCN aggregation's K: 3072
+        (_arr(rng, 2, 256, 3072, scale=0.02), _arr(rng, 2, 3072, 128))]
     for a, b in cases:
         a, b = a.to(card), b.to(card)
         before = bm_mod.LAUNCHES
@@ -80,6 +98,11 @@ def test_block_matmul_matches_plain(card):
         assert bm_mod.LAUNCHES == before + 1
         torch.testing.assert_close(got, bm_mod.block_matmul_plain(a, b),
                                    **CARD)
+        # 3xTF32 keeps fp32 accuracy: at most twice cuBLAS's fp32 error
+        assert not torch.backends.cuda.matmul.allow_tf32
+        err = _rel_to_f64(got, a, b)
+        ref = _rel_to_f64(torch.matmul(a, b), a, b)
+        assert err <= 2 * ref, (tuple(a.shape), tuple(b.shape), err, ref)
 
 
 @pytest.mark.cuda
@@ -739,6 +762,23 @@ FLASH_CASES = {
     "q_offset": (2, 64, 192, 8, 2, 64, True, None, None, 128),
     # rows past q position 255 + 48 reach no key: a uniform average
     "window_past_keys": (1, 64, 256, 4, 2, 32, True, 48, None, 250),
+    # the tensor-core route's configurations: SmolLM, qwen3, gemma2
+    "smollm_b4_s256": (4, 256, 256, 9, 3, 64, True, None, None, 0),
+    "qwen3_heads": (1, 192, 192, 32, 8, 128, True, None, None, 0),
+    "gemma2_heads": (2, 200, 200, 32, 16, 128, True, 64, 50.0, 0),
+    # Sq and Skv on both sides of the key tiles: 128 keys at D 64, 64 at
+    # D 128
+    "ragged_63_d64": (2, 63, 63, 9, 3, 64, True, None, None, 0),
+    "ragged_65_d64": (2, 65, 65, 9, 3, 64, True, None, None, 0),
+    "ragged_127_d64": (2, 127, 127, 9, 3, 64, True, None, None, 0),
+    "ragged_129_d64": (2, 129, 129, 9, 3, 64, True, None, None, 0),
+    "ragged_64_d128": (2, 64, 64, 8, 2, 128, True, None, None, 0),
+    "ragged_65_d128": (2, 65, 65, 8, 2, 128, True, None, None, 0),
+    "ragged_129_d128": (2, 129, 129, 8, 2, 128, True, None, None, 0),
+    "noncausal_d128_ragged": (2, 100, 129, 8, 4, 128, False, None, None, 0),
+    "q_offset_d128": (3, 65, 200, 8, 2, 128, True, None, None, 135),
+    "window_past_keys_d64": (2, 64, 129, 6, 2, 64, True, 40, None, 130),
+    "window_past_keys_d128": (1, 65, 65, 4, 4, 128, False, 30, None, 100),
 }
 
 
@@ -753,10 +793,15 @@ def test_flash_attention_matches_plain(card, case, dtype):
     k = _arr(rng, b, skv, kv, d).to(card, dtype)
     v = _arr(rng, b, skv, kv, d).to(card, dtype)
     opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
-    before = fa_mod.LAUNCHES
+    route = fa_mod.flash_route(dtype, d)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+                     else "simt")
+    counter = "TC_LAUNCHES" if route == "wgmma" else "SIMT_LAUNCHES"
+    before = (fa_mod.LAUNCHES, getattr(fa_mod, counter))
     got = fa_mod.flash_attention(q, k, v, **opts)
     torch.cuda.synchronize()
-    assert fa_mod.LAUNCHES == before + 1
+    assert (fa_mod.LAUNCHES, getattr(fa_mod, counter)) == (
+        before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(
         got.float(), kref.flash_attention_ref(q, k, v, **opts).float(),
@@ -780,6 +825,32 @@ def test_flash_attention_rejects_bad_operands(card):
                                k[..., :48].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         fa_mod.flash_attention(q, k.cpu(), k)
+    # the tensor-core route loads by TMA: a base that is not 16-byte
+    # aligned raises, and nothing launches on another route
+    qb = torch.zeros(64 * 4 * 64 + 1, dtype=torch.bfloat16, device=card)
+    kb = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=card)
+    q_odd = qb[1:].view(1, 64, 4, 64)
+    assert q_odd.is_contiguous() and q_odd.data_ptr() % 16
+    before = fa_mod.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_mod.flash_attention(q_odd, kb, kb)
+    k_odd = qb[1:1 + kb.numel()].view(kb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_mod.flash_attention(qb[:-1].view(1, 64, 4, 64), k_odd, kb)
+    assert fa_mod.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_sass(card):
+    """The redesigned libraries run on the tensor cores: wgmma (HGMMA) and
+    TMA loads (UTMALDG) in flash_attention's bf16 route, TF32 MMA in
+    block_matmul."""
+    fa = _build.sass_counts("flash_attention_tc",
+                            {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)})
+    bm = _build.sass_counts("block_matmul",
+                            {"HMMA TF32": ("HMMA", "TF32")})
+    assert fa["HGMMA"] > 0 and fa["UTMALDG"] > 0, fa
+    assert bm["HMMA TF32"] > 0, bm
 
 
 @pytest.mark.cuda
