@@ -12,11 +12,14 @@ last line; there is no CPU path):
   1. build — compile every CUDA kernel of the path from
      `src/repro_torch/kernels/csrc/` (one nvcc per source, in parallel),
      print ptxas's register/shared-memory lines, and count the tensor-core
-     instructions of the two redesigned libraries in their SASS
+     instructions of the redesigned libraries in their SASS
      (`cuobjdump -sass`): HGMMA and UTMALDG in flash_attention's bf16
-     route, HMMA ... TF32 in block_matmul; a count of 0 fails. Beside
-     them, three timing variants of block_matmul's tile (tc_gemm_tile.cuh's
-     TC_GEMM_PRODUCTS and TC_GEMM_SPLIT), timed in phase 9 (`[breakdown]`);
+     route, HMMA ... TF32 in block_matmul and in the three GAT libraries
+     (gat_attention, fused_gat_full, fused_gat_precombined); a count of 0
+     fails. Beside them, four timing variants of block_matmul's tile
+     (tc_gemm_tile.cuh's TC_GEMM_PRODUCTS, TC_GEMM_SPLIT and TC_SPLIT_INT)
+     and four of the GAT attention body (gat_tile.cuh's GAT_PRODUCTS and
+     GAT_EXP, and TC_SPLIT_INT), timed in phase 9 (`[breakdown]`);
   2. kernels — `block_matmul` (3xTF32 on the tensor cores) and
      `fused_gcn_dense` against their plain PyTorch versions at the serving
      shapes (4 Cora-sized graphs padded to
@@ -50,7 +53,7 @@ last line; there is no CPU path):
      `fused_gat_precombined` against their plain versions at both buckets'
      4-graph serving shapes (layer 1: 8 heads of 8 over 1433 features;
      layer 2: 1 head of 7), with NodePad's all -1e9 rows, a 32-row block
-     whose first 64-column tile is all -1e9, and a ragged 1000-node graph
+     whose first 64 columns are all -1e9, and a ragged 1000-node graph
      through `kernels.ops`; then a third GraphServe with the paper's Cora
      GAT twice, calibrated on Cora: `gat` (tiers fp32 and int8,
      `fusion="layer"`: fused_gat_full, fused_gat_precombined) and `gat_mm`
@@ -99,11 +102,14 @@ last line; there is no CPU path):
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the measured dense and GraSp aggregation times per
-     bucket; for the two redesigned kernels also the times queued behind a
-     spin and TFLOP/s; flash_attention's SIMT kernel, which served bf16
-     at head dim 64 and 128 before, timed on the same inputs, and each
-     route's host cost per call; block_matmul's time on its earlier fp32
-     SIMT tile, copied from PERF.md and printed as copied.
+     bucket; for the redesigned kernels also the times queued behind a
+     spin (block_matmul and flash_attention with TFLOP/s, the three GAT
+     kernels with bounds for 3xTF32 and for fp32 FMA products);
+     flash_attention's SIMT kernel, which served bf16 at head dim 64 and
+     128 before, timed on the same inputs, and each route's host cost per
+     call; block_matmul's time on its earlier fp32 SIMT tile and the GAT
+     kernels' on their earlier SIMT body, copied from PERF.md and printed
+     as copied.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -145,6 +151,7 @@ from repro_torch.data.graphs import (clustered_like, cora_like,  # noqa: E402
                                      planetoid_like)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._launch import launch  # noqa: E402
+from repro_torch.kernels.timing import card_line, queued_ms  # noqa: E402
 from repro_torch.kernels import bitmap_spmm as bs  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -207,23 +214,42 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
            "flash_attention": ("src/repro_torch/kernels/csrc/"
                                "flash_attention_tc.cu",
                                "src/repro/kernels/flash_attention.py:94")}
-# the two kernels redesigned for the card's tensor cores: their libraries
-# and the SASS instructions that show it (cuobjdump -sass; 0 fails the run)
+# the libraries redesigned for the card's tensor cores and the SASS
+# instructions that show it (cuobjdump -sass; 0 fails the run): flash's
+# bf16 route, block_matmul's 3xTF32 tile and the GAT attention body
 SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
-        "block_matmul": {"HMMA TF32": ("HMMA", "TF32")}}
+        "block_matmul": {"HMMA TF32": ("HMMA", "TF32")},
+        **{lib: {"HMMA TF32": ("HMMA", "TF32")}
+           for lib in ("gat_attention", "fused_gat_full",
+                       "fused_gat_precombined")}}
 # block_matmul per 4 x 3072 batch on the fp32 SIMT tile it had before the
 # tensor-core redesign, copied from PERF.md section 6 (table row 1, NVIDIA
 # H100 80GB HBM3, 700 W): that tile is not built any more, so this run
 # prints the number as copied and never as its own
 BLOCK_MATMUL_SIMT_MS = 1.0023
-# timing variants of block_matmul's tile (the switches of tc_gemm_tile.cuh),
-# built beside the libraries and timed on the batch's products: what the
-# split and the two extra products cost. Their results are not block_matmul's
-# (a variant without the split or with one product is not fp32-accurate).
-TILE_VARIANTS = {"3 products, no split": ("-DTC_GEMM_SPLIT=0",),
-                 "1 product": ("-DTC_GEMM_PRODUCTS=1",),
-                 "1 product, no split": ("-DTC_GEMM_PRODUCTS=1",
-                                         "-DTC_GEMM_SPLIT=0")}
+# the GAT kernels per 4 x 3072 batch on the SIMT attention body they had
+# before the tensor-core redesign, copied from PERF.md section 6 (rows 4,
+# 10 and 11, NVIDIA H100 80GB HBM3, 700 W): printed as copied, never as
+# this run's own
+GAT_SIMT_MS = {"gat_attention": 1.1226, "fused_gat_full": 1.3134,
+               "fused_gat_precombined": 1.1306}
+# timing variants, by library: block_matmul's tile (the switches of
+# tc_gemm_tile.cuh), timed on the batch's products, and the GAT attention
+# body (gat_tile.cuh's switches, in the gat_attention library), timed on
+# the layer-1 and layer-2 serving batches. Built beside the libraries; what
+# the split, the two extra products and the exponentials cost. Their
+# results are not the kernels' (one product is not fp32-accurate, and a
+# multiply is no exponential).
+VARIANTS = {"block_matmul": {"3 products, no split": ("-DTC_GEMM_SPLIT=0",),
+                             "1 product": ("-DTC_GEMM_PRODUCTS=1",),
+                             "1 product, no split": ("-DTC_GEMM_PRODUCTS=1",
+                                                     "-DTC_GEMM_SPLIT=0"),
+                             "split by cvt.rna": ("-DTC_SPLIT_INT=0",)},
+            "gat_attention": {"1 product": ("-DGAT_PRODUCTS=1",),
+                              "exp as a multiply": ("-DGAT_EXP=0",),
+                              "1 product, exp as a multiply": (
+                                  "-DGAT_PRODUCTS=1", "-DGAT_EXP=0"),
+                              "split by cvt.rna": ("-DTC_SPLIT_INT=0",)}}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
@@ -318,32 +344,35 @@ def flash_routes_now():
     return {"wgmma": fa.TC_LAUNCHES, "simt": fa.SIMT_LAUNCHES}
 
 
-def start_tile_variants():
-    """Start one nvcc per block_matmul timing variant, into
-    build/repro_torch_kernels/variants/: {label: (process, library)}."""
+def start_variants():
+    """Start one nvcc per timing variant, into
+    build/repro_torch_kernels/variants/: {(library, label): (process,
+    variant library)}."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (label, flags) in enumerate(TILE_VARIANTS.items()):
-        lib = out_dir / f"block_matmul_variant{i}.so"
-        procs[label] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(_build.CSRC / "block_matmul.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    for name, variants in VARIANTS.items():
+        for i, (label, flags) in enumerate(variants.items()):
+            lib = out_dir / f"{name}_variant{i}.so"
+            procs[name, label] = (subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o",
+                 str(lib), str(_build.CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                lib)
     return procs
 
 
-def bind_tile_variants(procs, logs):
-    """block_matmul's entry point in each built variant library."""
-    symbol, kinds = _build.ENTRY_POINTS["block_matmul"]
-    fns = {}
-    for label, (proc, lib) in procs.items():
-        check(proc.returncode == 0, f"block_matmul variant {label}: nvcc "
-              f"exit {proc.returncode}\n{logs[label]}")
+def bind_variants(procs, logs):
+    """Each built variant library's entry point: {library: {label: fn}}."""
+    fns = {name: {} for name in VARIANTS}
+    for (name, label), (proc, lib) in procs.items():
+        check(proc.returncode == 0, f"{name} variant {label}: nvcc exit "
+              f"{proc.returncode}\n{logs[name, label]}")
+        symbol, kinds = _build.ENTRY_POINTS[name]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes = [_build._CTYPES[k] for k in kinds]
         fn.restype = ctypes.c_int
-        fns[label] = fn
+        fns[name][label] = fn
     return fns
 
 
@@ -355,6 +384,14 @@ def run_tile_variant(fn, a, b, out):
     launch("block_matmul", fn, a.device, a.data_ptr(), b.data_ptr(),
            out.data_ptr(), out.shape[0], m, n, k,
            m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0)
+
+
+def run_gat_variant(fn, h, alpha_dst, alpha_src, bias, out):
+    """One launch of a gat_attention variant, as the wrapper launches the
+    library, counted nowhere."""
+    launch("gat_attention", fn, h.device, h.data_ptr(), alpha_dst.data_ptr(),
+           alpha_src.data_ptr(), bias.data_ptr(), out.data_ptr(),
+           *h.shape)
 
 
 def graphs():
@@ -527,9 +564,12 @@ def fused_sage_work(mask, xk, x, w_self, w_neigh, b, aggregator, act):
     return 2.0 * float(nz.sum().item()) * fin + 4.0 * bsz * n * fin * o, moved
 
 
-def gat_bound(flops, exps, nbytes_):
-    """(least ms, what bounds it): fp32 flops, SFU expf or HBM bytes."""
-    t_ops = max(flops / FP32_FLOPS_PER_S, exps / SFU_EXP_PER_S)
+def gat_bound(flops, exps, nbytes_, tf32=True):
+    """(least ms, what bounds it): the products as the kernels do them
+    (three TF32 products per fp32 product on the tensor cores), or with
+    tf32=False on fp32 FMA; the expf on the SFUs; the HBM bytes."""
+    t_ops = max(3 * flops / TF32_FLOPS_PER_S if tf32
+                else flops / FP32_FLOPS_PER_S, exps / SFU_EXP_PER_S)
     t_bytes = nbytes_ / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -707,32 +747,6 @@ def device_busy(fn):
              if any(k in name for k in FLASH_KERNELS)]
     return (sum(ms for ms, _ in ks.values()), sum(n for _, n in ks.values()),
             sum(ms for ms, _ in fa_ks), sum(n for _, n in fa_ks))
-
-
-def queued_ms(fn, iters=20, spin_ms=50.0):
-    """Device ms of one call of `fn` with the host's launch gaps hidden: a
-    spin kernel holds the stream while the host queues every call, so the
-    events time the kernels back to back (torch.profiler misses some of a
-    tight loop's ctypes launches). The spin grows until the host was ahead
-    of the card; None when it never was (a call that waits for the card,
-    or more launches than the card's queue holds)."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(5):
-        torch.cuda._sleep(int(spin_ms * 2e6))     # about spin_ms at 2 GHz
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        ahead = not start.query()       # the spin still held the stream
-        end.synchronize()
-        if ahead:
-            return start.elapsed_time(end) / iters
-        spin_ms *= 4
-    return None
 
 
 def ms_or_not(ms, digits=4):
@@ -1007,31 +1021,27 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
-    variants = start_tile_variants()
+    variants = start_variants()
     try:
         logs = _build.build()
     finally:                            # no nvcc outlives the script
-        variant_logs = {label: proc.communicate()[0]
-                        for label, (proc, _) in variants.items()}
-    tile_variants = bind_tile_variants(variants, variant_logs)
+        variant_logs = {key: proc.communicate()[0]
+                        for key, (proc, _) in variants.items()}
+    variant_fns = bind_variants(variants, variant_logs)
     print(f"[build] {len(logs)} libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib, log in logs.items():
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"[build] {lib}: {line.strip()}")
-    for label, log in variant_logs.items():
+    for (lib, label), log in variant_logs.items():
         for line in log.splitlines():
             if "ptxas info" in line and "Used" in line:
-                print(f"[build] block_matmul variant ({label}): "
-                      f"{line.strip()}")
+                print(f"[build] {lib} variant ({label}): {line.strip()}")
     # the redesigned kernels run on the tensor cores: their SASS says so
     for lib, patterns in SASS.items():
         counts = _build.sass_counts(lib, patterns)
@@ -1541,8 +1551,8 @@ def main() -> None:
     # the GAT kernels at both buckets' serving shapes: 4-graph batches
     # (junk slots repeat a graph), layer 1 (8 heads of 8 over the 1433
     # features) and layer 2 (1 head of 7 over layer 1's 64); NodePad's rows
-    # are all -1e9, and the "far" masks make rows 64..95's first column
-    # tile all -1e9 (the online softmax's start)
+    # are all -1e9, and the "far" masks make rows 64..95's first 64
+    # columns all -1e9 (the online softmax's first steps)
     gcfg = gat("cora")
     gat_np = {"l1": gat_layer_np(rng, 1433, GAT_HEADS, GAT_F),
               "l2": gat_layer_np(rng, GAT_HEADS * GAT_F, 1, GAT_CLASSES)}
@@ -2129,9 +2139,15 @@ def main() -> None:
                               "fused_gat_precombined": (
                                   fl.fused_gat_precombined,
                                   fl.fused_gat_precombined_plain)}[kernel]
+                # queued right after the event time, before the plain
+                # version's long run
                 t_k = time_ms(lambda: run(*args))
+                d_k = queued_ms(lambda: run(*args))
                 t_p = time_ms(lambda: plain(*args))
                 t_l = None
+                tot["device_ms"] = (None if d_k is None
+                                    or tot["device_ms"] is None
+                                    else tot["device_ms"] + d_k)
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
                 if kernel == "fused_gat_full":
                     x, w3 = args[0], args[1]
@@ -2142,6 +2158,12 @@ def main() -> None:
                 flops, exps, nbytes_ = gat_work(h_shape, nbytes(*tensors),
                                                 fin)
                 tot["exps"] += exps
+                f32_ms, f32_by = gat_bound(flops, exps, nbytes_, tf32=False)
+                tf_ms, tf_by = gat_bound(flops, exps, nbytes_)
+                print(f"[time] {kernel} {label}: queued behind a spin "
+                      f"{ms_or_not(d_k)}; bound with 3xTF32 products "
+                      f"{tf_ms:.4f} ms ({tf_by}), with fp32 FMA products "
+                      f"{f32_ms:.4f} ms ({f32_by}); {card}", flush=True)
             if kernel in GAT_KERNELS:
                 b_ms, b_by = gat_bound(flops, exps, nbytes_)
             elif kernel == "block_matmul":
@@ -2176,9 +2198,56 @@ def main() -> None:
                "per": f"one batch of {SLOTS} graphs at {CAP} nodes: "
                       + ", ".join(cases)}
         if kernel in GAT_KERNELS:
+            f32_ms, f32_by = gat_bound(tot["flops"], tot["exps"],
+                                       tot["bytes"], tf32=False)
             row.update(library="none: no one PyTorch call computes "
                                "leaky-ReLU-scored additively masked "
-                               "attention")
+                               "attention",
+                       device_ms=tot["device_ms"],
+                       bound_note="3 TF32 products per product at 495 "
+                                  "TFLOP/s, one expf per score at the SFU "
+                                  "rate, or the bytes at 3.35 TB/s",
+                       bound_fp32_fma_ms=f32_ms)
+            print(f"[time] {kernel}, the batch's {len(cases)} layers: kernel "
+                  f"{tot['ms']:.4f} ms (queued "
+                  f"{ms_or_not(tot['device_ms'])}), plain "
+                  f"{tot['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                  f"3xTF32 products), {f32_ms:.4f} ms ({f32_by}, fp32 FMA "
+                  f"products); {card}", flush=True)
+            print(f"[time] {kernel} per batch on the SIMT attention body "
+                  f"before the tensor-core redesign: "
+                  f"{GAT_SIMT_MS[kernel]} ms, copied from PERF.md (section "
+                  f"6; NVIDIA H100 80GB HBM3, 700 W), not measured in this "
+                  f"run", flush=True)
+        if kernel == "gat_attention":
+            # what holds the body: each variant on the same layers
+            parts = {}
+            for label, args in cases.items():
+                parts[label] = {"tensor-core body (gat_attention)":
+                                queued_ms(lambda: ga.gat_attention(*args))}
+                out = torch.empty_like(args[0])
+                for v_label, fn in variant_fns["gat_attention"].items():
+                    parts[label][v_label] = queued_ms(
+                        lambda: run_gat_variant(fn, *args, out))
+                    if v_label == "split by cvt.rna":
+                        check(torch.equal(out, ga.gat_attention(*args)),
+                              "gat_attention differs from its cvt.rna split")
+                print(f"[breakdown] gat_attention's body, {label} of a "
+                      f"batch, queued behind a spin: "
+                      + ", ".join(f"{k_} {ms_or_not(v_)}"
+                                  for k_, v_ in parts[label].items())
+                      + f" (the cvt.rna split's output equals the body's bit "
+                      f"for bit); {card}", flush=True)
+            # the body's time against its blocks in flight: the first k
+            # graphs of the layer-1 batch, 96 blocks of 32 rows each
+            waves = {k: queued_ms(lambda: ga.gat_attention(
+                *(a[:k] for a in cases["L1"]))) for k in range(1, SLOTS + 1)}
+            print("[breakdown] gat_attention's body, L1 on the batch's first "
+                  "k graphs (96 k blocks; 2 blocks an SM fit): " + ", ".join(
+                      f"{k} {ms_or_not(v)}" for k, v in waves.items())
+                  + f"; {card}", flush=True)
+            row.update(body_variants_device_ms=parts,
+                       body_l1_graphs_device_ms=waves)
         if kernel in SAGE_KERNELS:
             row.update(library="none: no one PyTorch call computes a "
                                "masked max over a sampled adjacency (GrAx3)"
@@ -2193,7 +2262,7 @@ def main() -> None:
             f32_ms, f32_by = bound(tot["flops"], tot["bytes"])
             # what holds the tile: each variant over the same products
             parts = {"3xTF32 (block_matmul)": tot["device_ms"]}
-            for label, fn in tile_variants.items():
+            for label, fn in variant_fns["block_matmul"].items():
                 ms = 0.0
                 for a, b in cases.values():
                     out = torch.empty(
@@ -2201,12 +2270,17 @@ def main() -> None:
                         a.shape[-2], b.shape[-1], device=dev)
                     d_v = queued_ms(lambda: run_tile_variant(fn, a, b, out))
                     ms = None if ms is None or d_v is None else ms + d_v
+                    if label == "split by cvt.rna":
+                        # the integer rounding gives cvt.rna's bits
+                        check(torch.equal(out, bm.block_matmul(a, b)),
+                              "block_matmul differs from its cvt.rna split")
                 parts[label] = ms
             parts["torch.matmul"] = tot["library_device_ms"]
             print(f"[breakdown] block_matmul's tile per batch, queued behind "
                   f"a spin: " + ", ".join(f"{k_} {ms_or_not(v_)}"
                                           for k_, v_ in parts.items())
-                  + f"; {card}", flush=True)
+                  + f" (the cvt.rna split's products equal block_matmul's "
+                  f"bit for bit); {card}", flush=True)
             row.update(device_ms=tot["device_ms"],
                        library_device_ms=tot["library_device_ms"],
                        library="torch.matmul (fp32, TF32 off), a yardstick "

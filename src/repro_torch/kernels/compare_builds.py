@@ -1,0 +1,162 @@
+"""Time block_matmul's CUDA library built from several source trees, in one
+process on one card, over the Cora-width GCN's four serving products (a
+4 x 3072 batch: X @ W1, A @ H1, X2 @ W2, A @ H2).
+
+Run from the checkout's root. Each argument is LABEL=DIR or
+LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding block_matmul.cu
+and the headers it includes (this checkout's
+`src/repro_torch/kernels/csrc`, or an earlier commit's, unpacked with
+`git archive` into a git-ignored directory such as build/). An OPTION is
+an extra nvcc flag (`-DTC_SPLIT_INT=0`), or `int-split`: build a copy of
+a tree whose split_tf32 still rounds with cvt.rna.tf32.f32 with the
+integer rounding instead (the same bits), so that two tile layouts are
+compared at one rounding.
+
+Prints each build's ptxas registers and SASS instruction count, checks that
+every build's products equal the first build's bit for bit, then the
+batch's time queued behind a spin (`timing.queued_ms`) for each
+build in the order given and back, three times: median, min and max.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.compare_builds \\
+        now=src/repro_torch/kernels/csrc \\
+        now-cvt=src/repro_torch/kernels/csrc,-DTC_SPLIT_INT=0 \\
+        old=build/parent/src/repro_torch/kernels/csrc \\
+        old-int=build/parent/src/repro_torch/kernels/csrc,int-split
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.timing import card_line, queued_ms
+
+OUT = _build.BUILD_DIR / "compare"
+CVT_SPLIT = ('  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));\n'
+             '  const float rest = x - __uint_as_float(big);\n'
+             '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(small) : '
+             '"f"(rest));\n')
+INT_SPLIT = ('  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n'
+             '  const float rest = x - __uint_as_float(big);\n'
+             '  small = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;\n')
+
+
+def source_tree(label: str, src: Path, int_split: bool,
+                out: Path = OUT) -> Path:
+    """The tree to build LABEL from: `src`, or with int_split a copy under
+    `out` with the integer split."""
+    if not int_split:
+        return src
+    tree = out / f"{label}_src"
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(src, tree)
+    tile = tree / "tc_gemm_tile.cuh"
+    text = tile.read_text()
+    if CVT_SPLIT not in text:
+        raise SystemExit(f"{label}: {src} has no cvt.rna split to replace")
+    tile.write_text(text.replace(CVT_SPLIT, INT_SPLIT))
+    return tree
+
+
+def build_all(specs):
+    """Compile every build at once: {label: (library, ptxas log)}."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, (tree, flags) in specs.items():
+        lib = OUT / f"{label}.so"
+        procs[label] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(tree / "block_matmul.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for label, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"{label}: nvcc failed\n{log}")
+        built[label] = (lib, log)
+    return built
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    specs = {}
+    for arg in argv:
+        label, _, rest = arg.partition("=")
+        src, *options = rest.split(",")
+        flags = [o for o in options if o != "int-split"]
+        specs[label] = (source_tree(label, Path(src), "int-split" in options),
+                        flags)
+    if not specs:
+        raise SystemExit(__doc__)
+    card = card_line()
+    fns = {}
+    for label, (lib, log) in build_all(specs).items():
+        regs = re.findall(r"Used (\d+) registers", log)
+        sass = subprocess.run([_build.cuobjdump_path(), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        count = len(re.findall(r"/\*[0-9a-f]{4}\*/", sass))
+        print(f"{label}: registers per kernel {regs}, {count} SASS "
+              f"instructions", flush=True)
+        symbol, kinds = _build.ENTRY_POINTS["block_matmul"]
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = [_build._CTYPES[k] for k in kinds]
+        fn.restype = ctypes.c_int
+        fns[label] = fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    adj = rand(4, 3072, 3072).abs() / 3072
+    products = [(rand(4, 3072, 1536), rand(1536, 128)),
+                (adj, rand(4, 3072, 128)),
+                (rand(4, 3072, 128), rand(128, 128)),
+                (adj, rand(4, 3072, 128))]
+    outs = [torch.empty(4, 3072, 128, device=dev) for _ in products]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def batch(fn):
+        for (a, b), out in zip(products, outs):
+            m, k = a.shape[-2:]
+            n = b.shape[-1]
+            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 4, m, n, k,
+                     m * k if a.dim() == 3 else 0,
+                     k * n if b.dim() == 3 else 0, dev.index or 0, stream)
+            if err != 0:
+                raise SystemExit(f"launch failed: cudaError {err}")
+
+    first = None
+    for label, fn in fns.items():
+        batch(fn)
+        torch.cuda.synchronize()
+        got = [o.clone() for o in outs]
+        first = first or (label, got)
+        if not all(torch.equal(x, y) for x, y in zip(first[1], got)):
+            raise SystemExit(f"{label}'s products differ from {first[0]}'s")
+    print(f"every build's products equal {first[0]}'s bit for bit",
+          flush=True)
+
+    times = {label: [] for label in fns}
+    order = list(fns)
+    for _ in range(3):
+        for label in order + order[::-1]:
+            times[label].append(queued_ms(lambda: batch(fns[label])))
+    for label, ts in times.items():
+        ts = sorted(t for t in ts if t is not None)
+        print(f"{label}: per batch, queued behind a spin, median "
+              f"{ts[len(ts) // 2]:.4f} ms (min {ts[0]:.4f}, max "
+              f"{ts[-1]:.4f}, {len(ts)} runs); {card}", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

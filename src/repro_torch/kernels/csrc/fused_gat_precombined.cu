@@ -3,14 +3,15 @@
 // (int8_matmul on the card), alpha from the einsum beside it.
 //
 // Replaces the TPU kernel `fused_gat_precombined` (src/repro/kernels/
-// fused_layers.py): the `gat_attention` grid with the bias and activation
-// folded into its store. Here it is the attention body of gat_tile.cuh
-// with the same epilogue (activation.cuh; ELU as expm1f), so the bias is
-// read once for up to 8 heads instead of once per head.
+// fused_layers.py:394): the `gat_attention` grid with the bias and
+// activation folded into its store. Here it is the tensor-core attention
+// body of gat_tile.cuh with the same epilogue (activation.cuh; ELU as
+// expm1f), so the bias is read once for up to 8 heads instead of once per
+// head.
 //
 // Bound: as gat_attention's (see gat_attention.cu): per 4-graph batch at
-// n = 3072, layer 1 (8 heads of 8) by its 302 M expf and 4.8 GFLOP, about
-// 72 us, and layer 2 (1 head of 7) by its 151 MB of bias, 45 us.
+// n = 3072, layer 1 (8 heads of 8) by its 302 M expf, 72 us, and layer 2
+// (1 head of 7) by its 151 MB of bias, 45 us.
 #include "gat_tile.cuh"
 
 // h: (batch, n, heads, f); alpha_dst, alpha_src: (batch, n, heads); bias:

@@ -3,22 +3,21 @@
 // broadcast sum of the alpha terms, times H. No epilogue.
 //
 // Replaces the TPU kernel `gat_attention` (src/repro/kernels/
-// gat_attention.py), which holds a (bm, n) score strip per head in VMEM
+// gat_attention.py:42), which holds a (bm, n) score strip per head in VMEM
 // and, under its (head, row block) grid, reads the bias strip once per
 // head. Here the attention body of gat_tile.cuh walks the columns with an
-// online softmax and reads the bias once for up to 8 heads.
+// online softmax, runs P.H on the TF32 tensor cores (3xTF32, mma.sync)
+// and reads the bias once for up to 8 heads through a cp.async ring.
 //
-// Bound, per 4-graph batch at n = 3072 (H100 SXM: 3.35 TB/s HBM, 67
-// TFLOP/s fp32, about 4.2e12 expf a second on the SFUs: 132 SMs x 16 a
+// Bound, per 4-graph batch at n = 3072 (H100 SXM: 3.35 TB/s HBM, 495
+// TFLOP/s TF32, about 4.2e12 expf a second on the SFUs: 132 SMs x 16 a
 // clock x 1.98 GHz):
 //   bias bytes     B*n*n*4, read once           151 MB   45 us
 //   expf           H*B*n*n                      302 M    72 us (H = 8)
-//   product flops  2*H*B*n*n*F                  4.8 G    72 us (F = 8)
-// so layer 1 (8 heads of 8) is bound by its operations and layer 2 (1
-// head of 7: 38 M expf, 0.53 GFLOP) by its bias bytes. The design reads
-// each bias tile once per block of 8 heads and keeps scores, softmax
-// state and the product in registers; h and alpha_src tiles are re-read
-// from L2 by each 32-row strip.
+//   product flops  3 x 2*H*B*n*n*F on TF32      14.5 G   29 us (F = 8)
+// so layer 1 (8 heads of 8) is bound by its expf and layer 2 (1 head of 7:
+// 38 M expf) by its bias bytes. The design and what it does about each
+// bound is in gat_tile.cuh.
 #include "gat_tile.cuh"
 
 // h: (batch, n, heads, f); alpha_dst, alpha_src: (batch, n, heads); bias:

@@ -1,11 +1,18 @@
 // fp32 GEMM on the TF32 tensor cores with fp32 accuracy (3xTF32), for
-// `block_matmul` (sm_90a):
+// `block_matmul` and the combine of `fused_gat_full` (sm_90a):
 //
 //   C[z] = A[z] @ B[z]      z = blockIdx.z, row-major fp32 operands
 //
-// 3xTF32: each operand element x is split into big = tf32(x) (cvt.rna:
-// round to nearest, ties away, to 10 mantissa bits) and small =
-// tf32(x - big); each product accumulates a_small*b_big + a_big*b_small +
+// The block's main loop is the device function `mma_tile`, which both
+// kernels call, and `launch_ring` launches either with the ring's shared
+// memory; the GAT attention body (gat_tile.cuh) takes the split_tf32,
+// mma_tf32 and cp.async helpers.
+//
+// 3xTF32: each operand element x is split into big = tf32(x) (round to
+// nearest, ties away, to 10 mantissa bits: the bits cvt.rna.tf32.f32
+// gives, computed with an integer add and mask, since the conversion runs
+// on the card's slower conversion pipe) and small = tf32(x - big); each
+// product accumulates a_small*b_big + a_big*b_small +
 // a_big*b_big, the small terms first (as CUTLASS's 3xTF32 does). The
 // dropped a_small*b_small is below 2^-22 of a product. The product is
 // mma.sync m16n8k8 tf32: B is (K x N) with N contiguous, and wgmma takes
@@ -27,15 +34,17 @@
 // fragments it loads. Shared rows are padded (A by 4 floats, B by 8) so
 // the fragment loads hit 32 banks. Ragged edges are zero-filled on load
 // and masked on store, so any M, N, K works. 16-byte copies need
-// 16-byte-aligned rows: where K or N is not a multiple of 4, or a base is
-// not 16-byte aligned, the same kernel is instantiated with 4-byte copies.
+// 16-byte-aligned rows: where K (for A) or N (for B) is not a multiple of
+// 4, or a base is not 16-byte aligned, the same kernel is instantiated
+// with 4-byte copies of that operand.
 // A batch stride of 0 broadcasts an operand.
 //
-// Two compile-time switches exist only to time the tile's parts (the
+// Three compile-time switches exist only to time the tile's parts (the
 // `[breakdown]` step of chip_smoke.py builds the other settings under
 // build/); the library ships the defaults. TC_GEMM_PRODUCTS 1 keeps only
 // a_big*b_big; TC_GEMM_SPLIT 0 passes each fp32 element to the tensor
-// cores as it is (they read its top 19 bits) instead of splitting it.
+// cores as it is (they read its top 19 bits) instead of splitting it;
+// TC_SPLIT_INT 0 rounds with cvt.rna.tf32.f32 itself (the same bits).
 #pragma once
 
 #ifndef TC_GEMM_PRODUCTS
@@ -43,6 +52,9 @@
 #endif
 #ifndef TC_GEMM_SPLIT
 #define TC_GEMM_SPLIT 1
+#endif
+#ifndef TC_SPLIT_INT
+#define TC_SPLIT_INT 1
 #endif
 
 #include <cuda_runtime.h>
@@ -90,13 +102,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// tf32(x) as cvt.rna.tf32.f32 computes it, in two integer operations:
+// half of the last kept bit added to the magnitude, the 13 dropped bits
+// cleared (a carry moves into the exponent, as rounding up does)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+#if TC_SPLIT_INT
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+#else
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+#endif
+}
+
 // big = tf32(x), small = tf32(x - big); both as tf32 bit patterns
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
 #if TC_GEMM_SPLIT
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 #else
   big = small = __float_as_uint(x);
 #endif
@@ -113,14 +137,16 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Stage the (64 x 32) A slab and (32 x 64) B slab at k0; out-of-range
-// elements are zero-filled. VEC: 16-byte copies (K and N multiples of 4,
-// bases 16-byte aligned), else 4-byte copies.
-template <bool VEC>
+// elements are zero-filled. VA, VB: 16-byte copies of A (K a multiple of
+// 4, A 16-byte aligned) and of B (N and col0 multiples of 4, B aligned),
+// else 4-byte copies.
+template <bool VA, bool VB>
 __device__ __forceinline__ void load_slab(const float* __restrict__ A,
                                           const float* __restrict__ B, int M,
                                           int N, int K, int row0, int col0,
                                           int k0, float* stage) {
-  constexpr int W = VEC ? 4 : 1;            // floats per copy
+  constexpr int W = VA ? 4 : 1;             // floats per copy of A
+  constexpr int WB = VB ? 4 : 1;            // ... and of B
   const int tid = threadIdx.x;
   float* as = stage;
   float* bs = stage + kBM * kAStride;
@@ -134,45 +160,46 @@ __device__ __forceinline__ void load_slab(const float* __restrict__ A,
              4 * W);
   }
 #pragma unroll
-  for (int i = 0; i < kBK * kBN / W / kThreads; ++i) {
+  for (int i = 0; i < kBK * kBN / WB / kThreads; ++i) {
     const int id = tid + i * kThreads;
-    const int r = id / (kBN / W), c = (id % (kBN / W)) * W;
+    const int r = id / (kBN / WB), c = (id % (kBN / WB)) * WB;
     const int gr = k0 + r, gc = col0 + c;
     const bool ok = gr < K && gc < N;
     cp_async(bs + r * kBStride + c, ok ? B + (long long)gr * N + gc : B, ok,
-             4 * W);
+             4 * WB);
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                       float* __restrict__ C, int M, int N, int K,
-                       long long stride_a, long long stride_b) {
+// The block's 64 x 64 tile of A @ B at (row0, col0), into `acc`: each warp
+// its 32 x 32 as kMT x kNT m16n8 fragments (rows wm + 16 i + g (+ 8),
+// columns wn + 8 j + 2 t (+ 1)), with the ring in the kernel's dynamic
+// shared memory (kSmemBytes). A and B are one product's operands,
+// row-major, (M x K) and (K x N); VA, VB as load_slab's. Ends with every
+// copy landed; the caller syncs before it reuses the shared memory.
+template <bool VA, bool VB>
+__device__ __forceinline__ void mma_tile(const float* __restrict__ A,
+                                         const float* __restrict__ B, int M,
+                                         int N, int K, int row0, int col0,
+                                         float (&acc)[kMT][kNT][4]) {
   extern __shared__ __align__(16) float smem[];      // [kStages] slabs
-  A += blockIdx.z * stride_a;
-  B += blockIdx.z * stride_b;
-  C += blockIdx.z * (long long)M * N;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / kWN) * (kBM / kWM);         // the warp's tile
   const int wn = (warp % kWN) * (kBN / kWN);
   const int g = lane / 4, t = lane % 4;
 
   // acc: the total; mid: the partial sum of the current kFlush of K
-  float acc[kMT][kNT][4], mid[kMT][kNT][4];
+  float mid[kMT][kNT][4];
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = mid[i][j][e] = 0.f;
-
   const int slabs = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slabs)
-      load_slab<VEC>(A, B, M, N, K, row0, col0, s * kBK,
+      load_slab<VA, VB>(A, B, M, N, K, row0, col0, s * kBK,
                      smem + s * kStageFloats);
     cp_async_commit();                     // one group per slab, even empty
   }
@@ -182,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
                                            // slab ks - 1 is consumed
     const int next = ks + kStages - 1;
     if (next < slabs)
-      load_slab<VEC>(A, B, M, N, K, row0, col0, next * kBK,
+      load_slab<VA, VB>(A, B, M, N, K, row0, col0, next * kBK,
                      smem + (next % kStages) * kStageFloats);
     cp_async_commit();
     const float* a_s = smem + (ks % kStages) * kStageFloats;
@@ -245,59 +272,35 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + wm + 16 * i + g + 8 * h;
-      if (r >= M) continue;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int c = col0 + wn + 8 * j + 2 * t;
-        if (c < N) C[(long long)r * N + c] = acc[i][j][2 * h];
-        if (c + 1 < N) C[(long long)r * N + c + 1] = acc[i][j][2 * h + 1];
-      }
-    }
 }
 
-// Whether this library's kernel (by VEC) has opted in to more than 48 KB
-// of shared memory. Internal linkage on purpose: a static local of the
-// template below would be one symbol (GNU unique) across every library
-// built from this header in a process, and a second library would then
-// launch without opting in.
-static bool g_sized[2] = {false, false};
+// Whether Kernel has opted in to the ring's kSmemBytes of shared memory.
+// A static variable template: internal linkage, so each library built
+// from this header opts its own kernels in (a static local of a launcher
+// template would be one GNU-unique symbol across every such library in a
+// process, and a second library would launch without opting in).
+template <auto Kernel>
+static bool g_sized = false;
 
-template <bool VEC>
-cudaError_t launch_vec(const float* A, const float* B, float* C, int batch,
-                       int M, int N, int K, long long stride_a,
-                       long long stride_b, cudaStream_t stream) {
-  if (!g_sized[VEC]) {
+// Launch Kernel, whose blocks run mma_tile, with the ring's shared memory
+// on `stream`; returns cudaGetLastError().
+template <auto Kernel, class... Args>
+cudaError_t launch_ring(dim3 grid, cudaStream_t stream, Args... args) {
+  if (!g_sized<Kernel>) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_3xtf32_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return err;
-    g_sized[VEC] = true;
+    g_sized<Kernel> = true;
   }
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_3xtf32_kernel<VEC><<<grid, kThreads, kSmemBytes, stream>>>(
-      A, B, C, M, N, K, stride_a, stride_b);
+  Kernel<<<grid, kThreads, kSmemBytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// Launch one batched product on `stream`; returns cudaGetLastError().
-static inline cudaError_t launch_gemm_3xtf32(const float* A, const float* B,
-                                             float* C, int batch, int M, int N,
-                                             int K, long long stride_a,
-                                             long long stride_b,
-                                             cudaStream_t stream) {
-  const bool vec = K % 4 == 0 && N % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(B) % 16 == 0;
-  return vec ? launch_vec<true>(A, B, C, batch, M, N, K, stride_a, stride_b,
-                                stream)
-             : launch_vec<false>(A, B, C, batch, M, N, K, stride_a, stride_b,
-                                 stream);
+// Whether a row-major operand at p with rows of `cols` floats may be
+// staged with 16-byte copies (mma_tile's VA, VB): its rows and base on
+// 16-byte boundaries.
+static inline bool copies16(const float* p, long long cols) {
+  return cols % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace tc

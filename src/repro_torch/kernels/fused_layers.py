@@ -14,8 +14,9 @@
     block-sparse walk of `bitmap_spmm` (`csrc/bsr_tile.cuh`).
   * `fused_gat_full` — the whole fp32 GAT layer: H = X @ W, the alpha
     terms, act(attention + b) per head. Port of the TPU kernel
-    `fused_gat_full` (`csrc/fused_gat_full.cu`); its attention is the body
-    of `gat_attention` (`csrc/gat_tile.cuh`).
+    `fused_gat_full` (`csrc/fused_gat_full.cu`); its combine runs on
+    `block_matmul`'s 3xTF32 tile (`csrc/tc_gemm_tile.cuh`), its attention
+    is the tensor-core body of `gat_attention` (`csrc/gat_tile.cuh`).
   * `fused_gat_precombined` — act(attention + b) over an h and alpha made
     outside (the QuantGr GAT tiers' int8 combine). Port of the TPU kernel
     `fused_gat_precombined` (`csrc/fused_gat_precombined.cu`).

@@ -5,10 +5,12 @@ alpha_src[j]) + bias[i, j]) h[j].
 Port of the TPU kernel `gat_attention` (reference
 `kernels/gat_attention.py`) as hand-written CUDA C++ for `sm_90a`
 (`csrc/gat_attention.cu`, attention body in `csrc/gat_tile.cuh`): one block
-per 32-row strip, graph and group of up to 8 heads, an online softmax over
-column tiles in shared memory, so the (rows, n) score strip the TPU kernel
-keeps in VMEM is never formed and the bias is read once for all heads.
-The head width F is taken as it is (1 to 64), not padded to 128.
+per strip of 32 rows (16 past F = 16), graph and group of up to 8 heads,
+an online softmax over column tiles staged by a cp.async ring, with P.H
+as 3xTF32 on the tensor cores (`mma.sync`), so the (rows, n) score strip
+the TPU kernel keeps in VMEM is never formed and the bias is read once for
+all heads. The head width F is taken as it is (1 to 64), not padded to
+128.
 
 `gat_attention` is the wrapper: CPU operands run `gat_attention_plain`,
 CUDA operands launch the kernel or raise. `LAUNCHES` counts kernel

@@ -14,7 +14,8 @@ cores and is also held to a float64 product: its largest error, relative
 to the largest |C|, at most twice that of `torch.matmul` in fp32. The int8 kernels take exact integer
 products and the plain versions' rounding steps, so they are held equal
 (`torch.equal`). The GAT kernels' online softmax sums in another order
-than the plain two-pass one: rtol=1e-4, atol=1e-5 as well. A GAT int8
+than the plain two-pass one, and their product runs as 3xTF32 on the
+tensor cores: rtol=1e-4, atol=1e-5 as well. A GAT int8
 request is compared layer by layer (see `test_gat_graphserve_on_card`).
 `sage_max` takes the same maxima as its plain version and is held equal;
 `fused_sage` sums in another order than cuBLAS: CARD.
@@ -400,9 +401,25 @@ def test_grasp_graphserve_on_card_matches_cpu(card):
                                    torch.from_numpy(logits), **CARD)
 
 
+# The GAT kernels' cases: head widths on both sides of the 16-byte copy
+# rule (f % 4) and of one, two, four and eight n8 fragments; head counts of
+# one block, of a split block group (9 = 8 + 1) and with column splits (1,
+# 2 heads); n below one tile, ragged (130: 4-byte bias copies; 200, 1000:
+# a ragged last tile) and the serving bucket (3072).
+GAT_FS = (1, 7, 8, 12, 20, 64)
+GAT_HEADS = (1, 2, 8, 9)
+GAT_NS = (16, 130, 200, 1000, 3072)
+
+
+def _n_real(n):
+    """Rows past n_real are NodePad's all -1e9 rows."""
+    return n - 40 if n > 80 else n - 4
+
+
 def _gat_bias(rng, batch, n, n_real, device):
     """GrAx1 masks with NodePad's all -1e9 rows past n_real, and rows
-    64..95 whose first 64-column tile is all -1e9."""
+    64..95 whose first 64 columns are all -1e9 (the online softmax's
+    first steps)."""
     adj = rng.random((batch, n, n)) < 0.05
     adj[:, n_real:] = False
     adj[:, :, n_real:] = False
@@ -415,17 +432,17 @@ def _gat_bias(rng, batch, n, n_real, device):
 
 def _gat_operands(seed, batch, n, heads, f, device, n_real=None):
     rng = np.random.default_rng(seed)
-    bias = _gat_bias(rng, batch, n, n_real or n - 40, device)
+    bias = _gat_bias(rng, batch, n, n_real or _n_real(n), device)
     return (_arr(rng, batch, n, heads, f).to(device),
             _arr(rng, batch, n, heads).to(device),
             _arr(rng, batch, n, heads).to(device), bias)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,f,n", [(8, 8, 384), (1, 7, 384),
-                                       (2, 7, 200), (3, 20, 130)])
-def test_gat_attention_matches_plain(card, heads, f, n):
-    # n = 200 and 130 end inside the kernel's 32-row and 64-column tiles
+@pytest.mark.parametrize("n", GAT_NS)
+@pytest.mark.parametrize("heads", GAT_HEADS)
+@pytest.mark.parametrize("f", GAT_FS)
+def test_gat_attention_matches_plain(card, f, heads, n):
     h, ad, as_, bias = _gat_operands(heads + f + n, 2, n, heads, f, card)
     before = ga_mod.LAUNCHES
     got = ga_mod.gat_attention(h, ad, as_, bias)
@@ -439,37 +456,77 @@ def test_gat_attention_matches_plain(card, heads, f, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("activation", ACTIVATIONS)
-def test_fused_gat_precombined_matches_plain(card, activation):
-    for heads, f in ((8, 8), (1, 7)):
-        h, ad, as_, bias = _gat_operands(heads, 2, 256, heads, f, card)
-        b = _arr(np.random.default_rng(f), heads, f, scale=0.1).to(card)
-        before = fl_mod.GAT_PRE_LAUNCHES
-        got = fl_mod.fused_gat_precombined(h, ad, as_, bias, b, activation)
-        torch.cuda.synchronize()
-        assert fl_mod.GAT_PRE_LAUNCHES == before + 1
-        torch.testing.assert_close(got, fl_mod.fused_gat_precombined_plain(
-            h, ad, as_, bias, b, activation), **CARD)
+@pytest.mark.parametrize("n", GAT_NS)
+@pytest.mark.parametrize("heads", GAT_HEADS)
+@pytest.mark.parametrize("f", GAT_FS)
+def test_fused_gat_precombined_matches_plain(card, f, heads, n):
+    activation = ACTIVATIONS[(f + heads + n) % 3]
+    h, ad, as_, bias = _gat_operands(heads * f + n, 2, n, heads, f, card)
+    b = _arr(np.random.default_rng(f), heads, f, scale=0.1).to(card)
+    before = fl_mod.GAT_PRE_LAUNCHES
+    got = fl_mod.fused_gat_precombined(h, ad, as_, bias, b, activation)
+    torch.cuda.synchronize()
+    assert fl_mod.GAT_PRE_LAUNCHES == before + 1
+    torch.testing.assert_close(got, fl_mod.fused_gat_precombined_plain(
+        h, ad, as_, bias, b, activation), **CARD)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("activation", ACTIVATIONS)
-def test_fused_gat_full_matches_plain(card, activation):
-    rng = np.random.default_rng(12)
-    for heads, f, fin in ((8, 8, 300), (1, 7, 64), (9, 12, 40)):
-        # 9 heads of 12: attention head groups of 8 and 1, combine tiles
-        # of 5 and 4 whole heads
-        x = _arr(rng, 2, 256, fin).to(card)
-        w = _arr(rng, fin, heads, f, scale=0.1).to(card)
-        a_src, a_dst = (_arr(rng, heads, f).to(card) for _ in range(2))
-        b = _arr(rng, heads, f, scale=0.1).to(card)
-        bias = _gat_bias(rng, 2, 256, 220, card)
-        before = fl_mod.GAT_FULL_LAUNCHES
-        got = fl_mod.fused_gat_full(x, w, a_src, a_dst, bias, b, activation)
-        torch.cuda.synchronize()
-        assert fl_mod.GAT_FULL_LAUNCHES == before + 1
-        torch.testing.assert_close(got, fl_mod.fused_gat_full_plain(
-            x, w, a_src, a_dst, bias, b, activation), **CARD)
+@pytest.mark.parametrize("n", GAT_NS)
+@pytest.mark.parametrize("heads", GAT_HEADS)
+@pytest.mark.parametrize("f", GAT_FS)
+def test_fused_gat_full_matches_plain(card, f, heads, n):
+    # fin 40 or 300 (16-byte copies of X) and 37 or 301 (4-byte): 300 and
+    # 301 cross the tile's 128-deep partial-sum flush and wrap its
+    # 3-stage ring three times; f = 7 copies W 4 bytes at a time (its
+    # blocks start at 63-column offsets); 9 heads: attention head groups
+    # of 8 and 1, combine tiles of whole heads (5 and 4 at f = 12). W is
+    # scaled by 1 / sqrt(fin), as glorot scales it, so that H has one
+    # spread at every fin (fin 40's); at larger scores no two fp32 orders
+    # meet the bar (test_fused_gat_full_near_float64_at_large_scores)
+    rng = np.random.default_rng(12 + f + heads + n)
+    activation = ACTIVATIONS[(f + heads + n) % 3]
+    fin = (40, 37, 300, 301)[(f + heads + n // 2) % 4]
+    x = _arr(rng, 2, n, fin).to(card)
+    w = _arr(rng, fin, heads, f, scale=0.1 * (40 / fin) ** 0.5).to(card)
+    a_src, a_dst = (_arr(rng, heads, f).to(card) for _ in range(2))
+    b = _arr(rng, heads, f, scale=0.1).to(card)
+    bias = _gat_bias(rng, 2, n, _n_real(n), card)
+    before = fl_mod.GAT_FULL_LAUNCHES
+    got = fl_mod.fused_gat_full(x, w, a_src, a_dst, bias, b, activation)
+    torch.cuda.synchronize()
+    assert fl_mod.GAT_FULL_LAUNCHES == before + 1
+    torch.testing.assert_close(got, fl_mod.fused_gat_full_plain(
+        x, w, a_src, a_dst, bias, b, activation), **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, heads, n, fin, activation",
+                         [(64, 2, 1000, 300, "relu"),
+                          (7, 8, 3072, 301, "none")])
+def test_fused_gat_full_near_float64_at_large_scores(card, f, heads, n, fin,
+                                                     activation):
+    # W of scale 0.1 at fin 300: H reaches about 8 and the scores about 50,
+    # where the softmax turns fp32 rounding of H and of the scores into
+    # output differences above the card bar between any two fp32 orders
+    # (the plain version's cuBLAS product included). So the kernel is held
+    # to at most twice the plain version's error against float64, on the
+    # real rows (a padded row's -1e9 + alpha rounds to -1e9 in fp32 only).
+    rng = np.random.default_rng(14 + f + n)
+    x = _arr(rng, 2, n, fin).to(card)
+    w = _arr(rng, fin, heads, f, scale=0.1).to(card)
+    a_src, a_dst = (_arr(rng, heads, f).to(card) for _ in range(2))
+    b = _arr(rng, heads, f, scale=0.1).to(card)
+    n_real = _n_real(n)
+    bias = _gat_bias(rng, 2, n, n_real, card)
+    args = (x, w, a_src, a_dst, bias, b)
+    got = fl_mod.fused_gat_full(*args, activation)
+    plain = fl_mod.fused_gat_full_plain(*args, activation)
+    ref = fl_mod.fused_gat_full_plain(*(t.double() for t in args),
+                                      activation)
+    err_k = float((got.double() - ref)[:, :n_real].abs().max())
+    err_p = float((plain.double() - ref)[:, :n_real].abs().max())
+    assert err_k <= 2 * err_p, (err_k, err_p)
 
 
 @pytest.mark.cuda
@@ -844,13 +901,14 @@ def test_flash_attention_rejects_bad_operands(card):
 def test_tensor_core_kernels_sass(card):
     """The redesigned libraries run on the tensor cores: wgmma (HGMMA) and
     TMA loads (UTMALDG) in flash_attention's bf16 route, TF32 MMA in
-    block_matmul."""
+    block_matmul and in the three GAT libraries' attention body."""
     fa = _build.sass_counts("flash_attention_tc",
                             {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)})
-    bm = _build.sass_counts("block_matmul",
-                            {"HMMA TF32": ("HMMA", "TF32")})
     assert fa["HGMMA"] > 0 and fa["UTMALDG"] > 0, fa
-    assert bm["HMMA TF32"] > 0, bm
+    for lib in ("block_matmul", "gat_attention", "fused_gat_full",
+                "fused_gat_precombined"):
+        counts = _build.sass_counts(lib, {"HMMA TF32": ("HMMA", "TF32")})
+        assert counts["HMMA TF32"] > 0, (lib, counts)
 
 
 @pytest.mark.cuda

@@ -16,14 +16,29 @@ misses the twice-fp32 bar, and one TF32 product has hundreds of times
 fp32's relative error. At layer 1 the outputs stay below 0.03, so the
 bar's atol alone covers even one TF32 product there; at layer 2 one TF32
 product misses the bar.
+
+The GAT attention body runs its P.H the same way (`csrc/gat_tile.cuh`):
+each softmax weight p and each h element split in two, three products
+per k8 step, a fresh chain every 16 columns added in fp32. Emulated on
+the Cora GAT's serving shapes (a 3072-node bucket with the GrAx1 mask,
+layer 1's 8 heads of 8 and layer 2's 1 head of 7; rows with neighbours
+and NodePad rows, whose weights are all 1), the normalised output stays
+within the card bar of a float64 product, within 1e-6 of its scale. One
+TF32 product loses more than the bar's rtol relative to the outputs'
+scale; the served outputs stay near 0.01, where the bar's atol alone
+covers it, and with h of order one it misses the bar.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import masks
 from repro_torch.core.graph import pad_graph
 from repro_torch.data.graphs import cora_like
+from repro_torch.kernels import compare_builds as cb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as kref
 
@@ -165,6 +180,24 @@ def test_tf32_rounds_to_nearest_ties_away():
         2.0 ** -22 * np.pi)
 
 
+def test_tile_and_build_comparison_round_as_the_emulation(tmp_path):
+    # the tile's tf32_rna and compare_builds' int-split rewrite of a tile
+    # that still splits with cvt.rna use tf32()'s add and mask
+    csrc = Path(cb.__file__).parent / "csrc"
+    tile = (csrc / "tc_gemm_tile.cuh").read_text()
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in tile
+    assert cb.INT_SPLIT.count("+ 0x1000u) & 0xffffe000u") == 2
+    old = tmp_path / "old"
+    old.mkdir()
+    (old / "tc_gemm_tile.cuh").write_text("{\n" + cb.CVT_SPLIT + "}\n")
+    tree = cb.source_tree("t", old, True, out=tmp_path)
+    assert (tree / "tc_gemm_tile.cuh").read_text() == (
+        "{\n" + cb.INT_SPLIT + "}\n")
+    assert cb.source_tree("t", old, False) == old
+    with pytest.raises(SystemExit, match="no cvt.rna split"):
+        cb.source_tree("now", csrc, True, out=tmp_path)
+
+
 @pytest.mark.parametrize("case", sorted(GCN))
 def test_three_tf32_keeps_the_card_bar(case):
     a, b = GCN[case]
@@ -209,3 +242,107 @@ def test_one_tf32_product_loses_fp32_accuracy(case):
 def test_one_tf32_product_misses_the_card_bar(case):
     a, b = GCN[case]
     assert not np.allclose(one_tf32(a, b), _f64(a, b), **CARD)
+
+
+# ------------------------------------------------------- GAT body P.H
+GAT_CHAIN = 16          # columns per fresh chain: one softmax step at layer
+                        # 2, half of one at layer 1 (csrc/gat_tile.cuh)
+
+
+def _elu(x):
+    return np.where(x > 0, x, np.expm1(np.minimum(x, 0)))
+
+
+def _gat_weights(h, a_src, a_dst, bias):
+    """Per head the body's softmax weights p = exp(s - max_j s) (float32,
+    max-subtracted, as the body's once its running max is the row's) and
+    their row sums l, with s = leaky_0.2(alpha_dst + alpha_src) + bias."""
+    ad = np.einsum("nhf,hf->nh", h, a_dst).astype(np.float32)
+    as_ = np.einsum("nhf,hf->nh", h, a_src).astype(np.float32)
+    out = []
+    for hd in range(h.shape[1]):
+        e = ad[:, None, hd] + as_[None, :, hd]
+        e = np.maximum(e, np.float32(0.2) * e) + bias
+        p = np.exp((e - e.max(axis=1, keepdims=True)).astype(np.float64))
+        out.append((p.astype(np.float32), p.sum(axis=1)))
+    return out
+
+
+def _gat_serving_ph():
+    """P and H of the Cora GAT's two layers at the 3072 bucket, on 224
+    rows with neighbours and 32 NodePad rows: {layer: [(p, h, l) per
+    head]}."""
+    rng = np.random.default_rng(11)
+    pg = pad_graph(cora_like(seed=0), capacity=3072)
+    bias = masks.attention_bias_additive(
+        masks.adj_with_self_loops(pg.adj, pg.num_nodes)).astype(np.float32)
+    rows = np.r_[0:224, 3040:3072]
+    x = pg.features.astype(np.float32)
+    w1, w2 = _glorot(rng, 1433, 64), _glorot(rng, 64, 7)
+    a1 = [_glorot(rng, 8, 8) for _ in range(2)]
+    a2 = [_glorot(rng, 1, 7) for _ in range(2)]
+    h1 = np.matmul(x, w1).reshape(-1, 8, 8)
+    wts1 = _gat_weights(h1, a1[0], a1[1], bias)
+    x2 = _elu(np.stack([(p.astype(np.float64) @ h1[:, hd]) / l[:, None]
+                        for hd, (p, l) in enumerate(wts1)], axis=1)
+              ).reshape(-1, 64).astype(np.float32)
+    h2 = np.matmul(x2, w2).reshape(-1, 1, 7)
+    wts2 = _gat_weights(h2, a2[0], a2[1], bias)
+    return {layer: [(p[rows], h[:, hd], l[rows])
+                    for hd, (p, l) in enumerate(wts)]
+            for layer, h, wts in (("L1 8 heads of 8", h1, wts1),
+                                  ("L2 1 head of 7", h2, wts2))}
+
+
+GAT_PH = _gat_serving_ph()
+
+
+def test_gat_serving_weights_mix_neighbours_and_padded_rows():
+    for layer, heads in GAT_PH.items():
+        for p, _, l in heads:
+            nnz = (p > 0).sum(axis=1)
+            assert (nnz[224:] == 3072).all(), layer   # NodePad: every column
+            assert (nnz[:224] < 200).all(), layer     # the mask's density
+            assert np.allclose(l[224:], 3072.0)
+
+
+def _unit(h):
+    """h scaled to a largest |h| of 1: a layer whose h is of order one."""
+    return (h / np.abs(h).max()).astype(np.float32)
+
+
+@pytest.mark.parametrize("scale", ["served", "unit"])
+@pytest.mark.parametrize("layer", sorted(GAT_PH))
+def test_gat_body_three_tf32_keeps_the_card_bar(layer, scale):
+    for p, h, l in GAT_PH[layer]:
+        h = _unit(h) if scale == "unit" else h
+        want = _f64(p, h) / l[:, None]
+        got = three_tf32(p, h, chain=GAT_CHAIN, flush=GAT_CHAIN) / np.maximum(
+            l.astype(np.float32), np.float32(1e-12))[:, None]
+        np.testing.assert_allclose(got, want, **CARD)
+        # fp32's order of accuracy, relative to the outputs' scale
+        assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("layer", sorted(GAT_PH))
+def test_gat_body_one_tf32_product_loses_the_bar_rtol(layer):
+    """At the served data the outputs stay near 0.01, so the bar's atol
+    alone covers one TF32 product; relative to the outputs' scale it loses
+    more than the bar's rtol, hundreds of times fp32's error."""
+    for p, h, l in GAT_PH[layer]:
+        want = _f64(p, h) / l[:, None]
+        one = _rel(one_tf32(p, h) / l[:, None].astype(np.float32), want)
+        assert one > 1e-4
+        assert one > 100 * _rel(
+            np.matmul(p, h, dtype=np.float32) / l[:, None].astype(np.float32),
+            want)
+
+
+@pytest.mark.parametrize("layer", sorted(GAT_PH))
+def test_gat_body_one_tf32_product_misses_the_card_bar(layer):
+    """With h of order one, one TF32 product misses the bar that 3xTF32
+    keeps (test_gat_body_three_tf32_keeps_the_card_bar[unit])."""
+    for p, h, l in GAT_PH[layer]:
+        h = _unit(h)
+        assert not np.allclose(one_tf32(p, h) / l[:, None].astype(np.float32),
+                               _f64(p, h) / l[:, None], **CARD)
