@@ -15,7 +15,8 @@ last line; there is no CPU path):
      instructions of the redesigned libraries in their SASS
      (`cuobjdump -sass`): HGMMA and UTMALDG in flash_attention's bf16
      route, HMMA ... TF32 in block_matmul and in the three GAT libraries
-     (gat_attention, fused_gat_full, fused_gat_precombined); a count of 0
+     (gat_attention, fused_gat_full, fused_gat_precombined), IMMA in the
+     two int8 libraries (int8_matmul, fused_gcn_int8); a count of 0
      fails. Beside them, four timing variants of block_matmul's tile
      (tc_gemm_tile.cuh's TC_GEMM_PRODUCTS, TC_GEMM_SPLIT and TC_SPLIT_INT)
      and four of the GAT attention body (gat_tile.cuh's GAT_PRODUCTS and
@@ -104,12 +105,14 @@ last line; there is no CPU path):
      of 128), and the measured dense and GraSp aggregation times per
      bucket; for the redesigned kernels also the times queued behind a
      spin (block_matmul and flash_attention with TFLOP/s, the three GAT
-     kernels with bounds for 3xTF32 and for fp32 FMA products);
+     kernels with bounds for 3xTF32 and for fp32 FMA products, the two
+     int8 kernels, and torch._int_mm beside int8_matmul; int8_matmul's
+     layer-1 Aq @ Hq also on the batch's first 1-4 graphs);
      flash_attention's SIMT kernel, which served bf16 at head dim 64 and
      128 before, timed on the same inputs, and each route's host cost per
-     call; block_matmul's time on its earlier fp32 SIMT tile and the GAT
-     kernels' on their earlier SIMT body, copied from PERF.md and printed
-     as copied.
+     call; block_matmul's time on its earlier fp32 SIMT tile, the GAT
+     kernels' on their earlier SIMT body and the int8 kernels' on their
+     earlier __dp4a tile, copied from PERF.md and printed as copied.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -216,12 +219,15 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                                "src/repro/kernels/flash_attention.py:94")}
 # the libraries redesigned for the card's tensor cores and the SASS
 # instructions that show it (cuobjdump -sass; 0 fails the run): flash's
-# bf16 route, block_matmul's 3xTF32 tile and the GAT attention body
+# bf16 route, block_matmul's 3xTF32 tile, the GAT attention body and the
+# s8 tile of the two int8 kernels (mma.sync m16n8k32: IMMA.16832.S8.S8)
 SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
         "block_matmul": {"HMMA TF32": ("HMMA", "TF32")},
         **{lib: {"HMMA TF32": ("HMMA", "TF32")}
            for lib in ("gat_attention", "fused_gat_full",
-                       "fused_gat_precombined")}}
+                       "fused_gat_precombined")},
+        **{lib: {"IMMA": ("IMMA",)}
+           for lib in ("int8_matmul", "fused_gcn_int8")}}
 # block_matmul per 4 x 3072 batch on the fp32 SIMT tile it had before the
 # tensor-core redesign, copied from PERF.md section 6 (table row 1, NVIDIA
 # H100 80GB HBM3, 700 W): that tile is not built any more, so this run
@@ -233,6 +239,11 @@ BLOCK_MATMUL_SIMT_MS = 1.0023
 # this run's own
 GAT_SIMT_MS = {"gat_attention": 1.1226, "fused_gat_full": 1.3134,
                "fused_gat_precombined": 1.1306}
+# the int8 kernels per 4 x 3072 batch on the __dp4a tile they had before
+# the s8 tensor-core tile, copied from PERF.md section 6 (rows 2 and 8,
+# NVIDIA H100 80GB HBM3, 700 W): printed as copied, never as this run's own
+INT8_DP4A_MS = {"int8_matmul": 0.6146, "fused_gcn_int8": 0.6027}
+INT8_KERNELS = ("int8_matmul", "fused_gcn_int8")
 # timing variants, by library: block_matmul's tile (the switches of
 # tc_gemm_tile.cuh), timed on the batch's products, and the GAT attention
 # body (gat_tile.cuh's switches, in the gat_attention library), timed on
@@ -2080,8 +2091,10 @@ def main() -> None:
             elif kernel == "int8_matmul":
                 a, b, xs, ws = args
                 t_k = time_ms(lambda: im.int8_matmul(*args))
+                d_k = queued_ms(lambda: im.int8_matmul(*args))
                 t_p = time_ms(lambda: im.int8_matmul_plain(*args))
                 t_l = time_ms(lambda: int_mm(a, b))
+                d_l = queued_ms(lambda: int_mm(a, b))
                 flops, nbytes_ = matmul_work(a, b)
                 nbytes_ += nbytes(ws)
             elif kernel == "bitmap_spmm":
@@ -2107,8 +2120,9 @@ def main() -> None:
             elif kernel == "fused_gcn_int8":
                 x, wq, sw, xs, hs, aq_, as_, bias = args[:8]
                 t_k = time_ms(lambda: fl.fused_gcn_int8(*args))
+                d_k = queued_ms(lambda: fl.fused_gcn_int8(*args))
                 t_p = time_ms(lambda: fl.fused_gcn_int8_plain(*args))
-                t_l = None
+                t_l, d_l = None, None
                 flops, nbytes_ = fused_work(aq_, x, wq, sw, xs, hs, as_,
                                             bias)
             elif kernel == "sage_max":
@@ -2164,6 +2178,18 @@ def main() -> None:
                       f"{ms_or_not(d_k)}; bound with 3xTF32 products "
                       f"{tf_ms:.4f} ms ({tf_by}), with fp32 FMA products "
                       f"{f32_ms:.4f} ms ({f32_by}); {card}", flush=True)
+            if kernel in INT8_KERNELS:
+                for key, ms in (("device_ms", d_k),
+                                ("library_device_ms", d_l)):
+                    tot[key] = None if ms is None or tot[key] is None \
+                        else tot[key] + ms
+                i8_ms, i8_by = bound(flops, nbytes_, peak)
+                print(f"[time] {kernel} {label}: queued behind a spin, "
+                      f"kernel {ms_or_not(d_k)}"
+                      + (f", torch._int_mm {ms_or_not(d_l)}"
+                         if kernel == "int8_matmul" else "")
+                      + f"; bound {i8_ms:.4f} ms ({i8_by}); {card}",
+                      flush=True)
             if kernel in GAT_KERNELS:
                 b_ms, b_by = gat_bound(flops, exps, nbytes_)
             elif kernel == "block_matmul":
@@ -2248,6 +2274,41 @@ def main() -> None:
                   + f"; {card}", flush=True)
             row.update(body_variants_device_ms=parts,
                        body_l1_graphs_device_ms=waves)
+        if kernel in INT8_KERNELS:
+            row.update(device_ms=tot["device_ms"],
+                       tops=tot["flops"] / tot["ms"] / 1e9,
+                       library=("torch._int_mm (per graph where both "
+                                "operands are batched), a yardstick only"
+                                if kernel == "int8_matmul" else
+                                "none: no one call computes the int8 layer"))
+            if kernel == "int8_matmul":
+                row.update(library_device_ms=tot["library_device_ms"])
+            print(f"[time] {kernel}, the batch's {len(cases)} "
+                  f"{'products' if kernel == 'int8_matmul' else 'layers'}: "
+                  f"kernel {tot['ms']:.4f} ms (queued "
+                  f"{ms_or_not(tot['device_ms'])})"
+                  + (f", torch._int_mm {tot['library_ms']:.4f} ms (queued "
+                     f"{ms_or_not(tot['library_device_ms'])})"
+                     if kernel == "int8_matmul" else "")
+                  + f", plain {tot['plain_ms']:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by}); {row['tops']:.1f} TOP/s; {card}", flush=True)
+            print(f"[time] {kernel} per batch on the __dp4a tile before the "
+                  f"s8 tensor-core tile: {INT8_DP4A_MS[kernel]} ms, copied "
+                  f"from PERF.md (section 6, row "
+                  f"{2 if kernel == 'int8_matmul' else 8}; NVIDIA H100 80GB "
+                  f"HBM3, 700 W), not measured in this run", flush=True)
+        if kernel == "int8_matmul":
+            # the tile against its blocks in flight: layer 1's Aq @ Hq on
+            # the batch's first k graphs, 48 blocks of 64 rows each
+            a, b, xs, ws = cases["L1 Aq@Hq"]
+            waves = {k: queued_ms(lambda: im.int8_matmul(a[:k], b[:k], xs,
+                                                         ws))
+                     for k in range(1, SLOTS + 1)}
+            print("[breakdown] int8_matmul, L1 Aq@Hq on the batch's first k "
+                  "graphs (48 k blocks; 2 blocks an SM fit): " + ", ".join(
+                      f"{k} {ms_or_not(v)}" for k, v in waves.items())
+                  + f"; {card}", flush=True)
+            row.update(l1_aggregate_graphs_device_ms=waves)
         if kernel in SAGE_KERNELS:
             row.update(library="none: no one PyTorch call computes a "
                                "masked max over a sampled adjacency (GrAx3)"

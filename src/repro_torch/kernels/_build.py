@@ -30,7 +30,7 @@ ENTRY_POINTS = {
     "block_matmul": ("block_matmul_f32", "ppp" "iiiiii" "ip"),
     "fused_gcn_dense": ("fused_gcn_dense_f32", "pppppp" "iiiii" "ip"),
     "int8_matmul": ("int8_matmul_s8", "pppp" "iiiiii" "ip"),
-    "fused_gcn_int8": ("fused_gcn_int8_f32", "pppppppppp" "iiiii" "ip"),
+    "fused_gcn_int8": ("fused_gcn_int8_f32", "pppppppppp" "iiiiii" "ip"),
     "bitmap_spmm": ("bitmap_spmm_f32", "ppppp" "iiiii" "ip"),
     "fused_gcn_grasp": ("fused_gcn_grasp_f32", "pppppppp" "iiiiii" "ip"),
     "gat_attention": ("gat_attention_f32", "ppppp" "iiii" "ip"),

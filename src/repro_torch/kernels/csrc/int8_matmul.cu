@@ -13,8 +13,10 @@
 // 128): bytes. A batch's four products read and write about 124 MB (37 us
 // at 3.35 TB/s), while their 24.5 GOP take 12.4 us at the 1,979 TOP/s int8
 // tensor-core peak. Each Aq @ Hq reads the batch's 37.7 MB of int8 Aq and
-// takes at least 13.6 us. This dp4a tile issues on the SIMT cores and
-// stays far above that bound; a tensor-core tile is later work.
+// takes at least 13.6 us. The tile (igemm_tile.cuh) runs on the s8 tensor
+// cores (mma.sync m16n8k32) with one block across the whole 128-wide
+// output, so Aq and Xq are read once; B comes row-major, as the callers
+// hold it, and is turned to K-major words as it is staged.
 #include "igemm_tile.cuh"
 
 // a: (batch, m, k) s8 with batch stride `stride_a` elements (0 = broadcast),
@@ -28,9 +30,9 @@ extern "C" int int8_matmul_s8(const int8_t* a, const int8_t* b,
                               int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const gcn_port::i8::EpilogueArgs e{sw, nullptr, nullptr, nullptr,
-                                     gcn_port::kActNone};
-  return (int)gcn_port::i8::launch_igemm<gcn_port::i8::kEpiScale>(
-      a, b, c, batch, m, n, k, (long long)stride_a, (long long)stride_b, e,
-      (cudaStream_t)stream);
+  using namespace gcn_port::i8;
+  const EpilogueArgs e{sw, nullptr, nullptr, nullptr, gcn_port::kActNone, 0};
+  return (int)launch_igemm<kBRowMajor, kEpiScale>(
+      a, b, 0, c, batch, m, n, k, (long long)stride_a, (long long)stride_b,
+      e, (cudaStream_t)stream);
 }

@@ -172,12 +172,16 @@ def fused_gcn_int8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     if out.numel():
         check_int32("fused_gcn_int8", batch=batch, n=n, fin=fin, o=o)
         check_accumulator("fused_gcn_int8", max(fin, n))
-        hq = torch.empty(batch, n, o, dtype=torch.int8, device=device)
+        # the combine's int8 Hq, stored K-major for the aggregate's 16-byte
+        # copies: (O, n rounded up to 16) per graph
+        ldk = -(-n // 16) * 16
+        check_int32("fused_gcn_int8", hq=batch * o * ldk)
+        hq = torch.empty(batch, o, ldk, dtype=torch.int8, device=device)
         launch("fused_gcn_int8", _build.load("fused_gcn_int8"), device,
                x.data_ptr(), wq.data_ptr(), sw.data_ptr(), x_scale.data_ptr(),
                h_scale.data_ptr(), aq.data_ptr(), a_scale.data_ptr(),
                b.data_ptr(), hq.data_ptr(), out.data_ptr(), batch, n, fin, o,
-               ACTIVATIONS[activation])
+               ldk, ACTIVATIONS[activation])
         INT8_LAUNCHES += 1
     return out
 

@@ -2,11 +2,11 @@
 
 Port of the TPU kernel `int8_matmul` (reference `kernels/int8_matmul.py`)
 as hand-written CUDA C++ for `sm_90a` (`csrc/int8_matmul.cu`, tile in
-`csrc/igemm_tile.cuh`): a batched `__dp4a` GEMM over `blockIdx.z` with
-exact s32 accumulation, where a batch stride of 0 broadcasts an operand
-(the weights of a combine). As in the TPU kernel, the per-tensor
-activation scale is folded into the per-column weight scales
-(`sw = w_scale * x_scale`), so the epilogue is one multiply.
+`csrc/igemm_tile.cuh`): a batched GEMM over `blockIdx.z` on the s8 tensor
+cores (`mma.sync` m16n8k32) with exact s32 accumulation, where a batch
+stride of 0 broadcasts an operand (the weights of a combine). As in the
+TPU kernel, the per-tensor activation scale is folded into the per-column
+weight scales (`sw = w_scale * x_scale`), so the epilogue is one multiply.
 
 This module also holds the port's int8 primitives, shared by every plain
 int8 path (`core/quant.py`, the kernels' plain versions, `kernels/ref.py`):

@@ -134,14 +134,27 @@ def test_int8_matmul_matches_plain(card):
     signs = torch.full((3072, 8), 127, dtype=torch.int8)
     signs[:, 1::2] = -127                    # |acc| = 3072 * 127**2 > 2**24
     cases = [  # Xq @ Wq (Wq broadcast), Âq @ Hq (both batched), a ragged
-        # 2-D shape with K not a multiple of 4, extreme accumulators
+        # 2-D shape with K not a multiple of 4, extreme accumulators; the
+        # tile's edges (64-row blocks, 128 columns, 64-deep slabs, 16-byte
+        # copies where K % 16 == 0): N of 7, 64 and 128, M and K that are
+        # no multiple of 64 (K = 200 and 3100: no multiple of 16 either),
+        # K = 4160 > 3072 within check_accumulator, batches of 1 and of 4
+        # at the serving shape (192 blocks: the wave)
         (_s8(rng, 3, 256, 384), _s8(rng, 384, 128), torch.tensor(0.01),
          torch.rand(128)),
         (_s8(rng, 3, 256, 256), _s8(rng, 3, 256, 128), 1.0,
          torch.ones(128)),
         (_s8(rng, 70, 45), _s8(rng, 45, 30), torch.tensor(0.3),
          torch.rand(30)),
-        (full, signs, torch.tensor(1e-3), torch.rand(8))]
+        (full, signs, torch.tensor(1e-3), torch.rand(8)),
+        (_s8(rng, 4, 200, 200), _s8(rng, 200, 7), torch.tensor(0.02),
+         torch.rand(7)),
+        (_s8(rng, 2, 130, 3100), _s8(rng, 2, 3100, 64), 1.0,
+         torch.rand(64)),
+        (_s8(rng, 1, 3072, 4160), _s8(rng, 4160, 128), torch.tensor(1e-3),
+         torch.rand(128)),
+        (_s8(rng, 4, 3072, 3072), _s8(rng, 4, 3072, 128), 1.0,
+         torch.rand(128))]
     for a, b, xs, ws in cases:
         a, b, ws = a.to(card), b.to(card), ws.to(card)
         xs = xs.to(card) if isinstance(xs, torch.Tensor) else xs
@@ -175,7 +188,12 @@ def _quant_layer(rng, batch, n, fin, o, device):
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 def test_fused_gcn_int8_matches_plain(card, activation):
     rng = np.random.default_rng(7)
-    for shape in ((2, 384, 256, 128), (1, 200, 37, 10)):   # tiled, ragged
+    # tiled, ragged; then the tile's edges: N of 7 and 64, n (the
+    # aggregate's M and K) of 200 (K-major Hq at pitch 208) and 4100 > 3072,
+    # fin of 300 (no multiple of 64), batches of 1 and of 4 at the serving
+    # shape (192 blocks: the wave)
+    for shape in ((2, 384, 256, 128), (1, 200, 37, 10), (4, 200, 300, 7),
+                  (1, 4100, 128, 64), (4, 3072, 1536, 128)):
         args = _quant_layer(rng, *shape, card)
         before = fl_mod.INT8_LAUNCHES
         got = fl_mod.fused_gcn_int8(*args, activation)
@@ -526,6 +544,58 @@ def test_fused_gat_full_near_float64_at_large_scores(card, f, heads, n, fin,
                                       activation)
     err_k = float((got.double() - ref)[:, :n_real].abs().max())
     err_p = float((plain.double() - ref)[:, :n_real].abs().max())
+    assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+def _gat_large_scores(rng, n, heads, f, fin, device):
+    """h = X @ W with W of scale 0.1 at fin 300, and its alpha terms: h
+    reaches about 8 and the scores about 50, as in
+    test_fused_gat_full_near_float64_at_large_scores."""
+    x = _arr(rng, 2, n, fin).to(device)
+    w = _arr(rng, fin, heads, f, scale=0.1).to(device)
+    a_src, a_dst = (_arr(rng, heads, f).to(device) for _ in range(2))
+    h = torch.einsum("bnk,khf->bnhf", x, w).contiguous()
+    return h, (h * a_dst).sum(-1), (h * a_src).sum(-1)
+
+
+def _err_vs_float64(got, plain, ref, n_real):
+    return (float((got.double() - ref)[:, :n_real].abs().max()),
+            float((plain.double() - ref)[:, :n_real].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, heads, n", [(64, 2, 1000), (7, 8, 3072)])
+def test_gat_attention_near_float64_at_large_scores(card, f, heads, n):
+    # the attention body of fused_gat_full at scores near 50: the kernel is
+    # held to at most twice the plain version's error against float64 on
+    # the real rows
+    rng = np.random.default_rng(15 + f + n)
+    h, ad, as_ = _gat_large_scores(rng, n, heads, f, 300, card)
+    n_real = _n_real(n)
+    bias = _gat_bias(rng, 2, n, n_real, card)
+    args = (h, ad, as_, bias)
+    err_k, err_p = _err_vs_float64(
+        ga_mod.gat_attention(*args), ga_mod.gat_attention_plain(*args),
+        ga_mod.gat_attention_plain(*(t.double() for t in args)), n_real)
+    assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, heads, n, activation",
+                         [(64, 2, 1000, "relu"), (7, 8, 3072, "none")])
+def test_fused_gat_precombined_near_float64_at_large_scores(card, f, heads,
+                                                            n, activation):
+    rng = np.random.default_rng(16 + f + n)
+    h, ad, as_ = _gat_large_scores(rng, n, heads, f, 301, card)
+    b = _arr(rng, heads, f, scale=0.1).to(card)
+    n_real = _n_real(n)
+    bias = _gat_bias(rng, 2, n, n_real, card)
+    args = (h, ad, as_, bias, b)
+    err_k, err_p = _err_vs_float64(
+        fl_mod.fused_gat_precombined(*args, activation),
+        fl_mod.fused_gat_precombined_plain(*args, activation),
+        fl_mod.fused_gat_precombined_plain(*(t.double() for t in args),
+                                           activation), n_real)
     assert err_k <= 2 * err_p, (err_k, err_p)
 
 
@@ -901,7 +971,8 @@ def test_flash_attention_rejects_bad_operands(card):
 def test_tensor_core_kernels_sass(card):
     """The redesigned libraries run on the tensor cores: wgmma (HGMMA) and
     TMA loads (UTMALDG) in flash_attention's bf16 route, TF32 MMA in
-    block_matmul and in the three GAT libraries' attention body."""
+    block_matmul and in the three GAT libraries' attention body, s8 MMA
+    (IMMA) in the two int8 libraries."""
     fa = _build.sass_counts("flash_attention_tc",
                             {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)})
     assert fa["HGMMA"] > 0 and fa["UTMALDG"] > 0, fa
@@ -909,6 +980,9 @@ def test_tensor_core_kernels_sass(card):
                 "fused_gat_precombined"):
         counts = _build.sass_counts(lib, {"HMMA TF32": ("HMMA", "TF32")})
         assert counts["HMMA TF32"] > 0, (lib, counts)
+    for lib in ("int8_matmul", "fused_gcn_int8"):
+        counts = _build.sass_counts(lib, {"IMMA": ("IMMA",)})
+        assert counts["IMMA"] > 0, (lib, counts)
 
 
 @pytest.mark.cuda

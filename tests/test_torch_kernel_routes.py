@@ -346,3 +346,217 @@ def test_gat_body_one_tf32_product_misses_the_card_bar(layer):
         h = _unit(h)
         assert not np.allclose(one_tf32(p, h) / l[:, None].astype(np.float32),
                                _f64(p, h) / l[:, None], **CARD)
+
+
+# -- the int8 tile of csrc/igemm_tile.cuh: staging and the m16n8k32 map --
+
+I8_BM, I8_BN, I8_BK = 64, 128, 64        # kBM, kBN, kBK
+I8_ROW_WORDS, I8_COL_WORDS = 20, 136     # kRowWords, kColWords
+I8_THREADS = 256
+LANE = np.arange(32)
+G, T = LANE // 4, LANE % 4               # the fragments' (g, t) of a lane
+
+
+def _word(b4):
+    """(..., 4) bytes -> (...) uint32, byte e at bits 8e (little-endian)."""
+    b = b4.astype(np.int64) & 0xff
+    return (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+            ).astype(np.uint32)
+
+
+def _bytes(w):
+    """(...) uint32 -> (..., 4) signed bytes."""
+    b = (w.astype(np.int64)[..., None] >> (8 * np.arange(4))) & 0xff
+    return np.where(b > 127, b - 256, b)
+
+
+def byte_perm(x, y, s):
+    """CUDA's __byte_perm: byte i of the result is byte (s >> 4i) & 7 of
+    the eight bytes x (0-3), y (4-7)."""
+    src = np.concatenate([_bytes(x) & 0xff, _bytes(y) & 0xff], axis=-1)
+    return _word(np.stack([src[..., (s >> 4 * i) & 7] for i in range(4)],
+                          axis=-1))
+
+
+def transpose4(r):
+    """The tile's `transpose4`: four K rows of four columns -> four column
+    words of four K, by `__byte_perm`."""
+    t0, t1 = byte_perm(r[0], r[1], 0x5140), byte_perm(r[0], r[1], 0x7362)
+    t2, t3 = byte_perm(r[2], r[3], 0x5140), byte_perm(r[2], r[3], 0x7362)
+    return [byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+            byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632)]
+
+
+def _masked(src, rows, cols):
+    """src[rows, cols] with zeros where either index is out of range."""
+    ok = (rows < src.shape[0]) & (cols < src.shape[1])
+    return np.where(ok, src[np.minimum(rows, src.shape[0] - 1),
+                            np.minimum(cols, src.shape[1] - 1)], 0)
+
+
+# the A row and K word whose address lane l gives ldmatrix: row l % 8 of
+# matrix l / 8, eight rows down for matrices 1 and 3, four words (16 K)
+# on for matrices 2 and 3
+ldm_row = LANE % 8 + 8 * ((LANE // 8) % 2)
+ldm_word = 4 * (LANE // 16)
+
+
+def ldmatrix_x4(words, addr):
+    """ldmatrix.x4 .b16 over 16-byte rows: register m of lane (g, t) is
+    word t of the row whose address lane 8m + g gave."""
+    return [words[addr[8 * m + G] + T] for m in range(4)]
+
+
+def mma_m16n8k32(c, a, b):
+    """mma.sync m16n8k32 s8 as the PTX ISA places its fragments: A register
+    r holds row g + 8 (r % 2), K 4t + 16 (r // 2) + 0..3; B register r
+    holds K 4t + 16 r + 0..3 of column g; c0, c1 sit at row g, columns 2t,
+    2t + 1, and c2, c3 eight rows below."""
+    am = np.zeros((16, 32), np.int64)
+    for r in range(4):
+        am[(G + 8 * (r % 2))[:, None],
+           4 * T[:, None] + 16 * (r // 2) + np.arange(4)] = _bytes(a[r])
+    bm = np.zeros((32, 8), np.int64)
+    for r in range(2):
+        bm[4 * T[:, None] + 16 * r + np.arange(4), G[:, None]] = _bytes(b[r])
+    d = am @ bm
+    return [c[r] + d[G + 8 * (r // 2), 2 * T + r % 2] for r in range(4)]
+
+
+def igemm_tile(a, b, n, k_major):
+    """The product as the tile stages, multiplies and stores it: a (M, K)
+    int8; b (K, N) row-major, or (N, ldb) K-major with ldb >= K. Returns
+    the (M, N) sums at the places the epilogue stores them."""
+    m, k = a.shape
+    out = np.full((m, n), np.iinfo(np.int64).min)
+    q_a = np.arange(I8_BM * I8_BK // 4)              # A words of a slab
+    q_b = np.arange(I8_BK * I8_BN // 16)             # B copies of a slab
+    for row0 in range(0, m, I8_BM):
+        for col0 in range(0, n, I8_BN):
+            acc = np.zeros((8, 2, 4, 4, 32), np.int64)
+            for k0 in range(0, max(k, 1), I8_BK):
+                a_s = np.zeros(I8_BM * I8_ROW_WORDS, np.uint32)
+                r, w = q_a // 16, q_a % 16
+                a_s[r * I8_ROW_WORDS + w] = _word(_masked(
+                    a, (row0 + r)[:, None],
+                    (k0 + 4 * w)[:, None] + np.arange(4)))
+                b_s = np.zeros(I8_BN * I8_ROW_WORDS, np.uint32)
+                if k_major:
+                    # 16-byte copies of whole chunks that start below K,
+                    # read from the pitch (bytes past K included)
+                    nn, ch = q_b // 4, q_b % 4
+                    gk = (k0 + 16 * ch)[:, None] + np.arange(16)
+                    chunk = np.where(
+                        ((col0 + nn < n) & (k0 + 16 * ch < k))[:, None],
+                        _masked(b, (col0 + nn)[:, None], gk), 0)
+                    for e in range(4):
+                        b_s[nn * I8_ROW_WORDS + 4 * ch + e] = _word(
+                            chunk[:, 4 * e:4 * e + 4])
+                else:
+                    # the ring holds the slab as it lies, 64 rows of 32
+                    # words; each thread turns four rows of one word
+                    ring = _word(_masked(
+                        b, (k0 + np.arange(I8_BK))[:, None, None],
+                        col0 + 4 * np.arange(32)[None, :, None]
+                        + np.arange(4)))
+                    kw, cw = q_b // 32, q_b % 32
+                    rows = [ring[4 * kw + j, cw] for j in range(4)]
+                    for e, col_word in enumerate(transpose4(rows)):
+                        b_s[kw * I8_COL_WORDS + 4 * cw + e] = col_word
+                for warp in range(8):
+                    wm, wn = divmod(warp, 4)
+                    for kk in range(I8_BK // 32):
+                        kw = kk * 8 + T
+                        for i in range(2):
+                            frag_a = ldmatrix_x4(a_s, (
+                                (wm * 32 + i * 16 + ldm_row) * I8_ROW_WORDS
+                                + kk * 8 + ldm_word))
+                            for j in range(4):
+                                nn = wn * 32 + j * 8 + G
+                                frag_b = ([b_s[nn * I8_ROW_WORDS + kw],
+                                           b_s[nn * I8_ROW_WORDS + kw + 4]]
+                                          if k_major else
+                                          [b_s[kw * I8_COL_WORDS + nn],
+                                           b_s[(kw + 4) * I8_COL_WORDS + nn]])
+                                acc[warp, i, j] = mma_m16n8k32(
+                                    acc[warp, i, j], frag_a, frag_b)
+            for warp in range(8):
+                wm, wn = divmod(warp, 4)
+                for i in range(2):
+                    for j in range(4):
+                        for c_reg in range(4):
+                            r = row0 + wm * 32 + i * 16 + G + 8 * (c_reg // 2)
+                            c = col0 + wn * 32 + j * 8 + 2 * T + c_reg % 2
+                            ok = (r < m) & (c < n)
+                            out[r[ok], c[ok]] = acc[warp, i, j, c_reg][ok]
+    return out
+
+
+def _s8(rng, *shape):
+    return rng.integers(-127, 128, shape).astype(np.int8)
+
+
+def _int8_tile_case(name):
+    """(a, b as the tile reads it, N, K-major?, the plain product)."""
+    from repro_torch.kernels.int8_matmul import int_matmul
+    rng = np.random.default_rng(22)
+    if name == "K-major Hq":
+        # the aggregate of fused_gcn_int8: Âq (200, 200) @ Hq (200, 128),
+        # Hq stored by the combine's epilogue K-major at pitch 208, the 8
+        # bytes past K never written (junk here)
+        n, o = 200, 128
+        aq, hq = _s8(rng, n, n), _s8(rng, n, o)
+        ldk = -(-n // 16) * 16
+        scratch = _s8(rng, o, ldk)
+        r = np.arange(n)[:, None]
+        c = np.arange(o)[None, :]
+        scratch.reshape(-1)[(c * ldk + r).reshape(-1)] = hq.reshape(-1)
+        return aq, scratch, o, True, int_matmul(torch.from_numpy(aq),
+                                                torch.from_numpy(hq))
+    m, k, n = {"row-major B": (96, 192, 128), "ragged": (70, 45, 30)}[name]
+    a, b = _s8(rng, m, k), _s8(rng, k, n)
+    return a, b, n, False, int_matmul(torch.from_numpy(a), torch.from_numpy(b))
+
+
+def test_transpose4_turns_rows_into_column_words():
+    rng = np.random.default_rng(5)
+    block = _s8(rng, 4, 4)
+    got = transpose4([_word(block[j]) for j in range(4)])
+    for e in range(4):
+        np.testing.assert_array_equal(_bytes(got[e]), block[:, e])
+
+
+@pytest.mark.parametrize("case", ["row-major B", "K-major Hq", "ragged"])
+def test_int8_tile_fragment_map_reassembles_the_product(case):
+    """The s8 tile's staging (row-major B turned by `__byte_perm`, K-major
+    B copied in 16-byte chunks) and its m16n8k32 fragment indexing, at
+    the tile's shared-memory strides, give back the exact product."""
+    a, b, n, k_major, want = _int8_tile_case(case)
+    got = igemm_tile(a, b, n, k_major)
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("operand", ["A", "K-major B", "row-major B"])
+def test_int8_tile_fragment_reads_hit_32_banks(operand):
+    """Each fragment read of a warp touches 32 different banks of shared
+    memory at the tile's strides (word address mod 32): a 32-bit read of B
+    across the warp, and each 8-lane phase of A's ldmatrix (eight 16-byte
+    rows)."""
+    for wm, wn, kk, f, reg in np.ndindex(2, 4, 2, 4, 4):
+        kw = kk * 8 + T + 4 * (reg // 2)
+        if operand == "A":
+            if f >= 2 or reg:
+                continue
+            rows = ((wm * 32 + f * 16 + ldm_row) * I8_ROW_WORDS + kk * 8
+                    + ldm_word)
+            for m in range(4):
+                phase = rows[8 * m:8 * m + 8, None] + np.arange(4)
+                assert len(set((phase % 32).ravel().tolist())) == 32
+            continue
+        if reg % 2:
+            continue                       # B has two registers: 0 and 2
+        elif operand == "K-major B":
+            addr = (wn * 32 + f * 8 + G) * I8_ROW_WORDS + kw
+        else:
+            addr = kw * I8_COL_WORDS + wn * 32 + f * 8 + G
+        assert len(set((addr % 32).tolist())) == 32, (operand, wm, wn, kk)
