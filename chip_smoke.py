@@ -14,13 +14,16 @@ last line; there is no CPU path):
      print ptxas's register/shared-memory lines, and count the tensor-core
      instructions of the redesigned libraries in their SASS
      (`cuobjdump -sass`): HGMMA and UTMALDG in flash_attention's bf16
-     route, HMMA ... TF32 in block_matmul and in the three GAT libraries
-     (gat_attention, fused_gat_full, fused_gat_precombined), IMMA in the
-     two int8 libraries (int8_matmul, fused_gcn_int8); a count of 0
-     fails. Beside them, four timing variants of block_matmul's tile
-     (tc_gemm_tile.cuh's TC_GEMM_PRODUCTS, TC_GEMM_SPLIT and TC_SPLIT_INT)
-     and four of the GAT attention body (gat_tile.cuh's GAT_PRODUCTS and
-     GAT_EXP, and TC_SPLIT_INT), timed in phase 9 (`[breakdown]`);
+     route, HMMA ... TF32 in block_matmul, in the three GAT libraries
+     (gat_attention, fused_gat_full, fused_gat_precombined) and in
+     fused_sage, IMMA in the two int8 libraries (int8_matmul,
+     fused_gcn_int8); a count of 0 fails. Beside them, four timing
+     variants of block_matmul's tile (tc_gemm_tile.cuh's TC_GEMM_PRODUCTS,
+     TC_GEMM_SPLIT and TC_SPLIT_INT), four of the GAT attention body
+     (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
+     of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 9
+     (`[breakdown]`);
   2. kernels — `block_matmul` (3xTF32 on the tensor cores) and
      `fused_gcn_dense` against their plain PyTorch versions at the serving
      shapes (4 Cora-sized graphs padded to
@@ -105,14 +108,19 @@ last line; there is no CPU path):
      of 128), and the measured dense and GraSp aggregation times per
      bucket; for the redesigned kernels also the times queued behind a
      spin (block_matmul and flash_attention with TFLOP/s, the three GAT
-     kernels with bounds for 3xTF32 and for fp32 FMA products, the two
-     int8 kernels, and torch._int_mm beside int8_matmul; int8_matmul's
-     layer-1 Aq @ Hq also on the batch's first 1-4 graphs);
+     kernels and fused_sage with bounds for 3xTF32 and for fp32 FMA
+     products, the two int8 kernels, and torch._int_mm beside int8_matmul;
+     int8_matmul's layer-1 Aq @ Hq also on the batch's first 1-4 graphs;
+     fused_sage's layer 1 split into the walk and the combine, the
+     combine's X and AGG loops apart, a split-K grid without its
+     reduction, the pair run one graph at a time, and the combine on the
+     batch's first 1-4 graphs);
      flash_attention's SIMT kernel, which served bf16 at head dim 64 and
      128 before, timed on the same inputs, and each route's host cost per
      call; block_matmul's time on its earlier fp32 SIMT tile, the GAT
-     kernels' on their earlier SIMT body and the int8 kernels' on their
-     earlier __dp4a tile, copied from PERF.md and printed as copied.
+     kernels' on their earlier SIMT body, the int8 kernels' on their
+     earlier __dp4a tile and fused_sage's on its earlier SIMT combine,
+     copied from PERF.md and printed as copied.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -219,13 +227,13 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                                "src/repro/kernels/flash_attention.py:94")}
 # the libraries redesigned for the card's tensor cores and the SASS
 # instructions that show it (cuobjdump -sass; 0 fails the run): flash's
-# bf16 route, block_matmul's 3xTF32 tile, the GAT attention body and the
-# s8 tile of the two int8 kernels (mma.sync m16n8k32: IMMA.16832.S8.S8)
+# bf16 route, block_matmul's 3xTF32 tile (also fused_sage's combine), the
+# GAT attention body and the s8 tile of the two int8 kernels (mma.sync
+# m16n8k32: IMMA.16832.S8.S8)
 SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
-        "block_matmul": {"HMMA TF32": ("HMMA", "TF32")},
         **{lib: {"HMMA TF32": ("HMMA", "TF32")}
-           for lib in ("gat_attention", "fused_gat_full",
-                       "fused_gat_precombined")},
+           for lib in ("block_matmul", "gat_attention", "fused_gat_full",
+                       "fused_gat_precombined", "fused_sage")},
         **{lib: {"IMMA": ("IMMA",)}
            for lib in ("int8_matmul", "fused_gcn_int8")}}
 # block_matmul per 4 x 3072 batch on the fp32 SIMT tile it had before the
@@ -244,13 +252,20 @@ GAT_SIMT_MS = {"gat_attention": 1.1226, "fused_gat_full": 1.3134,
 # NVIDIA H100 80GB HBM3, 700 W): printed as copied, never as this run's own
 INT8_DP4A_MS = {"int8_matmul": 0.6146, "fused_gcn_int8": 0.6027}
 INT8_KERNELS = ("int8_matmul", "fused_gcn_int8")
+# fused_sage per 4 x 3072 batch (both layers) with the fp32 SIMT combine it
+# had before the 3xTF32 tile, by aggregator, copied from PERF.md section 6
+# (row 12, NVIDIA H100 80GB HBM3, 700 W): printed as copied, never as this
+# run's own
+FUSED_SAGE_SIMT_MS = {"mean": 0.5381, "max": 0.5486}
 # timing variants, by library: block_matmul's tile (the switches of
-# tc_gemm_tile.cuh), timed on the batch's products, and the GAT attention
+# tc_gemm_tile.cuh), timed on the batch's products, the GAT attention
 # body (gat_tile.cuh's switches, in the gat_attention library), timed on
-# the layer-1 and layer-2 serving batches. Built beside the libraries; what
-# the split, the two extra products and the exponentials cost. Their
-# results are not the kernels' (one product is not fp32-accurate, and a
-# multiply is no exponential).
+# the layer-1 and layer-2 serving batches, and fused_sage's parts (its
+# own switches), timed on the layer-1 serving batches. Built beside the
+# libraries; what the split, the two extra products, the exponentials,
+# the walk and each K loop cost. Their results are not the kernels' (one
+# product is not fp32-accurate, a multiply is no exponential, and a part
+# is not the whole).
 VARIANTS = {"block_matmul": {"3 products, no split": ("-DTC_GEMM_SPLIT=0",),
                              "1 product": ("-DTC_GEMM_PRODUCTS=1",),
                              "1 product, no split": ("-DTC_GEMM_PRODUCTS=1",
@@ -260,7 +275,15 @@ VARIANTS = {"block_matmul": {"3 products, no split": ("-DTC_GEMM_SPLIT=0",),
                               "exp as a multiply": ("-DGAT_EXP=0",),
                               "1 product, exp as a multiply": (
                                   "-DGAT_PRODUCTS=1", "-DGAT_EXP=0"),
-                              "split by cvt.rna": ("-DTC_SPLIT_INT=0",)}}
+                              "split by cvt.rna": ("-DTC_SPLIT_INT=0",)},
+            "fused_sage": {"walk alone": ("-DSAGE_COMBINE=0",),
+                           "combine alone": ("-DSAGE_WALK=0",),
+                           "combine, X loop alone": ("-DSAGE_WALK=0",
+                                                     "-DSAGE_NEIGH_LOOP=0"),
+                           "combine, AGG loop alone": ("-DSAGE_WALK=0",
+                                                       "-DSAGE_SELF_LOOP=0"),
+                           "combine as a split-K without its reduction": (
+                               "-DSAGE_WALK=0", "-DSAGE_SPLIT=1")}}
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"block_matmul": (bm, "LAUNCHES"),
             "fused_gcn_dense": (fl, "LAUNCHES"),
@@ -403,6 +426,20 @@ def run_gat_variant(fn, h, alpha_dst, alpha_src, bias, out):
     launch("gat_attention", fn, h.device, h.data_ptr(), alpha_dst.data_ptr(),
            alpha_src.data_ptr(), bias.data_ptr(), out.data_ptr(),
            *h.shape)
+
+
+def run_sage_variant(fn, mask, xk, x, w_self, w_neigh, b, aggregator,
+                     activation):
+    """One launch of a fused_sage variant, with the scratch and output the
+    wrapper allocates, counted nowhere."""
+    batch, n, fin = x.shape
+    agg = fl.sage_scratch(x)
+    out = torch.empty(batch, n, w_self.shape[1], device=x.device)
+    launch("fused_sage", fn, x.device, mask.data_ptr(), xk.data_ptr(),
+           x.data_ptr(), w_self.data_ptr(), w_neigh.data_ptr(), b.data_ptr(),
+           agg.data_ptr(), out.data_ptr(), batch, n, fin, agg.shape[-1],
+           w_self.shape[1], int(aggregator == "max"),
+           fl.ACTIVATIONS[activation])
 
 
 def graphs():
@@ -562,17 +599,31 @@ def walk_work(mask, f):
 
 
 def fused_sage_work(mask, xk, x, w_self, w_neigh, b, aggregator, act):
-    """(ops, bytes) of one fused SAGE layer: the walk's multiply-max (or
-    fma) per set entry and feature, both combines; the mask, X, the
-    weights and the bias read once, for max also each pooled row that a
-    set entry names, and the (B, N, O) output written once."""
+    """(walk ops, combine flops, bytes) of one fused SAGE layer: the walk's
+    multiply-max (or fma) per set entry and feature, both combines'
+    products; the mask, X, the weights and the bias read once, for max
+    also each pooled row that a set entry names, and the (B, N, O) output
+    written once."""
     bsz, n, fin = x.shape
     o = w_self.shape[1]
     nz = mask != 0
     moved = nbytes(mask, x, w_self, w_neigh, b) + 4.0 * bsz * n * o
     if aggregator == "max":
         moved += 4.0 * float(nz.any(dim=-2).sum().item()) * fin
-    return 2.0 * float(nz.sum().item()) * fin + 4.0 * bsz * n * fin * o, moved
+    return (2.0 * float(nz.sum().item()) * fin, 4.0 * bsz * n * fin * o,
+            moved)
+
+
+def sage_bound(walk_ops, flops, nbytes_, tf32=True):
+    """(least ms, what bounds it): the walk's operations at the fp32 rate,
+    then the combine's products as the kernel does them (three TF32
+    products per fp32 product on the tensor cores) or with tf32=False on
+    fp32 FMA; or the HBM bytes."""
+    t_ops = walk_ops / FP32_FLOPS_PER_S + (
+        3 * flops / TF32_FLOPS_PER_S if tf32 else flops / FP32_FLOPS_PER_S)
+    t_bytes = nbytes_ / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def gat_bound(flops, exps, nbytes_, tf32=True):
@@ -2059,7 +2110,9 @@ def main() -> None:
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0, "exps": 0.0,
                "mean": 0.0, "max": 0.0, "device_ms": 0.0,
-               "library_device_ms": 0.0}
+               "library_device_ms": 0.0, "walk_ops": 0.0,
+               "combine_flops": 0.0, "mean_device_ms": 0.0,
+               "max_device_ms": 0.0}
         peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
                 else FP32_FLOPS_PER_S)
         for label, args in cases.items():
@@ -2132,10 +2185,24 @@ def main() -> None:
                 flops, nbytes_ = walk_work(args[0], args[1].shape[-1])
             elif kernel == "fused_sage":
                 t_k = time_ms(lambda: fl.fused_sage(*args))
+                d_k = queued_ms(lambda: fl.fused_sage(*args))
                 t_p = time_ms(lambda: fl.fused_sage_plain(*args))
                 t_l = None
-                flops, nbytes_ = fused_sage_work(*args)
+                walk_ops, combine_flops, nbytes_ = fused_sage_work(*args)
+                flops = walk_ops + combine_flops
+                tot["walk_ops"] += walk_ops
+                tot["combine_flops"] += combine_flops
                 tot[args[6]] += t_k
+                for key in ("device_ms", f"{args[6]}_device_ms"):
+                    tot[key] = (None if d_k is None or tot[key] is None
+                                else tot[key] + d_k)
+                tf_ms, tf_by = sage_bound(walk_ops, combine_flops, nbytes_)
+                f32_ms, f32_by = sage_bound(walk_ops, combine_flops,
+                                            nbytes_, tf32=False)
+                print(f"[time] fused_sage {label}: queued behind a spin "
+                      f"{ms_or_not(d_k)}; bound with 3xTF32 products "
+                      f"{tf_ms:.4f} ms ({tf_by}), with fp32 FMA products "
+                      f"{f32_ms:.4f} ms ({f32_by}); {card}", flush=True)
                 if args[6] == "mean":
                     # the dense yardstick of the mean walk: M @ X
                     t_d = time_ms(lambda: torch.matmul(args[0], args[1]))
@@ -2192,7 +2259,7 @@ def main() -> None:
                       flush=True)
             if kernel in GAT_KERNELS:
                 b_ms, b_by = gat_bound(flops, exps, nbytes_)
-            elif kernel == "block_matmul":
+            elif kernel in ("block_matmul", "fused_sage"):
                 b_ms, b_by = tf_ms, tf_by
             else:
                 b_ms, b_by = bound(flops, nbytes_, peak)
@@ -2213,6 +2280,9 @@ def main() -> None:
         elif kernel == "block_matmul":
             b_ms, b_by = bound(3 * tot["flops"], tot["bytes"],
                                TF32_FLOPS_PER_S)
+        elif kernel == "fused_sage":
+            b_ms, b_by = sage_bound(tot["walk_ops"], tot["combine_flops"],
+                                    tot["bytes"])
         else:
             b_ms, b_by = bound(tot["flops"], tot["bytes"], peak)
         src, replaces = SOURCES[kernel]
@@ -2315,10 +2385,80 @@ def main() -> None:
                        + (" or the fused SAGE layer"
                           if kernel == "fused_sage" else ""))
         if kernel == "fused_sage":
+            f32_ms, f32_by = sage_bound(tot["walk_ops"],
+                                        tot["combine_flops"], tot["bytes"],
+                                        tf32=False)
             row.update(mean_ms=tot["mean"], max_ms=tot["max"],
+                       device_ms=tot["device_ms"],
+                       mean_device_ms=tot["mean_device_ms"],
+                       max_device_ms=tot["max_device_ms"],
                        dense_matmul_ms=tot["dense_ms"],
                        dense_matmul="torch.matmul(mean_mask, X), both "
-                                    "layers")
+                                    "layers",
+                       bound_note="the walk's operations at 67 TFLOP/s, "
+                                  "then 3 TF32 products per combine product "
+                                  "at 495 TFLOP/s, or the bytes at 3.35 "
+                                  "TB/s",
+                       bound_fp32_fma_ms=f32_ms)
+            print(f"[time] fused_sage, the batch's {len(cases)} layers: "
+                  f"kernel {tot['ms']:.4f} ms (queued "
+                  f"{ms_or_not(tot['device_ms'])}; mean pair "
+                  f"{ms_or_not(tot['mean_device_ms'])}, max pair "
+                  f"{ms_or_not(tot['max_device_ms'])}), plain "
+                  f"{tot['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                  f"3xTF32 combine products), {f32_ms:.4f} ms ({f32_by}, "
+                  f"fp32 FMA products); {card}", flush=True)
+            print(f"[time] fused_sage per batch (both layers) with the fp32 "
+                  f"SIMT combine before the 3xTF32 tile: mean "
+                  f"{FUSED_SAGE_SIMT_MS['mean']} ms, max "
+                  f"{FUSED_SAGE_SIMT_MS['max']} ms, copied from PERF.md "
+                  f"(section 6, row 12; NVIDIA H100 80GB HBM3, 700 W), not "
+                  f"measured in this run", flush=True)
+
+            def graph_slices(args, sl):
+                return tuple(a[sl] if isinstance(a, torch.Tensor)
+                             and a.dim() == 3 else a for a in args)
+            # what holds layer 1: the walk, the combine and its two K loops
+            # (X by 4-byte copies, AGG by 16-byte ones, the same K), the
+            # combine with each K loop in blocks of its own, and the pair
+            # run one graph at a time (17.6 MB of AGG a graph, against the
+            # batch's 70 MB)
+            parts = {}
+            for label in ("mean L1 relu", "max L1 relu"):
+                args = cases[label]
+                per_graph = [graph_slices(args, slice(i, i + 1))
+                             for i in range(SLOTS)]
+                parts[label] = {"pair (fused_sage)": queued_ms(
+                    lambda: fl.fused_sage(*args))}
+                for v_label, fn in variant_fns["fused_sage"].items():
+                    parts[label][v_label] = queued_ms(
+                        lambda: run_sage_variant(fn, *args))
+                parts[label]["pair, one graph at a time"] = queued_ms(
+                    lambda: [fl.fused_sage(*g) for g in per_graph])
+                x_ms = parts[label]["combine, X loop alone"]
+                g_ms = parts[label]["combine, AGG loop alone"]
+                print(f"[breakdown] fused_sage {label} per batch, queued "
+                      f"behind a spin: " + ", ".join(
+                          f"{k_} {ms_or_not(v_)}"
+                          for k_, v_ in parts[label].items())
+                      + "; the X loop's 4-byte copies cost "
+                      + ("not measured" if x_ms is None or g_ms is None
+                         else f"{x_ms - g_ms:.4f} ms over the AGG loop's "
+                              f"16-byte copies")
+                      + f"; {card}", flush=True)
+            # the combine against its blocks in flight: layer 1 on the
+            # batch's first k graphs, 48 k blocks of 64 rows on 132 SMs
+            combine = variant_fns["fused_sage"]["combine alone"]
+            args = cases["mean L1 relu"]
+            waves = {k: queued_ms(lambda: run_sage_variant(
+                combine, *graph_slices(args, slice(0, k))))
+                for k in range(1, SLOTS + 1)}
+            print("[breakdown] fused_sage's combine, L1 on the batch's first "
+                  "k graphs (48 k blocks of 128 threads on 132 SMs): "
+                  + ", ".join(f"{k} {ms_or_not(v)}" for k, v in waves.items())
+                  + f"; {card}", flush=True)
+            row.update(l1_parts_device_ms=parts,
+                       l1_combine_graphs_device_ms=waves)
         if kernel == "block_matmul":
             f32_ms, f32_by = bound(tot["flops"], tot["bytes"])
             # what holds the tile: each variant over the same products

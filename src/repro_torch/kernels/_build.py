@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "fused_gat_precombined": ("fused_gat_precombined_f32",
                               "pppppp" "iiiii" "ip"),
     "sage_max": ("sage_max_f32", "ppp" "iii" "ip"),
-    "fused_sage": ("fused_sage_f32", "pppppppp" "iiiiii" "ip"),
+    "fused_sage": ("fused_sage_f32", "pppppppp" "iiiiiii" "ip"),
     "flash_attention": ("flash_attention_fwd",
                         "pppp" "iiiiiiiiii" "ff" "ip"),
     "flash_attention_tc": ("flash_attention_tc_fwd",

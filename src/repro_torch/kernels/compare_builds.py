@@ -1,10 +1,13 @@
-"""Time block_matmul's CUDA library built from several source trees, in one
-process on one card, over the Cora-width GCN's four serving products (a
-4 x 3072 batch: X @ W1, A @ H1, X2 @ W2, A @ H2).
+"""Time the CUDA libraries built on the 3xTF32 tile (tc_gemm_tile.cuh's
+`mma_tile`) from several source trees, in one process on one card:
+block_matmul over the Cora-width GCN's four serving products (a 4 x 3072
+batch: X @ W1, A @ H1, X2 @ W2, A @ H2) and fused_gat_full over the Cora
+GAT's two serving layers (4 x 3072: 1433 features to 8 heads of 8, ELU;
+64 to 1 head of 7).
 
 Run from the checkout's root. Each argument is LABEL=DIR or
-LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding block_matmul.cu
-and the headers it includes (this checkout's
+LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding block_matmul.cu,
+fused_gat_full.cu and the headers they include (this checkout's
 `src/repro_torch/kernels/csrc`, or an earlier commit's, unpacked with
 `git archive` into a git-ignored directory such as build/). An OPTION is
 an extra nvcc flag (`-DTC_SPLIT_INT=0`), or `int-split`: build a copy of
@@ -12,10 +15,11 @@ a tree whose split_tf32 still rounds with cvt.rna.tf32.f32 with the
 integer rounding instead (the same bits), so that two tile layouts are
 compared at one rounding.
 
-Prints each build's ptxas registers and SASS instruction count, checks that
-every build's products equal the first build's bit for bit, then the
-batch's time queued behind a spin (`timing.queued_ms`) for each
-build in the order given and back, three times: median, min and max.
+For each library, prints each build's ptxas registers and SASS instruction
+count, checks that every build's outputs equal the first build's bit for
+bit, then the batch's time queued behind a spin (`timing.queued_ms`) for
+each build in the order given and back, three times: median, min and
+max.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.compare_builds \\
         now=src/repro_torch/kernels/csrc \\
@@ -64,23 +68,85 @@ def source_tree(label: str, src: Path, int_split: bool,
     return tree
 
 
+LIBRARIES = ("block_matmul", "fused_gat_full")
+
+
 def build_all(specs):
-    """Compile every build at once: {label: (library, ptxas log)}."""
+    """Compile every build of every library at once: {(label, library):
+    (shared library, ptxas log)}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, (tree, flags) in specs.items():
-        lib = OUT / f"{label}.so"
-        procs[label] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(tree / "block_matmul.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in LIBRARIES:
+            lib = OUT / f"{label}_{name}.so"
+            procs[label, name] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o",
+                 str(lib), str(tree / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
-    for label, (lib, proc) in procs.items():
+    for key, (lib, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise SystemExit(f"{label}: nvcc failed\n{log}")
-        built[label] = (lib, log)
+            raise SystemExit(f"{key}: nvcc failed\n{log}")
+        built[key] = (lib, log)
     return built
+
+
+def workloads(dev):
+    """Per library, (outputs, run(fn)): the serving batch each build's
+    entry point computes into `outputs`."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ordinal = dev.index or 0
+
+    def check(err):
+        if err != 0:
+            raise SystemExit(f"launch failed: cudaError {err}")
+
+    adj = rand(4, 3072, 3072).abs() / 3072
+    products = [(rand(4, 3072, 1536), rand(1536, 128)),
+                (adj, rand(4, 3072, 128)),
+                (rand(4, 3072, 128), rand(128, 128)),
+                (adj, rand(4, 3072, 128))]
+    mm_outs = [torch.empty(4, 3072, 128, device=dev) for _ in products]
+
+    def matmuls(fn):
+        for (a, b), out in zip(products, mm_outs):
+            m, k = a.shape[-2:]
+            n = b.shape[-1]
+            check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 4, m, n, k,
+                     m * k if a.dim() == 3 else 0,
+                     k * n if b.dim() == 3 else 0, ordinal, stream))
+
+    # the GAT layers' additive mask: 0 on about 0.3% of the columns and on
+    # the diagonal, -1e9 elsewhere
+    keep = torch.rand(4, 3072, 3072, device=dev, generator=gen) < 3e-3
+    keep |= torch.eye(3072, dtype=torch.bool, device=dev)
+    bias = torch.where(keep, 0.0, -1e9)
+    layers = []
+    for fin, heads, f, act in ((1433, 8, 8, 2), (64, 1, 7, 0)):
+        x = rand(4, 3072, fin)
+        w = rand(fin, heads, f, scale=fin ** -0.5)
+        args = (x, w, rand(heads, f), rand(heads, f), bias,
+                rand(heads, f, scale=0.1))
+        scratch = (torch.empty(4, 3072, heads, f, device=dev),
+                   torch.empty(4, 3072, heads, device=dev),
+                   torch.empty(4, 3072, heads, device=dev))
+        layers.append((args, scratch, torch.empty(4, 3072, heads, f,
+                                                  device=dev),
+                       (4, 3072, fin, heads, f, act)))
+
+    def gat(fn):
+        for args, scratch, out, sizes in layers:
+            check(fn(*(t.data_ptr() for t in (*args, *scratch, out)),
+                     *sizes, ordinal, stream))
+
+    return {"block_matmul": (mm_outs, matmuls),
+            "fused_gat_full": ([out for *_, out, _ in layers], gat)}
 
 
 def main(argv) -> None:
@@ -96,66 +162,47 @@ def main(argv) -> None:
     if not specs:
         raise SystemExit(__doc__)
     card = card_line()
-    fns = {}
-    for label, (lib, log) in build_all(specs).items():
+    fns = {name: {} for name in LIBRARIES}
+    for (label, name), (lib, log) in build_all(specs).items():
         regs = re.findall(r"Used (\d+) registers", log)
         sass = subprocess.run([_build.cuobjdump_path(), "-sass", str(lib)],
                               capture_output=True, text=True,
                               check=True).stdout
         count = len(re.findall(r"/\*[0-9a-f]{4}\*/", sass))
-        print(f"{label}: registers per kernel {regs}, {count} SASS "
+        print(f"{label} {name}: registers per kernel {regs}, {count} SASS "
               f"instructions", flush=True)
-        symbol, kinds = _build.ENTRY_POINTS["block_matmul"]
+        symbol, kinds = _build.ENTRY_POINTS[name]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes = [_build._CTYPES[k] for k in kinds]
         fn.restype = ctypes.c_int
-        fns[label] = fn
+        fns[name][label] = fn
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    work = workloads(torch.device("cuda"))
+    for name in LIBRARIES:
+        outs, run = work[name]
+        first = None
+        for label, fn in fns[name].items():
+            run(fn)
+            torch.cuda.synchronize()
+            got = [o.clone() for o in outs]
+            first = first or (label, got)
+            if not all(torch.equal(x, y) for x, y in zip(first[1], got)):
+                raise SystemExit(f"{label}'s {name} outputs differ from "
+                                 f"{first[0]}'s")
+        print(f"{name}: every build's outputs equal {first[0]}'s bit for "
+              "bit", flush=True)
 
-    def rand(*shape):
-        return torch.randn(*shape, device=dev, generator=gen)
-
-    adj = rand(4, 3072, 3072).abs() / 3072
-    products = [(rand(4, 3072, 1536), rand(1536, 128)),
-                (adj, rand(4, 3072, 128)),
-                (rand(4, 3072, 128), rand(128, 128)),
-                (adj, rand(4, 3072, 128))]
-    outs = [torch.empty(4, 3072, 128, device=dev) for _ in products]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def batch(fn):
-        for (a, b), out in zip(products, outs):
-            m, k = a.shape[-2:]
-            n = b.shape[-1]
-            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 4, m, n, k,
-                     m * k if a.dim() == 3 else 0,
-                     k * n if b.dim() == 3 else 0, dev.index or 0, stream)
-            if err != 0:
-                raise SystemExit(f"launch failed: cudaError {err}")
-
-    first = None
-    for label, fn in fns.items():
-        batch(fn)
-        torch.cuda.synchronize()
-        got = [o.clone() for o in outs]
-        first = first or (label, got)
-        if not all(torch.equal(x, y) for x, y in zip(first[1], got)):
-            raise SystemExit(f"{label}'s products differ from {first[0]}'s")
-    print(f"every build's products equal {first[0]}'s bit for bit",
-          flush=True)
-
-    times = {label: [] for label in fns}
-    order = list(fns)
-    for _ in range(3):
-        for label in order + order[::-1]:
-            times[label].append(queued_ms(lambda: batch(fns[label])))
-    for label, ts in times.items():
-        ts = sorted(t for t in ts if t is not None)
-        print(f"{label}: per batch, queued behind a spin, median "
-              f"{ts[len(ts) // 2]:.4f} ms (min {ts[0]:.4f}, max "
-              f"{ts[-1]:.4f}, {len(ts)} runs); {card}", flush=True)
+        times = {label: [] for label in fns[name]}
+        order = list(fns[name])
+        for _ in range(3):
+            for label in order + order[::-1]:
+                times[label].append(queued_ms(
+                    lambda: run(fns[name][label])))
+        for label, ts in times.items():
+            ts = sorted(t for t in ts if t is not None)
+            print(f"{label} {name}: per batch, queued behind a spin, median "
+                  f"{ts[len(ts) // 2]:.4f} ms (min {ts[0]:.4f}, max "
+                  f"{ts[-1]:.4f}, {len(ts)} runs); {card}", flush=True)
 
 
 if __name__ == "__main__":

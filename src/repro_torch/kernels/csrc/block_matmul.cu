@@ -30,8 +30,8 @@ __global__ void __launch_bounds__(kThreads)
   B += blockIdx.z * stride_b;
   C += blockIdx.z * (long long)M * N;
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  float acc[kMT][kNT][4];
-  mma_tile<VEC, VEC>(A, B, M, N, K, row0, col0, acc);
+  float acc[kMT][kNT][4] = {};
+  mma_tile<VEC, VEC>(A, B, M, N, K, K, row0, col0, acc);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / kWN) * (kBM / kWM);

@@ -54,8 +54,8 @@ combine_kernel(const float* __restrict__ x, const float* __restrict__ w,
   alpha_src += (long long)z * n * heads;
   alpha_dst += (long long)z * n * heads;
 
-  float acc[tc::kMT][tc::kNT][4];
-  tc::mma_tile<VX, VW>(x, w, n, hf, fin, row0, col0, acc);
+  float acc[tc::kMT][tc::kNT][4] = {};
+  tc::mma_tile<VX, VW>(x, w, n, hf, fin, fin, row0, col0, acc);
   __syncthreads();                             // the ring becomes the tile
 
   float (*tile)[tc::kBN + 1] =

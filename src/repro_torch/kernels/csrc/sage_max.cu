@@ -22,6 +22,6 @@ extern "C" int sage_max_f32(const float* mask, const float* h, float* out,
                             void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)gcn_port::sage::launch_walk(mask, h, out, batch, n, f, true,
-                                          (cudaStream_t)stream);
+  return (int)gcn_port::sage::launch_walk(mask, h, out, batch, n, f, f,
+                                          true, (cudaStream_t)stream);
 }

@@ -1,12 +1,13 @@
 // fp32 GEMM on the TF32 tensor cores with fp32 accuracy (3xTF32), for
-// `block_matmul` and the combine of `fused_gat_full` (sm_90a):
+// `block_matmul` and the combines of `fused_gat_full` and `fused_sage`
+// (sm_90a):
 //
 //   C[z] = A[z] @ B[z]      z = blockIdx.z, row-major fp32 operands
 //
-// The block's main loop is the device function `mma_tile`, which both
-// kernels call, and `launch_ring` launches either with the ring's shared
-// memory; the GAT attention body (gat_tile.cuh) takes the split_tf32,
-// mma_tf32 and cp.async helpers.
+// The block's main loop is the device function `mma_tile`, which the three
+// kernels call (fused_sage twice, into one accumulator), and `launch_ring`
+// launches any of them with the ring's shared memory; the GAT attention
+// body (gat_tile.cuh) takes the split_tf32, mma_tf32 and cp.async helpers.
 //
 // 3xTF32: each operand element x is split into big = tf32(x) (round to
 // nearest, ties away, to 10 mantissa bits: the bits cvt.rna.tf32.f32
@@ -34,9 +35,10 @@
 // fragments it loads. Shared rows are padded (A by 4 floats, B by 8) so
 // the fragment loads hit 32 banks. Ragged edges are zero-filled on load
 // and masked on store, so any M, N, K works. 16-byte copies need
-// 16-byte-aligned rows: where K (for A) or N (for B) is not a multiple of
-// 4, or a base is not 16-byte aligned, the same kernel is instantiated
-// with 4-byte copies of that operand.
+// 16-byte-aligned rows: where A's row pitch or N (for B) is not a multiple
+// of 4, or a base is not 16-byte aligned, the same kernel is instantiated
+// with 4-byte copies of that operand. A's pitch may exceed K (a scratch
+// padded to 16-byte rows, whose pad mma_tile's PA option never reads).
 // A batch stride of 0 broadcasts an operand.
 //
 // Three compile-time switches exist only to time the tile's parts (the
@@ -81,18 +83,23 @@ static_assert(kBM * kBK / 4 % kThreads == 0 && kBK * kBN / 4 % kThreads == 0,
 static_assert(kFlush % kBK == 0 && kBK % kChain == 0 && kChain % 8 == 0,
               "chains and partial sums cover whole slabs");
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid, int bytes) {
+// Copy `bytes` (4 or 16) from global src to shared dst, reading only the
+// first `src_bytes` of them (0 reads nothing) and zero-filling the rest.
+__device__ __forceinline__ void cp_async_part(float* dst, const float* src,
+                                              int bytes, int src_bytes) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? bytes : 0;         // 0 bytes read: zero-fill
   if (bytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
+                 "l"(src), "r"(src_bytes)
                  : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
+                 "l"(src), "r"(src_bytes)
                  : "memory");
+}
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid, int bytes) {
+  cp_async_part(dst, src, bytes, valid ? bytes : 0);   // 0 read: zero-fill
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -137,14 +144,18 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Stage the (64 x 32) A slab and (32 x 64) B slab at k0; out-of-range
-// elements are zero-filled. VA, VB: 16-byte copies of A (K a multiple of
-// 4, A 16-byte aligned) and of B (N and col0 multiples of 4, B aligned),
-// else 4-byte copies.
-template <bool VA, bool VB>
+// elements are zero-filled. A's rows lie lda >= K floats apart. VA, VB:
+// 16-byte copies of A (lda a multiple of 4, A 16-byte aligned, and K a
+// multiple of 4 unless PA) and of B (N and col0 multiples of 4, B
+// aligned), else 4-byte copies. PA: a 16-byte copy of A that crosses K
+// reads the columns before K and zero-fills the rest, so the columns from
+// K to lda (a scratch's pad) are never read; without it the copies cost
+// no bounds arithmetic.
+template <bool VA, bool VB, bool PA = false>
 __device__ __forceinline__ void load_slab(const float* __restrict__ A,
                                           const float* __restrict__ B, int M,
-                                          int N, int K, int row0, int col0,
-                                          int k0, float* stage) {
+                                          int N, int K, int lda, int row0,
+                                          int col0, int k0, float* stage) {
   constexpr int W = VA ? 4 : 1;             // floats per copy of A
   constexpr int WB = VB ? 4 : 1;            // ... and of B
   const int tid = threadIdx.x;
@@ -156,8 +167,9 @@ __device__ __forceinline__ void load_slab(const float* __restrict__ A,
     const int r = id / (kBK / W), c = (id % (kBK / W)) * W;
     const int gr = row0 + r, gc = k0 + c;
     const bool ok = gr < M && gc < K;
-    cp_async(as + r * kAStride + c, ok ? A + (long long)gr * K + gc : A, ok,
-             4 * W);
+    cp_async_part(as + r * kAStride + c,
+                  ok ? A + (long long)gr * lda + gc : A, 4 * W,
+                  !ok ? 0 : PA ? 4 * min(W, K - gc) : 4 * W);
   }
 #pragma unroll
   for (int i = 0; i < kBK * kBN / WB / kThreads; ++i) {
@@ -170,16 +182,20 @@ __device__ __forceinline__ void load_slab(const float* __restrict__ A,
   }
 }
 
-// The block's 64 x 64 tile of A @ B at (row0, col0), into `acc`: each warp
-// its 32 x 32 as kMT x kNT m16n8 fragments (rows wm + 16 i + g (+ 8),
+// The block's 64 x 64 tile of A @ B at (row0, col0), added to `acc`: each
+// warp its 32 x 32 as kMT x kNT m16n8 fragments (rows wm + 16 i + g (+ 8),
 // columns wn + 8 j + 2 t (+ 1)), with the ring in the kernel's dynamic
 // shared memory (kSmemBytes). A and B are one product's operands,
-// row-major, (M x K) and (K x N); VA, VB as load_slab's. Ends with every
-// copy landed; the caller syncs before it reuses the shared memory.
-template <bool VA, bool VB>
+// row-major, (M x K) with rows lda apart and (K x N); VA, VB, PA as
+// load_slab's. The caller zeroes `acc` before its first product; a second
+// product goes on from the first's total, its own partial sums flushed
+// into it every kFlush of its K. Ends with every copy landed; the caller
+// syncs before it reuses the shared memory.
+template <bool VA, bool VB, bool PA = false>
 __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
                                          const float* __restrict__ B, int M,
-                                         int N, int K, int row0, int col0,
+                                         int N, int K, int lda, int row0,
+                                         int col0,
                                          float (&acc)[kMT][kNT][4]) {
   extern __shared__ __align__(16) float smem[];      // [kStages] slabs
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -194,13 +210,13 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = mid[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) mid[i][j][e] = 0.f;
   const int slabs = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slabs)
-      load_slab<VA, VB>(A, B, M, N, K, row0, col0, s * kBK,
-                     smem + s * kStageFloats);
+      load_slab<VA, VB, PA>(A, B, M, N, K, lda, row0, col0, s * kBK,
+                            smem + s * kStageFloats);
     cp_async_commit();                     // one group per slab, even empty
   }
   for (int ks = 0; ks < slabs; ++ks) {
@@ -209,8 +225,8 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ A,
                                            // slab ks - 1 is consumed
     const int next = ks + kStages - 1;
     if (next < slabs)
-      load_slab<VA, VB>(A, B, M, N, K, row0, col0, next * kBK,
-                     smem + (next % kStages) * kStageFloats);
+      load_slab<VA, VB, PA>(A, B, M, N, K, lda, row0, col0, next * kBK,
+                            smem + (next % kStages) * kStageFloats);
     cp_async_commit();
     const float* a_s = smem + (ks % kStages) * kStageFloats;
     const float* b_s = a_s + kBM * kAStride;

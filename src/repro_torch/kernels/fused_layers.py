@@ -23,7 +23,8 @@
   * `fused_sage` — act(X @ W_self + AGG @ W_neigh + b), AGG the mean
     aggregation M @ X or the GrAx3 masked max of the pooled features.
     Port of the TPU kernel `fused_sage` (`csrc/fused_sage.cu`); its
-    aggregation is the row walk of `sage_max` (`csrc/sage_walk.cuh`).
+    aggregation is the row walk of `sage_max` (`csrc/sage_walk.cuh`), its
+    combine runs on `block_matmul`'s 3xTF32 tile.
 
 The four TPU kernels with a combine kept its result in VMEM, filled by
 row-block 0 and read by the later ones in grid order; a CUDA grid has no
@@ -35,9 +36,10 @@ wrapper call, which counts one in `LAUNCHES` (dense), `INT8_LAUNCHES`
 `fused_gat_precombined` is one launch, counted in `GAT_PRE_LAUNCHES`.
 `fused_sage` has the same hazard the other way round (its TPU kernel
 fills a (rows, Fin) aggregation buffer at output strip 0 and reads it at
-every later strip): an aggregate launch into an N x Fin scratch tensor,
-then a combine launch with both K loops in one accumulator and the
-epilogue in its store, counted once in `SAGE_LAUNCHES`.
+every later strip): an aggregate launch into an N x Fin scratch tensor
+(rows padded to 16 bytes), then a combine launch with both K loops in one
+accumulator and the epilogue in its store, counted once in
+`SAGE_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -360,6 +362,15 @@ def fused_sage_plain(mask: torch.Tensor, xk: torch.Tensor, x: torch.Tensor,
                 + b.reshape(1, -1), activation)
 
 
+def sage_scratch(x: torch.Tensor) -> torch.Tensor:
+    """`fused_sage`'s aggregate scratch for x (B, N, Fin): (B, N, ldg)
+    float32, its rows padded to 16 bytes (ldg = Fin rounded up to 4) so
+    that the combine streams it by 16-byte copies."""
+    batch, n, fin = x.shape
+    return torch.empty(batch, n, -(-fin // 4) * 4, dtype=torch.float32,
+                       device=x.device)
+
+
 def fused_sage(mask: torch.Tensor, xk: torch.Tensor, x: torch.Tensor,
                w_self: torch.Tensor, w_neigh: torch.Tensor, b: torch.Tensor,
                aggregator: str = "mean", activation: str = "none"
@@ -396,12 +407,13 @@ def fused_sage(mask: torch.Tensor, xk: torch.Tensor, x: torch.Tensor,
             f"{tuple(w_neigh.shape)}, b {tuple(b.shape)}")
     out = torch.empty(batch, n, o, dtype=torch.float32, device=device)
     if out.numel():
-        check_int32("fused_sage", o=o)
-        agg = torch.empty_like(x)            # aggregate scratch, N x Fin
+        agg = sage_scratch(x)
+        check_int32("fused_sage", o=o, ldg=agg.shape[-1])
         launch("fused_sage", _build.load("fused_sage"), device,
                mask.data_ptr(), xk.data_ptr(), x.data_ptr(),
                w_self.data_ptr(), w_neigh.data_ptr(), b.data_ptr(),
-               agg.data_ptr(), out.data_ptr(), batch, n, fin, o,
-               int(aggregator == "max"), ACTIVATIONS[activation])
+               agg.data_ptr(), out.data_ptr(), batch, n, fin,
+               agg.shape[-1], o, int(aggregator == "max"),
+               ACTIVATIONS[activation])
         SAGE_LAUNCHES += 1
     return out

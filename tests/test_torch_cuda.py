@@ -783,14 +783,26 @@ def test_sage_max_matches_plain(card, n, f):
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 @pytest.mark.parametrize("aggregator", ["mean", "max"])
 def test_fused_sage_matches_plain(card, aggregator, activation):
+    # the combine's edges on the 3xTF32 tile: the serving shape (X at Fin
+    # 1433 by 4-byte copies, AGG at a 1436 pitch by 16-byte ones, O 64 in
+    # one block), Fin 301 (not a multiple of 4, across the 128-deep
+    # flush), O 7, 16 and 64, batches of 1, 2 and 4. Past fin 300 the
+    # weights shrink as glorot scales them, so the outputs keep fin 300's
+    # spread; at scale 0.1 the fp32 rounding of any two summation orders
+    # over 1433 terms nears the bar's atol (the float64 test below keeps
+    # scale 0.1)
     rng = np.random.default_rng(len(aggregator) + len(activation))
-    for n, fin, o in ((384, 300, 64), (256, 64, 7), (200, 40, 16)):
-        sample, mean = _sage_masks(rng, 2, n, n - 30, card, dense_row=2)
+    for batch, n, fin, o in ((2, 384, 300, 64), (2, 256, 64, 7),
+                             (2, 200, 40, 16), (4, 3072, 1433, 64),
+                             (1, 384, 301, 7), (2, 200, 301, 64)):
+        sample, mean = _sage_masks(rng, batch, n, n - 30, card, dense_row=2)
         mask = mean if aggregator == "mean" else sample
-        x = _arr(rng, 2, n, fin).to(card)
-        xk = x if aggregator == "mean" else _arr(rng, 2, n, fin).abs().to(card)
-        ws = _arr(rng, fin, o, scale=0.1).to(card)
-        wn = _arr(rng, fin, o, scale=0.1).to(card)
+        x = _arr(rng, batch, n, fin).to(card)
+        xk = (x if aggregator == "mean"
+              else _arr(rng, batch, n, fin).abs().to(card))
+        scale = 0.1 * min(1.0, (300 / fin) ** 0.5)
+        ws = _arr(rng, fin, o, scale=scale).to(card)
+        wn = _arr(rng, fin, o, scale=scale).to(card)
         b = _arr(rng, o, scale=0.1).to(card)
         before = fl_mod.SAGE_LAUNCHES
         got = fl_mod.fused_sage(mask, xk, x, ws, wn, b, aggregator,
@@ -799,6 +811,30 @@ def test_fused_sage_matches_plain(card, aggregator, activation):
         assert fl_mod.SAGE_LAUNCHES == before + 1
         torch.testing.assert_close(got, fl_mod.fused_sage_plain(
             mask, xk, x, ws, wn, b, aggregator, activation), **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+def test_fused_sage_near_float64_at_the_serving_shape(card, aggregator):
+    # a 4 x 3072 batch at Fin 1433 -> 64 with W at scale 0.1: the kernel
+    # (the walk, then X and AGG through one 3xTF32 accumulator) is held to
+    # at most twice the plain version's error against the same layer in
+    # float64
+    rng = np.random.default_rng(24 + len(aggregator))
+    sample, mean = _sage_masks(rng, 4, 3072, 2708, card)
+    mask = mean if aggregator == "mean" else sample
+    x = _arr(rng, 4, 3072, 1433).to(card)
+    xk = x if aggregator == "mean" else _arr(rng, 4, 3072, 1433).abs().to(card)
+    ws, wn = (_arr(rng, 1433, 64, scale=0.1).to(card) for _ in range(2))
+    b = _arr(rng, 64, scale=0.1).to(card)
+    args = (mask, xk, x, ws, wn, b)
+    got = fl_mod.fused_sage(*args, aggregator, "relu")
+    plain = fl_mod.fused_sage_plain(*args, aggregator, "relu")
+    ref = fl_mod.fused_sage_plain(*(t.double() for t in args), aggregator,
+                                  "relu")
+    err_k = float((got.double() - ref).abs().max())
+    err_p = float((plain.double() - ref).abs().max())
+    assert err_k <= 2 * err_p, (err_k, err_p)
 
 
 @pytest.mark.cuda
@@ -971,13 +1007,13 @@ def test_flash_attention_rejects_bad_operands(card):
 def test_tensor_core_kernels_sass(card):
     """The redesigned libraries run on the tensor cores: wgmma (HGMMA) and
     TMA loads (UTMALDG) in flash_attention's bf16 route, TF32 MMA in
-    block_matmul and in the three GAT libraries' attention body, s8 MMA
-    (IMMA) in the two int8 libraries."""
+    block_matmul, in the three GAT libraries' attention body and in
+    fused_sage's combine, s8 MMA (IMMA) in the two int8 libraries."""
     fa = _build.sass_counts("flash_attention_tc",
                             {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)})
     assert fa["HGMMA"] > 0 and fa["UTMALDG"] > 0, fa
     for lib in ("block_matmul", "gat_attention", "fused_gat_full",
-                "fused_gat_precombined"):
+                "fused_gat_precombined", "fused_sage"):
         counts = _build.sass_counts(lib, {"HMMA TF32": ("HMMA", "TF32")})
         assert counts["HMMA TF32"] > 0, (lib, counts)
     for lib in ("int8_matmul", "fused_gcn_int8"):

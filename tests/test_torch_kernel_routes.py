@@ -29,6 +29,7 @@ scale; the served outputs stay near 0.01, where the bar's atol alone
 covers it, and with h of order one it misses the bar.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +41,7 @@ from repro_torch.core.graph import pad_graph
 from repro_torch.data.graphs import cora_like
 from repro_torch.kernels import compare_builds as cb
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_layers as fl
 from repro_torch.kernels import ref as kref
 
 CARD = dict(rtol=1e-4, atol=1e-5)
@@ -104,16 +106,18 @@ def round_toward_zero(x: np.ndarray) -> np.ndarray:
 
 
 def three_tf32(a: np.ndarray, b: np.ndarray, chain: int = 16,
-               flush: int = 128) -> np.ndarray:
+               flush: int = 128, acc=None) -> np.ndarray:
     """The tile's arithmetic: per 8 of K the three m16n8k8 products (small
     terms first), each truncated into a chain of `chain` of K that starts
     from 0; chains summed in fp32 into a partial sum of `flush` of K,
-    partial sums into the total. chain = flush > K is one accumulator over
-    all of K."""
+    partial sums into the total, which starts from 0 or from `acc` (a
+    second product through the same accumulator). chain = flush > K is
+    one accumulator over all of K."""
     (ab, as_), (bb, bs) = split(a), split(b)
     ab, as_, bb, bs = (t.astype(np.float64) for t in (ab, as_, bb, bs))
     k = a.shape[1]
-    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    acc = (np.zeros((a.shape[0], b.shape[1]), np.float32) if acc is None
+           else acc.astype(np.float32))
     mid = np.zeros_like(acc)
     for c0 in range(0, k, chain):
         part = np.zeros_like(acc)
@@ -560,3 +564,78 @@ def test_int8_tile_fragment_reads_hit_32_banks(operand):
         else:
             addr = kw * I8_COL_WORDS + wn * 32 + f * 8 + G
         assert len(set((addr % 32).tolist())) == 32, (operand, wm, wn, kk)
+
+
+# ------------------------------------------------- fused_sage's combine
+SAGE_ROWS = 256         # rows of the graph the combine is emulated on
+
+
+@functools.lru_cache(maxsize=None)
+def _sage_layers():
+    """One Cora graph through the Cora SAGE's two layers (1433 -> 64 -> 7,
+    10 sampled neighbours and the self loop), by aggregator and layer: the
+    layer's mask rows, its aggregation input xk over every node (X for
+    mean, the pooled features relu(X @ W_pool + b_pool) for max), its X
+    rows, W_self, W_neigh and b, on the first SAGE_ROWS rows. Layer 2
+    takes layer 1's relu output (fp32)."""
+    rng = np.random.default_rng(24)
+    pg = pad_graph(cora_like(seed=0), capacity=2708)
+    sample = masks.sage_sample_adjacency(pg.adj, pg.num_nodes,
+                                         max_neighbors=10)
+    mean = masks.mean_from_mask(sample)
+    out = {}
+    for aggregator in ("mean", "max"):
+        x = pg.features.astype(np.float32)
+        for layer, (fin, fout) in (("L1", (1433, 64)), ("L2", (64, 7))):
+            ws, wn = _glorot(rng, fin, fout), _glorot(rng, fin, fout)
+            b = (0.1 * rng.standard_normal(fout)).astype(np.float32)
+            if aggregator == "mean":
+                mask, xk = mean, x
+            else:
+                w_pool = _glorot(rng, fin, fin)
+                b_pool = (0.1 * rng.standard_normal(fin)).astype(np.float32)
+                mask = sample
+                xk = np.maximum(np.matmul(x, w_pool) + b_pool, 0)
+            out[layer, aggregator] = (mask[:SAGE_ROWS], xk, x[:SAGE_ROWS],
+                                      ws, wn, b)
+            agg = np.matmul(mask, xk) if aggregator == "mean" else np.stack(
+                [xk[row > 0].max(axis=0, initial=0.0) for row in sample])
+            x = np.maximum(np.matmul(x, ws) + np.matmul(agg, wn) + b, 0)
+    return out
+
+
+def _walk(mask, xk, aggregator):
+    """sage_walk.cuh's row walk: over each row's set columns in ascending
+    order, fmaf(m, xk[j], acc) (mean) or max(acc, m * xk[j]) (max), from
+    0. An fp32 product is exact in float64, so the sum rounds once."""
+    agg = np.zeros((mask.shape[0], xk.shape[1]), np.float32)
+    for i, row in enumerate(mask):
+        for j in np.flatnonzero(row):
+            if aggregator == "mean":
+                agg[i] = (np.float64(row[j]) * xk[j] + agg[i]).astype(
+                    np.float32)
+            else:
+                agg[i] = np.maximum(agg[i], row[j] * xk[j])
+    return agg
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+@pytest.mark.parametrize("layer", ["L1", "L2"])
+def test_sage_combine_three_tf32_keeps_the_card_bar(layer, aggregator):
+    """fused_sage's combine (csrc/fused_sage.cu) emulated on the Cora SAGE:
+    the walk's AGG, then X @ W_self and AGG @ W_neigh through one
+    accumulator, each product with its own 16-deep chains and 128-deep
+    partial sums flushed into the one total (the AGG loop starts from the
+    X loop's total, past the last ragged partial sum of its K), and the
+    bias in the store. Within the card bar of the plain version, and
+    within twice an fp32 layer's error against float64."""
+    mask, xk, x, ws, wn, b = _sage_layers()[layer, aggregator]
+    agg = _walk(mask, xk, aggregator)
+    got = three_tf32(agg, wn, acc=three_tf32(x, ws)) + b
+    plain = fl.fused_sage_plain(*(torch.from_numpy(t) for t in (
+        mask, xk, x, ws, wn, b)), aggregator).numpy()
+    np.testing.assert_allclose(got, plain, **CARD)
+    agg64 = (_f64(mask, xk) if aggregator == "mean" else
+             agg.astype(np.float64))          # a max rounds nothing
+    want = _f64(x, ws) + _f64(agg64, wn) + b
+    assert _rel(got, want) <= 2 * _rel(plain, want)
