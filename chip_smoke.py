@@ -15,19 +15,21 @@ last line; there is no CPU path):
      instructions of the redesigned libraries in their SASS
      (`cuobjdump -sass`): HGMMA and UTMALDG in flash_attention's bf16
      route, HMMA ... TF32 in block_matmul, in the three GAT libraries
-     (gat_attention, fused_gat_full, fused_gat_precombined) and in
-     fused_sage, IMMA in the two int8 libraries (int8_matmul,
-     fused_gcn_int8); a count of 0 fails. Beside them, four timing
+     (gat_attention, fused_gat_full, fused_gat_precombined), in
+     fused_sage and in the GCN layers (fused_gcn_dense, fused_gcn_grasp),
+     IMMA in the two int8 libraries (int8_matmul, fused_gcn_int8); a
+     count of 0 fails. Beside them, four timing
      variants of block_matmul's tile (tc_gemm_tile.cuh's TC_GEMM_PRODUCTS,
      TC_GEMM_SPLIT and TC_SPLIT_INT), four of the GAT attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
      SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 9
      (`[breakdown]`);
-  2. kernels — `block_matmul` (3xTF32 on the tensor cores) and
-     `fused_gcn_dense` against their plain PyTorch versions at the serving
-     shapes (4 Cora-sized graphs padded to
-     3072 nodes, features 1433 -> 1536, widths padded to 128), and
+  2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
+     tensor cores; the layer at every activation) against their plain
+     PyTorch versions at the serving shapes (4 Cora-sized graphs padded to
+     3072 nodes, features 1433 -> 1536, widths padded to 128), each also
+     against float64 within twice cuBLAS's fp32 error, and
      `int8_matmul` (the int8 tier's four products) and `fused_gcn_int8`
      (both layers) at the same shapes with a real Cora calibration, where
      they must equal their plain versions bit for bit;
@@ -108,8 +110,9 @@ last line; there is no CPU path):
      of 128), and the measured dense and GraSp aggregation times per
      bucket; for the redesigned kernels also the times queued behind a
      spin (block_matmul and flash_attention with TFLOP/s, the three GAT
-     kernels and fused_sage with bounds for 3xTF32 and for fp32 FMA
-     products, the two int8 kernels, and torch._int_mm beside int8_matmul;
+     kernels, fused_sage, fused_gcn_dense and fused_gcn_grasp with bounds
+     for 3xTF32 and for fp32 FMA products, the two int8 kernels, and
+     torch._int_mm beside int8_matmul;
      int8_matmul's layer-1 Aq @ Hq also on the batch's first 1-4 graphs;
      fused_sage's layer 1 split into the walk and the combine, the
      combine's X and AGG loops apart, a split-K grid without its
@@ -119,8 +122,9 @@ last line; there is no CPU path):
      128 before, timed on the same inputs, and each route's host cost per
      call; block_matmul's time on its earlier fp32 SIMT tile, the GAT
      kernels' on their earlier SIMT body, the int8 kernels' on their
-     earlier __dp4a tile and fused_sage's on its earlier SIMT combine,
-     copied from PERF.md and printed as copied.
+     earlier __dp4a tile, fused_sage's on its earlier SIMT combine and the
+     GCN layers' on their earlier SIMT products, copied from PERF.md and
+     printed as copied.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -227,13 +231,15 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                                "src/repro/kernels/flash_attention.py:94")}
 # the libraries redesigned for the card's tensor cores and the SASS
 # instructions that show it (cuobjdump -sass; 0 fails the run): flash's
-# bf16 route, block_matmul's 3xTF32 tile (also fused_sage's combine), the
-# GAT attention body and the s8 tile of the two int8 kernels (mma.sync
+# bf16 route, block_matmul's 3xTF32 tile (also fused_sage's combine, both
+# launches of fused_gcn_dense and fused_gcn_grasp's combine), the GAT
+# attention body and the s8 tile of the two int8 kernels (mma.sync
 # m16n8k32: IMMA.16832.S8.S8)
 SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
         **{lib: {"HMMA TF32": ("HMMA", "TF32")}
            for lib in ("block_matmul", "gat_attention", "fused_gat_full",
-                       "fused_gat_precombined", "fused_sage")},
+                       "fused_gat_precombined", "fused_sage",
+                       "fused_gcn_dense", "fused_gcn_grasp")},
         **{lib: {"IMMA": ("IMMA",)}
            for lib in ("int8_matmul", "fused_gcn_int8")}}
 # block_matmul per 4 x 3072 batch on the fp32 SIMT tile it had before the
@@ -257,6 +263,12 @@ INT8_KERNELS = ("int8_matmul", "fused_gcn_int8")
 # (row 12, NVIDIA H100 80GB HBM3, 700 W): printed as copied, never as this
 # run's own
 FUSED_SAGE_SIMT_MS = {"mean": 0.5381, "max": 0.5486}
+# the GCN layers per 4 x 3072 batch (both layers, CUDA events) with their
+# products on the fp32 SIMT tile before the 3xTF32 kernel (fused_gcn_grasp:
+# its combine), copied from PERF.md section 6 (rows 7 and 9, NVIDIA H100
+# 80GB HBM3, 700 W): printed as copied, never as this run's own
+GCN_SIMT_MS = {"fused_gcn_dense": 0.9914, "fused_gcn_grasp": 0.2723}
+GCN_KERNELS = ("fused_gcn_dense", "fused_gcn_grasp")
 # timing variants, by library: block_matmul's tile (the switches of
 # tc_gemm_tile.cuh), timed on the batch's products, the GAT attention
 # body (gat_tile.cuh's switches, in the gat_attention library), timed on
@@ -1153,6 +1165,7 @@ def main() -> None:
               f"(tol rtol={TOL['rtol']} atol={TOL['atol']})", flush=True)
         torch.testing.assert_close(got, want, **TOL)
         err[kernel] = max(err[kernel], diff.max().item())
+        return got
 
     for label, (a, b) in products.items():
         compare("block_matmul", label, lambda: bm.block_matmul(a, b),
@@ -1173,9 +1186,27 @@ def main() -> None:
         check(e_k <= 2 * e_t, f"block_matmul {label}: error {e_k} against "
               f"float64 exceeds twice torch.matmul's {e_t}")
         del want64
-    for label, args in layers.items():
-        compare("fused_gcn_dense", label, lambda: fl.fused_gcn_dense(*args),
-                fl.fused_gcn_dense_plain(*args))
+    # the layer at every activation; each also against the same layer in
+    # float64, at most twice the plain version's (cuBLAS's fp32) error
+    dense_checks = {"L1 none": (adj, x1, w1, b1, "none"), **layers,
+                    "L1 elu": (adj, x1, w1, b1, "elu")}
+    dense_f64_err = {}
+    for label, args in dense_checks.items():
+        got = compare("fused_gcn_dense", label,
+                      lambda: fl.fused_gcn_dense(*args),
+                      fl.fused_gcn_dense_plain(*args))
+        want64 = fl.fused_gcn_dense_plain(*(t.double() for t in args[:4]),
+                                          args[4])
+        top = want64.abs().max()
+        e_k, e_t = (((t.double() - want64).abs().max() / top).item()
+                    for t in (got, fl.fused_gcn_dense_plain(*args)))
+        dense_f64_err[label] = (e_k, e_t)
+        print(f"[check] fused_gcn_dense {label} against float64: relative "
+              f"error {e_k:.3e}, the plain version's (cuBLAS) {e_t:.3e} "
+              f"(bar: twice the plain version's)", flush=True)
+        check(e_k <= 2 * e_t, f"fused_gcn_dense {label}: error {e_k} against"
+              f" float64 exceeds twice the plain version's {e_t}")
+        del want64
 
     # the int8 tier at the same shapes, with a real calibration on Cora
     cfg = gcn("cora")
@@ -2138,6 +2169,7 @@ def main() -> None:
                       f"ms; {card}", flush=True)
             elif kernel == "fused_gcn_dense":
                 t_k = time_ms(lambda: fl.fused_gcn_dense(*args))
+                d_k = queued_ms(lambda: fl.fused_gcn_dense(*args))
                 t_p = time_ms(lambda: fl.fused_gcn_dense_plain(*args))
                 t_l = None
                 flops, nbytes_ = fused_work(*args[:3], args[3])
@@ -2165,6 +2197,7 @@ def main() -> None:
             elif kernel == "fused_gcn_grasp":
                 cols_, counts_, x, w = args[1], args[2], args[3], args[4]
                 t_k = time_ms(lambda: fl.fused_gcn_grasp(*args))
+                d_k = queued_ms(lambda: fl.fused_gcn_grasp(*args))
                 t_p = time_ms(lambda: fl.fused_gcn_grasp_plain(*args))
                 t_l = None
                 flops, nbytes_ = grasp_work(cols_, counts_, w.shape[1],
@@ -2257,9 +2290,22 @@ def main() -> None:
                          if kernel == "int8_matmul" else "")
                       + f"; bound {i8_ms:.4f} ms ({i8_by}); {card}",
                       flush=True)
+            if kernel in GCN_KERNELS:
+                # every product priced as 3xTF32 (the grasp walk runs on
+                # fp32 FMA, but the card could run it on the tensor cores)
+                # and as fp32 FMA
+                tot["device_ms"] = (None if d_k is None
+                                    or tot["device_ms"] is None
+                                    else tot["device_ms"] + d_k)
+                tf_ms, tf_by = bound(3 * flops, nbytes_, TF32_FLOPS_PER_S)
+                f32_ms, f32_by = bound(flops, nbytes_)
+                print(f"[time] {kernel} {label}: queued behind a spin "
+                      f"{ms_or_not(d_k)}; bound with 3xTF32 products "
+                      f"{tf_ms:.4f} ms ({tf_by}), with fp32 FMA products "
+                      f"{f32_ms:.4f} ms ({f32_by}); {card}", flush=True)
             if kernel in GAT_KERNELS:
                 b_ms, b_by = gat_bound(flops, exps, nbytes_)
-            elif kernel in ("block_matmul", "fused_sage"):
+            elif kernel in ("block_matmul", "fused_sage", *GCN_KERNELS):
                 b_ms, b_by = tf_ms, tf_by
             else:
                 b_ms, b_by = bound(flops, nbytes_, peak)
@@ -2277,7 +2323,7 @@ def main() -> None:
             tot["bytes"] += nbytes_
         if kernel in GAT_KERNELS:
             b_ms, b_by = gat_bound(tot["flops"], tot["exps"], tot["bytes"])
-        elif kernel == "block_matmul":
+        elif kernel in ("block_matmul", *GCN_KERNELS):
             b_ms, b_by = bound(3 * tot["flops"], tot["bytes"],
                                TF32_FLOPS_PER_S)
         elif kernel == "fused_sage":
@@ -2506,6 +2552,34 @@ def main() -> None:
                   f"before the tensor-core redesign: {BLOCK_MATMUL_SIMT_MS} "
                   f"ms, copied from PERF.md (section 6, row 1; NVIDIA H100 "
                   f"80GB HBM3, 700 W), not measured in this run", flush=True)
+        if kernel in GCN_KERNELS:
+            f32_ms, f32_by = bound(tot["flops"], tot["bytes"])
+            row.update(device_ms=tot["device_ms"],
+                       library="none: no one PyTorch call computes "
+                               "act(A(XW)+b)"
+                               + (" over a block structure"
+                                  if kernel == "fused_gcn_grasp" else ""),
+                       bound_note="3 TF32 products per product at 495 "
+                                  "TFLOP/s, or the bytes at 3.35 TB/s",
+                       bound_fp32_fma_ms=f32_ms)
+            if kernel == "fused_gcn_dense":
+                row.update(rel_err_vs_float64={
+                    k: {"kernel": e, "plain": t}
+                    for k, (e, t) in dense_f64_err.items()})
+            print(f"[time] {kernel}, the batch's {len(cases)} layers: kernel "
+                  f"{tot['ms']:.4f} ms (queued "
+                  f"{ms_or_not(tot['device_ms'])}), plain "
+                  f"{tot['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                  f"3xTF32 products), {f32_ms:.4f} ms ({f32_by}, fp32 FMA "
+                  f"products); {tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s "
+                  f"of fp32 products; {card}", flush=True)
+            print(f"[time] {kernel} per batch (both layers) with its "
+                  f"{'products' if kernel == 'fused_gcn_dense' else 'combine'}"
+                  f" on the fp32 SIMT tile before the 3xTF32 kernel: "
+                  f"{GCN_SIMT_MS[kernel]} ms, copied from PERF.md (section "
+                  f"6, row {7 if kernel == 'fused_gcn_dense' else 9}; NVIDIA "
+                  f"H100 80GB HBM3, 700 W), not measured in this run",
+                  flush=True)
         if kernel == "bitmap_spmm":
             row.update(dense_matmul_ms=tot["dense_ms"],
                        library="torch.sparse.mm per graph on 128-block BSR",

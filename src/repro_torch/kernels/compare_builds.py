@@ -1,19 +1,21 @@
 """Time the CUDA libraries built on the 3xTF32 tile (tc_gemm_tile.cuh's
 `mma_tile`) from several source trees, in one process on one card:
 block_matmul over the Cora-width GCN's four serving products (a 4 x 3072
-batch: X @ W1, A @ H1, X2 @ W2, A @ H2) and fused_gat_full over the Cora
+batch: X @ W1, A @ H1, X2 @ W2, A @ H2), fused_gat_full over the Cora
 GAT's two serving layers (4 x 3072: 1433 features to 8 heads of 8, ELU;
-64 to 1 head of 7).
+64 to 1 head of 7) and fused_sage over the Cora SAGE's four (4 x 3072,
+mean and max: 1433 features to 64, ReLU; 64 to 7; 10 sampled neighbours
+and the self loop a row).
 
 Run from the checkout's root. Each argument is LABEL=DIR or
 LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding block_matmul.cu,
-fused_gat_full.cu and the headers they include (this checkout's
-`src/repro_torch/kernels/csrc`, or an earlier commit's, unpacked with
-`git archive` into a git-ignored directory such as build/). An OPTION is
-an extra nvcc flag (`-DTC_SPLIT_INT=0`), or `int-split`: build a copy of
-a tree whose split_tf32 still rounds with cvt.rna.tf32.f32 with the
-integer rounding instead (the same bits), so that two tile layouts are
-compared at one rounding.
+fused_gat_full.cu, fused_sage.cu and the headers they include (this
+checkout's `src/repro_torch/kernels/csrc`, or an earlier commit's,
+unpacked with `git archive` into a git-ignored directory such as
+build/). An OPTION is an extra nvcc flag (`-DTC_SPLIT_INT=0`), or
+`int-split`: build a copy of a tree whose split_tf32 still rounds with
+cvt.rna.tf32.f32 with the integer rounding instead (the same bits), so
+that two tile layouts are compared at one rounding.
 
 For each library, prints each build's ptxas registers and SASS instruction
 count, checks that every build's outputs equal the first build's bit for
@@ -68,7 +70,7 @@ def source_tree(label: str, src: Path, int_split: bool,
     return tree
 
 
-LIBRARIES = ("block_matmul", "fused_gat_full")
+LIBRARIES = ("block_matmul", "fused_gat_full", "fused_sage")
 
 
 def build_all(specs):
@@ -145,8 +147,36 @@ def workloads(dev):
             check(fn(*(t.data_ptr() for t in (*args, *scratch, out)),
                      *sizes, ordinal, stream))
 
+    # the SAGE layers' masks: 10 sampled columns and the diagonal a row
+    # (0/1 for max), row-normalised for mean; the max layers aggregate
+    # pooled (non-negative) features
+    sample = torch.zeros(4, 3072, 3072, device=dev)
+    sample.scatter_(2, torch.randint(0, 3072, (4, 3072, 10), device=dev,
+                                     generator=gen), 1.0)
+    sample += torch.eye(3072, device=dev) * (1 - sample.diagonal(
+        dim1=1, dim2=2)).unsqueeze(-1)
+    mean = sample / sample.sum(-1, keepdim=True)
+    sage = []
+    for mask, is_max in ((mean, 0), (sample, 1)):
+        for fin, o, act in ((1433, 64, 1), (64, 7, 0)):
+            x = rand(4, 3072, fin) if fin == 1433 else rand(
+                4, 3072, fin).relu()
+            xk = rand(4, 3072, fin).abs() if is_max else x
+            ldg = -(-fin // 4) * 4
+            args = (mask, xk, x, rand(fin, o, scale=fin ** -0.5),
+                    rand(fin, o, scale=fin ** -0.5), rand(o, scale=0.1),
+                    torch.empty(4, 3072, ldg, device=dev))
+            sage.append((args, torch.empty(4, 3072, o, device=dev),
+                         (4, 3072, fin, ldg, o, is_max, act)))
+
+    def sage_layers(fn):
+        for args, out, sizes in sage:
+            check(fn(*(t.data_ptr() for t in (*args, out)), *sizes, ordinal,
+                     stream))
+
     return {"block_matmul": (mm_outs, matmuls),
-            "fused_gat_full": ([out for *_, out, _ in layers], gat)}
+            "fused_gat_full": ([out for *_, out, _ in layers], gat),
+            "fused_sage": ([out for _, out, _ in sage], sage_layers)}
 
 
 def main(argv) -> None:

@@ -10,14 +10,21 @@
 //
 //   1. combine:   H[z] = X[z] @ W     into a scratch the wrapper allocates
 //                                     (n x 128 fp32 per graph: 6.3 MB at
-//                                     B = 4, n = 3072, so L2 resident)
+//                                     B = 4, n = 3072, so L2 resident), on
+//                                     block_matmul's 3xTF32 kernel
+//                                     (tc_gemm_tile.cuh, no epilogue)
 //   2. aggregate: the block-sparse walk of bsr_tile.cuh over H[z], with
-//                 bias and activation fused into the store.
+//                 bias and activation fused into the store (fp32 SIMT).
 //
-// Bound: at the serving widths the combine's flops (2*n*Fin*128 per graph,
-// Fin = 1536 on layer 1) outweigh the sparse aggregation's, so it is
-// compute-bound at the fp32 SIMT rate.
+// Bound: the combine's flops (2*n*Fin*128 per graph, Fin = 1536 on layer
+// 1) outweigh the sparse aggregation's at the serving widths, so the
+// layer is operations-bound. For chip_smoke.py's 3072 batch of clustered
+// graphs (both layers, real blocks only): 0.0282 ms as three TF32
+// products each at 495 TFLOP/s, 0.0695 ms on fp32 FMA at 67 TFLOP/s. The
+// combine runs on the tensor cores; the walk stays on the fp32 SIMT tile
+// of gemm_tile.cuh.
 #include "bsr_tile.cuh"
+#include "tc_gemm_tile.cuh"
 
 // blocks/block_cols/counts as bitmap_spmm_f32, for a square Â of n = rb*128
 // rows; x: (batch, n, fin); w: (fin, o); bias: (o,); h: (batch, n, o)
@@ -33,9 +40,8 @@ extern "C" int fused_gcn_grasp_f32(const float* blocks, const int* block_cols,
   const int n = rb * gcn_port::kBlock;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = gcn_port::launch_gemm_f32(x, w, nullptr, h, batch, n, o, fin,
-                                  (long long)n * fin, 0LL,
-                                  gcn_port::kActNone, s);
+  err = gcn_port::tc::launch_gemm_3xtf32(x, w, h, batch, n, o, fin,
+                                         (long long)n * fin, 0LL, s);
   if (err != cudaSuccess) return (int)err;
   return (int)gcn_port::launch_bsr_spmm(blocks, block_cols, counts, h, bias,
                                         out, batch, rb, max_nnz, n, o, act,

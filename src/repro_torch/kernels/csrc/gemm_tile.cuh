@@ -1,23 +1,23 @@
-// Shared fp32 SIMT GEMM tile for the port's GCN kernels (sm_90a).
+// Shared fp32 SIMT GEMM tile of the port's block-sparse walk (sm_90a),
+// the one user being bsr_tile.cuh (`bitmap_spmm` and the aggregate of
+// `fused_gcn_grasp`):
 //
-//   C[z] = act(A[z] @ B[z] + bias)      z = blockIdx.z, row-major operands
+//   acc += A @ B over one 64 x 64 tile of C, then C = act(acc + bias)
 //
-// One 256-thread block owns a 64x64 tile of C and walks K in 16-deep slabs
+// A 256-thread block owns a 64x64 tile of C and walks K in 16-deep slabs
 // staged through shared memory; every thread keeps a 4x4 fp32 accumulator
 // in registers (full fp32 FMA, no TF32, so results hold the reference's
 // fp32 numerics up to summation order). Ragged edges are masked on load
-// and store, so any M, N, K works; the wrappers still pad to 128 as the
-// reference's `ops._pad2` does. A batch stride of 0 broadcasts an operand
-// (the weight matrix of a combine pass). The K walk (`mac_tile`) and the
+// and store, so any M, N, K works. The K walk (`mac_tile`) and the
 // epilogue (`store_tile`) are device functions, so the block-sparse walk
-// of `bsr_tile.cuh` runs the same slab arithmetic once per block entry.
+// runs the same slab arithmetic once per block entry and one store at
+// the end.
 //
-// Bound: at the serving shapes every product here is compute-bound on
-// fp32 outside the tensor cores (67 TFLOP/s on an H100 SXM): the
-// aggregation Â @ H does 2*N*N*O flops over 4*N*N bytes of Â, i.e. O/2
-// flops per byte, far above the card's 20 flops per byte at fp32. This
-// first version keeps the simple shared-memory tile; tensor-core (3xTF32
-// or wgmma) variants are later work.
+// Bound: a 128 x 128 block of Â times 128 rows of H does F/2 flops per
+// byte of Â, far above the card's 20 flops per byte at fp32 for F >= 128,
+// so at the serving widths the tile is compute-bound on fp32 outside the
+// tensor cores (67 TFLOP/s on an H100 SXM). The dense products of the
+// port's GCN layers run on the 3xTF32 tile (tc_gemm_tile.cuh) instead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,36 +108,6 @@ __device__ __forceinline__ void store_tile(float* __restrict__ C,
       C[(long long)r * N + c] = apply_activation(z, act);
     }
   }
-}
-
-static __global__ void __launch_bounds__(kThreads)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ bias, float* __restrict__ C,
-                int M, int N, int K, long long stride_a, long long stride_b,
-                long long stride_c, int act) {
-  __shared__ TileSmem s;
-  A += blockIdx.z * stride_a;
-  B += blockIdx.z * stride_b;
-  C += blockIdx.z * stride_c;
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  mac_tile(A, B, M, N, K, blockIdx.y * kBM, blockIdx.x * kBN, s, acc);
-  // epilogue: bias + activation fused into the store
-  store_tile(C, bias, M, N, blockIdx.y * kBM, blockIdx.x * kBN, acc, act);
-}
-
-// Launch one batched product on `stream`; returns cudaGetLastError().
-static inline cudaError_t launch_gemm_f32(
-    const float* A, const float* B, const float* bias, float* C, int batch,
-    int M, int N, int K, long long stride_a, long long stride_b, int act,
-    cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_f32_kernel<<<grid, kThreads, 0, stream>>>(
-      A, B, bias, C, M, N, K, stride_a, stride_b, (long long)M * N, act);
-  return cudaGetLastError();
 }
 
 }  // namespace gcn_port

@@ -1,13 +1,19 @@
 // fp32 GEMM on the TF32 tensor cores with fp32 accuracy (3xTF32), for
-// `block_matmul` and the combines of `fused_gat_full` and `fused_sage`
-// (sm_90a):
+// `block_matmul`, both launches of `fused_gcn_dense`, the combine of
+// `fused_gcn_grasp`, and the combines of `fused_gat_full` and
+// `fused_sage` (sm_90a):
 //
-//   C[z] = A[z] @ B[z]      z = blockIdx.z, row-major fp32 operands
+//   C[z] = A[z] @ B[z]               z = blockIdx.z, row-major fp32 operands
+//   C[z] = act(A[z] @ B[z] + bias)   with the EPI option
 //
-// The block's main loop is the device function `mma_tile`, which the three
-// kernels call (fused_sage twice, into one accumulator), and `launch_ring`
-// launches any of them with the ring's shared memory; the GAT attention
-// body (gat_tile.cuh) takes the split_tf32, mma_tf32 and cp.async helpers.
+// The block's main loop is the device function `mma_tile`. The batched
+// GEMM kernel `gemm_3xtf32_kernel` runs it once a block, and
+// `launch_gemm_3xtf32` launches it: block_matmul without EPI, the GCN
+// layers' combines without EPI and fused_gcn_dense's aggregate with it.
+// fused_gat_full and fused_sage call `mma_tile` from kernels of their own
+// (fused_sage twice, into one accumulator), which `launch_ring` launches
+// with the ring's shared memory; the GAT attention body (gat_tile.cuh)
+// takes the split_tf32, mma_tf32 and cp.async helpers.
 //
 // 3xTF32: each operand element x is split into big = tf32(x) (round to
 // nearest, ties away, to 10 mantissa bits: the bits cvt.rna.tf32.f32
@@ -61,6 +67,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "activation.cuh"
 
 namespace gcn_port {
 namespace tc {
@@ -317,6 +325,78 @@ cudaError_t launch_ring(dim3 grid, cudaStream_t stream, Args... args) {
 // 16-byte boundaries.
 static inline bool copies16(const float* p, long long cols) {
   return cols % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// One output element as the store writes it: v, or with EPI
+// act(v + bias[c]) (activation.cuh), the plain versions' order.
+template <bool EPI>
+__device__ __forceinline__ float epilogue(float v,
+                                          const float* __restrict__ bias,
+                                          int c, int act) {
+  if constexpr (EPI)
+    return apply_activation(v + bias[c], act);
+  else
+    return v;
+}
+
+// C[z] = A[z] @ B[z] (M x K times K x N, both row-major, A's rows K
+// apart), with EPI act(... + bias); one block a 64 x 64 tile of C. VEC:
+// 16-byte copies of both operands. static: each library that includes
+// this header keeps its own instantiations.
+template <bool VEC, bool EPI = false>
+static __global__ void __launch_bounds__(kThreads)
+    gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                       float* __restrict__ C, int M, int N, int K,
+                       long long stride_a, long long stride_b,
+                       const float* __restrict__ bias, int act) {
+  A += blockIdx.z * stride_a;
+  B += blockIdx.z * stride_b;
+  C += blockIdx.z * (long long)M * N;
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  float acc[kMT][kNT][4] = {};
+  mma_tile<VEC, VEC>(A, B, M, N, K, K, row0, col0, acc);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / kWN) * (kBM / kWM);
+  const int wn = (warp % kWN) * (kBN / kWN);
+  const int g = lane / 4, t = lane % 4;
+
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm + 16 * i + g + 8 * h;
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int c = col0 + wn + 8 * j + 2 * t;
+        if (c < N)
+          C[(long long)r * N + c] =
+              epilogue<EPI>(acc[i][j][2 * h], bias, c, act);
+        if (c + 1 < N)
+          C[(long long)r * N + c + 1] =
+              epilogue<EPI>(acc[i][j][2 * h + 1], bias, c + 1, act);
+      }
+    }
+}
+
+// Launch one batched product on `stream`; returns cudaGetLastError().
+// A batch stride of 0 broadcasts an operand; C is (batch, M, N)
+// contiguous. 16-byte copies of both operands where both allow them.
+// EPI: the store adds bias (N,) and applies act (activation.cuh codes).
+template <bool EPI = false>
+static inline cudaError_t launch_gemm_3xtf32(
+    const float* A, const float* B, float* C, int batch, int M, int N, int K,
+    long long stride_a, long long stride_b, cudaStream_t stream,
+    const float* bias = nullptr, int act = kActNone) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
+  return copies16(A, K) && copies16(B, N)
+             ? launch_ring<&gemm_3xtf32_kernel<true, EPI>>(
+                   grid, stream, A, B, C, M, N, K, stride_a, stride_b, bias,
+                   act)
+             : launch_ring<&gemm_3xtf32_kernel<false, EPI>>(
+                   grid, stream, A, B, C, M, N, K, stride_a, stride_b, bias,
+                   act);
 }
 
 }  // namespace tc

@@ -2,7 +2,9 @@
 
   * `fused_gcn_dense` — act(Â @ (X @ W) + b), fp32. Port of the TPU kernel
     `fused_gcn_dense` (reference `kernels/fused_layers.py`) as hand-written
-    CUDA C++ for `sm_90a` (`csrc/fused_gcn_dense.cu`).
+    CUDA C++ for `sm_90a` (`csrc/fused_gcn_dense.cu`); both its launches
+    run `block_matmul`'s 3xTF32 kernel (`csrc/tc_gemm_tile.cuh`), the
+    aggregate with bias and activation in its store.
   * `fused_gcn_int8` — the QuantGr layer: X quantized by `x_scale`, the s8
     dot with Wq, dequantized by `sw` and re-quantized to int8 Hq by
     `h_scale`, then act(float(Âq @ Hq) * a_scale[row] * h_scale + b). Port
@@ -10,8 +12,9 @@
     bit the plain `fused_gcn_int8_plain`.
   * `fused_gcn_grasp` — act(Â @ (X @ W) + b) with Â in the GraSp compacted
     form (`core.sparsity.BlockSparse` leaves). Port of the TPU kernel
-    `fused_gcn_grasp` (`csrc/fused_gcn_grasp.cu`); its aggregation is the
-    block-sparse walk of `bitmap_spmm` (`csrc/bsr_tile.cuh`).
+    `fused_gcn_grasp` (`csrc/fused_gcn_grasp.cu`); its combine runs
+    `block_matmul`'s 3xTF32 kernel, its aggregation is the block-sparse
+    walk of `bitmap_spmm` (`csrc/bsr_tile.cuh`).
   * `fused_gat_full` — the whole fp32 GAT layer: H = X @ W, the alpha
     terms, act(attention + b) per head. Port of the TPU kernel
     `fused_gat_full` (`csrc/fused_gat_full.cu`); its combine runs on

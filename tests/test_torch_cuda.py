@@ -106,21 +106,44 @@ def test_block_matmul_matches_plain(card):
         assert err <= 2 * ref, (tuple(a.shape), tuple(b.shape), err, ref)
 
 
+def _layer_err_vs_f64(got, plain, args):
+    """(kernel, plain) largest error against the same layer in float64,
+    relative to the largest |output|: `plain` applied to `args` as float64
+    gives the reference."""
+    ref = plain(*(t.double() if isinstance(t, torch.Tensor)
+                  and t.is_floating_point() else t for t in args))
+    top = ref.abs().max()
+    return tuple(((t.double() - ref).abs().max() / top).item()
+                 for t in (got, plain(*args)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 def test_fused_gcn_dense_matches_plain(card, activation):
+    # both launches on the 3xTF32 tile: 128-multiples; a ragged M, N and
+    # K (4-byte copies of every operand); Fin 1433 (4-byte copies of X,
+    # 16-byte ones of Â and H); one graph at the serving K of 3072 (Fin
+    # 1536 -> 128, 96 blocks a launch). Each also held to at most twice
+    # the plain version's (cuBLAS's fp32) error against float64
     rng = np.random.default_rng(5)
-    adj = _arr(rng, 2, 384, 384, scale=0.05).abs().to(card)
-    x = _arr(rng, 2, 384, 256).to(card)
-    w = _arr(rng, 256, 128, scale=0.06).to(card)
-    bias = _arr(rng, 128).to(card)
-    before = fl_mod.LAUNCHES
-    got = fl_mod.fused_gcn_dense(adj, x, w, bias, activation)
-    torch.cuda.synchronize()
-    assert fl_mod.LAUNCHES == before + 1
-    torch.testing.assert_close(
-        got, fl_mod.fused_gcn_dense_plain(adj, x, w, bias, activation),
-        **CARD)
+    for batch, n, fin, o, a_scale, w_scale in (
+            (2, 384, 256, 128, 0.05, 0.06), (2, 131, 37, 70, 0.05, 0.1),
+            (1, 300, 1433, 64, 0.02, 0.03), (1, 3072, 1536, 128, 0.02,
+                                             0.03)):
+        adj = _arr(rng, batch, n, n, scale=a_scale).abs().to(card)
+        x = _arr(rng, batch, n, fin).to(card)
+        w = _arr(rng, fin, o, scale=w_scale).to(card)
+        bias = _arr(rng, o).to(card)
+        args = (adj, x, w, bias, activation)
+        before = fl_mod.LAUNCHES
+        got = fl_mod.fused_gcn_dense(*args)
+        torch.cuda.synchronize()
+        assert fl_mod.LAUNCHES == before + 1
+        torch.testing.assert_close(
+            got, fl_mod.fused_gcn_dense_plain(*args), **CARD)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        err, ref = _layer_err_vs_f64(got, fl_mod.fused_gcn_dense_plain, args)
+        assert err <= 2 * ref, ((batch, n, fin, o), err, ref)
 
 
 def _s8(rng, *shape):
@@ -352,6 +375,13 @@ def test_fused_gcn_grasp_matches_plain_and_skips_the_tail(card, activation):
             torch.cuda.synchronize()
             assert fl_mod.GRASP_LAUNCHES == before + 1
             torch.testing.assert_close(got, want, **CARD)
+            # the 3xTF32 combine keeps fp32 accuracy: at most twice the
+            # plain version's (cuBLAS's fp32) error against float64
+            assert not torch.backends.cuda.matmul.allow_tf32
+            err, ref = _layer_err_vs_f64(
+                got, fl_mod.fused_gcn_grasp_plain,
+                (*zero, x, w, bias, activation))
+            assert err <= 2 * ref, (max_nnz, err, ref)
 
 
 @pytest.mark.cuda
@@ -1007,13 +1037,16 @@ def test_flash_attention_rejects_bad_operands(card):
 def test_tensor_core_kernels_sass(card):
     """The redesigned libraries run on the tensor cores: wgmma (HGMMA) and
     TMA loads (UTMALDG) in flash_attention's bf16 route, TF32 MMA in
-    block_matmul, in the three GAT libraries' attention body and in
-    fused_sage's combine, s8 MMA (IMMA) in the two int8 libraries."""
+    block_matmul, in the three GAT libraries' attention body, in
+    fused_sage's combine and in the GCN layers' products (both launches of
+    fused_gcn_dense, fused_gcn_grasp's combine), s8 MMA (IMMA) in the two
+    int8 libraries."""
     fa = _build.sass_counts("flash_attention_tc",
                             {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)})
     assert fa["HGMMA"] > 0 and fa["UTMALDG"] > 0, fa
     for lib in ("block_matmul", "gat_attention", "fused_gat_full",
-                "fused_gat_precombined", "fused_sage"):
+                "fused_gat_precombined", "fused_sage", "fused_gcn_dense",
+                "fused_gcn_grasp"):
         counts = _build.sass_counts(lib, {"HMMA TF32": ("HMMA", "TF32")})
         assert counts["HMMA TF32"] > 0, (lib, counts)
     for lib in ("int8_matmul", "fused_gcn_int8"):

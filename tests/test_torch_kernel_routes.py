@@ -248,6 +248,138 @@ def test_one_tf32_product_misses_the_card_bar(case):
     assert not np.allclose(one_tf32(a, b), _f64(a, b), **CARD)
 
 
+# ------------------------------------------- fused_gcn_dense on the tile
+GCN_ROWS = 256          # aggregate rows emulated (the combine runs on all)
+ACTS = {"none": lambda z: z, "relu": lambda z: np.maximum(z, 0),
+        "elu": lambda z: _elu(z)}
+
+
+@functools.lru_cache(maxsize=None)
+def _gcn_dense_layers():
+    """The Cora GCN's two layers at the widths `ops.fused_gcn_layer` serves
+    them: a 3072 bucket's Â, Fin padded to 1536 and O to 128 with zeros.
+    By layer: (Â's first GCN_ROWS rows, X, W, b, and H as the combine
+    emulated in 3xTF32 makes it, rounded to fp32). Layer 2 takes layer
+    1's plain fp32 relu output."""
+    rng = np.random.default_rng(7)
+    pg = pad_graph(cora_like(seed=0), capacity=3072)
+    adj = pg.norm_adj.astype(np.float32)
+
+    def pad(a, shape):
+        out = np.zeros(shape, np.float32)
+        out[tuple(slice(0, k) for k in a.shape)] = a
+        return out
+
+    x1 = pad(pg.features.astype(np.float32), (3072, 1536))
+    w1 = pad(_glorot(rng, 1433, 64), (1536, 128))
+    w2 = pad(_glorot(rng, 64, 7), (128, 128))
+    b1 = pad((0.1 * rng.standard_normal(64)).astype(np.float32), (128,))
+    b2 = pad((0.1 * rng.standard_normal(7)).astype(np.float32), (128,))
+    x2 = np.maximum(np.matmul(adj, np.matmul(x1, w1)) + b1, 0)
+    return {layer: (adj[:GCN_ROWS], x, w, b, three_tf32(x, w))
+            for layer, (x, w, b) in (("L1", (x1, w1, b1)),
+                                     ("L2", (x2, w2, b2)))}
+
+
+@pytest.mark.parametrize("activation", sorted(ACTS))
+@pytest.mark.parametrize("layer", ["L1", "L2"])
+def test_fused_gcn_dense_three_tf32_keeps_the_card_bar(layer, activation):
+    """fused_gcn_dense's two launches on the 3xTF32 tile, emulated at the
+    Cora GCN's served widths: the combine's fp32 H, then Â @ H with the
+    tile's chains and partial sums over K = 3072, then bias and activation
+    in the store. Within the card bar of the plain version, and within
+    twice the plain layer's error against float64."""
+    adj, x, w, b, h = _gcn_dense_layers()[layer]
+    act = ACTS[activation]
+    got = act(three_tf32(adj, h) + b)
+    plain = fl.fused_gcn_dense_plain(*(torch.from_numpy(t) for t in (
+        adj, x, w, b)), activation).numpy()
+    np.testing.assert_allclose(got, plain, **CARD)
+    want = act(_f64(adj, _f64(x, w)) + b)
+    assert _rel(got, want) <= 2 * _rel(plain, want)
+
+
+def _grasp_layer(max_nnz):
+    """A compacted Â of 2 graphs x 8 block rows at budget `max_nnz` (counts
+    from 0 to the budget, distinct columns, |N(0, 0.02)| blocks) with X
+    (2, 1024, 256), W (256, 128) and b, from the distributions of
+    fused_gcn_grasp's card test."""
+    rng = np.random.default_rng(max_nnz)
+    counts = rng.integers(0, max_nnz + 1, (2, 8))
+    counts[0, 0] = max_nnz
+    cols = np.stack([[rng.permutation(8)[:max_nnz] for _ in range(8)]
+                     for _ in range(2)])
+    blocks = np.abs(rng.standard_normal((2, 8, max_nnz, 128, 128)) * 0.02
+                    ).astype(np.float32)
+    blocks[np.arange(max_nnz)[None, None, :] >= counts[:, :, None]] = 0.0
+    rng = np.random.default_rng(9 + max_nnz)
+    x = rng.standard_normal((2, 1024, 256)).astype(np.float32)
+    w = (rng.standard_normal((256, 128)) * 0.06).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    return blocks, cols, counts, x, w, b
+
+
+def _walk_entries(blocks, cols, counts, h, blocked):
+    """bsr_tile.cuh's walk: per block row, the entries in list order, each
+    128-deep product summed by fmaf (an fp32 product is exact in float64,
+    so each step rounds once); `blocked` sums each entry apart and adds it
+    to the total, else one chain runs over every entry."""
+    out = np.zeros((*h.shape[:2], h.shape[-1]), np.float32)
+    for z, i in np.ndindex(*counts.shape):
+        acc = np.zeros((128, h.shape[-1]), np.float32)
+        for k in range(counts[z, i]):
+            blk = blocks[z, i, k].astype(np.float64)
+            hk = h[z, cols[z, i, k] * 128:(cols[z, i, k] + 1) * 128]
+            part = np.zeros_like(acc) if blocked else acc
+            for kk in range(128):
+                part = (part + blk[:, kk, None] * hk[kk]).astype(np.float32)
+            acc = acc + part if blocked else part
+        out[z, i * 128:(i + 1) * 128] = acc
+    return out
+
+
+@pytest.mark.parametrize("max_nnz", [2, 6])
+def test_grasp_walk_sums_each_entry_apart(max_nnz):
+    """fused_gcn_grasp emulated: the 3xTF32 combine's fp32 H, then the
+    walk. Summing each entry's product apart keeps the layer within twice
+    the plain version's error against float64 (the card test's bar); one
+    fp32 chain over 768 terms (6 entries) misses it."""
+    blocks, cols, counts, x, w, b = _grasp_layer(max_nnz)
+    h = np.stack([three_tf32(xz, w) for xz in x])
+    h64 = np.matmul(x.astype(np.float64), w.astype(np.float64))
+    want = np.zeros((2, 1024, 128))
+    for z, i in np.ndindex(*counts.shape):
+        for k in range(counts[z, i]):
+            want[z, i * 128:(i + 1) * 128] += blocks[z, i, k].astype(
+                np.float64) @ h64[z, cols[z, i, k] * 128:][:128]
+    want += b
+    plain = fl.fused_gcn_grasp_plain(
+        torch.from_numpy(blocks.reshape(2, 8 * max_nnz, 128, 128)),
+        torch.from_numpy(cols.astype(np.int32)),
+        torch.from_numpy(counts.astype(np.int32)), torch.from_numpy(x),
+        torch.from_numpy(w), torch.from_numpy(b)).numpy()
+    got = _walk_entries(blocks, cols, counts, h, blocked=True) + b
+    np.testing.assert_allclose(got, plain, **CARD)
+    assert _rel(got, want) <= 2 * _rel(plain, want)
+    if max_nnz == 6:
+        chain = _walk_entries(blocks, cols, counts, h, blocked=False) + b
+        assert _rel(chain, want) > 2 * _rel(plain, want)
+
+
+def test_gcn_layers_run_the_three_tf32_launcher():
+    """Both GCN layer kernels reach X @ W through the 3xTF32 launcher, and
+    the fp32 SIMT GEMM kernel and its launcher are gone."""
+    csrc = Path(fl.__file__).parent / "csrc"
+    for name in ("fused_gcn_dense.cu", "fused_gcn_grasp.cu"):
+        text = (csrc / name).read_text()
+        assert "launch_gemm_f32" not in text, name
+        assert "launch_gemm_3xtf32" in text, name
+    assert "launch_gemm_3xtf32<true>" in (
+        csrc / "fused_gcn_dense.cu").read_text()
+    tile = (csrc / "gemm_tile.cuh").read_text()
+    assert "gemm_f32_kernel" not in tile and "launch_gemm_f32" not in tile
+
+
 # ------------------------------------------------------- GAT body P.H
 GAT_CHAIN = 16          # columns per fresh chain: one softmax step at layer
                         # 2, half of one at layer 1 (csrc/gat_tile.cuh)
