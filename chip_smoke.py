@@ -16,11 +16,12 @@ last line; there is no CPU path):
      (`cuobjdump -sass`): HGMMA and UTMALDG in flash_attention's bf16
      route, HMMA ... TF32 in block_matmul, in the three GAT libraries
      (gat_attention, fused_gat_full, fused_gat_precombined), in
-     fused_sage and in the GCN layers (fused_gcn_dense, fused_gcn_grasp),
-     IMMA in the two int8 libraries (int8_matmul, fused_gcn_int8); a
-     count of 0 fails. Beside them, four timing
-     variants of block_matmul's tile (tc_gemm_tile.cuh's TC_GEMM_PRODUCTS,
-     TC_GEMM_SPLIT and TC_SPLIT_INT), four of the GAT attention body
+     fused_sage, in the GCN layers (fused_gcn_dense, fused_gcn_grasp) and
+     in bitmap_spmm (the GraSp walk), IMMA in the two int8 libraries
+     (int8_matmul, fused_gcn_int8); a count of 0 fails. Beside them, four
+     timing variants of block_matmul's tile (tc_gemm_tile.cuh's
+     TC_GEMM_PRODUCTS, TC_GEMM_SPLIT and TC_SPLIT_INT), four of the GAT
+     attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
      SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 9
@@ -54,7 +55,8 @@ last line; there is no CPU path):
      every padded tail block. Launch counts (set to 0 just before the
      phase) must match its batch log, `backend_fallbacks` the ineligible
      forced requests, and every logit the plain forward and the dense
-     model;
+     model. Each graph's backend decision is printed under core/costs.py's
+     constants and under the SIMT-tile constants they replaced;
   5. serve-gat — `gat_attention`, `fused_gat_full` and
      `fused_gat_precombined` against their plain versions at both buckets'
      4-graph serving shapes (layer 1: 8 heads of 8 over 1433 features;
@@ -107,12 +109,15 @@ last line; there is no CPU path):
   9. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
-     of 128), and the measured dense and GraSp aggregation times per
-     bucket; for the redesigned kernels also the times queued behind a
-     spin (block_matmul and flash_attention with TFLOP/s, the three GAT
-     kernels, fused_sage, fused_gcn_dense and fused_gcn_grasp with bounds
-     for 3xTF32 and for fp32 FMA products, the two int8 kernels, and
-     torch._int_mm beside int8_matmul;
+     of 128), and the dense and GraSp aggregation times per bucket queued
+     behind a spin, with the GraSp cost rule's terms they measure (`[agg]`:
+     a launch's fixed cost from bitmap_spmm with every count 0, the walk's
+     and the dense products' rates); for the redesigned kernels also the
+     times queued behind a spin (block_matmul and flash_attention with
+     TFLOP/s, the three GAT kernels, fused_sage, fused_gcn_dense and
+     fused_gcn_grasp with bounds for 3xTF32 and for fp32 FMA products,
+     bitmap_spmm with every count 0 too and on the batch's first 1-4
+     graphs, the two int8 kernels, and torch._int_mm beside int8_matmul;
      int8_matmul's layer-1 Aq @ Hq also on the batch's first 1-4 graphs;
      fused_sage's layer 1 split into the walk and the combine, the
      combine's X and AGG loops apart, a split-K grid without its
@@ -122,9 +127,9 @@ last line; there is no CPU path):
      128 before, timed on the same inputs, and each route's host cost per
      call; block_matmul's time on its earlier fp32 SIMT tile, the GAT
      kernels' on their earlier SIMT body, the int8 kernels' on their
-     earlier __dp4a tile, fused_sage's on its earlier SIMT combine and the
-     GCN layers' on their earlier SIMT products, copied from PERF.md and
-     printed as copied.
+     earlier __dp4a tile, fused_sage's on its earlier SIMT combine, the
+     GCN layers' on their earlier SIMT products and the GraSp kernels' on
+     their earlier SIMT walk, copied from PERF.md and printed as copied.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -232,14 +237,14 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
 # the libraries redesigned for the card's tensor cores and the SASS
 # instructions that show it (cuobjdump -sass; 0 fails the run): flash's
 # bf16 route, block_matmul's 3xTF32 tile (also fused_sage's combine, both
-# launches of fused_gcn_dense and fused_gcn_grasp's combine), the GAT
-# attention body and the s8 tile of the two int8 kernels (mma.sync
-# m16n8k32: IMMA.16832.S8.S8)
+# launches of fused_gcn_dense and of fused_gcn_grasp, and the GraSp walk
+# of bitmap_spmm), the GAT attention body and the s8 tile of the two int8
+# kernels (mma.sync m16n8k32: IMMA.16832.S8.S8)
 SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
         **{lib: {"HMMA TF32": ("HMMA", "TF32")}
            for lib in ("block_matmul", "gat_attention", "fused_gat_full",
                        "fused_gat_precombined", "fused_sage",
-                       "fused_gcn_dense", "fused_gcn_grasp")},
+                       "fused_gcn_dense", "fused_gcn_grasp", "bitmap_spmm")},
         **{lib: {"IMMA": ("IMMA",)}
            for lib in ("int8_matmul", "fused_gcn_int8")}}
 # block_matmul per 4 x 3072 batch on the fp32 SIMT tile it had before the
@@ -269,6 +274,20 @@ FUSED_SAGE_SIMT_MS = {"mean": 0.5381, "max": 0.5486}
 # 80GB HBM3, 700 W): printed as copied, never as this run's own
 GCN_SIMT_MS = {"fused_gcn_dense": 0.9914, "fused_gcn_grasp": 0.2723}
 GCN_KERNELS = ("fused_gcn_dense", "fused_gcn_grasp")
+# the GraSp kernels per 4 x 3072 batch, queued behind a spin, with the walk
+# on the fp32 SIMT tile before the 3xTF32 tile (bitmap_spmm's two calls, the
+# same calls with every count 0, and fused_gcn_grasp's two layers), copied
+# from PERF.md section 6 (rows 3 and 9, NVIDIA H100 80GB HBM3, 700 W):
+# printed as copied, never as this run's own
+WALK_SIMT_MS = {"bitmap_spmm": 0.0427, "bitmap_spmm, every count 0": 0.0120,
+                "fused_gcn_grasp": 0.1652}
+# the GraSp cost rule's constants while both backends ran on the fp32 SIMT
+# tile (core/costs.py before they were measured on the card: 0.38 of the
+# 67 TFLOP/s fp32 peak for both, a guessed 20 ns a list step, no launch
+# cost); [serve-grasp] prints the rule's decisions under them beside the
+# decisions under today's constants
+SIMT_RULE_COSTS = {"DENSE_RATE": 67e12 * 0.38, "GRASP_RATE": 67e12 * 0.38,
+                   "GRASP_STEP_OVERHEAD_S": 2e-8, "AGG_CALL_S": 0.0}
 # timing variants, by library: block_matmul's tile (the switches of
 # tc_gemm_tile.cuh), timed on the batch's products, the GAT attention
 # body (gat_tile.cuh's switches, in the gat_attention library), timed on
@@ -373,6 +392,19 @@ def fused_work(adj, x, w, *rest):
     o = w.shape[1]
     flops = 2.0 * bsz * n * fin * o + 2.0 * bsz * n * n * o
     return flops, nbytes(adj, x, w, *rest) + 4.0 * bsz * n * o
+
+
+def rule_with(constants, *args, **kwargs):
+    """select_agg_backend(*args, **kwargs) with core/costs.py's names set
+    to `constants` for the call."""
+    saved = {k: getattr(costs, k) for k in constants}
+    try:
+        for k, v in constants.items():
+            setattr(costs, k, v)
+        return select_agg_backend(*args, **kwargs)
+    finally:
+        for k, v in saved.items():
+            setattr(costs, k, v)
 
 
 def launches_now():
@@ -1512,12 +1544,18 @@ def main() -> None:
             pg.capacity, cfg.hidden, nnz_blocks=st_["nnz_blocks"],
             max_row_nnz=st_["max_row_nnz"], mode=m) for m in ("auto",
                                                               "grasp")}
+        old = rule_with(SIMT_RULE_COSTS, pg.capacity, cfg.hidden,
+                        nnz_blocks=st_["nnz_blocks"],
+                        max_row_nnz=st_["max_row_nnz"])
         print(f"[serve-grasp] graph {label}: bucket {pg.capacity}, "
               f"nnz_blocks {st_['nnz_blocks']}, max_row_nnz "
               f"{st_['max_row_nnz']}, budget {grasp_max_nnz(pg.capacity)}; "
               f"auto -> {dec['auto'][0]}, forced -> {dec['grasp'][0]}; "
               f"modelled dense {dec['auto'][1] * 1e6:.2f} us, grasp "
-              f"{dec['auto'][2] * 1e6:.2f} us", flush=True)
+              f"{dec['auto'][2] * 1e6:.2f} us; under the SIMT-tile "
+              f"constants auto -> {old[0]}, modelled dense "
+              f"{old[1] * 1e6:.2f} us, grasp {old[2] * 1e6:.2f} us",
+              flush=True)
     batch_log = []
     execute = eng_sp._execute_batch
 
@@ -2142,6 +2180,7 @@ def main() -> None:
                "flops": 0.0, "bytes": 0.0, "dense_ms": 0.0, "exps": 0.0,
                "mean": 0.0, "max": 0.0, "device_ms": 0.0,
                "library_device_ms": 0.0, "walk_ops": 0.0,
+               "zero_count_ms": 0.0, "dense_device_ms": 0.0,
                "combine_flops": 0.0, "mean_device_ms": 0.0,
                "max_device_ms": 0.0}
         peak = (INT8_OPS_PER_S if kernel in ("int8_matmul", "fused_gcn_int8")
@@ -2184,15 +2223,35 @@ def main() -> None:
                 nbytes_ += nbytes(ws)
             elif kernel == "bitmap_spmm":
                 h = args[3]
+                # the walk's fixed cost a call: the same launch with every
+                # count 0 (no block read, the output still written)
+                idle = (args[0], args[1], torch.zeros_like(args[2]), h)
+
+                def sparse_mm():
+                    return [torch.sparse.mm(m, hi) for m, hi in zip(bsr, h)]
+
+                def dense_mm():
+                    return torch.matmul(g3["adj"], h)
                 t_k = time_ms(lambda: bs.bitmap_spmm(*args))
+                d_k = queued_ms(lambda: bs.bitmap_spmm(*args))
+                d_z = queued_ms(lambda: bs.bitmap_spmm(*idle))
                 t_p = time_ms(lambda: bs.bitmap_spmm_plain(*args))
-                t_l = (None if bsr is None else time_ms(
-                    lambda: [torch.sparse.mm(m, hi)
-                             for m, hi in zip(bsr, h)]))
-                t_d = time_ms(lambda: torch.matmul(g3["adj"], h))
+                t_l = None if bsr is None else time_ms(sparse_mm)
+                d_l = None if bsr is None else queued_ms(sparse_mm)
+                t_d = time_ms(dense_mm)
+                d_d = queued_ms(dense_mm)
                 tot["dense_ms"] += t_d
-                print(f"[time] bitmap_spmm {label}: torch.matmul of the "
-                      f"densified A {t_d:.4f} ms", flush=True)
+                for key, ms in (("device_ms", d_k), ("zero_count_ms", d_z),
+                                ("library_device_ms", d_l),
+                                ("dense_device_ms", d_d)):
+                    tot[key] = None if ms is None or tot[key] is None \
+                        else tot[key] + ms
+                print(f"[time] bitmap_spmm {label}: queued behind a spin, "
+                      f"kernel {ms_or_not(d_k)}, every count 0 "
+                      f"{ms_or_not(d_z)}, torch.sparse.mm per graph "
+                      f"{ms_or_not(d_l)}, torch.matmul of the densified A "
+                      f"{ms_or_not(d_d)} ({t_d:.4f} ms by events); {card}",
+                      flush=True)
                 flops, nbytes_ = grasp_work(args[1], args[2], h.shape[-1])
             elif kernel == "fused_gcn_grasp":
                 cols_, counts_, x, w = args[1], args[2], args[3], args[4]
@@ -2291,9 +2350,7 @@ def main() -> None:
                       + f"; bound {i8_ms:.4f} ms ({i8_by}); {card}",
                       flush=True)
             if kernel in GCN_KERNELS:
-                # every product priced as 3xTF32 (the grasp walk runs on
-                # fp32 FMA, but the card could run it on the tensor cores)
-                # and as fp32 FMA
+                # every product priced as 3xTF32 and as fp32 FMA
                 tot["device_ms"] = (None if d_k is None
                                     or tot["device_ms"] is None
                                     else tot["device_ms"] + d_k)
@@ -2581,36 +2638,105 @@ def main() -> None:
                   f"H100 80GB HBM3, 700 W), not measured in this run",
                   flush=True)
         if kernel == "bitmap_spmm":
-            row.update(dense_matmul_ms=tot["dense_ms"],
+            row.update(device_ms=tot["device_ms"],
+                       zero_count_device_ms=tot["zero_count_ms"],
+                       library_device_ms=tot["library_device_ms"],
+                       dense_matmul_ms=tot["dense_ms"],
+                       dense_matmul_device_ms=tot["dense_device_ms"],
                        library="torch.sparse.mm per graph on 128-block BSR",
                        library_refused=bsr_refused)
+            print(f"[time] bitmap_spmm, the batch's {len(cases)} calls: "
+                  f"queued behind a spin, kernel "
+                  f"{ms_or_not(tot['device_ms'])}, every count 0 "
+                  f"{ms_or_not(tot['zero_count_ms'])}, torch.sparse.mm "
+                  f"{ms_or_not(tot['library_device_ms'])}, torch.matmul of "
+                  f"the densified A {ms_or_not(tot['dense_device_ms'])}; "
+                  f"by events kernel {tot['ms']:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by}); {card}", flush=True)
+        if kernel == "bitmap_spmm":
+            # the walk against its blocks in flight: L1 A@H on the batch's
+            # first k graphs, 96 k blocks of 128 threads with a 55 KB ring
+            # each (three blocks an SM fit 396 slots), with its counts and
+            # with every count 0
+            blocks_, cols_, counts_, h_ = cases["L1 A@H"]
+            waves = {}
+            for k in range(1, SLOTS + 1):
+                sub = (blocks_[:k], cols_[:k], counts_[:k], h_[:k])
+                idle = (*sub[:2], torch.zeros_like(sub[2]), sub[3])
+                waves[k] = {"kernel": queued_ms(lambda: bs.bitmap_spmm(*sub)),
+                            "every count 0": queued_ms(
+                                lambda: bs.bitmap_spmm(*idle))}
+            print("[breakdown] bitmap_spmm, L1 A@H on the batch's first k "
+                  "graphs (96 k blocks), queued behind a spin: " + ", ".join(
+                      f"{k} {ms_or_not(v['kernel'])} (every count 0 "
+                      f"{ms_or_not(v['every count 0'])})"
+                      for k, v in waves.items()) + f"; {card}", flush=True)
+            row.update(l1_graphs_device_ms=waves)
+        if kernel in ("bitmap_spmm", "fused_gcn_grasp"):
+            print(f"[time] {kernel} per batch, queued, with the walk on the "
+                  f"fp32 SIMT tile before the 3xTF32 tile: " + ", ".join(
+                      f"{k} {v} ms" for k, v in WALK_SIMT_MS.items()
+                      if k.startswith(kernel))
+                  + "; copied from PERF.md (section 6, rows 3 and 9; "
+                  "NVIDIA H100 80GB HBM3, 700 W), not measured in this run",
+                  flush=True)
         rows.append(row)
     rows.append(flash_row(dev, flash_launches, flash_err, card))
 
-    # what replaces the guessed GraSp step overhead of core/costs.py: the
-    # measured dense and GraSp aggregation of each bucket's serving batch
+    # the terms of the GraSp cost rule (core/costs.py), measured on each
+    # bucket's serving batch, queued behind a spin: a launch's fixed cost
+    # (the walk's call with every count 0, at the smallest bucket) shared
+    # by the batch's graphs, the walk's rate over the real blocks'
+    # products once that cost is taken off (at the largest), what is left
+    # over per list step at that rate (at the smallest), and the dense
+    # products' rate on block_matmul's kernel (at the largest)
+    agg = {}
     for gcap, case in grasp_cases.items():
         st_, h = case["st"], case["h1"]
-        t_g = time_ms(lambda: bs.bitmap_spmm(*st_, h))
-        t_bm = time_ms(lambda: bm.block_matmul(case["adj"], h))
-        t_mm = time_ms(lambda: torch.matmul(case["adj"], h))
+        idle = (st_[0], st_[1], torch.zeros_like(st_[2]))
         bsz, rb, budget = st_[1].shape
-        dense_s, grasp_s = agg_cost_model(
-            gcap, h.shape[-1], nnz_blocks=int(st_[2].sum()) // bsz,
-            max_nnz=budget)
-        flops, nbytes_ = grasp_work(st_[1], st_[2], h.shape[-1])
-        floor_ms = max(flops / costs.FP32_RATE,
-                       nbytes_ / costs.HBM_BW) * 1e3
-        steps = bsz * rb * budget
-        print(f"[agg] bucket {gcap}, batch of {bsz}, F={h.shape[-1]}, "
-              f"budget {budget}: grasp (bitmap_spmm) {t_g:.4f} ms, dense "
-              f"block_matmul {t_bm:.4f} ms, dense torch.matmul {t_mm:.4f} "
-              f"ms; modelled per batch dense {dense_s * bsz * 1e3:.4f} ms, "
-              f"grasp {grasp_s * bsz * 1e3:.4f} ms; measured step overhead "
-              f"{max(t_g - floor_ms, 0.0) / steps * 1e6:.2f} ns over "
-              f"{steps} steps (costs.GRASP_STEP_OVERHEAD_S = "
-              f"{costs.GRASP_STEP_OVERHEAD_S * 1e9:.0f} ns); {card}",
-              flush=True)
+        f = h.shape[-1]
+        flops, _ = grasp_work(st_[1], st_[2], f)
+        agg[gcap] = dict(
+            grasp=queued_ms(lambda: bs.bitmap_spmm(*st_, h)),
+            zero=queued_ms(lambda: bs.bitmap_spmm(*idle, h)),
+            block_matmul=queued_ms(lambda: bm.block_matmul(case["adj"], h)),
+            matmul=queued_ms(lambda: torch.matmul(case["adj"], h)),
+            flops=flops, dense_flops=2.0 * bsz * gcap * gcap * f,
+            steps=bsz * rb * budget * max(f // 128, 1),
+            model=agg_cost_model(gcap, f, nnz_blocks=int(st_[2].sum()) // bsz,
+                                 max_nnz=budget),
+            blocks=int(st_[2].sum()), bsz=bsz, f=f, budget=budget)
+    lo, hi = agg[min(agg)], agg[max(agg)]
+    timed = all(a[k] is not None for a in agg.values()
+                for k in ("grasp", "zero", "block_matmul"))
+    if timed and hi["grasp"] > hi["zero"]:
+        walk_rate = hi["flops"] / (hi["grasp"] - hi["zero"]) * 1e3
+        dense_rate = hi["dense_flops"] / hi["block_matmul"] * 1e3
+        step_s = max(lo["grasp"] - lo["zero"] - lo["flops"] / walk_rate
+                     * 1e3, 0.0) / lo["steps"] * 1e-3
+        measured = {"DENSE_RATE": dense_rate, "GRASP_RATE": walk_rate,
+                    "GRASP_STEP_OVERHEAD_S": step_s,
+                    "AGG_CALL_S": lo["zero"] / lo["bsz"] * 1e-3}
+    else:
+        measured = None
+    for gcap, a in agg.items():
+        dense_s, grasp_s = a["model"]
+        print(f"[agg] bucket {gcap}, batch of {a['bsz']}, F={a['f']}, "
+              f"budget {a['budget']}, {a['blocks']} real blocks, "
+              f"{a['steps']} list steps; queued behind a spin: grasp "
+              f"(bitmap_spmm) {ms_or_not(a['grasp'])}, every count 0 "
+              f"{ms_or_not(a['zero'])}, dense block_matmul "
+              f"{ms_or_not(a['block_matmul'])}, dense torch.matmul "
+              f"{ms_or_not(a['matmul'])}; modelled per batch dense "
+              f"{dense_s * a['bsz'] * 1e3:.4f} ms, grasp "
+              f"{grasp_s * a['bsz'] * 1e3:.4f} ms; {card}", flush=True)
+    print("[agg] the cost rule's terms measured in this run: "
+          + ("not measured" if measured is None else ", ".join(
+              f"{k} {v:.4g}" for k, v in measured.items()))
+          + "; core/costs.py has " + ", ".join(
+              f"{k} {getattr(costs, k):.4g}" for k in SIMT_RULE_COSTS)
+          + f"; {card}", flush=True)
 
     print(card)
     print(json.dumps({"kernels": rows}))

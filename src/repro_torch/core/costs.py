@@ -1,29 +1,35 @@
 """Modelled compute and memory constants of the port's cost rules, for one
 NVIDIA H100 SXM.
 
-Only what `core.sparsity.agg_cost_model` reads lives here: the rate of the
-port's fp32 kernels, the HBM rate, and the GraSp per-entry overhead. The
-host-link and interconnect constants arrive with sharding (ROADMAP queue 1
-item 11). The reference's `costs.py` models a TPU-v4 part; none of its
-numbers is copied. `agg_cost_model` reads these names at call time, so a
-test may set them.
+Only what `core.sparsity.agg_cost_model` reads lives here: the rates of
+the port's two aggregation kernels, the HBM rate, the GraSp walk's
+per-step cost and a launch's fixed cost. The host-link and interconnect
+constants arrive with sharding (ROADMAP queue 1 item 11). The reference's
+`costs.py` models a TPU-v4 part; none of its numbers is copied.
+`agg_cost_model` reads these names at call time, so a test may set them.
+
+The four measured terms come from `chip_smoke.py`'s `[agg]` step (PERF.md
+§6; NVIDIA H100 80GB HBM3 at 700 W), on the Cora GCN's layer-1 Â @ H (F
+= 128) of a 4-graph serving batch of clustered graphs at buckets 1024 and
+3072, each call timed queued behind a spin kernel.
 """
 from __future__ import annotations
 
-# fp32 outside the tensor cores, the rate the port's SIMT tile runs on:
-# 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).
-FP32_PEAK = 67e12
-# Sustained share of that peak: the port's 64x64 fp32 tile measured 25
-# TFLOP/s, 0.38 of the peak, on the serving shapes (`chip_smoke.py`,
-# PERF.md §6; NVIDIA H100 80GB HBM3 at 700 W).
-FP32_DERATE = 0.38
-FP32_RATE = FP32_PEAK * FP32_DERATE      # modelled fp32 FLOP/s
+# fp32 products per second of the dense backend's Â @ H on block_matmul's
+# 3xTF32 kernel (tc_gemm_tile.cuh's gemm_3xtf32_kernel), at bucket 3072.
+DENSE_RATE = 48.66e12
+# fp32 products per second of the GraSp walk (bsr_tile.cuh, 3xTF32 on the
+# same tile) over the real blocks at bucket 3072, once the time of the
+# same call with every count 0 is taken off.
+GRASP_RATE = 61.86e12
 # HBM3 bytes/s (NVIDIA H100 SXM data sheet).
 HBM_BW = 3.35e12
 # Cost of one (block row, list entry, 128-column strip) step of the GraSp
-# kernels beyond its bytes and flops: a shared-memory sync and a block
-# column read per entry, and a small product that fills the SIMT tile
-# less well than a dense one. A first guess, not measured yet;
-# `chip_smoke.py` prints the measured dense and GraSp aggregation times
-# per bucket that replace it.
-GRASP_STEP_OVERHEAD_S = 2e-8
+# walk beyond its bytes, flops and call: what is left of the bucket-1024
+# call at GRASP_RATE, over its list steps.
+GRASP_STEP_OVERHEAD_S = 45.4e-9
+# Fixed cost of one aggregation launch, per graph of the 4-graph batch
+# that shares it: the walk's call with every count 0 at bucket 1024. It is
+# charged to both backends: the dense launch of the same output has the
+# walk's grid, block and store (an empty product would run them alone).
+AGG_CALL_S = 1.01e-6

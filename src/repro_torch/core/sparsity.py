@@ -273,23 +273,25 @@ def agg_cost_model(capacity: int, feats: int, *, nnz_blocks: int,
     """Modelled aggregation latency (dense_s, grasp_s) for one Â @ H.
 
     Dense: one (cap, cap) @ (cap, F) product — the larger of its flops at
-    the port's fp32 rate and its bytes at the HBM rate. GraSp: flops of the
-    `nnz_blocks` real blocks only, bytes of the whole padded budget
-    (`rb * max_nnz` blocks and H tiles), plus a per-step overhead. Reads
-    `core.costs` at call time.
+    the dense kernel's rate and its bytes at the HBM rate. GraSp: flops of
+    the `nnz_blocks` real blocks only at the walk's rate, bytes of the whole
+    padded budget (`rb * max_nnz` blocks and H tiles), plus a per-step
+    overhead. Both pay a launch's fixed cost. Reads `core.costs` at call
+    time.
     """
     bs = block_size
     rb = max(capacity // bs, 1)
     dense_flops = 2.0 * capacity * capacity * feats
     dense_bytes = 4.0 * (capacity * capacity + 2 * capacity * feats)
-    dense_s = max(dense_flops / costs.FP32_RATE, dense_bytes / costs.HBM_BW)
+    dense_s = (max(dense_flops / costs.DENSE_RATE,
+                   dense_bytes / costs.HBM_BW) + costs.AGG_CALL_S)
     steps = rb * max_nnz * max(feats // 128, 1)
     grasp_flops = 2.0 * nnz_blocks * bs * bs * feats
     grasp_bytes = 4.0 * (rb * max_nnz * (bs * bs + bs * feats)
                          + capacity * feats)
-    grasp_s = (max(grasp_flops / costs.FP32_RATE,
+    grasp_s = (max(grasp_flops / costs.GRASP_RATE,
                    grasp_bytes / costs.HBM_BW)
-               + steps * costs.GRASP_STEP_OVERHEAD_S)
+               + steps * costs.GRASP_STEP_OVERHEAD_S + costs.AGG_CALL_S)
     return dense_s, grasp_s
 
 

@@ -4,8 +4,10 @@ Port of the TPU kernel `bitmap_spmm` (reference `kernels/bitmap_spmm.py`)
 as hand-written CUDA C++ for `sm_90a` (`csrc/bitmap_spmm.cu`, walk in
 `csrc/bsr_tile.cuh`): each 64x64 output tile of a block row loops over
 that row's real entries only, in list order, reading the counts and block
-columns on the card, with the 64x64 fp32 tile of `csrc/gemm_tile.cuh` per
-entry. Entries past `counts` are never loaded or multiplied.
+columns on the card. Each entry's product runs as 3xTF32 on the TF32
+tensor cores (`mma_tile` of `csrc/tc_gemm_tile.cuh`), summed apart and
+then added to the tile's total. Entries past `counts` are never loaded or
+multiplied.
 
 Operands (batched over a leading B; `kernels/ops.py` adds it for one
 graph): blocks (B, rb*max_nnz, 128, 128) f32, block_cols (B, rb, max_nnz)
@@ -48,7 +50,8 @@ def bitmap_spmm_plain(blocks: torch.Tensor, block_cols: torch.Tensor,
 
 def check_structure(kernel: str, blocks: torch.Tensor,
                     block_cols: torch.Tensor, counts: torch.Tensor) -> None:
-    """Raise unless the compacted form has the kernel's batched shapes."""
+    """Raise unless the compacted form has the kernel's batched shapes and
+    its blocks start 16-byte aligned."""
     if block_cols.dim() != 3:
         raise ValueError(f"{kernel}: block_cols must be (B, rb, max_nnz), "
                          f"got {tuple(block_cols.shape)}")
@@ -62,6 +65,9 @@ def check_structure(kernel: str, blocks: torch.Tensor,
             f"{tuple(block_cols.shape)}, counts {tuple(counts.shape)}")
     check_int32(kernel, batch=batch, rb=rb, max_nnz=max_nnz,
                 blocks=blocks.numel())
+    if blocks.data_ptr() % 16:
+        raise ValueError(f"{kernel}: blocks must start 16-byte aligned (the "
+                         "kernel copies them 16 bytes at a time)")
 
 
 def bitmap_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,

@@ -3,19 +3,24 @@
 block_matmul over the Cora-width GCN's four serving products (a 4 x 3072
 batch: X @ W1, A @ H1, X2 @ W2, A @ H2), fused_gat_full over the Cora
 GAT's two serving layers (4 x 3072: 1433 features to 8 heads of 8, ELU;
-64 to 1 head of 7) and fused_sage over the Cora SAGE's four (4 x 3072,
+64 to 1 head of 7), fused_sage over the Cora SAGE's four (4 x 3072,
 mean and max: 1433 features to 64, ReLU; 64 to 7; 10 sampled neighbours
-and the self loop a row).
+and the self loop a row), and the GCN layers at their padded serving
+widths (4 x 3072: 1536 features to 128, ReLU; 128 to 128):
+fused_gcn_dense over a dense Â, fused_gcn_grasp over a GraSp structure of
+one diagonal block a block row (graphs of 1800, 2700, 1800 and 2700
+nodes, budget 6: clustered graphs with no cross edges).
 
 Run from the checkout's root. Each argument is LABEL=DIR or
-LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding block_matmul.cu,
-fused_gat_full.cu, fused_sage.cu and the headers they include (this
-checkout's `src/repro_torch/kernels/csrc`, or an earlier commit's,
-unpacked with `git archive` into a git-ignored directory such as
-build/). An OPTION is an extra nvcc flag (`-DTC_SPLIT_INT=0`), or
-`int-split`: build a copy of a tree whose split_tf32 still rounds with
-cvt.rna.tf32.f32 with the integer rounding instead (the same bits), so
-that two tile layouts are compared at one rounding.
+LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding the libraries'
+sources and the headers they include (this checkout's
+`src/repro_torch/kernels/csrc`, or an earlier commit's, unpacked with
+`git archive` into a git-ignored directory such as build/). An OPTION is
+an extra nvcc flag (`-DTC_SPLIT_INT=0`), or `int-split`: build a copy of
+a tree whose split_tf32 still rounds with cvt.rna.tf32.f32 with the
+integer rounding instead (the same bits), so that two tile layouts are
+compared at one rounding. `--libraries=NAME,...` compares only the named
+libraries (all of LIBRARIES by default).
 
 For each library, prints each build's ptxas registers and SASS instruction
 count, checks that every build's outputs equal the first build's bit for
@@ -24,6 +29,7 @@ each build in the order given and back, three times: median, min and
 max.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.compare_builds \\
+        --libraries=block_matmul,fused_gcn_dense \\
         now=src/repro_torch/kernels/csrc \\
         now-cvt=src/repro_torch/kernels/csrc,-DTC_SPLIT_INT=0 \\
         old=build/parent/src/repro_torch/kernels/csrc \\
@@ -70,16 +76,17 @@ def source_tree(label: str, src: Path, int_split: bool,
     return tree
 
 
-LIBRARIES = ("block_matmul", "fused_gat_full", "fused_sage")
+LIBRARIES = ("block_matmul", "fused_gat_full", "fused_sage",
+             "fused_gcn_dense", "fused_gcn_grasp")
 
 
-def build_all(specs):
-    """Compile every build of every library at once: {(label, library):
-    (shared library, ptxas log)}."""
+def build_all(specs, names=LIBRARIES):
+    """Compile every build of every named library at once: {(label,
+    library): (shared library, ptxas log)}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, (tree, flags) in specs.items():
-        for name in LIBRARIES:
+        for name in names:
             lib = OUT / f"{label}_{name}.so"
             procs[label, name] = (lib, subprocess.Popen(
                 [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o",
@@ -174,16 +181,57 @@ def workloads(dev):
             check(fn(*(t.data_ptr() for t in (*args, out)), *sizes, ordinal,
                      stream))
 
+    # the GCN layers: the dense Â above, and a GraSp structure of one
+    # diagonal block a real block row (counts 0 on NodePad's rows)
+    rb, budget = 3072 // 128, 6
+    counts = torch.zeros(4, rb, dtype=torch.int32, device=dev)
+    for z, n in enumerate((1800, 2700, 1800, 2700)):
+        counts[z, :-(-n // 128)] = 1
+    cols = torch.zeros(4, rb, budget, dtype=torch.int32, device=dev)
+    cols[:, :, 0] = torch.arange(rb, dtype=torch.int32, device=dev)
+    blocks = rand(4, rb, budget, 128, 128).abs() / 128
+    blocks[:, :, 1:] = 0.0
+    blocks = blocks.reshape(4, rb * budget, 128, 128)
+    gcn = []
+    for fin, act in ((1536, 1), (128, 0)):
+        gcn.append((rand(4, 3072, fin), rand(fin, 128, scale=fin ** -0.5),
+                    rand(128, scale=0.1), act))
+    dense_outs = [torch.empty(4, 3072, 128, device=dev) for _ in gcn]
+    grasp_outs = [torch.empty(4, 3072, 128, device=dev) for _ in gcn]
+    scratch = torch.empty(4, 3072, 128, device=dev)
+
+    def gcn_dense(fn):
+        for (x, w, b, act), out in zip(gcn, dense_outs):
+            check(fn(adj.data_ptr(), x.data_ptr(), w.data_ptr(),
+                     b.data_ptr(), scratch.data_ptr(), out.data_ptr(), 4,
+                     3072, x.shape[-1], 128, act, ordinal, stream))
+
+    def gcn_grasp(fn):
+        for (x, w, b, act), out in zip(gcn, grasp_outs):
+            check(fn(blocks.data_ptr(), cols.data_ptr(), counts.data_ptr(),
+                     x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                     scratch.data_ptr(), out.data_ptr(), 4, rb, budget,
+                     x.shape[-1], 128, act, ordinal, stream))
+
     return {"block_matmul": (mm_outs, matmuls),
             "fused_gat_full": ([out for *_, out, _ in layers], gat),
-            "fused_sage": ([out for _, out, _ in sage], sage_layers)}
+            "fused_sage": ([out for _, out, _ in sage], sage_layers),
+            "fused_gcn_dense": (dense_outs, gcn_dense),
+            "fused_gcn_grasp": (grasp_outs, gcn_grasp)}
 
 
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    specs = {}
+    specs, names = {}, LIBRARIES
     for arg in argv:
+        if arg.startswith("--libraries="):
+            names = tuple(arg.partition("=")[2].split(","))
+            unknown = sorted(set(names) - set(LIBRARIES))
+            if unknown:
+                raise SystemExit(f"unknown libraries {unknown}; "
+                                 f"LIBRARIES: {LIBRARIES}")
+            continue
         label, _, rest = arg.partition("=")
         src, *options = rest.split(",")
         flags = [o for o in options if o != "int-split"]
@@ -192,8 +240,8 @@ def main(argv) -> None:
     if not specs:
         raise SystemExit(__doc__)
     card = card_line()
-    fns = {name: {} for name in LIBRARIES}
-    for (label, name), (lib, log) in build_all(specs).items():
+    fns = {name: {} for name in names}
+    for (label, name), (lib, log) in build_all(specs, names).items():
         regs = re.findall(r"Used (\d+) registers", log)
         sass = subprocess.run([_build.cuobjdump_path(), "-sass", str(lib)],
                               capture_output=True, text=True,
@@ -208,7 +256,7 @@ def main(argv) -> None:
         fns[name][label] = fn
 
     work = workloads(torch.device("cuda"))
-    for name in LIBRARIES:
+    for name in names:
         outs, run = work[name]
         first = None
         for label, fn in fns[name].items():

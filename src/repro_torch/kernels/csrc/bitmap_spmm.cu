@@ -5,11 +5,13 @@
 // there the block columns sat in SMEM by scalar prefetch and steered the
 // index maps of a (row block, F strip, entry) grid whose masked tail steps
 // skipped the MAC under `pl.when`. Here each block loads its row's count and
-// columns itself and loops over the real entries only (bsr_tile.cuh), with
-// the sum in registers, so blocks run in any order.
+// columns itself and loops over the real entries only (bsr_tile.cuh), each
+// entry's product 3xTF32 on the TF32 tensor cores (tc_gemm_tile.cuh's
+// mma_tile) and summed apart, then added to the total in registers, so
+// blocks run in any order.
 //
 // Bound at the serving shapes (B = 4 clustered graphs at cap 3072, F = 128
-// after padding): the real blocks' flops at the fp32 SIMT rate.
+// after padding): the bytes of the real blocks and the H rows they name.
 #include "bsr_tile.cuh"
 
 // blocks: (batch, rb*max_nnz, 128, 128); block_cols: (batch, rb, max_nnz)
@@ -22,7 +24,7 @@ extern "C" int bitmap_spmm_f32(const float* blocks, const int* block_cols,
                                int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)gcn_port::launch_bsr_spmm(
+  return (int)gcn_port::tc::launch_bsr_spmm<false>(
       blocks, block_cols, counts, h, nullptr, out, batch, rb, max_nnz, n_h,
       f, gcn_port::kActNone, (cudaStream_t)stream);
 }

@@ -13,18 +13,17 @@
 //                                     B = 4, n = 3072, so L2 resident), on
 //                                     block_matmul's 3xTF32 kernel
 //                                     (tc_gemm_tile.cuh, no epilogue)
-//   2. aggregate: the block-sparse walk of bsr_tile.cuh over H[z], with
-//                 bias and activation fused into the store (fp32 SIMT).
+//   2. aggregate: the block-sparse walk of bsr_tile.cuh over H[z], each
+//                 entry 3xTF32 on the same tile's mma_tile, with bias and
+//                 activation fused into the store.
 //
 // Bound: the combine's flops (2*n*Fin*128 per graph, Fin = 1536 on layer
 // 1) outweigh the sparse aggregation's at the serving widths, so the
 // layer is operations-bound. For chip_smoke.py's 3072 batch of clustered
 // graphs (both layers, real blocks only): 0.0282 ms as three TF32
-// products each at 495 TFLOP/s, 0.0695 ms on fp32 FMA at 67 TFLOP/s. The
-// combine runs on the tensor cores; the walk stays on the fp32 SIMT tile
-// of gemm_tile.cuh.
+// products each at 495 TFLOP/s, 0.0695 ms on fp32 FMA at 67 TFLOP/s. Both
+// launches run on the TF32 tensor cores.
 #include "bsr_tile.cuh"
-#include "tc_gemm_tile.cuh"
 
 // blocks/block_cols/counts as bitmap_spmm_f32, for a square Â of n = rb*128
 // rows; x: (batch, n, fin); w: (fin, o); bias: (o,); h: (batch, n, o)
@@ -36,14 +35,14 @@ extern "C" int fused_gcn_grasp_f32(const float* blocks, const int* block_cols,
                                    float* h, float* out, int batch, int rb,
                                    int max_nnz, int fin, int o, int act,
                                    int device, void* stream) {
+  using namespace gcn_port::tc;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int n = rb * gcn_port::kBlock;
+  const int n = rb * kBlock;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = gcn_port::tc::launch_gemm_3xtf32(x, w, h, batch, n, o, fin,
-                                         (long long)n * fin, 0LL, s);
+  err = launch_gemm_3xtf32(x, w, h, batch, n, o, fin, (long long)n * fin,
+                           0LL, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)gcn_port::launch_bsr_spmm(blocks, block_cols, counts, h, bias,
-                                        out, batch, rb, max_nnz, n, o, act,
-                                        s);
+  return (int)launch_bsr_spmm<true>(blocks, block_cols, counts, h, bias, out,
+                                    batch, rb, max_nnz, n, o, act, s);
 }

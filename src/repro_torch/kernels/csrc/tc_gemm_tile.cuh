@@ -1,7 +1,7 @@
 // fp32 GEMM on the TF32 tensor cores with fp32 accuracy (3xTF32), for
-// `block_matmul`, both launches of `fused_gcn_dense`, the combine of
-// `fused_gcn_grasp`, and the combines of `fused_gat_full` and
-// `fused_sage` (sm_90a):
+// `block_matmul`, both launches of `fused_gcn_dense`, both launches of
+// `fused_gcn_grasp` and `bitmap_spmm` (the GraSp walk of bsr_tile.cuh),
+// and the combines of `fused_gat_full` and `fused_sage` (sm_90a):
 //
 //   C[z] = A[z] @ B[z]               z = blockIdx.z, row-major fp32 operands
 //   C[z] = act(A[z] @ B[z] + bias)   with the EPI option
@@ -11,9 +11,10 @@
 // `launch_gemm_3xtf32` launches it: block_matmul without EPI, the GCN
 // layers' combines without EPI and fused_gcn_dense's aggregate with it.
 // fused_gat_full and fused_sage call `mma_tile` from kernels of their own
-// (fused_sage twice, into one accumulator), which `launch_ring` launches
-// with the ring's shared memory; the GAT attention body (gat_tile.cuh)
-// takes the split_tf32, mma_tf32 and cp.async helpers.
+// (fused_sage twice, into one accumulator), as does the GraSp walk (once a
+// block entry, into one accumulator, stored by `store_tile`), which
+// `launch_ring` launches with the ring's shared memory; the GAT attention
+// body (gat_tile.cuh) takes the split_tf32, mma_tf32 and cp.async helpers.
 //
 // 3xTF32: each operand element x is split into big = tf32(x) (round to
 // nearest, ties away, to 10 mantissa bits: the bits cvt.rna.tf32.f32
@@ -339,23 +340,15 @@ __device__ __forceinline__ float epilogue(float v,
     return v;
 }
 
-// C[z] = A[z] @ B[z] (M x K times K x N, both row-major, A's rows K
-// apart), with EPI act(... + bias); one block a 64 x 64 tile of C. VEC:
-// 16-byte copies of both operands. static: each library that includes
-// this header keeps its own instantiations.
-template <bool VEC, bool EPI = false>
-static __global__ void __launch_bounds__(kThreads)
-    gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                       float* __restrict__ C, int M, int N, int K,
-                       long long stride_a, long long stride_b,
-                       const float* __restrict__ bias, int act) {
-  A += blockIdx.z * stride_a;
-  B += blockIdx.z * stride_b;
-  C += blockIdx.z * (long long)M * N;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  float acc[kMT][kNT][4] = {};
-  mma_tile<VEC, VEC>(A, B, M, N, K, K, row0, col0, acc);
-
+// C[row0:row0+64, col0:col0+64] = epilogue<EPI>(acc) for row-major C
+// (M x N), from mma_tile's fragment layout; rows and columns out of range
+// are not written.
+template <bool EPI>
+__device__ __forceinline__ void store_tile(float* __restrict__ C, int M,
+                                           int N, int row0, int col0,
+                                           const float (&acc)[kMT][kNT][4],
+                                           const float* __restrict__ bias,
+                                           int act) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / kWN) * (kBM / kWM);
   const int wn = (warp % kWN) * (kBN / kWN);
@@ -378,6 +371,25 @@ static __global__ void __launch_bounds__(kThreads)
               epilogue<EPI>(acc[i][j][2 * h + 1], bias, c + 1, act);
       }
     }
+}
+
+// C[z] = A[z] @ B[z] (M x K times K x N, both row-major, A's rows K
+// apart), with EPI act(... + bias); one block a 64 x 64 tile of C. VEC:
+// 16-byte copies of both operands. static: each library that includes
+// this header keeps its own instantiations.
+template <bool VEC, bool EPI = false>
+static __global__ void __launch_bounds__(kThreads)
+    gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                       float* __restrict__ C, int M, int N, int K,
+                       long long stride_a, long long stride_b,
+                       const float* __restrict__ bias, int act) {
+  A += blockIdx.z * stride_a;
+  B += blockIdx.z * stride_b;
+  C += blockIdx.z * (long long)M * N;
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  float acc[kMT][kNT][4] = {};
+  mma_tile<VEC, VEC>(A, B, M, N, K, K, row0, col0, acc);
+  store_tile<EPI>(C, M, N, row0, col0, acc, bias, act);
 }
 
 // Launch one batched product on `stream`; returns cudaGetLastError().

@@ -385,6 +385,69 @@ def test_fused_gcn_grasp_matches_plain_and_skips_the_tail(card, activation):
 
 
 @pytest.mark.cuda
+def test_grasp_kernels_with_every_count_zero(card):
+    """Every count 0: no block is read (all NaN), so bitmap_spmm writes
+    zeros and fused_gcn_grasp act(bias) in every row."""
+    rng = np.random.default_rng(12)
+    blocks, cols, counts = _grasp_structure(rng, 2, 8, 3, card)
+    blocks = torch.full_like(blocks, float("nan"))
+    counts = torch.zeros_like(counts)
+    h = _arr(rng, 2, 8 * 128, 128).to(card)
+    out = bs_mod.bitmap_spmm(blocks, cols, counts, h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    x = _arr(rng, 2, 8 * 128, 256).to(card)
+    w = _arr(rng, 256, 128, scale=0.06).to(card)
+    bias = _arr(rng, 128).to(card)
+    for activation in ACTIVATIONS:
+        got = fl_mod.fused_gcn_grasp(blocks, cols, counts, x, w, bias,
+                                     activation)
+        want = fl_mod._act(bias.expand(2, 8 * 128, 128), activation)
+        torch.testing.assert_close(got, want, **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_nnz", [2, 6])
+def test_grasp_kernels_take_a_width_not_a_multiple_of_4(card, max_nnz):
+    """F of 7 and 130 (H by 4-byte copies, ragged column tiles), with NaN
+    tail blocks: each kernel at the card bar of its plain version."""
+    rng = np.random.default_rng(20 + max_nnz)
+    zero = _grasp_structure(np.random.default_rng(max_nnz), 2, 8, max_nnz,
+                            card)
+    nan = _grasp_structure(np.random.default_rng(max_nnz), 2, 8, max_nnz,
+                           card, nan_tail=True)
+    for f in (7, 130):
+        h = _arr(rng, 2, 8 * 128, f).to(card)
+        got = bs_mod.bitmap_spmm(*nan, h)
+        torch.testing.assert_close(got, bs_mod.bitmap_spmm_plain(*zero, h),
+                                   **CARD)
+        x = _arr(rng, 2, 8 * 128, 40).to(card)
+        w = _arr(rng, 40, f, scale=0.15).to(card)
+        bias = _arr(rng, f).to(card)
+        got = fl_mod.fused_gcn_grasp(*nan, x, w, bias, "relu")
+        torch.testing.assert_close(
+            got, fl_mod.fused_gcn_grasp_plain(*zero, x, w, bias, "relu"),
+            **CARD)
+
+
+@pytest.mark.cuda
+def test_grasp_wrappers_reject_unaligned_blocks(card):
+    blocks, cols, counts = _grasp_structure(np.random.default_rng(0), 1, 4,
+                                            2, card)
+    shifted = torch.empty(blocks.numel() + 1, device=card)[1:].view(
+        blocks.shape)
+    shifted.copy_(blocks)
+    h = torch.zeros(1, 512, 128, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        bs_mod.bitmap_spmm(shifted, cols, counts, h)
+    with pytest.raises(ValueError, match="16-byte"):
+        fl_mod.fused_gcn_grasp(shifted, cols, counts,
+                               torch.zeros(1, 512, 128, device=card),
+                               torch.zeros(128, 128, device=card),
+                               torch.zeros(128, device=card))
+
+
+@pytest.mark.cuda
 def test_grasp_wrappers_reject_bad_operands(card):
     blocks, cols, counts = _grasp_structure(np.random.default_rng(0), 1, 4,
                                             2, card)
@@ -1038,15 +1101,15 @@ def test_tensor_core_kernels_sass(card):
     """The redesigned libraries run on the tensor cores: wgmma (HGMMA) and
     TMA loads (UTMALDG) in flash_attention's bf16 route, TF32 MMA in
     block_matmul, in the three GAT libraries' attention body, in
-    fused_sage's combine and in the GCN layers' products (both launches of
-    fused_gcn_dense, fused_gcn_grasp's combine), s8 MMA (IMMA) in the two
-    int8 libraries."""
+    fused_sage's combine, in the GCN layers' products (both launches of
+    fused_gcn_dense and of fused_gcn_grasp) and in bitmap_spmm's GraSp
+    walk, s8 MMA (IMMA) in the two int8 libraries."""
     fa = _build.sass_counts("flash_attention_tc",
                             {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)})
     assert fa["HGMMA"] > 0 and fa["UTMALDG"] > 0, fa
     for lib in ("block_matmul", "gat_attention", "fused_gat_full",
                 "fused_gat_precombined", "fused_sage", "fused_gcn_dense",
-                "fused_gcn_grasp"):
+                "fused_gcn_grasp", "bitmap_spmm"):
         counts = _build.sass_counts(lib, {"HMMA TF32": ("HMMA", "TF32")})
         assert counts["HMMA TF32"] > 0, (lib, counts)
     for lib in ("int8_matmul", "fused_gcn_int8"):

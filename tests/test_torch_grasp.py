@@ -198,10 +198,12 @@ def _rule_inputs():
 
 
 def test_rule_with_reference_constants_equals_reference(monkeypatch):
-    monkeypatch.setattr(tcosts, "FP32_RATE", rcosts.MXU_RATE)
+    monkeypatch.setattr(tcosts, "DENSE_RATE", rcosts.MXU_RATE)
+    monkeypatch.setattr(tcosts, "GRASP_RATE", rcosts.MXU_RATE)
     monkeypatch.setattr(tcosts, "HBM_BW", rcosts.HBM_BW)
     monkeypatch.setattr(tcosts, "GRASP_STEP_OVERHEAD_S",
                         rsp.GRASP_STEP_OVERHEAD_S)
+    monkeypatch.setattr(tcosts, "AGG_CALL_S", 0.0)
     seen = set()
     for cap, nnz, mx in _rule_inputs():
         for feats in (8, 64, 256):
@@ -511,10 +513,12 @@ def test_grasp_serving_matches_reference(kernel_mode):
 
 def test_auto_mode_decisions_equal_reference(monkeypatch):
     monkeypatch.setenv("REPRO_KERNEL_MODE", "ref")
-    monkeypatch.setattr(tcosts, "FP32_RATE", rcosts.MXU_RATE)
+    monkeypatch.setattr(tcosts, "DENSE_RATE", rcosts.MXU_RATE)
+    monkeypatch.setattr(tcosts, "GRASP_RATE", rcosts.MXU_RATE)
     monkeypatch.setattr(tcosts, "HBM_BW", rcosts.HBM_BW)
     monkeypatch.setattr(tcosts, "GRASP_STEP_OVERHEAD_S",
                         rsp.GRASP_STEP_OVERHEAD_S)
+    monkeypatch.setattr(tcosts, "AGG_CALL_S", 0.0)
     weights = _weights(3)
     graphs = [_clustered(200, 1), _clustered(700, 2), _scattered(600, 3),
               _clustered(1000, 4, 0.02)]

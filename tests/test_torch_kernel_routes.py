@@ -39,6 +39,7 @@ import torch
 from repro_torch.core import masks
 from repro_torch.core.graph import pad_graph
 from repro_torch.data.graphs import cora_like
+from repro_torch.kernels import bitmap_spmm as bs
 from repro_torch.kernels import compare_builds as cb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_layers as fl
@@ -320,10 +321,11 @@ def _grasp_layer(max_nnz):
 
 
 def _walk_entries(blocks, cols, counts, h, blocked):
-    """bsr_tile.cuh's walk: per block row, the entries in list order, each
-    128-deep product summed by fmaf (an fp32 product is exact in float64,
-    so each step rounds once); `blocked` sums each entry apart and adds it
-    to the total, else one chain runs over every entry."""
+    """The fp32 SIMT walk that bsr_tile.cuh ran before the 3xTF32 tile: per
+    block row, the entries in list order, each 128-deep product summed by
+    fmaf (an fp32 product is exact in float64, so each step rounds once);
+    `blocked` sums each entry apart and adds it to the total, else one
+    chain runs over every entry."""
     out = np.zeros((*h.shape[:2], h.shape[-1]), np.float32)
     for z, i in np.ndindex(*counts.shape):
         acc = np.zeros((128, h.shape[-1]), np.float32)
@@ -338,6 +340,32 @@ def _walk_entries(blocks, cols, counts, h, blocked):
     return out
 
 
+def _walk_three_tf32(blocks, cols, counts, h):
+    """bsr_tile.cuh's walk on the 3xTF32 tile: per block row, the entries
+    in list order, each 128-deep product through `mma_tile` into the one
+    accumulator (K = 128 is one partial sum, added to the total)."""
+    out = np.zeros((*h.shape[:2], h.shape[-1]), np.float32)
+    for z, i in np.ndindex(*counts.shape):
+        acc = np.zeros((128, h.shape[-1]), np.float32)
+        for k in range(counts[z, i]):
+            c = cols[z, i, k]
+            acc = three_tf32(blocks[z, i, k], h[z, c * 128:(c + 1) * 128],
+                             acc=acc)
+        out[z, i * 128:(i + 1) * 128] = acc
+    return out
+
+
+def _walk_f64(blocks, cols, counts, h):
+    """The walk's sum in float64: every entry's product, in list order."""
+    out = np.zeros((*h.shape[:2], h.shape[-1]))
+    for z, i in np.ndindex(*counts.shape):
+        for k in range(counts[z, i]):
+            c = cols[z, i, k]
+            out[z, i * 128:(i + 1) * 128] += blocks[z, i, k].astype(
+                np.float64) @ h[z, c * 128:(c + 1) * 128].astype(np.float64)
+    return out
+
+
 @pytest.mark.parametrize("max_nnz", [2, 6])
 def test_grasp_walk_sums_each_entry_apart(max_nnz):
     """fused_gcn_grasp emulated: the 3xTF32 combine's fp32 H, then the
@@ -347,12 +375,7 @@ def test_grasp_walk_sums_each_entry_apart(max_nnz):
     blocks, cols, counts, x, w, b = _grasp_layer(max_nnz)
     h = np.stack([three_tf32(xz, w) for xz in x])
     h64 = np.matmul(x.astype(np.float64), w.astype(np.float64))
-    want = np.zeros((2, 1024, 128))
-    for z, i in np.ndindex(*counts.shape):
-        for k in range(counts[z, i]):
-            want[z, i * 128:(i + 1) * 128] += blocks[z, i, k].astype(
-                np.float64) @ h64[z, cols[z, i, k] * 128:][:128]
-    want += b
+    want = _walk_f64(blocks, cols, counts, h64) + b
     plain = fl.fused_gcn_grasp_plain(
         torch.from_numpy(blocks.reshape(2, 8 * max_nnz, 128, 128)),
         torch.from_numpy(cols.astype(np.int32)),
@@ -366,9 +389,39 @@ def test_grasp_walk_sums_each_entry_apart(max_nnz):
         assert _rel(chain, want) > 2 * _rel(plain, want)
 
 
+@pytest.mark.parametrize("max_nnz", [1, 2, 6])
+@pytest.mark.parametrize("kernel", ["fused_gcn_grasp", "bitmap_spmm"])
+def test_grasp_walk_three_tf32_keeps_the_card_bar(kernel, max_nnz):
+    """The GraSp walk on the 3xTF32 tile, emulated: fused_gcn_grasp with the
+    3xTF32 combine's H (bias in the store), bitmap_spmm on the layer's fp32
+    H = X @ W. Within the card bar of the plain version, and within twice
+    the plain version's error against float64."""
+    blocks, cols, counts, x, w, b = _grasp_layer(max_nnz)
+    structure = (torch.from_numpy(blocks.reshape(2, 8 * max_nnz, 128, 128)),
+                 torch.from_numpy(cols.astype(np.int32)),
+                 torch.from_numpy(counts.astype(np.int32)))
+    if kernel == "fused_gcn_grasp":
+        h = np.stack([three_tf32(xz, w) for xz in x])
+        got = _walk_three_tf32(blocks, cols, counts, h) + b
+        plain = fl.fused_gcn_grasp_plain(
+            *structure, torch.from_numpy(x), torch.from_numpy(w),
+            torch.from_numpy(b)).numpy()
+        want = _walk_f64(blocks, cols, counts,
+                         np.matmul(x.astype(np.float64), w)) + b
+    else:
+        h = np.matmul(x, w)
+        got = _walk_three_tf32(blocks, cols, counts, h)
+        plain = bs.bitmap_spmm_plain(*structure,
+                                     torch.from_numpy(h)).numpy()
+        want = _walk_f64(blocks, cols, counts, h)
+    np.testing.assert_allclose(got, plain, **CARD)
+    assert _rel(got, want) <= 2 * _rel(plain, want)
+
+
 def test_gcn_layers_run_the_three_tf32_launcher():
-    """Both GCN layer kernels reach X @ W through the 3xTF32 launcher, and
-    the fp32 SIMT GEMM kernel and its launcher are gone."""
+    """Both GCN layer kernels reach X @ W through the 3xTF32 launcher, the
+    GraSp walk runs its entries through the same tile's `mma_tile`, and the
+    fp32 SIMT tile is gone: no source under csrc/ includes it."""
     csrc = Path(fl.__file__).parent / "csrc"
     for name in ("fused_gcn_dense.cu", "fused_gcn_grasp.cu"):
         text = (csrc / name).read_text()
@@ -376,8 +429,12 @@ def test_gcn_layers_run_the_three_tf32_launcher():
         assert "launch_gemm_3xtf32" in text, name
     assert "launch_gemm_3xtf32<true>" in (
         csrc / "fused_gcn_dense.cu").read_text()
-    tile = (csrc / "gemm_tile.cuh").read_text()
-    assert "gemm_f32_kernel" not in tile and "launch_gemm_f32" not in tile
+    assert not (csrc / "gemm_tile.cuh").exists()
+    for src in sorted(csrc.glob("*.cu*")):
+        assert '#include "gemm_tile.cuh"' not in src.read_text(), src.name
+    walk = (csrc / "bsr_tile.cuh").read_text()
+    assert '#include "tc_gemm_tile.cuh"' in walk
+    assert "mma_tile<" in walk and "fmaf" not in walk
 
 
 # ------------------------------------------------------- GAT body P.H
