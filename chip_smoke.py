@@ -24,7 +24,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 9
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 11
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -35,7 +35,11 @@ last line; there is no CPU path):
      (both layers) at the same shapes with a real Cora calibration, where
      they must equal their plain versions bit for bit;
   3. serving — a GraphServe on the card with the Cora 2-layer GCN four
-     times. The fp32 path: `gcn` with `fusion="layer"` (fused_gcn_dense)
+     times, on CacheG (the default, as in phases 4–6): each request's
+     structure crosses as bit-packed adjacency and is materialized on the
+     card, so `operand_bytes_h2d` must equal the compact forms of the
+     one-shot requests and of the attached graph's first query (its
+     second query is a cache hit and ships nothing). The fp32 path: `gcn` with `fusion="layer"` (fused_gcn_dense)
      and `gcn_mm` with `use_pallas` (block_matmul). The int8 path: `gcn_q`
      (tiers fp32 + int8, `fusion="layer"`, fused_gcn_int8) and `gcn_qmm`
      (a tier dict with `use_pallas`, int8_matmul), both calibrated on Cora
@@ -43,7 +47,8 @@ last line; there is no CPU path):
      graph per path is attached and queried twice. Each path runs with
      every launch count set to 0 just before it; the counts read just
      after must equal what its dispatched batches imply, and every logit
-     is held against a forward through the plain versions;
+     is held against a forward through the plain versions over the
+     host-built Â;
   4. serve-grasp — a second GraphServe with the same Cora GCN weights on
      the GraSp backend: `gcn_sp` (`agg_backend="grasp"`,
      `fusion="layer"`, fused_gcn_grasp) and `gcn_sp_auto`
@@ -70,7 +75,8 @@ last line; there is no CPU path):
      and the five Planetoid-like graphs, and one 900-node graph attached
      and queried twice. Launch counts (set to 0 just before the phase)
      must match its batch log and every logit the plain forward (an int8
-     request layer by layer);
+     request layer by layer) over the host-built masks, which the masks
+     materialized on the card must equal exactly;
   6. serve-sage — `sage_max` (bit for bit) and `fused_sage` (mean and max,
      none and relu) against their plain versions at both buckets' 4-graph
      serving shapes, with real `sage_sample_adjacency` masks (NodePad's
@@ -85,8 +91,27 @@ last line; there is no CPU path):
      and tier gets Cora and the five Planetoid-like graphs, and one
      900-node graph attached and queried twice. Launch counts (set to 0
      just before the phase) must match its batch log and every logit the
-     plain forward (an int8 request layer by layer);
-  7. flash — `flash_attention` against its plain version
+     plain forward (an int8 request layer by layer) over the host-built
+     sample, which the materialized masks must equal exactly;
+  7. intake — each host piece of a request's intake at buckets 1024 and
+     3072 (pad_graph; the edge keys, symmetry check, SymG pack and degree
+     GraphServe runs, and the dense-matrix versions beside them; the
+     compact upload; the materializer, by CUDA events and from the host;
+     the eager upload of Â), the host link's pinned and pageable rates
+     (`core/costs.py`'s `transfer_cost`), and phase 3's fp32 GCN burst
+     with `use_cacheg=False` and with CacheG, three runs each in turns
+     after one untimed burst each:
+     intake_s, operand bytes, device_busy_s, p50/p99. The bytes must be
+     each path's own, and CacheG's intake may not exceed the eager one's
+     beyond the runs' spread;
+  8. cacheg — the masks and Â the card materializes for GCN, GAT and
+     SAGE at both buckets against the host's (masks bit for bit, Â
+     within 1e-6), then five attached cap-3072 GCN graphs churned under a
+     budget that holds two: resident <= budget and evictions == spilled +
+     dropped after every step, the spilled forms in pinned memory, each
+     re-query answering bit for bit as its first answer while moving only
+     compact bytes, and `assert_warm()`;
+  9. flash — `flash_attention` against its plain version
      (`flash_attention_ref`) in fp32 and bf16, each case through the route
      it takes (bf16 at head dim 64 and 128: the wgmma/TMA kernel; fp32 and
      head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
@@ -95,7 +120,7 @@ last line; there is no CPU path):
      65 and 129, gemma2's heads (32 over 16 of 128) with window 64 and
      softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
      may reach (at head dim 64 and 128), and head_dim 32;
-  8. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
+  10. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
      warm-up wave per bucket, 12 requests of 16 new tokens (one wave per
@@ -106,7 +131,7 @@ last line; there is no CPU path):
      wave's prefill logits must match a rerun with the plain attention
      (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
      token per bucket, decode ms per step and tokens/s;
-  9. times — CUDA-event times of each kernel, its plain version and the
+  11. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the dense and GraSp aggregation times per bucket queued
@@ -137,6 +162,7 @@ Output: progress lines, the card's name and power limit, one
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import subprocess
@@ -155,13 +181,19 @@ from repro_torch.bridge import (lm_params_from_jax,  # noqa: E402
                                 params_from_jax)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.gnn import gat, gcn, sage  # noqa: E402
-from repro_torch.core.graph import BucketLadder, pad_graph  # noqa: E402
+from repro_torch.core.graph import (BucketLadder,  # noqa: E402
+                                    adjacency_keys, is_symmetric_adjacency,
+                                    keys_symmetric, pad_graph,
+                                    symg_pack_adjacency_bits, symg_pack_keys,
+                                    triangular_nbits)
 from repro_torch.core.layers import Techniques  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
 from repro_torch.core import layers as glayers  # noqa: E402
 from repro_torch.core.quant import apply_quantized_linear  # noqa: E402
-from repro_torch.core.models import (build_operands,  # noqa: E402
-                                     calibrate_tier, derive_tier_operands,
+from repro_torch.core.models import (build_materializer,  # noqa: E402
+                                     build_operands, calibrate_tier,
+                                     compact_operands, derive_tier_operands,
+                                     gcn_degree, materialize_operands,
                                      stack_operands)
 from repro_torch.core.sparsity import (agg_cost_model,  # noqa: E402
                                        block_stats, compact_block_sparse,
@@ -182,6 +214,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sage_max as sm  # noqa: E402
 from repro_torch.nn import lm  # noqa: E402
+from repro_torch.runtime.cache import (  # noqa: E402
+    estimate_dense_entry_bytes)
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
 from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
@@ -333,6 +367,33 @@ GAT_KERNELS = ("gat_attention", "fused_gat_full", "fused_gat_precombined")
 SAGE_KERNELS = ("sage_max", "fused_sage")
 SAGE_HIDDEN, SAGE_CLASSES = 64, 7
 LM_KERNELS = ("flash_attention",)
+
+
+def compact_bytes(cap, sage=False):
+    """Bytes of one CacheG compact form at bucket `cap`: the packed bits
+    (SymG triangle, or the full SAGE sample), the degree vector and the
+    node count."""
+    bits = cap * cap if sage else triangular_nbits(cap)
+    return -(-bits // 8) + 4 * cap + 4
+
+
+_HOST_OPS = {}
+
+
+def host_operands(r, cfg, dev):
+    """The host-built operands of a served request's graph (the yardstick
+    of its logits), built once per (graph, kind); the masks the card
+    materialized from the compact form must equal them exactly."""
+    key = (r.pg.num_nodes, r.pg.capacity, cfg.kind, cfg.max_neighbors)
+    if key not in _HOST_OPS:
+        _HOST_OPS[key] = build_operands(r.pg, cfg, device=dev)
+    host = _HOST_OPS[key]
+    for f in ("mask_mult", "bias_add", "sample_mask", "mean_mask"):
+        if getattr(host, f) is not None:
+            check(torch.equal(getattr(r.ops, f), getattr(host, f)),
+                  f"request {r.uid}: the materialized {f} differs from the "
+                  f"host's")
+    return host
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1117,6 +1178,276 @@ def flash_row(dev, launches, worst, card):
             "serving": serve, "long": long_}
 
 
+def host_ms(fn, reps=5):
+    """Median host wall-clock ms of `fn` over `reps` calls after one."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def copy_ms(src, dst, reps=20):
+    """Device ms of one host->device copy of `src` into `dst` (CUDA
+    events around `reps` copies queued back to back)."""
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gcn_burst(eng, graphs, attached):
+    """The [serve] fp32 burst: each graph to `gcn` and `gcn_mm`, then one
+    attached graph queried twice. Returns the host intake seconds and the
+    burst's operand bytes, device busy seconds and p50/p99 ms."""
+    m0 = {k: eng.metrics[k] for k in ("operand_bytes_h2d", "device_busy_s")}
+    n0 = len(eng.finished)
+    gc.collect()                    # each burst starts from a collected heap
+    by_bucket = Counter()           # host ms of the one-shot submits
+    t0 = time.perf_counter()
+    for model in ("gcn", "gcn_mm"):
+        for g in graphs:
+            t1 = time.perf_counter()
+            eng.submit(g, model=model)
+            by_bucket[eng.queue[-1].bucket] += time.perf_counter() - t1
+    gid = eng.attach(attached, model="gcn")
+    eng.query(gid)
+    eng.query(gid)
+    intake_s = time.perf_counter() - t0
+    done = eng.run()[n0:]
+    eng.detach(gid)
+    lat = np.asarray([r.finished_s - r.submitted_s for r in done]) * 1e3
+    check(len(done) == 2 * len(graphs) + 2 and all(
+        np.isfinite(r.logits).all() for r in done),
+        "a burst request did not finish with finite logits")
+    return {"intake_s": intake_s,
+            **{f"submits_s_{b}": v for b, v in sorted(by_bucket.items())},
+            "operand_bytes_h2d": eng.metrics["operand_bytes_h2d"]
+            - m0["operand_bytes_h2d"],
+            "device_busy_s": eng.metrics["device_busy_s"]
+            - m0["device_busy_s"],
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def intake_phase(dev, card, cfg, params, cora, others):
+    """[intake]: each host piece of one request's intake at both buckets,
+    the host link's pinned and pageable rates, and the [serve] fp32 GCN
+    burst with the eager upload and with CacheG, three runs each."""
+    ladder = BucketLadder(buckets=LADDER)
+    mat = build_materializer(dev)
+    for cap, g in ((1024, others[2]), (3072, cora)):
+        pg = ladder.pad(g)
+        check(pg.capacity == cap, f"{g.num_nodes} nodes padded to "
+              f"{pg.capacity}, not {cap}")
+        keys = adjacency_keys(g.edge_index, cap)
+        co = compact_operands(pg, cfg, keys=keys)
+        co_dev = co.to(dev)
+        mat(co)                               # warm this structure
+        # GraphServe reads the edge list (the keys); the dense-matrix
+        # versions give the same products, timed beside them
+        t = {"pad_graph": host_ms(lambda: ladder.pad(g), reps=3),
+             "edge keys": host_ms(lambda: adjacency_keys(g.edge_index, cap)),
+             "symmetry check (keys)": host_ms(lambda: keys_symmetric(keys,
+                                                                     cap)),
+             "SymG pack (keys)": host_ms(lambda: symg_pack_keys(keys, cap)),
+             "degree (keys)": host_ms(lambda: gcn_degree(pg.adj,
+                                                         pg.num_nodes, keys)),
+             "symmetry check (dense)": host_ms(lambda: is_symmetric_adjacency(
+                 pg.adj)),
+             "SymG pack (dense)": host_ms(lambda: symg_pack_adjacency_bits(
+                 pg.adj, check=False)),
+             "degree (dense)": host_ms(lambda: gcn_degree(pg.adj,
+                                                          pg.num_nodes)),
+             "compact upload (pageable)": host_ms(
+                 lambda: (co.to(dev), torch.cuda.synchronize())),
+             "materialize (device, CUDA events)": time_ms(
+                 lambda: materialize_operands(co_dev)),
+             "materialize (host, launch to done)": host_ms(
+                 lambda: (mat(co), torch.cuda.synchronize())),
+             "eager upload of A (pageable)": host_ms(
+                 lambda: (torch.from_numpy(pg.norm_adj).to(dev),
+                          torch.cuda.synchronize()))}
+        print(f"[intake] bucket {cap} ({g.num_nodes} nodes): compact "
+              f"{co.nbytes} bytes, eager A {pg.norm_adj.nbytes} bytes; ms a "
+              f"request: " + json.dumps(t) + f" ({card})", flush=True)
+    # the host link: a 37.7 MB copy and a 4-byte one, pinned and pageable
+    rates = {}
+    for label, nbytes in (("A at 3072", CAP * CAP * 4), ("4 bytes", 4),
+                          ("compact at 3072", compact_bytes(CAP))):
+        src = torch.zeros(nbytes, dtype=torch.uint8)
+        dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        rates[label] = {"pageable_ms": copy_ms(src, dst),
+                        "pinned_ms": copy_ms(src.pin_memory(), dst)}
+    big, small = rates["A at 3072"], rates["4 bytes"]
+    link = {kind: CAP * CAP * 4 / ((big[kind] - small[kind]) * 1e-3)
+            for kind in ("pinned_ms", "pageable_ms")}
+    print(f"[intake] host->device copies (CUDA events): "
+          + json.dumps(rates) + f"; rates pinned {link['pinned_ms']:.4e} "
+          f"B/s, pageable {link['pageable_ms']:.4e} B/s; for "
+          f"core/costs.py: HOST_LINK_BYTES_PER_S {link['pinned_ms']:.4e}, "
+          f"LAUNCH_LATENCY_S {small['pinned_ms'] * 1e-3:.4e} (pinned; "
+          f"in use {costs.HOST_LINK_BYTES_PER_S:.4e}, "
+          f"{costs.LAUNCH_LATENCY_S:.4e}); "
+          f"transfer_cost(compact at 3072) "
+          f"{costs.transfer_cost(compact_bytes(CAP)) * 1e3:.4f} ms modelled "
+          f"against {rates['compact at 3072']['pinned_ms']:.4f} ms measured "
+          f"pinned ({card})", flush=True)
+
+    # the [serve] fp32 burst, eager and CacheG alternating E C C E E C
+    base = dict(stagr=True, grad_dynamic=True, graphsplit=True)
+    engines = {}
+    for mode in (False, True):
+        eng = GraphServe(GraphServeConfig(ladder=ladder, batch_slots=SLOTS,
+                                          return_logits=True,
+                                          use_cacheg=mode), seed=0,
+                         device=dev)
+        eng.register_model("gcn", cfg, params, fusion="layer")
+        eng.register_model("gcn_mm", cfg, params, techniques=Techniques(
+            **base, use_pallas=True))
+        eng.warmup()
+        engines[mode] = eng
+    # one request's intake past NodePad on each path: the host's ms, and
+    # the ms until its operands are on the card
+    for cap, g in ((1024, others[2]), (3072, cora)):
+        pg = ladder.pad(g)
+        row = {}
+        for mode, label in ((False, "eager"), (True, "CacheG")):
+            eng = engines[mode]
+
+            def prepare():
+                return eng._prepare("gcn", pg, "fp32",
+                                    keys=eng._keys_for(g.edge_index, pg))
+            row[label] = host_ms(prepare)
+            row[f"{label} to the card"] = host_ms(
+                lambda: (prepare(), torch.cuda.synchronize()))
+        print(f"[intake] bucket {cap}: ms of one request's intake after "
+              f"pad_graph " + json.dumps(row) + f" ({card})", flush=True)
+    graphs = [cora] + list(others)
+    attached = planetoid_like(num_nodes=900, num_edges=1800, num_feats=1433,
+                              num_classes=7, seed=11)
+    runs = {False: [], True: []}
+    for mode in (False, True):      # warm each path's allocators, untimed
+        gcn_burst(engines[mode], graphs, attached)
+    for mode in (False, True, True, False, False, True):
+        runs[mode].append(gcn_burst(engines[mode], graphs, attached))
+    want_h2d = {True: 2 * sum(compact_bytes(ladder.bucket_for(g.num_nodes))
+                              for g in graphs) + compact_bytes(1024),
+                False: 2 * sum(4 * ladder.bucket_for(g.num_nodes) ** 2
+                               for g in graphs) + 4 * 1024 ** 2}
+    for mode, label in ((False, "eager"), (True, "CacheG")):
+        print(f"[intake] GCN fp32 burst ({2 * len(graphs) + 2} requests), "
+              f"{label}: " + json.dumps(runs[mode]) + f" ({card})",
+              flush=True)
+        check(all(r["operand_bytes_h2d"] == want_h2d[mode]
+                  for r in runs[mode]),
+              f"{label} burst moved {[r['operand_bytes_h2d'] for r in runs[mode]]}"
+              f" operand bytes, expected {want_h2d[mode]}")
+        engines[mode].assert_warm()
+    cg = [r["intake_s"] for r in runs[True]]
+    eager = [r["intake_s"] for r in runs[False]]
+    print(f"[intake] intake_s median CacheG {np.median(cg):.4f} s (runs "
+          f"{cg}), eager {np.median(eager):.4f} s (runs {eager}); operand "
+          f"bytes {want_h2d[True]} against {want_h2d[False]} "
+          f"({want_h2d[False] / want_h2d[True]:.1f}x fewer)", flush=True)
+    check(min(cg) <= max(eager), f"CacheG intake {cg} is above the eager "
+          f"path's {eager} beyond the spread of the runs")
+
+
+def cacheg_phase(dev, card, cfgs, params, cora, others):
+    """[cacheg]: the card's materialized operands against the host's for
+    GCN, GAT and SAGE at both buckets; then five attached cap-3072 GCN
+    graphs churned under a budget that holds two."""
+    mat = build_materializer(dev)
+    for cap, g in ((1024, others[2]), (3072, cora)):
+        pg = pad_graph(g, capacity=cap)
+        for kind, kcfg in cfgs.items():
+            got = mat(compact_operands(pg, kcfg))
+            host = build_operands(pg, kcfg, device=dev)
+            for f in ("norm_adj", "mask_mult", "bias_add", "sample_mask",
+                      "mean_mask"):
+                w = getattr(host, f)
+                if w is None:
+                    check(getattr(got, f) is None, f"{kind}: {f} was built")
+                    continue
+                d = (getattr(got, f) - w).abs().max().item()
+                exact = torch.equal(getattr(got, f), w)
+                print(f"[cacheg] {kind} {f} at {cap}: max_abs_err {d:.3e} "
+                      f"against the host's, bit-equal {exact}", flush=True)
+                check(exact if f != "norm_adj" else d <= 1e-6,
+                      f"{kind} {f} at {cap}: the card's materialized operand "
+                      f"differs from the host's by {d}")
+    entry = estimate_dense_entry_bytes(1, CAP)
+    budget = 2 * entry + entry // 2
+    eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                      batch_slots=SLOTS, return_logits=True,
+                                      device_cache_budget_bytes=budget),
+                     seed=0, device=dev)
+    eng.register_model("gcn", cfgs["gcn"], params, fusion="layer")
+    eng.warmup(buckets=(CAP,))
+    cm = eng._cache
+
+    def invariants(step):
+        check(sum(cm.entry_sizes().values()) == cm.resident_bytes
+              <= budget and cm.evictions == cm.spilled + cm.dropped,
+              f"{step}: resident {cm.resident_bytes} of budget {budget}, "
+              f"evictions {cm.evictions}, spilled {cm.spilled}, dropped "
+              f"{cm.dropped}")
+
+    first, t_first = {}, {}
+    for i, n in enumerate((1800, 2100, 2400, 2700, 3000)):
+        gid = eng.attach(planetoid_like(num_nodes=n, num_edges=2 * n,
+                                        num_feats=1433, num_classes=7,
+                                        seed=40 + i), model="gcn")
+        t0 = time.perf_counter()
+        eng.query(gid)
+        t_first[gid] = time.perf_counter() - t0
+        first[gid] = eng.run()[-1].logits
+        invariants(f"attach {gid}")
+    h2d0 = eng.metrics["operand_bytes_h2d"]
+    spills = {k[1][0]: v for k, v in cm._spill.items()}
+    check(len(spills) >= 3 and all(
+        ho.compact.packed.is_pinned() and ho.compact.degree.is_pinned()
+        for ho in spills.values()),
+        f"{len(spills)} spilled forms, or one not in pinned memory")
+    t_fault = {}
+    for gid in first:
+        t0 = time.perf_counter()
+        eng.query(gid)
+        t_fault[gid] = time.perf_counter() - t0
+        got = eng.run()[-1].logits
+        check(np.array_equal(got, first[gid]),
+              f"graph {gid}: the answer after a spill fault differs from "
+              f"its first answer")
+        invariants(f"re-query {gid}")
+    s = eng.summary()
+    faults = s["cache_spill_hits"]
+    check(faults >= 3 and s["operand_cache_misses"] == 5,
+          f"{faults} spill faults and {s['operand_cache_misses']} misses")
+    check(eng.metrics["operand_bytes_h2d"] - h2d0
+          == faults * compact_bytes(CAP),
+          "a spill fault moved more than the compact bytes")
+    eng.assert_warm()
+    print(f"[cacheg] churn of 5 cap-3072 GCN graphs under a budget of "
+          f"{budget} bytes ({entry} an entry): every step resident <= "
+          f"budget, evictions == spilled + dropped, every spill fault "
+          f"answered bit for bit; host ms of query() on a miss "
+          f"{ {g: round(v * 1e3, 3) for g, v in t_first.items()} }, on the "
+          f"re-query (a spill fault or a hit) "
+          f"{ {g: round(v * 1e3, 3) for g, v in t_fault.items()} }; summary "
+          + json.dumps({k: v for k, v in s.items()
+                        if k.startswith(("cache_", "operand_"))})
+          + f" ({card})", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -1336,8 +1667,8 @@ def main() -> None:
     # -------------------------------------------------------- 3. serving
     base = dict(stagr=True, grad_dynamic=True, graphsplit=True)
     eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
-                                      batch_slots=SLOTS, return_logits=True,
-                                      use_cacheg=False), seed=0, device=dev)
+                                      batch_slots=SLOTS, return_logits=True),
+                     seed=0, device=dev)
     eng.register_model("gcn", cfg, params, fusion="layer")
     eng.register_model("gcn_mm", cfg, params, techniques=Techniques(
         **base, use_pallas=True))
@@ -1392,6 +1723,22 @@ def main() -> None:
     check(len(done) == 2 * (1 + len(PLANETOID_SIZES)) + 2,
           f"{len(done)} requests finished")
     eng.assert_warm()
+    # CacheG: each one-shot request and the attached graph's first query
+    # ship their compact form; the second query is a hit and ships nothing
+    burst_h2d = 2 * sum(compact_bytes(eng.sc.ladder.bucket_for(g.num_nodes))
+                        for g in [cora] + others) + compact_bytes(1024)
+    s = eng.summary()
+    print(f"[serve] operand_bytes_h2d {s['operand_bytes_h2d']} (compact "
+          f"forms: {burst_h2d}; a cap-3072 request {compact_bytes(3072)}, "
+          f"a cap-1024 one {compact_bytes(1024)}); cache hits "
+          f"{s['operand_cache_hits']}, misses {s['operand_cache_misses']}, "
+          f"cacheg_fallbacks {s['cacheg_fallbacks']}", flush=True)
+    check(s["operand_bytes_h2d"] == burst_h2d,
+          f"operand_bytes_h2d {s['operand_bytes_h2d']} != {burst_h2d}")
+    check((s["operand_cache_misses"], s["operand_cache_hits"],
+           s["cacheg_fallbacks"]) == (1, 1, 0),
+          "the attached graph's second query was not a hit, or a request "
+          "fell back to the eager path")
 
     fp32_done = list(done)
     p1, p2 = params["l1"], params["l2"]
@@ -1421,7 +1768,9 @@ def main() -> None:
     summary_keys = ("requests", "batches", "batch_occupancy",
                     "p50_latency_ms", "p99_latency_ms", "throughput_rps",
                     "device_busy_s", "device_idle_fraction",
-                    "operand_bytes_h2d", "compiled_blobs", "tier_fallbacks")
+                    "operand_bytes_h2d", "operand_cache_hits",
+                    "operand_cache_misses", "cacheg_fallbacks",
+                    "compiled_blobs", "tier_fallbacks")
     print("[serve] summary " + json.dumps(
         {k: s[k] for k in summary_keys}
         | {"wall_s": serve_s, "intake_s": intake_s,
@@ -1471,6 +1820,9 @@ def main() -> None:
     check(eng.summary()["tier_fallbacks"] == 0, "an int8 request fell back")
     check(len(eng._tier_operands) == 1,
           "the attached graph's int8 A was not derived exactly once")
+    check(eng.metrics["operand_bytes_h2d"] - metrics0["operand_bytes_h2d"]
+          == burst_h2d, "the int8 burst did not ship exactly its compact "
+          "forms")
     eng.assert_warm()
 
     i8_err = 0.0
@@ -1525,8 +1877,7 @@ def main() -> None:
     # --------------------------------------------------- 4. serve-grasp
     eng_sp = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
                                          batch_slots=SLOTS,
-                                         return_logits=True,
-                                         use_cacheg=False), seed=0,
+                                         return_logits=True), seed=0,
                         device=dev)
     eng_sp.register_model("gcn_sp", cfg, params, agg_backend="grasp",
                           fusion="layer")
@@ -1608,8 +1959,21 @@ def main() -> None:
     check(s["backend_fallbacks"] == forced_dense == 1,
           f"backend_fallbacks {s['backend_fallbacks']}, ineligible forced "
           f"requests {forced_dense}; expected Cora's one")
-    check(derived == [3072] and len(eng_sp._grasp) == 1,
-          f"the attached graph's structure was derived {len(derived)} times")
+    # on CacheG every grasp-capable one-shot request decides from its
+    # materialized A on the card too; the attached graph decides once
+    n_one_shot = 2 * (len(CLUSTERED_SIZES) + 1)
+    check(len(derived) == n_one_shot + 1 and len(eng_sp._grasp) == 1,
+          f"{len(derived)} device-side GraSp derivations, expected "
+          f"{n_one_shot} one-shot and 1 for the attached graph")
+    # three models take each clustered graph, two take Cora, and the
+    # attached graph's first query ships once
+    sp_h2d = sum(compact_bytes(eng_sp.sc.ladder.bucket_for(g.num_nodes))
+                 * (2 if label == "cora" else 3)
+                 for label, g in list(grasp_graphs.items()) + [("cora", cora)]
+                 ) + compact_bytes(3072)
+    check(s["cacheg_fallbacks"] == 0 and s["operand_bytes_h2d"] == sp_h2d,
+          f"operand_bytes_h2d {s['operand_bytes_h2d']} != the compact "
+          f"forms' {sp_h2d}, or a request fell back")
     check(len(done) == 2 * (len(CLUSTERED_SIZES) + 1)
           + len(CLUSTERED_SIZES) + 2, f"{len(done)} requests finished")
     eng_sp.assert_warm()
@@ -1770,8 +2134,8 @@ def main() -> None:
           f"{ {k: err[k] for k in GAT_KERNELS} }")
 
     eng_g = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
-                                        batch_slots=SLOTS, return_logits=True,
-                                        use_cacheg=False), seed=0, device=dev)
+                                        batch_slots=SLOTS, return_logits=True),
+                       seed=0, device=dev)
     gbase = dict(stagr=True, graphsplit=True, effop=True)
     eng_g.register_model("gat", gcfg, gparams, tiers=("fp32", "int8"),
                          fusion="layer")
@@ -1830,6 +2194,16 @@ def main() -> None:
           == {(m, t) for m in ("gat", "gat_mm") for t in ("fp32", "int8")},
           "a GAT model or tier was not served")
     check(s["tier_fallbacks"] == 0, "a GAT int8 request fell back")
+    # CacheG: 4 one-shot requests of each graph (2 models x 2 tiers) and
+    # each model's attached graph's first query ship their compact forms
+    g_h2d = 4 * sum(compact_bytes(eng_g.sc.ladder.bucket_for(g.num_nodes))
+                    for g in [cora] + others) + 2 * compact_bytes(1024)
+    check((s["operand_bytes_h2d"], s["operand_cache_misses"],
+           s["operand_cache_hits"], s["cacheg_fallbacks"])
+          == (g_h2d, 2, 6, 0),
+          f"GAT intake: operand_bytes_h2d {s['operand_bytes_h2d']} (compact "
+          f"forms {g_h2d}), misses {s['operand_cache_misses']}, hits "
+          f"{s['operand_cache_hits']}, fallbacks {s['cacheg_fallbacks']}")
     eng_g.assert_warm()
 
     g_err, flips, q_inputs, ties = 0.0, 0, 0, 0
@@ -1844,7 +2218,7 @@ def main() -> None:
         fused = r.fusion == "layer"
         cal = e.calibrations[r.tier] if t.quantgr else {}
         x = torch.from_numpy(r.pg.features).to(dev)[None]
-        ops1 = stack_operands([r.ops])
+        ops1 = stack_operands([host_operands(r, e.cfg, dev)])
         h1 = gat_layer_plain(e.params["l1"], x, ops1.bias_add, GAT_HEADS,
                              GAT_F, "elu", cal.get("l1"), fused)
         if t.quantgr:
@@ -1980,8 +2354,8 @@ def main() -> None:
           f"{ {k: err[k] for k in SAGE_KERNELS} }")
 
     eng_s = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
-                                        batch_slots=SLOTS, return_logits=True,
-                                        use_cacheg=False), seed=0, device=dev)
+                                        batch_slots=SLOTS, return_logits=True),
+                       seed=0, device=dev)
     sbase = dict(stagr=True, graphsplit=True, effop=True)
     eng_s.register_model("sage_max", scfg["max"], sparams["max"],
                          tiers=("fp32", "int8+grax"), fusion="layer")
@@ -2057,6 +2431,18 @@ def main() -> None:
           == {(m, t) for m, ts in sage_models.items() for t in ts},
           "a SAGE model or tier was not served")
     check(s["tier_fallbacks"] == 0, "a SAGE int8 request fell back")
+    # CacheG: the full-matrix SAGE sample crosses packed; 8 one-shot
+    # requests of each graph (4 models x 2 tiers) and each model's attached
+    # graph's first query
+    s_h2d = 8 * sum(compact_bytes(eng_s.sc.ladder.bucket_for(g.num_nodes),
+                                  sage=True) for g in [cora] + others) \
+        + 4 * compact_bytes(1024, sage=True)
+    check((s["operand_bytes_h2d"], s["operand_cache_misses"],
+           s["operand_cache_hits"], s["cacheg_fallbacks"])
+          == (s_h2d, 4, 12, 0),
+          f"SAGE intake: operand_bytes_h2d {s['operand_bytes_h2d']} (compact "
+          f"forms {s_h2d}), misses {s['operand_cache_misses']}, hits "
+          f"{s['operand_cache_hits']}, fallbacks {s['cacheg_fallbacks']}")
     eng_s.assert_warm()
 
     s_err, flips, q_inputs, ties = 0.0, 0, 0, 0
@@ -2071,7 +2457,7 @@ def main() -> None:
         agg = e.cfg.aggregator
         cal = e.calibrations[r.tier] if t.quantgr else {}
         x = torch.from_numpy(r.pg.features).to(dev)[None]
-        ops1 = stack_operands([r.ops])
+        ops1 = stack_operands([host_operands(r, e.cfg, dev)])
         sm_, mn_ = ops1.sample_mask, ops1.mean_mask
         h1 = sage_layer_plain(e.params["l1"], x, sm_, mn_, agg, "relu",
                               cal.get("l1"))
@@ -2122,11 +2508,16 @@ def main() -> None:
           flush=True)
     launches.update({k: launches_s[k] for k in SAGE_KERNELS})
 
-    # ------------------------------------------------ 7-8. flash, serve-lm
+    # ---------------------------------------------- 7-8. intake, cacheg
+    intake_phase(dev, card, cfg, params, cora, others)
+    cacheg_phase(dev, card, {"gcn": cfg, "gat": gcfg, "sage": scfg["max"]},
+                 params, cora, others)
+
+    # ----------------------------------------------- 9-10. flash, serve-lm
     flash_err = flash_phase(dev)
     flash_launches, _, _ = serve_lm_phase(dev, card)
 
-    # ---------------------------------------------------------- 9. times
+    # --------------------------------------------------------- 11. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""

@@ -1,12 +1,14 @@
 """Modelled compute and memory constants of the port's cost rules, for one
 NVIDIA H100 SXM.
 
-Only what `core.sparsity.agg_cost_model` reads lives here: the rates of
-the port's two aggregation kernels, the HBM rate, the GraSp walk's
-per-step cost and a launch's fixed cost. The host-link and interconnect
-constants arrive with sharding (ROADMAP queue 1 item 11). The reference's
-`costs.py` models a TPU-v4 part; none of its numbers is copied.
-`agg_cost_model` reads these names at call time, so a test may set them.
+What `core.sparsity.agg_cost_model` reads lives here: the rates of the
+port's two aggregation kernels, the HBM rate, the GraSp walk's per-step
+cost and a launch's fixed cost; and the host link that
+`transfer_cost` prices for the CacheG manager's re-materialization
+tie-break (`runtime.cache`). The interconnect constants arrive with
+sharding (ROADMAP queue 1 item 11). The reference's `costs.py` models a
+TPU-v4 part; none of its numbers is copied. `agg_cost_model` and
+`transfer_cost` read these names at call time, so a test may set them.
 
 The four measured terms come from `chip_smoke.py`'s `[agg]` step (PERF.md
 §6; NVIDIA H100 80GB HBM3 at 700 W), on the Cora GCN's layer-1 Â @ H (F
@@ -33,3 +35,16 @@ GRASP_STEP_OVERHEAD_S = 45.4e-9
 # charged to both backends: the dense launch of the same output has the
 # walk's grid, block and store (an empty product would run them alone).
 AGG_CALL_S = 1.01e-6
+
+# Host link, pinned host memory to the card, and the fixed cost of one
+# copy: chip_smoke.py's `[intake]` step (PERF.md §6; NVIDIA H100 80GB HBM3
+# at 700 W), CUDA events around 20 queued copies of 37.7 MB and of 4
+# bytes from pinned memory; the rate is the difference over the bytes.
+# Pageable memory reached 12.7e9 B/s there.
+HOST_LINK_BYTES_PER_S = 53.83e9
+LAUNCH_LATENCY_S = 6.08e-6
+
+
+def transfer_cost(nbytes: int) -> float:
+    """Modelled seconds to move `nbytes` host→device in one copy."""
+    return LAUNCH_LATENCY_S + nbytes / HOST_LINK_BYTES_PER_S

@@ -1,9 +1,11 @@
 """Graph containers and structure preprocessing (StaGr / PreG / NodePad).
 
 Host code, numpy only — a copy of the reference package's `core/graph.py`
-without the SymG/CacheG packers and the GrAd edge-delta patcher, which the
-port has not reached yet. Tensors appear only where operands go to the
-device (`repro_torch.core.models.build_operands`).
+without the GrAd edge-delta patcher, which the port has not reached yet.
+The SymG/CacheG packers give the reference's bytes without its O(cap²)
+index constants: the triangle is read row slice by row slice and the
+symmetry check compares tiles. Tensors appear only where operands go to
+the device (`repro_torch.core.models`).
 
 The paper's Step-1 enablement: graphs are preprocessed on the *host*
 (GraphSplit assigns control-heavy structure work to the CPU) into dense,
@@ -104,6 +106,116 @@ def mean_adjacency(edge_index: np.ndarray, num_nodes: int, capacity: int,
     deg = a.sum(axis=1, keepdims=True)
     return (a / np.maximum(deg, 1.0)).astype(np.float32)
 
+
+# ---------------------------------------------------------------------------
+# SymG — triangular packing of a symmetric matrix, and the CacheG compact
+# transfer format (DESIGN.md §7): a 0/1 adjacency crosses the host→device
+# link as PACKED BITS, 32× fewer bytes than float32, 64× when the graph is
+# undirected and SymG keeps only the upper triangle. The dense operands are
+# re-derived on the device (`core.models.materialize_operands`).
+# ---------------------------------------------------------------------------
+
+SYM_TILE = 256  # tile edge of `is_symmetric_adjacency`'s comparison
+
+
+def _upper_rows(a: np.ndarray) -> np.ndarray:
+    """The upper triangle (incl. diagonal) of a square matrix, row-major:
+    the order of `np.triu_indices`, read as one slice per row."""
+    n = a.shape[0]
+    if n == 0:
+        return a.reshape(0)
+    return np.concatenate([a[i, i:] for i in range(n)])
+
+
+def symg_pack(sym: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Pack a symmetric (N, N) matrix into its upper triangle (incl. diag)."""
+    n = sym.shape[0]
+    if not np.allclose(sym, sym.T, atol=1e-6):
+        raise ValueError("symg_pack requires a symmetric matrix")
+    return _upper_rows(sym).astype(sym.dtype), n
+
+
+def symg_unpack(packed: np.ndarray, n: int) -> np.ndarray:
+    out = np.zeros((n, n), dtype=packed.dtype)
+    off = 0
+    for i in range(n):
+        out[i, i:] = packed[off:off + n - i]
+        off += n - i
+    return out + np.triu(out, k=1).T
+
+
+def triangular_nbits(n: int) -> int:
+    """Bits in the upper triangle (incl. diagonal) of an (n, n) matrix."""
+    return n * (n + 1) // 2
+
+
+def is_symmetric_adjacency(adj: np.ndarray) -> bool:
+    """True when the 0/1 adjacency is undirected (SymG-packable): exactly
+    `np.array_equal(adj, adj.T)`, compared tile against transposed tile so
+    no transposed copy of the whole matrix is made."""
+    if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
+        return bool(np.array_equal(adj, adj.T))
+    n, t = adj.shape[0], SYM_TILE
+    for i in range(0, n, t):
+        for j in range(i, n, t):
+            if not np.array_equal(adj[i:i + t, j:j + t],
+                                  adj[j:j + t, i:i + t].T):
+                return False
+    return True
+
+
+def pack_adjacency_bits(adj: np.ndarray) -> np.ndarray:
+    """Bit-pack a full 0/1 (cap, cap) adjacency row-major -> (cap²/8,) uint8."""
+    return np.packbits((adj > 0).reshape(-1))
+
+
+def symg_pack_adjacency_bits(adj: np.ndarray, *, check: bool = True
+                             ) -> np.ndarray:
+    """SymG + bit-pack: upper triangle (incl. diag) of an undirected 0/1
+    adjacency -> (cap(cap+1)/2 / 8,) uint8. Raises on a directed matrix —
+    callers fall back to `pack_adjacency_bits` (or the eager dense path).
+    `check=False` skips the O(cap²) validation when the caller already ran
+    `is_symmetric_adjacency` on this matrix.
+    """
+    if check and not is_symmetric_adjacency(adj):
+        raise ValueError("symg_pack_adjacency_bits requires an undirected "
+                         "(symmetric) adjacency")
+    return np.packbits(_upper_rows(adj > 0))
+
+
+# The same three host products from the edge list, in O(E) where the dense
+# adjacency costs O(cap²): a graph's 0/1 adjacency is the set of its edges,
+# so the engine, which holds each request's edge list, need not scan the
+# (cap, cap) matrix to check, pack or count it.
+
+
+def adjacency_keys(edge_index: np.ndarray, capacity: int) -> np.ndarray:
+    """The nonzeros of `dense_adjacency(edge_index, capacity,
+    self_loops=False)` as sorted unique row-major offsets dst * capacity +
+    src (int64; a negative index wraps, as numpy's indexing does)."""
+    src, dst = np.asarray(edge_index, np.int64) % capacity
+    keys = np.sort(dst * capacity + src)
+    first = np.ones(keys.shape, bool)
+    first[1:] = keys[1:] != keys[:-1]
+    return keys[first]
+
+
+def keys_symmetric(keys: np.ndarray, capacity: int) -> bool:
+    """`is_symmetric_adjacency` of the matrix `keys` describes."""
+    row, col = np.divmod(keys, capacity)
+    return bool(np.array_equal(keys, np.sort(col * capacity + row)))
+
+
+def symg_pack_keys(keys: np.ndarray, capacity: int) -> np.ndarray:
+    """`symg_pack_adjacency_bits(check=False)` of the matrix `keys`
+    describes: the same bytes, one bit set per upper-triangle edge."""
+    row, col = np.divmod(keys, capacity)
+    upper = row <= col
+    r, c = row[upper], col[upper]
+    lin = r * (2 * capacity - r + 1) // 2 + (c - r)
+    out = np.zeros(-(-triangular_nbits(capacity) // 8), np.uint8)
+    np.bitwise_or.at(out, lin >> 3, (128 >> (lin & 7)).astype(np.uint8))
+    return out
 
 
 def pad_features(x: np.ndarray, capacity: int) -> np.ndarray:

@@ -12,9 +12,11 @@ Plan identity keeps the zero-recompile contract without a compiler: an
 and counts one "trace" for each signature it has not seen — exactly the
 calls that would retrace a `jax.jit` in the reference. The tier-operand
 deriver `AggQuantizer` and the GraSp structure deriver `BlockCompactor`
-count the same way. `GraphServe` sums these counts into `compiled_blobs`,
-so `assert_warm()` still says whether serving stayed on the shapes warmup
-saw.
+count the same way, and so does CacheG's `OperandMaterializer`, which
+expands the compact transfer form (`CompactOperands`: bit-packed
+adjacency plus a degree vector) into the dense operands on the device.
+`GraphServe` sums these counts into `compiled_blobs`, so `assert_warm()`
+still says whether serving stayed on the shapes warmup saw.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 
 from . import effop, layers, masks
-from .graph import PaddedGraph
+from .graph import (PaddedGraph, is_symmetric_adjacency, keys_symmetric,
+                    pack_adjacency_bits, symg_pack_adjacency_bits,
+                    symg_pack_keys)
 from .layers import Techniques
 from .quant import calibrate_absmax, quantize_linear, quantize_rowwise
 from .sparsity import (BlockSparse, block_counts, compact_block_sparse,
@@ -187,6 +191,331 @@ def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
                       if all(with_blocks) else None))
 
 
+# ---------------------------------------------------------------------------
+# CacheG operand pipeline (DESIGN.md §7)
+#
+# The eager path above builds the O(cap²) float32 operands on the HOST and
+# uploads them on every request. CacheG replaces that with (1) a compact
+# transfer form — one bit-packed 0/1 adjacency plus a degree vector
+# (`CompactOperands`), SymG-triangular when the graph is undirected — and
+# (2) a materializer that re-derives the dense operands with tensor ops on
+# the device, so the big arrays are created in device memory and never
+# cross the link. GraphServe then caches the result per (graph_id,
+# structure_version) (`runtime.cache.DeviceCacheManager`).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CompactOperands:
+    """Compact host→device transfer form of one graph's operand structure.
+
+    `packed` is the bit-packed 0/1 adjacency: the SymG upper triangle for
+    undirected GCN/GAT graphs (`triangular=True`), the full row-major
+    matrix otherwise — for SAGE it packs the host-*sampled* adjacency
+    (sampling stays on the host for seeded determinism). `degree` carries
+    the row sums the materializer divides by (deg(A+I) for GCN, sample row
+    sums for SAGE, zeros for GAT, which reads none), so host and device
+    paths normalize with bit-identical denominators. The three tensors lie
+    on the host (pinned when a spilled form waits for a CUDA fault) or,
+    once `to()` has moved them, on the device.
+    """
+    packed: torch.Tensor      # (ceil(nbits / 8),) uint8
+    degree: torch.Tensor      # (cap,) float32
+    num_nodes: torch.Tensor   # () int32
+    capacity: int
+    fields: Tuple[str, ...]   # which GranniteOperands fields to materialize
+    triangular: bool          # SymG triangular packing vs full row-major
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes this form moves host→device (the operand_bytes_h2d unit)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.packed, self.degree, self.num_nodes))
+
+    def to(self, device: torch.device) -> "CompactOperands":
+        """The same form on `device`. A copy to the card is queued without
+        the host waiting for the work already queued there: from pinned
+        memory, a pageable form staged through it first (the form never
+        changes, and PyTorch keeps a pinned buffer until its copy is
+        done)."""
+        def move(t):
+            if device.type == "cuda" and not t.is_pinned():
+                t = t.pin_memory()
+            return t.to(device, non_blocking=True)
+        return dataclasses.replace(self, **{
+            f: move(getattr(self, f))
+            for f in ("packed", "degree", "num_nodes")})
+
+    def pin(self) -> "CompactOperands":
+        """The same form in pinned host memory, for an upload that the
+        host does not wait on."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).pin_memory()
+            for f in ("packed", "degree", "num_nodes")})
+
+
+def gcn_degree(adj: np.ndarray, num_nodes: int,
+               keys: Optional[np.ndarray] = None) -> np.ndarray:
+    """deg(A + I) with the self loops on the real nodes only: the row sums
+    of `adj` plus one on each real row whose diagonal is empty — an
+    explicit (i, i) edge counts once, as `masks.adj_with_self_loops` does,
+    without building that (cap, cap) copy. With `keys`
+    (`graph.adjacency_keys` of the 0/1 `adj`) it counts them instead."""
+    cap = adj.shape[0]
+    if keys is None:
+        deg = adj.sum(axis=1, dtype=np.float32)
+        diag = np.diagonal(adj)
+    else:
+        row, col = np.divmod(keys, cap)
+        deg = np.bincount(row, minlength=cap).astype(np.float32)
+        diag = np.zeros((cap,), np.float32)
+        diag[row[row == col]] = 1.0
+    deg[:num_nodes] += 1.0 - diag[:num_nodes]
+    return deg
+
+
+def is_symmetric(pg: PaddedGraph, keys: Optional[np.ndarray] = None) -> bool:
+    """Whether the graph's adjacency is undirected, from its `keys` when
+    the caller has them, else by `is_symmetric_adjacency`."""
+    if keys is not None:
+        return keys_symmetric(keys, pg.capacity)
+    return is_symmetric_adjacency(pg.adj)
+
+
+def compact_operands(pg: PaddedGraph, cfg: GNNConfig, *,
+                     check_symmetry: bool = True,
+                     keys: Optional[np.ndarray] = None) -> CompactOperands:
+    """Host side of CacheG: pack one graph's structure into transfer form
+    (host tensors).
+
+    GCN/GAT pack the raw adjacency SymG-triangular, which requires an
+    undirected graph (callers check `is_symmetric` and take the eager
+    dense path for directed ones); `check_symmetry=False` skips the
+    re-check for a caller that ran it. `keys`, the graph's
+    `graph.adjacency_keys`, give the same bytes and degrees from the edge
+    list without a pass over the (cap, cap) matrix. SAGE samples on the
+    host (seed 0, as `build_operands`) and packs the sample, which is
+    direction-biased, hence always full row-major.
+    """
+    _check_kind(cfg)
+    fields = OPERAND_FIELDS[cfg.kind]
+    cap = pg.capacity
+    if cfg.kind == "sage":
+        sample = masks.sage_sample_adjacency(
+            pg.adj, pg.num_nodes, max_neighbors=cfg.max_neighbors)
+        packed = pack_adjacency_bits(sample)
+        degree = sample.sum(axis=1).astype(np.float32)
+        triangular = False
+    else:
+        if check_symmetry and not is_symmetric(pg, keys):
+            raise ValueError("CacheG's SymG packing requires an undirected "
+                             "(symmetric) adjacency")
+        packed = (symg_pack_adjacency_bits(pg.adj, check=False)
+                  if keys is None else symg_pack_keys(keys, cap))
+        degree = (gcn_degree(pg.adj, pg.num_nodes, keys)
+                  if cfg.kind == "gcn" else np.zeros((cap,), np.float32))
+        triangular = True
+    return CompactOperands(
+        packed=torch.from_numpy(packed), degree=torch.from_numpy(degree),
+        num_nodes=torch.tensor(pg.num_nodes, dtype=torch.int32),
+        capacity=cap, fields=fields, triangular=triangular)
+
+
+def triangle_index(capacity: int, device: torch.device) -> torch.Tensor:
+    """(cap * cap,) int32 (int64 past 32,767 nodes): where entry (i, j) of
+    a symmetric matrix sits in its SymG bits — the upper-triangle offset
+    of (min(i, j), max(i, j))."""
+    cap = capacity
+    i = torch.arange(cap, device=device, dtype=torch.int32
+                     if 2 * cap * cap < 2 ** 31 else torch.int64)
+    # row r's triangle starts at r*cap - r(r-1)/2, so (r, c >= r) sits at
+    # start[r] + c, and (r, c < r) at the transposed offset
+    start = (i * (2 * cap - i + 1)) // 2 - i
+    upper = start[:, None] + i[None, :]
+    return torch.where(i[:, None] <= i[None, :], upper, upper.T).reshape(-1)
+
+
+def _unpack_adjacency(co: CompactOperands,
+                      index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Packed bits -> dense (cap, cap) float32 0/1, on the form's device.
+    Torch has no unpackbits: each byte's bits are shifted out (np.packbits'
+    big-endian order); the triangular form then gathers the symmetric
+    matrix in one pass through `index` (`triangle_index`, built here when
+    the caller keeps none)."""
+    cap = co.capacity
+    dev = co.packed.device
+    bits = co.packed[:, None] >> torch.arange(7, -1, -1, dtype=torch.uint8,
+                                              device=dev)
+    bits = bits.bitwise_and_(1).reshape(-1)
+    if co.triangular:
+        bits = bits.index_select(0, index if index is not None
+                                 else triangle_index(cap, dev))
+    return bits[:cap * cap].reshape(cap, cap).to(torch.float32)
+
+
+def inv_sqrt_degree(degree: torch.Tensor) -> torch.Tensor:
+    """D^-1/2 of GCN's normalization: 1/sqrt(deg) where deg > 0, else 0
+    (padded nodes), computed as the host's `gcn_norm_adjacency` does —
+    sqrt then a correctly rounded division, never rsqrt — so the device Â
+    equals the host Â bit for bit. The one place the port forms it."""
+    return torch.where(degree > 0,
+                       1.0 / torch.sqrt(torch.clamp(degree, min=1e-12)), 0.0)
+
+
+def materialize_operands(co: CompactOperands,
+                         index: Optional[torch.Tensor] = None
+                         ) -> GranniteOperands:
+    """Device side of CacheG: expand the compact form into the dense
+    operand set `co.fields` names, on the form's device; the other fields
+    stay None, as `build_operands` leaves them. GCN: Â =
+    D^-1/2 (A + I) D^-1/2 (`inv_sqrt_degree`); GAT: the 0/1 and 0/-1e9
+    masks over A + I; SAGE: the sample and its row-normalised mean mask.
+    Self loops go on the real nodes only. `index` is the triangular
+    form's `triangle_index`, when the caller keeps one."""
+    adj = _unpack_adjacency(co, index)
+    vals = {}
+    if "sample_mask" in co.fields:
+        # packed IS the sampled adjacency (self loops already included)
+        vals["sample_mask"] = adj
+        vals["mean_mask"] = adj / torch.clamp(co.degree[:, None], min=1.0)
+        return GranniteOperands(**vals)
+    # A + I in place: a 1 on each real node's diagonal
+    real = torch.arange(co.capacity, device=adj.device) < co.num_nodes
+    diag = adj.diagonal()
+    diag.copy_(torch.maximum(diag, real.to(adj.dtype)))
+    if "norm_adj" in co.fields:
+        # in place, in the host's order: (d_i * a_ij) * d_j
+        dis = inv_sqrt_degree(co.degree)
+        vals["norm_adj"] = adj.mul_(dis[:, None]).mul_(dis[None, :])
+    if "bias_add" in co.fields:
+        vals["mask_mult"] = adj                   # 0/1 already
+        vals["bias_add"] = torch.where(adj > 0, 0.0, masks.NEG_INF)
+    return GranniteOperands(**vals)
+
+
+@dataclasses.dataclass
+class OperandMaterializer:
+    """The CacheG expander on one device, with ExecutionPlan's trace
+    accounting: one trace per unseen (capacity, fields, triangular) and
+    leaf signature, the structure a jit of `materialize_operands` would
+    specialize on. GraphServe warms one per (bucket, fieldset) in
+    `warmup()` and adds `trace_count` to `compiled_blobs`.
+
+    Like a compiled program's constants, each bucket's `triangle_index`
+    is built once and kept (cap² int32: 37.7 MB at 3072), so a call
+    allocates only its outputs and one byte per entry: per-call index
+    temporaries of that size churned the device allocator in a serving
+    burst."""
+    device: torch.device
+    trace_count: int = 0
+    _seen: Set = dataclasses.field(default_factory=set, repr=False)
+    _index: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict,
+                                                        repr=False)
+
+    def __call__(self, co: CompactOperands) -> GranniteOperands:
+        co = co.to(self.device)
+        sig = _sig(co)
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self.trace_count += 1
+        index = None
+        if co.triangular:
+            index = self._index.get(co.capacity)
+            if index is None:
+                index = self._index[co.capacity] = triangle_index(
+                    co.capacity, self.device)
+        return materialize_operands(co, index)
+
+
+def build_materializer(device: DeviceLike = None) -> OperandMaterializer:
+    """A materializer on `device` (the card unless the caller names
+    another; raises without one, as `resolve_device` does)."""
+    return OperandMaterializer(device=resolve_device(device))
+
+
+@dataclasses.dataclass
+class HostOperands:
+    """Product of the pipeline's HOST stage for one request.
+
+    Exactly one of `compact` / `eager` is set. `compact` is the CacheG
+    transfer form on the host; `eager` is the dense build, already on the
+    device (the eager path uploads as it builds), with a grasp request's
+    host-built block structure attached. `nbytes` is the host→device
+    operand traffic (`operand_bytes_h2d`); `fallback`
+    marks a directed GCN/GAT graph that could not take the SymG compact
+    path (counted as `cacheg_fallbacks`). On the compact path a GraSp
+    structure is derived on the device from the materialized Â instead.
+    """
+    compact: Optional[CompactOperands] = None
+    eager: Optional[GranniteOperands] = None
+    nbytes: int = 0
+    fallback: bool = False
+
+    def pin(self) -> "HostOperands":
+        """A compact form moved to pinned host memory (the spilled form of
+        an evicted entry on a CUDA engine)."""
+        return dataclasses.replace(self, compact=self.compact.pin())
+
+
+def prepare_host_operands(pg: PaddedGraph, cfg: GNNConfig, *,
+                          use_cacheg: bool = True,
+                          grasp_max_nnz: Optional[int] = None,
+                          grasp_bitmap: Optional[np.ndarray] = None,
+                          symmetric: Optional[bool] = None,
+                          keys: Optional[np.ndarray] = None,
+                          device: DeviceLike = None) -> HostOperands:
+    """HOST stage of the operand pipeline: pack (CacheG) or build (eager).
+
+    Prefers the compact form; directed GCN/GAT graphs (SymG needs
+    symmetry) and `use_cacheg=False` take the eager dense build, uploaded
+    to `device`. `grasp_max_nnz` marks a GCN request resolved to the GraSp
+    backend: the eager path then also compacts the block structure on the
+    host (`to_block_sparse`, reusing `grasp_bitmap`, padded to the budget)
+    and counts its bytes; the compact path ignores it. `symmetric` skips
+    the symmetry check when the caller already ran it on this adjacency;
+    `keys` (`graph.adjacency_keys`) let the check and the packing read
+    the edge list instead of the (cap, cap) matrix.
+    """
+    if use_cacheg and (cfg.kind == "sage"
+                       or (symmetric if symmetric is not None
+                           else is_symmetric(pg, keys))):
+        co = compact_operands(pg, cfg, check_symmetry=False, keys=keys)
+        return HostOperands(compact=co, nbytes=co.nbytes)
+    grasp = grasp_max_nnz is not None and cfg.kind == "gcn"
+    ops = build_operands(pg, cfg, grasp=grasp, max_nnz=grasp_max_nnz,
+                         bitmap=grasp_bitmap, device=device)
+    nbytes = sum(getattr(ops, f).numel() * getattr(ops, f).element_size()
+                 for f in OPERAND_FIELDS[cfg.kind])
+    if grasp:
+        nbytes += ops.block_sparse.nbytes
+    return HostOperands(eager=ops, nbytes=nbytes, fallback=use_cacheg)
+
+
+def realize_operands(ho: HostOperands,
+                     materializer: OperandMaterializer) -> GranniteOperands:
+    """DEVICE stage counterpart: the materializer's dense operand set for
+    a compact form (uploaded first), the already uploaded set for the
+    eager one."""
+    if ho.compact is not None:
+        return materializer(ho.compact)
+    return ho.eager
+
+
+# Device bytes the reference counts for each (1, 1) float32 placeholder it
+# holds where the port holds None (ROADMAP queue 3: an accounting term).
+PLACEHOLDER_BYTES = 4
+
+
+def operand_nbytes(ops: GranniteOperands) -> int:
+    """Device bytes of one operand set in the reference's layout: the five
+    dense fields, an absent one counted as its (1, 1) float32 placeholder,
+    so cache entry sizes and eviction decisions equal the reference's. A
+    GraSp structure is sized where it is cached (the "grasp" entry)."""
+    return sum(PLACEHOLDER_BYTES if t is None
+               else t.numel() * t.element_size()
+               for t in (getattr(ops, f) for f in DENSE_FIELDS))
+
+
 @dataclasses.dataclass
 class TierOperands:
     """Per-(graph, tier) DERIVED operands: GCN's int8 aggregation form, Â
@@ -214,8 +543,9 @@ def stack_tier_operands(tos: Sequence[TierOperands]) -> TierOperands:
 def _sig(v):
     """Shape/dtype/device structure of a nested argument: what a jit trace
     would specialize on. Ints (and tuples of them) are static, as
-    `BlockSparse.block_size` and `.shape` are for a trace."""
-    if v is None or isinstance(v, int):
+    `BlockSparse.block_size` and `.shape` are for a trace, and so are
+    strings (`CompactOperands.fields`)."""
+    if v is None or isinstance(v, (int, str)):
         return v
     if isinstance(v, torch.Tensor):
         return (tuple(v.shape), v.dtype, v.device)

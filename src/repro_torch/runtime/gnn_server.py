@@ -43,18 +43,30 @@ Port of the synchronous serving path of the reference's
     both backends.
   * Zero-recompile — after `warmup()`, `assert_warm()` holds while requests
     stay within the ladder: plans count unseen argument signatures
-    (`core.models.ExecutionPlan`).
+    (`core.models.ExecutionPlan`), and so does the CacheG materializer.
+  * CacheG (DESIGN.md §7, the default) — a request's structure crosses
+    the link as bit-packed adjacency plus a degree vector
+    (`core.models.prepare_host_operands`), SymG-triangular for undirected
+    graphs, and the dense operands are materialized on the device
+    (`realize_operands`). A directed GCN/GAT graph takes the eager dense
+    upload, counted in `cacheg_fallbacks`. `use_cacheg=False` uploads
+    every request's dense operands built on the host.
 
 Attached graphs keep their device operands, their derived int8 Â and their
 GraSp decision and structure (derived on the device from the cached Â by
-`BlockCompactor`) in dicts keyed by (graph_id, structure_version): a
-repeated query moves no operand bytes, quantizes and compacts nothing. A
-one-shot grasp request builds its structure on the host
+`BlockCompactor`) in one byte-budgeted `runtime.cache.DeviceCacheManager`
+keyed by (graph_id, structure_version) (DESIGN.md §13): a repeated query
+moves no operand bytes, quantizes and compacts nothing. Under
+`device_cache_budget_bytes` the manager evicts cost-aware LRU; an evicted
+compact entry spills to pinned host memory and a later query re-uploads
+only its compact bytes. `attach()` is the admission gate and `update()`
+rebuilds a changed graph in full under a new version. A one-shot GraSp
+request on the compact path decides and compacts on the device from the
+materialized Â; on the eager path it builds its structure on the host
 (`to_block_sparse`, padded to the budget) and counts its bytes in
-`operand_bytes_h2d`. Not ported yet (ROADMAP queue 1): CacheG's compact
-operand pipeline (the engine requires `use_cacheg=False`),
-`update`/`update_delta`, the latency bank, the tolerance router and SLO
-governor, the async scheduler and sharding.
+`operand_bytes_h2d`. Not ported yet (ROADMAP queue 1): `update_delta`,
+the latency bank, the tolerance router and SLO governor, the async
+scheduler and sharding.
 """
 from __future__ import annotations
 
@@ -65,19 +77,29 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.graph import BucketLadder, Graph, PaddedGraph, pad_graph
+from repro_torch.core.costs import transfer_cost
+from repro_torch.core.graph import (BucketLadder, Graph, PaddedGraph,
+                                    adjacency_keys, pad_graph)
 from repro_torch.core.layers import Techniques
 from repro_torch.core.models import (FUSION_MODES, OPERAND_FIELDS,
                                      AggQuantizer, BlockCompactor,
                                      ExecutionPlan, GNNConfig,
-                                     GranniteOperands, PlanKey,
-                                     TierOperands, build_operands,
-                                     build_plan, calibrate_tier,
+                                     GranniteOperands, HostOperands,
+                                     PlanKey, TierOperands, build_operands,
+                                     build_materializer, build_plan,
+                                     calibrate_tier, compact_operands,
                                      forward_grannite, init_params,
-                                     stack_operands, stack_tier_operands)
+                                     is_symmetric, operand_nbytes,
+                                     prepare_host_operands,
+                                     realize_operands, stack_operands,
+                                     stack_tier_operands)
 from repro_torch.core.sparsity import (BlockSparse, block_stats,
                                        grasp_max_nnz, select_agg_backend)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.runtime.cache import (CacheAdmissionError,
+                                       DeviceCacheManager,
+                                       estimate_dense_entry_bytes,
+                                       tree_nbytes)
 from repro_torch.runtime.clock import WALL, Clock
 
 # Serving techniques for models registered without explicit Techniques.
@@ -231,8 +253,15 @@ class GraphServeConfig:
     ladder: BucketLadder = dataclasses.field(default_factory=BucketLadder)
     batch_slots: int = 4                   # fixed batch width per dispatch
     return_logits: bool = False
-    use_cacheg: bool = False               # CacheG (§7) is not ported: True
-    # raises; operands are built on the host and uploaded dense
+    use_cacheg: bool = True                # CacheG operand pipeline (§7);
+    # False = eager host-built dense operands uploaded per request
+    device_cache_budget_bytes: Optional[int] = None   # §13: byte budget the
+    # operand caches share; None keeps them unbounded
+    spill_to_host: bool = True             # §13: evicted compact primaries
+    # keep a pinned host-RAM form, re-materialized on fault; False drops them
+    admission: str = "evict"               # §13 attach() policy when a new
+    # graph's projected operands overflow the budget: "evict" admits and
+    # lets insert-time eviction make room, "reject" raises
 
 
 @dataclasses.dataclass
@@ -253,11 +282,9 @@ class GraphServe:
     def __init__(self, sc: Optional[GraphServeConfig] = None, *, seed: int = 0,
                  clock: Optional[Clock] = None, device: DeviceLike = None):
         self.sc = sc or GraphServeConfig()
-        if self.sc.use_cacheg:
-            raise NotImplementedError(
-                "CacheG's compact operand pipeline is not ported yet "
-                "(ROADMAP queue 1 item 8); use GraphServeConfig("
-                "use_cacheg=False)")
+        if self.sc.admission not in ("evict", "reject"):
+            raise ValueError(f"unknown admission policy "
+                             f"{self.sc.admission!r}; pick evict|reject")
         self.device = resolve_device(device)
         self.seed = seed
         self.clock = clock if clock is not None else WALL
@@ -266,14 +293,16 @@ class GraphServe:
         self.finished: List[GNNRequest] = []
         self.graphs: Dict[int, Tuple[str, PaddedGraph]] = {}
         self._graph_version: Dict[int, int] = {}
-        # device operands of attached graphs, keyed by (graph_id, version)
-        self._operands: Dict[Tuple[int, int], GranniteOperands] = {}
-        # derived int8 Â of attached graphs, same keys
-        self._tier_operands: Dict[Tuple[int, int], TierOperands] = {}
-        # GraSp decision and structure (None when dense) of attached
-        # graphs, same keys
-        self._grasp: Dict[Tuple[int, int],
-                          Tuple[str, Optional[BlockSparse]]] = {}
+        # each attached graph's `adjacency_keys` (None without CacheG)
+        self._graph_keys: Dict[int, Optional[np.ndarray]] = {}
+        # the device-resident operand hierarchy of attached graphs, keyed
+        # by (graph_id, version): the primary fp32 operands ("operand") and
+        # their derived forms, GCN's int8 Â ("tier") and the GraSp
+        # decision with its structure ("grasp"), under one byte budget
+        self._cache = DeviceCacheManager(
+            budget_bytes=self.sc.device_cache_budget_bytes,
+            spill_to_host=self.sc.spill_to_host)
+        self._materializer = build_materializer(self.device)
         self._agg_quantizer = AggQuantizer()
         self._block_compactor = BlockCompactor()
         self._plans: Dict[PlanKey, ExecutionPlan] = {}
@@ -283,10 +312,28 @@ class GraphServe:
         self._dispatch_serial = 0
         self._last_dispatch: Dict[str, int] = {}   # model -> dispatch serial
         self.metrics = {"batches": 0, "slots_filled": 0, "slots_total": 0,
-                        "latency_s": [], "first_submit_s": None,
-                        "last_finish_s": None, "device_busy_s": 0.0,
-                        "operand_bytes_h2d": 0, "tier_fallbacks": 0,
-                        "grasp_batches": 0, "backend_fallbacks": 0}
+                        "rebucket_events": 0, "latency_s": [],
+                        "first_submit_s": None, "last_finish_s": None,
+                        "device_busy_s": 0.0, "operand_bytes_h2d": 0,
+                        "operand_cache_hits": 0, "operand_cache_misses": 0,
+                        "cacheg_fallbacks": 0, "tier_fallbacks": 0,
+                        "grasp_batches": 0, "backend_fallbacks": 0,
+                        "cache_spill_hits": 0, "cache_admission_rejects": 0}
+
+    # ----------------------------------------------------- cache views
+    # (snapshots of the cache manager as plain {key: value} dicts)
+    @property
+    def _operands(self) -> Dict[Tuple[int, int], GranniteOperands]:
+        return self._cache.view("operand")
+
+    @property
+    def _tier_operands(self) -> Dict[Tuple[int, int], TierOperands]:
+        return self._cache.view("tier")
+
+    @property
+    def _grasp(self) -> Dict[Tuple[int, int],
+                             Tuple[str, Optional[BlockSparse]]]:
+        return self._cache.view("grasp")
 
     # ------------------------------------------------------------------ setup
     def register_model(self, name: str, cfg: GNNConfig,
@@ -387,10 +434,12 @@ class GraphServe:
     @property
     def compiled_blobs(self) -> int:
         """Distinct argument signatures seen, summed over all plans, the
-        tier-operand deriver (one per bucket with a QuantGr GCN tier) and
-        the GraSp block compactor (two per bucket with a grasp-capable
-        model: the counts reduction and the gather)."""
+        CacheG materializer (one per (bucket, fieldset)), the tier-operand
+        deriver (one per bucket with a QuantGr GCN tier) and the GraSp
+        block compactor (two per bucket with a grasp-capable model: the
+        counts reduction and the gather)."""
         return (sum(p.trace_count for p in self._plans.values())
+                + self._materializer.trace_count
                 + self._agg_quantizer.trace_count
                 + self._block_compactor.trace_count)
 
@@ -398,7 +447,9 @@ class GraphServe:
         """Run every (model, bucket, tier, backend, fusion) plan once on
         placeholder inputs of the serving shapes — both fusion modes, as in
         the reference, so mixed fused/unfused traffic replays warm. On the
-        card this also builds the CUDA kernels. A grasp-capable model also
+        card this also builds the CUDA kernels. With CacheG the placeholder
+        operands come through the materializer, which warms its one trace
+        per (bucket, fieldset). A grasp-capable model also
         warms both halves of the block compactor and its grasp plans
         (non-QuantGr tiers) on a placeholder structure at the bucket's
         `grasp_max_nnz` budget, so mixed dense/grasp traffic replays warm.
@@ -418,7 +469,11 @@ class GraphServe:
                                     features=np.zeros((1, 1), np.float32)),
                               capacity=bucket)
             for name, e in self.models.items():
-                single = build_operands(empty, e.cfg, device=self.device)
+                if self.sc.use_cacheg:
+                    single = self._materializer(compact_operands(empty,
+                                                                 e.cfg))
+                else:
+                    single = build_operands(empty, e.cfg, device=self.device)
                 ops = stack_operands([single] * b)
                 x = torch.zeros((b, bucket, e.cfg.in_feats),
                                 dtype=torch.float32, device=self.device)
@@ -589,60 +644,85 @@ class GraphServe:
                                            max_nnz=grasp_max_nnz(capacity))
         return backend, bsp
 
-    def _resolve_and_build(self, model: str, tier: str, pg: PaddedGraph
+    def _resolve_and_build(self, model: str, tier: str, pg: PaddedGraph,
+                           keys: Optional[np.ndarray] = None
                            ) -> Tuple[str, GranniteOperands]:
         """One-shot intake: resolve the request's aggregation backend and
         build its device operands. QuantGr tiers resolve dense without a
-        scan. Otherwise the rule reads the host `block_stats` of Â, whose
-        bitmap the host structure build then reuses."""
+        scan. On the CacheG path an undirected graph decides from the
+        block counts of its MATERIALIZED Â on the device (no host O(cap²)
+        scan, and eligibility is judged on the matrix the gather reads).
+        Otherwise the rule reads the host `block_stats` of Â, whose bitmap
+        the host structure build then reuses."""
         e = self.models[model]
         if not self._grasp_capable(e) or e.tiers[tier].quantgr:
-            return "dense", self._device_operands(model, pg)
+            return "dense", self._device_operands(model, pg, keys=keys)
+        if self.sc.use_cacheg and is_symmetric(pg, keys):
+            ops = self._device_operands(model, pg, symmetric=True, keys=keys)
+            backend, bsp = self._derive_grasp(e, pg.capacity, ops.norm_adj)
+            self._count_forced_fallback(e, backend)
+            if backend == "grasp":
+                ops = dataclasses.replace(ops, block_sparse=bsp)
+            return backend, ops
         stats = block_stats(pg.norm_adj)
         backend = self._backend_from_stats(e, pg.capacity, stats)
         self._count_forced_fallback(e, backend)
         return backend, self._device_operands(
-            model, pg, backend=backend, grasp_bitmap=stats["bitmap"])
+            model, pg, backend=backend, grasp_bitmap=stats["bitmap"],
+            symmetric=False if self.sc.use_cacheg else None)
 
-    def _device_operands(self, model: str, pg: PaddedGraph, *,
-                         backend: str = "dense",
-                         grasp_bitmap: Optional[np.ndarray] = None
+    def _host_operands(self, model: str, pg: PaddedGraph, *,
+                       backend: str = "dense",
+                       grasp_bitmap: Optional[np.ndarray] = None,
+                       symmetric: Optional[bool] = None,
+                       keys: Optional[np.ndarray] = None) -> HostOperands:
+        """HOST stage of one graph's operands (`prepare_host_operands`):
+        the CacheG compact form, or the eager dense build uploaded to the
+        device for `use_cacheg=False` and for directed GCN/GAT graphs
+        (counted in `cacheg_fallbacks`). The bytes that cross the link
+        count in `operand_bytes_h2d`: the compact form's, or the eager
+        fields the kind reads plus a grasp request's host-built block
+        structure (`to_block_sparse`, reusing the rule's bitmap, padded to
+        the bucket budget). `keys`, the graph's `adjacency_keys`, let the
+        compact path read its edge list instead of the (cap, cap) matrix."""
+        ho = prepare_host_operands(
+            pg, self.models[model].cfg, use_cacheg=self.sc.use_cacheg,
+            grasp_max_nnz=(grasp_max_nnz(pg.capacity) if backend == "grasp"
+                           else None),
+            grasp_bitmap=grasp_bitmap, symmetric=symmetric, keys=keys,
+            device=self.device)
+        self.metrics["operand_bytes_h2d"] += ho.nbytes
+        if ho.fallback:
+            self.metrics["cacheg_fallbacks"] += 1
+        return ho
+
+    def _device_operands(self, model: str, pg: PaddedGraph, **kw
                          ) -> GranniteOperands:
-        """Build one graph's operands on the host and upload them: the
-        fields its kind reads (GCN's Â, GAT's two masks, SAGE's sample and
-        mean masks), whose bytes count in `operand_bytes_h2d`. A grasp
-        request also compacts Â's blocks on the host (`to_block_sparse`,
-        reusing the rule's bitmap, padded to the bucket budget) and ships
-        the structure, counted too."""
-        grasp = backend == "grasp"
-        cfg = self.models[model].cfg
-        ops = build_operands(
-            pg, cfg, grasp=grasp,
-            max_nnz=grasp_max_nnz(pg.capacity) if grasp else None,
-            bitmap=grasp_bitmap, device=self.device)
-        self.metrics["operand_bytes_h2d"] += sum(
-            getattr(ops, f).numel() * getattr(ops, f).element_size()
-            for f in OPERAND_FIELDS[cfg.kind]) + (
-            ops.block_sparse.nbytes if grasp else 0)
-        return ops
+        """One graph's device operands: the host stage (`_host_operands`)
+        then the device stage (`realize_operands`: the materializer for a
+        compact form)."""
+        return realize_operands(self._host_operands(model, pg, **kw),
+                                self._materializer)
 
     def _prepare(self, model: str, pg: PaddedGraph, tier: str,
                  ops: Optional[GranniteOperands] = None, *,
                  backend: str = "dense",
                  tier_ops: Optional[TierOperands] = None,
                  fusion: Optional[str] = None,
-                 submitted_s: Optional[float] = None) -> GNNRequest:
+                 submitted_s: Optional[float] = None,
+                 keys: Optional[np.ndarray] = None) -> GNNRequest:
         """Host-stage tail shared by every intake path, for a resolved
         `tier`: resolve the fusion mode; when the caller passes no
-        operands, resolve the aggregation backend and build them (and a
-        QuantGr tier's int8 Â, uncached); assign the uid. A caller that
-        passes operands passes the `backend` they were derived for.
-        Returns the request without queueing it."""
+        operands, resolve the aggregation backend and build them (from
+        the graph's `keys` where given; and a QuantGr tier's int8 Â,
+        uncached); assign the uid. A caller that passes operands passes
+        the `backend` they were derived for. Returns the request without
+        queueing it."""
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
         fusion = self._resolve_fusion(model, fusion)
         if ops is None:
-            backend, ops = self._resolve_and_build(model, tier, pg)
+            backend, ops = self._resolve_and_build(model, tier, pg, keys)
         if tier_ops is None and self._needs_tier_ops(self.models[model], tier):
             # one-shot request: derive without caching (nothing to key on)
             tier_ops = self._agg_quantizer(ops.norm_adj)
@@ -655,6 +735,15 @@ class GraphServe:
                           tier=tier, backend=backend, fusion=fusion,
                           tier_ops=tier_ops)
 
+    def _keys_for(self, edge_index: np.ndarray, pg: PaddedGraph
+                  ) -> Optional[np.ndarray]:
+        """The graph's `adjacency_keys` at its bucket, which the CacheG
+        host stage checks and packs in O(E); None for the eager path,
+        which reads the dense matrices anyway."""
+        if not self.sc.use_cacheg:
+            return None
+        return adjacency_keys(edge_index, pg.capacity)
+
     def _push(self, req: GNNRequest) -> int:
         self.queue.append(req)
         return req.uid
@@ -664,10 +753,11 @@ class GraphServe:
                        fusion: Optional[str] = None,
                        submitted_s: Optional[float] = None) -> GNNRequest:
         """HOST stage of a one-shot request: NodePad padding + operand
-        build and upload."""
-        return self._prepare(model, self.sc.ladder.pad(g),
-                             self._resolve_tier(model, tier), fusion=fusion,
-                             submitted_s=submitted_s)
+        build and upload (CacheG: packed from the edge list)."""
+        pg = self.sc.ladder.pad(g)
+        return self._prepare(model, pg, self._resolve_tier(model, tier),
+                             fusion=fusion, submitted_s=submitted_s,
+                             keys=self._keys_for(g.edge_index, pg))
 
     def submit(self, g: Graph, *, model: str, tier: Optional[str] = None,
                fusion: Optional[str] = None) -> int:
@@ -678,28 +768,115 @@ class GraphServe:
     def attach(self, g: Graph, *, model: str, calibrate: bool = True) -> int:
         """Register a graph for repeated queries; returns its graph_id.
         Operands are built on the first `query()` and kept on the device
-        until `detach()`. The first attach to a model with uncalibrated
-        non-fp32 tiers also calibrates them on this graph (`calibrate=False`
-        defers to an explicit `calibrate()`). A graph above the top bucket
-        raises."""
+        until `update()` changes the structure, `detach()` releases them or
+        the budget evicts them. The first attach to a model with
+        uncalibrated non-fp32 tiers also calibrates them on this graph
+        (`calibrate=False` defers to an explicit `calibrate()`). A graph
+        above the top bucket raises.
+
+        With `device_cache_budget_bytes` set, attach() is the admission
+        gate (§13): a graph whose projected primary operand entry can
+        NEVER fit the budget raises `CacheAdmissionError`; under
+        `admission="reject"` one that would overflow the CURRENT residency
+        raises too, while `admission="evict"` admits it and lets
+        insert-time eviction make room on first query."""
         if model not in self.models:
             raise KeyError(f"unknown model {model!r}")
         pg = self.sc.ladder.pad(g)
+        if self.sc.device_cache_budget_bytes is not None:
+            projected = self._projected_primary_bytes(model, pg)
+            if (not self._cache.fits(projected)
+                    or (self.sc.admission == "reject"
+                        and self._cache.would_overflow(projected))):
+                self.metrics["cache_admission_rejects"] += 1
+                raise CacheAdmissionError(
+                    f"graph with projected primary operand entry of "
+                    f"{projected} bytes cannot be admitted under "
+                    f"device_cache_budget_bytes="
+                    f"{self.sc.device_cache_budget_bytes} "
+                    f"(policy {self.sc.admission!r}, "
+                    f"{self._cache.resident_bytes} resident)")
         if calibrate:
             self._calibrate(model, pg)      # no-op once (model, tier) is done
         gid = self._gid
         self._gid += 1
         self.graphs[gid] = (model, pg)
+        self._graph_keys[gid] = self._keys_for(g.edge_index, pg)
         self._graph_version[gid] = 0
         return gid
 
+    def _projected_primary_bytes(self, model: str, pg: PaddedGraph) -> int:
+        """Projected device cost of the PRIMARY entry this graph pins on
+        first query — what attach() admission sizes against. Derived forms
+        rank below the primary in eviction order and are not counted."""
+        cfg = self.models[model].cfg
+        return estimate_dense_entry_bytes(len(OPERAND_FIELDS[cfg.kind]),
+                                          pg.capacity)
+
     def detach(self, graph_id: int) -> None:
-        """Release an attached graph and its device operands."""
+        """Release an attached graph, its device operands and any spilled
+        form. Lifecycle removal is not an eviction: no eviction or spill
+        counter moves."""
         key = (graph_id, self._graph_version.pop(graph_id, -1))
-        self._operands.pop(key, None)
-        self._tier_operands.pop(key, None)
-        self._grasp.pop(key, None)
+        self._cache.invalidate(key)
         self.graphs.pop(graph_id, None)
+        self._graph_keys.pop(graph_id, None)
+
+    def update(self, graph_id: int, edge_index: np.ndarray, num_nodes: int,
+               features: np.ndarray) -> bool:
+        """GrAd update of an attached graph, rebuilt in full; True if it
+        climbed the ladder (`BucketLadder.grow`, counted in
+        `rebucket_events`). Bumps the structure version and invalidates
+        the old version's entries, so the next `query()` builds exactly
+        once. A graph that outgrows the top bucket raises."""
+        model, pg = self.graphs[graph_id]
+        pg, rebucketed = self.sc.ladder.grow(pg, edge_index, num_nodes,
+                                             features)
+        self.graphs[graph_id] = (model, pg)
+        self._graph_keys[graph_id] = self._keys_for(edge_index, pg)
+        ver = self._graph_version[graph_id]
+        self._cache.invalidate((graph_id, ver))
+        self._graph_version[graph_id] = ver + 1
+        if rebucketed:
+            self.metrics["rebucket_events"] += 1
+        return rebucketed
+
+    def _primary_operands(self, graph_id: int, model: str, pg: PaddedGraph
+                          ) -> GranniteOperands:
+        """The attached graph's fp32 operands from the cache manager: a
+        hit moves nothing; a spill fault re-uploads only the spilled
+        compact form (from pinned memory on the card) and is not a miss;
+        a miss runs the host and device stages and inserts the entry, with
+        a spill producer when the form is compact (a directed graph's
+        eager entry is dropped on eviction)."""
+        key = (graph_id, self._graph_version[graph_id])
+        ops = self._cache.get("operand", key)
+        if ops is not None:
+            self.metrics["operand_cache_hits"] += 1
+            return ops
+        ho = self._cache.spill_get("operand", key)
+        if ho is not None:
+            self.metrics["cache_spill_hits"] += 1
+            self.metrics["operand_bytes_h2d"] += ho.nbytes
+        else:
+            self.metrics["operand_cache_misses"] += 1
+            ho = self._host_operands(model, pg,
+                                     keys=self._graph_keys[graph_id])
+        ops = realize_operands(ho, self._materializer)
+        nb = operand_nbytes(ops)
+        self._cache.put("operand", key, ops, nbytes=nb,
+                        remat_s=transfer_cost(nb),
+                        spill_fn=(self._spill_form(ho)
+                                  if ho.compact is not None else None))
+        return ops
+
+    def _spill_form(self, ho: HostOperands):
+        """Eviction-time producer of the spilled form: the compact host
+        operands this entry was built from, moved to pinned memory on a
+        CUDA engine so that a fault's upload is not waited on."""
+        if self.device.type != "cuda":
+            return lambda: ho
+        return lambda: ho if ho.compact.packed.is_pinned() else ho.pin()
 
     def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
                       fusion: Optional[str] = None,
@@ -707,27 +884,27 @@ class GraphServe:
         """HOST stage of a query over an attached graph: device operands,
         a QuantGr tier's int8 Â, and a grasp-capable model's backend
         decision and block structure (derived on the card from the cached
-        Â, zero extra bytes) come from the (graph_id, version) caches after
-        the first query."""
+        Â, zero extra bytes) come from the cache manager after the first
+        query. A derived insert never evicts the primary it hangs off
+        (the manager protects the inserted key)."""
         model, pg = self.graphs[graph_id]
         key = (graph_id, self._graph_version[graph_id])
-        ops = self._operands.get(key)
-        if ops is None:
-            ops = self._operands[key] = self._device_operands(model, pg)
+        ops = self._primary_operands(graph_id, model, pg)
         resolved = self._resolve_tier(model, tier)
-        tops = None
-        if self._needs_tier_ops(self.models[model], resolved):
-            tops = self._tier_operands.get(key)
-            if tops is None:
-                tops = self._tier_operands[key] = self._agg_quantizer(
-                    ops.norm_adj)
         e = self.models[model]
+        tops = None
+        if self._needs_tier_ops(e, resolved):
+            tops = self._cache.get("tier", key)
+            if tops is None:
+                tops = self._agg_quantizer(ops.norm_adj)
+                self._cache.put("tier", key, tops, nbytes=tree_nbytes(tops))
         backend = "dense"
         if self._grasp_capable(e) and not e.tiers[resolved].quantgr:
-            cached = self._grasp.get(key)
+            cached = self._cache.get("grasp", key)
             if cached is None:
-                cached = self._grasp[key] = self._derive_grasp(
-                    e, pg.capacity, ops.norm_adj)
+                cached = self._derive_grasp(e, pg.capacity, ops.norm_adj)
+                self._cache.put("grasp", key, cached,
+                                nbytes=tree_nbytes(cached))
             backend, bsp = cached
             self._count_forced_fallback(e, backend)   # per request
             if backend == "grasp":
@@ -845,7 +1022,11 @@ class GraphServe:
             "device_busy_s": busy,
             "device_idle_fraction": (max(0.0, 1.0 - busy / span)
                                      if span > 0 else 0.0),
+            "rebucket_events": self.metrics["rebucket_events"],
             "operand_bytes_h2d": self.metrics["operand_bytes_h2d"],
+            "operand_cache_hits": self.metrics["operand_cache_hits"],
+            "operand_cache_misses": self.metrics["operand_cache_misses"],
+            "cacheg_fallbacks": self.metrics["cacheg_fallbacks"],
             "tier_fallbacks": self.metrics["tier_fallbacks"],
             # GraSp: each model's mode, the batches that took the sparse
             # path, and the requests with grasp intent that ran dense
@@ -854,6 +1035,18 @@ class GraphServe:
                              for name, e in self.models.items()},
             "grasp_batches": self.metrics["grasp_batches"],
             "backend_fallbacks": self.metrics["backend_fallbacks"],
+            # §13 bounded cache: residency vs budget, capacity evictions
+            # split by outcome (evictions == spilled + dropped), faults
+            # served from the spill store, admission rejections
+            "cache_resident_bytes": self._cache.resident_bytes,
+            "cache_budget_bytes": self.sc.device_cache_budget_bytes,
+            "cache_evictions": self._cache.evictions,
+            "cache_spilled": self._cache.spilled,
+            "cache_dropped": self._cache.dropped,
+            "cache_spill_entries": self._cache.spill_entries,
+            "cache_spill_hits": self.metrics["cache_spill_hits"],
+            "cache_admission_rejects":
+                self.metrics["cache_admission_rejects"],
             "tiers": self.tier_summary(),
             "accuracy_delta_vs_fp32": {
                 name: dict(e.accuracy_delta)

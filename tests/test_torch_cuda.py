@@ -268,6 +268,58 @@ def test_graphserve_on_card_matches_cpu(card):
                                    torch.from_numpy(logits), **CARD)
 
 
+@pytest.mark.cuda
+def test_cacheg_on_card_materializes_and_spills_pinned(card):
+    """The CacheG materializer on the card gives the host's operands (the
+    host Â within CARD, the masks exactly), and an evicted entry spills
+    to pinned host memory, whose fault answers bit for bit."""
+    from repro_torch.core.graph import pad_graph
+    from repro_torch.core.models import (build_materializer, build_operands,
+                                         compact_operands)
+    g = planetoid_like(num_nodes=230, num_edges=690, num_feats=48,
+                       num_classes=5, seed=4, train_per_class=2)
+    pg = pad_graph(g, capacity=256)
+    mat = build_materializer(card)
+    for kind in ("gcn", "gat", "sage"):
+        cfg = GNNConfig(kind=kind, in_feats=48, hidden=16, num_classes=5,
+                        heads=4)
+        got = mat(compact_operands(pg, cfg))
+        want = build_operands(pg, cfg, device="cpu")
+        for f in ("norm_adj", "mask_mult", "bias_add", "sample_mask",
+                  "mean_mask"):
+            w = getattr(want, f)
+            if w is None:
+                assert getattr(got, f) is None
+            elif f == "norm_adj":
+                torch.testing.assert_close(getattr(got, f).cpu(), w, **CARD)
+            else:
+                assert torch.equal(getattr(got, f).cpu(), w), (kind, f)
+    cfg = GNNConfig(kind="gcn", in_feats=48, hidden=16, num_classes=5)
+    entry = 256 * 256 * 4 + 16
+    eng = GraphServe(GraphServeConfig(ladder=BucketLadder((256,)),
+                                      batch_slots=2, return_logits=True,
+                                      device_cache_budget_bytes=entry),
+                     seed=3, device=card)
+    eng.register_model("gcn", cfg, fusion="layer")
+    eng.warmup()
+    first = []
+    for i, n in enumerate((200, 240)):
+        gid = eng.attach(planetoid_like(num_nodes=n, num_edges=3 * n,
+                                        num_feats=48, num_classes=5, seed=i,
+                                        train_per_class=2), model="gcn")
+        eng.query(gid)
+        first.append(eng.run()[-1].logits)
+    spilled = eng._cache._spill[("operand", (0, 0))]
+    assert spilled.compact.packed.is_pinned()
+    assert spilled.compact.degree.is_pinned()
+    eng.query(0)
+    assert np.array_equal(eng.run()[-1].logits, first[0])
+    s = eng.summary()
+    assert (s["cache_spill_hits"], s["operand_cache_misses"]) == (1, 2)
+    assert s["cache_resident_bytes"] <= entry
+    eng.assert_warm()
+
+
 def _calibration_to(cal, device):
     return {k: (QuantizedLinear(v.wq.to(device), v.w_scale.to(device),
                                 v.x_scale.to(device))

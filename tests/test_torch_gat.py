@@ -657,7 +657,7 @@ def test_gat_serving_matches_reference(kernel_mode):
 def test_gat_calibration_and_warmth_on_the_port():
     eng = tserve.GraphServe(tserve.GraphServeConfig(
         ladder=tg.BucketLadder(buckets=BUCKETS), batch_slots=SLOTS,
-        return_logits=True), device="cpu")
+        return_logits=True, use_cacheg=False), device="cpu")
     _register("torch", eng, _model_weights(8))
     cfg = eng.models["gat"].cfg
     eng.register_model("gat_default", cfg)

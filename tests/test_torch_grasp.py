@@ -539,10 +539,10 @@ def test_auto_mode_decisions_equal_reference(monkeypatch):
 
 # ---------------------------------------------------------------- lifecycle
 
-def _port_engine(mode="grasp", tiers=None):
+def _port_engine(mode="grasp", tiers=None, use_cacheg=True):
     eng = tserve.GraphServe(tserve.GraphServeConfig(
         ladder=tg.BucketLadder(buckets=(256, CAP)), batch_slots=SLOTS,
-        return_logits=True), device="cpu")
+        return_logits=True, use_cacheg=use_cacheg), device="cpu")
     cfg = tmodels.GNNConfig(kind="gcn", in_feats=IN_FEATS, hidden=HIDDEN,
                             num_classes=CLASSES)
     eng.register_model("sp", cfg, agg_backend=mode, fusion="layer",
@@ -552,7 +552,7 @@ def _port_engine(mode="grasp", tiers=None):
 
 
 def test_structure_cache_derives_once_per_version_and_detach_releases():
-    eng = _port_engine()
+    eng = _port_engine(use_cacheg=False)
     eng.warmup()
     traces = eng._block_compactor.trace_count
     calls = []
@@ -580,7 +580,7 @@ def test_structure_cache_derives_once_per_version_and_detach_releases():
 
 
 def test_one_shot_grasp_ships_its_host_structure():
-    eng = _port_engine()
+    eng = _port_engine(use_cacheg=False)
     g = _clustered(700, 1)
     eng.submit(g, model="sp")
     req = eng.queue[0]
@@ -595,7 +595,8 @@ def test_mixed_traffic_stays_warm_and_counts_forced_fallbacks():
     eng = _port_engine()
     blobs = eng.warmup()
     # per bucket: dense fp32 (2 fusions, shared) + grasp (2) + compactor (2)
-    assert blobs == 2 * (2 + 2 + 2)
+    # + the CacheG materializer's GCN trace (1)
+    assert blobs == 2 * (2 + 2 + 2 + 1)
     dense_g = _scattered(900, 3)
     for g in (_clustered(200, 1), _clustered(700, 2), dense_g):
         eng.submit(g, model="sp")

@@ -549,7 +549,7 @@ def test_paper_sage_serves_on_cpu_at_full_width():
     both aggregators, at 1433 -> 64 -> 7 with max_neighbors=10."""
     eng = tserve.GraphServe(tserve.GraphServeConfig(
         ladder=tg.BucketLadder(buckets=(128,)), batch_slots=2,
-        return_logits=True), device="cpu")
+        return_logits=True, use_cacheg=False), device="cpu")
     for name in ("sage-mean", "sage-max"):
         eng.register_model(name, tconfigs.GNN_MODELS[name](),
                            tiers=("fp32", "int8+grax"), fusion="layer")
@@ -660,7 +660,7 @@ def test_sage_serving_matches_reference(kernel_mode, aggregator):
 def test_sage_calibration_and_warmth_on_the_port():
     eng = tserve.GraphServe(tserve.GraphServeConfig(
         ladder=tg.BucketLadder(buckets=BUCKETS), batch_slots=SLOTS,
-        return_logits=True), device="cpu")
+        return_logits=True, use_cacheg=False), device="cpu")
     _register("torch", eng, _model_weights(9, "max"), "max")
     assert not eng._needs_tier_ops(eng.models["sage"], "int8")
     assert not eng._grasp_capable(eng.models["sage"])

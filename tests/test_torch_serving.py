@@ -157,9 +157,10 @@ def test_plan_matches_reference(kernel_mode, batch_size, fusion, use_pallas):
     assert tplan.key[1:3] == rplan.key[1:3] and tplan.key[4:] == rplan.key[4:]
 
 
-def _port_engine(**kw):
+def _port_engine(use_cacheg=True, **kw):
     eng = tserve.GraphServe(tserve.GraphServeConfig(
-        ladder=tg.BucketLadder(buckets=BUCKETS), batch_slots=SLOTS), **kw)
+        ladder=tg.BucketLadder(buckets=BUCKETS), batch_slots=SLOTS,
+        use_cacheg=use_cacheg), **kw)
     cfg = tmodels.GNNConfig(kind="gcn", in_feats=IN_FEATS, hidden=HIDDEN,
                             num_classes=CLASSES)
     eng.register_model("gcn", cfg, fusion="layer")
@@ -169,7 +170,7 @@ def _port_engine(**kw):
 
 
 def test_assert_warm_holds_after_warmup_and_catches_new_shapes():
-    eng = _port_engine(device="cpu")
+    eng = _port_engine(device="cpu", use_cacheg=False)
     with pytest.raises(AssertionError, match="warmup"):
         eng.assert_warm()
     # per bucket: gcn_mm's two fusion modes plus gcn's two
@@ -218,9 +219,23 @@ def test_graphserve_without_device_needs_cuda():
 
 
 def test_unported_surfaces_raise():
-    with pytest.raises(NotImplementedError, match="CacheG"):
-        tserve.GraphServe(tserve.GraphServeConfig(use_cacheg=True),
-                          device="cpu")
+    # CacheG is ported: the default engine constructs on it and serves
+    cacheg = tserve.GraphServe(tserve.GraphServeConfig(
+        ladder=tg.BucketLadder(buckets=(128,)), batch_slots=SLOTS),
+        device="cpu")
+    assert cacheg.sc.use_cacheg and tserve.GraphServeConfig().use_cacheg
+    cacheg.register_model("gcn", tmodels.GNNConfig(kind="gcn",
+                                                   in_feats=IN_FEATS))
+    cacheg.warmup()
+    cacheg.submit(_graph(60, 1), model="gcn")
+    assert cacheg.run()[0].preds.shape == (60,)
+    assert cacheg.summary()["operand_bytes_h2d"] == (
+        tg.triangular_nbits(128) // 8 + 128 * 4 + 4)
+    cacheg.assert_warm()
+    # GrAd deltas and the SLO deadline arguments are not ported
+    assert not hasattr(cacheg, "update_delta")
+    with pytest.raises(TypeError):
+        cacheg.submit(_graph(60, 1), model="gcn", deadline_ms=5.0)
     eng = tserve.GraphServe(device="cpu")
     cfg = tmodels.GNNConfig(kind="gcn", in_feats=8)
     eng.register_model("q", cfg, tiers=("fp32", "int8"))     # ported now
@@ -470,9 +485,9 @@ def test_int8_grax_shares_the_int8_plan():
     assert (eng.plan_for("gcn_q", 128, "int8")
             is not eng.plan_for("gcn_q", 128, "fp32"))
     # gcn_q and gcn_q_none share every plan; gcn_qmm has its own two tiers:
-    # (2 + 2) plans x 2 fusions x 2 buckets, plus one deriver trace per
-    # bucket
-    assert eng.warmup() == 4 * 2 * 2 + 2
+    # (2 + 2) plans x 2 fusions x 2 buckets, plus one deriver trace and one
+    # CacheG materializer trace per bucket
+    assert eng.warmup() == 4 * 2 * 2 + 2 + 2
     assert len({p.key for p in eng._plans.values()}) == 8 * 2
 
 
