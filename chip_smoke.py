@@ -24,7 +24,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 11
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 12
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -103,7 +103,9 @@ last line; there is no CPU path):
      after one untimed burst each:
      intake_s, operand bytes, device_busy_s, p50/p99. The bytes must be
      each path's own, and CacheG's intake may not exceed the eager one's
-     beyond the runs' spread;
+     beyond the runs' spread; then, printed, three bursts each beside
+     one busy-looping process per core, CacheG also with the
+     `Tensor.pin_memory` staging it had before `pinned_copy`;
   8. cacheg — the masks and Â the card materializes for GCN, GAT and
      SAGE at both buckets against the host's (masks bit for bit, Â
      within 1e-6), then five attached cap-3072 GCN graphs churned under a
@@ -111,7 +113,26 @@ last line; there is no CPU path):
      dropped after every step, the spilled forms in pinned memory, each
      re-query answering bit for bit as its first answer while moving only
      compact bytes, and `assert_warm()`;
-  9. flash — `flash_attention` against its plain version
+  9. delta — GrAd edge deltas on attached cap-3072 graphs: Cora to the
+     Cora GCN (tiers fp32 and int8, `fusion="layer"`: fused_gcn_dense,
+     fused_gcn_int8) and to the Cora GAT (fp32 and int8: fused_gat_full,
+     fused_gat_precombined), a 2700-node clustered graph to an `auto` GCN
+     (fused_gcn_grasp, and bitmap_spmm with `fusion="none"`). With every
+     launch count set to 0 just before, 20 deltas of 8 adds and 8 removes
+     each go to each graph through `update_delta` (the clustered graph's
+     inside one 128-node community; the GCN graph's odd ones flip one
+     pair each way, so its int8 Â takes the row patch too), each followed
+     by queries of every served path. After each delta the patched entry must equal the
+     materializer's output for the patched compact form, the int8 Â a
+     whole re-quantization, and the logits a fresh `attach` of the same
+     structure, bit for bit; the logits also meet TOL against the plain
+     forward. Launch counts must match the batch log, `assert_warm()`
+     hold, and one 200-pair delta fall back to `update()` (exactly one
+     `delta_fallbacks`). Prints the bytes a delta ships against a
+     rebuild's compact upload, `update_delta`'s host ms by piece and the
+     patch's device ms (CUDA events) on one cap-3072 graph, beside
+     `update()`'s host ms and the next query's materializer device ms;
+  10. flash — `flash_attention` against its plain version
      (`flash_attention_ref`) in fp32 and bf16, each case through the route
      it takes (bf16 at head dim 64 and 128: the wgmma/TMA kernel; fp32 and
      head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
@@ -120,7 +141,7 @@ last line; there is no CPU path):
      65 and 129, gemma2's heads (32 over 16 of 128) with window 64 and
      softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
      may reach (at head dim 64 and 128), and head_dim 32;
-  10. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
+  11. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
      warm-up wave per bucket, 12 requests of 16 new tokens (one wave per
@@ -131,7 +152,7 @@ last line; there is no CPU path):
      wave's prefill logits must match a rerun with the plain attention
      (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
      token per bucket, decode ms per step and tokens/s;
-  11. times — CUDA-event times of each kernel, its plain version and the
+  12. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the dense and GraSp aggregation times per bucket queued
@@ -162,9 +183,11 @@ Output: progress lines, the card's name and power limit, one
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -182,19 +205,23 @@ from repro_torch.bridge import (lm_params_from_jax,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.gnn import gat, gcn, sage  # noqa: E402
 from repro_torch.core.graph import (BucketLadder,  # noqa: E402
-                                    adjacency_keys, is_symmetric_adjacency,
-                                    keys_symmetric, pad_graph,
+                                    adjacency_keys, apply_edge_delta,
+                                    edge_index_from_adjacency,
+                                    is_symmetric_adjacency, keys_symmetric,
+                                    pad_graph, patch_adjacency_keys,
                                     symg_pack_adjacency_bits, symg_pack_keys,
                                     triangular_nbits)
 from repro_torch.core.layers import Techniques  # noqa: E402
 from repro_torch.core import costs  # noqa: E402
 from repro_torch.core import layers as glayers  # noqa: E402
+from repro_torch.core import models as gmodels  # noqa: E402
 from repro_torch.core.quant import apply_quantized_linear  # noqa: E402
-from repro_torch.core.models import (build_materializer,  # noqa: E402
-                                     build_operands, calibrate_tier,
-                                     compact_operands, derive_tier_operands,
-                                     gcn_degree, materialize_operands,
-                                     stack_operands)
+from repro_torch.core.models import (OPERAND_FIELDS,  # noqa: E402
+                                     build_materializer, build_operands,
+                                     calibrate_tier, compact_operands,
+                                     derive_tier_operands, gcn_degree,
+                                     materialize_operands, patch_operands,
+                                     patch_tier_operands, stack_operands)
 from repro_torch.core.sparsity import (agg_cost_model,  # noqa: E402
                                        block_stats, compact_block_sparse,
                                        grasp_max_nnz, select_agg_backend,
@@ -216,6 +243,7 @@ from repro_torch.kernels import sage_max as sm  # noqa: E402
 from repro_torch.nn import lm  # noqa: E402
 from repro_torch.runtime.cache import (  # noqa: E402
     estimate_dense_entry_bytes)
+from repro_torch.runtime import gnn_server as gserver  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
 from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
@@ -367,6 +395,11 @@ GAT_KERNELS = ("gat_attention", "fused_gat_full", "fused_gat_precombined")
 SAGE_KERNELS = ("sage_max", "fused_sage")
 SAGE_HIDDEN, SAGE_CLASSES = 64, 7
 LM_KERNELS = ("flash_attention",)
+# [delta]: deltas a graph, adds (and removes) each, the fallback's adds,
+# and the kernels its served paths launch
+DELTA_STEPS, DELTA_FLIPS, DELTA_FALLBACK_PAIRS = 20, 8, 200
+DELTA_KERNELS = ("fused_gcn_dense", "fused_gcn_int8", "fused_gcn_grasp",
+                 "bitmap_spmm", "fused_gat_full", "fused_gat_precombined")
 
 
 def compact_bytes(cap, sage=False):
@@ -380,11 +413,15 @@ def compact_bytes(cap, sage=False):
 _HOST_OPS = {}
 
 
-def host_operands(r, cfg, dev):
+def host_operands(r, cfg, dev, cache=True):
     """The host-built operands of a served request's graph (the yardstick
-    of its logits), built once per (graph, kind); the masks the card
-    materialized from the compact form must equal them exactly."""
+    of its logits), built once per (graph, kind) unless `cache` is False
+    (a graph whose structure changes under one node count); the masks the
+    card materialized from the compact form, or patched, must equal them
+    exactly."""
     key = (r.pg.num_nodes, r.pg.capacity, cfg.kind, cfg.max_neighbors)
+    if not cache:
+        _HOST_OPS.pop(key, None)
     if key not in _HOST_OPS:
         _HOST_OPS[key] = build_operands(r.pg, cfg, device=dev)
     host = _HOST_OPS[key]
@@ -394,6 +431,50 @@ def host_operands(r, cfg, dev):
                   f"request {r.uid}: the materialized {f} differs from the "
                   f"host's")
     return host
+
+
+def gcn_plain(r, params, dev, cal=None):
+    """The plain forward a served GCN request is held to, on its first
+    num_nodes rows (on the host): both layers over the host-built Â, fused
+    through `fused_gcn_dense_plain`, unfused as two products; a GraSp
+    request over its block structure through `fused_gcn_grasp_plain` or
+    `bitmap_spmm_plain`; an int8 request (`cal`, its tier's calibration)
+    through `fused_gcn_int8_plain` over the row-quantized host Â."""
+    n = r.pg.num_nodes
+    a = torch.from_numpy(r.pg.norm_adj).to(dev)[None]
+    x = torch.from_numpy(r.pg.features).to(dev)[None]
+    p1, p2 = params["l1"], params["l2"]
+    if cal is not None:
+        t = derive_tier_operands(a)
+        h = x
+        for layer, (ql, hs, act) in enumerate(
+                ((cal["l1"], cal["agg1_h"], "relu"),
+                 (cal["l2"], cal["agg2_h"], "none")), start=1):
+            h = fl.fused_gcn_int8_plain(
+                h, ql.wq, (ql.x_scale * ql.w_scale).reshape(1, -1),
+                ql.x_scale, hs, t.agg_aq, t.agg_a_scale,
+                params[f"l{layer}"]["b"], act)
+        return h[0, :n].cpu()
+    if r.backend == "grasp":
+        st_ = tuple(t[None] for t in (r.ops.block_sparse.blocks,
+                                      r.ops.block_sparse.block_cols,
+                                      r.ops.block_sparse.counts))
+        if r.fusion == "layer":
+            h = fl.fused_gcn_grasp_plain(*st_, x, p1["w"], p1["b"], "relu")
+            ref = fl.fused_gcn_grasp_plain(*st_, h, p2["w"], p2["b"])
+        else:
+            h = torch.relu(bs.bitmap_spmm_plain(*st_, x @ p1["w"])
+                           + p1["b"])
+            ref = bs.bitmap_spmm_plain(*st_, h @ p2["w"]) + p2["b"]
+    elif r.fusion == "layer":
+        h = fl.fused_gcn_dense_plain(a, x, p1["w"], p1["b"], "relu")
+        ref = fl.fused_gcn_dense_plain(a, h, p2["w"], p2["b"], "none")
+    else:
+        h = torch.relu(bm.block_matmul_plain(
+            a, bm.block_matmul_plain(x, p1["w"])) + p1["b"])
+        ref = bm.block_matmul_plain(
+            a, bm.block_matmul_plain(h, p2["w"])) + p2["b"]
+    return ref[0, :n].cpu()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -641,6 +722,60 @@ def gat_layer_plain(p, x, bias, heads, f, act, quant=None, fused=True):
         out = fl.fused_gat_precombined_plain(
             *gat_combine(p, x, heads, f, quant), bias, b, act)
     return out.reshape(*x.shape[:-1], heads * f)
+
+
+def gat_plain_check(r, e, dev, cache=True):
+    """Hold a served GAT request of model entry `e` to the plain forward
+    over the host-built masks (which its own masks must equal exactly):
+    fp32 whole, at TOL; int8 layer by layer. Returns (max_abs_err, int8
+    inputs one step off the all-plain chain, int8 inputs, argmax ties
+    within atol); any failure raises."""
+    n = r.pg.num_nodes
+    check(r.logits is not None and r.logits.shape == (n, GAT_CLASSES)
+          and np.isfinite(r.logits).all(),
+          f"request {r.uid}: logits missing, misshapen or not finite")
+    t = e.tiers[r.tier]
+    fused = r.fusion == "layer"
+    cal = e.calibrations[r.tier] if t.quantgr else {}
+    x = torch.from_numpy(r.pg.features).to(dev)[None]
+    ops1 = stack_operands([host_operands(r, e.cfg, dev, cache)])
+    h1 = gat_layer_plain(e.params["l1"], x, ops1.bias_add, GAT_HEADS,
+                         GAT_F, "elu", cal.get("l1"), fused)
+    flips = q_inputs = 0
+    if t.quantgr:
+        # layer 2 rounds layer 1's fp32 output to int8: where the kernels'
+        # and the plain versions' sums straddle a rounding tie, the step
+        # moves and the logits with it. So the int8 request is held layer
+        # by layer: layer 1 through the served kernels against the plain
+        # layer 1, then the logits against the plain layer 2 over the
+        # kernels' layer 1.
+        kw = dict(heads=GAT_HEADS, out_feats=GAT_F, quant=cal["l1"])
+        if fused:
+            h1_k = glayers.gat_grannite_fused(
+                e.params["l1"], x, ops1.bias_add, t, activation="elu", **kw)
+        else:
+            h1_k = torch.nn.functional.elu(glayers.gat_grannite(
+                e.params["l1"], x, ops1.mask_mult, ops1.bias_add, t, **kw))
+        d1 = (h1_k - h1)[0, :n].abs().max().item()
+        check(d1 <= TOL["atol"], f"request {r.uid}: layer 1 differs from "
+              f"the plain version by {d1}")
+        torch.testing.assert_close(h1_k[0, :n], h1[0, :n], **TOL)
+        xs = cal["l2"].x_scale
+        flips = int((torch.round(h1_k[0, :n] / xs)
+                     != torch.round(h1[0, :n] / xs)).sum())
+        q_inputs = h1[0, :n].numel()
+        h1 = h1_k
+    ref = gat_layer_plain(e.params["l2"], h1, ops1.bias_add, 1, GAT_CLASSES,
+                          "none", cal.get("l2"), fused)[0, :n].cpu()
+    got = torch.from_numpy(r.logits)
+    d = (got - ref).abs().max().item()
+    check(d <= TOL["atol"], f"request {r.uid}: max_abs_err {d}")
+    torch.testing.assert_close(got, ref, **TOL)
+    top2 = ref.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= TOL["atol"]
+    check(bool((torch.from_numpy(r.preds) == ref.argmax(-1))[~tie].all()),
+          f"request {r.uid}: argmax differs")
+    return d, flips, q_inputs, int(tie.sum())
 
 
 def gat_work(h_shape, nbytes_in, fin=0):
@@ -1204,24 +1339,54 @@ def copy_ms(src, dst, reps=20):
     return start.elapsed_time(end) / reps
 
 
+# the host pieces of a burst's intake, timed where they are called: name,
+# owner, attribute (the materializer's time holds its staging and upload)
+INTAKE_PIECES = (("pad_graph", BucketLadder, "pad"),
+                 ("host operands", GraphServe, "_host_operands"),
+                 ("materializer", gmodels.OperandMaterializer, "__call__"),
+                 ("staging and upload", gmodels.CompactOperands, "to"),
+                 ("GraSp counts read", GraphServe, "_derive_grasp"),
+                 ("block_stats", gserver, "block_stats"))
 def gcn_burst(eng, graphs, attached):
     """The [serve] fp32 burst: each graph to `gcn` and `gcn_mm`, then one
-    attached graph queried twice. Returns the host intake seconds and the
-    burst's operand bytes, device busy seconds and p50/p99 ms."""
+    attached graph queried twice. Returns the host intake seconds, with
+    this process's CPU seconds and the host pieces' seconds over it, and
+    the burst's operand bytes, device busy seconds and p50/p99 ms."""
     m0 = {k: eng.metrics[k] for k in ("operand_bytes_h2d", "device_busy_s")}
     n0 = len(eng.finished)
     gc.collect()                    # each burst starts from a collected heap
     by_bucket = Counter()           # host ms of the one-shot submits
-    t0 = time.perf_counter()
-    for model in ("gcn", "gcn_mm"):
-        for g in graphs:
+    pieces = Counter()
+    originals = [(owner, attr, getattr(owner, attr))
+                 for _, owner, attr in INTAKE_PIECES]
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
             t1 = time.perf_counter()
-            eng.submit(g, model=model)
-            by_bucket[eng.queue[-1].bucket] += time.perf_counter() - t1
-    gid = eng.attach(attached, model="gcn")
-    eng.query(gid)
-    eng.query(gid)
-    intake_s = time.perf_counter() - t0
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                pieces[name] += time.perf_counter() - t1
+        return call
+
+    for (name, owner, attr), (_, _, fn) in zip(INTAKE_PIECES, originals):
+        setattr(owner, attr, timed(name, fn))
+    try:
+        cpu0 = os.times()
+        t0 = time.perf_counter()
+        for model in ("gcn", "gcn_mm"):
+            for g in graphs:
+                t1 = time.perf_counter()
+                eng.submit(g, model=model)
+                by_bucket[eng.queue[-1].bucket] += time.perf_counter() - t1
+        gid = eng.attach(attached, model="gcn")
+        eng.query(gid)
+        eng.query(gid)
+        intake_s = time.perf_counter() - t0
+        cpu1 = os.times()
+    finally:
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
     done = eng.run()[n0:]
     eng.detach(gid)
     lat = np.asarray([r.finished_s - r.submitted_s for r in done]) * 1e3
@@ -1230,6 +1395,9 @@ def gcn_burst(eng, graphs, attached):
         "a burst request did not finish with finite logits")
     return {"intake_s": intake_s,
             **{f"submits_s_{b}": v for b, v in sorted(by_bucket.items())},
+            "intake_cpu_user_s": cpu1.user - cpu0.user,
+            "intake_cpu_sys_s": cpu1.system - cpu0.system,
+            "intake_pieces_s": dict(pieces),
             "operand_bytes_h2d": eng.metrics["operand_bytes_h2d"]
             - m0["operand_bytes_h2d"],
             "device_busy_s": eng.metrics["device_busy_s"]
@@ -1241,7 +1409,8 @@ def gcn_burst(eng, graphs, attached):
 def intake_phase(dev, card, cfg, params, cora, others):
     """[intake]: each host piece of one request's intake at both buckets,
     the host link's pinned and pageable rates, and the [serve] fp32 GCN
-    burst with the eager upload and with CacheG, three runs each."""
+    burst with the eager upload and with CacheG, three runs each, on the
+    idle host and beside one busy process per core."""
     ladder = BucketLadder(buckets=LADDER)
     mat = build_materializer(dev)
     for cap, g in ((1024, others[2]), (3072, cora)):
@@ -1358,6 +1527,33 @@ def intake_phase(dev, card, cfg, params, cora, others):
           f"{cg}), eager {np.median(eager):.4f} s (runs {eager}); operand "
           f"bytes {want_h2d[True]} against {want_h2d[False]} "
           f"({want_h2d[False] / want_h2d[True]:.1f}x fewer)", flush=True)
+    # the same bursts beside one busy-looping process per core, as other
+    # tenants load a shared host, and CacheG also with the staging copy
+    # it had before `pinned_copy` (`Tensor.pin_memory`, which splits the
+    # copy over the intra-op thread pool); printed, not checked
+    busy = {"eager": [], "CacheG": [], "CacheG, pin_memory staging": []}
+    own_copy = gmodels.pinned_copy
+    hogs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(len(os.sched_getaffinity(0)))]
+    try:
+        time.sleep(1.0)
+        for label in ("eager", "CacheG", "CacheG, pin_memory staging") * 3:
+            gmodels.pinned_copy = (torch.Tensor.pin_memory
+                                   if label.endswith("staging") else own_copy)
+            busy[label].append(gcn_burst(engines[label != "eager"], graphs,
+                                         attached))
+    finally:
+        gmodels.pinned_copy = own_copy
+        for p in hogs:
+            p.kill()
+        for p in hogs:
+            p.wait()
+    print(f"[intake] beside {len(hogs)} busy processes, intake_s median "
+          + "; ".join(f"{k} {np.median([r['intake_s'] for r in v]):.4f} s "
+                      f"(runs {[r['intake_s'] for r in v]})"
+                      for k, v in busy.items()) + f" ({card})", flush=True)
+    print(f"[intake] beside {len(hogs)} busy processes, the bursts: "
+          + json.dumps(busy), flush=True)
     check(min(cg) <= max(eager), f"CacheG intake {cg} is above the eager "
           f"path's {eager} beyond the spread of the runs")
 
@@ -1446,6 +1642,265 @@ def cacheg_phase(dev, card, cfgs, params, cora, others):
           + json.dumps({k: v for k, v in s.items()
                         if k.startswith(("cache_", "operand_"))})
           + f" ({card})", flush=True)
+
+
+def delta_pairs(keys, cap, lo, hi, k, rng):
+    """`k` absent and `k` present undirected pairs (i < j) among the nodes
+    [lo, hi) of the graph whose edge keys are `keys`."""
+    row, col = np.divmod(keys, cap)
+    inside = (row < col) & (row >= lo) & (col < hi)
+    present = np.stack([row[inside], col[inside]], axis=1)
+    rm = present[rng.choice(len(present), k, replace=False)]
+    have = set(keys.tolist())
+    add = set()
+    while len(add) < k:
+        i, j = sorted(int(v) for v in rng.integers(lo, hi, 2))
+        if i != j and i * cap + j not in have:
+            add.add((i, j))
+    return np.asarray(sorted(add), np.int64), rm
+
+
+def delta_phase(dev, card, cfg, params, gcfg, gparams, cora, community):
+    """[delta]: GrAd edge deltas on three attached graphs of one bucket
+    (Cora to a GCN and a GAT, the clustered `community` to an auto GCN),
+    each patched entry, int8 Â and answer held bit for bit to a rebuild
+    and the answers to the plain forward; then the bytes and times of one
+    delta beside a rebuild's."""
+    eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                      batch_slots=SLOTS, return_logits=True),
+                     seed=0, device=dev)
+    eng.register_model("gcn", cfg, params, tiers=("fp32", "int8"),
+                       fusion="layer")
+    eng.register_model("gcn_auto", cfg, params, agg_backend="auto",
+                       fusion="layer")
+    eng.register_model("gat", gcfg, gparams, tiers=("fp32", "int8"),
+                       fusion="layer")
+    blobs = eng.warmup()
+    for model in ("gcn", "gat"):
+        eng.calibrate(model, cora)
+    served = {"gcn": (("fp32", "layer"), ("int8", "layer")),
+              "gcn_auto": (("fp32", "layer"), ("fp32", "none")),
+              "gat": (("fp32", "layer"), ("int8", "layer"))}
+    base = {"gcn": cora, "gcn_auto": community, "gat": cora}
+    gids = {m: eng.attach(g, model=m) for m, g in base.items()}
+    cap = eng.graphs[gids["gcn"]][1].capacity
+    check({eng.graphs[g][1].capacity for g in gids.values()} == {cap},
+          "the delta graphs are not in one bucket")
+    for m, gid in gids.items():
+        for tier, fusion in served[m]:
+            eng.query(gid, tier=tier, fusion=fusion)
+    first = eng.run()
+    check({r.backend for r in first if r.model == "gcn_auto"} == {"grasp"},
+          "the clustered graph did not route to GraSp")
+    log = []
+    execute = eng._execute_batch
+
+    def record(batch):
+        h = batch[0]
+        log.append((h.model, h.tier, h.backend, h.fusion))
+        execute(batch)
+    eng._execute_batch = record
+    mat = build_materializer(dev)
+    rng = np.random.default_rng(28)
+    n_checked, by_rows, held, err = 0, 0, [], 0.0
+    reset_launches()                        # the delta path starts here
+    t0 = time.perf_counter()
+    for step in range(DELTA_STEPS):
+        for m, gid in gids.items():
+            e = eng.models[m]
+            n = base[m].num_nodes
+            # GraSp traffic keeps its flips inside one 128-node community
+            lo = (step % (n // TILE)) * TILE if m == "gcn_auto" else 0
+            hi = lo + TILE if m == "gcn_auto" else n
+            # the GCN graph's odd deltas flip one pair each way, so its
+            # int8 Â takes the row patch too (16 flips touch more rows
+            # than K_r on Cora, which re-quantizes the whole matrix)
+            k = 1 if m == "gcn" and step % 2 else DELTA_FLIPS
+            add, rm = delta_pairs(eng._graph_keys[gid], cap, lo, hi, k, rng)
+            check(eng.update_delta(gid, add_edges=add, remove_edges=rm),
+                  f"{m}: a {2 * DELTA_FLIPS}-flip delta fell back")
+            key = (gid, eng._graph_version[gid])
+            pg = eng.graphs[gid][1]
+            ops = eng._cache.get("operand", key)
+            want = mat(compact_operands(pg, e.cfg,
+                                        keys=eng._graph_keys[gid]))
+            for f in OPERAND_FIELDS[e.cfg.kind]:
+                check(torch.equal(getattr(ops, f), getattr(want, f)),
+                      f"{m} delta {step}: the patched {f} differs from the "
+                      f"materializer's")
+            if m == "gcn":
+                by_rows += eng._requant_rows(
+                    np.unique(np.concatenate([add, rm])),
+                    eng._graph_keys[gid], cap) is not None
+                tops = eng._cache.get("tier", key)
+                full = derive_tier_operands(ops.norm_adj)
+                check(torch.equal(tops.agg_aq, full.agg_aq)
+                      and torch.equal(tops.agg_a_scale, full.agg_a_scale),
+                      f"delta {step}: the patched int8 A differs from a "
+                      f"whole re-quantization")
+            fresh = eng.attach(dataclasses.replace(
+                base[m], edge_index=edge_index_from_adjacency(pg.adj, n)),
+                model=m)
+            pairs = [(eng.query(gid, tier=tier, fusion=fusion),
+                      eng.query(fresh, tier=tier, fusion=fusion))
+                     for tier, fusion in served[m]]
+            by_uid = {r.uid: r for r in eng.run()[-2 * len(pairs):]}
+            for a, b in pairs:
+                r = by_uid[a]
+                check(r.backend == by_uid[b].backend and np.array_equal(
+                    r.logits, by_uid[b].logits),
+                    f"{m} delta {step} ({r.tier}, {r.fusion}): the answer "
+                    f"differs from a fresh attach of the same structure")
+                held.append((r, e))
+            eng.detach(fresh)
+            n_checked += 1
+        eng.assert_warm()
+    stream_s = time.perf_counter() - t0
+    launches = launches_now()
+    # against the plain forward once the launches are read: the GAT int8
+    # check runs the served layer 1 again
+    for r, e in held:
+        if e.cfg.kind == "gat":
+            d = gat_plain_check(r, e, dev, cache=False)[0]
+        else:
+            ref = gcn_plain(r, params, dev, e.calibrations.get(r.tier)
+                            if r.tier != "fp32" else None)
+            got = torch.from_numpy(r.logits)
+            torch.testing.assert_close(got, ref, **TOL)
+            d = (got - ref).abs().max().item()
+        err = max(err, d)
+    n_kind = Counter(log)
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "fused_gcn_dense": 2 * n_kind[("gcn", "fp32", "dense", "layer")],
+        "fused_gcn_int8": 2 * n_kind[("gcn", "int8", "dense", "layer")],
+        "fused_gcn_grasp": 2 * n_kind[("gcn_auto", "fp32", "grasp", "layer")],
+        "bitmap_spmm": 2 * n_kind[("gcn_auto", "fp32", "grasp", "none")],
+        "fused_gat_full": 2 * n_kind[("gat", "fp32", "dense", "layer")],
+        "fused_gat_precombined": 2 * n_kind[("gat", "int8", "dense",
+                                             "layer")]}
+    print(f"[delta] {n_checked} deltas ({DELTA_FLIPS} adds and "
+          f"{DELTA_FLIPS} removes each, 1 and 1 in the GCN graph's odd "
+          f"ones; its int8 A patched by rows in {by_rows} of {DELTA_STEPS},"
+          f" re-quantized whole in the rest) in {stream_s:.2f} s, "
+          f"{len(log)} batches "
+          f"{sorted(n_kind.items())}; launches {launches}, expected {want}",
+          flush=True)
+    check(launches == want, f"kernel launches {launches} != {want}")
+    check(all(launches[k] > 0 for k in DELTA_KERNELS),
+          f"a kernel of the delta path never launched: {launches}")
+    check(0 < by_rows < DELTA_STEPS, f"the int8 A was patched by rows in "
+          f"{by_rows} of {DELTA_STEPS} deltas: one of its two ways never ran")
+    s = eng.summary()
+    # the bytes a patched delta shipped (its spec, and the int8 rows where
+    # the row set fit K_r), against a rebuild's compact upload
+    shipped = s["delta_bytes_h2d"] / s["delta_updates"]
+    print(f"[delta] every patched entry equal to the materializer's output "
+          f"for the patched compact form, every int8 A to a whole "
+          f"re-quantization, and each of {len(held)} answers to a fresh "
+          f"attach, bit for bit; against the plain forward max_abs_err "
+          f"{err:.3e} (rtol={TOL['rtol']} atol={TOL['atol']}; GAT int8 "
+          f"layer by layer); {s['delta_updates']} deltas shipped "
+          f"{s['delta_bytes_h2d']} bytes, {shipped:.1f} a delta, against "
+          f"a rebuild's compact upload of {compact_bytes(cap)} bytes "
+          f"({compact_bytes(cap) / shipped:.1f}x) ({card})", flush=True)
+    # the fallback: a 200-pair delta is past K_t and takes update()
+    gid = gids["gcn"]
+    add, _ = delta_pairs(eng._graph_keys[gid], cap, 0, cora.num_nodes,
+                         DELTA_FALLBACK_PAIRS, rng)
+    check(eng.update_delta(gid, add_edges=add) is False,
+          "a 200-pair delta did not fall back")
+    s = eng.summary()
+    check((s["delta_updates"], s["delta_fallbacks"])
+          == (DELTA_STEPS * len(gids), 1),
+          f"delta_updates {s['delta_updates']}, delta_fallbacks "
+          f"{s['delta_fallbacks']}")
+    eng.query(gid)
+    r = eng.run()[-1]
+    torch.testing.assert_close(torch.from_numpy(r.logits),
+                               gcn_plain(r, params, dev), **TOL)
+    eng.assert_warm()
+    print(f"[delta] the {DELTA_FALLBACK_PAIRS}-pair delta fell back to "
+          f"update(): delta_fallbacks {s['delta_fallbacks']}, "
+          f"delta_updates {s['delta_updates']}; compiled_blobs "
+          f"{s['compiled_blobs']} (warm {blobs}); summary "
+          + json.dumps({k: v for k, v in s.items()
+                        if k.startswith(("delta_", "operand_", "cache_"))})
+          + f" ({card})", flush=True)
+
+    # one delta on the Cora GCN graph, piece by piece, beside a rebuild of
+    # the same graph
+    eng.query(gid, tier="int8")                 # the tier entry, resident
+    eng.run()
+    pg, keys = eng.graphs[gid][1], eng._graph_keys[gid]
+    n = pg.num_nodes
+    add, rm = delta_pairs(keys, cap, 0, n, DELTA_FLIPS, rng)
+    delta = apply_edge_delta(pg.adj, pg.norm_adj, n, add, rm)
+    keys2 = patch_adjacency_keys(keys, cap, delta)
+    adj2 = delta.adj
+    deg2 = gcn_degree(adj2, n, keys2)
+    fields = OPERAND_FIELDS["gcn"]
+
+    def spec():
+        return eng._delta_spec(cap, fields, delta.flip_i, delta.flip_j,
+                               delta.flip_v, delta.touched, deg2)
+
+    sp = spec()
+    rows = eng._requant_rows(delta.touched, keys2, cap)
+    key = (gid, eng._graph_version[gid])
+    ops, tops = eng._cache.get("operand", key), eng._cache.get("tier", key)
+    na2 = patch_operands(ops, sp).norm_adj
+    host = {"symmetry check (keys)": host_ms(
+                lambda: keys_symmetric(keys, cap)),
+            "apply_edge_delta (dense)": host_ms(
+                lambda: apply_edge_delta(pg.adj, pg.norm_adj, n, add, rm)),
+            "patch edge keys": host_ms(
+                lambda: patch_adjacency_keys(keys, cap, delta)),
+            "degree (keys)": host_ms(lambda: gcn_degree(adj2, n, keys2)),
+            "spec upload": host_ms(lambda: (spec(),
+                                            torch.cuda.synchronize())),
+            "int8 rows": host_ms(lambda: (
+                eng._requant_rows(delta.touched, keys2, cap),
+                torch.cuda.synchronize()))}
+
+    def there_and_back():
+        eng.update_delta(gid, add_edges=add, remove_edges=rm)
+        eng.update_delta(gid, add_edges=rm, remove_edges=add)
+        torch.cuda.synchronize()
+    host["update_delta (launch to done)"] = host_ms(there_and_back) / 2
+    gat_gid = gids["gat"]
+    gat_ops = eng._cache.get("operand",
+                             (gat_gid, eng._graph_version[gat_gid]))
+    gat_sp = dataclasses.replace(sp, fields=OPERAND_FIELDS["gat"])
+    device = {"patch A (GCN)": time_ms(lambda: patch_operands(ops, sp)),
+              "patch masks (GAT)": time_ms(
+                  lambda: patch_operands(gat_ops, gat_sp)),
+              # K_r rows (the row set of this delta, or the first K_r
+              # rows where it exceeds them): the patch's cost is its width
+              "int8 rows (K_r)": time_ms(lambda: patch_tier_operands(
+                  tops, na2, rows if rows is not None else torch.arange(
+                      min(2 * eng.sc.delta_pad_rows, cap), device=dev,
+                      dtype=torch.int32))),
+              "whole int8 re-quantization": time_ms(
+                  lambda: derive_tier_operands(na2))}
+    edges = edge_index_from_adjacency(pg.adj, n)
+    feats = pg.features[:n]
+    rebuild_ms = host_ms(lambda: eng.update(gid, edges, n, feats), reps=3)
+    co = compact_operands(eng.graphs[gid][1], cfg,
+                          keys=eng._graph_keys[gid]).to(dev)
+    mat(co)
+    device["materializer (the next query after update())"] = time_ms(
+        lambda: mat(co))
+    print(f"[delta] one delta of {len(delta.flip_i)} flips, "
+          f"{len(delta.touched)} touched nodes, int8 rows "
+          f"{'past K_r: re-quantized whole' if rows is None else rows.numel()}"
+          f" on the "
+          f"cap-{cap} Cora GCN: spec {sp.nbytes} bytes"
+          f"{'' if rows is None else f' + int8 rows {rows.numel() * 4}'}"
+          f" against a rebuild's compact {compact_bytes(cap)} bytes; host "
+          f"ms " + json.dumps(host) + "; device ms (CUDA events) "
+          + json.dumps(device) + f"; update() host ms {rebuild_ms:.3f} "
+          f"({card})", flush=True)
+    eng.assert_warm()
 
 
 def main() -> None:
@@ -1741,24 +2196,13 @@ def main() -> None:
           "fell back to the eager path")
 
     fp32_done = list(done)
-    p1, p2 = params["l1"], params["l2"]
     agree = []
     for r in fp32_done:
         n = r.pg.num_nodes
         check(r.logits is not None and r.logits.shape == (n, 7)
               and np.isfinite(r.logits).all(),
               f"request {r.uid}: logits missing, misshapen or not finite")
-        a = torch.from_numpy(r.pg.norm_adj).to(dev)[None]
-        x = torch.from_numpy(r.pg.features).to(dev)[None]
-        if r.fusion == "layer":
-            h = fl.fused_gcn_dense_plain(a, x, p1["w"], p1["b"], "relu")
-            ref = fl.fused_gcn_dense_plain(a, h, p2["w"], p2["b"], "none")
-        else:
-            h = torch.relu(bm.block_matmul_plain(
-                a, bm.block_matmul_plain(x, p1["w"])) + p1["b"])
-            ref = bm.block_matmul_plain(
-                a, bm.block_matmul_plain(h, p2["w"])) + p2["b"]
-        ref = ref[0, :n].cpu()
+        ref = gcn_plain(r, params, dev)
         torch.testing.assert_close(torch.from_numpy(r.logits), ref, **TOL)
         agree.append(float((r.preds == ref.argmax(-1).numpy()).mean()))
     s = eng.summary()
@@ -1831,19 +2275,8 @@ def main() -> None:
         check(r.logits is not None and r.logits.shape == (n, 7)
               and np.isfinite(r.logits).all(),
               f"request {r.uid}: logits missing, misshapen or not finite")
-        c = eng.models[r.model].calibrations["int8"]
-        a = torch.from_numpy(r.pg.norm_adj).to(dev)[None]
-        x = torch.from_numpy(r.pg.features).to(dev)[None]
-        t = derive_tier_operands(a)
-        h = x
-        for layer, (ql, hs, act) in enumerate(
-                ((c["l1"], c["agg1_h"], "relu"),
-                 (c["l2"], c["agg2_h"], "none")), start=1):
-            h = fl.fused_gcn_int8_plain(
-                h, ql.wq, (ql.x_scale * ql.w_scale).reshape(1, -1),
-                ql.x_scale, hs, t.agg_aq, t.agg_a_scale,
-                params[f"l{layer}"]["b"], act)
-        ref = h[0, :n].cpu()
+        ref = gcn_plain(r, params, dev,
+                        eng.models[r.model].calibrations["int8"])
         got = torch.from_numpy(r.logits)
         torch.testing.assert_close(got, ref, **TOL)
         check(np.array_equal(r.preds, ref.argmax(-1).numpy()),
@@ -1978,7 +2411,6 @@ def main() -> None:
           + len(CLUSTERED_SIZES) + 2, f"{len(done)} requests finished")
     eng_sp.assert_warm()
 
-    p1, p2 = params["l1"], params["l2"]
     sp_err, ties = 0.0, 0
     by_graph = {}
     for r in done:
@@ -1986,27 +2418,7 @@ def main() -> None:
         check(r.logits is not None and r.logits.shape == (n, 7)
               and np.isfinite(r.logits).all(),
               f"request {r.uid}: logits missing, misshapen or not finite")
-        a = torch.from_numpy(r.pg.norm_adj).to(dev)[None]
-        x = torch.from_numpy(r.pg.features).to(dev)[None]
-        if r.backend == "grasp":
-            st_ = tuple(t[None] for t in (r.ops.block_sparse.blocks,
-                                          r.ops.block_sparse.block_cols,
-                                          r.ops.block_sparse.counts))
-            if r.fusion == "layer":
-                h = fl.fused_gcn_grasp_plain(*st_, x, p1["w"], p1["b"],
-                                             "relu")
-                ref = fl.fused_gcn_grasp_plain(*st_, h, p2["w"], p2["b"])
-            else:
-                h = torch.relu(bs.bitmap_spmm_plain(*st_, x @ p1["w"])
-                               + p1["b"])
-                ref = bs.bitmap_spmm_plain(*st_, h @ p2["w"]) + p2["b"]
-        elif r.fusion == "layer":
-            h = fl.fused_gcn_dense_plain(a, x, p1["w"], p1["b"], "relu")
-            ref = fl.fused_gcn_dense_plain(a, h, p2["w"], p2["b"], "none")
-        else:
-            h = torch.relu(a @ (x @ p1["w"]) + p1["b"])
-            ref = a @ (h @ p2["w"]) + p2["b"]
-        ref = ref[0, :n].cpu()
+        ref = gcn_plain(r, params, dev)
         got = torch.from_numpy(r.logits)
         torch.testing.assert_close(got, ref, **TOL)
         sp_err = max(sp_err, (got - ref).abs().max().item())
@@ -2208,57 +2620,10 @@ def main() -> None:
 
     g_err, flips, q_inputs, ties = 0.0, 0, 0, 0
     for r in done:
-        n = r.pg.num_nodes
-        check(r.logits is not None
-              and r.logits.shape == (n, GAT_CLASSES)
-              and np.isfinite(r.logits).all(),
-              f"request {r.uid}: logits missing, misshapen or not finite")
-        e = eng_g.models[r.model]
-        t = e.tiers[r.tier]
-        fused = r.fusion == "layer"
-        cal = e.calibrations[r.tier] if t.quantgr else {}
-        x = torch.from_numpy(r.pg.features).to(dev)[None]
-        ops1 = stack_operands([host_operands(r, e.cfg, dev)])
-        h1 = gat_layer_plain(e.params["l1"], x, ops1.bias_add, GAT_HEADS,
-                             GAT_F, "elu", cal.get("l1"), fused)
-        if t.quantgr:
-            # layer 2 rounds layer 1's fp32 output to int8: where the
-            # kernels' and the plain versions' sums straddle a rounding
-            # tie, the step moves and the logits with it. So the int8
-            # request is held layer by layer: layer 1 through the served
-            # kernels against the plain layer 1, then the logits against
-            # the plain layer 2 over the kernels' layer 1.
-            kw = dict(heads=GAT_HEADS, out_feats=GAT_F, quant=cal["l1"])
-            if fused:
-                h1_k = glayers.gat_grannite_fused(
-                    e.params["l1"], x, ops1.bias_add, t, activation="elu",
-                    **kw)
-            else:
-                h1_k = torch.nn.functional.elu(glayers.gat_grannite(
-                    e.params["l1"], x, ops1.mask_mult, ops1.bias_add, t,
-                    **kw))
-            d1 = (h1_k - h1)[0, :n].abs().max().item()
-            check(d1 <= TOL["atol"], f"request {r.uid}: layer 1 differs "
-                  f"from the plain version by {d1}")
-            torch.testing.assert_close(h1_k[0, :n], h1[0, :n], **TOL)
-            xs = cal["l2"].x_scale
-            flips += int((torch.round(h1_k[0, :n] / xs)
-                          != torch.round(h1[0, :n] / xs)).sum())
-            q_inputs += h1[0, :n].numel()
-            h1 = h1_k
-        ref = gat_layer_plain(e.params["l2"], h1, ops1.bias_add, 1,
-                              GAT_CLASSES, "none", cal.get("l2"),
-                              fused)[0, :n].cpu()
-        got = torch.from_numpy(r.logits)
-        d = (got - ref).abs().max().item()
-        check(d <= TOL["atol"], f"request {r.uid}: max_abs_err {d}")
-        torch.testing.assert_close(got, ref, **TOL)
-        g_err = max(g_err, d)
-        top2 = ref.topk(2, dim=-1).values
-        tie = (top2[:, 0] - top2[:, 1]) <= TOL["atol"]
-        ties += int(tie.sum())
-        check(bool((torch.from_numpy(r.preds) == ref.argmax(-1))[~tie]
-                   .all()), f"request {r.uid}: argmax differs")
+        held = gat_plain_check(r, eng_g.models[r.model], dev)
+        g_err = max(g_err, held[0])
+        flips, q_inputs, ties = (a + b for a, b in zip(
+            (flips, q_inputs, ties), held[1:]))
     print(f"[serve-gat] logits of all {len(done)} requests match the plain "
           f"forward (max_abs_err {g_err:.3e}; rtol={TOL['rtol']} "
           f"atol={TOL['atol']}; int8 requests layer by layer, {flips} of "
@@ -2513,11 +2878,14 @@ def main() -> None:
     cacheg_phase(dev, card, {"gcn": cfg, "gat": gcfg, "sage": scfg["max"]},
                  params, cora, others)
 
-    # ----------------------------------------------- 9-10. flash, serve-lm
+    # ---------------------------------------------------------- 9. delta
+    delta_phase(dev, card, cfg, params, gcfg, gparams, cora, clustered(2700))
+
+    # ---------------------------------------------- 10-11. flash, serve-lm
     flash_err = flash_phase(dev)
     flash_launches, _, _ = serve_lm_phase(dev, card)
 
-    # --------------------------------------------------------- 11. times
+    # --------------------------------------------------------- 12. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""

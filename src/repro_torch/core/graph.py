@@ -1,11 +1,13 @@
 """Graph containers and structure preprocessing (StaGr / PreG / NodePad).
 
-Host code, numpy only — a copy of the reference package's `core/graph.py`
-without the GrAd edge-delta patcher, which the port has not reached yet.
-The SymG/CacheG packers give the reference's bytes without its O(cap²)
-index constants: the triangle is read row slice by row slice and the
-symmetry check compares tiles. Tensors appear only where operands go to
-the device (`repro_torch.core.models`).
+Host code, numpy only — a copy of the reference package's `core/graph.py`,
+GrAd's edge-delta products included (`apply_edge_delta`, without the
+sharded `boundary_rows`). The SymG/CacheG packers give the reference's
+bytes without its O(cap²) index constants: the triangle is read row slice
+by row slice and the symmetry check compares tiles; the edge-key forms
+(`adjacency_keys`, `patch_adjacency_keys`, `keys_neighbours`) give the
+same products from the edge list. Tensors appear only where operands go
+to the device (`repro_torch.core.models`).
 
 The paper's Step-1 enablement: graphs are preprocessed on the *host*
 (GraphSplit assigns control-heavy structure work to the CPU) into dense,
@@ -406,6 +408,128 @@ def stack_padded(pgs: Sequence[PaddedGraph]) -> BatchedGraphs:
         node_mask=np.stack([pg.node_mask for pg in pgs]),
     )
 
+
+
+# ---------------------------------------------------------------------------
+# GrAd edge deltas (DESIGN.md §13): the host side of an incremental
+# structure update. `apply_edge_delta` patches the dense adjacency and Â
+# with `gcn_norm_adjacency`'s exact expressions; `patch_adjacency_keys`
+# applies the same flips to a graph's edge keys, which CacheG packs from.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EdgeDelta:
+    """Host product of one EFFECTIVE GrAd edge delta.
+
+    `norm_adj` is the patched Â with only the touched rows and columns
+    renormalized, by `gcn_norm_adjacency`'s expression and association
+    order, so it equals a full rebuild of the patched structure bit for
+    bit. The flip and touched arrays are what the device patcher
+    (`core.models.patch_operands`) needs to bring a cached operand entry
+    to the same bits.
+    """
+    adj: np.ndarray                # (cap, cap) patched raw 0/1 adjacency
+    norm_adj: np.ndarray           # (cap, cap) patched Â, rebuild-exact
+    dis: np.ndarray                # (cap,) patched D^-1/2 (float32)
+    flip_i: np.ndarray             # (P,) int32 canonical flip endpoints
+    flip_j: np.ndarray             # (P,) int32   (i < j; the device
+    flip_v: np.ndarray             # (P,) float32  writes both orientations)
+    touched: np.ndarray            # (T,) int32 sorted flip endpoints: the
+    #                                nodes whose rows/cols changed
+
+
+def _delta_pairs(num_nodes: int, edges) -> np.ndarray:
+    """(k, 2) node pairs -> sorted unique canonical (lo < hi) pairs,
+    self-loop pairs dropped (the diagonal is forced, so they change no
+    operand). A node outside [0, num_nodes) raises."""
+    e = np.asarray(edges if edges is not None else [],
+                   dtype=np.int64).reshape(-1, 2)
+    if e.size and (e.min() < 0 or e.max() >= num_nodes):
+        raise ValueError(
+            f"edge delta references node outside [0, {num_nodes}) — "
+            "node-set changes take the full update() path")
+    e = e[e[:, 0] != e[:, 1]]
+    if not len(e):
+        return e.reshape(0, 2)
+    lo = np.minimum(e[:, 0], e[:, 1])
+    hi = np.maximum(e[:, 0], e[:, 1])
+    return np.unique(np.stack([lo, hi], axis=1), axis=0)
+
+
+def apply_edge_delta(adj: np.ndarray, norm_adj: np.ndarray, num_nodes: int,
+                     add_edges, remove_edges) -> Optional[EdgeDelta]:
+    """GrAd incremental structure update on the host.
+
+    `add_edges` / `remove_edges` are (k, 2) node-pair arrays (any order,
+    both orientations equivalent — the graph is undirected). Ineffective
+    flips (adding a present edge, removing an absent one) and self-loop
+    pairs are skipped; returns None when NOTHING effective remains, so the
+    caller can skip the version bump. Out-of-range nodes and a pair
+    listed on both sides raise — those are caller bugs, not deltas.
+    """
+    adds = _delta_pairs(num_nodes, add_edges)
+    removes = _delta_pairs(num_nodes, remove_edges)
+    if len(adds) and len(removes):
+        both = (set(map(tuple, adds.tolist()))
+                & set(map(tuple, removes.tolist())))
+        if both:
+            raise ValueError(f"edge pair(s) {sorted(both)} listed as both "
+                             "add and remove")
+    if len(adds):
+        adds = adds[adj[adds[:, 0], adds[:, 1]] == 0]
+    if len(removes):
+        removes = removes[adj[removes[:, 0], removes[:, 1]] != 0]
+    if not len(adds) and not len(removes):
+        return None
+    flips = np.concatenate([adds, removes], axis=0)
+    vals = np.concatenate([np.ones(len(adds), np.float32),
+                           np.zeros(len(removes), np.float32)])
+    new_adj = adj.copy()
+    new_adj[flips[:, 0], flips[:, 1]] = vals
+    new_adj[flips[:, 1], flips[:, 0]] = vals
+    touched = np.unique(flips)
+
+    # renorm the touched rows/cols with gcn_norm_adjacency's EXACT
+    # expression — same forced diagonal, same 1e-12 clamp, same
+    # left-associated products — so patched entries match a rebuild's bits
+    awl = new_adj.copy()
+    idx = np.arange(num_nodes)
+    awl[idx, idx] = 1.0
+    deg = awl.sum(axis=1)
+    with np.errstate(divide="ignore"):
+        dis = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+    na = norm_adj.copy()
+    na[touched, :] = dis[touched][:, None] * awl[touched, :] * dis[None, :]
+    na[:, touched] = dis[:, None] * awl[:, touched] * dis[touched][None, :]
+    return EdgeDelta(adj=new_adj, norm_adj=na, dis=dis.astype(np.float32),
+                     flip_i=flips[:, 0].astype(np.int32),
+                     flip_j=flips[:, 1].astype(np.int32),
+                     flip_v=vals,
+                     touched=touched.astype(np.int32))
+
+
+def patch_adjacency_keys(keys: np.ndarray, capacity: int,
+                         delta: EdgeDelta) -> np.ndarray:
+    """`adjacency_keys` of `delta.adj`, from the graph's keys before the
+    delta: each flip in both orientations, removed or inserted in place,
+    O(E + P log P) for E keys and P flips."""
+    i = delta.flip_i.astype(np.int64)
+    j = delta.flip_j.astype(np.int64)
+    flip = np.concatenate([i * capacity + j, j * capacity + i])
+    add = np.concatenate([delta.flip_v, delta.flip_v]) > 0
+    kept = np.delete(keys, np.searchsorted(keys, flip[~add]))
+    ins = np.sort(flip[add])
+    return np.insert(kept, np.searchsorted(kept, ins), ins)
+
+
+def keys_neighbours(keys: np.ndarray, capacity: int,
+                    nodes: np.ndarray) -> np.ndarray:
+    """Sorted rows r with an edge into any of `nodes` (adj[r, t] set for a
+    t in `nodes`) in the matrix `keys` describes: the reference's dense
+    `adj[:, nodes].any(axis=1)`, from the edge list."""
+    row, col = np.divmod(keys, capacity)
+    return np.unique(row[np.isin(col, nodes)])
 
 
 def edge_index_from_adjacency(adj: np.ndarray, num_nodes: int) -> np.ndarray:

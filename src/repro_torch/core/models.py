@@ -235,12 +235,13 @@ class CompactOperands:
     def to(self, device: torch.device) -> "CompactOperands":
         """The same form on `device`. A copy to the card is queued without
         the host waiting for the work already queued there: from pinned
-        memory, a pageable form staged through it first (the form never
-        changes, and PyTorch keeps a pinned buffer until its copy is
-        done)."""
+        memory, a pageable host form staged through it first (the form
+        never changes, and PyTorch keeps a pinned buffer until its copy
+        is done). A form already on `device` stays where it is."""
         def move(t):
-            if device.type == "cuda" and not t.is_pinned():
-                t = t.pin_memory()
+            if (device.type == "cuda" and t.device.type == "cpu"
+                    and not t.is_pinned()):
+                t = pinned_copy(t)
             return t.to(device, non_blocking=True)
         return dataclasses.replace(self, **{
             f: move(getattr(self, f))
@@ -250,8 +251,21 @@ class CompactOperands:
         """The same form in pinned host memory, for an upload that the
         host does not wait on."""
         return dataclasses.replace(self, **{
-            f: getattr(self, f).pin_memory()
+            f: pinned_copy(getattr(self, f))
             for f in ("packed", "degree", "num_nodes")})
+
+
+def pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor copied into pinned memory by the calling thread.
+    `Tensor.pin_memory()` splits a copy this large over PyTorch's intra-op
+    thread pool, whose workers then wait on cores that a busy host shares
+    and spin on after the copy, slowing the request's other host work:
+    with eight busy processes beside it on the H100's 8-core host, that
+    made CacheG's intake slower than the eager upload it replaces
+    (`chip_smoke.py [intake]`)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    np.copyto(out.numpy(), t.numpy())
+    return out
 
 
 def gcn_degree(adj: np.ndarray, num_nodes: int,
@@ -451,11 +465,6 @@ class HostOperands:
     nbytes: int = 0
     fallback: bool = False
 
-    def pin(self) -> "HostOperands":
-        """A compact form moved to pinned host memory (the spilled form of
-        an evicted entry on a CUDA engine)."""
-        return dataclasses.replace(self, compact=self.compact.pin())
-
 
 def prepare_host_operands(pg: PaddedGraph, cfg: GNNConfig, *,
                           use_cacheg: bool = True,
@@ -607,6 +616,118 @@ class BlockCompactor:
     def counts(self, norm_adj: torch.Tensor) -> torch.Tensor:
         self._trace("counts", _sig(norm_adj))
         return block_counts(norm_adj)
+
+
+# ---------------------------------------------------------------------------
+# GrAd edge-delta patching (DESIGN.md §13): the device side of an
+# incremental structure update of a cached operand entry — scatter the
+# flipped entries, renormalize the touched rows/cols of Â, re-quantize
+# only the int8 rows whose fp32 values changed. D^-1/2 comes from the
+# patched degree vector through `inv_sqrt_degree`, and every product
+# keeps the materializer's order, so a patched entry equals the
+# materializer's output for the patched compact form bit for bit. A patch
+# never writes into the tensors it is given: a request prepared before
+# the delta keeps answering with the old structure.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DeltaSpec:
+    """Device-side description of one symmetric edge delta.
+
+    `flip_*` and `touched` are padded to the engine's static widths
+    (K_e, K_t) by REPEATING their first entry: a scatter then writes the
+    same value twice at one index and a row renorm computes one row twice
+    to the same bits, so the pads change nothing and the signature count
+    stays bounded. `degree` is the patched deg(A + I), the vector a
+    rebuild's compact form carries (`gcn_degree`).
+    """
+    flip_i: torch.Tensor           # (K_e,) int32 flip endpoints (both
+    flip_j: torch.Tensor           # (K_e,) int32  (i, j) and (j, i) write)
+    flip_v: torch.Tensor           # (K_e,) float32 new A value (1 add, 0 rm)
+    touched: torch.Tensor          # (K_t,) int32 nodes whose rows changed
+    degree: torch.Tensor           # (cap,) float32 patched deg(A + I)
+    fields: Tuple[str, ...] = ()   # which operand fields to patch
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes this spec moves host→device."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.flip_i, self.flip_j, self.flip_v,
+                             self.touched, self.degree))
+
+
+def patch_operands(ops: GranniteOperands, d: DeltaSpec) -> GranniteOperands:
+    """One graph's cached dense operands patched by a delta, as new
+    tensors on their device.
+
+    GCN: A + I is recovered from the cached Â (an entry is non-zero iff
+    it is set: real rows have D^-1/2 > 0, padded rows are all zero), the
+    flips scattered in, and only the touched rows and columns
+    renormalized as (d_i * a_ij) * d_j, the materializer's order; the
+    other entries keep their bits. GAT: the 0/1 mask is A + I, so the
+    flips scatter straight in, and into the 0/-1e9 bias at the same
+    places."""
+    if "norm_adj" in d.fields:
+        na = ops.norm_adj.clone()
+        awl = (ops.norm_adj != 0).to(torch.float32)
+        awl[d.flip_i, d.flip_j] = d.flip_v
+        awl[d.flip_j, d.flip_i] = d.flip_v
+        dis = inv_sqrt_degree(d.degree)
+        t = d.touched
+        dis_t = dis.index_select(0, t)
+        na[t, :] = (dis_t[:, None] * awl.index_select(0, t)) * dis[None, :]
+        na[:, t] = (dis[:, None] * awl.index_select(1, t)) * dis_t[None, :]
+        ops = dataclasses.replace(ops, norm_adj=na)
+    if "bias_add" in d.fields:
+        m, bias = ops.mask_mult.clone(), ops.bias_add.clone()
+        b = torch.where(d.flip_v > 0, 0.0, masks.NEG_INF)
+        for i, j in ((d.flip_i, d.flip_j), (d.flip_j, d.flip_i)):
+            m[i, j] = d.flip_v
+            bias[i, j] = b
+        ops = dataclasses.replace(ops, mask_mult=m, bias_add=bias)
+    return ops
+
+
+def patch_tier_operands(tops: TierOperands, norm_adj: torch.Tensor,
+                        rows: torch.Tensor) -> TierOperands:
+    """The cached int8 Â with only `rows` re-quantized from the patched
+    fp32 Â, as new tensors. `quantize_rowwise` (the rule `AggQuantizer`
+    runs) is row-local, so quantizing a gathered row block gives the same
+    bits as those rows of a whole-matrix run."""
+    aq, a_scale = quantize_rowwise(norm_adj.index_select(0, rows))
+    out = TierOperands(agg_aq=tops.agg_aq.clone(),
+                       agg_a_scale=tops.agg_a_scale.clone())
+    out.agg_aq[rows] = aq
+    out.agg_a_scale[rows] = a_scale
+    return out
+
+
+@dataclasses.dataclass
+class DeltaPatcher:
+    """The GrAd delta patchers (the reference's jitted
+    `build_delta_patcher`), with ExecutionPlan's trace accounting: the
+    operand patch counts one trace per unseen (capacity, fields, K_t,
+    K_e) signature, the tier patch one per (capacity, K_r). GraphServe
+    warms both per bucket in `warmup()` and adds `trace_count` to
+    `compiled_blobs`."""
+    trace_count: int = 0
+    _seen: Set = dataclasses.field(default_factory=set, repr=False)
+
+    def _trace(self, *sig) -> None:
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self.trace_count += 1
+
+    def __call__(self, ops: GranniteOperands, d: DeltaSpec
+                 ) -> GranniteOperands:
+        self._trace("operands", _sig(ops), _sig(d))
+        return patch_operands(ops, d)
+
+    def patch_tier(self, tops: TierOperands, norm_adj: torch.Tensor,
+                   rows: torch.Tensor) -> TierOperands:
+        self._trace("tier", _sig(tops), _sig(norm_adj), _sig(rows))
+        return patch_tier_operands(tops, norm_adj, rows)
 
 
 def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,

@@ -12,6 +12,8 @@ deltas are meaningful, which is what the paper's accuracy tables need.
 """
 from __future__ import annotations
 
+from typing import Iterator, Optional, Tuple
+
 import numpy as np
 
 from repro_torch.core.graph import Graph
@@ -153,3 +155,34 @@ def clustered_like(*, num_nodes: int, num_feats: int, num_classes: int,
 def cora_like(seed: int = 0) -> Graph:
     return planetoid_like(num_nodes=2708, num_edges=5429, num_feats=1433,
                           num_classes=7, seed=seed)
+
+
+def dynamic_graph_stream(base: Graph, *, steps: int, edges_per_step: int = 16,
+                         nodes_per_step: int = 2, seed: int = 0,
+                         feat_dim: Optional[int] = None
+                         ) -> Iterator[Tuple[np.ndarray, int, np.ndarray]]:
+    """GrAd/NodePad workload: an evolving graph (paper Fig. 10 knowledge
+    graph).
+
+    Yields (edge_index, num_nodes, features) snapshots with nodes and
+    edges added over time, from the reference's generator draw for draw.
+    The serving engine takes them without a new plan signature while
+    num_nodes stays within the NodePad bucket.
+    """
+    rng = np.random.default_rng(seed)
+    edge_index = base.edge_index.copy()
+    feats = base.features.copy()
+    n = base.num_nodes
+    f = feat_dim or feats.shape[1]
+    for _ in range(steps):
+        new_feats = rng.random((nodes_per_step, f)).astype(np.float32) * 0.1
+        feats = np.concatenate([feats, new_feats], axis=0)
+        lo = n
+        n += nodes_per_step
+        src = rng.integers(0, n, size=edges_per_step)
+        dst = np.concatenate([
+            rng.integers(lo, n, size=edges_per_step // 2),
+            rng.integers(0, n, size=edges_per_step - edges_per_step // 2)])
+        edge_index = np.concatenate(
+            [edge_index, np.stack([src, dst]).astype(np.int32)], axis=1)
+        yield edge_index, n, feats

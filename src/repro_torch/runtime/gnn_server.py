@@ -64,9 +64,20 @@ rebuilds a changed graph in full under a new version. A one-shot GraSp
 request on the compact path decides and compacts on the device from the
 materialized Â; on the eager path it builds its structure on the host
 (`to_block_sparse`, padded to the budget) and counts its bytes in
-`operand_bytes_h2d`. Not ported yet (ROADMAP queue 1): `update_delta`,
-the latency bank, the tolerance router and SLO governor, the async
-scheduler and sharding.
+`operand_bytes_h2d`.
+
+GrAd edge deltas (DESIGN.md §13) — `update_delta(gid, add_edges,
+remove_edges)` patches an attached undirected graph instead of rebuilding
+it: the host patches its dense Â and adjacency (`apply_edge_delta`) and
+its edge keys, and ships only the flips, the touched nodes and the
+patched degree vector; the device patches the cached fp32 Â or GAT masks,
+re-quantizes only the int8 Â rows that changed, and re-derives a GraSp
+structure from the patched Â, each under the new version and equal bit
+for bit to a rebuild. A delta past the warmed pad widths, a SAGE graph,
+or `delta_pad_rows=0` falls back to `update()` (`delta_updates` against
+`delta_fallbacks`). Not ported yet (ROADMAP queue 1): sharded deltas, the
+latency bank, the tolerance router and SLO governor, the async scheduler
+and sharding.
 """
 from __future__ import annotations
 
@@ -79,16 +90,21 @@ import torch
 
 from repro_torch.core.costs import transfer_cost
 from repro_torch.core.graph import (BucketLadder, Graph, PaddedGraph,
-                                    adjacency_keys, pad_graph)
+                                    adjacency_keys, apply_edge_delta,
+                                    edge_index_from_adjacency,
+                                    keys_neighbours, pad_graph,
+                                    patch_adjacency_keys)
 from repro_torch.core.layers import Techniques
 from repro_torch.core.models import (FUSION_MODES, OPERAND_FIELDS,
                                      AggQuantizer, BlockCompactor,
+                                     DeltaPatcher, DeltaSpec,
                                      ExecutionPlan, GNNConfig,
                                      GranniteOperands, HostOperands,
                                      PlanKey, TierOperands, build_operands,
                                      build_materializer, build_plan,
                                      calibrate_tier, compact_operands,
-                                     forward_grannite, init_params,
+                                     forward_grannite, gcn_degree,
+                                     init_params,
                                      is_symmetric, operand_nbytes,
                                      prepare_host_operands,
                                      realize_operands, stack_operands,
@@ -262,6 +278,9 @@ class GraphServeConfig:
     admission: str = "evict"               # §13 attach() policy when a new
     # graph's projected operands overflow the budget: "evict" admits and
     # lets insert-time eviction make room, "reject" raises
+    delta_pad_rows: int = 64               # §13 GrAd threshold: most touched
+    # nodes update_delta() patches on the device (flips pad to twice this,
+    # re-quantized int8 rows too); larger deltas, and 0, take update()
 
 
 @dataclasses.dataclass
@@ -305,6 +324,7 @@ class GraphServe:
         self._materializer = build_materializer(self.device)
         self._agg_quantizer = AggQuantizer()
         self._block_compactor = BlockCompactor()
+        self._delta_patcher = DeltaPatcher()
         self._plans: Dict[PlanKey, ExecutionPlan] = {}
         self._warm_blobs: Optional[int] = None
         self._uid = 0
@@ -318,7 +338,9 @@ class GraphServe:
                         "operand_cache_hits": 0, "operand_cache_misses": 0,
                         "cacheg_fallbacks": 0, "tier_fallbacks": 0,
                         "grasp_batches": 0, "backend_fallbacks": 0,
-                        "cache_spill_hits": 0, "cache_admission_rejects": 0}
+                        "cache_spill_hits": 0, "cache_admission_rejects": 0,
+                        "delta_updates": 0, "delta_fallbacks": 0,
+                        "delta_bytes_h2d": 0}
 
     # ----------------------------------------------------- cache views
     # (snapshots of the cache manager as plain {key: value} dicts)
@@ -435,13 +457,16 @@ class GraphServe:
     def compiled_blobs(self) -> int:
         """Distinct argument signatures seen, summed over all plans, the
         CacheG materializer (one per (bucket, fieldset)), the tier-operand
-        deriver (one per bucket with a QuantGr GCN tier) and the GraSp
+        deriver (one per bucket with a QuantGr GCN tier), the GraSp
         block compactor (two per bucket with a grasp-capable model: the
-        counts reduction and the gather)."""
+        counts reduction and the gather) and the GrAd delta patcher (one
+        per bucket and GCN/GAT fieldset, and one row re-quantization per
+        bucket with a QuantGr GCN tier, when `delta_pad_rows > 0`)."""
         return (sum(p.trace_count for p in self._plans.values())
                 + self._materializer.trace_count
                 + self._agg_quantizer.trace_count
-                + self._block_compactor.trace_count)
+                + self._block_compactor.trace_count
+                + self._delta_patcher.trace_count)
 
     def warmup(self, *, buckets: Optional[Tuple[int, ...]] = None) -> int:
         """Run every (model, bucket, tier, backend, fusion) plan once on
@@ -458,7 +483,8 @@ class GraphServe:
         calibration of the placeholder graph: its shapes depend only on the
         model config, so the plan replays warm when the real calibration
         arrives; the placeholder is never stored. These calls also warm the
-        tier-operand deriver. Returns `compiled_blobs`."""
+        tier-operand deriver. On CacheG a GCN or GAT model also warms the
+        delta patcher (`_warm_delta`). Returns `compiled_blobs`."""
         buckets = buckets if buckets is not None else self.sc.ladder.buckets
         b = self.sc.batch_slots
         warm_cal: Dict[Tuple[str, str], Dict] = {}
@@ -508,9 +534,41 @@ class GraphServe:
                         plan(e.params, x,
                              ops_grasp if backend == "grasp" else ops,
                              quant, tops)
+                self._warm_delta(e, bucket, single, warmed)
         self._sync()
         self._warm_blobs = self.compiled_blobs
         return self._warm_blobs
+
+    def _delta_pads(self, cap: int) -> Tuple[int, int]:
+        """(touched, flip) pad widths of the delta patcher at one capacity:
+        the delta-vs-rebuild threshold in shape form."""
+        kt = min(self.sc.delta_pad_rows, cap)
+        return kt, 2 * kt
+
+    def _warm_delta(self, e: _ModelEntry, bucket: int,
+                    single: GranniteOperands, warmed: set) -> None:
+        """Warm the delta patcher for one (bucket, model) on a placeholder
+        spec of the padded widths: the operand patch per fieldset, and the
+        int8 row re-quantization when a QuantGr GCN tier keeps a derived
+        int8 Â to patch."""
+        if (self.sc.delta_pad_rows <= 0 or not self.sc.use_cacheg
+                or e.cfg.kind not in ("gcn", "gat")):
+            return
+        fields = OPERAND_FIELDS[e.cfg.kind]
+        kt, ke = self._delta_pads(bucket)
+        zeros = np.zeros((ke,), np.int32)
+        if ("delta", bucket, fields) not in warmed:
+            warmed.add(("delta", bucket, fields))
+            self._delta_patcher(single, self._delta_spec(
+                bucket, fields, zeros, zeros, zeros.astype(np.float32),
+                zeros[:kt], np.zeros((bucket,), np.float32)))
+        if (any(self._needs_tier_ops(e, tn) for tn in e.tiers)
+                and ("delta_tier", bucket) not in warmed):
+            warmed.add(("delta_tier", bucket))
+            self._delta_patcher.patch_tier(
+                self._agg_quantizer(single.norm_adj), single.norm_adj,
+                torch.zeros((min(2 * self.sc.delta_pad_rows, bucket),),
+                            dtype=torch.int32, device=self.device))
 
     def assert_warm(self) -> None:
         """The zero-recompile contract: no plan saw a new signature since
@@ -841,14 +899,162 @@ class GraphServe:
             self.metrics["rebucket_events"] += 1
         return rebucketed
 
+    # ------------------------------------------------------ GrAd delta updates
+    def _delta_spec(self, cap: int, fields: Tuple[str, ...], flip_i, flip_j,
+                    flip_v, touched, degree) -> DeltaSpec:
+        """One host-side edge delta padded to the patcher's static widths
+        (flips to K_e, touched rows to K_t, by repeating the first entry,
+        which changes nothing) and uploaded to the engine's device."""
+        kt, ke = self._delta_pads(cap)
+
+        def up(a, k=None, dtype=np.int32):
+            a = np.asarray(a, dtype)
+            if k is not None:
+                a = np.concatenate([a, np.full((k - len(a),), a[0], dtype)])
+            return torch.from_numpy(a).to(self.device)
+
+        return DeltaSpec(flip_i=up(flip_i, ke), flip_j=up(flip_j, ke),
+                         flip_v=up(flip_v, ke, np.float32),
+                         touched=up(touched, kt),
+                         degree=up(degree, dtype=np.float32), fields=fields)
+
+    def _requant_rows(self, touched: np.ndarray, keys: np.ndarray,
+                      cap: int) -> Optional[torch.Tensor]:
+        """Rows of the int8 Â a delta re-quantizes: the touched rows and
+        every row adjacent (patched structure) to a touched node, whose
+        entries rescale with the touched D^-1/2. Padded to K_r by
+        repeating the first; None when the set exceeds K_r (the caller
+        then re-quantizes the whole matrix with `_agg_quantizer`)."""
+        kr = min(2 * self.sc.delta_pad_rows, cap)
+        rows = np.union1d(touched, keys_neighbours(keys, cap, touched))
+        if len(rows) > kr:
+            return None
+        out = np.full((kr,), rows[0], np.int32)
+        out[:len(rows)] = rows
+        return torch.from_numpy(out).to(self.device)
+
+    def _spill_producer(self, graph_id: int, ver: int, model: str):
+        """Eviction-time producer of an operand entry's spilled form: the
+        compact form packed from the graph's current edge keys (pinned on
+        a CUDA engine), which also serves an entry a delta patched and no
+        `HostOperands` built. Declines (the entry is dropped) when the
+        graph moved past `ver` or was detached."""
+        def spill():
+            if self._graph_version.get(graph_id) != ver:
+                return None
+            pg = self.graphs[graph_id][1]
+            co = compact_operands(pg, self.models[model].cfg,
+                                  check_symmetry=False,
+                                  keys=self._graph_keys[graph_id])
+            if self.device.type == "cuda":
+                co = co.pin()
+            return HostOperands(compact=co, nbytes=co.nbytes)
+        return spill
+
+    def update_delta(self, graph_id: int, add_edges=None,
+                     remove_edges=None) -> bool:
+        """GrAd incremental structure update of an attached graph: patch,
+        don't rebuild.
+
+        `add_edges` / `remove_edges` are (k, 2) arrays of UNDIRECTED node
+        pairs (a directed graph raises: it takes `update()`). The host
+        patches the dense Â and adjacency (`apply_edge_delta`) and the
+        edge keys; each resident cached form is then patched on the device
+        through the warm `DeltaPatcher` — Â's touched rows and columns
+        renormalized, the GAT masks rescattered, the int8 Â rows whose
+        fp32 values changed re-quantized (the whole matrix through
+        `_agg_quantizer` past K_r rows), the GraSp decision and structure
+        re-derived from the patched Â — and put under the NEW (graph_id,
+        version + 1) key. Cached tensors are never written, so a request
+        prepared before the delta answers with the old structure. A graph
+        with no resident entry only moves to the new version.
+
+        Falls back to `update()`, counted in `delta_fallbacks`, past the
+        warmed widths (more than `delta_pad_rows` touched nodes or twice
+        that many flips), for SAGE (its sampled mask cannot be patched)
+        or with `delta_pad_rows=0`. An ineffective delta (every edge
+        already present or absent) returns True and moves no version.
+
+        Returns True when the structure was patched (or nothing changed),
+        False when it fell back to `update()`.
+        """
+        model, pg = self.graphs[graph_id]
+        ver = self._graph_version[graph_id]
+        keys = self._graph_keys[graph_id]
+        e = self.models[model]
+        if not is_symmetric(pg, keys):
+            raise ValueError(
+                "update_delta edits undirected edge pairs; directed "
+                "graphs must take the full update() path")
+        delta = apply_edge_delta(pg.adj, pg.norm_adj, pg.num_nodes,
+                                 add_edges, remove_edges)
+        if delta is None:
+            return True          # nothing effective changed: caches stand
+        kt, ke = self._delta_pads(pg.capacity)
+        if not (self.sc.delta_pad_rows > 0 and e.cfg.kind in ("gcn", "gat")
+                and len(delta.touched) <= kt and len(delta.flip_i) <= ke):
+            self.metrics["delta_fallbacks"] += 1
+            self.update(graph_id,
+                        edge_index_from_adjacency(delta.adj, pg.num_nodes),
+                        pg.num_nodes, pg.features[:pg.num_nodes])
+            return False
+        pg2 = dataclasses.replace(pg, adj=delta.adj, norm_adj=delta.norm_adj)
+        keys2 = (None if keys is None
+                 else patch_adjacency_keys(keys, pg.capacity, delta))
+        old_key, new_key = (graph_id, ver), (graph_id, ver + 1)
+        ops_old = self._cache.get("operand", old_key)
+        tops_old = self._cache.get("tier", old_key)
+        had_grasp = self._cache.get("grasp", old_key) is not None
+        new_ops = new_tops = new_grasp = None
+        if self.sc.use_cacheg and ops_old is not None:
+            spec = self._delta_spec(
+                pg.capacity, OPERAND_FIELDS[e.cfg.kind], delta.flip_i,
+                delta.flip_j, delta.flip_v, delta.touched,
+                gcn_degree(pg2.adj, pg.num_nodes, keys2))
+            self.metrics["delta_bytes_h2d"] += spec.nbytes
+            new_ops = self._delta_patcher(ops_old, spec)
+            if tops_old is not None:
+                rows = self._requant_rows(delta.touched, keys2, pg.capacity)
+                if rows is None:
+                    new_tops = self._agg_quantizer(new_ops.norm_adj)
+                else:
+                    self.metrics["delta_bytes_h2d"] += (rows.numel()
+                                                        * rows.element_size())
+                    new_tops = self._delta_patcher.patch_tier(
+                        tops_old, new_ops.norm_adj, rows)
+            if had_grasp and self._grasp_capable(e):
+                # a flip moves blocks in and out of the lists, so the
+                # structure is derived again, from the patched Â on the
+                # device: no host bytes, and warm
+                new_grasp = self._derive_grasp(e, pg.capacity,
+                                               new_ops.norm_adj)
+        self.graphs[graph_id] = (model, pg2)
+        self._graph_keys[graph_id] = keys2
+        self._cache.invalidate(old_key)
+        self._graph_version[graph_id] = ver + 1
+        if new_ops is not None:
+            nb = operand_nbytes(new_ops)
+            self._cache.put("operand", new_key, new_ops, nbytes=nb,
+                            remat_s=transfer_cost(nb),
+                            spill_fn=self._spill_producer(graph_id, ver + 1,
+                                                          model))
+        if new_tops is not None:
+            self._cache.put("tier", new_key, new_tops,
+                            nbytes=tree_nbytes(new_tops))
+        if new_grasp is not None:
+            self._cache.put("grasp", new_key, new_grasp,
+                            nbytes=tree_nbytes(new_grasp))
+        self.metrics["delta_updates"] += 1
+        return True
+
     def _primary_operands(self, graph_id: int, model: str, pg: PaddedGraph
                           ) -> GranniteOperands:
         """The attached graph's fp32 operands from the cache manager: a
         hit moves nothing; a spill fault re-uploads only the spilled
         compact form (from pinned memory on the card) and is not a miss;
         a miss runs the host and device stages and inserts the entry, with
-        a spill producer when the form is compact (a directed graph's
-        eager entry is dropped on eviction)."""
+        a spill producer when the form is compact (`_spill_producer`; a
+        directed graph's eager entry is dropped on eviction)."""
         key = (graph_id, self._graph_version[graph_id])
         ops = self._cache.get("operand", key)
         if ops is not None:
@@ -866,17 +1072,10 @@ class GraphServe:
         nb = operand_nbytes(ops)
         self._cache.put("operand", key, ops, nbytes=nb,
                         remat_s=transfer_cost(nb),
-                        spill_fn=(self._spill_form(ho)
+                        spill_fn=(self._spill_producer(graph_id, key[1],
+                                                       model)
                                   if ho.compact is not None else None))
         return ops
-
-    def _spill_form(self, ho: HostOperands):
-        """Eviction-time producer of the spilled form: the compact host
-        operands this entry was built from, moved to pinned memory on a
-        CUDA engine so that a fault's upload is not waited on."""
-        if self.device.type != "cuda":
-            return lambda: ho
-        return lambda: ho if ho.compact.packed.is_pinned() else ho.pin()
 
     def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
                       fusion: Optional[str] = None,
@@ -1047,6 +1246,11 @@ class GraphServe:
             "cache_spill_hits": self.metrics["cache_spill_hits"],
             "cache_admission_rejects":
                 self.metrics["cache_admission_rejects"],
+            # GrAd: deltas patched on the device, deltas that took update(),
+            # and the bytes the patched ones shipped (spec and int8 rows)
+            "delta_updates": self.metrics["delta_updates"],
+            "delta_fallbacks": self.metrics["delta_fallbacks"],
+            "delta_bytes_h2d": self.metrics["delta_bytes_h2d"],
             "tiers": self.tier_summary(),
             "accuracy_delta_vs_fp32": {
                 name: dict(e.accuracy_delta)

@@ -24,6 +24,8 @@ two-pass softmax, and rounds the unnormalised weights to bf16 where the
 plain version rounds the normalised ones: FLASH_TOL per dtype.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -317,6 +319,143 @@ def test_cacheg_on_card_materializes_and_spills_pinned(card):
     s = eng.summary()
     assert (s["cache_spill_hits"], s["operand_cache_misses"]) == (1, 2)
     assert s["cache_resident_bytes"] <= entry
+    eng.assert_warm()
+
+
+@pytest.mark.cuda
+def test_compact_upload_stages_through_its_own_pinned_copy(card):
+    """`pinned_copy` gives a pinned tensor of the same bytes that does not
+    alias its source, and `CompactOperands.to` uploads a pageable form
+    through it: the card's form equals the host's, which stays pageable
+    and unchanged."""
+    from repro_torch.core.graph import pad_graph
+    from repro_torch.core.models import compact_operands, pinned_copy
+    for t in (torch.arange(70_000, dtype=torch.int32).to(torch.uint8),
+              torch.linspace(-3, 3, 3072), torch.tensor(17, dtype=torch.int32)):
+        p = pinned_copy(t)
+        assert p.is_pinned() and not t.is_pinned()
+        assert p.dtype == t.dtype and p.shape == t.shape
+        assert torch.equal(p, t) and p.data_ptr() != t.data_ptr()
+    g = planetoid_like(num_nodes=230, num_edges=690, num_feats=48,
+                       num_classes=5, seed=4, train_per_class=2)
+    co = compact_operands(pad_graph(g, capacity=256),
+                          GNNConfig(kind="gcn", in_feats=48, hidden=16,
+                                    num_classes=5))
+    before = [t.clone() for t in (co.packed, co.degree, co.num_nodes)]
+    on_card = co.to(card)
+    for f, w in zip(("packed", "degree", "num_nodes"), before):
+        assert getattr(on_card, f).device.type == "cuda"
+        assert torch.equal(getattr(on_card, f).cpu(), w), f
+        assert not getattr(co, f).is_pinned()
+        assert torch.equal(getattr(co, f), w), f
+
+
+def _delta_case(n, cap, seed, flips=8):
+    """A planetoid graph at `cap`, a delta of `flips` adds and as many
+    removes, and the patched padded graph and edge keys."""
+    from repro_torch.core.graph import (adjacency_keys, apply_edge_delta,
+                                        pad_graph, patch_adjacency_keys)
+    g = planetoid_like(num_nodes=n, num_edges=3 * n, num_feats=48,
+                       num_classes=5, seed=seed, train_per_class=2)
+    pg = pad_graph(g, capacity=cap)
+    keys = adjacency_keys(g.edge_index, cap)
+    rng = np.random.default_rng(seed)
+    iu, ju = np.triu_indices(n, 1)
+    on = pg.adj[iu, ju] != 0
+    add, rm = (np.stack([iu[s], ju[s]], 1) for s in (
+        rng.choice(np.flatnonzero(~on), flips, replace=False),
+        rng.choice(np.flatnonzero(on), flips, replace=False)))
+    delta = apply_edge_delta(pg.adj, pg.norm_adj, n, add, rm)
+    pg2 = dataclasses.replace(pg, adj=delta.adj, norm_adj=delta.norm_adj)
+    return g, pg, keys, delta, pg2, patch_adjacency_keys(keys, cap, delta)
+
+
+@pytest.mark.cuda
+def test_delta_patch_on_card_equals_materializer(card):
+    """At bucket 1024, the card's patched Â and GAT masks equal the card's
+    materializer on the patched compact form bit for bit, and the patched
+    int8 rows a whole re-quantization; the inputs stay unwritten."""
+    from repro_torch.core.graph import keys_neighbours
+    from repro_torch.core.models import (DeltaSpec, build_materializer,
+                                         compact_operands,
+                                         derive_tier_operands, gcn_degree,
+                                         patch_operands, patch_tier_operands)
+    cap = 1024
+    # three pairs each way: touched nodes and their neighbours fit K_r
+    _, pg, keys, delta, pg2, keys2 = _delta_case(1000, cap, seed=6, flips=3)
+    mat = build_materializer(card)
+
+    def pad(a, k, dtype):
+        a = np.concatenate([a, np.full((k - len(a),), a[0])]).astype(dtype)
+        return torch.from_numpy(a).to(card)
+
+    for kind in ("gcn", "gat"):
+        cfg = GNNConfig(kind=kind, in_feats=48, hidden=16, num_classes=5,
+                        heads=4)
+        ops = mat(compact_operands(pg, cfg, keys=keys))
+        before = {f: getattr(ops, f).clone() for f in ("norm_adj",
+                                                       "mask_mult",
+                                                       "bias_add")
+                  if getattr(ops, f) is not None}
+        spec = DeltaSpec(flip_i=pad(delta.flip_i, 128, np.int32),
+                         flip_j=pad(delta.flip_j, 128, np.int32),
+                         flip_v=pad(delta.flip_v, 128, np.float32),
+                         touched=pad(delta.touched, 64, np.int32),
+                         degree=torch.from_numpy(gcn_degree(
+                             pg2.adj, pg2.num_nodes, keys2)).to(card),
+                         fields=tuple(before))
+        got = patch_operands(ops, spec)
+        # a form already on the card materializes where it is
+        want = mat(compact_operands(pg2, cfg, keys=keys2).to(card))
+        for f, old in before.items():
+            assert torch.equal(getattr(got, f), getattr(want, f)), (kind, f)
+            assert torch.equal(getattr(ops, f), old), (kind, f)
+        if kind == "gcn":
+            rows = np.union1d(delta.touched,
+                              keys_neighbours(keys2, cap, delta.touched))
+            assert len(rows) <= 128
+            tops = derive_tier_operands(ops.norm_adj)
+            pt = patch_tier_operands(tops, got.norm_adj,
+                                     pad(rows, 128, np.int32))
+            full = derive_tier_operands(want.norm_adj)
+            assert torch.equal(pt.agg_aq, full.agg_aq)
+            assert torch.equal(pt.agg_a_scale, full.agg_a_scale)
+
+
+@pytest.mark.cuda
+def test_update_delta_on_card_equals_fresh_attach(card):
+    """GraphServe on the card: after `update_delta`, the GCN (fp32, int8)
+    and GAT answers equal a fresh attach of the patched structure bit for
+    bit, `assert_warm()` holds, and nothing fell back."""
+    from repro_torch.core.graph import edge_index_from_adjacency
+    g, pg, _, delta, _, _ = _delta_case(1000, 1024, seed=8)
+    eng = GraphServe(GraphServeConfig(ladder=BucketLadder((1024,)),
+                                      batch_slots=2, return_logits=True),
+                     seed=3, device=card)
+    for kind in ("gcn", "gat"):
+        eng.register_model(kind, GNNConfig(kind=kind, in_feats=48,
+                                           hidden=16, num_classes=5,
+                                           heads=4),
+                           tiers=("fp32", "int8"), fusion="layer")
+    eng.warmup()
+    fresh_g = dataclasses.replace(g, edge_index=edge_index_from_adjacency(
+        delta.adj, g.num_nodes))
+    add = np.stack([delta.flip_i, delta.flip_j], 1)[delta.flip_v > 0]
+    rm = np.stack([delta.flip_i, delta.flip_j], 1)[delta.flip_v == 0]
+    for kind in ("gcn", "gat"):
+        gid = eng.attach(g, model=kind)
+        for tier in ("fp32", "int8"):
+            eng.query(gid, tier=tier)
+        eng.run()
+        assert eng.update_delta(gid, add_edges=add, remove_edges=rm)
+        fresh = eng.attach(fresh_g, model=kind)
+        for tier in ("fp32", "int8"):
+            eng.query(gid, tier=tier)
+            eng.query(fresh, tier=tier)
+            a, b = eng.run()[-2:]
+            assert np.array_equal(a.logits, b.logits), (kind, tier)
+    s = eng.summary()
+    assert (s["delta_updates"], s["delta_fallbacks"]) == (2, 0)
     eng.assert_warm()
 
 

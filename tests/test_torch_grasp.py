@@ -595,8 +595,8 @@ def test_mixed_traffic_stays_warm_and_counts_forced_fallbacks():
     eng = _port_engine()
     blobs = eng.warmup()
     # per bucket: dense fp32 (2 fusions, shared) + grasp (2) + compactor (2)
-    # + the CacheG materializer's GCN trace (1)
-    assert blobs == 2 * (2 + 2 + 2 + 1)
+    # + the CacheG materializer's GCN trace (1) + the delta patcher's (1)
+    assert blobs == 2 * (2 + 2 + 2 + 1 + 1)
     dense_g = _scattered(900, 3)
     for g in (_clustered(200, 1), _clustered(700, 2), dense_g):
         eng.submit(g, model="sp")
