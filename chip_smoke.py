@@ -24,7 +24,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 12
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 13
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -132,7 +132,30 @@ last line; there is no CPU path):
      rebuild's compact upload, `update_delta`'s host ms by piece and the
      patch's device ms (CUDA events) on one cap-3072 graph, beside
      `update()`'s host ms and the next query's materializer device ms;
-  10. flash — `flash_attention` against its plain version
+  10. pipeline — phase 3's fp32 burst to the fused Cora GCN (Cora and the
+     five Planetoid-like graphs, then a 900-node graph attached and
+     queried twice) once through the sync path, then through
+     `GraphServe.scheduler(PipelineConfig(host_workers=h, window_ms=2.0))`
+     for h = 1, 2, 4 and 4 again, each request submitted from this thread
+     as it comes, then `drain()`: the host workers prepare requests on
+     their own CUDA streams while the dispatcher runs the kernels. One
+     untimed burst through the sync path and one with 4 workers come
+     first, so the streams' allocator pools are warm. With
+     every launch count set to 0 just before each burst, every answer
+     must equal the sync burst's bit for bit (which meets TOL against the
+     plain forward), fused_gcn_dense launch twice a batch, `assert_warm()`
+     hold and every accepted request complete. Prints each burst's span,
+     throughput, p50/p99 ms (from the submit call), device_busy_s, the
+     device's idle share, host_busy_s, batches and occupancy. Then the
+     SLO loop on the card: four requests with a 0.001 ms deadline expire
+     flagged with no launch and four with 60 s are served; a governor
+     whose p99 target is below the measured p99 steps the default tier of
+     a calibrated fp32/int8 GCN to int8 (fused_gcn_int8 launches); a
+     `tolerance=` request takes the tier of lower measured latency at its
+     bucket; and an `auto` GCN, after serving Cora dense and clustered
+     graphs through fused_gcn_grasp, decides from the measured dense/GraSp
+     pair, each decision printed beside the model's;
+  11. flash — `flash_attention` against its plain version
      (`flash_attention_ref`) in fp32 and bf16, each case through the route
      it takes (bf16 at head dim 64 and 128: the wgmma/TMA kernel; fp32 and
      head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
@@ -141,7 +164,7 @@ last line; there is no CPU path):
      65 and 129, gemma2's heads (32 over 16 of 128) with window 64 and
      softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
      may reach (at head dim 64 and 128), and head_dim 32;
-  11. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
+  12. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
      warm-up wave per bucket, 12 requests of 16 new tokens (one wave per
@@ -152,7 +175,7 @@ last line; there is no CPU path):
      wave's prefill logits must match a rerun with the plain attention
      (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
      token per bucket, decode ms per step and tokens/s;
-  12. times — CUDA-event times of each kernel, its plain version and the
+  13. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the dense and GraSp aggregation times per bucket queued
@@ -190,6 +213,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -246,7 +270,9 @@ from repro_torch.runtime.cache import (  # noqa: E402
 from repro_torch.runtime import gnn_server as gserver  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
+from repro_torch.runtime.scheduler import PipelineConfig  # noqa: E402
 from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
+from repro_torch.runtime.slo import SLOConfig  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3, fp32 outside the tensor
 # cores (the fp32 SIMT kernels' roofline), the int8 tensor cores (the
@@ -1347,6 +1373,34 @@ INTAKE_PIECES = (("pad_graph", BucketLadder, "pad"),
                  ("staging and upload", gmodels.CompactOperands, "to"),
                  ("GraSp counts read", GraphServe, "_derive_grasp"),
                  ("block_stats", gserver, "block_stats"))
+
+
+class TimedPieces:
+    """Within the block, each (name, owner, attribute) of `pieces` adds
+    the seconds of its calls, from any thread, to `self.seconds`."""
+
+    def __init__(self, pieces):
+        self.seconds = Counter()
+        self._lock = threading.Lock()
+        self._pieces = [(name, owner, attr, getattr(owner, attr))
+                        for name, owner, attr in pieces]
+
+    def __enter__(self):
+        for name, owner, attr, fn in self._pieces:
+            def call(*args, _fn=fn, _name=name, **kwargs):
+                t1 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    dt = time.perf_counter() - t1
+                    with self._lock:
+                        self.seconds[_name] += dt
+            setattr(owner, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for _, owner, attr, fn in self._pieces:
+            setattr(owner, attr, fn)
 def gcn_burst(eng, graphs, attached):
     """The [serve] fp32 burst: each graph to `gcn` and `gcn_mm`, then one
     attached graph queried twice. Returns the host intake seconds, with
@@ -1356,22 +1410,7 @@ def gcn_burst(eng, graphs, attached):
     n0 = len(eng.finished)
     gc.collect()                    # each burst starts from a collected heap
     by_bucket = Counter()           # host ms of the one-shot submits
-    pieces = Counter()
-    originals = [(owner, attr, getattr(owner, attr))
-                 for _, owner, attr in INTAKE_PIECES]
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            t1 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                pieces[name] += time.perf_counter() - t1
-        return call
-
-    for (name, owner, attr), (_, _, fn) in zip(INTAKE_PIECES, originals):
-        setattr(owner, attr, timed(name, fn))
-    try:
+    with TimedPieces(INTAKE_PIECES) as timed:
         cpu0 = os.times()
         t0 = time.perf_counter()
         for model in ("gcn", "gcn_mm"):
@@ -1384,9 +1423,7 @@ def gcn_burst(eng, graphs, attached):
         eng.query(gid)
         intake_s = time.perf_counter() - t0
         cpu1 = os.times()
-    finally:
-        for owner, attr, fn in originals:
-            setattr(owner, attr, fn)
+    pieces = timed.seconds
     done = eng.run()[n0:]
     eng.detach(gid)
     lat = np.asarray([r.finished_s - r.submitted_s for r in done]) * 1e3
@@ -1901,6 +1938,306 @@ def delta_phase(dev, card, cfg, params, gcfg, gparams, cora, community):
           + json.dumps(device) + f"; update() host ms {rebuild_ms:.3f} "
           f"({card})", flush=True)
     eng.assert_warm()
+
+
+# [pipeline]: the host workers of each pipelined burst (4 twice), and the
+# SLO governor that must step the default tier down (its p99 target is
+# below any 3072 batch's latency; it never steps back up)
+PIPELINE_WORKERS = (1, 2, 4, 4)
+PIPELINE_SLO = dict(target_p99_ms=1.0, window=16, min_samples=1,
+                    breach_checks=2, clear_checks=10 ** 6,
+                    ladder=("fp32", "int8"))
+# the pieces of a request's host stage, timed where they are called (on
+# whichever thread calls them): name, owner, attribute
+PIPELINE_PIECES = (("pad_graph", BucketLadder, "pad"),
+                   ("edge keys", GraphServe, "_keys_for"),
+                   ("host operands", GraphServe, "_host_operands"),
+                   ("materializer", gmodels.OperandMaterializer, "__call__"),
+                   ("feature upload", GraphServe, "_upload_features"),
+                   ("hand over", GraphServe, "_hand_over"),
+                   ("cache publish", GraphServe, "_publish"))
+
+
+def pipeline_burst(eng, graphs, attached, workers):
+    """One burst of phase 3's fp32 traffic to the fused `gcn`: each graph
+    submitted as it comes, then `attached` attached and queried twice;
+    through the sync path (`workers` None) or a scheduler of `workers`
+    host workers, drained. Latency counts from the submit call. Returns
+    the requests in submission order and the burst's numbers, with the
+    host-stage pieces' seconds and this process's CPU seconds."""
+    m0 = {k: eng.metrics[k] for k in ("batches", "slots_filled",
+                                      "slots_total", "device_busy_s")}
+    gc.collect()                    # each burst starts from a collected heap
+    reset_launches()
+    sent = []
+    pieces = TimedPieces(PIPELINE_PIECES)
+    cpu0 = os.times()
+    t0 = time.perf_counter()
+    with pieces:
+        out, host_s, gid = _pipeline_requests(eng, graphs, attached, workers,
+                                              sent)
+    cpu1 = os.times()
+    launched = launches_now()
+    eng.detach(gid)
+    eng.assert_warm()
+    batches = eng.metrics["batches"] - m0["batches"]
+    want = dict.fromkeys(COUNTERS, 0) | {"fused_gcn_dense": 2 * batches}
+    check(launched == want, f"pipeline burst ({workers} workers): launches "
+          f"{launched} != {want}")
+    span = max(r.finished_s for r in out) - t0
+    lat = np.asarray([r.finished_s - t for r, t in zip(out, sent)]) * 1e3
+    busy = eng.metrics["device_busy_s"] - m0["device_busy_s"]
+    return out, {
+        "requests": len(out), "span_s": span,
+        "throughput_rps": len(out) / span,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "device_busy_s": busy,
+        "device_idle_fraction": max(0.0, 1.0 - busy / span),
+        "host_busy_s": host_s, "batches": batches,
+        "batch_occupancy": ((eng.metrics["slots_filled"]
+                             - m0["slots_filled"])
+                            / (eng.metrics["slots_total"]
+                               - m0["slots_total"])),
+        "cpu_user_s": cpu1.user - cpu0.user,
+        "cpu_sys_s": cpu1.system - cpu0.system,
+        "host_pieces_s": dict(pieces.seconds)}
+
+
+def _pipeline_requests(eng, graphs, attached, workers, sent):
+    """The requests of one `pipeline_burst`, through the sync path or a
+    scheduler; returns them in submission order, the host-stage seconds
+    (the sync intake, or the workers' `host_busy_s`) and the attached
+    graph's id."""
+    t0 = time.perf_counter()
+    if workers is None:
+        uids = []
+        for g in graphs:
+            sent.append(time.perf_counter())
+            uids.append(eng.submit(g, model="gcn"))
+        gid = eng.attach(attached, model="gcn")
+        for _ in range(2):
+            sent.append(time.perf_counter())
+            uids.append(eng.query(gid))
+        host_s = time.perf_counter() - t0
+        done = {r.uid: r for r in eng.run()}
+        return [done[u] for u in uids], host_s, gid
+    with eng.scheduler(PipelineConfig(host_workers=workers,
+                                      window_ms=2.0)) as sched:
+        for g in graphs:
+            sent.append(time.perf_counter())
+            sched.submit(g, model="gcn")
+        gid = eng.attach(attached, model="gcn")
+        for _ in range(2):
+            sent.append(time.perf_counter())
+            sched.query(gid)
+        out = sched.drain(timeout=120)
+    p = sched.metrics
+    check(p["completed"] == p["accepted"] == len(graphs) + 2
+          and len(out) == len(graphs) + 2,
+          f"pipeline with {workers} workers: {p}")
+    return out, p["host_busy_s"], gid
+
+
+def pad_probe_turns():
+    """[pipeline]'s thread probe: seconds (wall, user, system) of NodePad
+    over the burst's graphs (cora_like and the five Planetoid-like ones),
+    three times on the calling thread and three times on a new worker
+    thread, in turns."""
+    ladder = BucketLadder(buckets=LADDER)
+    cora, others = graphs()
+
+    def burst(out):
+        c0, t0 = os.times(), time.perf_counter()
+        for g in [cora] + others:
+            ladder.pad(g)
+        c1 = os.times()
+        out.append((time.perf_counter() - t0, c1.user - c0.user,
+                    c1.system - c0.system))
+    res = {"main": [], "worker": []}
+    for _ in range(3):
+        burst(res["main"])
+        t = threading.Thread(target=burst, args=(res["worker"],))
+        t.start()
+        t.join()
+    return res
+
+
+def pad_probe():
+    """`pad_probe_turns` in a fresh process and in this one, after the
+    phases before it."""
+    run = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.pad_probe_turns()))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
+    return {"fresh process": json.loads(run.stdout.strip().splitlines()[-1]),
+            "this process": pad_probe_turns()}
+
+
+def pipeline_phase(dev, card, cfg, params, cora, others):
+    """[pipeline]: phase 3's fp32 burst through the sync path and the
+    pipeline scheduler (host workers on their own streams), answers bit
+    for bit; then deadlines, the governor, the tolerance router and the
+    measured backend pair on the card."""
+    t_phase = time.perf_counter()
+    eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                      batch_slots=SLOTS, return_logits=True),
+                     seed=0, device=dev)
+    eng.register_model("gcn", cfg, params, fusion="layer")
+    eng.warmup()
+    graphs = [cora] + others
+    attached = planetoid_like(num_nodes=900, num_edges=1800, num_feats=1433,
+                              num_classes=7, seed=11)
+    # one untimed burst through each path first, so the measured ones find
+    # the allocator's pools of the dispatch and host streams warm
+    for workers in (None, max(PIPELINE_WORKERS)):
+        pipeline_burst(eng, graphs, attached, workers)
+    sync, row = pipeline_burst(eng, graphs, attached, None)
+    err = 0.0
+    for r in sync:
+        check(r.logits is not None and np.isfinite(r.logits).all(),
+              f"request {r.uid}: logits missing or not finite")
+        ref = gcn_plain(r, params, dev)
+        got = torch.from_numpy(r.logits)
+        torch.testing.assert_close(got, ref, **TOL)
+        err = max(err, (got - ref).abs().max().item())
+    print(f"[pipeline] sync burst: logits of all {len(sync)} requests match "
+          f"the plain forward (max_abs_err {err:.3e}; rtol={TOL['rtol']} "
+          f"atol={TOL['atol']})", flush=True)
+    print("[pipeline] sync " + json.dumps(row) + f"; {card}", flush=True)
+    rows = {"sync": row}
+    for i, h in enumerate(PIPELINE_WORKERS):
+        out, row = pipeline_burst(eng, graphs, attached, h)
+        for r, w in zip(out, sync):
+            check(r.logits.shape == w.logits.shape
+                  and np.array_equal(r.logits, w.logits),
+                  f"{h} workers: request {r.uid} differs from the sync "
+                  f"burst's answer for the same graph")
+        label = f"{h} workers" + (" (again)" if h in PIPELINE_WORKERS[:i]
+                                  else "")
+        rows[label] = row
+        print(f"[pipeline] {label}: every answer bit-equal to the sync "
+              f"burst's; " + json.dumps(row) + f"; {card}", flush=True)
+
+    # deadlines, through the scheduler: expired in the ready buffer with
+    # no launch, or served
+    m0 = eng.metrics["deadline_misses"]
+    reset_launches()
+    with eng.scheduler(PipelineConfig(host_workers=2)) as sched:
+        for g in graphs[:4]:
+            sched.submit(g, model="gcn", deadline_ms=0.001)
+        expired = sched.drain(timeout=120)
+    launched = launches_now()
+    check(all(r.deadline_missed and r.preds is None for r in expired)
+          and eng.metrics["deadline_misses"] - m0 == 4
+          and not any(launched.values()),
+          f"0.001 ms deadlines: {[(r.deadline_missed, r.preds is None) for r in expired]}, "
+          f"misses {eng.metrics['deadline_misses'] - m0}, launches {launched}")
+    b0 = eng.metrics["batches"]
+    reset_launches()
+    with eng.scheduler(PipelineConfig(host_workers=2)) as sched:
+        for g in graphs[:4]:
+            sched.submit(g, model="gcn", deadline_ms=60000)
+        served = sched.drain(timeout=120)
+    launched = launches_now()
+    check(all(r.preds is not None and not r.deadline_missed for r in served)
+          and eng.metrics["deadline_misses"] - m0 == 4
+          and launched["fused_gcn_dense"]
+          == 2 * (eng.metrics["batches"] - b0),
+          f"60 s deadlines: launches {launched}")
+    print(f"[pipeline] deadlines: 4 requests at 0.001 ms expired unserved "
+          f"(deadline_misses +4, no launch), 4 at 60000 ms served in "
+          f"{eng.metrics['batches'] - b0} batches", flush=True)
+
+    # the governor, the tolerance router and the measured backend pair
+    slo = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=LADDER),
+                                      batch_slots=SLOTS, return_logits=True),
+                     seed=0, slo=SLOConfig(**PIPELINE_SLO), device=dev)
+    slo.register_model("gcn_q", cfg, params, tiers=("fp32", "int8"),
+                       fusion="layer")
+    slo.register_model("gcn_auto", cfg, params, agg_backend="auto",
+                       fusion="layer")
+    slo.warmup()
+    slo.calibrate("gcn_q", cora)
+    reset_launches()
+    steps = []
+    for _ in range(5):
+        slo.submit(cora, model="gcn_q")
+        r = slo.run()[-1]
+        steps.append((r.tier, slo.governor.level))
+    launched = launches_now()
+    p99 = slo.governor.p99_ms()
+    n_i8 = sum(t == "int8" for t, _ in steps)
+    check([t for t, _ in steps] == ["fp32", "fp32", "int8", "int8", "int8"]
+          and launched["fused_gcn_int8"] == 2 * n_i8
+          and launched["fused_gcn_dense"] == 2 * (5 - n_i8)
+          and p99 > PIPELINE_SLO["target_p99_ms"],
+          f"governor: steps {steps}, launches {launched}, p99 {p99}")
+    s = slo.summary()
+    print(f"[pipeline] governor: target p99 {PIPELINE_SLO['target_p99_ms']} "
+          f"ms against a measured {p99:.3f} ms; default-tier requests served "
+          f"{[t for t, _ in steps]} (levels {[lv for _, lv in steps]}); "
+          f"fused_gcn_int8 launches {launched['fused_gcn_int8']}; "
+          + json.dumps({k: s[k] for k in (
+              "slo_level", "slo_downgrades", "slo_upgrades",
+              "deadline_misses", "shed_requests", "ewma_vs_model")}),
+          flush=True)
+    check(s["slo_level"] == 1 and s["slo_downgrades"] == 1,
+          f"governor counters {s}")
+
+    cap = slo.sc.ladder.bucket_for(cora.num_nodes)
+    tol = abs(slo.models["gcn_q"].accuracy_delta["int8"]) + 1.0
+    lat = {t: min(slo.bank.measured(k) for k in slo.bank.keys()
+                  if k[:3] == ("gcn_q", cap, t)
+                  and slo.bank.measured(k) is not None)
+           for t in ("fp32", "int8")}
+    slo.submit(cora, model="gcn_q", tolerance=tol)
+    r = slo.run()[-1]
+    want_tier = min(("fp32", "int8"), key=lambda t: (lat[t], t != "fp32"))
+    check(r.tier == want_tier, f"tolerance {tol}: served {r.tier}, measured "
+          f"{lat}")
+    print(f"[pipeline] tolerance {tol:.2f} points at bucket {cap}: measured "
+          f"batch latency fp32 {lat['fp32'] * 1e3:.3f} ms, int8 "
+          f"{lat['int8'] * 1e3:.3f} ms -> served {r.tier}; {card}",
+          flush=True)
+
+    reset_launches()
+    community = [clustered(n) for n in (1800, 2700)]
+    for g in [cora] + community:
+        slo.submit(g, model="gcn_auto")
+    first = sorted(slo.run()[-3:], key=lambda r: r.uid)
+    launched = launches_now()
+    check([r.backend for r in first] == ["dense", "grasp", "grasp"]
+          and launched["fused_gcn_grasp"] > 0,
+          f"auto GCN: {[r.backend for r in first]}, launches {launched}")
+    pair = slo._measured_agg_pair("gcn_auto", cap)
+    check(None not in pair, f"measured pair {pair}")
+    for g in [cora] + community:
+        slo.submit(g, model="gcn_auto")
+    again = sorted(slo.run()[-3:], key=lambda r: r.uid)
+    for label, g, r in zip(("cora", "clustered 1800", "clustered 2700"),
+                           [cora] + community, again):
+        st_ = block_stats(slo.sc.ladder.pad(g).norm_adj)
+        args = dict(nnz_blocks=st_["nnz_blocks"],
+                    max_row_nnz=st_["max_row_nnz"], mode="auto")
+        measured = select_agg_backend(cap, cfg.hidden, measured=pair,
+                                      **args)[0]
+        modelled = select_agg_backend(cap, cfg.hidden, **args)[0]
+        check(r.backend == measured, f"{label}: served {r.backend}, the "
+              f"measured pair decides {measured}")
+        print(f"[pipeline] auto GCN, {label} at {cap}: measured pair dense "
+              f"{pair[0] * 1e3:.3f} ms, grasp {pair[1] * 1e3:.3f} ms -> "
+              f"{measured} (the cost model alone: {modelled}); {card}",
+              flush=True)
+    slo.assert_warm()
+    for label, res in pad_probe().items():
+        print(f"[pipeline] NodePad of the burst's 6 graphs, {label}, "
+              f"seconds (wall, user, system) on the main thread "
+              f"{res['main']}, on a worker thread {res['worker']}",
+              flush=True)
+    print(f"[pipeline] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows
 
 
 def main() -> None:
@@ -2881,11 +3218,14 @@ def main() -> None:
     # ---------------------------------------------------------- 9. delta
     delta_phase(dev, card, cfg, params, gcfg, gparams, cora, clustered(2700))
 
-    # ---------------------------------------------- 10-11. flash, serve-lm
+    # -------------------------------------------------------- 10. pipeline
+    pipeline_phase(dev, card, cfg, params, cora, others)
+
+    # ---------------------------------------------- 11-12. flash, serve-lm
     flash_err = flash_phase(dev)
     flash_launches, _, _ = serve_lm_phase(dev, card)
 
-    # --------------------------------------------------------- 12. times
+    # --------------------------------------------------------- 13. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""

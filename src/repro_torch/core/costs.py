@@ -3,12 +3,15 @@ NVIDIA H100 SXM.
 
 What `core.sparsity.agg_cost_model` reads lives here: the rates of the
 port's two aggregation kernels, the HBM rate, the GraSp walk's per-step
-cost and a launch's fixed cost; and the host link that
-`transfer_cost` prices for the CacheG manager's re-materialization
+cost and a launch's fixed cost; the int8 rate that, with `DENSE_RATE` and
+`HBM_BW`, prices the latency bank's modelled seed
+(`runtime.gnn_server.GraphServe._modelled_batch_s`); and the host link
+that `transfer_cost` prices for the CacheG manager's re-materialization
 tie-break (`runtime.cache`). The interconnect constants arrive with
 sharding (ROADMAP queue 1 item 11). The reference's `costs.py` models a
-TPU-v4 part; none of its numbers is copied. `agg_cost_model` and
-`transfer_cost` read these names at call time, so a test may set them.
+TPU-v4 part; none of its numbers is copied. `agg_cost_model`,
+`transfer_cost` and the bank's seed read these names at call time, so a
+test may set them.
 
 The four measured terms come from `chip_smoke.py`'s `[agg]` step (PERF.md
 §6; NVIDIA H100 80GB HBM3 at 700 W), on the Cora GCN's layer-1 Â @ H (F
@@ -26,6 +29,11 @@ DENSE_RATE = 48.66e12
 GRASP_RATE = 61.86e12
 # HBM3 bytes/s (NVIDIA H100 SXM data sheet).
 HBM_BW = 3.35e12
+# int8 operations per second of the int8 tensor cores, dense (NVIDIA H100
+# SXM data sheet: 1,979 TOPS, 3,958 with sparsity). A peak, not a
+# measurement: the bank's seed only orders cold keys, and the first
+# measured batch replaces it.
+INT8_RATE = 1979e12
 # Cost of one (block row, list entry, 128-column strip) step of the GraSp
 # walk beyond its bytes, flops and call: what is left of the bucket-1024
 # call at GRASP_RATE, over its list steps.

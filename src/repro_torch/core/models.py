@@ -16,11 +16,14 @@ count the same way, and so does CacheG's `OperandMaterializer`, which
 expands the compact transfer form (`CompactOperands`: bit-packed
 adjacency plus a degree vector) into the dense operands on the device.
 `GraphServe` sums these counts into `compiled_blobs`, so `assert_warm()`
-still says whether serving stayed on the shapes warmup saw.
+still says whether serving stayed on the shapes warmup saw. The pipeline
+scheduler calls the derivers from several host threads at once, so each
+count checks and adds under one lock (`_count_trace`).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -428,16 +431,17 @@ class OperandMaterializer:
 
     def __call__(self, co: CompactOperands) -> GranniteOperands:
         co = co.to(self.device)
-        sig = _sig(co)
-        if sig not in self._seen:
-            self._seen.add(sig)
-            self.trace_count += 1
-        index = None
-        if co.triangular:
-            index = self._index.get(co.capacity)
-            if index is None:
-                index = self._index[co.capacity] = triangle_index(
-                    co.capacity, self.device)
+        _count_trace(self, _sig(co))
+        index = self._index.get(co.capacity) if co.triangular else None
+        if co.triangular and index is None:
+            with _TRACE_LOCK:
+                index = self._index.get(co.capacity)
+                if index is None:
+                    index = triangle_index(co.capacity, self.device)
+                    if self.device.type == "cuda":
+                        # other threads read it on their own streams
+                        torch.cuda.current_stream(self.device).synchronize()
+                    self._index[co.capacity] = index
         return materialize_operands(co, index)
 
 
@@ -549,6 +553,21 @@ def stack_tier_operands(tos: Sequence[TierOperands]) -> TierOperands:
                                                  for t in tos]))
 
 
+_TRACE_LOCK = threading.Lock()
+
+
+def _count_trace(owner, sig) -> None:
+    """Count one trace on `owner` (its `_seen` set and `trace_count`) for
+    a signature it has not seen. The check and the count happen under one
+    lock: the scheduler's host workers and its dispatcher call the same
+    derivers at once, and a count that raced would move `compiled_blobs`
+    off what warmup recorded."""
+    with _TRACE_LOCK:
+        if sig not in owner._seen:
+            owner._seen.add(sig)
+            owner.trace_count += 1
+
+
 def _sig(v):
     """Shape/dtype/device structure of a nested argument: what a jit trace
     would specialize on. Ints (and tuples of them) are static, as
@@ -580,10 +599,7 @@ class AggQuantizer:
     _seen: Set = dataclasses.field(default_factory=set, repr=False)
 
     def __call__(self, norm_adj: torch.Tensor) -> TierOperands:
-        sig = _sig(norm_adj)
-        if sig not in self._seen:
-            self._seen.add(sig)
-            self.trace_count += 1
+        _count_trace(self, _sig(norm_adj))
         return derive_tier_operands(norm_adj)
 
 
@@ -604,9 +620,7 @@ class BlockCompactor:
     _seen: Set = dataclasses.field(default_factory=set, repr=False)
 
     def _trace(self, *sig) -> None:
-        if sig not in self._seen:
-            self._seen.add(sig)
-            self.trace_count += 1
+        _count_trace(self, sig)
 
     def __call__(self, norm_adj: torch.Tensor, *, max_nnz: int
                  ) -> Tuple[BlockSparse, torch.Tensor]:
@@ -715,9 +729,7 @@ class DeltaPatcher:
     _seen: Set = dataclasses.field(default_factory=set, repr=False)
 
     def _trace(self, *sig) -> None:
-        if sig not in self._seen:
-            self._seen.add(sig)
-            self.trace_count += 1
+        _count_trace(self, sig)
 
     def __call__(self, ops: GranniteOperands, d: DeltaSpec
                  ) -> GranniteOperands:
@@ -909,10 +921,7 @@ class ExecutionPlan:
     def __call__(self, params: Dict, x: torch.Tensor,
                  ops_: GranniteOperands, quant: Optional[Dict] = None,
                  tier_ops: Optional[TierOperands] = None) -> torch.Tensor:
-        sig = _sig((params, x, ops_, quant, tier_ops))
-        if sig not in self._seen:
-            self._seen.add(sig)
-            self.trace_count += 1
+        _count_trace(self, _sig((params, x, ops_, quant, tier_ops)))
         return self.fn(params, x, ops_, quant, tier_ops)
 
 

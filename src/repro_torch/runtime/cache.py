@@ -46,19 +46,24 @@ class CacheAdmissionError(RuntimeError):
     policy is "reject" and the budget is full)."""
 
 
-def tree_nbytes(value) -> int:
-    """Bytes of a cached value: the sum of the buffer sizes of its tensors,
-    found through dataclasses and tuples (the reference's `pytree_nbytes`
-    over its leaves). Anything else (the grasp backend string, None, ints)
-    costs nothing."""
+def tree_tensors(value):
+    """The tensors of a cached value or a request's device state, found
+    through dataclasses and tuples (the reference's pytree leaves).
+    Anything else (the grasp backend string, None, ints) holds none."""
     if isinstance(value, torch.Tensor):
-        return value.numel() * value.element_size()
-    if isinstance(value, tuple):
-        return sum(tree_nbytes(v) for v in value)
-    if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        return sum(tree_nbytes(getattr(value, f.name))
-                   for f in dataclasses.fields(value))
-    return 0
+        yield value
+    elif isinstance(value, tuple):
+        for v in value:
+            yield from tree_tensors(v)
+    elif dataclasses.is_dataclass(value) and not isinstance(value, type):
+        for f in dataclasses.fields(value):
+            yield from tree_tensors(getattr(value, f.name))
+
+
+def tree_nbytes(value) -> int:
+    """Bytes of a cached value: the sum of the buffer sizes of its tensors
+    (the reference's `pytree_nbytes` over its leaves)."""
+    return sum(t.numel() * t.element_size() for t in tree_tensors(value))
 
 
 def estimate_dense_entry_bytes(num_fields: int, capacity: int) -> int:

@@ -75,19 +75,44 @@ re-quantizes only the int8 Â rows that changed, and re-derives a GraSp
 structure from the patched Â, each under the new version and equal bit
 for bit to a rebuild. A delta past the warmed pad widths, a SAGE graph,
 or `delta_pad_rows=0` falls back to `update()` (`delta_updates` against
-`delta_fallbacks`). Not ported yet (ROADMAP queue 1): sharded deltas, the
-latency bank, the tolerance router and SLO governor, the async scheduler
-and sharding.
+`delta_fallbacks`).
+
+Pipeline (DESIGN.md §9) — the sync path (`submit`/`query` + `run()`)
+runs the host and device stages one after the other; `scheduler()`
+attaches the two-stage pipeline of `runtime/scheduler.py`, whose host
+worker threads run `prepare_submit`/`prepare_query` while one dispatcher
+thread runs `_execute_batch`. On the card each host worker runs its stage
+on its own CUDA stream, and the request's features are uploaded there
+from a pinned copy. The request carries an event recorded at the end of
+its host stage, and its device tensors carry `record_stream` for the
+engine's dispatch stream, where `_execute_batch` waits on the events and
+syncs only that stream. A device form goes into the cache only once its
+stream has finished it, so another thread's stream never reads it half
+written. One engine lock guards the uid and graph counters, `metrics`,
+`finished`, the graph registry and the cache manager.
+
+SLO serving (DESIGN.md §14) — `submit`/`query(deadline_ms=, tolerance=)`.
+A request whose deadline passes before dispatch completes flagged with no
+predictions (`deadline_misses`); one served late is delivered and
+flagged. The `LatencyBank` keeps the measured span of every batch key,
+seeded from `_modelled_batch_s`; the tolerance router picks the cheapest
+calibrated tier whose accuracy delta fits, the backend rule takes the
+measured dense/GraSp pair, and an optional `SLOGovernor` steps the
+default tier down the ladder while the rolling p99 breaches its target.
+Not ported yet (ROADMAP queue 1): sharding and sharded deltas (item 11).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import costs
 from repro_torch.core.costs import transfer_cost
 from repro_torch.core.graph import (BucketLadder, Graph, PaddedGraph,
                                     adjacency_keys, apply_edge_delta,
@@ -106,7 +131,7 @@ from repro_torch.core.models import (FUSION_MODES, OPERAND_FIELDS,
                                      forward_grannite, gcn_degree,
                                      init_params,
                                      is_symmetric, operand_nbytes,
-                                     prepare_host_operands,
+                                     pinned_copy, prepare_host_operands,
                                      realize_operands, stack_operands,
                                      stack_tier_operands)
 from repro_torch.core.sparsity import (BlockSparse, block_stats,
@@ -115,8 +140,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime.cache import (CacheAdmissionError,
                                        DeviceCacheManager,
                                        estimate_dense_entry_bytes,
-                                       tree_nbytes)
+                                       tree_nbytes, tree_tensors)
 from repro_torch.runtime.clock import WALL, Clock
+from repro_torch.runtime.ewma import LatencyBank
+from repro_torch.runtime.slo import SLOConfig, SLOGovernor
 
 # Serving techniques for models registered without explicit Techniques.
 DEFAULT_TECHNIQUES: Dict[str, Techniques] = {
@@ -256,8 +283,17 @@ class GNNRequest:
     backend: str = "dense"                 # resolved agg backend (§10)
     fusion: str = "none"                   # resolved fusion mode (§11)
     tier_ops: Optional[TierOperands] = None  # derived int8 Â (QuantGr GCN)
-    deadline_s: Optional[float] = None     # SLO deadlines are not ported:
-    shards: int = 0                        # both stay at their defaults
+    x: Optional[torch.Tensor] = None       # (cap, F) features on the device,
+    # uploaded in the host stage
+    ready: Optional["torch.cuda.Event"] = None  # CUDA: recorded on the host
+    # stage's stream after its device work; the dispatch stream waits on it
+    deadline_s: Optional[float] = None     # absolute clock deadline (§14);
+    # None = no SLO: the request never expires and is never flagged late
+    tolerance: Optional[float] = None      # most |accuracy_delta| (points)
+    # the tier router may trade away (§14); None = no tolerance routing
+    deadline_missed: bool = False          # §14: expired unserved (preds is
+    # None) or finished past its deadline (preds still delivered)
+    shards: int = 0                        # sharding is ROADMAP item 11
     finished_s: float = 0.0
     done: bool = False
     preds: Optional[np.ndarray] = None     # (num_nodes,) argmax classes
@@ -291,6 +327,7 @@ class _ModelEntry:
     default_tier: str
     agg_backend: str = "dense"             # "dense" | "auto" | "grasp" (§10)
     default_fusion: str = "none"           # "none" | "layer" (§11)
+    name: str = ""                         # registry name (the bank's key)
     # once per (model, tier): calibrate_tier results for QuantGr tiers, and
     # the measured accuracy_delta_vs_fp32 for every non-fp32 tier
     calibrations: Dict[str, Dict] = dataclasses.field(default_factory=dict)
@@ -299,14 +336,34 @@ class _ModelEntry:
 
 class GraphServe:
     def __init__(self, sc: Optional[GraphServeConfig] = None, *, seed: int = 0,
-                 clock: Optional[Clock] = None, device: DeviceLike = None):
+                 clock: Optional[Clock] = None,
+                 slo: Optional[SLOConfig] = None, device: DeviceLike = None):
         self.sc = sc or GraphServeConfig()
         if self.sc.admission not in ("evict", "reject"):
             raise ValueError(f"unknown admission policy "
                              f"{self.sc.admission!r}; pick evict|reject")
         self.device = resolve_device(device)
         self.seed = seed
+        # every timestamp, deadline and latency sample reads this clock;
+        # tests inject a fake one and drive the SLO loop in virtual time
         self.clock = clock if clock is not None else WALL
+        # measured latency per batch key, seeded from the cost model: the
+        # cost source of the backend rule and the tolerance router (§14)
+        self.bank = LatencyBank()
+        # the optional SLO governor; None serves without one
+        self.governor = SLOGovernor(slo) if slo is not None else None
+        # one lock guards the uid/gid counters, metrics, finished, the
+        # graph registry, the bank and the cache manager: the scheduler's
+        # host workers prepare requests while update()/detach() arrive
+        # from the caller. Never call a lock-taking helper while holding it.
+        self._lock = threading.Lock()
+        # the stream every batch dispatches on (`_execute_batch`); host
+        # stages hand their requests over to it (`_hand_over`)
+        self._dispatch_stream = (torch.cuda.Stream(self.device)
+                                 if self.device.type == "cuda" else None)
+        # the host stages' streams, one per scheduler worker index, made
+        # once and kept (`host_stream`)
+        self._host_streams: List["torch.cuda.Stream"] = []
         self.models: Dict[str, _ModelEntry] = {}
         self.queue: List[GNNRequest] = []
         self.finished: List[GNNRequest] = []
@@ -340,7 +397,59 @@ class GraphServe:
                         "grasp_batches": 0, "backend_fallbacks": 0,
                         "cache_spill_hits": 0, "cache_admission_rejects": 0,
                         "delta_updates": 0, "delta_fallbacks": 0,
-                        "delta_bytes_h2d": 0}
+                        "delta_bytes_h2d": 0,
+                        "deadline_misses": 0, "shed_requests": 0}
+
+    def _count(self, name: str, delta=1) -> None:
+        with self._lock:
+            self.metrics[name] += delta
+
+    # ------------------------------------------------------- streams
+    def _settle(self) -> None:
+        """Wait for the work queued on the calling thread's stream: a
+        device form is complete before another thread may read it."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _hand_over(self, req: GNNRequest) -> GNNRequest:
+        """End of a host stage on the card: the request's device tensors
+        are marked as read on the dispatch stream (`record_stream`), and
+        an event recorded on this thread's stream lets the dispatch
+        stream wait for their device work (`_execute_batch`)."""
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            if stream != self._dispatch_stream:
+                for t in tree_tensors((req.x, req.ops, req.tier_ops)):
+                    t.record_stream(self._dispatch_stream)
+            req.ready = torch.cuda.Event()
+            req.ready.record(stream)
+        return req
+
+    def host_stream(self, i: int) -> Optional["torch.cuda.Stream"]:
+        """The stream of scheduler host worker `i` (None on the CPU). The
+        engine keeps it, so a later scheduler's worker `i` reuses it and
+        the caching allocator's pool for that stream, which a new stream
+        would fill again with fresh device allocations."""
+        if self.device.type != "cuda":
+            return None
+        with self._lock:
+            while len(self._host_streams) <= i:
+                self._host_streams.append(torch.cuda.Stream(self.device))
+            return self._host_streams[i]
+
+    def _dispatching(self):
+        """The dispatch stream as the current stream (the CPU has none)."""
+        if self._dispatch_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._dispatch_stream)
+
+    def _upload_features(self, pg: PaddedGraph) -> torch.Tensor:
+        """One request's (cap, F) features on the device: on the card a
+        copy queued on the calling thread's stream from a pinned copy."""
+        x = torch.from_numpy(pg.features)
+        if self.device.type == "cuda":
+            return pinned_copy(x).to(self.device, non_blocking=True)
+        return x
 
     # ----------------------------------------------------- cache views
     # (snapshots of the cache manager as plain {key: value} dicts)
@@ -435,7 +544,53 @@ class GraphServe:
                                         tiers=registry,
                                         default_tier=default_tier,
                                         agg_backend=agg_backend,
-                                        default_fusion=fusion)
+                                        default_fusion=fusion, name=name)
+
+    def _modelled_batch_s(self, model: str, bucket: int, tier: str,
+                          backend: str) -> float:
+        """The latency bank's modelled seed (§14): seconds for one
+        dispatch under this key. Per layer one dense (cap, cap) @ (cap,
+        w) aggregation and the (cap, w_in) @ (w_in, w_out) combine, each
+        the larger of its products at `costs.DENSE_RATE` (the measured
+        rate of the 3xTF32 kernel) and its bytes at `costs.HBM_BW`, times
+        the batch width. GraSp halves the aggregation; an int8 tier runs
+        its combines at `costs.INT8_RATE` over a quarter of the bytes.
+        The seed only orders cold keys: the first measured sample
+        replaces it, and `ewma_vs_model` in `summary()` says how far off
+        it was. Reads the constants at call time (tests set the
+        reference's)."""
+        cfg = self.models[model].cfg
+        widths = [cfg.in_feats, cfg.hidden, cfg.num_classes]
+        cap = bucket
+        quant = self.models[model].tiers[tier].quantgr
+        total = 0.0
+        for w_in, w_out in zip(widths[:-1], widths[1:]):
+            agg_flops = 2.0 * cap * cap * w_in
+            agg_bytes = 4.0 * (cap * cap + 2 * cap * w_in)
+            agg = max(agg_flops / costs.DENSE_RATE, agg_bytes / costs.HBM_BW)
+            if backend == "grasp":
+                agg *= 0.5
+            comb_flops = 2.0 * cap * w_in * w_out
+            comb_bytes = 4.0 * cap * (w_in + w_out) + 4.0 * w_in * w_out
+            rate, byte_scale = ((costs.INT8_RATE, 0.25) if quant
+                                else (costs.DENSE_RATE, 1.0))
+            comb = max(comb_flops / rate,
+                       comb_bytes * byte_scale / costs.HBM_BW)
+            total += agg + comb
+        return total * self.sc.batch_slots
+
+    @staticmethod
+    def _bank_key(model: str, bucket: int, tier: str, backend: str,
+                  fusion: str) -> BatchKey:
+        # the shard element stays 0 until sharding (ROADMAP item 11)
+        return (model, bucket, tier, backend, fusion, 0)
+
+    def _seed_bank(self, model: str, bucket: int, tier: str, backend: str,
+                   fusion: str) -> None:
+        seed = self._modelled_batch_s(model, bucket, tier, backend)
+        with self._lock:
+            self.bank.seed(self._bank_key(model, bucket, tier, backend,
+                                          fusion), seed)
 
     def plan_for(self, model: str, bucket: int, tier: Optional[str] = None,
                  backend: str = "dense", fusion: str = "none"
@@ -444,7 +599,12 @@ class GraphServe:
         # params are runtime args, so models with identical (cfg,
         # techniques, backend, fusion) share one plan per bucket
         e = self.models[model]
-        t = e.tiers[tier if tier is not None else e.default_tier]
+        tier_name = tier if tier is not None else e.default_tier
+        t = e.tiers[tier_name]
+        # every plan resolution (warmup's too) seeds the bank's modelled
+        # figure for its batch key, so routing has a cost ordering before
+        # the first measured sample
+        self._seed_bank(model, bucket, tier_name, backend, fusion)
         key = (e.cfg, bucket, self.sc.batch_slots, t, backend, fusion, 0)
         if key not in self._plans:
             self._plans[key] = build_plan(e.cfg, bucket, t,
@@ -642,9 +802,72 @@ class GraphServe:
             raise KeyError(f"model {model!r} has no tier {tier!r} "
                            f"(registered: {sorted(e.tiers)})")
         if e.tiers[tier].quantgr and tier not in e.calibrations:
-            self.metrics["tier_fallbacks"] += 1
+            self._count("tier_fallbacks")
             return "fp32"
         return tier
+
+    def _tier_for_tolerance(self, model: str, tolerance: float,
+                            bucket: int) -> str:
+        """Tolerance tier router (§14): the cheapest servable tier whose
+        measured accuracy delta fits the request's tolerance (points
+        against fp32). Candidates are fp32 (delta 0) and every tier with
+        a measured delta within the tolerance that is servable now (a
+        QuantGr tier only once calibrated, so the router never picks a
+        tier `_resolve_tier` would send to fp32). Cost is the bank at this
+        bucket: a tier's least measured latency over its keys when it has
+        samples, else its least seed; an unpredictable tier ranks last,
+        and fp32 leads the list, so a tie serves the exact path."""
+        e = self.models[model]
+        cands = ["fp32"]
+        for tn in e.tiers:
+            if tn == "fp32":
+                continue
+            delta = e.accuracy_delta.get(tn)
+            if delta is None or abs(delta) > tolerance:
+                continue
+            if e.tiers[tn].quantgr and tn not in e.calibrations:
+                continue
+            cands.append(tn)
+
+        def cost(tn: str) -> float:
+            # measured latencies outrank seeds within a tier: once any of
+            # the tier's keys has samples, a sibling key's optimistic seed
+            # cannot hide a measured slowdown
+            m_best, s_best = None, None
+            for key in self.bank.keys():
+                if key[0] != model or key[1] != bucket or key[2] != tn:
+                    continue
+                m = self.bank.measured(key)
+                if m is not None:
+                    m_best = m if m_best is None else min(m_best, m)
+                else:
+                    p = self.bank.predict(key)
+                    if p is not None:
+                        s_best = p if s_best is None else min(s_best, p)
+            if m_best is not None:
+                return m_best
+            return s_best if s_best is not None else float("inf")
+
+        with self._lock:
+            costs_ = {tn: cost(tn) for tn in cands}
+        return min(cands, key=lambda tn: (costs_[tn], cands.index(tn)))
+
+    def _route_tier(self, model: str, tier: Optional[str],
+                    tolerance: Optional[float], bucket: int) -> str:
+        """Requested (tier, tolerance) -> served tier (§14). An explicit
+        tier resolves as `_resolve_tier` does, and neither the tolerance
+        nor the governor overrides it. A tolerance without a tier runs the
+        tolerance router. Neither: the governor, when there is one, may
+        step the model default down; its pick still goes through
+        `_resolve_tier`, so an uncalibrated target serves fp32, counted."""
+        if tier is None and tolerance is not None:
+            tier = self._tier_for_tolerance(model, tolerance, bucket)
+        elif tier is None and self.governor is not None:
+            e = self.models[model]
+            with self._lock:
+                tier = self.governor.tier_override(e.default_tier,
+                                                   list(e.tiers))
+        return self._resolve_tier(model, tier)
 
     @staticmethod
     def _needs_tier_ops(e: _ModelEntry, tier: str) -> bool:
@@ -667,24 +890,36 @@ class GraphServe:
         form (GCN)."""
         return e.agg_backend != "dense" and e.cfg.kind == "gcn"
 
-    @staticmethod
-    def _backend_from_stats(e: _ModelEntry, capacity: int,
+    def _measured_agg_pair(self, model: str, capacity: int
+                           ) -> Tuple[Optional[float], Optional[float]]:
+        """Least measured batch latency per aggregation backend at (model,
+        bucket), from the latency bank (§14): the measured input of
+        `select_agg_backend`. None on a side until that backend has
+        served a batch here, which leaves the model to decide."""
+        with self._lock:
+            best = self.bank.measured_pair(
+                match=lambda k: k[0] == model and k[1] == capacity,
+                backend_of=lambda k: k[3])
+        return best.get("dense"), best.get("grasp")
+
+    def _backend_from_stats(self, e: _ModelEntry, capacity: int,
                             stats: Dict) -> str:
         """The density/cost rule (DESIGN.md §10) for one graph at one
-        bucket. `measured=None`: the port has no latency bank yet (ROADMAP
-        queue 3), so the modelled costs decide. A pure decision: fallbacks
-        are counted per request where the decision is used."""
+        bucket, with the bank's measured pair (§14), which outranks the
+        modelled costs where both backends have served here. A pure
+        decision: fallbacks are counted per request where it is used."""
         mode = "grasp" if e.agg_backend == "grasp" else "auto"
         choice, _, _ = select_agg_backend(
             capacity, e.cfg.hidden, nnz_blocks=stats["nnz_blocks"],
-            max_row_nnz=stats["max_row_nnz"], mode=mode, measured=None)
+            max_row_nnz=stats["max_row_nnz"], mode=mode,
+            measured=self._measured_agg_pair(e.name, capacity))
         return choice
 
     def _count_forced_fallback(self, e: _ModelEntry, backend: str) -> None:
         """One request of a forced-grasp model resolved dense (its
         structure exceeds the bucket budget): count it, per request."""
         if e.agg_backend == "grasp" and backend == "dense":
-            self.metrics["backend_fallbacks"] += 1
+            self._count("backend_fallbacks")
 
     def _derive_grasp(self, e: _ModelEntry, capacity: int,
                       norm_adj: torch.Tensor
@@ -749,9 +984,10 @@ class GraphServe:
                            else None),
             grasp_bitmap=grasp_bitmap, symmetric=symmetric, keys=keys,
             device=self.device)
-        self.metrics["operand_bytes_h2d"] += ho.nbytes
-        if ho.fallback:
-            self.metrics["cacheg_fallbacks"] += 1
+        with self._lock:
+            self.metrics["operand_bytes_h2d"] += ho.nbytes
+            if ho.fallback:
+                self.metrics["cacheg_fallbacks"] += 1
         return ho
 
     def _device_operands(self, model: str, pg: PaddedGraph, **kw
@@ -768,14 +1004,19 @@ class GraphServe:
                  tier_ops: Optional[TierOperands] = None,
                  fusion: Optional[str] = None,
                  submitted_s: Optional[float] = None,
-                 keys: Optional[np.ndarray] = None) -> GNNRequest:
+                 keys: Optional[np.ndarray] = None,
+                 deadline_ms: Optional[float] = None,
+                 tolerance: Optional[float] = None) -> GNNRequest:
         """Host-stage tail shared by every intake path, for a resolved
         `tier`: resolve the fusion mode; when the caller passes no
         operands, resolve the aggregation backend and build them (from
         the graph's `keys` where given; and a QuantGr tier's int8 Â,
-        uncached); assign the uid. A caller that passes operands passes
-        the `backend` they were derived for. Returns the request without
-        queueing it."""
+        uncached); upload the features; assign the uid; hand the request
+        over to the dispatch stream. A caller that passes operands passes
+        the `backend` they were derived for. `submitted_s` lets the
+        scheduler date the request at intake, and `deadline_ms` counts
+        from that instant, so queue wait spends it. Returns the request
+        without queueing it."""
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
         fusion = self._resolve_fusion(model, fusion)
@@ -784,14 +1025,19 @@ class GraphServe:
         if tier_ops is None and self._needs_tier_ops(self.models[model], tier):
             # one-shot request: derive without caching (nothing to key on)
             tier_ops = self._agg_quantizer(ops.norm_adj)
-        uid = self._uid
-        self._uid += 1
-        if self.metrics["first_submit_s"] is None:
-            self.metrics["first_submit_s"] = submitted_s
-        return GNNRequest(uid=uid, model=model, pg=pg, ops=ops,
-                          bucket=pg.capacity, submitted_s=submitted_s,
-                          tier=tier, backend=backend, fusion=fusion,
-                          tier_ops=tier_ops)
+        x = self._upload_features(pg)
+        with self._lock:
+            uid = self._uid
+            self._uid += 1
+            if self.metrics["first_submit_s"] is None:
+                self.metrics["first_submit_s"] = submitted_s
+        deadline_s = (submitted_s + deadline_ms * 1e-3
+                      if deadline_ms is not None else None)
+        return self._hand_over(GNNRequest(
+            uid=uid, model=model, pg=pg, ops=ops, bucket=pg.capacity,
+            submitted_s=submitted_s, tier=tier, backend=backend,
+            fusion=fusion, tier_ops=tier_ops, x=x, deadline_s=deadline_s,
+            tolerance=tolerance))
 
     def _keys_for(self, edge_index: np.ndarray, pg: PaddedGraph
                   ) -> Optional[np.ndarray]:
@@ -809,19 +1055,31 @@ class GraphServe:
     def prepare_submit(self, g: Graph, *, model: str,
                        tier: Optional[str] = None,
                        fusion: Optional[str] = None,
-                       submitted_s: Optional[float] = None) -> GNNRequest:
-        """HOST stage of a one-shot request: NodePad padding + operand
-        build and upload (CacheG: packed from the edge list)."""
+                       submitted_s: Optional[float] = None,
+                       deadline_ms: Optional[float] = None,
+                       tolerance: Optional[float] = None) -> GNNRequest:
+        """HOST stage of a one-shot request: NodePad padding, the tier
+        (router-aware, §14), operand build and upload (CacheG: packed from
+        the edge list) and the feature upload. Callable from any
+        scheduler worker thread."""
         pg = self.sc.ladder.pad(g)
-        return self._prepare(model, pg, self._resolve_tier(model, tier),
-                             fusion=fusion, submitted_s=submitted_s,
-                             keys=self._keys_for(g.edge_index, pg))
+        return self._prepare(
+            model, pg, self._route_tier(model, tier, tolerance, pg.capacity),
+            fusion=fusion, submitted_s=submitted_s,
+            keys=self._keys_for(g.edge_index, pg), deadline_ms=deadline_ms,
+            tolerance=tolerance)
 
     def submit(self, g: Graph, *, model: str, tier: Optional[str] = None,
-               fusion: Optional[str] = None) -> int:
-        """One-shot inference request over a static graph."""
+               fusion: Optional[str] = None,
+               deadline_ms: Optional[float] = None,
+               tolerance: Optional[float] = None) -> int:
+        """One-shot inference request over a static graph. `deadline_ms`
+        (from now) and `tolerance` (most accuracy points the tier router
+        may trade) opt the request into the §14 SLO machinery."""
         return self._push(self.prepare_submit(g, model=model, tier=tier,
-                                              fusion=fusion))
+                                              fusion=fusion,
+                                              deadline_ms=deadline_ms,
+                                              tolerance=tolerance))
 
     def attach(self, g: Graph, *, model: str, calibrate: bool = True) -> int:
         """Register a graph for repeated queries; returns its graph_id.
@@ -843,10 +1101,13 @@ class GraphServe:
         pg = self.sc.ladder.pad(g)
         if self.sc.device_cache_budget_bytes is not None:
             projected = self._projected_primary_bytes(model, pg)
-            if (not self._cache.fits(projected)
-                    or (self.sc.admission == "reject"
-                        and self._cache.would_overflow(projected))):
-                self.metrics["cache_admission_rejects"] += 1
+            with self._lock:
+                reject = (not self._cache.fits(projected)
+                          or (self.sc.admission == "reject"
+                              and self._cache.would_overflow(projected)))
+                if reject:
+                    self.metrics["cache_admission_rejects"] += 1
+            if reject:
                 raise CacheAdmissionError(
                     f"graph with projected primary operand entry of "
                     f"{projected} bytes cannot be admitted under "
@@ -856,11 +1117,13 @@ class GraphServe:
                     f"{self._cache.resident_bytes} resident)")
         if calibrate:
             self._calibrate(model, pg)      # no-op once (model, tier) is done
-        gid = self._gid
-        self._gid += 1
-        self.graphs[gid] = (model, pg)
-        self._graph_keys[gid] = self._keys_for(g.edge_index, pg)
-        self._graph_version[gid] = 0
+        keys = self._keys_for(g.edge_index, pg)
+        with self._lock:
+            gid = self._gid
+            self._gid += 1
+            self.graphs[gid] = (model, pg)
+            self._graph_keys[gid] = keys
+            self._graph_version[gid] = 0
         return gid
 
     def _projected_primary_bytes(self, model: str, pg: PaddedGraph) -> int:
@@ -875,10 +1138,11 @@ class GraphServe:
         """Release an attached graph, its device operands and any spilled
         form. Lifecycle removal is not an eviction: no eviction or spill
         counter moves."""
-        key = (graph_id, self._graph_version.pop(graph_id, -1))
-        self._cache.invalidate(key)
-        self.graphs.pop(graph_id, None)
-        self._graph_keys.pop(graph_id, None)
+        with self._lock:
+            key = (graph_id, self._graph_version.pop(graph_id, -1))
+            self._cache.invalidate(key)
+            self.graphs.pop(graph_id, None)
+            self._graph_keys.pop(graph_id, None)
 
     def update(self, graph_id: int, edge_index: np.ndarray, num_nodes: int,
                features: np.ndarray) -> bool:
@@ -886,17 +1150,22 @@ class GraphServe:
         climbed the ladder (`BucketLadder.grow`, counted in
         `rebucket_events`). Bumps the structure version and invalidates
         the old version's entries, so the next `query()` builds exactly
-        once. A graph that outgrows the top bucket raises."""
-        model, pg = self.graphs[graph_id]
+        once. A graph that outgrows the top bucket raises. A request
+        prepared before it keeps the snapshot it read."""
+        with self._lock:
+            model, pg = self.graphs[graph_id]
         pg, rebucketed = self.sc.ladder.grow(pg, edge_index, num_nodes,
                                              features)
-        self.graphs[graph_id] = (model, pg)
-        self._graph_keys[graph_id] = self._keys_for(edge_index, pg)
-        ver = self._graph_version[graph_id]
-        self._cache.invalidate((graph_id, ver))
-        self._graph_version[graph_id] = ver + 1
-        if rebucketed:
-            self.metrics["rebucket_events"] += 1
+        keys = self._keys_for(edge_index, pg)
+        with self._lock:
+            self.graphs[graph_id] = (model, pg)
+            self._graph_keys[graph_id] = keys
+            ver = self._graph_version[graph_id]
+            # lifecycle invalidation, not eviction: no eviction counter
+            self._cache.invalidate((graph_id, ver))
+            self._graph_version[graph_id] = ver + 1
+            if rebucketed:
+                self.metrics["rebucket_events"] += 1
         return rebucketed
 
     # ------------------------------------------------------ GrAd delta updates
@@ -938,7 +1207,8 @@ class GraphServe:
         compact form packed from the graph's current edge keys (pinned on
         a CUDA engine), which also serves an entry a delta patched and no
         `HostOperands` built. Declines (the entry is dropped) when the
-        graph moved past `ver` or was detached."""
+        graph moved past `ver` or was detached. The cache manager calls it
+        under the engine lock, as the reference's does."""
         def spill():
             if self._graph_version.get(graph_id) != ver:
                 return None
@@ -978,9 +1248,10 @@ class GraphServe:
         Returns True when the structure was patched (or nothing changed),
         False when it fell back to `update()`.
         """
-        model, pg = self.graphs[graph_id]
-        ver = self._graph_version[graph_id]
-        keys = self._graph_keys[graph_id]
+        with self._lock:
+            model, pg = self.graphs[graph_id]
+            ver = self._graph_version[graph_id]
+            keys = self._graph_keys[graph_id]
         e = self.models[model]
         if not is_symmetric(pg, keys):
             raise ValueError(
@@ -993,7 +1264,7 @@ class GraphServe:
         kt, ke = self._delta_pads(pg.capacity)
         if not (self.sc.delta_pad_rows > 0 and e.cfg.kind in ("gcn", "gat")
                 and len(delta.touched) <= kt and len(delta.flip_i) <= ke):
-            self.metrics["delta_fallbacks"] += 1
+            self._count("delta_fallbacks")
             self.update(graph_id,
                         edge_index_from_adjacency(delta.adj, pg.num_nodes),
                         pg.num_nodes, pg.features[:pg.num_nodes])
@@ -1002,24 +1273,25 @@ class GraphServe:
         keys2 = (None if keys is None
                  else patch_adjacency_keys(keys, pg.capacity, delta))
         old_key, new_key = (graph_id, ver), (graph_id, ver + 1)
-        ops_old = self._cache.get("operand", old_key)
-        tops_old = self._cache.get("tier", old_key)
-        had_grasp = self._cache.get("grasp", old_key) is not None
+        with self._lock:
+            ops_old = self._cache.get("operand", old_key)
+            tops_old = self._cache.get("tier", old_key)
+            had_grasp = self._cache.get("grasp", old_key) is not None
         new_ops = new_tops = new_grasp = None
+        delta_bytes = 0
         if self.sc.use_cacheg and ops_old is not None:
             spec = self._delta_spec(
                 pg.capacity, OPERAND_FIELDS[e.cfg.kind], delta.flip_i,
                 delta.flip_j, delta.flip_v, delta.touched,
                 gcn_degree(pg2.adj, pg.num_nodes, keys2))
-            self.metrics["delta_bytes_h2d"] += spec.nbytes
+            delta_bytes += spec.nbytes
             new_ops = self._delta_patcher(ops_old, spec)
             if tops_old is not None:
                 rows = self._requant_rows(delta.touched, keys2, pg.capacity)
                 if rows is None:
                     new_tops = self._agg_quantizer(new_ops.norm_adj)
                 else:
-                    self.metrics["delta_bytes_h2d"] += (rows.numel()
-                                                        * rows.element_size())
+                    delta_bytes += rows.numel() * rows.element_size()
                     new_tops = self._delta_patcher.patch_tier(
                         tops_old, new_ops.norm_adj, rows)
             if had_grasp and self._grasp_capable(e):
@@ -1028,26 +1300,45 @@ class GraphServe:
                 # device: no host bytes, and warm
                 new_grasp = self._derive_grasp(e, pg.capacity,
                                                new_ops.norm_adj)
-        self.graphs[graph_id] = (model, pg2)
-        self._graph_keys[graph_id] = keys2
-        self._cache.invalidate(old_key)
-        self._graph_version[graph_id] = ver + 1
-        if new_ops is not None:
-            nb = operand_nbytes(new_ops)
-            self._cache.put("operand", new_key, new_ops, nbytes=nb,
-                            remat_s=transfer_cost(nb),
-                            spill_fn=self._spill_producer(graph_id, ver + 1,
-                                                          model))
-        if new_tops is not None:
-            self._cache.put("tier", new_key, new_tops,
-                            nbytes=tree_nbytes(new_tops))
-        if new_grasp is not None:
-            self._cache.put("grasp", new_key, new_grasp,
-                            nbytes=tree_nbytes(new_grasp))
-        self.metrics["delta_updates"] += 1
+            self._sync()        # the patched forms are complete when cached
+        with self._lock:
+            if self._graph_version.get(graph_id) != ver:
+                return False              # a racing update or detach won
+            self.graphs[graph_id] = (model, pg2)
+            self._graph_keys[graph_id] = keys2
+            self._cache.invalidate(old_key)
+            self._graph_version[graph_id] = ver + 1
+            if new_ops is not None:
+                nb = operand_nbytes(new_ops)
+                self._cache.put("operand", new_key, new_ops, nbytes=nb,
+                                remat_s=transfer_cost(nb),
+                                spill_fn=self._spill_producer(
+                                    graph_id, ver + 1, model))
+            if new_tops is not None:
+                self._cache.put("tier", new_key, new_tops,
+                                nbytes=tree_nbytes(new_tops))
+            if new_grasp is not None:
+                self._cache.put("grasp", new_key, new_grasp,
+                                nbytes=tree_nbytes(new_grasp))
+            self.metrics["delta_bytes_h2d"] += delta_bytes
+            self.metrics["delta_updates"] += 1
         return True
 
-    def _primary_operands(self, graph_id: int, model: str, pg: PaddedGraph
+    def _publish(self, kind: str, graph_id: int, ver: int, value, **kw
+                 ) -> None:
+        """Cache a device form built outside the lock under (graph_id,
+        ver): once this thread's stream has finished it (no other thread
+        may read it half written), and only if the version is still
+        current, so a build that raced an update never pins memory under
+        a dead key. Two workers that missed the same key may both build;
+        the values are equal and the last insert wins."""
+        self._settle()
+        with self._lock:
+            if self._graph_version.get(graph_id) == ver:
+                self._cache.put(kind, (graph_id, ver), value, **kw)
+
+    def _primary_operands(self, graph_id: int, ver: int, model: str,
+                          pg: PaddedGraph, keys: Optional[np.ndarray]
                           ) -> GranniteOperands:
         """The attached graph's fp32 operands from the cache manager: a
         hit moves nothing; a spill fault re-uploads only the spilled
@@ -1055,68 +1346,90 @@ class GraphServe:
         a miss runs the host and device stages and inserts the entry, with
         a spill producer when the form is compact (`_spill_producer`; a
         directed graph's eager entry is dropped on eviction)."""
-        key = (graph_id, self._graph_version[graph_id])
-        ops = self._cache.get("operand", key)
+        key = (graph_id, ver)
+        with self._lock:
+            ops = self._cache.get("operand", key)
+            if ops is not None:
+                self.metrics["operand_cache_hits"] += 1
+            else:
+                ho = self._cache.spill_get("operand", key)
+                if ho is not None:
+                    self.metrics["cache_spill_hits"] += 1
+                    self.metrics["operand_bytes_h2d"] += ho.nbytes
+                else:
+                    self.metrics["operand_cache_misses"] += 1
         if ops is not None:
-            self.metrics["operand_cache_hits"] += 1
             return ops
-        ho = self._cache.spill_get("operand", key)
-        if ho is not None:
-            self.metrics["cache_spill_hits"] += 1
-            self.metrics["operand_bytes_h2d"] += ho.nbytes
-        else:
-            self.metrics["operand_cache_misses"] += 1
-            ho = self._host_operands(model, pg,
-                                     keys=self._graph_keys[graph_id])
+        if ho is None:
+            ho = self._host_operands(model, pg, keys=keys)
         ops = realize_operands(ho, self._materializer)
         nb = operand_nbytes(ops)
-        self._cache.put("operand", key, ops, nbytes=nb,
-                        remat_s=transfer_cost(nb),
-                        spill_fn=(self._spill_producer(graph_id, key[1],
-                                                       model)
-                                  if ho.compact is not None else None))
+        self._publish("operand", graph_id, ver, ops, nbytes=nb,
+                      remat_s=transfer_cost(nb),
+                      spill_fn=(self._spill_producer(graph_id, ver, model)
+                                if ho.compact is not None else None))
         return ops
 
     def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
                       fusion: Optional[str] = None,
-                      submitted_s: Optional[float] = None) -> GNNRequest:
+                      submitted_s: Optional[float] = None,
+                      deadline_ms: Optional[float] = None,
+                      tolerance: Optional[float] = None) -> GNNRequest:
         """HOST stage of a query over an attached graph: device operands,
         a QuantGr tier's int8 Â, and a grasp-capable model's backend
         decision and block structure (derived on the card from the cached
         Â, zero extra bytes) come from the cache manager after the first
         query. A derived insert never evicts the primary it hangs off
-        (the manager protects the inserted key)."""
-        model, pg = self.graphs[graph_id]
-        key = (graph_id, self._graph_version[graph_id])
-        ops = self._primary_operands(graph_id, model, pg)
-        resolved = self._resolve_tier(model, tier)
+        (the manager protects the inserted key).
+
+        Thread discipline (scheduler workers call this while `update()`
+        may arrive from the caller): the (model, graph, version, keys)
+        snapshot is taken under the engine lock, forms are built outside
+        it, and a built form is cached only while its version is current
+        (`_publish`). A request racing an update serves the snapshot it
+        read."""
+        with self._lock:
+            model, pg = self.graphs[graph_id]
+            ver = self._graph_version[graph_id]
+            keys = self._graph_keys[graph_id]
+        key = (graph_id, ver)
+        ops = self._primary_operands(graph_id, ver, model, pg, keys)
+        resolved = self._route_tier(model, tier, tolerance, pg.capacity)
         e = self.models[model]
         tops = None
         if self._needs_tier_ops(e, resolved):
-            tops = self._cache.get("tier", key)
+            with self._lock:
+                tops = self._cache.get("tier", key)
             if tops is None:
                 tops = self._agg_quantizer(ops.norm_adj)
-                self._cache.put("tier", key, tops, nbytes=tree_nbytes(tops))
+                self._publish("tier", graph_id, ver, tops,
+                              nbytes=tree_nbytes(tops))
         backend = "dense"
         if self._grasp_capable(e) and not e.tiers[resolved].quantgr:
-            cached = self._cache.get("grasp", key)
+            with self._lock:
+                cached = self._cache.get("grasp", key)
             if cached is None:
                 cached = self._derive_grasp(e, pg.capacity, ops.norm_adj)
-                self._cache.put("grasp", key, cached,
-                                nbytes=tree_nbytes(cached))
+                self._publish("grasp", graph_id, ver, cached,
+                              nbytes=tree_nbytes(cached))
             backend, bsp = cached
             self._count_forced_fallback(e, backend)   # per request
             if backend == "grasp":
                 ops = dataclasses.replace(ops, block_sparse=bsp)
         return self._prepare(model, pg, resolved, ops, backend=backend,
                              tier_ops=tops, fusion=fusion,
-                             submitted_s=submitted_s)
+                             submitted_s=submitted_s,
+                             deadline_ms=deadline_ms, tolerance=tolerance)
 
     def query(self, graph_id: int, *, tier: Optional[str] = None,
-              fusion: Optional[str] = None) -> int:
+              fusion: Optional[str] = None,
+              deadline_ms: Optional[float] = None,
+              tolerance: Optional[float] = None) -> int:
         """Enqueue inference over an attached graph (see `prepare_query`)."""
         return self._push(self.prepare_query(graph_id, tier=tier,
-                                             fusion=fusion))
+                                             fusion=fusion,
+                                             deadline_ms=deadline_ms,
+                                             tolerance=tolerance))
 
     # --------------------------------------------------------------- execution
     def run(self) -> List[GNNRequest]:
@@ -1124,11 +1437,45 @@ class GraphServe:
             self._run_batch()
         return self.finished
 
+    def _complete_expired(self, expired: List[GNNRequest],
+                          now: float) -> None:
+        """Finish requests whose deadline passed before dispatch (§14):
+        done at once, `deadline_missed`, no predictions, so an answer the
+        caller can no longer use takes no batch slot. Counted per request
+        in `deadline_misses`; their submit-to-expiry latency still feeds
+        the metrics and the governor, which exists to see that overload.
+        On the card the dispatch stream waits on their host stages'
+        events, so their memory is not reused while that work runs."""
+        for r in expired:
+            if r.ready is not None:
+                self._dispatch_stream.wait_event(r.ready)
+            r.done = True
+            r.deadline_missed = True
+            r.finished_s = now
+        with self._lock:
+            for r in expired:
+                self.metrics["latency_s"].append(now - r.submitted_s)
+                self.metrics["deadline_misses"] += 1
+                self.finished.append(r)
+                if self.governor is not None:
+                    self.governor.observe(now - r.submitted_s)
+            self.metrics["last_finish_s"] = now
+
     def _run_batch(self) -> None:
+        # the expiry sweep first (§14): requests past their deadline
+        # complete flagged instead of taking a dispatch
+        now = self.clock.now()
+        expired = [r for r in self.queue
+                   if r.deadline_s is not None and r.deadline_s <= now]
+        if expired:
+            gone = {r.uid for r in expired}
+            self.queue = [r for r in self.queue if r.uid not in gone]
+            self._complete_expired(expired, now)
+            if not self.queue:
+                return
         # best-filling key first, with slack as the tie-break; tier, backend
         # and fusion mode are part of the key, so a batch never mixes plans
-        key = edf_best_fill_key(edf_pending_stats(self.queue,
-                                                  self.clock.now()),
+        key = edf_best_fill_key(edf_pending_stats(self.queue, now),
                                 self.sc.batch_slots, self._last_dispatch)
         batch = [r for r in self.queue
                  if (r.model, r.bucket, r.tier, r.backend, r.fusion,
@@ -1139,31 +1486,44 @@ class GraphServe:
 
     def _execute_batch(self, batch: List[GNNRequest]) -> None:
         """DEVICE stage: one fixed-width dispatch of 1..batch_slots requests
-        sharing one key. Junk slots repeat the last real request so the
-        batch width never changes shape; their outputs are dropped.
-        `device_busy_s` accumulates the wall-clock from the feature upload
-        to the device's completion. Every request of a grasp batch whose
-        plan runs the plain form (`grasp_ref_fallback`, the CPU) counts in
-        `backend_fallbacks`."""
+        sharing one key, from one thread at a time (the sync `run()` loop
+        or the scheduler's dispatcher). Junk slots repeat the last real
+        request so the batch width never changes shape; their outputs are
+        dropped. On the card it runs on the dispatch stream, which first
+        waits on each request's host-stage event, and it syncs only that
+        stream, not the host workers' uploads. `device_busy_s` accumulates
+        the wall clock from the stack of the device-resident features and
+        operands to the dispatch stream's completion; the feature upload
+        is the host stage's. Every request of a grasp batch whose plan
+        runs the plain form (`grasp_ref_fallback`, the CPU) counts in
+        `backend_fallbacks`. A request finished past its deadline is
+        delivered and flagged `deadline_missed` (§14)."""
         head = batch[0]
         b = self.sc.batch_slots
-        bkey = (head.model, head.bucket, head.tier, head.backend,
-                head.fusion, 0)
+        bkey = self._bank_key(head.model, head.bucket, head.tier,
+                              head.backend, head.fusion)
         t0 = self.clock.now()
         slots = batch + [batch[-1]] * (b - len(batch))
         e = self.models[head.model]
-        x = torch.from_numpy(np.stack([r.pg.features for r in slots])
-                             ).to(self.device)
-        ops = stack_operands([r.ops for r in slots])
-        tops = (stack_tier_operands([r.tier_ops for r in slots])
-                if slots[0].tier_ops is not None else None)
-        plan = self.plan_for(head.model, head.bucket, head.tier,
-                             head.backend, head.fusion)
-        logits = plan(e.params, x, ops, e.calibrations.get(head.tier), tops)
-        self._sync()
-        self.clock.on_batch(bkey)
-        now = self.clock.now()
-        host_logits = logits.cpu().numpy()
+        with self._dispatching():
+            if self._dispatch_stream is not None:
+                for r in batch:
+                    self._dispatch_stream.wait_event(r.ready)
+            x = torch.stack([r.x for r in slots])
+            ops = stack_operands([r.ops for r in slots])
+            tops = (stack_tier_operands([r.tier_ops for r in slots])
+                    if slots[0].tier_ops is not None else None)
+            plan = self.plan_for(head.model, head.bucket, head.tier,
+                                 head.backend, head.fusion)
+            logits = plan(e.params, x, ops, e.calibrations.get(head.tier),
+                          tops)
+            if self._dispatch_stream is not None:
+                self._dispatch_stream.synchronize()
+            # a fake clock advances its scripted per-key latency here,
+            # between the dispatch timestamps
+            self.clock.on_batch(bkey)
+            now = self.clock.now()
+            host_logits = logits.cpu().numpy()
         for i, r in enumerate(batch):
             lg = host_logits[i, : r.pg.num_nodes]
             r.preds = lg.argmax(axis=-1).astype(np.int32)
@@ -1171,27 +1531,56 @@ class GraphServe:
                 r.logits = lg
             r.done = True
             r.finished_s = now
-            self.metrics["latency_s"].append(now - r.submitted_s)
-            self.finished.append(r)
-        self.metrics["batches"] += 1
-        self.metrics["slots_filled"] += len(batch)
-        self.metrics["slots_total"] += b
-        if head.backend == "grasp":
-            self.metrics["grasp_batches"] += 1
-            if plan.grasp_ref_fallback:
-                self.metrics["backend_fallbacks"] += len(batch)
-        self.metrics["device_busy_s"] += now - t0
-        self.metrics["last_finish_s"] = now
-        self._last_dispatch[head.model] = self._dispatch_serial
-        self._dispatch_serial += 1
+            if r.deadline_s is not None and now > r.deadline_s:
+                # executed but late: delivered and flagged, unlike an
+                # expiry before dispatch, whose preds stay None
+                r.deadline_missed = True
+        with self._lock:
+            self.bank.observe(bkey, now - t0)
+            for r in batch:
+                lat = now - r.submitted_s
+                self.metrics["latency_s"].append(lat)
+                self.finished.append(r)
+                if r.deadline_missed:
+                    self.metrics["deadline_misses"] += 1
+                if self.governor is not None:
+                    self.governor.observe(lat)
+            self.metrics["batches"] += 1
+            self.metrics["slots_filled"] += len(batch)
+            self.metrics["slots_total"] += b
+            if head.backend == "grasp":
+                self.metrics["grasp_batches"] += 1
+                if plan.grasp_ref_fallback:
+                    self.metrics["backend_fallbacks"] += len(batch)
+            self.metrics["device_busy_s"] += now - t0
+            self.metrics["last_finish_s"] = now
+            self._last_dispatch[head.model] = self._dispatch_serial
+            self._dispatch_serial += 1
+
+    # -------------------------------------------------------------- pipeline
+    def scheduler(self, pc=None):
+        """Attach the two-stage pipeline scheduler (DESIGN.md §9): a
+        `runtime.scheduler.PipelineScheduler` whose host workers run this
+        engine's `prepare_submit`/`prepare_query` while its dispatcher
+        runs `_execute_batch`. Use it as a context manager; the sync
+        `submit`/`query` + `run()` path stays usable beside it."""
+        from repro_torch.runtime.scheduler import PipelineScheduler
+        return PipelineScheduler(self, pc)
 
     # ---------------------------------------------------------------- metrics
     def tier_summary(self) -> Dict[str, Dict[str, float]]:
         """Per-tier serving stats from the finished requests (each carries
         its RESOLVED tier, so fp32 fallbacks count as fp32 here and as
         `tier_fallbacks` in `summary()`)."""
+        with self._lock:
+            finished = list(self.finished)
+        return self._tier_summary(finished)
+
+    @staticmethod
+    def _tier_summary(finished: List[GNNRequest]
+                      ) -> Dict[str, Dict[str, float]]:
         by_tier: Dict[str, List[GNNRequest]] = {}
-        for r in self.finished:
+        for r in finished:
             by_tier.setdefault(r.tier, []).append(r)
         out: Dict[str, Dict[str, float]] = {}
         for tn, reqs in sorted(by_tier.items()):
@@ -1207,56 +1596,74 @@ class GraphServe:
         return out
 
     def summary(self) -> Dict[str, object]:
-        lat = np.asarray(self.metrics["latency_s"], np.float64)
-        t0, t1 = self.metrics["first_submit_s"], self.metrics["last_finish_s"]
+        with self._lock:
+            m = dict(self.metrics)
+            finished = list(self.finished)
+            lat = np.asarray(m["latency_s"], np.float64)
+            cache = {"cache_resident_bytes": self._cache.resident_bytes,
+                     "cache_evictions": self._cache.evictions,
+                     "cache_spilled": self._cache.spilled,
+                     "cache_dropped": self._cache.dropped,
+                     "cache_spill_entries": self._cache.spill_entries}
+            gov = self.governor
+            slo = {"slo_downgrades": gov.downgrades if gov else 0,
+                   "slo_upgrades": gov.upgrades if gov else 0,
+                   "slo_level": gov.level if gov else 0,
+                   "ewma_vs_model": self.bank.ewma_vs_model()}
+        t0, t1 = m["first_submit_s"], m["last_finish_s"]
         span = (t1 - t0) if (t0 is not None and t1 is not None) else 0.0
-        busy = self.metrics["device_busy_s"]
+        busy = m["device_busy_s"]
         return {
             "device": str(self.device),
-            "requests": len(self.finished),
+            "requests": len(finished),
             "compiled_blobs": self.compiled_blobs,
-            "batches": self.metrics["batches"],
-            "batch_occupancy": (self.metrics["slots_filled"]
-                                / max(self.metrics["slots_total"], 1)),
+            "batches": m["batches"],
+            "batch_occupancy": (m["slots_filled"]
+                                / max(m["slots_total"], 1)),
+            # the dispatch's wall clock (stack, plan, sync); the feature
+            # upload belongs to the host stage
             "device_busy_s": busy,
             "device_idle_fraction": (max(0.0, 1.0 - busy / span)
                                      if span > 0 else 0.0),
-            "rebucket_events": self.metrics["rebucket_events"],
-            "operand_bytes_h2d": self.metrics["operand_bytes_h2d"],
-            "operand_cache_hits": self.metrics["operand_cache_hits"],
-            "operand_cache_misses": self.metrics["operand_cache_misses"],
-            "cacheg_fallbacks": self.metrics["cacheg_fallbacks"],
-            "tier_fallbacks": self.metrics["tier_fallbacks"],
+            "rebucket_events": m["rebucket_events"],
+            "operand_bytes_h2d": m["operand_bytes_h2d"],
+            "operand_cache_hits": m["operand_cache_hits"],
+            "operand_cache_misses": m["operand_cache_misses"],
+            "cacheg_fallbacks": m["cacheg_fallbacks"],
+            "tier_fallbacks": m["tier_fallbacks"],
             # GraSp: each model's mode, the batches that took the sparse
             # path, and the requests with grasp intent that ran dense
             # (forced but ineligible, or the plain form on the CPU)
             "agg_backends": {name: e.agg_backend
                              for name, e in self.models.items()},
-            "grasp_batches": self.metrics["grasp_batches"],
-            "backend_fallbacks": self.metrics["backend_fallbacks"],
+            "grasp_batches": m["grasp_batches"],
+            "backend_fallbacks": m["backend_fallbacks"],
             # §13 bounded cache: residency vs budget, capacity evictions
             # split by outcome (evictions == spilled + dropped), faults
             # served from the spill store, admission rejections
-            "cache_resident_bytes": self._cache.resident_bytes,
+            "cache_resident_bytes": cache["cache_resident_bytes"],
             "cache_budget_bytes": self.sc.device_cache_budget_bytes,
-            "cache_evictions": self._cache.evictions,
-            "cache_spilled": self._cache.spilled,
-            "cache_dropped": self._cache.dropped,
-            "cache_spill_entries": self._cache.spill_entries,
-            "cache_spill_hits": self.metrics["cache_spill_hits"],
-            "cache_admission_rejects":
-                self.metrics["cache_admission_rejects"],
+            "cache_evictions": cache["cache_evictions"],
+            "cache_spilled": cache["cache_spilled"],
+            "cache_dropped": cache["cache_dropped"],
+            "cache_spill_entries": cache["cache_spill_entries"],
+            "cache_spill_hits": m["cache_spill_hits"],
+            "cache_admission_rejects": m["cache_admission_rejects"],
             # GrAd: deltas patched on the device, deltas that took update(),
             # and the bytes the patched ones shipped (spec and int8 rows)
-            "delta_updates": self.metrics["delta_updates"],
-            "delta_fallbacks": self.metrics["delta_fallbacks"],
-            "delta_bytes_h2d": self.metrics["delta_bytes_h2d"],
-            "tiers": self.tier_summary(),
+            "delta_updates": m["delta_updates"],
+            "delta_fallbacks": m["delta_fallbacks"],
+            "delta_bytes_h2d": m["delta_bytes_h2d"],
+            # §14 SLO loop: deadline outcomes, the governor's decisions,
+            # and the bank's mean measured/modelled ratio
+            "deadline_misses": m["deadline_misses"],
+            "shed_requests": m["shed_requests"],
+            **slo,
+            "tiers": self._tier_summary(finished),
             "accuracy_delta_vs_fp32": {
                 name: dict(e.accuracy_delta)
                 for name, e in self.models.items() if e.accuracy_delta},
-            "throughput_rps": (len(self.finished) / span if span > 0
-                               else 0.0),
+            "throughput_rps": (len(finished) / span if span > 0 else 0.0),
             "p50_latency_ms": (float(np.percentile(lat, 50) * 1e3)
                                if lat.size else 0.0),
             "p99_latency_ms": (float(np.percentile(lat, 99) * 1e3)

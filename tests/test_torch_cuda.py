@@ -1349,3 +1349,72 @@ def test_lm_server_on_card_prefills_through_the_kernel(card):
     got, _ = tlm.lm_prefill(moved, cfg, toks.to(card), max_len=16)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
+
+
+def _pipeline_engine(card):
+    """A Cora-width fp32 GCN at bucket 1024, fused, on the card."""
+    eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=(1024,)),
+                                      batch_slots=4, return_logits=True),
+                     seed=0, device=card)
+    eng.register_model("gcn", GNNConfig(kind="gcn", in_feats=1433, hidden=64,
+                                        num_classes=7), fusion="layer")
+    eng.warmup()
+    return eng
+
+
+@pytest.mark.cuda
+def test_threaded_scheduler_on_card_is_bit_equal_to_sync(card):
+    """Four host workers, each on its own stream, at bucket 1024: over 5
+    bursts every answer equals the sync path's for the same graph bit for
+    bit, nothing recompiles, and each batch launches `fused_gcn_dense`
+    twice."""
+    from repro_torch.runtime.scheduler import PipelineConfig
+    graphs = [planetoid_like(num_nodes=n, num_edges=2 * n, num_feats=1433,
+                             num_classes=7, seed=i)
+              for i, n in enumerate((300, 520, 700, 880, 1000, 640, 410))]
+    eng = _pipeline_engine(card)
+    for g in graphs:
+        eng.submit(g, model="gcn")
+    want = [r.logits for r in sorted(eng.run(), key=lambda r: r.uid)]
+    for burst in range(5):
+        b0, l0 = eng.metrics["batches"], fl_mod.LAUNCHES
+        with eng.scheduler(PipelineConfig(host_workers=4,
+                                          window_ms=2.0)) as sched:
+            for g in graphs:
+                sched.submit(g, model="gcn")
+            out = sched.drain(timeout=120)
+        assert sched.metrics["completed"] == sched.metrics["accepted"] == 7
+        for r, w in zip(out, want):
+            assert r.logits.shape == w.shape
+            assert np.array_equal(r.logits, w), f"burst {burst}, uid {r.uid}"
+        assert fl_mod.LAUNCHES - l0 == 2 * (eng.metrics["batches"] - b0)
+        eng.assert_warm()
+
+
+@pytest.mark.cuda
+def test_host_stage_hands_requests_to_the_dispatch_stream(card, monkeypatch):
+    """A request prepared on a worker's stream carries an event recorded
+    there, and each of its device tensors a `record_stream` for the
+    engine's dispatch stream, so the allocator cannot reuse its memory
+    under the dispatcher's kernels."""
+    recorded = set()
+    original = torch.Tensor.record_stream
+
+    def spy(t, stream):
+        recorded.add((t.data_ptr(), stream.cuda_stream))
+        return original(t, stream)
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy)
+    eng = _pipeline_engine(card)
+    worker = torch.cuda.Stream(card)
+    g = planetoid_like(num_nodes=500, num_edges=1000, num_feats=1433,
+                       num_classes=7, seed=3)
+    with torch.cuda.stream(worker):
+        req = eng.prepare_submit(g, model="gcn")
+    assert isinstance(req.ready, torch.cuda.Event)
+    dispatch = eng._dispatch_stream.cuda_stream
+    assert dispatch != worker.cuda_stream
+    for t in (req.x, req.ops.norm_adj):
+        assert t.device.type == "cuda"
+        assert (t.data_ptr(), dispatch) in recorded
+    eng._execute_batch([req])
+    assert req.preds is not None and req.preds.shape == (500,)

@@ -37,6 +37,7 @@ from repro_torch.core import models as tmodels
 from repro_torch.data import graphs as tdata
 from repro_torch.runtime import cache as tcache
 from repro_torch.runtime import gnn_server as tserve
+from repro_torch.runtime.clock import Clock
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 IN_FEATS, HIDDEN, HEADS, CLASSES = 16, 16, 4, 4
@@ -382,6 +383,26 @@ def test_update_delta_matches_reference(case, monkeypatch):
 _ENGINES = {}
 
 
+class _ModelOrderClock(Clock):
+    """Virtual time in which a GraSp batch costs less than a dense one,
+    the order the cost model gives the clustered graphs. The backend rule
+    takes the latency bank's measured dense/GraSp pair once both have
+    served at a bucket (the `auto` engine serves dense int8 batches too),
+    so on the wall clock the routing would follow the CPU's timing."""
+
+    def __init__(self):
+        self._now = 0.0
+
+    def now(self) -> float:
+        return self._now
+
+    def sleep(self, seconds: float) -> None:
+        self._now += seconds
+
+    def on_batch(self, key, span=None) -> None:
+        self._now += 1e-3 if key[3] == "grasp" else 2e-3
+
+
 def _engine(kind):
     """Warm module-scope port engines, one per kind (an `auto` GCN on a
     (256, 1024) ladder for the GraSp re-derive), each QuantGr tier
@@ -390,7 +411,7 @@ def _engine(kind):
         buckets = (256, 1024) if kind == "auto" else (128, 256)
         eng = tserve.GraphServe(tserve.GraphServeConfig(
             ladder=tg.BucketLadder(buckets=buckets), batch_slots=SLOTS,
-            return_logits=True), device="cpu")
+            return_logits=True), clock=_ModelOrderClock(), device="cpu")
         base = "gcn" if kind == "auto" else kind
         eng.register_model(kind, _cfg(base), tiers=("fp32", "int8"),
                            agg_backend="auto" if kind == "auto" else "dense",

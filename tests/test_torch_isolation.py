@@ -46,7 +46,8 @@ def test_port_file_list_covers_every_slice():
             "core/quant.py", "kernels/gat_attention.py",
             "kernels/sage_max.py", "kernels/fused_layers.py",
             "kernels/flash_attention.py", "runtime/gnn_server.py",
-            "runtime/server.py", "launch/serve.py", "configs/smollm_135m.py",
+            "runtime/server.py", "runtime/ewma.py", "runtime/slo.py",
+            "runtime/scheduler.py", "launch/serve.py", "configs/smollm_135m.py",
             "nn/config.py", "nn/common.py", "nn/mlp.py", "nn/attention.py",
             "nn/transformer.py", "nn/lm.py"} <= names
 
@@ -92,6 +93,40 @@ def test_cpu_gat_forward_leaves_jax_unloaded():
 @pytest.mark.parametrize("aggregator", ["mean", "max"])
 def test_cpu_sage_forward_leaves_jax_unloaded(aggregator):
     _serve_on_cpu_without_jax("sage", aggregator)
+
+
+def test_cpu_pipeline_leaves_jax_unloaded():
+    """The threaded scheduler with an SLO governor, deadlines and a
+    tolerance on the CPU, in a fresh process: it serves and loads no JAX
+    or reference module."""
+    code = (
+        "import sys\n"
+        "from repro_torch.core.graph import BucketLadder\n"
+        "from repro_torch.core.models import GNNConfig\n"
+        "from repro_torch.data.graphs import planetoid_like\n"
+        "from repro_torch.runtime.gnn_server import GraphServe, "
+        "GraphServeConfig\n"
+        "from repro_torch.runtime.scheduler import PipelineConfig\n"
+        "from repro_torch.runtime.slo import SLOConfig\n"
+        "eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128,)), "
+        "batch_slots=2), slo=SLOConfig(), device='cpu')\n"
+        "eng.register_model('m', GNNConfig(kind='gcn', in_feats=16, "
+        "hidden=8, num_classes=3), tiers=('fp32', 'int8'))\n"
+        "eng.warmup()\n"
+        "g = planetoid_like(num_nodes=50, num_edges=120, num_feats=16, "
+        "num_classes=3, train_per_class=2)\n"
+        "eng.calibrate('m', g)\n"
+        "with eng.scheduler(PipelineConfig(host_workers=2)) as s:\n"
+        "    s.submit(g, model='m', deadline_ms=6e4)\n"
+        "    s.submit(g, model='m', tolerance=100.0)\n"
+        "    out = s.drain(timeout=60)\n"
+        "assert [r.preds.shape for r in out] == [(50,)] * 2\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_cpu_lm_serve_leaves_jax_unloaded():
