@@ -24,7 +24,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 13
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 14
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -155,7 +155,35 @@ last line; there is no CPU path):
      bucket; and an `auto` GCN, after serving Cora dense and clustered
      graphs through fused_gcn_grasp, decides from the measured dense/GraSp
      pair, each decision printed beside the model's;
-  11. flash — `flash_attention` against its plain version
+  11. shard — multi-device GraphSplit on one card, the shard axis a
+     leading tensor dimension: clustered graphs (128-node communities, a
+     tenth of the edges across) of 10,000 nodes for the Cora GCN (4 x 3072,
+     full_rows 12288) and 5,000 for the Cora GAT and SAGE (2 x 3072) on
+     ladder (1024, 3072) with shard counts (2, 4). Prints the partitioner's
+     host ms, cut edges and halo nodes (multilevel and greedy) and the
+     slice build's host and device ms; then a GraphServe with
+     `halo_compress=False` and `replica_groups=2` serves `gcn` (default
+     techniques) and, with `use_pallas`, `gcn_mm`, `gat_mm`,
+     `sage_max_mm` (GrAx3: the rectangular sage_max) and `sage_mean_mm`,
+     fp32 and int8 each, a second fp32 query of each `use_pallas` model
+     filling its second replica row. With every launch count set to 0
+     just before, the launches of block_matmul, int8_matmul and sage_max
+     must equal the batch log's (and be nonzero); every answer must meet
+     TOL against the plain single-device forward at full_rows (GAT and
+     SAGE int8 layer by layer), each replica row equal its single-replica
+     dispatch bit for bit, and the halo counters their formula. The int8
+     wire: every exchanged element within scale/2 of the exact exchange
+     (the worst ratio printed) and the logits within 0.05; one dispatch's
+     CUDA-event ms split into the exchanges and the rest, beside the
+     plain unsharded forward at full_rows and `modelled_sharded_latency`.
+     The rectangular sage_max against its plain version, timed; the same
+     sharded requests through the pipeline scheduler, bit for bit; a
+     mixed sharded/unsharded burst (`assert_warm()`); `update()` growing
+     a 2,000-node graph into 2 x 3072 and shrinking it back; and one
+     `update_delta` on the 4 x 3072 graph whose slices and logits must
+     equal a sharded rebuild under the kept partition bit for bit, with
+     the delta-halo counters equal to their formula;
+  12. flash — `flash_attention` against its plain version
      (`flash_attention_ref`) in fp32 and bf16, each case through the route
      it takes (bf16 at head dim 64 and 128: the wgmma/TMA kernel; fp32 and
      head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
@@ -164,7 +192,7 @@ last line; there is no CPU path):
      65 and 129, gemma2's heads (32 over 16 of 128) with window 64 and
      softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
      may reach (at head dim 64 and 128), and head_dim 32;
-  12. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
+  13. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
      warm-up wave per bucket, 12 requests of 16 new tokens (one wave per
@@ -175,7 +203,7 @@ last line; there is no CPU path):
      wave's prefill logits must match a rerun with the plain attention
      (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
      token per bucket, decode ms per step and tokens/s;
-  13. times — CUDA-event times of each kernel, its plain version and the
+  14. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the dense and GraSp aggregation times per bucket queued
@@ -240,6 +268,9 @@ from repro_torch.core import costs  # noqa: E402
 from repro_torch.core import layers as glayers  # noqa: E402
 from repro_torch.core import models as gmodels  # noqa: E402
 from repro_torch.core.quant import apply_quantized_linear  # noqa: E402
+from repro_torch.core.partition import (  # noqa: E402
+    modelled_sharded_latency, partition_for_ladder)
+from repro_torch.dist.compress import INV_INT8_MAX  # noqa: E402
 from repro_torch.core.models import (OPERAND_FIELDS,  # noqa: E402
                                      build_materializer, build_operands,
                                      calibrate_tier, compact_operands,
@@ -2240,6 +2271,584 @@ def pipeline_phase(dev, card, cfg, params, cora, others):
     return rows
 
 
+# [shard]: the sharded configurations on ladder (1024, 3072) with shard
+# counts (2, 4). Clustered graphs of 128-node communities with a tenth of
+# their edges across the whole graph: the Cora GCN's 10,000 nodes
+# partition as 4 x 3072 (full_rows 12288), the GAT's and SAGE's 5,000 as
+# 2 x 3072; the update() crossing starts from 2,000 nodes (unsharded)
+SHARD_COUNTS = (2, 4)
+SHARD_GCN_NODES, SHARD_NODES, SHARD_SMALL_NODES = 10000, 5000, 2000
+# the kernels of the sharded path with `use_pallas`: block_matmul (#1),
+# int8_matmul (#2) and the rectangular sage_max (#5)
+SHARD_KERNELS = ("block_matmul", "int8_matmul", "sage_max")
+# each sharded forward's launches by (kind[/aggregator], quantgr): one per
+# product of the (R*S)-batched layer (GCN: X.W and the aggregation; GAT:
+# X.W and one attention product a head; SAGE: the pool combine and the
+# masked max (max), or the mean product, then the self and neighbour
+# combines, int8 where the tier quantizes them), both layers
+SHARD_LAUNCHES = {
+    ("gcn", False): {"block_matmul": 4},
+    ("gcn", True): {"int8_matmul": 4},
+    ("gat", False): {"block_matmul": (1 + GAT_HEADS) + (1 + 1)},
+    ("gat", True): {"int8_matmul": 2, "block_matmul": GAT_HEADS + 1},
+    ("sage/max", False): {"block_matmul": 6, "sage_max": 2},
+    ("sage/max", True): {"int8_matmul": 6, "sage_max": 2},
+    ("sage/mean", False): {"block_matmul": 6},
+    ("sage/mean", True): {"block_matmul": 2, "int8_matmul": 4},
+}
+
+
+def shard_graph(n):
+    return clustered_like(num_nodes=n, num_feats=1433, num_classes=7,
+                          within_density=0.05, cross_frac=0.1, seed=n)
+
+
+def shard_tiers(kind):
+    """The `use_pallas` tiers of a sharded model: fp32 and int8 (SAGE with
+    GrAx3, so its masked max runs the sage_max kernel)."""
+    std = gserver.tier_techniques(kind)
+    fp32, int8 = std["fp32"], std["int8"]
+    if kind == "sage":
+        fp32 = dataclasses.replace(fp32, grax3=True)
+        int8 = dataclasses.replace(int8, grax3=True)
+    return {"fp32": dataclasses.replace(fp32, use_pallas=True),
+            "int8": dataclasses.replace(int8, use_pallas=True)}
+
+
+def unslot(t, part):
+    """A (1?, S, C, w) slot-ordered tensor -> (full_rows, w) in node order
+    (padding rows at their padded positions), on its device."""
+    flat = t.reshape(part.full_rows, -1)
+    out = torch.empty_like(flat)
+    out[torch.from_numpy(part.perm).to(t.device)] = flat
+    return out
+
+
+def shard_plain(e, tier, pg, dev, cache):
+    """The plain single-device forward of a padded graph at its full_rows
+    on the card: host-built operands, the tier's Techniques without
+    `use_pallas` (cuBLAS and the plain PyTorch ops), kept per (model,
+    tier, graph)."""
+    key = (id(e), tier, pg.num_nodes, pg.capacity)
+    if key not in cache:
+        ops = build_operands(pg, e.cfg, device=dev)
+        t = dataclasses.replace(e.tiers[tier], use_pallas=False)
+        x = torch.from_numpy(pg.features).to(dev)
+        cache[key] = (ops, t, x, gmodels.forward_grannite(
+            e.params, e.cfg, x, ops, t,
+            quant=e.calibrations.get(tier) if t.quantgr else None))
+    return cache[key]
+
+
+def shard_check_request(r, e, dev, cache):
+    """One sharded request's logits against the plain single-device
+    forward at full_rows (TOL, argmax equal outside ties). A QuantGr GAT
+    or SAGE request layer by layer, as PERF.md section 2 holds them: the
+    served layer 1 (`sharded_layer`) against the plain layer 1, then the
+    logits against the plain layer 2 over the served layer 1. Returns the
+    largest error."""
+    n, part, cfg = r.pg.num_nodes, r.part, e.cfg
+    ops, t, x, plain = shard_plain(e, r.tier, r.pg, dev, cache)
+    got = torch.from_numpy(r.logits)
+    check(r.logits.shape == (n, cfg.num_classes)
+          and np.isfinite(r.logits).all(),
+          f"sharded request {r.uid}: logits missing, misshapen or not finite")
+    if t.quantgr and cfg.kind != "gcn":
+        cal = e.calibrations[r.tier]
+        act = (torch.nn.functional.elu if cfg.kind == "gat"
+               else torch.relu)
+        h1_k = act(gmodels.sharded_layer(
+            e.params, cfg, r.shard_x[None], gmodels.GranniteOperands(
+                **{f: getattr(r.ops, f)[None]
+                   for f in OPERAND_FIELDS[cfg.kind]}),
+            r.shard_mask[None], e.tiers[r.tier], cal, layer=1,
+            compress=False))
+        h1_k = unslot(h1_k, part)
+        if cfg.kind == "gat":
+            kw = dict(heads=cfg.heads, out_feats=cfg.hidden // cfg.heads)
+            h1 = act(glayers.gat_grannite(e.params["l1"], x, ops.mask_mult,
+                                          ops.bias_add, t, quant=cal["l1"],
+                                          **kw))
+            ref = glayers.gat_grannite(e.params["l2"], h1_k, ops.mask_mult,
+                                       ops.bias_add, t, heads=1,
+                                       out_feats=cfg.num_classes,
+                                       quant=cal["l2"])
+        else:
+            kw = dict(aggregator=cfg.aggregator)
+            h1 = act(glayers.sage_grannite(e.params["l1"], x,
+                                           ops.sample_mask, ops.mean_mask, t,
+                                           quant=cal["l1"], **kw))
+            ref = glayers.sage_grannite(e.params["l2"], h1_k,
+                                        ops.sample_mask, ops.mean_mask, t,
+                                        quant=cal["l2"], **kw)
+        d1 = (h1_k - h1)[:n].abs().max().item()
+        check(d1 <= TOL["atol"], f"sharded request {r.uid} ({r.model} "
+              f"{r.tier}): layer 1 differs from the plain one by {d1}")
+        ref = ref[:n].cpu()
+    else:
+        ref = plain[:n].cpu()
+    d = (got - ref).abs().max().item()
+    torch.testing.assert_close(got, ref, **TOL)
+    top2 = ref.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= TOL["atol"]
+    check(bool((torch.from_numpy(r.preds) == ref.argmax(-1))[~tie].all()),
+          f"sharded request {r.uid}: argmax differs from the plain forward")
+    return d
+
+
+def shard_dispatch_parts(e, tier, r, dev, iters=5):
+    """CUDA-event ms of one sharded dispatch of request r (a
+    single-replica plan, compression off and on), and of its two halo
+    exchanges alone on the layers' real inputs: the rest is the
+    products."""
+    cfg, part, t = e.cfg, r.part, e.tiers[tier]
+    quant = e.calibrations.get(tier) if t.quantgr else None
+    x, ops, mask = r.shard_x[None], gmodels.GranniteOperands(
+        **{f: getattr(r.ops, f)[None] for f in OPERAND_FIELDS[cfg.kind]}), \
+        r.shard_mask[None]
+    # the exchanged rows of both layers, as the layers form them
+    ins = []
+    h = x
+    for layer in (1, 2):
+        if cfg.kind == "gcn":
+            w = e.params[f"l{layer}"]["w"]
+            ins.append(kops.matmul(h.reshape(-1, *h.shape[2:]), w)
+                       .reshape(*h.shape[:3], -1))
+        else:
+            ins.append(h)
+        if layer == 1:
+            h = torch.relu(gmodels.sharded_layer(
+                e.params, cfg, x, ops, mask, t, quant, layer=1,
+                compress=False))
+    out = {}
+    for compress in (False, True):
+        plan = gmodels.build_sharded_plan(cfg, part.shard_cap, part.shards,
+                                          t, compress=compress, device=dev)
+        out[compress] = dict(
+            dispatch=time_ms(lambda: plan(e.params, r.shard_x, r.ops, quant,
+                                          node_mask=r.shard_mask),
+                             iters=iters),
+            exchange=time_ms(lambda: [gmodels.halo_exchange(
+                v, mask, compress=compress) for v in ins], iters=iters))
+    return out, ins, mask
+
+
+def shard_phase(dev, card, cfg, params, gcfg, gparams, scfg, sparams, cora):
+    """[shard]: multi-device GraphSplit on one card (the shard axis a
+    leading tensor dimension): the partitioner, the slice build, sharded
+    serving of the Cora GCN (4 x 3072), GAT and SAGE (2 x 3072) against
+    the plain single-device forward, the int8 wire, replica rows,
+    update() across the boundary both ways, a sharded update_delta
+    against a sharded rebuild, the counters, and the times. Returns the
+    sharded path's launches of SHARD_KERNELS and the rectangular
+    sage_max's times."""
+    t_phase = time.perf_counter()
+    ladder = BucketLadder(buckets=LADDER)
+    cap = LADDER[-1]
+    big, mid, small = (shard_graph(n) for n in (
+        SHARD_GCN_NODES, SHARD_NODES, SHARD_SMALL_NODES))
+    parts = {}
+    for label, g in (("GCN", big), ("GAT/SAGE", mid)):
+        for method in ("multilevel", "greedy"):
+            t0 = time.perf_counter()
+            part = partition_for_ladder(g.edge_index, g.num_nodes, ladder,
+                                        SHARD_COUNTS, method=method)
+            ms = (time.perf_counter() - t0) * 1e3
+            parts[(label, method)] = part
+            print(f"[shard] partition, {label} graph of {g.num_nodes} nodes "
+                  f"and {g.edge_index.shape[1]} edges, {method}: "
+                  f"{part.shards} x {part.shard_cap} (full_rows "
+                  f"{part.full_rows}), {ms:.1f} host ms, cut_edges "
+                  f"{part.cut_edges}, halo nodes {part.halo_nodes}, loads "
+                  f"{part.loads.tolist()}", flush=True)
+    check((parts[("GCN", "multilevel")].shards,
+           parts[("GAT/SAGE", "multilevel")].shards) == (4, 2),
+          "the sharded graphs did not partition as 4 and 2 x 3072")
+
+    eng = GraphServe(GraphServeConfig(
+        ladder=ladder, batch_slots=SLOTS, return_logits=True,
+        shard_counts=SHARD_COUNTS, halo_compress=False, replica_groups=2),
+        seed=0, device=dev)
+    eng.register_model("gcn", cfg, params, tiers=("fp32", "int8"))
+    models = {"gcn_mm": (cfg, params), "gat_mm": (gcfg, gparams),
+              "sage_max_mm": (scfg["max"], sparams["max"]),
+              "sage_mean_mm": (scfg["mean"], sparams["mean"])}
+    for name, (c, p) in models.items():
+        eng.register_model(name, c, p, tiers=shard_tiers(c.kind))
+    for name in eng.models:
+        eng.calibrate(name, cora)
+    t0 = time.perf_counter()
+    blobs = eng.warmup()
+    print(f"[shard] warmup (every plan at buckets {LADDER} and shard counts "
+          f"{SHARD_COUNTS}, replica_groups 2): {blobs} signatures in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    gids = {name: eng.attach(big if name.startswith("gcn") else mid,
+                             model=name)
+            for name in eng.models}
+    for name, gid in gids.items():
+        part = eng._sharded[gid][0]
+        want = parts[("GCN" if name.startswith("gcn") else "GAT/SAGE",
+                      "multilevel")]
+        check(np.array_equal(part.perm, want.perm),
+              f"{name}: attach() partitioned otherwise")
+
+    # the slice build of the 4-shard GCN graph, by piece: the host's
+    # padding, edge keys and compact form, then the card's materializer
+    # and the two permuting gathers (CUDA events)
+    part = eng._sharded[gids["gcn_mm"]][0]
+    t0 = time.perf_counter()
+    pg_big = pad_graph(big, capacity=part.full_rows)
+    pad_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    keys = adjacency_keys(big.edge_index, part.full_rows)
+    ho = gmodels.prepare_host_operands(pg_big, cfg, keys=keys, device=dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    ops_full = materialize_operands(ho.compact.to(dev))
+    ev[1].record()
+    perm = torch.from_numpy(part.perm).to(dev)
+    blocks = ops_full.norm_adj.index_select(0, perm).index_select(1, perm)
+    ev[2].record()
+    ev[2].synchronize()
+    print(f"[shard] slice build, GCN 4 x 3072: host pad_graph {pad_ms:.1f} "
+          f"ms (its dense Â and adjacency; GraphServe pads at attach), edge "
+          f"keys and compact form {host_ms:.1f} ms ({ho.nbytes} bytes); "
+          f"device materializer {ev[0].elapsed_time(ev[1]):.3f} ms, "
+          f"permutation {ev[1].elapsed_time(ev[2]):.3f} ms (CUDA events); "
+          f"{card}", flush=True)
+    del ops_full, blocks, pg_big, ho
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sharded burst: each model and tier once, and a second fp32
+    # query of each use_pallas model, so those keys dispatch two replica
+    # rows at once; the counts set to 0 just before
+    m0 = {k: eng.metrics[k] for k in eng.metrics if not isinstance(
+        eng.metrics[k], list)}
+    reset_launches()
+    t0 = time.perf_counter()
+    uids = []
+    for name, gid in gids.items():
+        for tier in ("fp32", "int8"):
+            uids.append(eng.query(gid, tier=tier))
+        if name != "gcn":
+            uids.append(eng.query(gid, tier="fp32"))
+    done = {r.uid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    launched = launches_now()
+    reqs = [done[u] for u in uids]
+    keys_n = Counter((r.model, r.tier) for r in reqs)
+    want = dict.fromkeys(COUNTERS, 0)
+    for (name, tier), n_req in keys_n.items():
+        e = eng.models[name]
+        if not e.tiers[tier].use_pallas:
+            continue
+        kind = (e.cfg.kind if e.cfg.kind != "sage"
+                else f"sage/{e.cfg.aggregator}")
+        for k, v in SHARD_LAUNCHES[(kind, e.tiers[tier].quantgr)].items():
+            want[k] += v * -(-n_req // 2)
+    check(launched == want, f"[shard] launches {launched} != the batch "
+          f"log's {want}")
+    check(all(launched[k] > 0 for k in SHARD_KERNELS),
+          f"[shard] a kernel of {SHARD_KERNELS} did not launch: {launched}")
+    s = eng.summary()
+    sharded = s["sharded_batches"] - m0["sharded_batches"]
+    check(sharded == sum(-(-n // 2) for n in keys_n.values()),
+          f"[shard] {sharded} sharded batches")
+    print(f"[shard] burst of {len(reqs)} sharded requests in {sharded} "
+          f"dispatches ({burst_s:.2f} s wall, slice builds included); "
+          f"launches {dict((k, launched[k]) for k in SHARD_KERNELS)}",
+          flush=True)
+
+    # logits: every request against the plain single-device forward
+    cache = {}
+    err = 0.0
+    for r in reqs:
+        check(r.shards == eng._sharded[gids[r.model]][0].shards
+              and r.bucket == cap, f"request {r.uid}: not sharded")
+        err = max(err, shard_check_request(r, eng.models[r.model], dev,
+                                           cache))
+    print(f"[shard] logits of all {len(reqs)} sharded requests match the "
+          f"plain single-device forward at full_rows (max_abs_err "
+          f"{err:.3e}; rtol={TOL['rtol']} atol={TOL['atol']}; GAT and SAGE "
+          f"int8 layer by layer)", flush=True)
+
+    # replica rows: each equals its single-replica dispatch bit for bit
+    rep_keys = [k for k, n in keys_n.items() if n == 2]
+    for name, tier in rep_keys:
+        e = eng.models[name]
+        t = e.tiers[tier]
+        rows = [r for r in reqs if (r.model, r.tier) == (name, tier)]
+        plan1 = gmodels.build_sharded_plan(
+            e.cfg, cap, rows[0].shards, t, compress=False, device=dev)
+        for r in rows:
+            one = gmodels.unshard_logits(plan1(
+                e.params, r.shard_x, r.ops, e.calibrations.get(tier),
+                node_mask=r.shard_mask), r.part)
+            check(np.array_equal(one, r.logits), f"{name} {tier}: a replica "
+                  f"row differs from its single-replica dispatch")
+    print(f"[shard] replica rows bit-equal to single-replica dispatches: "
+          f"{rep_keys}", flush=True)
+
+    # the counters: halo bytes of every real request (exact wire here)
+    want_c = want_x = 0
+    for r in reqs:
+        widths = gmodels.sharded_exchange_widths(eng.models[r.model].cfg)
+        elems = sum(r.part.full_rows * w for w in widths)
+        c_ = int(2.0 * (r.part.shards - 1) / r.part.shards * elems)
+        want_c += c_
+        want_x += 4 * c_
+    got_c = (s["collective_bytes_compressed"]
+             - m0["collective_bytes_compressed"],
+             s["collective_bytes_exact"] - m0["collective_bytes_exact"],
+             s["halo_bytes_exchanged"] - m0["halo_bytes_exchanged"])
+    check(got_c == (want_c, want_x, want_x), f"[shard] halo counters "
+          f"{got_c} != {(want_c, want_x, want_x)}")
+    print(f"[shard] halo bytes: int8 wire {want_c}, exact {want_x} "
+          f"(halo_bytes_exchanged, compression off) over {len(reqs)} "
+          f"requests: equal to the formula", flush=True)
+
+    # the int8 wire: each exchanged element within scale/2 of the exact
+    # exchange, and the logits within the reference's 0.05
+    worst, wire_err = 0.0, 0.0
+    for name in ("gcn_mm", "gat_mm", "sage_max_mm", "sage_mean_mm"):
+        e = eng.models[name]
+        r = next(r for r in reqs if (r.model, r.tier) == (name, "fp32"))
+        parts_ms, ins, mask = shard_dispatch_parts(e, "fp32", r, dev,
+                                                   iters=3)
+        for v in ins:
+            exact = gmodels.halo_exchange(v, mask, compress=False)
+            wire = gmodels.halo_exchange(v, mask, compress=True)
+            scale = torch.clamp_min(exact.abs().amax(), 1e-12) \
+                * INV_INT8_MAX
+            ratio = ((wire - exact).abs().max() / (scale / 2)).item()
+            worst = max(worst, ratio)
+            # scale/2, plus the float32 rounding of q * scale (at most an
+            # ulp of 127 scale, 3e-5 of a half step)
+            check(ratio <= 1.0 + 1e-4, f"{name}: an exchanged element is "
+                  f"{ratio} half-steps from the exact one")
+        plan_w = gmodels.build_sharded_plan(e.cfg, cap, r.shards,
+                                            e.tiers["fp32"], compress=True,
+                                            device=dev)
+        lw = gmodels.unshard_logits(plan_w(e.params, r.shard_x, r.ops, None,
+                                           node_mask=r.shard_mask), r.part)
+        d = float(np.abs(lw - r.logits).max())
+        wire_err = max(wire_err, d)
+        check(d <= 0.05, f"{name}: int8-wire logits {d} from the exact "
+              f"exchange's")
+        am = float((lw.argmax(-1) == r.logits.argmax(-1)).mean())
+        print(f"[shard] {name} fp32 {r.shards} x {cap}: one dispatch "
+              f"{parts_ms[False]['dispatch']:.3f} ms, of which the two "
+              f"exchanges {parts_ms[False]['exchange']:.3f} ms and the "
+              f"products and the rest "
+              f"{parts_ms[False]['dispatch'] - parts_ms[False]['exchange']:.3f}"
+              f" ms; int8 wire: {parts_ms[True]['dispatch']:.3f} ms, "
+              f"exchanges {parts_ms[True]['exchange']:.3f} ms; wire logits "
+              f"max_abs_err {d:.3e}, argmax equal on {am:.4f} of nodes "
+              f"(CUDA events; {card})", flush=True)
+    print(f"[shard] int8 wire: worst exchanged element {worst:.4f} of "
+          f"scale/2 from the exact exchange; logits within {wire_err:.3e} "
+          f"(bar 0.05)", flush=True)
+
+    # the plain single-device forward at the same full_rows, beside the
+    # sharded latency model
+    e = eng.models["gcn_mm"]
+    part = eng._sharded[gids["gcn_mm"]][0]
+    ops, t, x, _ = shard_plain(e, "fp32", eng.graphs[gids["gcn_mm"]][1], dev,
+                               cache)
+    plain_ms = time_ms(lambda: gmodels.forward_grannite(e.params, e.cfg, x,
+                                                        ops, t), iters=3)
+    kern_ms = time_ms(lambda: gmodels.forward_grannite(
+        e.params, e.cfg, x, ops, e.tiers["fp32"]), iters=3)
+    widths = gmodels.sharded_exchange_widths(e.cfg)
+    model_ms = {c: 1e3 * partition_model(part, e.cfg, widths, c)
+                for c in (False, True)}
+    print(f"[shard] GCN fp32 at full_rows {part.full_rows} on one card "
+          f"unsharded: plain forward (cuBLAS) {plain_ms:.3f} ms, with "
+          f"block_matmul {kern_ms:.3f} ms (CUDA events); modelled sharded "
+          f"latency across {part.shards} cards {model_ms[False]:.4f} ms "
+          f"exact, {model_ms[True]:.4f} ms int8 wire (core/costs.py; a "
+          f"model, not a measurement); {card}", flush=True)
+    cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the rectangular sage_max: one 2 x 3072 SAGE-max graph's layer-1 row
+    # blocks against its pooled features, against the plain version
+    r = next(r for r in reqs if (r.model, r.tier) == ("sage_max_mm", "fp32"))
+    e = eng.models["sage_max_mm"]
+    v_full = gmodels.halo_exchange(r.shard_x[None], r.shard_mask[None],
+                                   compress=False)
+    pooled = torch.relu(kops.matmul(v_full, e.params["l1"]["w_pool"])
+                        + e.params["l1"]["b_pool"])
+    pooled = pooled.expand(r.shards, *pooled.shape[1:]).contiguous()
+    rect = (r.ops.sample_mask.contiguous(), pooled)
+    before = sm.LAUNCHES
+    got = sm.sage_max(*rect)
+    check(sm.LAUNCHES == before + 1, "rectangular sage_max: no launch")
+    check(torch.equal(got, sm.sage_max_plain(*rect)),
+          "rectangular sage_max differs from its plain version")
+    ops_w, bytes_w = walk_work(rect[0], rect[1].shape[-1])
+    b_ms, b_by = bound(ops_w, bytes_w)
+    rect_row = dict(rect_shape=[list(rect[0].shape), list(rect[1].shape)],
+                    rect_ms=time_ms(lambda: sm.sage_max(*rect)),
+                    rect_plain_ms=time_ms(lambda: sm.sage_max_plain(*rect),
+                                          iters=3),
+                    rect_device_ms=queued_ms(lambda: sm.sage_max(*rect)),
+                    rect_bound_ms=b_ms, rect_bound_by=b_by)
+    print(f"[shard] sage_max rectangular {tuple(rect[0].shape)} @ "
+          f"{tuple(rect[1].shape)}: equal to the plain version; kernel "
+          f"{rect_row['rect_ms']:.4f} ms, queued "
+          f"{ms_or_not(rect_row['rect_device_ms'])}, plain "
+          f"{rect_row['rect_plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+          f"; {card}", flush=True)
+    del rect, pooled, v_full, got
+    shard_launches = {k: launched[k] for k in SHARD_KERNELS}
+
+    # the same sharded requests through the pipeline scheduler, each
+    # answer bit for bit the sync one's
+    sync = {(r.model, r.tier): r.logits for r in reqs
+            if r.model in ("gcn_mm", "sage_max_mm")}
+    with eng.scheduler(PipelineConfig(host_workers=2,
+                                      window_ms=2.0)) as sched:
+        for name, tier in sync:
+            sched.query(gids[name], tier=tier)
+        got = sched.drain(timeout=600)       # in ticket order
+    for k, r in zip(sync, got):
+        check(r.shards > 0 and np.array_equal(r.logits, sync[k]),
+              f"{k}: the pipeline's sharded answer differs from the sync one")
+    print(f"[shard] pipeline (2 host workers): {len(got)} sharded answers "
+          f"bit-equal to the sync path's", flush=True)
+
+    # a mixed sharded/unsharded burst replays warm
+    gid_cora = eng.attach(cora, model="gcn_mm")
+    for tier in ("fp32", "int8"):
+        eng.query(gid_cora, tier=tier)
+        eng.query(gids["gcn_mm"], tier=tier)
+        eng.query(gids["sage_max_mm"], tier=tier)
+    eng.run()
+    eng.assert_warm()
+    print("[shard] mixed sharded/unsharded burst: assert_warm() holds",
+          flush=True)
+
+    # update() across the sharding boundary, both ways
+    gid_x = eng.attach(small, model="gcn_mm")
+    check(gid_x not in eng._sharded, "the 2,000-node graph sharded")
+    rb0 = eng.metrics["rebucket_events"]
+    check(eng.update(gid_x, mid.edge_index, mid.num_nodes, mid.features),
+          "growing past 3072 is a rebucket")
+    check(eng.summary()["shard_counts"].get(gid_x) == 2,
+          "the grown graph is not sharded 2 ways")
+    u1 = eng.query(gid_x)
+    eng.run()
+    r1 = next(r for r in eng.finished if r.uid == u1)
+    shard_check_request(r1, eng.models["gcn_mm"], dev, cache)
+    check(eng.update(gid_x, small.edge_index, small.num_nodes,
+                     small.features), "shrinking back is a rebucket")
+    check(gid_x not in eng.summary()["shard_counts"],
+          "the shrunk graph is still sharded")
+    u2 = eng.query(gid_x)
+    eng.run()
+    r2 = next(r for r in eng.finished if r.uid == u2)
+    check(r2.shards == 0 and r2.bucket == cap, "the shrunk graph's query "
+          "is not an unsharded top-bucket request")
+    ref = gcn_plain(r2, params, dev)
+    torch.testing.assert_close(torch.from_numpy(r2.logits), ref, **TOL)
+    check(eng.metrics["rebucket_events"] - rb0 == 2, "rebucket_events")
+    eng.assert_warm()
+    print("[shard] update(): 2,000 -> 5,000 nodes into 2 x 3072 and back, "
+          "two rebuckets, answers against the plain forward", flush=True)
+    cache.clear()
+
+    # a GrAd delta on the 4-shard graph: patched slices and logits equal a
+    # sharded build of the patched structure under the kept partition
+    gid = gids["gcn_mm"]
+    part = eng._sharded[gid][0]
+    pg0 = eng.graphs[gid][1]
+    n = pg0.num_nodes
+    a = part.assignment
+    rng = np.random.default_rng(30)
+    keys0 = eng._graph_keys[gid]
+    row, col = np.divmod(keys0, part.full_rows)
+    cross = np.flatnonzero((row < col) & (a[row % n] != a[col % n])
+                           & (row < n) & (col < n))
+    rm = np.stack([row, col], 1)[rng.choice(cross, 2, replace=False)]
+    add = []
+    while len(add) < 4:
+        u, v = (int(z) for z in rng.integers(0, n, 2))
+        if a[u] != a[v] and pg0.adj[u, v] == 0:
+            add.append((min(u, v), max(u, v)))
+    delta = apply_edge_delta(pg0.adj, pg0.norm_adj, n, add, rm)
+    dirty = delta.boundary_rows(a, n)
+    d0 = {k: eng.metrics[k] for k in ("delta_updates",
+                                      "delta_halo_bytes_exchanged",
+                                      "delta_halo_bytes_full",
+                                      "delta_dirty_rows")}
+    t0 = time.perf_counter()
+    check(eng.update_delta(gid, add_edges=add, remove_edges=rm),
+          "the sharded delta fell back")
+    delta_ms = (time.perf_counter() - t0) * 1e3
+    ver = eng._graph_version[gid]
+    patched = eng._shard_cache[(gid, ver)]
+    part2, g2 = eng._sharded[gid]
+    check(np.array_equal(part2.perm, part.perm), "the delta re-partitioned")
+    rebuilt = gmodels.build_sharded_operands(
+        g2, part2, cfg, pg=eng.graphs[gid][1], keys=eng._graph_keys[gid],
+        device=dev)
+    for sa, sb in zip(patched, rebuilt):
+        check(torch.equal(sa.ops.norm_adj, sb.ops.norm_adj)
+              and torch.equal(sa.x, sb.x)
+              and torch.equal(sa.node_mask, sb.node_mask),
+              "a patched slice differs from the sharded rebuild")
+    xr, opr, mr = gmodels.stack_shard_slices(rebuilt)
+    for tier in ("fp32", "int8"):
+        u = eng.query(gid, tier=tier)
+        eng.run()
+        r = next(r for r in eng.finished if r.uid == u)
+        e = eng.models["gcn_mm"]
+        plan = gmodels.build_sharded_plan(cfg, part.shard_cap, part.shards,
+                                          e.tiers[tier], compress=False,
+                                          device=dev)
+        want_l = gmodels.unshard_logits(plan(
+            e.params, xr, opr, e.calibrations.get(tier), node_mask=mr), part)
+        check(np.array_equal(r.logits, want_l), f"delta {tier}: logits "
+              f"differ from the sharded rebuild's")
+    full = part.full_rows
+    want_d = (1, int(2.0 * (part.shards - 1) / part.shards
+                     * len(dirty) * (full + 1) * 4),
+              int(2.0 * (part.shards - 1) / part.shards
+                  * (full * full + full) * 4), len(dirty))
+    got_d = tuple(eng.metrics[k] - d0[k] for k in d0)
+    check(got_d == want_d, f"delta counters {got_d} != {want_d}")
+    eng.assert_warm()
+    print(f"[shard] update_delta on the 4 x 3072 graph ({len(add)} adds, "
+          f"{len(rm)} removes across shards, {len(dirty)} boundary-dirty "
+          f"rows): slices and fp32/int8 logits bit-equal to a sharded "
+          f"rebuild under the kept partition; delta-halo bytes "
+          f"{want_d[1]} against a full re-exchange's {want_d[2]}; "
+          f"update_delta {delta_ms:.1f} host ms (the dense host patch "
+          f"included); {card}", flush=True)
+    del eng, patched, rebuilt, xr, opr, mr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[shard] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return shard_launches, rect_row
+
+
+def partition_model(part, cfg, widths, compress):
+    """core.partition.modelled_sharded_latency of the part, in seconds."""
+    return modelled_sharded_latency(part, in_feats=cfg.in_feats,
+                                    hidden=cfg.hidden,
+                                    classes=cfg.num_classes,
+                                    exchange_widths=widths,
+                                    compress=compress)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -3221,11 +3830,15 @@ def main() -> None:
     # -------------------------------------------------------- 10. pipeline
     pipeline_phase(dev, card, cfg, params, cora, others)
 
-    # ---------------------------------------------- 11-12. flash, serve-lm
+    # ----------------------------------------------------------- 11. shard
+    shard_launches, rect_row = shard_phase(dev, card, cfg, params, gcfg,
+                                           gparams, scfg, sparams, cora)
+
+    # ---------------------------------------------- 12-13. flash, serve-lm
     flash_err = flash_phase(dev)
     flash_launches, _, _ = serve_lm_phase(dev, card)
 
-    # --------------------------------------------------------- 13. times
+    # --------------------------------------------------------- 14. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -3495,6 +4108,13 @@ def main() -> None:
                "bound_by": b_by, "library_ms": tot["library_ms"],
                "per": f"one batch of {SLOTS} graphs at {CAP} nodes: "
                       + ", ".join(cases)}
+        if kernel in SHARD_KERNELS:
+            # the sharded path's launches ([shard]) join the count, and are
+            # given apart too
+            row["launches"] += shard_launches[kernel]
+            row["shard_launches"] = shard_launches[kernel]
+        if kernel == "sage_max":
+            row.update(rect_row)
         if kernel in GAT_KERNELS:
             f32_ms, f32_by = gat_bound(tot["flops"], tot["exps"],
                                        tot["bytes"], tf32=False)

@@ -7,11 +7,14 @@ cost and a launch's fixed cost; the int8 rate that, with `DENSE_RATE` and
 `HBM_BW`, prices the latency bank's modelled seed
 (`runtime.gnn_server.GraphServe._modelled_batch_s`); and the host link
 that `transfer_cost` prices for the CacheG manager's re-materialization
-tie-break (`runtime.cache`). The interconnect constants arrive with
-sharding (ROADMAP queue 1 item 11). The reference's `costs.py` models a
-TPU-v4 part; none of its numbers is copied. `agg_cost_model`,
-`transfer_cost` and the bank's seed read these names at call time, so a
-test may set them.
+tie-break (`runtime.cache`); and the terms of the GraphSplit planners
+(`core.partition`): the host's scalar rate and a gather's bytes for the
+host/device stage cut, and the card-to-card link and a collective's fixed
+cost for `modelled_sharded_latency`'s halo exchange. The reference's
+`costs.py` models a TPU-v4 part; none of its numbers is copied. Its
+`MXU_RATE` is `DENSE_RATE` here. `agg_cost_model`, `transfer_cost`, the
+bank's seed and the partition planners read these names at call time, so
+a test may set them.
 
 The four measured terms come from `chip_smoke.py`'s `[agg]` step (PERF.md
 §6; NVIDIA H100 80GB HBM3 at 700 W), on the Cora GCN's layer-1 Â @ H (F
@@ -51,6 +54,23 @@ AGG_CALL_S = 1.01e-6
 # Pageable memory reached 12.7e9 B/s there.
 HOST_LINK_BYTES_PER_S = 53.83e9
 LAUNCH_LATENCY_S = 6.08e-6
+
+# Gather/scatter bytes/s: a 4-byte random read still moves a 32-byte
+# sector of HBM, so at most an eighth of HBM_BW is useful. A modelled
+# figure, not a measurement.
+GATHER_BW = HBM_BW / 8
+# Host scalar operations per second: 8 host cores at about 3 GHz, one
+# operation a cycle. An assumption, not a measurement.
+CPU_RATE = 2.4e10
+
+# Card-to-card link that a halo exchange across shards would cross: NVLink
+# 4 of an H100 SXM, 900 GB/s both directions together (NVIDIA H100 data
+# sheet), 450 GB/s one way.
+DEVICE_LINK_BYTES_PER_S = 450e9
+# Fixed cost of one collective across cards. An assumption (a few kernel
+# launches' worth) until a multi-card run measures it; the port's one-card
+# sharded path simulates the shard axis and runs no collective.
+COLLECTIVE_LATENCY_S = 10e-6
 
 
 def transfer_cost(nbytes: int) -> float:

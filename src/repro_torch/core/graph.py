@@ -1,8 +1,8 @@
 """Graph containers and structure preprocessing (StaGr / PreG / NodePad).
 
 Host code, numpy only — a copy of the reference package's `core/graph.py`,
-GrAd's edge-delta products included (`apply_edge_delta`, without the
-sharded `boundary_rows`). The SymG/CacheG packers give the reference's
+GrAd's edge-delta products included (`apply_edge_delta`, and
+`EdgeDelta.boundary_rows` for a sharded graph). The SymG/CacheG packers give the reference's
 bytes without its O(cap²) index constants: the triangle is read row slice
 by row slice and the symmetry check compares tiles; the edge-key forms
 (`adjacency_keys`, `patch_adjacency_keys`, `keys_neighbours`) give the
@@ -437,6 +437,24 @@ class EdgeDelta:
     flip_v: np.ndarray             # (P,) float32  writes both orientations)
     touched: np.ndarray            # (T,) int32 sorted flip endpoints: the
     #                                nodes whose rows/cols changed
+
+    def boundary_rows(self, assignment: np.ndarray,
+                      num_nodes: int) -> np.ndarray:
+        """Touched nodes whose rows cross a shard boundary (DESIGN.md §15).
+
+        Against a shard `assignment` (`core.partition.GraphShards.
+        assignment`, original node ids): the sorted subset of `touched`
+        with at least one neighbour on ANOTHER shard in the PATCHED
+        adjacency, the only rows whose remote copies a sharded halo
+        exchange must refresh. A delta inside one shard returns an empty
+        set: nothing crosses between shards.
+        """
+        t = self.touched[self.touched < num_nodes]
+        if t.size == 0:
+            return t.astype(np.int32)
+        sub = self.adj[t][:, :num_nodes] != 0
+        diff = assignment[None, :num_nodes] != assignment[t][:, None]
+        return t[(sub & diff).any(axis=1)].astype(np.int32)
 
 
 def _delta_pairs(num_nodes: int, edges) -> np.ndarray:

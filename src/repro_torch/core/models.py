@@ -19,6 +19,13 @@ adjacency plus a degree vector) into the dense operands on the device.
 still says whether serving stayed on the shapes warmup saw. The pipeline
 scheduler calls the derivers from several host threads at once, so each
 count checks and adds under one lock (`_count_trace`).
+
+Sharded execution (the end of the module): a graph partitioned across S
+shards (`core.partition`) runs as S row blocks of its operands
+(`build_sharded_operands`) through a sharded plan (`build_sharded_plan`,
+`forward_grannite_sharded`), the halo exchange between layers
+(`halo_exchange`). One card holds every shard: the shard axis is a
+leading tensor dimension.
 """
 from __future__ import annotations
 
@@ -30,14 +37,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.compress import INV_INT8_MAX, quantize_wire
 from repro_torch.kernels import ops as kops
 
 from . import effop, layers, masks
-from .graph import (PaddedGraph, is_symmetric_adjacency, keys_symmetric,
-                    pack_adjacency_bits, symg_pack_adjacency_bits,
-                    symg_pack_keys)
+from .graph import (PaddedGraph, adjacency_keys, is_symmetric_adjacency,
+                    keys_symmetric, pack_adjacency_bits, pad_graph,
+                    symg_pack_adjacency_bits, symg_pack_keys)
 from .layers import Techniques
-from .quant import calibrate_absmax, quantize_linear, quantize_rowwise
+from .quant import (QuantizedAgg, apply_quantized_agg,
+                    apply_quantized_linear, calibrate_absmax,
+                    quantize_linear, quantize_rowwise)
 from .sparsity import (BlockSparse, block_counts, compact_block_sparse,
                        pad_block_sparse, stack_block_sparse, to_block_sparse,
                        upload_block_sparse)
@@ -900,6 +910,11 @@ class ExecutionPlan:
     `grasp_ref_fallback` is True for a grasp plan on the CPU, where the
     aggregation runs the plain version (padded entries multiplied by 0,
     not skipped); GraphServe counts its requests in `backend_fallbacks`.
+    `shards` > 0 marks a SHARDED plan (DESIGN.md §12, `build_sharded_
+    plan`): `capacity` is then the per-shard row bucket, the leading dims
+    of x and the operands are the shard axis (after a replica axis when
+    the plan has one), and the plan is called with the node masks —
+    another plan per shard count, hence part of the key (0 = unsharded).
     """
     cfg: GNNConfig
     techniques: Techniques
@@ -907,7 +922,7 @@ class ExecutionPlan:
     batch_size: int = 0                       # 0 = single-graph plan
     backend: str = "dense"
     fusion: str = "none"
-    shards: int = 0                           # sharding is not ported
+    shards: int = 0                           # 0 = unsharded plan
     fn: Callable = dataclasses.field(default=None, repr=False)
     trace_count: int = 0
     grasp_ref_fallback: bool = False
@@ -920,7 +935,11 @@ class ExecutionPlan:
 
     def __call__(self, params: Dict, x: torch.Tensor,
                  ops_: GranniteOperands, quant: Optional[Dict] = None,
-                 tier_ops: Optional[TierOperands] = None) -> torch.Tensor:
+                 tier_ops: Optional[TierOperands] = None,
+                 node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.shards:
+            _count_trace(self, _sig((params, x, ops_, quant, node_mask)))
+            return self.fn(params, x, ops_, node_mask, quant)
         _count_trace(self, _sig((params, x, ops_, quant, tier_ops)))
         return self.fn(params, x, ops_, quant, tier_ops)
 
@@ -968,3 +987,342 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
 
     plan.fn = _forward
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution (DESIGN.md §12) — GraphSplit across N shards.
+#
+# A graph too large for the ladder's top bucket is row-partitioned
+# (core.partition.partition_graph): shard s owns slot rows
+# [s*shard_cap, (s+1)*shard_cap) of a permuted full-capacity layout. Each
+# layer runs as: project OWN rows -> halo-exchange the projected rows into
+# the full row space -> aggregate OWN rows against the FULL space through
+# a rectangular (shard_cap, full_rows) operand row block. Row blocks keep
+# complete Â rows, so per-row quantization scales, and hence the int8
+# tiers, match the single-device path; the only sharding-induced error is
+# the wire compression (<= scale/2 per element, none when `compress` is
+# off). On one card the shard axis is a leading tensor dimension, as the
+# reference simulates it with `vmap` below its device count; the
+# multi-card placement is ROADMAP queue 1 item 16.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardSlice:
+    """One shard's device operand slice: the CacheG unit of a sharded
+    graph, cached per (graph_id, structure_version) as a tuple and
+    stacked along a leading shard axis at dispatch (`stack_shard_slices`).
+    """
+    x: torch.Tensor              # (shard_cap, F) this shard's feature rows
+    ops: GranniteOperands        # kind fields (shard_cap, full_rows)
+    node_mask: torch.Tensor      # (shard_cap,) 1.0 real / 0.0 padding
+
+
+def build_sharded_operands(g, part, cfg: GNNConfig, *,
+                           pg: Optional[PaddedGraph] = None,
+                           keys: Optional[np.ndarray] = None,
+                           device: DeviceLike = None
+                           ) -> Tuple[ShardSlice, ...]:
+    """N-way GraphSplit's operand row blocks, on `device`.
+
+    Builds the graph's full-capacity operands once, exactly as the
+    unsharded path does (`pg`, the graph padded to `part.full_rows`, is
+    made here unless given): CacheG's compact form materialized on the
+    device (`materialize_operands`, its triangle index made for this call
+    and not kept, and no trace counted: like the reference's host build,
+    this is not a plan), or the eager host build for a directed GCN/GAT
+    graph. Then rows AND columns are
+    permuted into the slot layout on the device (two gathers, exact) and
+    each shard's row block is a view of the permuted field. So the blocks
+    hold the Â the port's delta patch reproduces (`inv_sqrt_degree`), and
+    a patched slice equals a rebuild bit for bit. Padding is interleaved
+    per shard; padded rows and columns are zero, hence inert. `keys`
+    (`graph.adjacency_keys` at full_rows) let the compact path read the
+    edge list."""
+    _check_kind(cfg)
+    dev = resolve_device(device)
+    full, c = part.full_rows, part.shard_cap
+    if pg is None:
+        pg = pad_graph(g, capacity=full)
+    if pg.capacity != full:
+        raise ValueError(f"padded graph of capacity {pg.capacity} for a "
+                         f"partition of {full} rows")
+    if keys is None and cfg.kind != "sage":
+        keys = adjacency_keys(g.edge_index, full)
+    ho = prepare_host_operands(pg, cfg, keys=keys, device=dev)
+    ops = (materialize_operands(ho.compact.to(dev))
+           if ho.compact is not None else ho.eager)
+    perm = torch.from_numpy(np.asarray(part.perm, np.int64)).to(dev)
+    mats = {f: getattr(ops, f).index_select(0, perm).index_select(1, perm)
+            for f in OPERAND_FIELDS[cfg.kind]}
+    del ops
+    feats = torch.from_numpy(pg.features[part.perm]).to(dev)
+    mask = torch.from_numpy((part.perm < pg.num_nodes).astype(
+        np.float32)).to(dev)
+    return tuple(
+        ShardSlice(x=feats[s * c:(s + 1) * c],
+                   ops=GranniteOperands(**{f: m[s * c:(s + 1) * c]
+                                           for f, m in mats.items()}),
+                   node_mask=mask[s * c:(s + 1) * c])
+        for s in range(part.shards))
+
+
+def _stack_blocks(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stack equal-shape tensors along a new leading dim: a view when they
+    are consecutive contiguous blocks of one buffer (the row blocks of
+    `build_sharded_operands`), else a copy."""
+    t0 = ts[0]
+    step = t0.numel()
+    ptr = t0.untyped_storage().data_ptr()
+    if all(t.is_contiguous() and t.untyped_storage().data_ptr() == ptr
+           and t.storage_offset() == t0.storage_offset() + i * step
+           for i, t in enumerate(ts)):
+        return t0.as_strided((len(ts), *t0.shape), (step, *t0.stride()),
+                             t0.storage_offset())
+    return torch.stack(list(ts))
+
+
+def stack_shard_slices(slices: Sequence[ShardSlice]
+                       ) -> Tuple[torch.Tensor, GranniteOperands,
+                                  torch.Tensor]:
+    """Per-shard slices -> (x, ops, node_mask) with a leading shard axis,
+    the sharded plan's calling convention. The slices of one
+    `build_sharded_operands` call stack without a copy."""
+    fields = [f for f in DENSE_FIELDS if getattr(slices[0].ops, f)
+              is not None]
+    return (_stack_blocks([s.x for s in slices]),
+            GranniteOperands(**{f: _stack_blocks([getattr(s.ops, f)
+                                                  for s in slices])
+                                for f in fields}),
+            _stack_blocks([s.node_mask for s in slices]))
+
+
+def unshard_logits(stacked, part) -> np.ndarray:
+    """(shards, shard_cap, classes) slot-ordered logits -> (num_nodes,
+    classes) in the original node order (the inverse of `part.perm`), on
+    the host."""
+    if isinstance(stacked, torch.Tensor):
+        stacked = stacked.cpu().numpy()
+    flat = np.asarray(stacked).reshape(part.full_rows, -1)
+    out = np.empty_like(flat)
+    out[part.perm] = flat
+    return out[: part.num_nodes]
+
+
+def halo_exchange(h_own: torch.Tensor, node_mask: torch.Tensor, *,
+                  compress: bool = True) -> torch.Tensor:
+    """The full (full_rows, width) matrix from the shards' row blocks.
+
+    h_own: (R, S, shard_cap, width), node_mask: (R, S, shard_cap) ->
+    (R, S * shard_cap, width), one matrix per replica that all of its
+    shards read. The reference writes each shard's masked rows into its
+    slot range of a zeroed full-height buffer and sums the S buffers over
+    the shard axis, through the int8 wire (`dist.compress.
+    compressed_psum`) with `compress`. The blocks are disjoint and zeros
+    quantize exactly, so that sum IS the masked rows laid end to end: the
+    assembly here, one reshape, equals the reference's summed buffers bit
+    for bit. With `compress` it is quantized against one scale per
+    replica (its absmax / 127, the pmax of the shards') and dequantized:
+    each element within scale/2 of the exact exchange. Without, the masked
+    rows exactly. Padded rows are zeroed first, so softmax garbage in pad
+    rows (GAT) never inflates the shared scale.
+    """
+    r, s, c, w = h_own.shape
+    buf = (h_own * node_mask[..., None]).reshape(r, s * c, w)
+    if compress:
+        scale = torch.clamp_min(buf.abs().amax(dim=(1, 2), keepdim=True),
+                                1e-12) * INV_INT8_MAX
+        return quantize_wire(buf, scale) * scale
+    # + 0.0: the reference's sum of a -0.0 with the other shards' zeros
+    return buf + 0.0
+
+
+def _head_scores(h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """GAT's per-node score term sum_f h[..., n, h, f] * a[h, f], summed in
+    f order by elementwise ops, so a replica row gets the same bits
+    whatever the number of rows beside it (`torch.einsum` picks its
+    reduction by the whole shape)."""
+    acc = h[..., 0] * a[:, 0]
+    for k in range(1, h.shape[-1]):
+        acc = acc + h[..., k] * a[:, k]
+    return acc
+
+
+def sharded_layer(params: Dict, cfg: GNNConfig, v_own: torch.Tensor,
+                  ops_: GranniteOperands, node_mask: torch.Tensor,
+                  t: Techniques, quant: Optional[Dict] = None, *,
+                  layer: int, compress: bool = True) -> torch.Tensor:
+    """Layer `layer` (1 or 2) of the sharded forward, before its
+    activation: v_own (R, S, shard_cap, F) -> (R, S, shard_cap, w).
+    `params` and `quant` are the model's (the layer picks its own);
+    see `forward_grannite_sharded`."""
+    r, s, c = node_mask.shape
+    full = s * c
+    tq = (quant or {}) if t.quantgr else {}
+    p = params[f"l{layer}"]
+    uk = t.use_pallas
+
+    def per_shard(v):                  # (R, ...) -> (R*S, ...), each shard
+        return v[:, None].expand(r, s, *v.shape[1:]).reshape(
+            r * s, *v.shape[1:])
+
+    def exchange(h_own):               # (R*S, C, w) -> (R, full, w)
+        return halo_exchange(h_own.reshape(r, s, c, -1), node_mask,
+                             compress=compress)
+
+    def mm(a, b):
+        return kops.matmul(a, b) if uk else a @ b
+
+    def lin(v, w, ql):
+        if ql is not None:
+            return apply_quantized_linear(v, ql, use_kernel=uk)
+        return mm(v, w)
+
+    v_own = v_own.reshape(r * s, c, -1)
+    fields = {f: getattr(ops_, f).reshape(r * s, c, full)
+              for f in OPERAND_FIELDS[cfg.kind]}
+    if cfg.kind == "gcn":
+        h_full = per_shard(exchange(lin(v_own, p["w"], tq.get(f"l{layer}"))))
+        h_scale = tq.get(f"agg{layer}_h")
+        if h_scale is not None:
+            aq, a_scale = quantize_rowwise(fields["norm_adj"])
+            agg = apply_quantized_agg(
+                QuantizedAgg(aq=aq, a_scale=a_scale, h_scale=h_scale),
+                h_full, use_kernel=uk)
+        else:
+            agg = mm(fields["norm_adj"], h_full)
+        out = agg + p["b"]
+    elif cfg.kind == "gat":
+        heads, f_out = ((cfg.heads, cfg.hidden // cfg.heads) if layer == 1
+                        else (1, cfg.num_classes))
+        h_own = lin(v_own, p["w"], tq.get(f"l{layer}"))
+        h_full = exchange(h_own).reshape(r, full, heads, f_out)
+        h_mine = h_own.reshape(r * s, c, heads, f_out)
+        a_src = per_shard(_head_scores(h_full, p["a_src"]))  # (., full, H)
+        a_dst = _head_scores(h_mine, p["a_dst"])             # (R*S, C, H)
+        h_full = per_shard(h_full)
+        outs = []
+        for hd in range(heads):
+            e = effop.broadcast_add_scores(a_src[..., hd], a_dst[..., hd],
+                                           grax2=t.grax2)   # (R*S, C, full)
+            e = torch.nn.functional.leaky_relu(e, 0.2)
+            if t.grax1:
+                attn = effop.segment_softmax_dense(e, fields["bias_add"])
+            else:
+                e = effop.masked_select_exact(e, fields["mask_mult"])
+                attn = torch.softmax(e, dim=-1)
+            outs.append(mm(attn, h_full[..., hd, :].contiguous()))
+        out = torch.stack(outs, dim=-2).reshape(r * s, c, heads * f_out)
+        out = out + p["b"]
+    elif cfg.kind == "sage":
+        q = tq.get(f"l{layer}") or {}
+        v_full = exchange(v_own)
+        if cfg.aggregator == "mean":
+            agg = mm(fields["mean_mask"], per_shard(v_full))
+        else:
+            pooled = per_shard(torch.relu(
+                lin(v_full, p["w_pool"], q.get("pool")) + p["b_pool"]))
+            if uk and t.grax3:
+                agg = kops.sage_max(fields["sample_mask"], pooled)
+            else:
+                agg = effop.masked_max_aggregate(
+                    pooled, fields["sample_mask"], grax3=t.grax3)
+        out = (lin(v_own, p["w_self"], q.get("self"))
+               + lin(agg, p["w_neigh"], q.get("neigh")) + p["b"])
+    else:
+        raise ValueError(cfg.kind)
+    return out.reshape(r, s, c, -1)
+
+
+def forward_grannite_sharded(params: Dict, cfg: GNNConfig, x: torch.Tensor,
+                             ops_: GranniteOperands, node_mask: torch.Tensor,
+                             t: Techniques, quant: Optional[Dict] = None, *,
+                             compress: bool = True) -> torch.Tensor:
+    """The shards' sharded GraNNite forward (DESIGN.md §12), all at once.
+
+    x: (R, S, shard_cap, F) feature rows; `ops_` fields (R, S, shard_cap,
+    full_rows) rectangular operand row blocks; node_mask (R, S,
+    shard_cap). Returns (R, S, shard_cap, classes) logits in slot order:
+    `sharded_layer` 1, its activation (GCN and SAGE ReLU, GAT ELU), then
+    `sharded_layer` 2. Exchange schedule per kind, as the reference's: GCN
+    exchanges the projected hidden rows (widths hidden then classes); GAT
+    the per-head projections; SAGE the aggregation INPUTS (raw features
+    then layer-1 activations). QuantGr GCN derives the int8 Â from the row
+    block in the forward: complete rows quantize to the single-device
+    scales.
+
+    With `t.use_pallas` every product runs through a kernel entry, the
+    (R, S) dims flattened into its one batch dim: fp32 products through
+    `kops.matmul` (`block_matmul`: X·W and the rectangular (shard_cap,
+    full_rows) @ (full_rows, w) aggregations, GAT's attention product
+    included), the QuantGr combines and the int8 aggregation through
+    `kops.int8_matmul`, GrAx3's masked max through the rectangular
+    `kops.sage_max`. Without it they are plain PyTorch, as in
+    `core.layers`. Each replica exchanges within itself: no term crosses
+    replicas. What every shard computes from the exchanged matrix alone
+    (GAT's source scores, SAGE-max's pool combine) is computed once per
+    replica and read by its shards: the reference computes the same
+    values in every shard.
+    """
+    act = torch.nn.functional.elu if cfg.kind == "gat" else torch.relu
+    kw = dict(t=t, quant=quant, compress=compress)
+    h = act(sharded_layer(params, cfg, x, ops_, node_mask, layer=1, **kw))
+    return sharded_layer(params, cfg, h, ops_, node_mask, layer=2, **kw)
+
+
+def build_sharded_plan(cfg: GNNConfig, shard_cap: int, shards: int,
+                       t: Techniques, *, compress: bool = True,
+                       replicas: int = 1,
+                       device: DeviceLike = None) -> ExecutionPlan:
+    """Sharded ExecutionPlan on `device`: every shard's aggregate and
+    combine, the halo exchange between layers (DESIGN.md §12).
+
+    One card holds every shard: the shard axis is the leading dim of x,
+    the operands and the node masks, as the reference simulates it below
+    its device count. Sharded plans are dense, fusion="none" and
+    single-graph (the shard axis takes the dim a batched plan would use);
+    call with `plan(params, x, ops, quant, node_mask=mask)`.
+
+    `replicas=R > 1` adds a replica axis ahead of the shard axis
+    (DESIGN.md §15): the plan runs R independent sharded requests in one
+    call, each exchanging within itself, so every replica row equals its
+    single-replica dispatch bit for bit. `replicas=1` takes no replica
+    dim.
+    """
+    _check_kind(cfg)
+    dev = resolve_device(device)
+    plan = ExecutionPlan(cfg=cfg, techniques=t, capacity=shard_cap,
+                         batch_size=0, backend="dense", fusion="none",
+                         shards=shards)
+    fields = OPERAND_FIELDS[cfg.kind]
+
+    def _forward(params, x, ops_, node_mask, quant):
+        for name, v in [("x", x), ("node_mask", node_mask)] + [
+                (f, getattr(ops_, f)) for f in fields]:
+            if v.device != dev:
+                raise ValueError(f"plan on {dev} called with {name} on "
+                                 f"{v.device}")
+        if replicas == 1:
+            x, node_mask = x[None], node_mask[None]
+            ops_ = GranniteOperands(**{f: getattr(ops_, f)[None]
+                                       for f in fields})
+        out = forward_grannite_sharded(params, cfg, x, ops_, node_mask, t,
+                                       quant, compress=compress)
+        return out[0] if replicas == 1 else out
+
+    plan.fn = _forward
+    return plan
+
+
+def sharded_exchange_widths(cfg: GNNConfig) -> Tuple[int, ...]:
+    """Per-layer halo widths `forward_grannite_sharded` exchanges: GCN the
+    projected hidden rows then the class rows; GAT the concatenated
+    per-head layer-1 projections then the single-head class rows; SAGE
+    the aggregation INPUTS (raw features, then the layer-1 activations).
+    The engine's collective byte counters and the modelled latency both
+    read it."""
+    if cfg.kind == "gcn":
+        return (cfg.hidden, cfg.num_classes)
+    if cfg.kind == "gat":
+        return (cfg.heads * (cfg.hidden // cfg.heads), cfg.num_classes)
+    return (cfg.in_feats, cfg.hidden)

@@ -37,7 +37,7 @@ ENTRY_POINTS = {
     "fused_gat_full": ("fused_gat_full_f32", "pppppppppp" "iiiiii" "ip"),
     "fused_gat_precombined": ("fused_gat_precombined_f32",
                               "pppppp" "iiiii" "ip"),
-    "sage_max": ("sage_max_f32", "ppp" "iii" "ip"),
+    "sage_max": ("sage_max_f32", "ppp" "iiii" "ip"),
     "fused_sage": ("fused_sage_f32", "pppppppp" "iiiiiii" "ip"),
     "flash_attention": ("flash_attention_fwd",
                         "pppp" "iiiiiiiiii" "ff" "ip"),

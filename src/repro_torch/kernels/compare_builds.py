@@ -1,5 +1,5 @@
-"""Time the CUDA libraries built on the 3xTF32 tile (tc_gemm_tile.cuh's
-`mma_tile`) from several source trees, in one process on one card:
+"""Time CUDA libraries built from several source trees, in one process on
+one card: those built on the 3xTF32 tile (tc_gemm_tile.cuh's `mma_tile`),
 block_matmul over the Cora-width GCN's four serving products (a 4 x 3072
 batch: X @ W1, A @ H1, X2 @ W2, A @ H2), fused_gat_full over the Cora
 GAT's two serving layers (4 x 3072: 1433 features to 8 heads of 8, ELU;
@@ -9,7 +9,11 @@ and the self loop a row), and the GCN layers at their padded serving
 widths (4 x 3072: 1536 features to 128, ReLU; 128 to 128):
 fused_gcn_dense over a dense Â, fused_gcn_grasp over a GraSp structure of
 one diagonal block a block row (graphs of 1800, 2700, 1800 and 2700
-nodes, budget 6: clustered graphs with no cross edges).
+nodes, budget 6: clustered graphs with no cross edges); and the SAGE row
+walk's sage_max over the Cora SAGE-max's two square serving
+aggregations (4 x 3072 sampled masks over pooled features 1433 and 64
+wide). A tree whose sage_max.cu predates the rectangular mask (its C
+entry takes one node count) is bound with that signature.
 
 Run from the checkout's root. Each argument is LABEL=DIR or
 LABEL=DIR,OPTION,...: DIR is a `csrc` directory holding the libraries'
@@ -77,7 +81,7 @@ def source_tree(label: str, src: Path, int_split: bool,
 
 
 LIBRARIES = ("block_matmul", "fused_gat_full", "fused_sage",
-             "fused_gcn_dense", "fused_gcn_grasp")
+             "fused_gcn_dense", "fused_gcn_grasp", "sage_max")
 
 
 def build_all(specs, names=LIBRARIES):
@@ -181,6 +185,15 @@ def workloads(dev):
             check(fn(*(t.data_ptr() for t in (*args, out)), *sizes, ordinal,
                      stream))
 
+    # sage_max: the max layers' square walks, (4, 3072, 3072) @ (4, 3072, F)
+    walks = [(sample, rand(4, 3072, f).abs(),
+              torch.empty(4, 3072, f, device=dev)) for f in (1433, 64)]
+
+    def sage_walks(fn):
+        for mask, h, out in walks:
+            check(fn(mask.data_ptr(), h.data_ptr(), out.data_ptr(), 4, 3072,
+                     3072, h.shape[-1], ordinal, stream))
+
     # the GCN layers: the dense Â above, and a GraSp structure of one
     # diagonal block a real block row (counts 0 on NodePad's rows)
     rb, budget = 3072 // 128, 6
@@ -217,7 +230,30 @@ def workloads(dev):
             "fused_gat_full": ([out for *_, out, _ in layers], gat),
             "fused_sage": ([out for _, out, _ in sage], sage_layers),
             "fused_gcn_dense": (dense_outs, gcn_dense),
-            "fused_gcn_grasp": (grasp_outs, gcn_grasp)}
+            "fused_gcn_grasp": (grasp_outs, gcn_grasp),
+            "sage_max": ([out for *_, out in walks], sage_walks)}
+
+
+def bind(name: str, lib: Path, tree: Path):
+    """The built library's C entry point, with the current signature; an
+    earlier tree's square-only sage_max (batch, n, f) is adapted to it
+    (rows == n)."""
+    symbol, kinds = _build.ENTRY_POINTS[name]
+    square_only = (name == "sage_max"
+                   and "int rows" not in (tree / "sage_max.cu").read_text())
+    if square_only:
+        kinds = "ppp" "iii" "ip"
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes = [_build._CTYPES[k] for k in kinds]
+    fn.restype = ctypes.c_int
+    if not square_only:
+        return fn
+
+    def square(mask, h, out, batch, rows, n, f, device, stream):
+        if rows != n:
+            raise SystemExit(f"{lib}: sage_max takes square masks only")
+        return fn(mask, h, out, batch, n, f, device, stream)
+    return square
 
 
 def main(argv) -> None:
@@ -249,11 +285,7 @@ def main(argv) -> None:
         count = len(re.findall(r"/\*[0-9a-f]{4}\*/", sass))
         print(f"{label} {name}: registers per kernel {regs}, {count} SASS "
               f"instructions", flush=True)
-        symbol, kinds = _build.ENTRY_POINTS[name]
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = [_build._CTYPES[k] for k in kinds]
-        fn.restype = ctypes.c_int
-        fns[name][label] = fn
+        fns[name][label] = bind(name, lib, specs[label][0])
 
     work = workloads(torch.device("cuda"))
     for name in names:

@@ -164,7 +164,8 @@ extern "C" int fused_sage_f32(const float* mask, const float* xk,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
 #if SAGE_WALK
-  err = sage::launch_walk(mask, xk, agg, batch, n, fin, ldg, is_max != 0, s);
+  err = sage::launch_walk(mask, xk, agg, batch, n, n, fin, ldg, is_max != 0,
+                          s);
   if (err != cudaSuccess) return (int)err;
 #endif
 #if SAGE_COMBINE

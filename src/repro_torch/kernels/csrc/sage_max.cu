@@ -12,16 +12,20 @@
 //
 // Bound: the mask's bytes, 4*N*N per graph (151 MB per 4 x 3072 batch,
 // about 0.045 ms at 3.35 TB/s), plus h and out once each.
+//
+// The mask may be rectangular: a shard's (rows, n) row block of a graph
+// partitioned across shards, against the graph's whole (n, f) h. The walk
+// is the same; only the grid covers `rows` rows.
 #include "sage_walk.cuh"
 
-// mask: (batch, n, n); h: (batch, n, f); out: (batch, n, f). All
+// mask: (batch, rows, n); h: (batch, n, f); out: (batch, rows, f). All
 // contiguous fp32, on CUDA ordinal `device` with `stream`. Returns
 // cudaGetLastError() after the launch.
 extern "C" int sage_max_f32(const float* mask, const float* h, float* out,
-                            int batch, int n, int f, int device,
+                            int batch, int rows, int n, int f, int device,
                             void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)gcn_port::sage::launch_walk(mask, h, out, batch, n, f, f,
+  return (int)gcn_port::sage::launch_walk(mask, h, out, batch, rows, n, f, f,
                                           true, (cudaStream_t)stream);
 }

@@ -111,21 +111,22 @@ __device__ __forceinline__ void walk_list(const WarpList& L, int count,
   }
 }
 
-// mask: (batch, n, n); h: (batch, n, f); out: (batch, n, ldo), ldo >= f,
-// of which each row's first f are written. Grid (ceil(n / kWarps),
-// batch), kThreads threads.
+// mask: (batch, rows, n); h: (batch, n, f); out: (batch, rows, ldo),
+// ldo >= f, of which each row's first f are written. rows == n for a
+// graph's square mask; a shard's row block of a larger graph has rows <
+// n. Grid (ceil(rows / kWarps), batch), kThreads threads.
 template <bool kMax>
 __global__ void __launch_bounds__(kThreads)
 walk_kernel(const float* __restrict__ mask, const float* __restrict__ h,
-            float* __restrict__ out, int n, int f, int ldo) {
+            float* __restrict__ out, int rows, int n, int f, int ldo) {
   __shared__ WarpList lists[kWarps];
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kWarps + warp;
-  if (row >= n) return;                     // whole warps only; no barrier
+  if (row >= rows) return;                  // whole warps only; no barrier
   const long long z = blockIdx.y;
-  const float* m = mask + (z * n + row) * (long long)n;
+  const float* m = mask + (z * rows + row) * (long long)n;
   const float* hz = h + z * (long long)n * f;
-  float* o = out + (z * n + row) * (long long)ldo;
+  float* o = out + (z * rows + row) * (long long)ldo;
   WarpList& L = lists[warp];
   int start = 0;
   bool first = true;
@@ -140,19 +141,19 @@ walk_kernel(const float* __restrict__ mask, const float* __restrict__ h,
   } while (start < n);
 }
 
-// Launch the walk on `stream`, out's rows ldo floats apart; returns
-// cudaGetLastError().
+// Launch the walk on `stream` over a (rows, n) mask a graph, out's rows
+// ldo floats apart; returns cudaGetLastError().
 static inline cudaError_t launch_walk(const float* mask, const float* h,
-                                      float* out, int batch, int n, int f,
-                                      int ldo, bool is_max,
+                                      float* out, int batch, int rows, int n,
+                                      int f, int ldo, bool is_max,
                                       cudaStream_t stream) {
-  const dim3 grid((n + kWarps - 1) / kWarps, batch);
+  const dim3 grid((rows + kWarps - 1) / kWarps, batch);
   if (is_max)
-    walk_kernel<true><<<grid, kThreads, 0, stream>>>(mask, h, out, n, f,
-                                                     ldo);
+    walk_kernel<true><<<grid, kThreads, 0, stream>>>(mask, h, out, rows, n,
+                                                     f, ldo);
   else
-    walk_kernel<false><<<grid, kThreads, 0, stream>>>(mask, h, out, n, f,
-                                                      ldo);
+    walk_kernel<false><<<grid, kThreads, 0, stream>>>(mask, h, out, rows, n,
+                                                      f, ldo);
   return cudaGetLastError();
 }
 

@@ -399,13 +399,14 @@ def fused_sage(mask: torch.Tensor, xk: torch.Tensor, x: torch.Tensor,
         return fused_sage_plain(mask, xk, x, w_self, w_neigh, b, aggregator,
                                 activation)
     device = check_cuda("fused_sage", **operands)
-    batch, n, fin = check_walk("fused_sage", mask, xk)
+    batch, m, n, fin = check_walk("fused_sage", mask, xk)
     o = w_self.shape[-1]
-    if (tuple(x.shape) != (batch, n, fin) or w_self.dim() != 2
+    if (m != n or tuple(x.shape) != (batch, n, fin) or w_self.dim() != 2
             or tuple(w_self.shape) != (fin, o)
             or tuple(w_neigh.shape) != (fin, o) or b.numel() != o):
         raise ValueError(
-            f"fused_sage: shapes do not agree: xk {tuple(xk.shape)}, x "
+            f"fused_sage: shapes do not agree: mask {tuple(mask.shape)}, "
+            f"xk {tuple(xk.shape)}, x "
             f"{tuple(x.shape)}, w_self {tuple(w_self.shape)}, w_neigh "
             f"{tuple(w_neigh.shape)}, b {tuple(b.shape)}")
     out = torch.empty(batch, n, o, dtype=torch.float32, device=device)

@@ -120,7 +120,8 @@ def gat_attention(h: torch.Tensor, alpha_dst: torch.Tensor,
 
 def sage_max(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """GrAx3 masked max aggregation through the `sage_max` kernel.
-    mask01: (B?, N, N) 0/1; h: (B?, N, F) >= 0. Returns h's shape."""
+    mask01: (B?, M, N) 0/1 (M < N for a shard's row block); h: (B?, N, F)
+    >= 0. Returns (B?, M, F)."""
     single = h.dim() == 2
     args = [t[None] if single else t for t in (mask01, h)]
     out = _sage_max(*(t.contiguous() for t in args))

@@ -18,6 +18,11 @@ which never changes such a max. It differs where h is not finite in a row
 that the mask never selects: the plain version (and the TPU kernel)
 multiply it by 0 and turn NaN, the kernel never reads it.
 
+The mask may be rectangular, (M, N) against h's (N, F): a shard's row
+block of a partitioned graph (`core.models.forward_grannite_sharded`)
+against the whole graph's pooled features. The walk is the same; its
+grid covers M rows.
+
 `sage_max` is the wrapper: CPU operands run `sage_max_plain`, CUDA
 operands launch the kernel or raise. `LAUNCHES` counts kernel launches.
 `check_walk` holds the operand checks that `fused_sage` shares.
@@ -40,7 +45,7 @@ MAX_BLOCK_BYTES = 1 << 28
 def sage_max_plain(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version, the TPU kernel's arithmetic: the broadcast
     product over a block of rows at a time (at most MAX_BLOCK_BYTES), its
-    max over the columns, and the accumulator's 0. mask01: (..., N, N);
+    max over the columns, and the accumulator's 0. mask01: (..., M, N);
     h: (..., N, F)."""
     n, cols = mask01.shape[-2:]
     per_row = 4 * cols * h.shape[-1] * math.prod(mask01.shape[:-2])
@@ -53,32 +58,35 @@ def sage_max_plain(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 def check_walk(kernel: str, mask: torch.Tensor,
-               h: torch.Tensor) -> Tuple[int, int, int]:
-    """Raise unless mask is (B, N, N) and h (B, N, F) with sizes the C entry
-    points take; return (B, N, F)."""
+               h: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Raise unless mask is (B, M, N) and h (B, N, F) with sizes the C
+    entry points take; return (B, M, N, F)."""
     if mask.dim() != 3 or h.dim() != 3:
-        raise ValueError(f"{kernel}: mask must be (B, N, N) and the "
+        raise ValueError(f"{kernel}: mask must be (B, M, N) and the "
                          f"features (B, N, F), got {tuple(mask.shape)}, "
                          f"{tuple(h.shape)}")
     batch, n, f = h.shape
-    if tuple(mask.shape) != (batch, n, n):
+    m = mask.shape[1]
+    if tuple(mask.shape) != (batch, m, n):
         raise ValueError(f"{kernel}: shapes do not agree: mask "
                          f"{tuple(mask.shape)}, features {tuple(h.shape)}")
-    check_int32(kernel, batch=batch, n=n, f=f)
-    return batch, n, f
+    check_int32(kernel, batch=batch, m=m, n=n, f=f)
+    return batch, m, n, f
 
 
 def sage_max(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """mask01: (B, N, N) 0/1 sampled adjacency; h: (B, N, F), h >= 0 on
-    the serving path. Returns (B, N, F) float32."""
+    """mask01: (B, M, N) 0/1 sampled adjacency (M = N for a graph, M < N
+    for a shard's row block); h: (B, N, F), h >= 0 on the serving path.
+    Returns (B, M, F) float32."""
     global LAUNCHES
     if on_cpu(mask01, h):
         return sage_max_plain(mask01, h)
     device = check_cuda("sage_max", mask01=mask01, h=h)
-    batch, n, f = check_walk("sage_max", mask01, h)
-    out = torch.empty_like(h)
+    batch, m, n, f = check_walk("sage_max", mask01, h)
+    out = torch.empty(batch, m, f, dtype=torch.float32, device=device)
     if out.numel():
         launch("sage_max", _build.load("sage_max"), device,
-               mask01.data_ptr(), h.data_ptr(), out.data_ptr(), batch, n, f)
+               mask01.data_ptr(), h.data_ptr(), out.data_ptr(), batch, m, n,
+               f)
         LAUNCHES += 1
     return out

@@ -2,8 +2,8 @@
 embeddings, soft-capping and the embedding lookup.
 
 Norms compute in float32 and cast back to the input's dtype, as the
-reference does. The reference's logical-axis `Param` machinery is sharding
-work (ROADMAP queue 1 item 11): here a parameter is a plain tensor.
+reference does. The reference's logical-axis `Param` machinery is multi-card
+placement (ROADMAP queue 1 item 16): here a parameter is a plain tensor.
 """
 from __future__ import annotations
 

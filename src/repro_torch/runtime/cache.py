@@ -3,7 +3,8 @@
 Port of the reference's `runtime/cache.py`. CacheG (DESIGN.md §7) keeps
 up to three device-resident forms per attached graph — the fp32 operand
 set, the derived int8 Â and the derived GraSp decision and structure —
-all keyed by (graph_id, structure_version) and NOTHING else. Unbounded,
+or, for a graph sharded across shards (§12), its tuple of operand row
+blocks, all keyed by (graph_id, structure_version) and NOTHING else. Unbounded,
 that pins O(cap²) device bytes per graph. This module bounds it:
 
   * every entry carries its device-byte cost and a re-materialization
@@ -33,11 +34,10 @@ import torch
 
 Key = Tuple[int, int]                    # (graph_id, structure_version)
 
-# derived forms (rank 0) evict before the primary they hang off (rank 1);
-# the reference's fourth kind, the sharded slice tuple, arrives with
-# sharding (ROADMAP queue 1)
-KIND_RANK = {"tier": 0, "grasp": 0, "operand": 1}
-PRIMARY_KINDS = ("operand",)
+# derived forms (rank 0) evict before the primary they hang off (rank 1):
+# a graph's fp32 operand set, or its sharded slice tuple
+KIND_RANK = {"tier": 0, "grasp": 0, "operand": 1, "shard": 1}
+PRIMARY_KINDS = ("operand", "shard")
 
 
 class CacheAdmissionError(RuntimeError):
@@ -71,6 +71,17 @@ def estimate_dense_entry_bytes(num_fields: int, capacity: int) -> int:
     kind's populated (cap, cap) fields plus the reference's (1, 1)
     placeholder holes (`core.models.operand_nbytes` layout)."""
     return num_fields * capacity * capacity * 4 + (5 - num_fields) * 4
+
+
+def estimate_shard_entry_bytes(shards: int, shard_cap: int, full_rows: int,
+                               num_fields: int, in_feats: int) -> int:
+    """Projected device cost of one sharded slice-tuple entry: per shard,
+    the kind's (shard_cap, full_rows) operand row blocks plus the
+    reference's placeholder holes, the (shard_cap, F) feature block and
+    the (shard_cap,) node mask."""
+    per = (num_fields * shard_cap * full_rows * 4 + (5 - num_fields) * 4
+           + shard_cap * in_feats * 4 + shard_cap * 4)
+    return shards * per
 
 
 @dataclasses.dataclass

@@ -99,7 +99,26 @@ seeded from `_modelled_batch_s`; the tolerance router picks the cheapest
 calibrated tier whose accuracy delta fits, the backend rule takes the
 measured dense/GraSp pair, and an optional `SLOGovernor` steps the
 default tier down the ladder while the rolling p99 breaches its target.
-Not ported yet (ROADMAP queue 1): sharding and sharded deltas (item 11).
+Sharding (DESIGN.md §12, §15) — with `shard_counts`, a graph larger than
+the top bucket attaches auto-sharded: `core.partition.partition_for_ladder`
+(multilevel or greedy, `partition_method`) picks the smallest configured
+shard count whose balanced load fits a bucket, and every query over it
+runs a sharded plan (`core.models.build_sharded_plan`): each shard's rows
+aggregated against the whole graph through its (shard_cap, full_rows)
+operand row blocks, the halo exchange between layers (int8 on the wire
+with `halo_compress`). One card holds every shard; the shard axis is a
+leading tensor dimension, as the reference simulates it below its device
+count. The shard count joins the batch key, a sharded key dispatches
+`replica_groups` requests at once (one per replica row), the router and
+the bank key it by the per-shard bucket, and warmup runs every (shard
+count, bucket, tier), so mixed traffic replays warm. The cached unit is
+the tuple of row blocks ("shard" in the cache manager), built from the
+graph's materialized Â permuted into slot order on the device.
+`update()` crosses the sharding boundary both ways; `update_delta`
+patches the row blocks under the kept partition, bit-equal to a sharded
+rebuild, and counts the boundary-dirty rows and the halo bytes a
+distributed deployment would move (`delta_halo_bytes_*`). A placement
+across several cards is ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -125,21 +144,27 @@ from repro_torch.core.models import (FUSION_MODES, OPERAND_FIELDS,
                                      DeltaPatcher, DeltaSpec,
                                      ExecutionPlan, GNNConfig,
                                      GranniteOperands, HostOperands,
-                                     PlanKey, TierOperands, build_operands,
-                                     build_materializer, build_plan,
-                                     calibrate_tier, compact_operands,
-                                     forward_grannite, gcn_degree,
-                                     init_params,
-                                     is_symmetric, operand_nbytes,
-                                     pinned_copy, prepare_host_operands,
-                                     realize_operands, stack_operands,
-                                     stack_tier_operands)
+                                     PlanKey, ShardSlice, TierOperands,
+                                     build_operands, build_materializer,
+                                     build_plan, build_sharded_operands,
+                                     build_sharded_plan, calibrate_tier,
+                                     compact_operands, forward_grannite,
+                                     gcn_degree, init_params, is_symmetric,
+                                     operand_nbytes, pinned_copy,
+                                     prepare_host_operands, realize_operands,
+                                     sharded_exchange_widths, stack_operands,
+                                     stack_shard_slices, stack_tier_operands,
+                                     unshard_logits)
+from repro_torch.core.partition import (PARTITION_METHODS, GraphShards,
+                                        partition_for_ladder, patch_halo)
 from repro_torch.core.sparsity import (BlockSparse, block_stats,
                                        grasp_max_nnz, select_agg_backend)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.compress import ring_psum_nbytes
 from repro_torch.runtime.cache import (CacheAdmissionError,
                                        DeviceCacheManager,
                                        estimate_dense_entry_bytes,
+                                       estimate_shard_entry_bytes,
                                        tree_nbytes, tree_tensors)
 from repro_torch.runtime.clock import WALL, Clock
 from repro_torch.runtime.ewma import LatencyBank
@@ -293,7 +318,12 @@ class GNNRequest:
     # the tier router may trade away (§14); None = no tolerance routing
     deadline_missed: bool = False          # §14: expired unserved (preds is
     # None) or finished past its deadline (preds still delivered)
-    shards: int = 0                        # sharding is ROADMAP item 11
+    shards: int = 0                        # >0: a sharded dispatch (§12);
+    # then `ops` holds the STACKED (S, C, full) operand row blocks and the
+    # three fields below carry the rest of the sharded calling convention
+    part: Optional[GraphShards] = None     # the partition (unshard map)
+    shard_x: Optional[torch.Tensor] = None  # (S, C, F) stacked features
+    shard_mask: Optional[torch.Tensor] = None  # (S, C) real-row masks
     finished_s: float = 0.0
     done: bool = False
     preds: Optional[np.ndarray] = None     # (num_nodes,) argmax classes
@@ -317,6 +347,14 @@ class GraphServeConfig:
     delta_pad_rows: int = 64               # §13 GrAd threshold: most touched
     # nodes update_delta() patches on the device (flips pad to twice this,
     # re-quantized int8 rows too); larger deltas, and 0, take update()
+    shard_counts: Tuple[int, ...] = ()     # §12: shard counts attach() may
+    # auto-shard a graph above the top bucket across; () disables sharding
+    halo_compress: bool = True             # int8 QuantGr on the halo wire;
+    # False exchanges exact fp32 (4x the collective bytes)
+    replica_groups: int = 1                # §15: sharded dispatch width, R
+    # sharded requests per plan call, each exchanging within itself
+    partition_method: str = "multilevel"   # §15 partitioner of attach()'s
+    # auto-sharding: "multilevel" (coarsen + KL/FM refine) or "greedy"
 
 
 @dataclasses.dataclass
@@ -342,6 +380,13 @@ class GraphServe:
         if self.sc.admission not in ("evict", "reject"):
             raise ValueError(f"unknown admission policy "
                              f"{self.sc.admission!r}; pick evict|reject")
+        if self.sc.partition_method not in PARTITION_METHODS:
+            raise ValueError(f"unknown partition method "
+                             f"{self.sc.partition_method!r}; pick from "
+                             f"{PARTITION_METHODS}")
+        if self.sc.replica_groups < 1:
+            raise ValueError(f"replica_groups must be >= 1, got "
+                             f"{self.sc.replica_groups}")
         self.device = resolve_device(device)
         self.seed = seed
         # every timestamp, deadline and latency sample reads this clock;
@@ -371,10 +416,14 @@ class GraphServe:
         self._graph_version: Dict[int, int] = {}
         # each attached graph's `adjacency_keys` (None without CacheG)
         self._graph_keys: Dict[int, Optional[np.ndarray]] = {}
+        # the sharded registry (§12): graph_id -> (partition, source Graph)
+        # of the graphs attach() or update() sharded past the top bucket
+        self._sharded: Dict[int, Tuple[GraphShards, Graph]] = {}
         # the device-resident operand hierarchy of attached graphs, keyed
         # by (graph_id, version): the primary fp32 operands ("operand") and
         # their derived forms, GCN's int8 Â ("tier") and the GraSp
-        # decision with its structure ("grasp"), under one byte budget
+        # decision with its structure ("grasp"), or a sharded graph's
+        # tuple of row blocks ("shard"), under one byte budget
         self._cache = DeviceCacheManager(
             budget_bytes=self.sc.device_cache_budget_bytes,
             spill_to_host=self.sc.spill_to_host)
@@ -398,7 +447,16 @@ class GraphServe:
                         "cache_spill_hits": 0, "cache_admission_rejects": 0,
                         "delta_updates": 0, "delta_fallbacks": 0,
                         "delta_bytes_h2d": 0,
-                        "deadline_misses": 0, "shed_requests": 0}
+                        "deadline_misses": 0, "shed_requests": 0,
+                        "sharded_batches": 0, "halo_bytes_exchanged": 0,
+                        "collective_bytes_compressed": 0,
+                        "collective_bytes_exact": 0,
+                        # §15 halo-delta wire accounting: what the dirty
+                        # boundary rows of sharded deltas would move, what
+                        # a full halo re-exchange would, and the rows
+                        "delta_halo_bytes_exchanged": 0,
+                        "delta_halo_bytes_full": 0,
+                        "delta_dirty_rows": 0}
 
     def _count(self, name: str, delta=1) -> None:
         with self._lock:
@@ -419,7 +477,8 @@ class GraphServe:
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
             if stream != self._dispatch_stream:
-                for t in tree_tensors((req.x, req.ops, req.tier_ops)):
+                for t in tree_tensors((req.x, req.ops, req.tier_ops,
+                                       req.shard_x, req.shard_mask)):
                     t.record_stream(self._dispatch_stream)
             req.ready = torch.cuda.Event()
             req.ready.record(stream)
@@ -465,6 +524,10 @@ class GraphServe:
     def _grasp(self) -> Dict[Tuple[int, int],
                              Tuple[str, Optional[BlockSparse]]]:
         return self._cache.view("grasp")
+
+    @property
+    def _shard_cache(self) -> Dict[Tuple[int, int], Tuple[ShardSlice, ...]]:
+        return self._cache.view("shard")
 
     # ------------------------------------------------------------------ setup
     def register_model(self, name: str, cfg: GNNConfig,
@@ -547,7 +610,7 @@ class GraphServe:
                                         default_fusion=fusion, name=name)
 
     def _modelled_batch_s(self, model: str, bucket: int, tier: str,
-                          backend: str) -> float:
+                          backend: str, shards: int = 0) -> float:
         """The latency bank's modelled seed (§14): seconds for one
         dispatch under this key. Per layer one dense (cap, cap) @ (cap,
         w) aggregation and the (cap, w_in) @ (w_in, w_out) combine, each
@@ -557,8 +620,9 @@ class GraphServe:
         its combines at `costs.INT8_RATE` over a quarter of the bytes.
         The seed only orders cold keys: the first measured sample
         replaces it, and `ewma_vs_model` in `summary()` says how far off
-        it was. Reads the constants at call time (tests set the
-        reference's)."""
+        it was. A sharded key (`shards` > 0) prices its per-shard bucket
+        times `replica_groups`, as the reference does. Reads the constants
+        at call time (tests set the reference's)."""
         cfg = self.models[model].cfg
         widths = [cfg.in_feats, cfg.hidden, cfg.num_classes]
         cap = bucket
@@ -577,33 +641,44 @@ class GraphServe:
             comb = max(comb_flops / rate,
                        comb_bytes * byte_scale / costs.HBM_BW)
             total += agg + comb
-        return total * self.sc.batch_slots
+        return total * (self.sc.replica_groups if shards
+                        else self.sc.batch_slots)
 
     @staticmethod
     def _bank_key(model: str, bucket: int, tier: str, backend: str,
-                  fusion: str) -> BatchKey:
-        # the shard element stays 0 until sharding (ROADMAP item 11)
-        return (model, bucket, tier, backend, fusion, 0)
+                  fusion: str, shards: int = 0) -> BatchKey:
+        return (model, bucket, tier, backend, fusion, shards)
 
     def _seed_bank(self, model: str, bucket: int, tier: str, backend: str,
-                   fusion: str) -> None:
-        seed = self._modelled_batch_s(model, bucket, tier, backend)
+                   fusion: str, shards: int = 0) -> None:
+        seed = self._modelled_batch_s(model, bucket, tier, backend, shards)
         with self._lock:
             self.bank.seed(self._bank_key(model, bucket, tier, backend,
-                                          fusion), seed)
+                                          fusion, shards), seed)
 
     def plan_for(self, model: str, bucket: int, tier: Optional[str] = None,
-                 backend: str = "dense", fusion: str = "none"
-                 ) -> ExecutionPlan:
+                 backend: str = "dense", fusion: str = "none",
+                 shards: int = 0) -> ExecutionPlan:
         # keyed by the plan's full identity, not the (model, tier) names:
         # params are runtime args, so models with identical (cfg,
-        # techniques, backend, fusion) share one plan per bucket
+        # techniques, backend, fusion, shards) share one plan per bucket
         e = self.models[model]
         tier_name = tier if tier is not None else e.default_tier
         t = e.tiers[tier_name]
         # every plan resolution (warmup's too) seeds the bank's modelled
         # figure for its batch key, so routing has a cost ordering before
         # the first measured sample
+        if shards:
+            # sharded plans (§12) are dense, unfused single-graph plans:
+            # the shard axis takes the leading dim and `bucket` is the
+            # PER-SHARD capacity
+            self._seed_bank(model, bucket, tier_name, "dense", "none", shards)
+            key: PlanKey = (e.cfg, bucket, 0, t, "dense", "none", shards)
+            if key not in self._plans:
+                self._plans[key] = build_sharded_plan(
+                    e.cfg, bucket, shards, t, compress=self.sc.halo_compress,
+                    replicas=self.sc.replica_groups, device=self.device)
+            return self._plans[key]
         self._seed_bank(model, bucket, tier_name, backend, fusion)
         key = (e.cfg, bucket, self.sc.batch_slots, t, backend, fusion, 0)
         if key not in self._plans:
@@ -644,7 +719,12 @@ class GraphServe:
         model config, so the plan replays warm when the real calibration
         arrives; the placeholder is never stored. These calls also warm the
         tier-operand deriver. On CacheG a GCN or GAT model also warms the
-        delta patcher (`_warm_delta`). Returns `compiled_blobs`."""
+        delta patcher (`_warm_delta`). With `shard_counts`, a last leg
+        warms every sharded plan (shard count x bucket x tier) on
+        placeholder row blocks, and the delta patcher at each full row
+        count (`_warm_sharded`), so a graph that shards after warmup and
+        mixed sharded/unsharded traffic replay warm. Returns
+        `compiled_blobs`."""
         buckets = buckets if buckets is not None else self.sc.ladder.buckets
         b = self.sc.batch_slots
         warm_cal: Dict[Tuple[str, str], Dict] = {}
@@ -695,9 +775,57 @@ class GraphServe:
                              ops_grasp if backend == "grasp" else ops,
                              quant, tops)
                 self._warm_delta(e, bucket, single, warmed)
+        for shards in sorted({int(n) for n in self.sc.shard_counts
+                              if int(n) >= 2}):
+            for bucket in buckets:
+                for name, e in self.models.items():
+                    self._warm_sharded(name, e, shards, bucket, warm_cal,
+                                       warmed)
         self._sync()
         self._warm_blobs = self.compiled_blobs
         return self._warm_blobs
+
+    def _warm_sharded(self, name: str, e: _ModelEntry, shards: int,
+                      bucket: int, warm_cal: Dict, warmed: set) -> None:
+        """Warm one model's sharded plans at (shards, bucket) on
+        placeholder inputs of the sharded calling convention: (R?, S, C,
+        F) features, (R?, S, C, S*C) row blocks for the kind's fields,
+        all-padding node masks (R only with `replica_groups` > 1). An
+        uncalibrated QuantGr tier warms against the unsharded leg's
+        throwaway calibration. A GCN or GAT model also
+        warms the delta patcher at the (full, full) matrices a sharded
+        delta patches."""
+        full = shards * bucket
+        lead = ((self.sc.replica_groups,) if self.sc.replica_groups > 1
+                else ())
+        dev = self.device
+        fields = OPERAND_FIELDS[e.cfg.kind]
+        x = torch.zeros((*lead, shards, bucket, e.cfg.in_feats), device=dev)
+        mask = torch.zeros((*lead, shards, bucket), device=dev)
+        ops = GranniteOperands(**{
+            f: torch.zeros((*lead, shards, bucket, full), device=dev)
+            for f in fields})
+        for tier, t in e.tiers.items():
+            plan = self.plan_for(name, bucket, tier, shards=shards)
+            if (name, plan.key) in warmed:
+                continue
+            warmed.add((name, plan.key))
+            quant = e.calibrations.get(tier)
+            if quant is None and t.quantgr:
+                # the unsharded leg made this placeholder calibration
+                quant = warm_cal[(name, tier)]
+            plan(e.params, x, ops, quant, node_mask=mask)
+        if (self.sc.delta_pad_rows > 0 and e.cfg.kind in ("gcn", "gat")
+                and ("delta", full, fields) not in warmed):
+            warmed.add(("delta", full, fields))
+            kt, ke = self._delta_pads(full)
+            zeros = np.zeros((ke,), np.int32)
+            self._delta_patcher(
+                GranniteOperands(**{f: torch.zeros((full, full), device=dev)
+                                    for f in fields}),
+                self._delta_spec(full, fields, zeros, zeros,
+                                 zeros.astype(np.float32), zeros[:kt],
+                                 np.zeros((full,), np.float32)))
 
     def _delta_pads(self, cap: int) -> Tuple[int, int]:
         """(touched, flip) pad widths of the delta patcher at one capacity:
@@ -1087,20 +1215,33 @@ class GraphServe:
         until `update()` changes the structure, `detach()` releases them or
         the budget evicts them. The first attach to a model with
         uncalibrated non-fp32 tiers also calibrates them on this graph
-        (`calibrate=False` defers to an explicit `calibrate()`). A graph
-        above the top bucket raises.
+        (`calibrate=False` defers to an explicit `calibrate()`).
+
+        A graph above the top bucket auto-shards (§12) when `shard_counts`
+        is configured: `partition_for_ladder` picks the smallest configured
+        shard count whose balanced per-shard load fits a bucket, and every
+        query over this graph_id runs the sharded plan. Without
+        `shard_counts` such a graph raises.
 
         With `device_cache_budget_bytes` set, attach() is the admission
-        gate (§13): a graph whose projected primary operand entry can
-        NEVER fit the budget raises `CacheAdmissionError`; under
-        `admission="reject"` one that would overflow the CURRENT residency
-        raises too, while `admission="evict"` admits it and lets
-        insert-time eviction make room on first query."""
+        gate (§13): a graph whose projected primary operand entry (the
+        slice tuple for a sharded graph) can NEVER fit the budget raises
+        `CacheAdmissionError`; under `admission="reject"` one that would
+        overflow the CURRENT residency raises too, while
+        `admission="evict"` admits it and lets insert-time eviction make
+        room on first query."""
         if model not in self.models:
             raise KeyError(f"unknown model {model!r}")
-        pg = self.sc.ladder.pad(g)
+        part = None
+        try:
+            pg = self.sc.ladder.pad(g)
+        except ValueError:
+            if not self.sc.shard_counts:
+                raise
+            part = self._partition(g)
+            pg = pad_graph(g, capacity=part.full_rows)
         if self.sc.device_cache_budget_bytes is not None:
-            projected = self._projected_primary_bytes(model, pg)
+            projected = self._projected_primary_bytes(model, pg, part)
             with self._lock:
                 reject = (not self._cache.fits(projected)
                           or (self.sc.admission == "reject"
@@ -1124,15 +1265,37 @@ class GraphServe:
             self.graphs[gid] = (model, pg)
             self._graph_keys[gid] = keys
             self._graph_version[gid] = 0
+            if part is not None:
+                self._sharded[gid] = (part, g)
         return gid
 
-    def _projected_primary_bytes(self, model: str, pg: PaddedGraph) -> int:
+    def _partition(self, g: Graph) -> GraphShards:
+        """The configured N-way partition of a graph above the top bucket
+        (`partition_for_ladder`; raises when no shard count fits)."""
+        return partition_for_ladder(g.edge_index, g.num_nodes,
+                                    self.sc.ladder, self.sc.shard_counts,
+                                    method=self.sc.partition_method)
+
+    def _projected_primary_bytes(self, model: str, pg: PaddedGraph,
+                                 part: Optional[GraphShards] = None) -> int:
         """Projected device cost of the PRIMARY entry this graph pins on
-        first query — what attach() admission sizes against. Derived forms
-        rank below the primary in eviction order and are not counted."""
+        first query (the slice tuple of a sharded graph) — what attach()
+        admission sizes against. Derived forms rank below the primary in
+        eviction order and are not counted."""
         cfg = self.models[model].cfg
-        return estimate_dense_entry_bytes(len(OPERAND_FIELDS[cfg.kind]),
-                                          pg.capacity)
+        nf = len(OPERAND_FIELDS[cfg.kind])
+        if part is not None:
+            return estimate_shard_entry_bytes(part.shards, part.shard_cap,
+                                              part.full_rows, nf,
+                                              cfg.in_feats)
+        return estimate_dense_entry_bytes(nf, pg.capacity)
+
+    @staticmethod
+    def _shard_entry_nbytes(slices: Tuple[ShardSlice, ...]) -> int:
+        """Device bytes of a sharded slice-tuple entry in the reference's
+        layout (an absent field counted as its (1, 1) placeholder)."""
+        return sum(tree_nbytes((s.x, s.node_mask)) + operand_nbytes(s.ops)
+                   for s in slices)
 
     def detach(self, graph_id: int) -> None:
         """Release an attached graph, its device operands and any spilled
@@ -1141,6 +1304,7 @@ class GraphServe:
         with self._lock:
             key = (graph_id, self._graph_version.pop(graph_id, -1))
             self._cache.invalidate(key)
+            self._sharded.pop(graph_id, None)
             self.graphs.pop(graph_id, None)
             self._graph_keys.pop(graph_id, None)
 
@@ -1150,12 +1314,61 @@ class GraphServe:
         climbed the ladder (`BucketLadder.grow`, counted in
         `rebucket_events`). Bumps the structure version and invalidates
         the old version's entries, so the next `query()` builds exactly
-        once. A graph that outgrows the top bucket raises. A request
-        prepared before it keeps the snapshot it read."""
+        once. A request prepared before it keeps the snapshot it read.
+
+        Sharded graphs (§12) re-partition on every update (the edge cut
+        depends on the edges): an unchanged (shard count, shard bucket)
+        pair is a value update as in the unsharded case, a changed one
+        counts as a rebucket. A graph that shrinks back into the ladder
+        leaves the sharded path; an unsharded graph that grows past the
+        top bucket enters it (a rebucket either way); without
+        `shard_counts` it raises."""
         with self._lock:
             model, pg = self.graphs[graph_id]
-        pg, rebucketed = self.sc.ladder.grow(pg, edge_index, num_nodes,
-                                             features)
+            sharded = self._sharded.get(graph_id)
+        new_sharded = None
+        if sharded is not None:
+            part, g_old = sharded
+
+            # carry supervision across the size change, as
+            # BucketLadder.grow does: new nodes are unlabeled, a shrink
+            # truncates
+            def resized(arr, fill, dtype):
+                if arr is None:
+                    return None
+                out = np.full((num_nodes,), fill, dtype=dtype)
+                m = min(num_nodes, len(arr))
+                out[:m] = arr[:m]
+                return out
+
+            g2 = Graph(edge_index=edge_index, num_nodes=num_nodes,
+                       features=features,
+                       labels=resized(g_old.labels, -1, np.int32),
+                       train_mask=resized(g_old.train_mask, False, bool),
+                       test_mask=resized(g_old.test_mask, False, bool))
+            try:
+                pg = self.sc.ladder.pad(g2)
+                rebucketed = True           # shrank back into the ladder
+            except ValueError:
+                part2 = self._partition(g2)
+                pg = pad_graph(g2, capacity=part2.full_rows)
+                new_sharded = (part2, g2)
+                rebucketed = ((part2.shards, part2.shard_cap)
+                              != (part.shards, part.shard_cap))
+        else:
+            try:
+                pg, rebucketed = self.sc.ladder.grow(pg, edge_index,
+                                                     num_nodes, features)
+            except ValueError:
+                if not self.sc.shard_counts:
+                    raise
+                # grew off the top of the ladder: enter the sharded path
+                g2 = Graph(edge_index=edge_index, num_nodes=num_nodes,
+                           features=features)
+                part2 = self._partition(g2)
+                pg = pad_graph(g2, capacity=part2.full_rows)
+                new_sharded = (part2, g2)
+                rebucketed = True
         keys = self._keys_for(edge_index, pg)
         with self._lock:
             self.graphs[graph_id] = (model, pg)
@@ -1163,6 +1376,10 @@ class GraphServe:
             ver = self._graph_version[graph_id]
             # lifecycle invalidation, not eviction: no eviction counter
             self._cache.invalidate((graph_id, ver))
+            if new_sharded is not None:
+                self._sharded[graph_id] = new_sharded
+            else:
+                self._sharded.pop(graph_id, None)
             self._graph_version[graph_id] = ver + 1
             if rebucketed:
                 self.metrics["rebucket_events"] += 1
@@ -1210,7 +1427,8 @@ class GraphServe:
         graph moved past `ver` or was detached. The cache manager calls it
         under the engine lock, as the reference's does."""
         def spill():
-            if self._graph_version.get(graph_id) != ver:
+            if (self._graph_version.get(graph_id) != ver
+                    or graph_id in self._sharded):
                 return None
             pg = self.graphs[graph_id][1]
             co = compact_operands(pg, self.models[model].cfg,
@@ -1252,6 +1470,7 @@ class GraphServe:
             model, pg = self.graphs[graph_id]
             ver = self._graph_version[graph_id]
             keys = self._graph_keys[graph_id]
+            sharded = self._sharded.get(graph_id)
         e = self.models[model]
         if not is_symmetric(pg, keys):
             raise ValueError(
@@ -1267,11 +1486,16 @@ class GraphServe:
             self._count("delta_fallbacks")
             self.update(graph_id,
                         edge_index_from_adjacency(delta.adj, pg.num_nodes),
-                        pg.num_nodes, pg.features[:pg.num_nodes])
+                        pg.num_nodes,
+                        (sharded[1].features if sharded is not None
+                         else pg.features[:pg.num_nodes]))
             return False
         pg2 = dataclasses.replace(pg, adj=delta.adj, norm_adj=delta.norm_adj)
         keys2 = (None if keys is None
                  else patch_adjacency_keys(keys, pg.capacity, delta))
+        if sharded is not None:
+            return self._update_delta_sharded(graph_id, ver, model, pg2,
+                                              keys2, sharded, delta)
         old_key, new_key = (graph_id, ver), (graph_id, ver + 1)
         with self._lock:
             ops_old = self._cache.get("operand", old_key)
@@ -1322,6 +1546,87 @@ class GraphServe:
                                 nbytes=tree_nbytes(new_grasp))
             self.metrics["delta_bytes_h2d"] += delta_bytes
             self.metrics["delta_updates"] += 1
+        return True
+
+    def _patch_shard_slices(self, e: _ModelEntry, part: GraphShards,
+                            slices: Tuple[ShardSlice, ...], delta,
+                            degree: np.ndarray
+                            ) -> Tuple[Tuple[ShardSlice, ...], int]:
+        """A sharded slice tuple patched on the device (§13): the row
+        blocks viewed as the (full, full) permuted operand matrices, the
+        warm patch run in SLOT coordinates (flip and touched indices
+        through the inverse permutation, the patched degree vector
+        permuted), and cut into row blocks again. Features and node masks
+        are untouched: an edge delta moves no node, and the partition is
+        deliberately KEPT (a fresh partition would reshuffle the slots and
+        owe a full rebuild). Returns the tuple and the spec's bytes."""
+        full, c = part.full_rows, part.shard_cap
+        invperm = np.empty((full,), np.int64)
+        invperm[part.perm] = np.arange(full)
+        fields = OPERAND_FIELDS[e.cfg.kind]
+        spec = self._delta_spec(full, fields, invperm[delta.flip_i],
+                                invperm[delta.flip_j], delta.flip_v,
+                                np.sort(invperm[delta.touched]),
+                                degree[part.perm])
+        _, stacked, _ = stack_shard_slices(slices)
+        patched = self._delta_patcher(
+            GranniteOperands(**{f: getattr(stacked, f).reshape(full, full)
+                                for f in fields}), spec)
+        return tuple(
+            dataclasses.replace(sl, ops=GranniteOperands(**{
+                f: getattr(patched, f)[i * c:(i + 1) * c] for f in fields}))
+            for i, sl in enumerate(slices)), spec.nbytes
+
+    def _update_delta_sharded(self, graph_id: int, ver: int, model: str,
+                              pg2: PaddedGraph, keys2: Optional[np.ndarray],
+                              sharded: Tuple[GraphShards, Graph],
+                              delta) -> bool:
+        """`update_delta`'s sharded branch (§13, §15): the cached slice
+        tuple patched under the KEPT partition (`_patch_shard_slices`), the
+        halo sets and cut recomputed for the new edges (`patch_halo`), and
+        the wire the exchange of the boundary-dirty rows would move
+        (`EdgeDelta.boundary_rows`: touched rows with a neighbour on
+        another shard) counted against a full halo re-exchange, both at
+        the exact fp32 rate the bit-exact patch needs: each dirty row
+        ships its operand rows and its D^-1/2 entry. A delta inside one
+        shard moves nothing."""
+        part, g = sharded
+        e = self.models[model]
+        n = pg2.num_nodes
+        edge_index = edge_index_from_adjacency(delta.adj, n)
+        g2 = dataclasses.replace(g, edge_index=edge_index)
+        part2 = patch_halo(part, edge_index)
+        dirty = delta.boundary_rows(part.assignment, n)
+        nf, full = len(OPERAND_FIELDS[e.cfg.kind]), part.full_rows
+        delta_bytes = int(ring_psum_nbytes(
+            part.shards, len(dirty) * (full * nf + 1), bytes_per_elt=4))
+        full_bytes = int(ring_psum_nbytes(
+            part.shards, nf * full * full + full, bytes_per_elt=4))
+        old_key, new_key = (graph_id, ver), (graph_id, ver + 1)
+        with self._lock:
+            slices = self._cache.get("shard", old_key)
+        new_slices, spec_bytes = None, 0
+        if slices is not None:
+            new_slices, spec_bytes = self._patch_shard_slices(
+                e, part, slices, delta, gcn_degree(pg2.adj, n, keys2))
+            self._sync()        # the patched blocks are complete when cached
+        with self._lock:
+            if self._graph_version.get(graph_id) != ver:
+                return False              # a racing update or detach won
+            self.graphs[graph_id] = (model, pg2)
+            self._graph_keys[graph_id] = keys2
+            self._sharded[graph_id] = (part2, g2)
+            self._cache.invalidate(old_key)
+            self._graph_version[graph_id] = ver + 1
+            if new_slices is not None:
+                nb = self._shard_entry_nbytes(new_slices)
+                self._cache.put("shard", new_key, new_slices, nbytes=nb,
+                                remat_s=transfer_cost(nb))
+            self.metrics["delta_bytes_h2d"] += spec_bytes
+            self.metrics["delta_updates"] += 1
+            self.metrics["delta_halo_bytes_exchanged"] += delta_bytes
+            self.metrics["delta_halo_bytes_full"] += full_bytes
+            self.metrics["delta_dirty_rows"] += len(dirty)
         return True
 
     def _publish(self, kind: str, graph_id: int, ver: int, value, **kw
@@ -1392,6 +1697,17 @@ class GraphServe:
             model, pg = self.graphs[graph_id]
             ver = self._graph_version[graph_id]
             keys = self._graph_keys[graph_id]
+            sharded = self._sharded.get(graph_id)
+        if sharded is not None:
+            if fusion not in (None, "none"):
+                raise ValueError(
+                    "sharded graphs serve fusion='none' only: the shard "
+                    "axis takes the plan dimension fused layers batch over "
+                    "(DESIGN.md §12)")
+            return self._prepare_sharded(
+                graph_id, ver, model, pg, keys, sharded, tier=tier,
+                submitted_s=submitted_s, deadline_ms=deadline_ms,
+                tolerance=tolerance)
         key = (graph_id, ver)
         ops = self._primary_operands(graph_id, ver, model, pg, keys)
         resolved = self._route_tier(model, tier, tolerance, pg.capacity)
@@ -1420,6 +1736,56 @@ class GraphServe:
                              tier_ops=tops, fusion=fusion,
                              submitted_s=submitted_s,
                              deadline_ms=deadline_ms, tolerance=tolerance)
+
+    def _prepare_sharded(self, graph_id: int, ver: int, model: str,
+                         pg: PaddedGraph, keys: Optional[np.ndarray],
+                         sharded: Tuple[GraphShards, Graph], *,
+                         tier: Optional[str],
+                         submitted_s: Optional[float],
+                         deadline_ms: Optional[float] = None,
+                         tolerance: Optional[float] = None) -> GNNRequest:
+        """HOST stage of a query over an auto-sharded graph (§12).
+
+        The cached unit is the tuple of per-shard `ShardSlice`s, built
+        once per (graph_id, version) by `build_sharded_operands` (the
+        materialized full-capacity operands permuted into slot order on
+        the device and cut into row blocks) and counted in the operand
+        cache hits and misses like the unsharded entry; it has no spill
+        form (it rebuilds from the engine's own registry), and its bytes
+        are not counted in `operand_bytes_h2d`, as in the reference. The
+        tier resolves as for any query, at the per-shard bucket; the
+        sharded GCN int8 path derives the int8 Â from its complete row
+        blocks in the forward, so no sharded tier operand is cached.
+        Backend is always dense and fusion "none": the batch key's shard
+        element keeps these dispatches apart from unsharded ones."""
+        part, g = sharded
+        e = self.models[model]
+        resolved = self._route_tier(model, tier, tolerance, part.shard_cap)
+        with self._lock:
+            slices = self._cache.get("shard", (graph_id, ver))
+            self.metrics["operand_cache_hits" if slices is not None
+                         else "operand_cache_misses"] += 1
+        if slices is None:
+            slices = build_sharded_operands(g, part, e.cfg, pg=pg, keys=keys,
+                                            device=self.device)
+            nb = self._shard_entry_nbytes(slices)
+            self._publish("shard", graph_id, ver, slices, nbytes=nb,
+                          remat_s=transfer_cost(nb))
+        x, ops, mask = stack_shard_slices(slices)
+        now = self.clock.now()
+        submitted_s = submitted_s if submitted_s is not None else now
+        with self._lock:
+            uid = self._uid
+            self._uid += 1
+            if self.metrics["first_submit_s"] is None:
+                self.metrics["first_submit_s"] = submitted_s
+        deadline_s = (submitted_s + deadline_ms * 1e-3
+                      if deadline_ms is not None else None)
+        return self._hand_over(GNNRequest(
+            uid=uid, model=model, pg=pg, ops=ops, bucket=part.shard_cap,
+            submitted_s=submitted_s, tier=resolved, backend="dense",
+            fusion="none", shards=part.shards, part=part, shard_x=x,
+            shard_mask=mask, deadline_s=deadline_s, tolerance=tolerance))
 
     def query(self, graph_id: int, *, tier: Optional[str] = None,
               fusion: Optional[str] = None,
@@ -1476,10 +1842,13 @@ class GraphServe:
         # best-filling key first, with slack as the tie-break; tier, backend
         # and fusion mode are part of the key, so a batch never mixes plans
         key = edf_best_fill_key(edf_pending_stats(self.queue, now),
-                                self.sc.batch_slots, self._last_dispatch)
+                                self.sc.batch_slots, self._last_dispatch,
+                                replica_slots=self.sc.replica_groups)
+        # a sharded key takes one request per replica row (§15)
+        take = self.sc.replica_groups if key[5] else self.sc.batch_slots
         batch = [r for r in self.queue
                  if (r.model, r.bucket, r.tier, r.backend, r.fusion,
-                     r.shards) == key][:self.sc.batch_slots]
+                     r.shards) == key][:take]
         taken = {r.uid for r in batch}
         self.queue = [r for r in self.queue if r.uid not in taken]
         self._execute_batch(batch)
@@ -1497,11 +1866,15 @@ class GraphServe:
         is the host stage's. Every request of a grasp batch whose plan
         runs the plain form (`grasp_ref_fallback`, the CPU) counts in
         `backend_fallbacks`. A request finished past its deadline is
-        delivered and flagged `deadline_missed` (§14)."""
+        delivered and flagged `deadline_missed` (§14). A sharded batch
+        (shards > 0) runs `_execute_sharded` instead."""
         head = batch[0]
+        if head.shards:
+            self._execute_sharded(batch)
+            return
         b = self.sc.batch_slots
         bkey = self._bank_key(head.model, head.bucket, head.tier,
-                              head.backend, head.fusion)
+                              head.backend, head.fusion, 0)
         t0 = self.clock.now()
         slots = batch + [batch[-1]] * (b - len(batch))
         e = self.models[head.model]
@@ -1557,6 +1930,93 @@ class GraphServe:
             self._last_dispatch[head.model] = self._dispatch_serial
             self._dispatch_serial += 1
 
+    def _halo_bytes(self, cfg: GNNConfig, part: GraphShards
+                    ) -> Tuple[int, int]:
+        """(compressed, exact) collective bytes one sharded forward would
+        move between cards: ring all-reduce traffic priced through
+        `dist.compress.ring_psum_nbytes` (the one owner of the ring
+        factor, which `core.partition.modelled_sharded_latency` uses too),
+        1 byte an element on the int8 wire against 4 exact, over the
+        kind's exchange schedule (`sharded_exchange_widths`)."""
+        elems = sum(part.full_rows * w for w in sharded_exchange_widths(cfg))
+        comp = ring_psum_nbytes(part.shards, elems, bytes_per_elt=1)
+        return int(comp), int(4 * comp)
+
+    def _execute_sharded(self, batch: List[GNNRequest]) -> None:
+        """DEVICE stage of one sharded dispatch (§12, §15) on the dispatch
+        stream: the plan runs every shard's aggregation and combine with
+        the halo exchange between layers, and the slot-ordered logits go
+        back to node order on the host (`unshard_logits`). With
+        `replica_groups` R > 1 the batch carries up to R same-key
+        requests, one per replica row; junk rows repeat the last real
+        request and their outputs are dropped. Each replica exchanges
+        within itself, so the collective bytes are counted per REAL
+        request: what the int8 wire moves and what exact fp32 would."""
+        head = batch[0]
+        r_width = self.sc.replica_groups
+        bkey = self._bank_key(head.model, head.bucket, head.tier, "dense",
+                              "none", head.shards)
+        t0 = self.clock.now()
+        e = self.models[head.model]
+        with self._dispatching():
+            if self._dispatch_stream is not None:
+                for r in batch:
+                    self._dispatch_stream.wait_event(r.ready)
+            plan = self.plan_for(head.model, head.bucket, head.tier,
+                                 shards=head.shards)
+            quant = e.calibrations.get(head.tier)
+            if r_width == 1:
+                logits = plan(e.params, head.shard_x, head.ops, quant,
+                              node_mask=head.shard_mask)
+            else:
+                slots = batch + [batch[-1]] * (r_width - len(batch))
+                logits = plan(e.params,
+                              torch.stack([r.shard_x for r in slots]),
+                              stack_operands([r.ops for r in slots]), quant,
+                              node_mask=torch.stack([r.shard_mask
+                                                     for r in slots]))
+            if self._dispatch_stream is not None:
+                self._dispatch_stream.synchronize()
+            self.clock.on_batch(bkey)
+            now = self.clock.now()
+            host_logits = logits.cpu().numpy()
+        comp_total = exact_total = 0
+        for i, r in enumerate(batch):
+            lg = unshard_logits(host_logits[i] if r_width > 1
+                                else host_logits, r.part)
+            r.preds = lg.argmax(axis=-1).astype(np.int32)
+            if self.sc.return_logits:
+                r.logits = lg
+            r.done = True
+            r.finished_s = now
+            if r.deadline_s is not None and now > r.deadline_s:
+                r.deadline_missed = True
+            comp, exact = self._halo_bytes(e.cfg, r.part)
+            comp_total += comp
+            exact_total += exact
+        with self._lock:
+            self.bank.observe(bkey, now - t0)
+            for r in batch:
+                lat = now - r.submitted_s
+                self.metrics["latency_s"].append(lat)
+                self.finished.append(r)
+                if r.deadline_missed:
+                    self.metrics["deadline_misses"] += 1
+                if self.governor is not None:
+                    self.governor.observe(lat)
+            self.metrics["batches"] += 1
+            self.metrics["slots_filled"] += len(batch)
+            self.metrics["slots_total"] += r_width
+            self.metrics["sharded_batches"] += 1
+            self.metrics["halo_bytes_exchanged"] += (
+                comp_total if self.sc.halo_compress else exact_total)
+            self.metrics["collective_bytes_compressed"] += comp_total
+            self.metrics["collective_bytes_exact"] += exact_total
+            self.metrics["device_busy_s"] += now - t0
+            self.metrics["last_finish_s"] = now
+            self._last_dispatch[head.model] = self._dispatch_serial
+            self._dispatch_serial += 1
+
     # -------------------------------------------------------------- pipeline
     def scheduler(self, pc=None):
         """Attach the two-stage pipeline scheduler (DESIGN.md §9): a
@@ -1605,6 +2065,8 @@ class GraphServe:
                      "cache_spilled": self._cache.spilled,
                      "cache_dropped": self._cache.dropped,
                      "cache_spill_entries": self._cache.spill_entries}
+            shard_counts = {gid: p.shards
+                            for gid, (p, _) in self._sharded.items()}
             gov = self.governor
             slo = {"slo_downgrades": gov.downgrades if gov else 0,
                    "slo_upgrades": gov.upgrades if gov else 0,
@@ -1638,6 +2100,15 @@ class GraphServe:
                              for name, e in self.models.items()},
             "grasp_batches": m["grasp_batches"],
             "backend_fallbacks": m["backend_fallbacks"],
+            # sharded serving (§12): which attached graphs run partitioned
+            # (across how many shards), the sharded dispatches, and the
+            # collective bytes: what the halo wire moves and both framings
+            # (int8 and exact fp32)
+            "shard_counts": shard_counts,
+            "sharded_batches": m["sharded_batches"],
+            "halo_bytes_exchanged": m["halo_bytes_exchanged"],
+            "collective_bytes_compressed": m["collective_bytes_compressed"],
+            "collective_bytes_exact": m["collective_bytes_exact"],
             # §13 bounded cache: residency vs budget, capacity evictions
             # split by outcome (evictions == spilled + dropped), faults
             # served from the spill store, admission rejections
@@ -1654,6 +2125,11 @@ class GraphServe:
             "delta_updates": m["delta_updates"],
             "delta_fallbacks": m["delta_fallbacks"],
             "delta_bytes_h2d": m["delta_bytes_h2d"],
+            # §15 sharded deltas: the bytes the boundary-dirty rows would
+            # move against a full halo re-exchange, and the rows
+            "delta_halo_bytes_exchanged": m["delta_halo_bytes_exchanged"],
+            "delta_halo_bytes_full": m["delta_halo_bytes_full"],
+            "delta_dirty_rows": m["delta_dirty_rows"],
             # §14 SLO loop: deadline outcomes, the governor's decisions,
             # and the bank's mean measured/modelled ratio
             "deadline_misses": m["deadline_misses"],

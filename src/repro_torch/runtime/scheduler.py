@@ -48,8 +48,9 @@ Every engine contract holds under the scheduler: plans and derivers only
 replay (`assert_warm()`), cache accounting is unchanged (workers racing on
 a cold key may both build; both count as misses and the insert is
 version-checked), and tier fallback happens in the host stage as in the
-sync path. Sharded dispatch widths (`replica_groups`) come with ROADMAP
-queue 1 item 11; until then every key fills `batch_slots`.
+sync path. A key's width is `batch_slots` for an unsharded key and
+`replica_groups` for a sharded one (§15: one request per replica row),
+in the selection, the take and the batch window alike.
 """
 from __future__ import annotations
 
@@ -316,11 +317,20 @@ class PipelineScheduler:
                         for item in q)
             stats[k] = (len(q), q[0][0], slack)
         return edf_best_fill_key(stats, self.engine.sc.batch_slots,
-                                 self.engine._last_dispatch)
+                                 self.engine._last_dispatch,
+                                 replica_slots=self.engine.sc.replica_groups)
+
+    def _width(self, key: BatchKey) -> int:
+        """Dispatch width of one batch key: a sharded key (§12) fills the
+        replica rows (§15; 1 when `replica_groups` is 1, the shard axis
+        taking the dim a batch would use), an unsharded key the batch
+        slots."""
+        return (self.engine.sc.replica_groups if key[5]
+                else self.engine.sc.batch_slots)
 
     def _take_locked(self, key: BatchKey) -> List[GNNRequest]:
         q = self._ready[key]
-        n = min(self.engine.sc.batch_slots, len(q))
+        n = min(self._width(key), len(q))
         batch = [q.popleft()[2] for _ in range(n)]
         if not q:
             del self._ready[key]
@@ -347,7 +357,7 @@ class PipelineScheduler:
                     key = self._select_locked()
                     fill = len(self._ready[key])
                     unready = len(self._pending) + self._inflight_host
-                    if (fill < self.engine.sc.batch_slots and unready > 0
+                    if (fill < self._width(key) and unready > 0
                             and window_s > 0):
                         # batch window: stragglers are still in the host
                         # stage; wait (to the key's oldest arrival plus

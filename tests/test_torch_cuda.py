@@ -1064,6 +1064,95 @@ def test_sage_max_matches_plain(card, n, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,f", [(128, 384, 1433), (96, 256, 64),
+                                   (200, 512, 7), (3072, 6144, 64)])
+def test_sage_max_rectangular_matches_plain(card, m, n, f):
+    """A shard's (M, N) row block of a sampled mask against the whole
+    graph's (N, F) features (the sharded SAGE-max path): equal to the
+    plain version, as the square case is."""
+    rng = np.random.default_rng(m + n + f)
+    sample, _ = _sage_masks(rng, 2, n, n - 40, card, dense_row=5)
+    rows = sample[:, n - m - 20:n - 20].contiguous()   # padding rows too
+    h = _arr(rng, 2, n, f).abs().to(card)
+    before = sm_mod.LAUNCHES
+    got = sm_mod.sage_max(rows, h)
+    torch.cuda.synchronize()
+    assert sm_mod.LAUNCHES == before + 1
+    assert got.shape == (2, m, f)
+    assert torch.equal(got, sm_mod.sage_max_plain(rows, h))
+    assert torch.equal(kops.sage_max(rows[0], h[0]), got[0])
+
+
+def _sharded_plan_pair(card, case):
+    """One 2-shard graph's stacked slices on the card and a model's
+    params, for a `use_pallas` plan and its plain twin."""
+    from repro_torch.core import models as gmodels
+    from repro_torch.core.partition import partition_graph
+    kind, agg = case
+    cfg = GNNConfig(kind=kind, in_feats=300, hidden=64, num_classes=7,
+                    aggregator=agg or "mean")
+    g = clustered_like(num_nodes=900, num_feats=300, num_classes=7,
+                       cross_frac=0.1, seed=3)
+    part = partition_graph(g.edge_index, 900, 2, shard_cap=512)
+    x, ops, mask = gmodels.stack_shard_slices(
+        gmodels.build_sharded_operands(g, part, cfg, device=card))
+    params = gmodels.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=card)
+    return gmodels, cfg, part, params, x, ops, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("case", [("gcn", None), ("sage", "max")])
+def test_sharded_plan_kernels_match_plain_on_card(card, case, compress):
+    """A sharded GCN and SAGE-max plan with `use_pallas` (block_matmul on
+    the rectangular row blocks, sage_max rectangular) against the same
+    plan's plain products on the card."""
+    gmodels, cfg, part, params, x, ops, mask = _sharded_plan_pair(card,
+                                                                   case)
+    t = (Techniques(stagr=True, graphsplit=True) if cfg.kind == "gcn"
+         else Techniques.full_sage())
+    launches = (bm_mod.LAUNCHES, sm_mod.LAUNCHES)
+    outs = []
+    for uk in (True, False):
+        plan = gmodels.build_sharded_plan(
+            cfg, part.shard_cap, part.shards,
+            dataclasses.replace(t, use_pallas=uk), compress=compress,
+            device=card)
+        outs.append(plan(params, x, ops, None, node_mask=mask))
+    torch.cuda.synchronize()
+    assert bm_mod.LAUNCHES > launches[0]
+    assert (sm_mod.LAUNCHES > launches[1]) == (cfg.aggregator == "max"
+                                               and cfg.kind == "sage")
+    # the compressed wire may round a value at a tie to the next step
+    tol = CARD if not compress else dict(rtol=0, atol=0.05)
+    torch.testing.assert_close(outs[0], outs[1], **tol)
+    assert (outs[0].argmax(-1) == outs[1].argmax(-1)).float().mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_sharded_replica_rows_equal_single_dispatch_on_card(card):
+    """replicas=2 with `use_pallas`: each replica row equals its
+    single-replica call bit for bit on the card."""
+    gmodels, cfg, part, params, x, ops, mask = _sharded_plan_pair(
+        card, ("sage", "max"))
+    t = dataclasses.replace(Techniques.full_sage(), use_pallas=True)
+    one = gmodels.build_sharded_plan(cfg, part.shard_cap, part.shards, t,
+                                     device=card)
+    two = gmodels.build_sharded_plan(cfg, part.shard_cap, part.shards, t,
+                                     replicas=2, device=card)
+    x2 = torch.stack([x, x.flip(1)])
+    m2 = torch.stack([mask, mask.flip(1)])
+    ops2 = gmodels.stack_operands([ops, dataclasses.replace(
+        ops, sample_mask=ops.sample_mask.flip(1))])
+    both = two(params, x2, ops2, None, node_mask=m2)
+    assert torch.equal(both[0], one(params, x, ops, None, node_mask=mask))
+    assert torch.equal(both[1], one(params, x2[1], gmodels.GranniteOperands(
+        sample_mask=ops2.sample_mask[1], mean_mask=ops2.mean_mask[1]), None,
+        node_mask=m2[1]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 @pytest.mark.parametrize("aggregator", ["mean", "max"])
 def test_fused_sage_matches_plain(card, aggregator, activation):

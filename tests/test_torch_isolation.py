@@ -47,7 +47,8 @@ def test_port_file_list_covers_every_slice():
             "kernels/sage_max.py", "kernels/fused_layers.py",
             "kernels/flash_attention.py", "runtime/gnn_server.py",
             "runtime/server.py", "runtime/ewma.py", "runtime/slo.py",
-            "runtime/scheduler.py", "launch/serve.py", "configs/smollm_135m.py",
+            "runtime/scheduler.py", "core/partition.py", "dist/compress.py",
+            "launch/serve.py", "configs/smollm_135m.py",
             "nn/config.py", "nn/common.py", "nn/mlp.py", "nn/attention.py",
             "nn/transformer.py", "nn/lm.py"} <= names
 
@@ -121,6 +122,40 @@ def test_cpu_pipeline_leaves_jax_unloaded():
         "    s.submit(g, model='m', tolerance=100.0)\n"
         "    out = s.drain(timeout=60)\n"
         "assert [r.preds.shape for r in out] == [(50,)] * 2\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_cpu_sharded_serving_leaves_jax_unloaded():
+    """A graph past the top bucket, auto-sharded on the int8 wire, queried
+    before and after an edge delta (two versions, one dispatch of two
+    replica rows), on the CPU in a fresh process: it serves and loads no
+    JAX or reference module."""
+    code = (
+        "import sys\n"
+        "from repro_torch.core.graph import BucketLadder\n"
+        "from repro_torch.core.models import GNNConfig\n"
+        "from repro_torch.data.graphs import clustered_like\n"
+        "from repro_torch.runtime.gnn_server import GraphServe, "
+        "GraphServeConfig\n"
+        "eng = GraphServe(GraphServeConfig(ladder=BucketLadder((128,)), "
+        "shard_counts=(2, 4), replica_groups=2), device='cpu')\n"
+        "eng.register_model('m', GNNConfig(kind='gcn', in_feats=16, "
+        "hidden=8, num_classes=3))\n"
+        "eng.warmup()\n"
+        "g = clustered_like(num_nodes=200, num_feats=16, num_classes=3, "
+        "cross_frac=0.1)\n"
+        "gid = eng.attach(g, model='m')\n"
+        "eng.query(gid)\n"
+        "eng.update_delta(gid, add_edges=[(0, 199)])\n"
+        "eng.query(gid)\n"
+        "assert [r.preds.shape for r in eng.run()] == [(200,)] * 2\n"
+        "assert eng.summary()['sharded_batches'] == 1\n"
+        "eng.assert_warm()\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),

@@ -232,15 +232,15 @@ def test_unported_surfaces_raise():
     assert cacheg.summary()["operand_bytes_h2d"] == (
         tg.triangular_nbits(128) // 8 + 128 * 4 + 4)
     cacheg.assert_warm()
-    # GrAd deltas and the SLO arguments are ported; sharding is not
+    # GrAd deltas, the SLO arguments and sharding are ported
     assert callable(cacheg.update_delta)
     uid = cacheg.submit(_graph(60, 1), model="gcn", deadline_ms=5e6,
                         tolerance=1.0)
     late = cacheg.run()[-1]
     assert late.uid == uid and late.preds is not None
     assert not late.deadline_missed
-    with pytest.raises(TypeError):
-        tserve.GraphServeConfig(shard_counts=(2,))
+    sharded = tserve.GraphServeConfig(shard_counts=(2,))
+    assert sharded.shard_counts == (2,) and sharded.replica_groups == 1
     eng = tserve.GraphServe(device="cpu")
     cfg = tmodels.GNNConfig(kind="gcn", in_feats=8)
     eng.register_model("q", cfg, tiers=("fp32", "int8"))     # ported now
