@@ -6,8 +6,9 @@ Takes the reference's parameter trees (GCN `{"l1": {"w", "b"}, "l2":
 {...}}`, GAT `{"l1": {"w", "a_src", "a_dst", "b"}, ...}`, SAGE
 `{"l1": {"w_self", "w_neigh", "b"[, "w_pool", "b_pool"]}, ...}`), its GCN,
 GAT and SAGE tier calibrations, its GraSp block structures and its LM
-parameters (`lm_params_from_jax`) with numpy leaves; nothing here knows of
-JAX.
+parameters (`lm_params_from_jax`) with numpy leaves, and gives GNN
+parameters back as numpy (`params_to_numpy`), so weights the port trained
+can run through the reference; nothing here knows of JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +31,14 @@ def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
     dev = resolve_device(device)
     return {k: (params_from_jax(v, device=dev) if isinstance(v, dict)
                 else torch.from_numpy(np.array(v)).to(dev))
+            for k, v in tree.items()}
+
+
+def params_to_numpy(tree: Dict) -> Dict:
+    """The inverse of `params_from_jax`: a nested dict of tensors -> the
+    same nesting of numpy arrays on the host (copies; dtypes kept)."""
+    return {k: (params_to_numpy(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy().copy())
             for k, v in tree.items()}
 
 

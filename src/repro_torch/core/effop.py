@@ -3,6 +3,7 @@
 Port of the reference's `core/effop.py` on tensors with any leading batch
 dimensions:
 
+  gather(h, idx)            -> one_hot(idx) @ h
   where(mask, x, -inf)      -> x + additive_bias          (GrAx1)
   a_src[i] + a_dst[j] edge  -> outer broadcast-add         (GrAx2 ordering)
   segment softmax           -> dense row softmax with an additive mask
@@ -10,8 +11,7 @@ dimensions:
 
 The exact forms (`masked_select_exact`, `broadcast_add_scores(grax2=
 False)`, `masked_max_aggregate(grax3=False)`) keep the reference's Select,
-its transpose-then-add ordering and its -1e9-bias max. `one_hot_gather`
-comes with the baselines.
+its transpose-then-add ordering and its -1e9-bias max.
 """
 from __future__ import annotations
 
@@ -22,6 +22,17 @@ import torch
 NEG_INF = -1e9
 # largest (..., rows, cols, F) transient `masked_max_aggregate` forms at once
 MAX_BLOCK_BYTES = 1 << 28
+
+
+def one_hot_gather(h: torch.Tensor, idx: torch.Tensor, *,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """EffOp gather: the rows h[idx] as one_hot(idx) @ h, a product in
+    place of a row gather. An index outside [0, h.shape[0]) selects a row
+    of zeros, as the reference's `jax.nn.one_hot` does. idx: any shape;
+    returns (*idx.shape, F)."""
+    cols = torch.arange(h.shape[0], device=idx.device)
+    oh = (idx[..., None] == cols).to(dtype)
+    return oh @ h
 
 
 def masked_select_add(scores: torch.Tensor,

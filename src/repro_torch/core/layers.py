@@ -1,7 +1,7 @@
-"""GCN, GAT and GraphSAGE layers on the GraNNite path (StaGr / PreG /
-EffOp / GrAx).
+"""GCN, GAT and GraphSAGE layers: the edge-list baselines and the GraNNite
+path (StaGr / PreG / EffOp / GrAx).
 
-Port of the GraNNite parts of the reference's `core/layers.py`:
+Port of the reference's `core/layers.py`:
 `Techniques` keeps every flag so plan keys compare like the reference's.
 The GCN functions carry the fp32 dense branches, the QuantGr branches
 (int8 combine and int8 aggregation, through the `int8_matmul` and
@@ -15,8 +15,16 @@ The SAGE functions carry every branch of the reference's `sage_grannite`
 (mean through `block_matmul` and max through the `sage_max` kernel with
 `use_pallas`, the exact and GrAx3 masked max, the QuantGr `self`, `neigh`
 and `pool` combines through `int8_matmul`) and its fused twin
-(`fused_sage`; QuantGr SAGE does not fuse). The baseline edge-list layers
-come later.
+(`fused_sage`; QuantGr SAGE does not fuse).
+
+The baselines (`gcn_baseline`, `gat_baseline`, `sage_baseline`) are the
+paper's default mapping: per-edge gathers and scatters over an edge list,
+with the degree and normalisation computed in the forward. The
+reference's `segment_sum` is `index_add`, its `segment_max` a
+`scatter_reduce("amax")` into -inf (an empty segment stays -inf, and ties
+share the gradient evenly, as `jax.grad` shares it). Plain PyTorch with
+autograd: on a card `index_add` sums with atomics, so the last bits vary
+from run to run.
 """
 from __future__ import annotations
 
@@ -71,6 +79,42 @@ def gcn_init(gen: torch.Generator, in_feats: int, out_feats: int, *,
              device=None) -> Dict[str, torch.Tensor]:
     return {"w": glorot(gen, (in_feats, out_feats), device=device),
             "b": torch.zeros(out_feats, dtype=torch.float32, device=device)}
+
+
+def _edges(edge_index, device: torch.device):
+    """(src, dst) int64 on `device` from a (2, E) array or tensor."""
+    ei = torch.as_tensor(edge_index, device=device).long()
+    return ei[0], ei[1]
+
+
+def _segment_sum(msgs: torch.Tensor, dst: torch.Tensor,
+                 num_nodes: int) -> torch.Tensor:
+    return msgs.new_zeros((num_nodes, *msgs.shape[1:])).index_add(0, dst,
+                                                                  msgs)
+
+
+def _segment_max(msgs: torch.Tensor, dst: torch.Tensor,
+                 num_nodes: int) -> torch.Tensor:
+    """Per-destination max of (E, ...) messages; -inf where no edge ends."""
+    idx = dst.reshape(-1, *([1] * (msgs.dim() - 1))).expand_as(msgs)
+    out = msgs.new_full((num_nodes, *msgs.shape[1:]), float("-inf"))
+    return out.scatter_reduce(0, idx, msgs, "amax", include_self=False)
+
+
+def gcn_baseline(params: Dict, x: torch.Tensor, edge_index,
+                 num_nodes: int) -> torch.Tensor:
+    """Edge-list GCN with the preprocessing in the forward: degree, its
+    inverse square root, a per-edge gather of the norms, a scatter-add.
+    x: (N, Fin); edge_index: (2, E) with src in row 0, dst in row 1."""
+    src, dst = _edges(edge_index, x.device)
+    h = x @ params["w"]
+    deg = _segment_sum(torch.ones(src.shape[0], dtype=h.dtype,
+                                  device=h.device), dst, num_nodes)
+    dis = torch.where(deg > 0, torch.rsqrt(torch.clamp_min(deg, 1e-12)),
+                      0.0)
+    coef = dis[dst] * dis[src]
+    agg = _segment_sum(h[src] * coef[:, None], dst, num_nodes)
+    return agg + params["b"]
 
 
 def gcn_grannite(params: Dict, x: torch.Tensor, norm_adj: torch.Tensor,
@@ -196,6 +240,26 @@ def _alphas(params: Dict, h: torch.Tensor):
             torch.einsum("...nhf,hf->...nh", h, params["a_dst"]))
 
 
+def gat_baseline(params: Dict, x: torch.Tensor, edge_index, num_nodes: int,
+                 *, heads: int, out_feats: int,
+                 concat: bool = True) -> torch.Tensor:
+    """Edge-list GAT: per-edge score gathers, a segment softmax over each
+    destination's incoming edges, a scatter-add of the weighted messages.
+    x: (N, Fin) -> (N, heads * out_feats), or (N, out_feats) averaged
+    over the heads without the bias when not `concat`."""
+    src, dst = _edges(edge_index, x.device)
+    h = _gat_head_feats(params, x, heads, out_feats)        # (N, H, F)
+    alpha_src, alpha_dst = _alphas(params, h)               # (N, H)
+    e = F.leaky_relu(alpha_dst[dst] + alpha_src[src], 0.2)  # (E, H)
+    e = torch.exp(e - _segment_max(e, dst, num_nodes)[dst])
+    e_sum = _segment_sum(e, dst, num_nodes)
+    attn = e / torch.clamp_min(e_sum[dst], 1e-12)
+    out = _segment_sum(h[src] * attn[:, :, None], dst, num_nodes)
+    if concat:
+        return out.reshape(num_nodes, heads * out_feats) + params["b"]
+    return out.mean(dim=1)
+
+
 def gat_grannite(params: Dict, x: torch.Tensor, mask_mult: torch.Tensor,
                  bias_add: torch.Tensor, t: Techniques, *, heads: int,
                  out_feats: int, concat: bool = True,
@@ -276,6 +340,27 @@ def sage_init(gen: torch.Generator, in_feats: int, out_feats: int, *,
         p["b_pool"] = torch.zeros(in_feats, dtype=torch.float32,
                                   device=device)
     return p
+
+
+def sage_baseline(params: Dict, x: torch.Tensor, edge_index,
+                  num_nodes: int, *, aggregator: str) -> torch.Tensor:
+    """Edge-list SAGE over every in-neighbour: the mean (a scatter-add
+    over the in-degree, at least 1) or the max of the pooled features
+    relu(x @ w_pool + b_pool) per destination (0 where none arrives).
+    x: (N, Fin)."""
+    src, dst = _edges(edge_index, x.device)
+    if aggregator == "mean":
+        agg = _segment_sum(x[src], dst, num_nodes)
+        cnt = _segment_sum(torch.ones(src.shape[0], dtype=x.dtype,
+                                      device=x.device), dst, num_nodes)
+        agg = agg / torch.clamp_min(cnt, 1.0)[:, None]
+    elif aggregator == "max":
+        pooled = _sage_pooled(params, x, None, False)
+        agg = _segment_max(pooled[src], dst, num_nodes)
+        agg = torch.where(torch.isfinite(agg), agg, 0.0)
+    else:
+        raise ValueError(aggregator)
+    return x @ params["w_self"] + agg @ params["w_neigh"] + params["b"]
 
 
 def _sage_lin(v: torch.Tensor, w: torch.Tensor,

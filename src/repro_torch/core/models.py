@@ -1,8 +1,9 @@
-"""The paper's 2-layer GCN, GAT and GraphSAGE on the GraNNite path, their
-QuantGr serving tiers, GCN's GraSp aggregation backend, and execution
-plans.
+"""The paper's 2-layer GCN, GAT and GraphSAGE: the edge-list baseline and
+the GraNNite path, their QuantGr serving tiers and GCN's offline QuantGr
+calibration, GCN's GraSp aggregation backend, execution plans, and
+full-batch training and evaluation.
 
-Port of the GraNNite parts of the reference's `core/models.py`.
+Port of the reference's `core/models.py`.
 Operands are torch tensors on an explicit device; the reference's `vmap`
 over graphs is an explicit leading batch dimension B.
 
@@ -46,7 +47,7 @@ from .graph import (PaddedGraph, adjacency_keys, is_symmetric_adjacency,
                     symg_pack_adjacency_bits, symg_pack_keys)
 from .layers import Techniques
 from .quant import (QuantizedAgg, apply_quantized_agg,
-                    apply_quantized_linear, calibrate_absmax,
+                    apply_quantized_linear, calibrate_absmax, quantize_agg,
                     quantize_linear, quantize_rowwise)
 from .sparsity import (BlockSparse, block_counts, compact_block_sparse,
                        pad_block_sparse, stack_block_sparse, to_block_sparse,
@@ -100,6 +101,30 @@ def init_params(gen: torch.Generator, cfg: GNNConfig, *,
                                   device=device)}
 
 
+def forward_baseline(params: Dict, cfg: GNNConfig, x: torch.Tensor,
+                     edge_index, num_nodes: int) -> torch.Tensor:
+    """The edge-list forward (`layers.*_baseline`), the same parameters as
+    `forward_grannite`: x (num_nodes, F) -> (num_nodes, C). edge_index
+    (2, E), src in row 0 and dst in row 1, as an array or a tensor; the
+    GCN and GAT match the dense path when it carries the self-loops."""
+    _check_kind(cfg)
+    if cfg.kind == "gcn":
+        h = torch.relu(layers.gcn_baseline(params["l1"], x, edge_index,
+                                           num_nodes))
+        return layers.gcn_baseline(params["l2"], h, edge_index, num_nodes)
+    if cfg.kind == "gat":
+        per_head = cfg.hidden // cfg.heads
+        h = torch.nn.functional.elu(layers.gat_baseline(
+            params["l1"], x, edge_index, num_nodes, heads=cfg.heads,
+            out_feats=per_head))
+        return layers.gat_baseline(params["l2"], h, edge_index, num_nodes,
+                                   heads=1, out_feats=cfg.num_classes)
+    h = torch.relu(layers.sage_baseline(params["l1"], x, edge_index,
+                                        num_nodes, aggregator=cfg.aggregator))
+    return layers.sage_baseline(params["l2"], h, edge_index, num_nodes,
+                                aggregator=cfg.aggregator)
+
+
 @dataclasses.dataclass
 class GranniteOperands:
     """Host-precomputed (GraphSplit/PreG/StaGr) dense operands on a device.
@@ -108,9 +133,8 @@ class GranniteOperands:
     reference's lean build); the others stay None where the reference
     holds (1, 1) placeholders. `block_sparse` is the GraSp compacted Â
     (tensor leaves) that a grasp plan reads, None for a dense plan.
-    `quant` is the per-graph offline QuantGr form (the reference's
-    `calibrate_quant`, not ported): serving tiers carry their calibration
-    beside the operands instead.
+    `quant` is the per-graph offline QuantGr form (`calibrate_quant`):
+    serving tiers carry their calibration beside the operands instead.
     """
     norm_adj: Optional[torch.Tensor] = None   # (B?, cap, cap) PreG Â (GCN)
     mask_mult: Optional[torch.Tensor] = None  # GAT exact 0/1 mask
@@ -184,9 +208,10 @@ def stack_operands(ops: Sequence[GranniteOperands]) -> GranniteOperands:
         raise ValueError("cannot stack an empty operand batch")
     if any(o.quant is not None for o in ops):
         raise ValueError(
-            "per-graph offline QuantGr operands (ops.quant) cannot be "
-            "batched — they bake one graph's Â; serve quantized tiers "
-            "through the model-level calibrate_tier path instead")
+            "per-graph offline QuantGr operands (ops.quant, built by "
+            "calibrate_quant) cannot be batched — their QuantizedAgg bakes "
+            "one graph's Â; serve quantized tiers through the model-level "
+            "calibrate_tier path instead")
     with_blocks = [o.block_sparse is not None for o in ops]
     if any(with_blocks) and not all(with_blocks):
         raise ValueError(
@@ -805,6 +830,28 @@ def calibrate_tier(params: Dict, cfg: GNNConfig, x: torch.Tensor,
             "agg2_h": calibrate_absmax(pre2).scale}
 
 
+def calibrate_quant(params: Dict, cfg: GNNConfig, x: torch.Tensor,
+                    ops_: GranniteOperands) -> Dict:
+    """QuantGr offline calibration of one graph, the whole GCN datapath:
+    the combines' QuantizedLinears ("l1", "l2") and the aggregations'
+    QuantizedAgg ("agg1", "agg2": this graph's Â row-quantized, H's scale
+    from the fp32 forward). Set it as `ops_.quant` and a QuantGr
+    `forward_grannite` runs it; its operands cannot be batched
+    (`stack_operands`). x: (cap, F); ops_ one graph's operands."""
+    if cfg.kind != "gcn":
+        raise NotImplementedError("QuantGr calibration wired for GCN "
+                                  "(paper Fig. 20)")
+    with torch.no_grad():
+        pre1 = x @ params["l1"]["w"]
+        h1 = torch.relu(layers.gcn_grannite(params["l1"], x, ops_.norm_adj,
+                                            Techniques(stagr=True)))
+        pre2 = h1 @ params["l2"]["w"]
+        return {"l1": quantize_linear(params["l1"]["w"], x),
+                "l2": quantize_linear(params["l2"]["w"], h1),
+                "agg1": quantize_agg(ops_.norm_adj, pre1),
+                "agg2": quantize_agg(ops_.norm_adj, pre2)}
+
+
 # Fusion modes (DESIGN.md §11): how a plan executes each LAYER.
 #   none  — aggregate and combine as separate matmuls (+ host-side act).
 #   layer — one fused kernel call per layer (aggregate + combine + bias +
@@ -1326,3 +1373,115 @@ def sharded_exchange_widths(cfg: GNNConfig) -> Tuple[int, ...]:
     if cfg.kind == "gat":
         return (cfg.heads * (cfg.hidden // cfg.heads), cfg.num_classes)
     return (cfg.in_feats, cfg.hidden)
+
+
+# ---------------------------------------------------------------------------
+# Training and evaluation (the paper's accuracy table)
+# ---------------------------------------------------------------------------
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the rows `mask` selects; a label of -1
+    (padding) under a False mask reads class 0 and counts 0."""
+    logp = torch.log_softmax(logits, dim=-1)
+    safe = torch.clamp_min(labels, 0).long()
+    nll = -logp.gather(-1, safe[:, None])[:, 0]
+    m = mask.to(logits.dtype)
+    return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """Top-1 accuracy over the rows `mask` selects, a float32 scalar."""
+    ok = (logits.argmax(dim=-1) == labels) & mask
+    return ok.sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def _leaf_name(path) -> str:
+    """A dotted name ("l1.w") for a `tree_flatten_with_path` key path."""
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+def _graph_tensors(pg: PaddedGraph, dev: torch.device):
+    return (torch.from_numpy(pg.features).to(dev),
+            torch.from_numpy(np.asarray(pg.labels)).long().to(dev))
+
+
+def train_node_classifier(gen: torch.Generator, cfg: GNNConfig,
+                          pg: PaddedGraph,
+                          forward: Callable[[Dict, torch.Tensor],
+                                            torch.Tensor],
+                          params: Optional[Dict] = None, *, lr: float = 0.01,
+                          weight_decay: float = 5e-4, epochs: int = 100,
+                          device: DeviceLike = None,
+                          history: Optional[list] = None) -> Dict:
+    """Full-batch AdamW training on `pg`'s train mask (the paper: lr 0.01,
+    weight decay 5e-4, 100 epochs); returns the trained parameters,
+    detached, on `device`.
+
+    Eager: each epoch runs `forward(params, x)`, takes the gradients of
+    the masked cross-entropy with `torch.autograd.grad` over every
+    parameter leaf and updates them under `no_grad` (`optim.adamw`). The
+    kernels have no backward, so a forward that reaches a kernel entry
+    with an operand that requires grad (`use_pallas`, fusion="layer")
+    would give every parameter upstream of that operand part of its
+    gradient or none: such a forward raises, naming every parameter whose
+    gradient is cut or missing, and nothing trains on part of a gradient.
+    `params` defaults to `init_params(gen, cfg)`; `history`, when given,
+    gets each epoch's loss appended as a 0-d tensor on the device.
+    """
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    dev = resolve_device(device)
+    x, y = _graph_tensors(pg, dev)
+    tm = torch.from_numpy(np.asarray(pg.train_mask)).to(dev)
+    if params is None:
+        params = init_params(gen, cfg, device=dev)
+    flat, spec = pytree.tree_flatten_with_path(params)
+    names = [_leaf_name(path) for path, _ in flat]
+    leaves = [t.detach().clone().requires_grad_(True) for _, t in flat]
+    opt = adamw_init(leaves)
+    for epoch in range(epochs):
+        with kops.record_grad_cuts() as cuts:
+            loss = masked_cross_entropy(
+                forward(pytree.tree_unflatten(leaves, spec), x), y, tm)
+        cut = [False] * len(leaves)
+        if cuts:
+            operands = [t for _, t in cuts]
+            cut = [g is not None for g in torch.autograd.grad(
+                operands, leaves, [torch.ones_like(t) for t in operands],
+                retain_graph=True, allow_unused=True)]
+        grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+                 if loss.requires_grad else [None] * len(leaves))
+        missing = [n for n, g, c in zip(names, grads, cut) if g is None or c]
+        if missing:
+            how = (f"the kernel entries {sorted({e for e, _ in cuts})} "
+                   "have no backward and were given operands that depend on "
+                   "them" if cuts else "the forward has no path back to "
+                   "them")
+            raise RuntimeError(
+                f"train_node_classifier: epoch {epoch}: no full gradient "
+                f"reached {', '.join(missing)}; {how}. Train on the plain "
+                "forward and evaluate through the kernels")
+        with torch.no_grad():
+            leaves, opt = adamw_update(leaves, list(grads), opt, lr=lr,
+                                       weight_decay=weight_decay)
+        leaves = [t.requires_grad_(True) for t in leaves]
+        if history is not None:
+            history.append(loss.detach())
+    return pytree.tree_unflatten([t.detach() for t in leaves], spec)
+
+
+def evaluate(cfg: GNNConfig, params: Dict, pg: PaddedGraph,
+             forward: Callable[[Dict, torch.Tensor], torch.Tensor], *,
+             device: DeviceLike = None) -> float:
+    """Top-1 accuracy of `forward(params, x)` on `pg`'s test mask."""
+    dev = resolve_device(device)
+    x, y = _graph_tensors(pg, dev)
+    with torch.no_grad():
+        logits = forward(params, x)
+    return float(accuracy(logits, y,
+                          torch.from_numpy(np.asarray(pg.test_mask)).to(dev)))

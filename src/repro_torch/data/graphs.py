@@ -157,6 +157,11 @@ def cora_like(seed: int = 0) -> Graph:
                           num_classes=7, seed=seed)
 
 
+def citeseer_like(seed: int = 0) -> Graph:
+    return planetoid_like(num_nodes=3327, num_edges=4732, num_feats=3703,
+                          num_classes=6, seed=seed)
+
+
 def dynamic_graph_stream(base: Graph, *, steps: int, edges_per_step: int = 16,
                          nodes_per_step: int = 2, seed: int = 0,
                          feat_dim: Optional[int] = None

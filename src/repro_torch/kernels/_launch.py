@@ -5,10 +5,16 @@ plain PyTorch version only when every operand lies on the CPU; otherwise
 the operands must be contiguous CUDA tensors of the kernel's dtypes on one
 card, and the kernel launches or an exception says why not. There is no
 fallback.
+
+The kernels have no backward: `no_backward` guards the public entries
+against operands that require grad (see `ops`).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import functools
+import threading
+from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -63,3 +69,54 @@ def launch(kernel: str, fn, device: torch.device, *args: int) -> None:
              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed (cudaError {err})")
+
+
+class NoBackward(RuntimeError):
+    """A kernel entry was given an operand that requires grad in grad
+    mode; the kernels have no backward."""
+
+
+_cuts = threading.local()
+
+
+@contextlib.contextmanager
+def record_grad_cuts() -> Iterator[List[Tuple[str, torch.Tensor]]]:
+    """Yield a list that collects (entry, operand) for every operand that
+    requires grad reaching a kernel entry inside the block; those entries
+    run under `no_grad` instead of raising `NoBackward`."""
+    prev = getattr(_cuts, "log", None)
+    _cuts.log = log = []
+    try:
+        yield log
+    finally:
+        _cuts.log = prev
+
+
+def _operands(tree) -> Iterator[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _operands(v)
+
+
+def no_backward(entry):
+    """Refuse (or, inside `record_grad_cuts`, record) operands that
+    require grad while grad mode is on."""
+    @functools.wraps(entry)
+    def guarded(*args, **kwargs):
+        if torch.is_grad_enabled():
+            need = [t for t in _operands((args, list(kwargs.values())))
+                    if t.requires_grad]
+            if need:
+                log = getattr(_cuts, "log", None)
+                if log is None:
+                    raise NoBackward(
+                        f"{entry.__name__}: {len(need)} operand(s) require "
+                        "grad, and the kernels have no backward; call it "
+                        "under torch.no_grad() or train on the plain forward")
+                log.extend((entry.__name__, t) for t in need)
+                with torch.no_grad():
+                    return entry(*args, **kwargs)
+        return entry(*args, **kwargs)
+    return guarded

@@ -34,7 +34,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._launch import check_cuda, check_int32, launch, on_cpu
+from ._launch import (check_cuda, check_int32, launch, no_backward,
+                      on_cpu)
 from .ref import flash_attention_ref
 
 LAUNCHES = 0                      # kernel launches by `flash_attention`
@@ -83,6 +84,7 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          ">= 0")
 
 
+@no_backward
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,

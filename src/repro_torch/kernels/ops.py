@@ -18,6 +18,15 @@ mask entries, zero features and zero weight rows, so the stripped result
 is the same. Entries accept a leading batch dimension, which stands in
 for the reference's `vmap`. `flash_attention` takes its shapes as they
 are (the reference's kernel asserts tile multiples).
+
+The kernels have no backward (nor has the reference's Pallas kernels), so
+every entry refuses, with `NoBackward`, an operand that requires grad
+while grad mode is on: its result would cut the gradient of whatever lies
+upstream of that operand. Inside `record_grad_cuts()` the entry records
+the operand instead and runs without a path back, on either device;
+`train_node_classifier` uses it to name every parameter a forward cuts.
+The guard (`_launch.no_backward`) sits on these entries and on the
+`flash_attention` wrapper, which this module exports as it is.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ import torch.nn.functional as F
 from . import int8_matmul as _i8
 from .bitmap_spmm import bitmap_spmm as _bitmap_spmm
 from .block_matmul import block_matmul
+from ._launch import (NoBackward, no_backward,  # noqa: F401
+                      record_grad_cuts)
 from .flash_attention import flash_attention
 from .fused_layers import (fused_gat_full, fused_gat_precombined,
                            fused_gcn_dense, fused_gcn_grasp, fused_gcn_int8,
@@ -49,6 +60,7 @@ def _pad2(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
     return F.pad(x, (0, p1, 0, p0))
 
 
+@no_backward
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """StaGr aggregation backbone: C = A @ B through `block_matmul`."""
@@ -58,6 +70,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     return out[..., :m, :n]
 
 
+@no_backward
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor,
                 x_scale: Union[float, torch.Tensor],
                 w_scale: torch.Tensor) -> torch.Tensor:
@@ -84,6 +97,7 @@ def _structure(block_sparse, single: bool):
     return tuple(t[None] for t in leaves) if single else leaves
 
 
+@no_backward
 def bitmap_spmm(block_sparse, h: torch.Tensor) -> torch.Tensor:
     """GraSp block-sparse aggregation Â @ h through the `bitmap_spmm`
     kernel. `block_sparse` is a `core.sparsity.BlockSparse` with tensor
@@ -105,6 +119,7 @@ def bitmap_spmm(block_sparse, h: torch.Tensor) -> torch.Tensor:
 bitmap_spmm_batched = bitmap_spmm
 
 
+@no_backward
 def gat_attention(h: torch.Tensor, alpha_dst: torch.Tensor,
                   alpha_src: torch.Tensor,
                   bias_add: torch.Tensor) -> torch.Tensor:
@@ -118,6 +133,7 @@ def gat_attention(h: torch.Tensor, alpha_dst: torch.Tensor,
     return out[0] if single else out
 
 
+@no_backward
 def sage_max(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """GrAx3 masked max aggregation through the `sage_max` kernel.
     mask01: (B?, M, N) 0/1 (M < N for a shard's row block); h: (B?, N, F)
@@ -128,6 +144,7 @@ def sage_max(mask01: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return out[0] if single else out
 
 
+@no_backward
 def fused_gcn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     norm_adj: Optional[torch.Tensor] = None,
                     block_sparse=None,
@@ -183,6 +200,7 @@ def _pad_nodes(t: torch.Tensor, npad: int, dim: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
+@no_backward
 def fused_gat_layer(x: Optional[torch.Tensor], w: Optional[torch.Tensor],
                     a_src: torch.Tensor, a_dst: torch.Tensor,
                     bias_add: torch.Tensor, b: torch.Tensor, *,
@@ -220,6 +238,7 @@ def fused_gat_layer(x: Optional[torch.Tensor], w: Optional[torch.Tensor],
     return out[0] if single else out
 
 
+@no_backward
 def fused_sage_layer(x: torch.Tensor, w_self: torch.Tensor,
                      w_neigh: torch.Tensor, b: torch.Tensor, *,
                      mean_mask: Optional[torch.Tensor] = None,
@@ -243,3 +262,4 @@ def fused_sage_layer(x: torch.Tensor, w_self: torch.Tensor,
                      w_neigh.contiguous(), b.contiguous(), aggregator,
                      activation)
     return out[0] if single else out
+

@@ -177,6 +177,9 @@ DEFAULT_TECHNIQUES: Dict[str, Techniques] = {
     "sage": Techniques.full_sage(),
 }
 
+# the standard quality tiers (`tier_techniques`), cheapest last
+STANDARD_TIERS = ("fp32", "int8", "int8+grax")
+
 # Aggregation-backend serving modes (register_model(agg_backend=...)):
 # "dense" never dispatches GraSp, "auto" routes per graph by the modelled
 # density/cost rule, "grasp" forces the sparse path where eligible.

@@ -22,6 +22,10 @@ request is compared layer by layer (see `test_gat_graphserve_on_card`).
 `flash_attention` sums its online softmax in another order than the plain
 two-pass softmax, and rounds the unnormalised weights to bf16 where the
 plain version rounds the normalised ones: FLASH_TOL per dtype.
+Training: a step's gradients on the card against the same step on the
+CPU at rtol=1e-4 and atol=1e-5 * max|g| (cuBLAS, and the baselines'
+atomic `index_add`, sum in other orders than the CPU); the edge-list GCN
+against the dense one at the reference's bar, CARD.
 """
 
 import dataclasses
@@ -1507,3 +1511,166 @@ def test_host_stage_hands_requests_to_the_dispatch_stream(card, monkeypatch):
         assert (t.data_ptr(), dispatch) in recorded
     eng._execute_batch([req])
     assert req.preds is not None and req.preds.shape == (500,)
+
+
+def _trained_case(n=1000, feats=300):
+    """A Planetoid-like graph (feats not a multiple of 128, so the kernel
+    entries pad and strip it), padded to 1024 with `pad_graph`."""
+    from repro_torch.core.graph import pad_graph
+    g = planetoid_like(num_nodes=n, num_edges=2 * n, num_feats=feats,
+                       num_classes=7, seed=5)
+    return g, pad_graph(g)
+
+
+def _forwards(kind, cfg, pg, g, device):
+    """The training forward of `kind` on `device` (`accuracy_table`'s)."""
+    from repro_torch.core import models as gm
+    if kind.startswith("sage"):
+        return lambda p, x: gm.forward_baseline(p, cfg, x, g.edge_index,
+                                                pg.capacity)
+    ops_ = gm.build_operands(pg, cfg, device=device)
+    t = Techniques(stagr=True) if kind == "gcn" else Techniques(effop=True)
+    return lambda p, x: gm.forward_grannite(p, cfg, x, ops_, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gcn", "gat", "sage-max", "sage-mean"])
+def test_training_step_on_card_matches_cpu(card, kind):
+    from repro_torch.core import models as gm
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    g, pg = _trained_case()
+    name, _, agg = kind.partition("-")
+    cfg = GNNConfig(kind=name, in_feats=300, num_classes=7,
+                    aggregator=agg or "mean")
+    cpu = torch.device("cpu")
+    params = gm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device=cpu)
+    grads, stepped = {}, {}
+    for key, dev in (("cpu", cpu), ("card", card)):
+        fwd = _forwards(kind, cfg, pg, g, dev)
+        leaves = {k: {n: v.to(dev).requires_grad_(True)
+                      for n, v in layer.items()}
+                  for k, layer in params.items()}
+        flat = [v for layer in leaves.values() for v in layer.values()]
+        loss = gm.masked_cross_entropy(
+            fwd(leaves, torch.from_numpy(pg.features).to(dev)),
+            torch.from_numpy(pg.labels).long().to(dev),
+            torch.from_numpy(pg.train_mask).to(dev))
+        grads[key] = [t.cpu() for t in torch.autograd.grad(loss, flat)]
+        with torch.no_grad():
+            p, _ = adamw_update([t.detach() for t in flat],
+                                [t.to(dev) for t in grads[key]],
+                                adamw_init(flat), lr=0.01,
+                                weight_decay=5e-4)
+        stepped[key] = [t.cpu() for t in p]
+    gmax = max(t.abs().max().item() for t in grads["cpu"])
+    for got, want in zip(grads["card"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * gmax)
+    # where a gradient entry is far from 0, the step moves the weight by
+    # the same lr * sign(g) on both devices
+    for got, want, g_ in zip(stepped["card"], stepped["cpu"], grads["cpu"]):
+        far = g_.abs() > 1e-3 * gmax
+        torch.testing.assert_close(got[far], want[far], **CARD)
+
+
+@pytest.mark.cuda
+def test_offline_int8_on_card_matches_plain(card):
+    """`calibrate_quant`'s one-graph (N, N) int8 Â through `int8_matmul`
+    and `fused_gcn_int8`: the int32 products equal the plain ones exactly,
+    the fused layer its plain version bit for bit, and the forward the
+    plain int8 forward."""
+    from repro_torch.core import models as gm
+    from repro_torch.core.quant import quantize_s8
+    g, pg = _trained_case()
+    cfg = GNNConfig(kind="gcn", in_feats=300, num_classes=7)
+    params = gm.init_params(torch.Generator().manual_seed(1), cfg,
+                            device=card)
+    x = torch.from_numpy(pg.features).to(card)
+    ops_ = gm.build_operands(pg, cfg, device=card)
+    q = gm.calibrate_quant(params, cfg, x, ops_)
+    qa = q["agg1"]
+    assert qa.aq.shape == (pg.capacity, pg.capacity)
+    hq = quantize_s8(x @ params["l1"]["w"], qa.h_scale)
+    ones = torch.ones(hq.shape[-1], device=card)
+    l0 = im_mod.LAUNCHES
+    got = kops.int8_matmul(qa.aq, hq, 1.0, ones)
+    assert im_mod.LAUNCHES == l0 + 1
+    assert torch.equal(got, im_mod.int_matmul(qa.aq, hq).to(torch.float32))
+    ql = q["l1"]
+    l0 = fl_mod.INT8_LAUNCHES
+    layer = glayers.gcn_grannite_fused(
+        params["l1"], x, ops_.norm_adj, Techniques(stagr=True, quantgr=True),
+        activation="relu", quant=ql, quant_agg=qa)
+    assert fl_mod.INT8_LAUNCHES == l0 + 1
+    plain = fl_mod.fused_gcn_int8_plain(
+        x[None], ql.wq, (ql.x_scale * ql.w_scale).reshape(1, -1),
+        ql.x_scale, qa.h_scale, qa.aq[None], qa.a_scale[None],
+        params["l1"]["b"], "relu")[0]
+    assert torch.equal(layer, plain)
+    ops_q = dataclasses.replace(ops_, quant=q)
+    t = Techniques(stagr=True, quantgr=True)
+    want = gm.forward_grannite(params, cfg, x, ops_q, t)
+    n = g.num_nodes
+    for fwd in (lambda: gm.forward_grannite(
+                    params, cfg, x, ops_q,
+                    dataclasses.replace(t, use_pallas=True)),
+                lambda: gm.forward_grannite(params, cfg, x, ops_q, t,
+                                            fusion="layer")):
+        out = fwd()
+        torch.testing.assert_close(out[:n], want[:n], **CARD)
+        assert torch.equal(out[:n].argmax(-1), want[:n].argmax(-1))
+    with pytest.raises(ValueError, match="calibrate_quant"):
+        stack_operands([ops_q, ops_q])
+
+
+@pytest.mark.cuda
+def test_forward_baseline_on_card_matches_grannite(card):
+    from repro_torch.core import models as gm
+    from repro_torch.core.graph import add_self_loops
+    g, pg = _trained_case()
+    cfg = GNNConfig(kind="gcn", in_feats=300, num_classes=7)
+    params = gm.init_params(torch.Generator().manual_seed(2), cfg,
+                            device=card)
+    x = torch.from_numpy(pg.features).to(card)
+    base = gm.forward_baseline(params, cfg, x,
+                               add_self_loops(g.edge_index, g.num_nodes),
+                               pg.capacity)
+    dense = gm.forward_grannite(params, cfg, x,
+                                gm.build_operands(pg, cfg, device=card),
+                                Techniques(stagr=True))
+    n = g.num_nodes
+    assert base.device == card
+    torch.testing.assert_close(base[:n], dense[:n], **CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,t,fusion,cut", [
+    ("sage-mean", dict(stagr=True, use_pallas=True), "none",
+     "l1.b l1.w_neigh l1.w_self"),
+    ("gcn", dict(stagr=True), "layer", "l1.b l1.w l2.b l2.w"),
+], ids=["sage-mean-pallas", "gcn-layer"])
+def test_training_through_kernels_on_card_names_every_cut(card, kind, t,
+                                                          fusion, cut):
+    """On the card the kernels' outputs have no path back; the entries'
+    guard names exactly the parameters whose gradient they would cut, and
+    an entry called outside the trainer refuses operands that require
+    grad."""
+    from repro_torch.core import models as gm
+    g, pg = _trained_case()
+    name, _, agg = kind.partition("-")
+    cfg = GNNConfig(kind=name, in_feats=300, num_classes=7,
+                    aggregator=agg or "mean")
+    ops_ = gm.build_operands(pg, cfg, device=card)
+
+    def fwd(p, x):
+        return gm.forward_grannite(p, cfg, x, ops_, Techniques(**t),
+                                   fusion=fusion)
+
+    with pytest.raises(RuntimeError, match="epoch 0: no full gradient") as e:
+        gm.train_node_classifier(torch.Generator().manual_seed(0), cfg, pg,
+                                 fwd, epochs=2, device=card)
+    named = str(e.value).split("reached ")[1].split(";")[0].split(", ")
+    assert sorted(named) == cut.split()
+    w = torch.ones(8, 8, device=card, requires_grad=True)
+    with pytest.raises(kops.NoBackward, match="^matmul: "):
+        kops.matmul(torch.ones(8, 8, device=card), w)

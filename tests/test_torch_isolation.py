@@ -50,7 +50,8 @@ def test_port_file_list_covers_every_slice():
             "runtime/scheduler.py", "core/partition.py", "dist/compress.py",
             "launch/serve.py", "configs/smollm_135m.py",
             "nn/config.py", "nn/common.py", "nn/mlp.py", "nn/attention.py",
-            "nn/transformer.py", "nn/lm.py"} <= names
+            "nn/transformer.py", "nn/lm.py", "optim/adamw.py",
+            "examples/quickstart.py", "examples/quality_tiers.py"} <= names
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):
