@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths, its
-node-classifier training and its LM server on one NVIDIA card.
+node-classifier training and its LM server (dense, MoE, SSM and hybrid
+families) on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -24,7 +25,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 15
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 18
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -227,7 +228,34 @@ last line; there is no CPU path):
      wave's prefill logits must match a rerun with the plain attention
      (LM_LOGIT_BAR) and give the served first tokens. Prints time to first
      token per bucket, decode ms per step and tokens/s;
-  15. times — CUDA-event times of each kernel, its plain version and the
+  15. serve-moe — OLMoE-1B-7B at full width and depth (16 layers, d_model
+     2048, 16 heads of 128 with qk-norm, 64 experts top-8 of 1024 in every
+     layer, vocab 50304; 6.92 B parameters), random bf16 weights drawn on
+     the card from a seed (`lm_init(dtype=...)`: each matrix rounded as it
+     is made), served as [serve-lm] does (buckets 64/128/256, 4 slots, 12
+     requests of 16 tokens after a warm-up wave per bucket): launch counts
+     (flash_attention 16 a prefill wave, nothing else), counters, finite
+     logits giving the served first tokens; prints the parameter and
+     active-parameter counts, time to first token per bucket, decode ms a
+     step, a bucket-256 prefill's and a step's device time and idle share
+     (torch.profiler) and the prefill's largest kernels, and the dispatch
+     and combine einsums timed alone at the prefill's group against its
+     device time. Then the layer-by-layer check (`nn/layerwise.py`) on the
+     last wave: every layer's attention through the kernel and through
+     the plain version on the same input; mixer branches and the outputs
+     over tokens whose routes and kept assignments agree within
+     LM_LOGIT_BAR, routes agreeing on ROUTE_AGREE_MIN of tokens and no
+     less than the float32 attention's, less ROUTE_MARGIN;
+  16. serve-ssm — Mamba2-2.7B in full (64 SSD layers, 2.70 B parameters),
+     served the same way on prompts of bucket length (waves): every
+     request's tokens must equal `greedy_generate`'s; one full-width SSD
+     layer in fp32 (B 2, S 512, two chunks) against the sequential oracle
+     `ssm_reference` within SSD_BAR; times as phase 15;
+  17. serve-hybrid — Jamba-v0.1 at full width with one 8-layer superblock
+     of its 32 (13.3 B parameters; the whole model would not fit), checked
+     and timed as phase 15, flash_attention once a prefill wave. Each of
+     phases 15–17 frees its model before the next and prints its seconds;
+  18. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
      of 128), and the dense and GraSp aggregation times per bucket queued
@@ -322,6 +350,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sage_max as sm  # noqa: E402
 from repro_torch.nn import lm  # noqa: E402
+from repro_torch.nn import moe, ssm  # noqa: E402
+from repro_torch.nn.layerwise import compare_attention_paths  # noqa: E402
 from repro_torch.runtime.cache import (  # noqa: E402
     estimate_dense_entry_bytes)
 from repro_torch.runtime import gnn_server as gserver  # noqa: E402
@@ -1004,11 +1034,17 @@ FLASH_CASES = {
     "qwen3 D128 S129": (2, 129, 129, 32, 8, 128, True, None, None, 0),
     "D128 window past the keys": (1, 65, 129, 8, 4, 128, False, 30, None,
                                   120),
+    # the prefill shapes of [serve-moe] (OLMoE, 16/16 heads of 128) and
+    # [serve-hybrid] (Jamba, 32/8 heads of 128) at bucket 256
+    "olmoe S256": (4, 256, 256, 16, 16, 128, True, None, None, 0),
+    "jamba S256": (4, 256, 256, 32, 8, 128, True, None, None, 0),
 }
 FLASH_TIMED = {"serving (B 4, S 256, 9/3 heads of 64)": (4, 256, 256, 9, 3,
                                                         64),
                "long (B 1, S 4096, 32/8 heads of 128)": (1, 4096, 4096, 32,
-                                                         8, 128)}
+                                                         8, 128),
+               "olmoe prefill (B 4, S 256, 16/16 heads of 128)": (
+                   4, 256, 256, 16, 16, 128)}
 # the __global__ names of flash_attention.cu and flash_attention_tc.cu, as
 # torch.profiler reports them
 FLASH_KERNELS = ("flash_kernel", "flash_tc_kernel")
@@ -1289,6 +1325,360 @@ def serve_lm_phase(dev, card):
     return launches["flash_attention"], rel, timing
 
 
+# [serve-moe], [serve-ssm], [serve-hybrid]: the three families at full
+# width on the card, bf16, the port's own seeded init made on the card in
+# the compute dtype (no float32 copy of a model is ever whole); Jamba keeps
+# one 8-layer superblock of its 32 layers (all four would not fit in 80
+# GB). Buckets, slots and new tokens as [serve-lm]. The models are held
+# layer by layer (`nn/layerwise.py`): every attention layer's mixer branch
+# and every layer's output over the tokens whose routes and kept
+# assignments agree meet LM_LOGIT_BAR of their largest |value|; over the
+# MoE layers the kernel path's routes agree with the plain path's on at
+# least ROUTE_AGREE_MIN of the tokens, and at least as often as the exact
+# (float32, rounded once) attention's do, less ROUTE_MARGIN: a bf16
+# router flips some top-k sets under any one-step change of its input,
+# whichever attention made it. The SSD layer in fp32 against the
+# sequential oracle: SSD_BAR of the oracle's largest |output|.
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH, HYBRID_LAYERS = (
+    "olmoe-1b-7b", "mamba2-2.7b", "jamba-v0.1-52b", 8)
+ROUTE_AGREE_MIN, ROUTE_MARGIN = 0.99, 0.01
+SSD_BAR = 1e-4
+SSD_SHAPE = (2, 512)                 # (B, S): two chunks of 256
+
+
+def free_card():
+    """Let go of what the last phase held on the card; the peak memory
+    counts from here."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def card_model(tag, cfg, dev, seed):
+    """`lm_init` on the card in the compute dtype (each matrix drawn and
+    rounded before the next); prints the analytic and the allocated
+    parameter counts, the bytes and the seconds."""
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, seed=seed, device=dev, dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for t in pytree.tree_leaves(params)
+              if isinstance(t, torch.Tensor)]
+    n = sum(t.numel() for t in leaves)
+    nb = sum(t.numel() * t.element_size() for t in leaves)
+    parts = []
+    if not cfg.attention_free:
+        parts.append(f"heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+                     f"{cfg.head_dim_}")
+    if cfg.moe is not None:
+        parts.append(f"MoE {cfg.moe.num_experts} experts top-"
+                     f"{cfg.moe.top_k} of {cfg.moe.d_ff_expert}, capacity "
+                     f"factor {cfg.moe.capacity_factor}")
+    if cfg.ssm is not None:
+        d_in, heads, _, n_state = ssm.ssm_dims(cfg)
+        parts.append(f"SSM d_in {d_in}, {heads} heads of "
+                     f"{cfg.ssm.headdim}, d_state {n_state}, chunk "
+                     f"{cfg.ssm.chunk}")
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers {cfg.superblock} x "
+          f"{cfg.num_superblocks}, d_model {cfg.d_model}, "
+          + ", ".join(parts) + f", vocab "
+          f"{cfg.vocab_size}; {cfg.param_count():,} parameters "
+          f"({cfg.active_param_count():,} active a token), {n:,} allocated "
+          f"({nb / 1e9:.2f} GB, {cfg.compute_dtype} matrices) made on the "
+          f"card in {init_s:.1f} s; card memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return params
+
+
+def bucket_prompts(rng, vocab):
+    """LM_SLOTS prompts of each bucket's length exactly."""
+    return [rng.integers(0, vocab, b).astype(np.int32)
+            for b in LM_BUCKETS for _ in range(LM_SLOTS)]
+
+
+def serve_waves(tag, cfg, params, dev, prompts, rng):
+    """A warm-up wave per bucket, then `prompts` (one wave per bucket),
+    LM_NEW tokens each, with every launch count set to 0 just before.
+    Checks the counters, the outputs' shape and flash_attention's launches
+    (one per attention layer and wave, nothing else). Returns (server,
+    finished requests, flash_attention launches, run seconds)."""
+    sc = ServeConfig(buckets=LM_BUCKETS, max_len=LM_MAX_LEN,
+                     batch_slots=LM_SLOTS)
+    warm = Server(cfg, sc, params=params, device=dev)
+    for bucket in LM_BUCKETS:
+        warm.submit(rng.integers(0, cfg.vocab_size, bucket), max_new_tokens=2)
+        warm.run()
+    del warm
+    server = Server(cfg, sc, params=params, device=dev)
+    for p in prompts:
+        server.submit(p, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, routes = launches_now(), flash_routes_now()
+    s = server.summary()
+    n_attn = cfg.num_superblocks * sum(k.startswith("attn")
+                                       for k in cfg.superblock)
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention": s["prefills"] * n_attn}
+    print(f"[{tag}] mode {server.sc.mode}: {len(done)} requests in "
+          f"{s['prefills']} waves; launches {launches}, expected {want} "
+          f"({n_attn} attention layers a prefill wave); flash_attention by "
+          f"route {routes}; summary " + json.dumps(s), flush=True)
+    check(launches == want, f"[{tag}] kernel launches {launches} != {want}")
+    check(routes["wgmma"] == want["flash_attention"],
+          f"[{tag}] flash_attention routes {routes}: every prefill layer "
+          "should take the tensor-core route")
+    check(s["prefills"] == len(LM_BUCKETS)
+          and s["compiled_blobs"] <= len(LM_BUCKETS) + 1
+          and s["requests"] == len(prompts)
+          and s["tokens_out"] == LM_NEW * len(prompts)
+          and s["decode_steps"] == (LM_NEW - 1) * len(LM_BUCKETS),
+          f"[{tag}] server counters {s}")
+    check(sorted(r.uid for r in done) == list(range(len(prompts)))
+          and all(r.output.shape == (LM_NEW,) and r.output.min() >= 0
+                  and r.output.max() < cfg.vocab_size for r in done),
+          f"[{tag}] served outputs are not LM_NEW tokens of the vocabulary")
+    return server, done, launches["flash_attention"], run_s
+
+
+def last_wave_tokens(done, dev):
+    wave = done[-LM_SLOTS:]
+    toks = np.zeros((LM_SLOTS, LM_BUCKETS[-1]), np.int32)
+    for i, r in enumerate(wave):
+        toks[i, :len(r.prompt)] = r.prompt
+    return wave, torch.from_numpy(toks).long().to(dev)
+
+
+def serve_timing(tag, cfg, server, done, dev, card, run_s):
+    """Time to first token per bucket, decode ms per step and tokens/s;
+    the device time of a bucket-256 prefill and of a decode step from
+    torch.profiler against the host's, and their idle shares; the last
+    wave's prefill logits finite and giving the served first tokens.
+    Returns (timing dict, the last wave's tokens, the prefill's device
+    ms)."""
+    s = server.summary()
+    wave, toks = last_wave_tokens(done, dev)
+    sp = server.params
+    with torch.inference_mode():
+        got, state = lm.lm_prefill(sp, cfg, toks, max_len=LM_MAX_LEN)
+        busy = {"prefill": device_busy(lambda: lm.lm_prefill(
+            sp, cfg, toks, max_len=LM_MAX_LEN)),
+            "decode step": device_busy(lambda: lm.lm_decode_step(
+                sp, cfg, got.argmax(-1), state))}
+        kernels = device_kernels(lambda: lm.lm_prefill(
+            sp, cfg, toks, max_len=LM_MAX_LEN))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"[{tag}] the bucket-{LM_BUCKETS[-1]} prefill's largest device "
+          f"kernels (torch.profiler): " + "; ".join(
+              f"{name[:70]} {ms:.3f} ms x {n}" for name, (ms, n) in top)
+          + f"; {card}", flush=True)
+    check(bool(torch.isfinite(got).all())
+          and got.shape == (LM_SLOTS, cfg.vocab_size),
+          f"[{tag}] prefill logits not finite or misshaped")
+    check(np.array_equal(got.argmax(-1).cpu().numpy(),
+                         [r.output[0] for r in wave]),
+          f"[{tag}] the served first tokens differ from a rerun of the "
+          "prefill")
+    ttft = {}
+    for bucket, sec in server.metrics["ttft_s"]:
+        ttft.setdefault(bucket, []).append(sec * 1e3)
+    step_ms = server.metrics["decode_s"] / s["decode_steps"] * 1e3
+    timing = {"ttft_ms_by_bucket": {b: float(np.mean(v))
+                                    for b, v in ttft.items()},
+              "decode_ms_per_step": step_ms,
+              "decode_tokens_per_s": LM_SLOTS / step_ms * 1e3,
+              "tokens_per_s": s["tokens_out"] / run_s, "run_s": run_s}
+    for b, ms in timing["ttft_ms_by_bucket"].items():
+        print(f"[{tag}] time to first token, bucket {b} (wave start to its "
+              f"first tokens on the host, {LM_SLOTS} slots): {ms:.2f} ms; "
+              f"{card}", flush=True)
+    host_ms = {"prefill": timing["ttft_ms_by_bucket"][LM_BUCKETS[-1]],
+               "decode step": step_ms}
+    for what, (dev_ms, n, fa_ms, fa_n) in busy.items():
+        print(f"[{tag}] {what} at bucket {LM_BUCKETS[-1]}: {n} device "
+              f"operations, {dev_ms:.3f} ms of device time (torch.profiler) "
+              f"against {host_ms[what]:.3f} ms on the host clock unprofiled"
+              f": device idle share {1 - dev_ms / host_ms[what]:.3f}; "
+              f"flash_attention: {fa_n} launches recorded, {fa_ms:.3f} ms "
+              f"({fa_ms / dev_ms if dev_ms else 0.0:.3f} of the device "
+              f"time); {card}", flush=True)
+    print(f"[{tag}] decode: {step_ms:.3f} ms per step of {LM_SLOTS} slots, "
+          f"{timing['decode_tokens_per_s']:.1f} tokens/s; whole run "
+          f"{run_s:.3f} s, {timing['tokens_per_s']:.1f} tokens/s; {card}",
+          flush=True)
+    timing["device_ms"] = {k: v[0] for k, v in busy.items()}
+    timing["idle_share"] = {k: 1 - v[0] / host_ms[k]
+                            for k, v in busy.items()}
+    return timing, toks, busy["prefill"][0]
+
+
+def moe_dispatch_share(tag, cfg, dev, prefill_dev_ms, card):
+    """The EffOp dispatch einsum (G,E,C)^T (G,d) and the combine einsum at
+    the bucket-256 prefill's group, timed alone queued behind a spin, per
+    MoE layer and over the model's MoE layers, against the prefill's
+    device time (torch.profiler)."""
+    m = cfg.moe
+    t = LM_SLOTS * LM_BUCKETS[-1]
+    g = min(m.group_size, t)
+    ng, cap, d, e = t // g, moe.capacity(m, g), cfg.d_model, m.num_experts
+    gen = torch.Generator(device=dev).manual_seed(5)
+    disp = (torch.rand(ng, g, e, cap, device=dev, generator=gen) < 0.01
+            ).to(cfg.dtype)
+    xg = torch.randn(ng, g, d, device=dev, generator=gen).to(cfg.dtype)
+    out = torch.randn(ng, e, cap, d, device=dev, generator=gen).to(cfg.dtype)
+    n_moe = sum(cfg.layer_uses_moe(i % len(cfg.superblock),
+                                   cfg.superblock[i % len(cfg.superblock)])
+                for i in range(cfg.num_layers))
+    ms = {"dispatch": queued_ms(lambda: torch.einsum("ngec,ngd->necd",
+                                                     disp, xg)),
+          "combine": queued_ms(lambda: torch.einsum("ngec,necd->ngd",
+                                                    disp, out))}
+    gflop = 2.0 * ng * g * e * cap * d / 1e9
+    for k, v in ms.items():
+        share = (None if v is None or not prefill_dev_ms
+                 else n_moe * v / prefill_dev_ms)
+        print(f"[{tag}] MoE {k} einsum at the bucket-{LM_BUCKETS[-1]} "
+              f"prefill's shape ({ng} group(s) of {g} tokens, {e} experts x "
+              f"{cap} slots, d {d}; {gflop:.1f} GFLOP): "
+              f"{ms_or_not(v)} queued behind a spin, x {n_moe} MoE layers "
+              f"= " + ("not measured" if share is None else
+                       f"{n_moe * v:.3f} ms, {share:.3f} of the prefill's "
+                       f"{prefill_dev_ms:.3f} device ms") + f"; {card}",
+              flush=True)
+    return ms
+
+
+def route_check(tag, cfg, params, toks):
+    """The layer-by-layer check of the kernel path against the plain
+    attention (`compare_attention_paths`) on the last wave's tokens.
+    Returns (the kernel's route agreement, the control's)."""
+    diffs = compare_attention_paths(params, cfg, toks)
+    for d in diffs:
+        if d.kind.startswith("attn") or d.moe:
+            print(f"[{tag}] layer {d.layer} ({d.kind}"
+                  f"{', MoE' if d.moe else ''}): x + mixer max |kernel - "
+                  f"plain| {d.mixer_diff:.4g} of {d.mixer_max:.4g} "
+                  f"({d.mixer_diff / d.mixer_max:.3e}); routes agree on "
+                  f"{d.routes_agree} of {d.tokens} tokens (exact vs plain "
+                  f"{d.control_agree}), with the kept assignments "
+                  f"{d.kept_agree}; output max |kernel - plain| over those "
+                  f"{d.max_abs_diff:.4g} of {d.max_abs_out:.4g} "
+                  f"({d.max_abs_diff / d.max_abs_out:.3e}; bar "
+                  f"{LM_LOGIT_BAR})", flush=True)
+        check(d.mixer_diff <= LM_LOGIT_BAR * d.mixer_max
+              and d.max_abs_diff <= LM_LOGIT_BAR * d.max_abs_out,
+              f"[{tag}] layer {d.layer}: kernel and plain attention paths "
+              f"differ: {d}")
+    moe_d = [d for d in diffs if d.moe]
+    tokens = sum(d.tokens for d in moe_d)
+    agree = sum(d.routes_agree for d in moe_d) / tokens
+    control = sum(d.control_agree for d in moe_d) / tokens
+    kept = sum(d.kept_agree for d in moe_d) / tokens
+    print(f"[{tag}] over the {len(moe_d)} MoE layers: routes agree on "
+          f"{agree:.5f} of tokens, kernel vs plain; control, exact vs plain "
+          f"{control:.5f} (bars: {ROUTE_AGREE_MIN}, and the control less "
+          f"{ROUTE_MARGIN}); routes and kept assignments {kept:.5f}",
+          flush=True)
+    check(agree >= max(ROUTE_AGREE_MIN, control - ROUTE_MARGIN),
+          f"[{tag}] routes agree on {agree}, the control on {control}")
+    return agree, control
+
+
+def serve_moe_phase(dev, card, tag="serve-moe", arch=MOE_ARCH, layers=None):
+    """[serve-moe] (OLMoE-1B-7B, every layer MoE, at full width and depth)
+    and [serve-hybrid] (Jamba, one superblock): serve a dozen requests,
+    time them, the dispatch's share, the route check. Returns
+    (flash_attention launches, summary)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    rng = np.random.default_rng(31)
+    params = card_model(tag, cfg, dev, seed=31)
+    server, done, launches, run_s = serve_waves(
+        tag, cfg, params, dev, lm_prompts(rng, cfg.vocab_size), rng)
+    timing, toks, prefill_ms = serve_timing(tag, cfg, server, done, dev,
+                                            card, run_s)
+    timing["moe_einsum_ms"] = moe_dispatch_share(tag, cfg, dev, prefill_ms,
+                                                 card)
+    timing["route_agreement"], timing["route_control"] = route_check(
+        tag, cfg, server.params, toks)
+    timing["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del server, params, done, toks
+    free_card()
+    print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s; peak "
+          f"card memory {timing['peak_gb']:.2f} GB", flush=True)
+    return launches, timing
+
+
+def serve_ssm_phase(dev, card):
+    """[serve-ssm]: Mamba2-2.7B in full. Serving (waves) on bucket-length
+    prompts must equal greedy_generate's tokens; one full-width SSD layer
+    in fp32 against the sequential oracle. Returns the timing."""
+    t_phase = time.perf_counter()
+    tag = "serve-ssm"
+    cfg = get_config(SSM_ARCH)
+    rng = np.random.default_rng(37)
+    params = card_model(tag, cfg, dev, seed=37)
+    server, done, launches, run_s = serve_waves(
+        tag, cfg, params, dev, bucket_prompts(rng, cfg.vocab_size), rng)
+    check(server.sc.mode == "wave" and launches == 0,
+          f"[{tag}] mode {server.sc.mode}, flash launches {launches}")
+    timing, _, _ = serve_timing(tag, cfg, server, done, dev, card, run_s)
+    with torch.inference_mode():
+        for w in range(len(LM_BUCKETS)):
+            wave = done[w * LM_SLOTS:(w + 1) * LM_SLOTS]
+            prompts = torch.from_numpy(np.stack([r.prompt for r in wave])
+                                       ).long().to(dev)
+            want = lm.greedy_generate(server.params, cfg, prompts,
+                                      steps=LM_NEW - 1,
+                                      max_len=LM_MAX_LEN).cpu().numpy()
+            check(all(np.array_equal(r.output, want[i])
+                      for i, r in enumerate(wave)),
+                  f"[{tag}] bucket {LM_BUCKETS[w]}: served tokens differ "
+                  "from greedy_generate")
+    print(f"[{tag}] the served tokens of all {len(done)} requests equal "
+          f"greedy_generate's on the same bucket-length prompts", flush=True)
+    del server, params, done
+    free_card()
+
+    # one full-width SSD layer in fp32: chunked against sequential
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    layer = ssm.ssm_init(cfg32, gen, device=dev)
+    b, sl = SSD_SHAPE
+    x = torch.randn(b, sl, cfg.d_model, device=dev, generator=gen)
+    with torch.inference_mode():
+        y = ssm.ssm_forward(layer, cfg32, x)
+        y_seq = ssm.ssm_reference(layer, cfg32, x)
+        t_chunk = time_ms(lambda: ssm.ssm_forward(layer, cfg32, x), iters=5)
+        t_seq = time_ms(lambda: ssm.ssm_reference(layer, cfg32, x), iters=2)
+    err = (y - y_seq).abs().max().item()
+    top = y_seq.abs().max().item()
+    print(f"[{tag}] one full-width SSD layer in fp32 (B {b}, S {sl}, chunk "
+          f"{cfg.ssm.chunk}, {ssm.ssm_dims(cfg)[1]} heads of "
+          f"{cfg.ssm.headdim}, d_state {cfg.ssm.d_state}): chunked "
+          f"ssm_forward against the sequential ssm_reference, max |diff| "
+          f"{err:.3e}, max |out| {top:.4g}, bound {SSD_BAR} x max |out| = "
+          f"{SSD_BAR * top:.3e}; chunked {t_chunk:.3f} ms, sequential "
+          f"{t_seq:.3f} ms (CUDA events); {card}", flush=True)
+    check(bool(torch.isfinite(y).all()) and err <= SSD_BAR * top,
+          f"[{tag}] SSD differs from the sequential oracle by {err}")
+    timing.update(ssd_max_abs_err=err, ssd_bound=SSD_BAR * top,
+                  ssd_ms=t_chunk, sequential_ms=t_seq)
+    del layer, x, y, y_seq
+    free_card()
+    print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return timing
+
+
 def flash_simt(q, k, v, out):
     """One causal call of the SIMT flash_attention library, launched
     directly and counted nowhere: the kernel that served bf16 at head dim
@@ -1386,7 +1776,7 @@ def flash_row(dev, launches, worst, card):
                   f"{enc * LM_LAYERS_SMOLLM:.1f} us per SmolLM prefill of "
                   f"{LM_LAYERS_SMOLLM} calls", flush=True)
             out[label]["host_us"] = host
-    serve, long_ = (out[k] for k in FLASH_TIMED)
+    serve, long_, olmoe = (out[k] for k in FLASH_TIMED)
     src, replaces = SOURCES["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -1404,7 +1794,7 @@ def flash_row(dev, launches, worst, card):
             "max_abs_err_by_route": worst,
             "device_ms": serve["device_ms"],
             "library_device_ms": serve["library_device_ms"],
-            "serving": serve, "long": long_}
+            "serving": serve, "long": long_, "olmoe_prefill": olmoe}
 
 
 def host_ms(fn, reps=5):
@@ -4185,7 +4575,15 @@ def main() -> None:
     flash_err = flash_phase(dev)
     flash_launches, _, _ = serve_lm_phase(dev, card)
 
-    # --------------------------------------------------------- 15. times
+    # --------------------------- 15-17. serve-moe, serve-ssm, serve-hybrid
+    free_card()
+    moe_launches, _ = serve_moe_phase(dev, card)
+    serve_ssm_phase(dev, card)
+    hybrid_launches, _ = serve_moe_phase(dev, card, tag="serve-hybrid",
+                                         arch=HYBRID_ARCH,
+                                         layers=HYBRID_LAYERS)
+
+    # --------------------------------------------------------- 18. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -4751,7 +5149,14 @@ def main() -> None:
                   "NVIDIA H100 80GB HBM3, 700 W), not measured in this run",
                   flush=True)
         rows.append(row)
-    rows.append(flash_row(dev, flash_launches, flash_err, card))
+    # the MoE and hybrid paths' prefills join flash_attention's count, and
+    # are given apart too
+    flash = flash_row(dev, flash_launches + moe_launches + hybrid_launches,
+                      flash_err, card)
+    flash.update(serve_lm_launches=flash_launches,
+                 serve_moe_launches=moe_launches,
+                 serve_hybrid_launches=hybrid_launches)
+    rows.append(flash)
 
     # the terms of the GraSp cost rule (core/costs.py), measured on each
     # bucket's serving batch, queued behind a spin: a launch's fixed cost

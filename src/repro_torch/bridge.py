@@ -6,9 +6,10 @@ Takes the reference's parameter trees (GCN `{"l1": {"w", "b"}, "l2":
 {...}}`, GAT `{"l1": {"w", "a_src", "a_dst", "b"}, ...}`, SAGE
 `{"l1": {"w_self", "w_neigh", "b"[, "w_pool", "b_pool"]}, ...}`), its GCN,
 GAT and SAGE tier calibrations, its GraSp block structures and its LM
-parameters (`lm_params_from_jax`) with numpy leaves, and gives GNN
-parameters back as numpy (`params_to_numpy`), so weights the port trained
-can run through the reference; nothing here knows of JAX.
+parameters (`lm_params_from_jax`: attention and SSM mixers, MLPs and
+MoEs) with numpy leaves, and gives parameters back as numpy
+(`params_to_numpy`), so weights the port trained can run through the
+reference; nothing here knows of JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn.attention import AttnParams
 from repro_torch.nn.lm import LMParams
 from repro_torch.nn.mlp import MLPParams
+from repro_torch.nn.moe import MoEParams
+from repro_torch.nn.ssm import SSMParams
 
 
 def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
@@ -34,12 +37,22 @@ def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
             for k, v in tree.items()}
 
 
-def params_to_numpy(tree: Dict) -> Dict:
-    """The inverse of `params_from_jax`: a nested dict of tensors -> the
-    same nesting of numpy arrays on the host (copies; dtypes kept)."""
-    return {k: (params_to_numpy(v) if isinstance(v, dict)
-                else v.detach().cpu().numpy().copy())
-            for k, v in tree.items()}
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of `params_from_jax` and `lm_params_from_jax`: tensors
+    -> numpy arrays on the host (copies; dtypes kept), in the same nesting
+    of dicts and lists, named tuples as dicts of their fields, None kept.
+    An `LMParams` gives the reference's fields (`embed`, `stack`,
+    `final_norm`, `unembed`), without the derived `logits_w`."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    if isinstance(tree, LMParams):
+        tree = {k: getattr(tree, k)
+                for k in ("embed", "stack", "final_norm", "unembed")}
+    if isinstance(tree, list):
+        return [params_to_numpy(v) for v in tree]
+    return {k: params_to_numpy(v) for k, v in _fields(tree).items()}
 
 
 def calibration_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
@@ -86,13 +99,16 @@ def lm_params_from_jax(tree: Any, *, device: DeviceLike = None) -> LMParams:
     `LMParams` on `device`, values and dtypes kept. The stacked layout is
     kept: `stack` is a list over superblock positions whose leaves carry
     the leading num_superblocks axis, so index i of one is index i of the
-    other."""
+    other. A mixer is an SSM's when it has `w_zx`, else attention's; an
+    `mlp` with `w_router` is a MoE, with its shared expert if any."""
     dev = resolve_device(device)
 
     def tensor(a):
         return None if a is None else torch.from_numpy(np.array(a)).to(dev)
 
     def tensors(node, cls):
+        if node is None:
+            return None
         f = _fields(node)
         return cls(**{k: tensor(f.get(k)) for k in cls._fields})
 
@@ -100,19 +116,22 @@ def lm_params_from_jax(tree: Any, *, device: DeviceLike = None) -> LMParams:
         out = {}
         for k, v in _fields(node).items():
             if k == "mixer":
-                out[k] = tensors(v, AttnParams)
+                out[k] = tensors(v, SSMParams if "w_zx" in _fields(v)
+                                 else AttnParams)
+            elif k == "mlp" and "w_router" in _fields(v):
+                f = _fields(v)
+                out[k] = MoEParams(
+                    **{n: tensor(f.get(n))
+                       for n in ("w_router", "w_in", "w_up", "w_out")},
+                    shared=tensors(f.get("shared"), MLPParams))
             elif k == "mlp":
-                if "w_router" in _fields(v):
-                    raise NotImplementedError(
-                        "MoE layers are not ported yet (ROADMAP queue 1 "
-                        "item 14)")
                 out[k] = tensors(v, MLPParams)
-            elif k.endswith("norm"):
+            elif k.endswith("norm") and k != "pre_cross_norm":
                 out[k] = {n: tensor(a) for n, a in _fields(v).items()}
             else:
                 raise NotImplementedError(
-                    f"layer field {k!r} is not ported yet (ROADMAP queue 1 "
-                    "item 14)")
+                    f"layer field {k!r} (cross-attention) is not ported "
+                    "yet (ROADMAP queue 1 item 14)")
         return out
 
     f = _fields(tree)

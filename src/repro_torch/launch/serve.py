@@ -1,7 +1,10 @@
-"""Serving launcher: bucketed batch inference of the dense LM family.
+"""Serving launcher: bucketed batch inference of the dense, moe, ssm and
+hybrid LM families (`--arch` any of `configs.ARCHS`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --reduced --device cpu
 
 runs on the CUDA card (prefill through the `flash_attention` kernel);
 `--device cpu` runs the plain PyTorch path, for example with `--reduced`.

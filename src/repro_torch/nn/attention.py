@@ -17,7 +17,7 @@ Cross-attention (whisper) waits for ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -41,19 +41,21 @@ class AttnParams(NamedTuple):
 
 
 def attn_init(cfg: ArchConfig, generator: torch.Generator, *,
-              device: DeviceLike = None) -> AttnParams:
+              device: DeviceLike = None,
+              dtype: torch.dtype = torch.float32) -> AttnParams:
+    """Projections in `dtype`; the qk-norm scales float32."""
     device = resolve_device(device)
     d, hh, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                      cfg.head_dim_)
 
     def ones():
         return torch.ones(hd, device=device) if cfg.qk_norm else None
-    return AttnParams(
-        wq=dense_param((d, hh, hd), generator, device=device),
-        wk=dense_param((d, kv, hd), generator, device=device),
-        wv=dense_param((d, kv, hd), generator, device=device),
-        wo=dense_param((hh, hd, d), generator, device=device),
-        q_norm=ones(), k_norm=ones())
+
+    def dense(*shape):
+        return dense_param(shape, generator, device=device, dtype=dtype)
+    return AttnParams(wq=dense(d, hh, hd), wk=dense(d, kv, hd),
+                      wv=dense(d, kv, hd), wo=dense(hh, hd, d),
+                      q_norm=ones(), k_norm=ones())
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -83,19 +85,22 @@ def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
 
 
 def attn_forward(p: AttnParams, cfg: ArchConfig, x: torch.Tensor, *,
-                 kind: str, positions: torch.Tensor):
+                 kind: str, positions: torch.Tensor,
+                 attention: Optional[Callable] = None):
     """Prefill attention. x: (B, S, d) in the compute dtype. Returns
     (out (B, S, d), rope'd k, v (B, S, KV, hd)): the prefill writes the
-    decode caches from the k and v it attended over."""
+    decode caches from the k and v it attended over. `attention` replaces
+    `kops.flash_attention` (None), for example by its plain version, to
+    compare the two on the same layer."""
     q, k, v = _project_qkv(p, cfg, x)
     q = common.apply_rope(q, positions, theta=cfg.rope_theta,
                           fraction=cfg.rope_fraction)
     k = common.apply_rope(k, positions, theta=cfg.rope_theta,
                           fraction=cfg.rope_fraction)
-    out = kops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=kind != "attn_bidir",
-                               window=_window(cfg, kind),
-                               softcap=cfg.attn_softcap)
+    attention = attention or kops.flash_attention
+    out = attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                    causal=kind != "attn_bidir", window=_window(cfg, kind),
+                    softcap=cfg.attn_softcap)
     return _out_proj(out, p.wo, cfg.dtype), k, v
 
 

@@ -17,16 +17,18 @@ from repro_torch.device import DeviceLike, resolve_device
 
 
 def dense_param(shape: Sequence[int], generator: torch.Generator, *,
-                scale: Optional[float] = None,
-                device: DeviceLike = None) -> torch.Tensor:
-    """Truncated-normal (+-2 sigma) fan-in init, float32, on `device`
-    (None: the card): the port's own init; it does not reproduce
-    `jax.random`."""
+                scale: Optional[float] = None, device: DeviceLike = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Truncated-normal (+-2 sigma) fan-in init on `device` (None: the
+    card): the port's own init; it does not reproduce `jax.random`. The
+    draws are float32, made on the generator's device, and rounded to
+    `dtype` at once."""
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    t = torch.empty(tuple(shape), dtype=torch.float32)
+    t = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(resolve_device(device))
+    return t.mul_(scale).to(resolve_device(device), dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,

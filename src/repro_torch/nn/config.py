@@ -1,11 +1,12 @@
 """Architecture configuration of the LM substrate, as data.
 
 `ArchConfig` describes every family the reference covers (dense, ssm, moe,
-hybrid, vlm, audio); the port serves the dense family (`layer_pattern`
-"global" or "local_global", no MoE, SSM, encoder or frontend) and refuses
-the rest where it would run them (ROADMAP queue 1 item 14). Layer
-heterogeneity is a *superblock*, the smallest repeating pattern of layer
-kinds; parameters carry a leading `num_superblocks` axis.
+hybrid, vlm, audio); the port serves the dense, moe, ssm and hybrid
+families and refuses the encoder (and with it cross-attention) and the
+vision and audio frontends where it would run them (ROADMAP queue 1 item
+14). Layer heterogeneity is a *superblock*, the smallest repeating
+pattern of layer kinds; parameters carry a leading `num_superblocks`
+axis.
 
 The reference's knobs of its multi-pod dry run and training (remat, loss,
 query and KV chunk sizes, scan unrolling, block skip, bf16 logits, the
@@ -111,20 +112,91 @@ class ArchConfig:
         assert self.num_layers % sb == 0, (self.num_layers, sb)
         return self.num_layers // sb
 
+    def layer_uses_moe(self, pos_in_superblock: int, kind: str) -> bool:
+        """MoE replaces the MLP at every `every_k_layers`-th superblock
+        position (jamba: the odd ones); the kind does not matter."""
+        del kind
+        if self.moe is None:
+            return False
+        return pos_in_superblock % self.moe.every_k_layers == (
+            self.moe.every_k_layers - 1)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder is not None
+
+    @property
+    def attention_free(self) -> bool:
+        return self.layer_pattern == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """SSM or hybrid: a constant-size state in most layers."""
+        return self.layer_pattern in ("ssm", "jamba")
+
+    def _layer_kinds(self):
+        sb = self.superblock
+        return [(i % len(sb), sb[i % len(sb)]) for i in range(self.num_layers)]
+
+    def param_count(self) -> int:
+        """Analytic parameter count, as the reference counts it (norm
+        scales, the SSM's per-head vectors and the conv bias left out)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim_
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        mult = 3 if self.gated_mlp else 2
+        total = v * d if self.tie_embeddings else 2 * v * d
+        for pos, kind in self._layer_kinds():
+            if kind.startswith("attn"):
+                total += d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d
+            else:
+                s = self.ssm
+                d_in = s.expand * d
+                total += d * 2 * d_in                      # w_zx
+                total += d * 2 * s.n_groups * s.d_state    # w_bc
+                total += d * (d_in // s.headdim)           # w_dt
+                total += d_in * d                          # w_out
+                total += s.conv_kernel * (d_in + 2 * s.n_groups * s.d_state)
+            if self.layer_uses_moe(pos, kind):
+                m = self.moe
+                total += m.num_experts * mult * d * m.d_ff_expert
+                total += d * m.num_experts                 # router
+                if m.shared_expert_ff:
+                    total += mult * d * m.shared_expert_ff
+            elif ff > 0:
+                total += mult * d * ff
+        if self.encoder is not None:
+            enc = self.encoder.num_layers * (
+                (2 * d * n_q * hd + 2 * d * n_kv * hd) + mult * d * ff)
+            cross = self.num_layers * (d * n_q * hd + 2 * d * n_kv * hd
+                                       + n_q * hd * d)
+            total += enc + cross
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: `param_count` less the experts it
+        is not routed to."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        mult = 3 if self.gated_mlp else 2
+        n_moe = sum(1 for pos, kind in self._layer_kinds()
+                    if self.layer_uses_moe(pos, kind))
+        idle = (m.num_experts - m.top_k) * mult * self.d_model * m.d_ff_expert
+        return int(self.param_count() - n_moe * idle)
+
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless `cfg` lies on the ported dense serving path."""
-    if cfg.moe is not None:
-        what = "MoE layers"
-    elif cfg.ssm is not None or cfg.layer_pattern not in ("global",
-                                                          "local_global"):
-        what = f"the {cfg.layer_pattern!r} layer pattern"
-    elif cfg.encoder is not None:
-        what = "the encoder"
+    """Raise unless `cfg` lies on a ported serving path: the encoder
+    (whisper's, and with it cross-attention) and the frontends (vision,
+    audio) are not ported."""
+    if cfg.encoder is not None:
+        what = "the encoder and cross-attention"
     elif cfg.frontend is not None:
         what = f"the {cfg.frontend!r} frontend"
     else:
         return
     raise NotImplementedError(
         f"{cfg.name} needs {what}, which the port does not have yet "
-        "(ROADMAP queue 1 item 14); it serves the dense family")
+        "(ROADMAP queue 1 item 14); it serves the dense, moe, ssm and "
+        "hybrid families")

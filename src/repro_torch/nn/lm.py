@@ -1,9 +1,10 @@
-"""Top-level language model of the dense family: embeddings, the
-superblock stack, logits, and the serving pair prefill / decode step.
+"""Top-level language model of the dense, moe, ssm and hybrid families:
+embeddings, the superblock stack, logits, and the serving pair prefill /
+decode step.
 
 The vision prefix (`prefix_embeds`), the audio encoder (`enc_embeds`) and
 the training loss (`chunked_xent`, `lm_loss`) wait for ROADMAP queue 1
-items 14 and 13.
+item 14.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from . import transformer as tfm
 from .common import dense_param, softcap, take_embedding
 from .config import ArchConfig, require_ported
 from .mlp import MLPParams
+from .moe import MoEParams
+from .ssm import SSMParams
 
 
 class LMParams(NamedTuple):
@@ -29,22 +32,33 @@ class LMParams(NamedTuple):
     logits_w: Optional[torch.Tensor] = None
 
 
-def lm_init(cfg: ArchConfig, *, seed: int = 0,
-            device: DeviceLike = None) -> LMParams:
-    """Random float32 weights from a `torch.Generator` (the port's own
-    init; the reference's `jax.random` draws differ) on `device`, the card
-    when None."""
+def lm_init(cfg: ArchConfig, *, seed: int = 0, device: DeviceLike = None,
+            dtype: Optional[torch.dtype] = None) -> LMParams:
+    """Random weights from a `torch.Generator` (the port's own init; the
+    reference's `jax.random` draws differ) on `device`, the card when
+    None.
+
+    dtype None: every leaf float32, drawn by a generator on the host, so
+    every device gets the same draws. A dtype (the compute dtype, for a
+    model at full width): the draws are made by a generator on `device`
+    and each projection matrix and the embedding are rounded to `dtype`
+    as they are made, so no float32 copy of the model is ever whole; the
+    leaves the reference reads in float32 (norm scales, the SSM's conv,
+    dt, A and skip) stay float32, and `to_compute_dtype` then changes
+    nothing."""
     require_ported(cfg)
     device = resolve_device(device)
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=device if dtype is not None else "cpu")
+    g.manual_seed(seed)
+    wdt = dtype if dtype is not None else torch.float32
     embed = dense_param((cfg.vocab_size, cfg.d_model), g, scale=1.0,
-                        device=device)
+                        device=device, dtype=wdt)
     return LMParams(
-        embed=embed, stack=tfm.stack_init(cfg, g, device=device),
+        embed=embed, stack=tfm.stack_init(cfg, g, device=device, dtype=wdt),
         final_norm=tfm.norm_init(cfg, device=device),
         unembed=(None if cfg.tie_embeddings else
                  dense_param((cfg.d_model, cfg.vocab_size), g,
-                             device=device)))
+                             device=device, dtype=wdt)))
 
 
 def embed_tokens(p: LMParams, cfg: ArchConfig,
@@ -67,26 +81,45 @@ def hidden_to_logits(p: LMParams, cfg: ArchConfig,
     return softcap(h.float() @ w, cfg.final_softcap)
 
 
+def _round_layer(node: Dict[str, Any], dt: torch.dtype) -> Dict[str, Any]:
+    """One stacked position with its projection matrices in `dt`: the
+    leaves the reference rounds at use, and no other."""
+    def cast(w):
+        return None if w is None else w.to(dt)
+
+    def mlp(m: MLPParams) -> MLPParams:
+        return MLPParams(*(cast(w) for w in m))
+    out = dict(node)
+    m = node["mixer"]
+    if isinstance(m, SSMParams):
+        out["mixer"] = m._replace(w_zx=cast(m.w_zx), w_bc=cast(m.w_bc),
+                                  w_dt=cast(m.w_dt), w_out=cast(m.w_out))
+    else:
+        out["mixer"] = m._replace(wq=cast(m.wq), wk=cast(m.wk),
+                                  wv=cast(m.wv), wo=cast(m.wo))
+    if isinstance(node.get("mlp"), MoEParams):
+        e = node["mlp"]
+        out["mlp"] = MoEParams(
+            w_router=cast(e.w_router), w_in=cast(e.w_in), w_up=cast(e.w_up),
+            w_out=cast(e.w_out),
+            shared=None if e.shared is None else mlp(e.shared))
+    elif "mlp" in node:
+        out["mlp"] = mlp(node["mlp"])
+    return out
+
+
 def to_compute_dtype(p: LMParams, cfg: ArchConfig) -> LMParams:
     """The same parameters with the embedding and every projection matrix
-    rounded to the compute dtype once, and `logits_w` made, so that a
-    prefill or decode step converts no weight. Every call rounded them the
-    same way, so the results are bit for bit those of `p`. Norm scales
-    stay float32."""
+    (attention, SSM in/out projections, MLP, router and experts) rounded
+    to the compute dtype once, and `logits_w` made, so that a prefill or
+    decode step converts no weight. Every call rounded them the same way,
+    so the results are bit for bit those of `p`. Norm scales and the
+    SSM's conv, dt, A and skip leaves stay float32, as the reference
+    reads them."""
     dt = cfg.dtype
-
-    def layer(node: Dict[str, Any]) -> Dict[str, Any]:
-        out = dict(node)
-        m = node["mixer"]
-        out["mixer"] = m._replace(wq=m.wq.to(dt), wk=m.wk.to(dt),
-                                  wv=m.wv.to(dt), wo=m.wo.to(dt))
-        if "mlp" in node:
-            out["mlp"] = MLPParams(*(None if w is None else w.to(dt)
-                                     for w in node["mlp"]))
-        return out
     unembed = p.embed.T if p.unembed is None else p.unembed
     return p._replace(embed=p.embed.to(dt),
-                      stack=[layer(n) for n in p.stack],
+                      stack=[_round_layer(n, dt) for n in p.stack],
                       logits_w=unembed.to(dt).float())
 
 
@@ -100,7 +133,7 @@ def lm_hidden(p: LMParams, cfg: ArchConfig, tokens: torch.Tensor
 
 
 class ServeState(NamedTuple):
-    caches: List[Dict[str, torch.Tensor]]
+    caches: List[Any]                        # KV dicts and SSMCaches
     pos: torch.Tensor                        # int32 scalar or (B,)
 
 

@@ -18,14 +18,19 @@ class MLPParams(NamedTuple):
 
 
 def mlp_init(cfg: ArchConfig, generator: torch.Generator, *,
-             device: DeviceLike = None) -> MLPParams:
+             device: DeviceLike = None, d_ff: Optional[int] = None,
+             dtype: torch.dtype = torch.float32) -> MLPParams:
+    """Width `d_ff` (default `cfg.d_ff`; a MoE's shared expert passes its
+    own), the matrices in `dtype`."""
     device = resolve_device(device)
-    d, ff = cfg.d_model, cfg.d_ff
-    return MLPParams(
-        w_in=dense_param((d, ff), generator, device=device),
-        w_up=(dense_param((d, ff), generator, device=device)
-              if cfg.gated_mlp else None),
-        w_out=dense_param((ff, d), generator, device=device))
+    d = cfg.d_model
+    ff = d_ff if d_ff is not None else cfg.d_ff
+
+    def dense(*shape):
+        return dense_param(shape, generator, device=device, dtype=dtype)
+    return MLPParams(w_in=dense(d, ff),
+                     w_up=dense(d, ff) if cfg.gated_mlp else None,
+                     w_out=dense(ff, d))
 
 
 def mlp_forward(p: MLPParams, cfg: ArchConfig, x: torch.Tensor

@@ -1,28 +1,32 @@
-"""Decoder stack over superblocks, the dense family's layers.
+"""Decoder stack over superblocks of attention and SSM layers.
 
 Parameters are built per superblock *position* and stacked along a leading
 `num_superblocks` axis, as in the reference, so the reference's stacked
 trees map onto the port's one index for one index; the forward is a Python
-loop over superblocks where the reference scans. Decode caches are
-(num_superblocks, B, S_max, KV, hd) per attention position, written in
-place at each slot's cursor.
+loop over superblocks where the reference scans. Decode caches are stacked
+the same way: (num_superblocks, B, S_max, KV, hd) K and V per attention
+position, an `SSMCache` (conv window and float32 state) per SSM position,
+written in place.
 
-The port covers the 'attn' and 'attn_local' layer kinds with the MLP,
-sandwich `post_norms` and `zero_centered_norm`. An SSM layer, a MoE layer
-or cross-attention raises NotImplementedError (ROADMAP queue 1 item 14).
+The port covers the 'attn', 'attn_local' and 'ssm' layer kinds, each
+followed by the dense MLP or a MoE (`cfg.layer_uses_moe`), or by nothing
+(Mamba2), with sandwich `post_norms` and `zero_centered_norm`.
+Cross-attention raises NotImplementedError (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .common import layer_norm, rms_norm
 from .config import ArchConfig, require_ported
-from .mlp import MLPParams, mlp_forward, mlp_init
+from .mlp import mlp_forward, mlp_init
 
 
 def norm_init(cfg: ArchConfig, *, device: DeviceLike = None
@@ -42,31 +46,40 @@ def apply_norm(p: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 
 def layer_init(cfg: ArchConfig, pos: int, generator: torch.Generator, *,
-               device: DeviceLike = None) -> Dict[str, Any]:
-    """One layer at superblock position `pos`: attention, MLP and norms."""
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """One layer at superblock position `pos`: its mixer (attention or
+    SSM), then the MLP, a MoE or nothing, and the norms; the projection
+    matrices in `dtype`."""
     require_ported(cfg)
     device = resolve_device(device)
+    kind = cfg.superblock[pos]
+    init = attn_mod.attn_init if kind.startswith("attn") else ssm_mod.ssm_init
     p: Dict[str, Any] = {"pre_norm": norm_init(cfg, device=device),
-                         "mixer": attn_mod.attn_init(cfg, generator,
-                                                     device=device)}
+                         "mixer": init(cfg, generator, device=device,
+                                       dtype=dtype)}
     if cfg.post_norms:
         p["post_norm"] = norm_init(cfg, device=device)
-    if cfg.d_ff > 0:
+    if cfg.layer_uses_moe(pos, kind):
         p["pre_mlp_norm"] = norm_init(cfg, device=device)
-        p["mlp"] = mlp_init(cfg, generator, device=device)
-        if cfg.post_norms:
-            p["post_mlp_norm"] = norm_init(cfg, device=device)
+        p["mlp"] = moe_mod.moe_init(cfg, generator, device=device,
+                                    dtype=dtype)
+    elif cfg.d_ff > 0:
+        p["pre_mlp_norm"] = norm_init(cfg, device=device)
+        p["mlp"] = mlp_init(cfg, generator, device=device, dtype=dtype)
+    if cfg.post_norms and "mlp" in p:
+        p["post_mlp_norm"] = norm_init(cfg, device=device)
     return p
 
 
 def _stack(trees: List[Any]) -> Any:
     """Stack per-layer trees (dicts, NamedTuples, tensors, None) along a
-    new leading axis."""
+    new leading axis; one tree is viewed, not copied."""
     first = trees[0]
     if first is None:
         return None
     if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
+        return first[None] if len(trees) == 1 else torch.stack(trees)
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return type(first)(*(_stack(list(f)) for f in zip(*trees)))
@@ -87,48 +100,67 @@ def slice_block(tree: Any, blk: int) -> Any:
 
 
 def stack_init(cfg: ArchConfig, generator: torch.Generator, *,
-               device: DeviceLike = None) -> List[Dict[str, Any]]:
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> List[Dict[str, Any]]:
     """A list over superblock positions; each leaf has a leading
     num_superblocks axis. Layers are drawn in block-major order."""
     device = resolve_device(device)
     sb = len(cfg.superblock)
-    layers = [[layer_init(cfg, pos, generator, device=device)
+    layers = [[layer_init(cfg, pos, generator, device=device, dtype=dtype)
                for pos in range(sb)] for _ in range(cfg.num_superblocks)]
     return [_stack([blk[pos] for blk in layers]) for pos in range(sb)]
 
 
-def _mlp_residual(p: Dict[str, Any], cfg: ArchConfig,
-                  x: torch.Tensor) -> torch.Tensor:
-    if "mlp" not in p:
-        return x
-    if not isinstance(p["mlp"], MLPParams):
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "queue 1 item 14)")
-    h = mlp_forward(p["mlp"], cfg, apply_norm(p["pre_mlp_norm"], cfg, x))
+def _refuse_cross(p: Dict[str, Any]) -> None:
+    if "cross" in p:
+        raise NotImplementedError(
+            "cross-attention layers are not ported yet (ROADMAP queue 1 "
+            "item 14)")
+
+
+def mixer_residual(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor, *,
+                   kind: str, positions: torch.Tensor,
+                   attention: Optional[Callable] = None) -> torch.Tensor:
+    """x plus the layer's mixer branch (attention or SSM), the input of
+    its MLP or MoE branch; `attention` as in `attn_forward`."""
+    _refuse_cross(p)
+    h = apply_norm(p["pre_norm"], cfg, x)
+    if kind.startswith("attn"):
+        h, _, _ = attn_mod.attn_forward(p["mixer"], cfg, h, kind=kind,
+                                        positions=positions,
+                                        attention=attention)
+    else:
+        h = ssm_mod.ssm_forward(p["mixer"], cfg, h)
     if cfg.post_norms:
-        h = apply_norm(p["post_mlp_norm"], cfg, h)
+        h = apply_norm(p["post_norm"], cfg, h)
     return x + h
 
 
-def _check_kind(p: Dict[str, Any], kind: str) -> None:
-    if not kind.startswith("attn") or "cross" in p:
-        raise NotImplementedError(
-            f"layer kind {kind!r} and cross-attention layers are not ported "
-            "yet (ROADMAP queue 1 item 14)")
+def mlp_residual(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x plus the layer's MLP or MoE branch: (x, the MoE's aux loss or
+    None)."""
+    if "mlp" not in p:
+        return x, None
+    h = apply_norm(p["pre_mlp_norm"], cfg, x)
+    aux = None
+    if isinstance(p["mlp"], moe_mod.MoEParams):
+        h, aux = moe_mod.moe_forward(p["mlp"], cfg, h)
+    else:
+        h = mlp_forward(p["mlp"], cfg, h)
+    if cfg.post_norms:
+        h = apply_norm(p["post_mlp_norm"], cfg, h)
+    return x + h, aux
 
 
 def _layer_forward(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor, *,
                    kind: str, positions: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm residual layer. Returns (x, moe_aux), aux 0 here."""
-    _check_kind(p, kind)
-    h, _, _ = attn_mod.attn_forward(p["mixer"], cfg,
-                                    apply_norm(p["pre_norm"], cfg, x),
-                                    kind=kind, positions=positions)
-    if cfg.post_norms:
-        h = apply_norm(p["post_norm"], cfg, h)
-    x = _mlp_residual(p, cfg, x + h)
-    return x, torch.zeros((), device=x.device)
+    """Pre-norm residual layer. Returns (x, moe_aux), aux 0 without a
+    MoE."""
+    x, aux = mlp_residual(p, cfg, mixer_residual(p, cfg, x, kind=kind,
+                                                 positions=positions))
+    return x, (torch.zeros((), device=x.device) if aux is None else aux)
 
 
 def stack_forward(stacked: List[Dict[str, Any]], cfg: ArchConfig,
@@ -146,23 +178,33 @@ def stack_forward(stacked: List[Dict[str, Any]], cfg: ArchConfig,
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
-                device: DeviceLike = None
-                ) -> List[Dict[str, torch.Tensor]]:
-    """Per superblock position: K and V caches (nsb, B, S_max, KV, hd)."""
+                device: DeviceLike = None) -> List[Any]:
+    """Per superblock position: K and V caches (nsb, B, S_max, KV, hd), or
+    an SSMCache whose leaves carry the leading nsb axis."""
     require_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.num_superblocks, batch, max_len, cfg.num_kv_heads,
-             cfg.head_dim_)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in cfg.superblock]
+    nsb = cfg.num_superblocks
+    shape = (nsb, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    out: List[Any] = []
+    for kind in cfg.superblock:
+        if kind.startswith("attn"):
+            out.append({"k": torch.zeros(shape, dtype=cfg.dtype,
+                                         device=device),
+                        "v": torch.zeros(shape, dtype=cfg.dtype,
+                                         device=device)})
+        else:
+            c = ssm_mod.ssm_init_cache(cfg, nsb * batch, device=device)
+            out.append(ssm_mod.SSMCache(*(t.unflatten(0, (nsb, batch))
+                                          for t in c)))
+    return out
 
 
 def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                   x: torch.Tensor, *, positions: torch.Tensor, max_len: int
-                  ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """Prefill: forward and the decode caches. x: (B, S, d); cache rows
-    [S, max_len) stay zero."""
+                  ) -> Tuple[torch.Tensor, List[Any]]:
+    """Prefill: forward and the decode caches. x: (B, S, d); KV cache rows
+    [S, max_len) stay zero; an SSM position's cache is its state after
+    the last of the S positions."""
     b, s, _ = x.shape
     assert max_len >= s, f"cache capacity {max_len} < prompt length {s}"
     caches = init_caches(cfg, b, max_len, device=x.device)
@@ -170,34 +212,48 @@ def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
         params = slice_block(stacked, blk)
         for pos, kind in enumerate(cfg.superblock):
             p = params[pos]
-            _check_kind(p, kind)
-            hn, k, v = attn_mod.attn_forward(
-                p["mixer"], cfg, apply_norm(p["pre_norm"], cfg, x),
-                kind=kind, positions=positions)
-            caches[pos]["k"][blk, :, :s] = k
-            caches[pos]["v"][blk, :, :s] = v
+            _refuse_cross(p)
+            hn = apply_norm(p["pre_norm"], cfg, x)
+            if kind.startswith("attn"):
+                hn, k, v = attn_mod.attn_forward(p["mixer"], cfg, hn,
+                                                 kind=kind,
+                                                 positions=positions)
+                caches[pos]["k"][blk, :, :s] = k
+                caches[pos]["v"][blk, :, :s] = v
+            else:
+                hn, c = ssm_mod.ssm_forward(p["mixer"], cfg, hn,
+                                            return_state=True)
+                caches[pos].conv[blk] = c.conv
+                caches[pos].state[blk] = c.state
             if cfg.post_norms:
                 hn = apply_norm(p["post_norm"], cfg, hn)
-            x = _mlp_residual(p, cfg, x + hn)
+            x, _ = mlp_residual(p, cfg, x + hn)
     return x, caches
 
 
 def stack_decode(stacked: List[Dict[str, Any]], cfg: ArchConfig,
-                 x: torch.Tensor, caches: List[Dict[str, torch.Tensor]],
-                 pos: torch.Tensor
-                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """One-token decode. x: (B, 1, d); pos: scalar or (B,) write cursors.
+                 x: torch.Tensor, caches: List[Any], pos: torch.Tensor
+                 ) -> Tuple[torch.Tensor, List[Any]]:
+    """One-token decode. x: (B, 1, d); pos: scalar or (B,) write cursors
+    (an SSM layer reads none: its state has taken every position so far).
     The caches are updated in place and returned."""
     for blk in range(cfg.num_superblocks):
         params = slice_block(stacked, blk)
         for i, kind in enumerate(cfg.superblock):
             p = params[i]
-            _check_kind(p, kind)
+            _refuse_cross(p)
             hn = apply_norm(p["pre_norm"], cfg, x)
-            hn, _, _ = attn_mod.attn_decode(
-                p["mixer"], cfg, hn, caches[i]["k"][blk],
-                caches[i]["v"][blk], pos, kind=kind)
+            if kind.startswith("attn"):
+                hn, _, _ = attn_mod.attn_decode(
+                    p["mixer"], cfg, hn, caches[i]["k"][blk],
+                    caches[i]["v"][blk], pos, kind=kind)
+            else:
+                c = ssm_mod.SSMCache(caches[i].conv[blk],
+                                     caches[i].state[blk])
+                hn, new = ssm_mod.ssm_decode(p["mixer"], cfg, hn, c)
+                c.conv.copy_(new.conv)
+                c.state.copy_(new.state)
             if cfg.post_norms:
                 hn = apply_norm(p["post_norm"], cfg, hn)
-            x = _mlp_residual(p, cfg, x + hn)
+            x, _ = mlp_residual(p, cfg, x + hn)
     return x, caches

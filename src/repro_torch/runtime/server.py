@@ -1,5 +1,5 @@
 """LM serving runtime: bucketed prefill and batched decode with per-slot
-cursors, for the dense family.
+cursors, for the dense, moe, ssm and hybrid families.
 
   * Prompts are right-padded to one of a fixed set of BUCKET lengths and
     the KV cache to one max_len, so the server keeps one prefill callable
@@ -16,6 +16,11 @@ Two scheduling modes, as the reference:
     length. The first token of every slot comes from the prefill's last
     *padded* position, as in the reference (ROADMAP queue 3).
   * "wave" — lockstep: decode starts at the longest prompt's length.
+    SSM and hybrid models (`attention_free`, layer patterns "ssm" and
+    "jamba") always run in waves, as in the reference. Their recurrent
+    state has no per-slot rewind: a prompt shorter than its bucket is
+    right-padded, and the state integrates the padded positions too
+    (ROADMAP queue 3), as the reference's does.
 
 Prefill runs its attention through the hand-written `flash_attention`
 kernel on the card (`nn/attention.py`). The server records, per wave, the
@@ -62,9 +67,15 @@ class Server:
         require_ported(cfg)
         self.cfg = cfg
         self.sc = sc
+        if cfg.attention_free or cfg.layer_pattern in ("ssm", "jamba"):
+            self.sc = dataclasses.replace(sc, mode="wave")
         self.device = resolve_device(device)
         if params is None:
-            params = lm.lm_init(cfg, seed=seed, device=self.device)
+            # drawn on the server's device, each matrix rounded to the
+            # compute dtype as it is made: a full-width model never exists
+            # in float32
+            params = lm.lm_init(cfg, seed=seed, device=self.device,
+                                dtype=cfg.dtype)
         if params.embed.device != self.device:
             raise ValueError(f"params lie on {params.embed.device}, "
                              f"the server on {self.device}")

@@ -1444,6 +1444,45 @@ def test_lm_server_on_card_prefills_through_the_kernel(card):
 
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "jamba-v0.1-52b"])
+def test_moe_and_hybrid_bf16_prefill_on_card(card, name):
+    """A reduced olmoe (2 MoE layers) and a reduced jamba (two 8-layer
+    superblocks, one attention layer each) in bf16 on the card: a prefill
+    launches flash_attention once per attention layer, and layer by
+    layer the kernel path meets the plain attention as `chip_smoke.py`
+    holds it: each mixer branch, and each output over the tokens whose
+    routes and kept assignments agree, within 5e-2 of its largest
+    |value|, and the routes agree at least as often as the exact
+    attention's do, less 0.01 (a reduced model's routes are too few for
+    the full width's 0.99 bar)."""
+    from repro_torch.nn.layerwise import compare_attention_paths
+    cfg = dataclasses.replace(reduced(get_config(name)),
+                              compute_dtype="bfloat16")
+    params = tlm.to_compute_dtype(tlm.lm_init(cfg, seed=4, device=card,
+                                              dtype=cfg.dtype), cfg)
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (4, 64))).long().to(card)
+    n_attn = cfg.num_superblocks * sum(k.startswith("attn")
+                                       for k in cfg.superblock)
+    before = fa_mod.LAUNCHES
+    with torch.inference_mode():
+        logits, state = tlm.lm_prefill(params, cfg, toks, max_len=80)
+    torch.cuda.synchronize()
+    assert fa_mod.LAUNCHES - before == n_attn
+    assert logits.shape == (4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    diffs = compare_attention_paths(params, cfg, toks)
+    assert len(diffs) == cfg.num_layers
+    agree = sum(d.routes_agree for d in diffs if d.moe)
+    control = sum(d.control_agree for d in diffs if d.moe)
+    total = sum(d.tokens for d in diffs if d.moe)
+    assert total and agree >= control - 0.01 * total, (agree, control, total)
+    for d in diffs:
+        assert d.mixer_diff <= 5e-2 * d.mixer_max, d
+        assert d.max_abs_diff <= 5e-2 * d.max_abs_out, d
+
+
 def _pipeline_engine(card):
     """A Cora-width fp32 GCN at bucket 1024, fused, on the card."""
     eng = GraphServe(GraphServeConfig(ladder=BucketLadder(buckets=(1024,)),

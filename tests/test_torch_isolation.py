@@ -51,7 +51,10 @@ def test_port_file_list_covers_every_slice():
             "launch/serve.py", "configs/smollm_135m.py",
             "nn/config.py", "nn/common.py", "nn/mlp.py", "nn/attention.py",
             "nn/transformer.py", "nn/lm.py", "optim/adamw.py",
-            "examples/quickstart.py", "examples/quality_tiers.py"} <= names
+            "examples/quickstart.py", "examples/quality_tiers.py",
+            "nn/moe.py", "nn/ssm.py", "configs/olmoe_1b_7b.py",
+            "configs/mamba2_2p7b.py", "configs/jamba_v0p1_52b.py",
+            "configs/llama4_scout_17b_a16e.py", "nn/layerwise.py"} <= names
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):
@@ -172,6 +175,27 @@ def test_cpu_lm_serve_leaves_jax_unloaded():
         "import sys\n"
         "from repro_torch.launch import serve\n"
         "serve.main(['--arch', 'smollm-135m', '--reduced', '--requests', "
+        "'3', '--max-new', '3', '--buckets', '16', '32', '--max-len', "
+        "'40', '--device', 'cpu'])\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert '"tokens_out": 9' in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-2.7b",
+                                  "jamba-v0.1-52b"])
+def test_cpu_moe_ssm_serve_leaves_jax_unloaded(arch):
+    """The LM entry point on a reduced MoE, SSM and hybrid model, on the
+    CPU, in a fresh process: it serves and loads no JAX or reference
+    module."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        f"serve.main(['--arch', '{arch}', '--reduced', '--requests', "
         "'3', '--max-new', '3', '--buckets', '16', '32', '--max-len', "
         "'40', '--device', 'cpu'])\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -49,6 +49,7 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops as tops
 from repro_torch.nn import attention as tattn
 from repro_torch.nn import common as tcommon
+from repro_torch.nn import config as tconfig
 from repro_torch.nn import lm as tlm
 from repro_torch.nn import mlp as tmlp
 from repro_torch.nn import transformer as ttfm
@@ -478,18 +479,30 @@ def test_server_tokens_and_counters_match_reference(name, mode):
 
 
 def test_unported_archs_and_layers_raise():
-    for name in ("mamba2-2.7b", "olmoe-1b-7b", "whisper-base"):
+    """Only the vision and audio architectures stay unported; the encoder
+    (cross-attention) and a frontend raise where they would run. The
+    "ssm" layer pattern serves now (`tests/test_torch_moe_ssm.py::
+    test_ssm_layer_pattern_serves`)."""
+    for name in ("phi-3-vision-4.2b", "whisper-base"):
         with pytest.raises(KeyError, match="item 14"):
             get_config(name)
+    for name in ("mamba2-2.7b", "olmoe-1b-7b", "jamba-v0.1-52b",
+                 "llama4-scout-17b-a16e"):
+        assert get_config(name).name == name
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
     cfg = reduced(get_config("smollm-135m"))
+    whisper = dataclasses.replace(
+        cfg, encoder=tconfig.EncoderConfig(num_layers=2, frames=64))
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        tserver.Server(whisper, tserver.ServeConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        tserver.Server(dataclasses.replace(cfg, layer_pattern="ssm"),
-                       tserver.ServeConfig(), device="cpu")
+        tlm.lm_init(whisper, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         tlm.lm_init(dataclasses.replace(cfg, frontend="vision_stub"),
                     device="cpu")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        ttfm._refuse_cross({"cross": None})
     server = tserver.Server(cfg, tserver.ServeConfig(buckets=(8,)),
                             device="cpu")
     with pytest.raises(ValueError, match="largest bucket"):
