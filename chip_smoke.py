@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths, its
-node-classifier training and its LM server (dense, MoE, SSM and hybrid
-families) on one NVIDIA card.
+node-classifier training and its LM serving (dense, MoE, SSM, hybrid,
+encoder-decoder and vision-prefix families) on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -25,7 +25,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 18
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 20
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -210,13 +210,17 @@ last line; there is no CPU path):
      (3328): the paper's speedup over the default mapping on this card;
   13. flash — `flash_attention` against its plain version
      (`flash_attention_ref`) in fp32 and bf16, each case through the route
-     it takes (bf16 at head dim 64 and 128: the wgmma/TMA kernel; fp32 and
-     head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
+     it takes (bf16 at head dim 64, 96 and 128: the wgmma/TMA kernel;
+     fp32 and head dim 32: the SIMT kernel), at SmolLM's serving shapes (B 4, S
      64/128/256, 9 query heads over 3 KV heads of 64, causal), ragged S of
      63, 65, 127, 129 and 200, qwen3's heads (32 over 8 of 128) at S 64,
      65 and 129, gemma2's heads (32 over 16 of 128) with window 64 and
      softcap 50, non-causal, q_offset 192 over 256 keys, rows that no key
-     may reach (at head dim 64 and 128), and head_dim 32;
+     may reach (at head dim 64 and 128), head_dim 32, Whisper-base's
+     encoder (B 4, non-causal over 1500 frames) and cross-attention (256
+     queries over the 1500 frames), Phi-3-vision's prefill (32/32 heads of
+     96 at S 1280) and head dim 96 at a ragged S 65 and non-causal 65 x
+     129;
   14. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
@@ -254,11 +258,32 @@ last line; there is no CPU path):
   17. serve-hybrid — Jamba-v0.1 at full width with one 8-layer superblock
      of its 32 (13.3 B parameters; the whole model would not fit), checked
      and timed as phase 15, flash_attention once a prefill wave. Each of
-     phases 15–17 frees its model before the next and prints its seconds;
-  18. times — CUDA-event times of each kernel, its plain version and the
+     phases 15–19 frees its model before the next and prints its seconds;
+  18. serve-audio — Whisper-base at full width and depth (6 encoder and 6
+     decoder layers, d_model 512, 8 heads of 64, vocab 51865; 71 M
+     parameters), bf16 weights drawn on the card: 4 requests of each
+     bucket's length (64/128/256) with 1500 stub frames each, one wave a
+     bucket of `lm_prefill(enc_embeds=)` and 15 greedy `lm_decode_step`s
+     after a warm-up pass; with every count 0 just before, exactly 18
+     flash_attention launches a prefill (6 encoder, 6 decoder, 6 cross),
+     all on the tensor-core route, and nothing else; the bucket-256
+     prefill's logits against the plain attention (LM_LOGIT_BAR) and
+     giving the served first tokens; time to first token per bucket, the
+     encoder's device ms, decode ms a step, idle shares (torch.profiler),
+     peak memory;
+  19. serve-vlm — Phi-3-vision-4.2B's backbone at full width and depth (32
+     layers, d_model 3072, 32 heads of 96, d_ff 8192, vocab 32064; 3.8 B
+     parameters), bf16 weights drawn on the card: 4 requests of 1024 stub
+     patches before a 256-token prompt (S 1280, max_len 1296), one
+     `lm_prefill(prefix_embeds=)` and 15 decode steps: 32 launches at
+     head dim 96 on the tensor-core route, the logits check and times as
+     phase 18; then one text-only wave through `Server`, as the
+     reference's server serves this config (32 launches, its counters);
+  20. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
-     (flash_attention at the serving shape and at B 1, S 4096, 32/8 heads
-     of 128), and the dense and GraSp aggregation times per bucket queued
+     (flash_attention at the serving shape, at B 1, S 4096, 32/8 heads
+     of 128, and at the Whisper encoder's, Whisper cross-attention's and
+     Phi-3-vision prefill's shapes), and the dense and GraSp aggregation times per bucket queued
      behind a spin, with the GraSp cost rule's terms they measure (`[agg]`:
      a launch's fixed cost from bitmap_spmm with every count 0, the walk's
      and the dense products' rates); for the redesigned kernels also the
@@ -350,7 +375,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sage_max as sm  # noqa: E402
 from repro_torch.nn import lm  # noqa: E402
-from repro_torch.nn import moe, ssm  # noqa: E402
+from repro_torch.nn import moe, multimodal, ssm  # noqa: E402
 from repro_torch.nn.layerwise import compare_attention_paths  # noqa: E402
 from repro_torch.runtime.cache import (  # noqa: E402
     estimate_dense_entry_bytes)
@@ -1008,7 +1033,7 @@ BF16_FLOPS_PER_S = 989e12
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 # (B, Sq, Skv, H, KV, D, causal, window, softcap, q_offset), each in fp32
-# and bf16 (bf16 at D 64 and 128 takes the tensor-core route, the rest the
+# and bf16 (bf16 at D 64, 96, 128 takes the tensor-core route, the rest the
 # SIMT one): SmolLM's serving shapes (9 query heads over 3 KV heads of
 # 64), a ragged S, gemma2's heads with its window and softcap, non-causal,
 # q_offset (a prompt's last 64 positions over a 256-key cache), rows that
@@ -1038,13 +1063,36 @@ FLASH_CASES = {
     # [serve-hybrid] (Jamba, 32/8 heads of 128) at bucket 256
     "olmoe S256": (4, 256, 256, 16, 16, 128, True, None, None, 0),
     "jamba S256": (4, 256, 256, 32, 8, 128, True, None, None, 0),
+    # [serve-audio]'s Whisper-base: the encoder, non-causal over 1500
+    # frames (a multiple of neither the 64-row q tile nor the 128-key
+    # tile), and the decoder's cross-attention, bucket 256 over the frames;
+    # [serve-vlm]'s Phi-3-vision (32/32 heads of 96: 1024 patches and a
+    # 256-token prompt), and head dim 96 ragged and non-causal (the
+    # tensor-core route runs D 96 on the D 128 tiles, zero-filled)
+    "whisper encoder S1500": (4, 1500, 1500, 8, 8, 64, False, None, None, 0),
+    "whisper cross 256x1500": (4, 256, 1500, 8, 8, 64, False, None, None,
+                               0),
+    "phi3v S1280 D96": (4, 1280, 1280, 32, 32, 96, True, None, None, 0),
+    "D96 ragged S65": (4, 65, 65, 32, 32, 96, True, None, None, 0),
+    "D96 non-causal 65x129": (4, 65, 129, 32, 32, 96, False, None, None, 0),
 }
+# (B, Sq, Skv, H, KV, D, causal) timed in [time]: the row's own numbers
+# are the first's
 FLASH_TIMED = {"serving (B 4, S 256, 9/3 heads of 64)": (4, 256, 256, 9, 3,
-                                                        64),
+                                                        64, True),
                "long (B 1, S 4096, 32/8 heads of 128)": (1, 4096, 4096, 32,
-                                                         8, 128),
+                                                         8, 128, True),
                "olmoe prefill (B 4, S 256, 16/16 heads of 128)": (
-                   4, 256, 256, 16, 16, 128)}
+                   4, 256, 256, 16, 16, 128, True),
+               "whisper encoder (B 4, S 1500, 8/8 heads of 64, non-causal)":
+                   (4, 1500, 1500, 8, 8, 64, False),
+               "whisper cross (B 4, 256 x 1500, 8/8 heads of 64, "
+               "non-causal)": (4, 256, 1500, 8, 8, 64, False),
+               "phi3v prefill (B 4, S 1280, 32/32 heads of 96)": (
+                   4, 1280, 1280, 32, 32, 96, True)}
+# the [time] keys of the FLASH_TIMED shapes in the kernels line
+FLASH_TIMED_KEYS = ("serving", "long", "olmoe_prefill", "whisper_encoder",
+                    "whisper_cross", "phi3v_prefill")
 # the __global__ names of flash_attention.cu and flash_attention_tc.cu, as
 # torch.profiler reports them
 FLASH_KERNELS = ("flash_kernel", "flash_tc_kernel")
@@ -1057,7 +1105,7 @@ LM_LOGIT_BAR = 5e-2
 
 
 def flash_inputs(rng, shape, dtype, dev):
-    b, sq, skv, h, kv, d = shape
+    b, sq, skv, h, kv, d = shape[:6]
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)
                              ).to(dev, dtype)
             for s in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d))]
@@ -1375,6 +1423,10 @@ def card_model(tag, cfg, dev, seed):
         parts.append(f"MoE {cfg.moe.num_experts} experts top-"
                      f"{cfg.moe.top_k} of {cfg.moe.d_ff_expert}, capacity "
                      f"factor {cfg.moe.capacity_factor}")
+    if cfg.encoder is not None:
+        parts.append(f"an encoder of {cfg.encoder.num_layers} layers over "
+                     f"{cfg.encoder.frames} frames, cross-attention in every "
+                     "decoder layer")
     if cfg.ssm is not None:
         d_in, heads, _, n_state = ssm.ssm_dims(cfg)
         parts.append(f"SSM d_in {d_in}, {heads} heads of "
@@ -1679,15 +1731,287 @@ def serve_ssm_phase(dev, card):
     return timing
 
 
-def flash_simt(q, k, v, out):
-    """One causal call of the SIMT flash_attention library, launched
-    directly and counted nowhere: the kernel that served bf16 at head dim
-    64 and 128 before the tensor-core route, timed beside it."""
+# [serve-audio] and [serve-vlm]: the encoder-decoder and vision-prefix
+# families at full width and depth on the card, bf16, the port's seeded
+# init made on the card. Their serving calls are the reference's with
+# stub frames or patches: `lm_prefill(enc_embeds= | prefix_embeds=)` and
+# greedy `lm_decode_step`s (`Server` takes neither input). Whisper-base:
+# LM_SLOTS requests of each bucket's length with AUDIO_FRAMES stub frames
+# each, one wave per bucket. Phi-3-vision: LM_SLOTS requests of
+# VLM_PATCHES stub patches and a bucket-256 prompt (S = 1280), one wave,
+# then one text-only wave through `Server`, as the reference's server
+# serves it.
+AUDIO_ARCH, VLM_ARCH = "whisper-base", "phi-3-vision-4.2b"
+
+
+def stub_waves(tag, cfg, params, dev, waves, max_len):
+    """`waves`: [(tokens (B, S) on dev, stub kwargs of lm_prefill)]. Each
+    wave runs lm_prefill and LM_NEW - 1 greedy lm_decode_steps, its tokens
+    read on the host after each; a warm-up pass over the waves first, then
+    every launch count set to 0 just before the timed pass. Returns
+    (tokens per wave (B, LM_NEW), host seconds to each wave's first
+    tokens, host seconds a decode step, launches, routes)."""
+    def run(toks, kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = lm.lm_prefill(params, cfg, toks, max_len=max_len,
+                                      **kw)
+        tok = logits.argmax(-1)
+        out = [tok.cpu()]
+        t1 = time.perf_counter()
+        for _ in range(LM_NEW - 1):
+            logits, state = lm.lm_decode_step(params, cfg, tok, state)
+            tok = logits.argmax(-1)
+            out.append(tok.cpu())
+        t2 = time.perf_counter()
+        return torch.stack(out, 1).numpy(), t1 - t0, (t2 - t1) / (LM_NEW - 1)
+    with torch.inference_mode():
+        for toks, kw in waves:
+            run(toks, kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        runs = [run(toks, kw) for toks, kw in waves]
+        torch.cuda.synchronize()
+    launches, routes = launches_now(), flash_routes_now()
+    outs = [r[0] for r in runs]
+    check(all(o.shape == (LM_SLOTS, LM_NEW) and o.min() >= 0
+              and o.max() < cfg.vocab_size for o in outs),
+          f"[{tag}] served outputs are not LM_NEW tokens of the vocabulary")
+    return (outs, [r[1] for r in runs], float(np.mean([r[2] for r in runs])),
+            launches, routes)
+
+
+def stub_len(toks, kw):
+    """Positions of a prefill: the prompt's, and the patches' before it."""
+    return toks.shape[1] + (kw["prefix_embeds"].shape[1]
+                            if "prefix_embeds" in kw else 0)
+
+
+def stub_checks(tag, cfg, params, toks, kw, max_len, first, card):
+    """The wave's prefill again: finite logits giving the served first
+    tokens, and the same prefill with the plain attention in place of the
+    kernel within LM_LOGIT_BAR of the largest |logit|. Returns the relative
+    difference."""
+    with torch.inference_mode():
+        got, _ = lm.lm_prefill(params, cfg, toks, max_len=max_len, **kw)
+        kernel = kops.flash_attention
+        kops.flash_attention = kref.flash_attention_ref
+        try:
+            want, _ = lm.lm_prefill(params, cfg, toks, max_len=max_len, **kw)
+        finally:
+            kops.flash_attention = kernel
+    check(bool(torch.isfinite(got).all())
+          and got.shape == (LM_SLOTS, cfg.vocab_size),
+          f"[{tag}] prefill logits not finite or misshaped")
+    check(np.array_equal(got.argmax(-1).cpu().numpy(), first),
+          f"[{tag}] the served first tokens differ from a rerun of the "
+          "prefill")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    print(f"[{tag}] S {stub_len(toks, kw)} prefill logits, kernel vs plain "
+          f"attention: max |diff| / max |logit| = {rel:.3e} (bar "
+          f"{LM_LOGIT_BAR}), max |logit| {want.abs().max().item():.2f}, "
+          f"argmax equal in {same} of {LM_SLOTS}; the served first tokens "
+          f"equal a rerun's", flush=True)
+    check(rel <= LM_LOGIT_BAR, f"[{tag}] prefill logits differ by {rel}")
+    return rel
+
+
+def stub_timing(tag, cfg, params, toks, kw, max_len, ttft_s, step_s,
+                card):
+    """Device time (torch.profiler) of a prefill and of a decode step
+    against the host's unprofiled time of the same, and the idle share."""
+    with torch.inference_mode():
+        logits, state = lm.lm_prefill(params, cfg, toks, max_len=max_len,
+                                      **kw)
+        busy = {"prefill": device_busy(lambda: lm.lm_prefill(
+            params, cfg, toks, max_len=max_len, **kw)),
+            "decode step": device_busy(lambda: lm.lm_decode_step(
+                params, cfg, logits.argmax(-1), state))}
+    host_ms = {"prefill": ttft_s * 1e3, "decode step": step_s * 1e3}
+    for what, (dev_ms, n, fa_ms, fa_n) in busy.items():
+        print(f"[{tag}] {what} at S {stub_len(toks, kw)}: {n} device "
+              f"operations, "
+              f"{dev_ms:.3f} ms of device time (torch.profiler) against "
+              f"{host_ms[what]:.3f} ms on the host clock unprofiled: device "
+              f"idle share {1 - dev_ms / host_ms[what]:.3f}; "
+              f"flash_attention: {fa_n} launches recorded, {fa_ms:.3f} ms "
+              f"({fa_ms / dev_ms if dev_ms else 0.0:.3f} of the device "
+              f"time); {card}", flush=True)
+    return ({k: v[0] for k, v in busy.items()},
+            {k: 1 - v[0] / host_ms[k] for k, v in busy.items()})
+
+
+def serve_audio_phase(dev, card):
+    """[serve-audio]: Whisper-base at full width and depth (6 encoder and 6
+    decoder layers) on stub frames: 18 flash_attention launches a prefill
+    (6 encoder, 6 decoder, 6 cross), all on the tensor-core route, and
+    nothing else. Returns (flash_attention launches, timing)."""
+    t_phase = time.perf_counter()
+    tag = "serve-audio"
+    free_card()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(AUDIO_ARCH)
+    frames = cfg.encoder.frames
+    params = lm.to_compute_dtype(card_model(tag, cfg, dev, seed=43), cfg)
+    rng = np.random.default_rng(43)
+    max_len = LM_BUCKETS[-1] + LM_NEW
+    waves = [(torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (LM_SLOTS, b))).long().to(dev),
+              {"enc_embeds": multimodal.audio_frame_embeddings(
+                  cfg, LM_SLOTS, frames, seed=43 + i, device=dev)})
+             for i, b in enumerate(LM_BUCKETS)]
+    outs, ttft_s, step_s, launches, routes = stub_waves(
+        tag, cfg, params, dev, waves, max_len)
+    per = 3 * cfg.num_layers       # encoder, decoder and cross layers
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention": per * len(waves)}
+    print(f"[{tag}] {cfg.name}: {len(waves)} waves of {LM_SLOTS} requests "
+          f"(buckets {LM_BUCKETS}, {frames} stub frames each, {LM_NEW} "
+          f"tokens: lm_prefill(enc_embeds=) and {LM_NEW - 1} "
+          f"lm_decode_steps); launches {launches}, expected {want} ({per} a "
+          f"prefill: {cfg.encoder.num_layers} encoder, {cfg.num_layers} "
+          f"decoder, {cfg.num_layers} cross); flash_attention by route "
+          f"{routes}", flush=True)
+    check(launches == want, f"[{tag}] kernel launches {launches} != {want}")
+    check(routes == {"wgmma": want["flash_attention"], "simt": 0},
+          f"[{tag}] flash_attention routes {routes}: every attention should "
+          "take the tensor-core route")
+    toks, kw = waves[-1]
+    rel = stub_checks(tag, cfg, params, toks, kw, max_len, outs[-1][:, 0],
+                      card)
+    timing = {"ttft_ms_by_bucket": {b: t * 1e3
+                                    for b, t in zip(LM_BUCKETS, ttft_s)},
+              "decode_ms_per_step": step_s * 1e3, "logit_rel_diff": rel}
+    for b, ms in timing["ttft_ms_by_bucket"].items():
+        print(f"[{tag}] time to first token, bucket {b} ({LM_SLOTS} slots, "
+              f"the encoder over {frames} frames included; prefill start to "
+              f"its first tokens on the host): {ms:.2f} ms; {card}",
+              flush=True)
+    with torch.inference_mode():
+        enc = device_busy(lambda: lm._encode(params, cfg, kw["enc_embeds"]))
+        enc_ms = time_ms(lambda: lm._encode(params, cfg, kw["enc_embeds"]),
+                         iters=10)
+    print(f"[{tag}] the encoder and the cross K/V ({cfg.encoder.num_layers} "
+          f"layers over B {LM_SLOTS} x {frames} frames): {enc[0]:.3f} ms of "
+          f"device time in {enc[1]} operations (torch.profiler), "
+          f"flash_attention {enc[2]:.3f} ms in {enc[3]} launches; "
+          f"{enc_ms:.3f} ms a call by CUDA events; {card}", flush=True)
+    timing["encoder_device_ms"], timing["encoder_ms"] = enc[0], enc_ms
+    timing["device_ms"], timing["idle_share"] = stub_timing(
+        tag, cfg, params, toks, kw, max_len, ttft_s[-1], step_s, card)
+    print(f"[{tag}] decode: {step_ms_line(step_s)}; {card}", flush=True)
+    del params, waves, kw, toks
+    phase_memory(tag, t_phase, base, timing)
+    return want["flash_attention"], timing
+
+
+def phase_memory(tag, t_phase, base, timing):
+    """Free the phase's tensors' cache, then print its seconds and the peak
+    card memory, with what earlier phases still held when it began."""
+    timing["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    timing["peak_gb_of_phase"] = timing["peak_gb"] - base / 1e9
+    free_card()
+    print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s; peak "
+          f"card memory {timing['peak_gb']:.2f} GB, "
+          f"{timing['peak_gb_of_phase']:.2f} GB above the {base / 1e9:.2f} "
+          f"GB that earlier phases held when it began", flush=True)
+
+
+def step_ms_line(step_s):
+    return (f"{step_s * 1e3:.3f} ms per step of {LM_SLOTS} slots, "
+            f"{LM_SLOTS / step_s:.1f} tokens/s")
+
+
+def serve_vlm_phase(dev, card):
+    """[serve-vlm]: Phi-3-vision-4.2B at full width and depth (32 layers of
+    32 heads of 96) with VLM_PATCHES stub patches before a bucket-256
+    prompt: 32 flash_attention launches a prefill at head dim 96, all on
+    the tensor-core route; then a text-only wave through `Server`. Returns
+    (flash_attention launches, timing)."""
+    t_phase = time.perf_counter()
+    tag = "serve-vlm"
+    free_card()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(VLM_ARCH)
+    params = lm.to_compute_dtype(card_model(tag, cfg, dev, seed=47), cfg)
+    rng = np.random.default_rng(47)
+    bucket = LM_BUCKETS[-1]
+    max_len = bucket + cfg.num_patches + LM_NEW
+    waves = [(torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (LM_SLOTS, bucket))).long().to(
+                                                dev),
+              {"prefix_embeds": multimodal.vision_patch_embeddings(
+                  cfg, LM_SLOTS, seed=47, device=dev)})]
+    outs, ttft_s, step_s, launches, routes = stub_waves(
+        tag, cfg, params, dev, waves, max_len)
+    want = dict.fromkeys(COUNTERS, 0) | {"flash_attention": cfg.num_layers}
+    print(f"[{tag}] {cfg.name}: {LM_SLOTS} requests of {cfg.num_patches} "
+          f"stub patches and a {bucket}-token prompt (S {cfg.num_patches + bucket}"
+          f", max_len {max_len}; lm_prefill(prefix_embeds=) and "
+          f"{LM_NEW - 1} lm_decode_steps); launches {launches}, expected "
+          f"{want}; flash_attention by route {routes}", flush=True)
+    check(fa.flash_route(cfg.dtype, cfg.head_dim_) == "wgmma"
+          and cfg.head_dim_ == 96, f"[{tag}] head dim {cfg.head_dim_}")
+    check(launches == want, f"[{tag}] kernel launches {launches} != {want}")
+    check(routes == {"wgmma": cfg.num_layers, "simt": 0},
+          f"[{tag}] flash_attention routes {routes}: every prefill layer "
+          "should take the tensor-core route")
+    toks, kw = waves[0]
+    rel = stub_checks(tag, cfg, params, toks, kw, max_len, outs[0][:, 0],
+                      card)
+    timing = {"ttft_ms": ttft_s[0] * 1e3, "decode_ms_per_step": step_s * 1e3,
+              "logit_rel_diff": rel}
+    print(f"[{tag}] time to first token ({LM_SLOTS} slots, S "
+          f"{toks.shape[1] + cfg.num_patches}; prefill start to its first "
+          f"tokens on the host): {timing['ttft_ms']:.2f} ms; {card}",
+          flush=True)
+    timing["device_ms"], timing["idle_share"] = stub_timing(
+        tag, cfg, params, toks, kw, max_len, ttft_s[0], step_s, card)
+    print(f"[{tag}] decode: {step_ms_line(step_s)}; {card}", flush=True)
+    del waves, kw, toks
+
+    # the text backbone through Server, without patches, as the
+    # reference's server serves this config
+    sc = ServeConfig(buckets=LM_BUCKETS, max_len=LM_MAX_LEN,
+                     batch_slots=LM_SLOTS)
+    prompts = [rng.integers(0, cfg.vocab_size, bucket).astype(np.int32)
+               for _ in range(LM_SLOTS)]
+    server = Server(cfg, sc, params=params, device=dev)
+    for p in prompts:
+        server.submit(p, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    done = server.run()
+    torch.cuda.synchronize()
+    launches, s = launches_now(), server.summary()
+    print(f"[{tag}] text-only wave through Server: launches {launches}; "
+          f"summary " + json.dumps(s) + f"; time to first token "
+          f"{server.metrics['ttft_s'][0][1] * 1e3:.2f} ms, decode "
+          f"{server.metrics['decode_s'] / s['decode_steps'] * 1e3:.3f} ms a "
+          f"step; {card}", flush=True)
+    check(launches == dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention": cfg.num_layers}
+          and s["prefills"] == 1 and s["requests"] == LM_SLOTS
+          and s["tokens_out"] == LM_SLOTS * LM_NEW
+          and s["decode_steps"] == LM_NEW - 1
+          and all(r.output.shape == (LM_NEW,) for r in done),
+          f"[{tag}] Server wave: launches {launches}, counters {s}")
+    timing["server_summary"] = s
+    del server, params, done
+    phase_memory(tag, t_phase, base, timing)
+    return want["flash_attention"] + cfg.num_layers, timing
+
+
+def flash_simt(q, k, v, out, causal=True):
+    """One call of the SIMT flash_attention library, launched directly and
+    counted nowhere: the kernel that served bf16 at head dim 64 and 128
+    before the tensor-core route, timed beside it."""
     b, sq, h, d = q.shape
     launch("flash_attention", _build.load("flash_attention"), q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-           k.shape[1], h, k.shape[2], d, int(q.dtype == torch.bfloat16), 1,
-           0, 0, d ** -0.5, 0.0)
+           k.shape[1], h, k.shape[2], d, int(q.dtype == torch.bfloat16),
+           int(causal), 0, 0, d ** -0.5, 0.0)
 
 
 def host_us(fn, calls=100, spin_ms=50.0):
@@ -1706,34 +2030,39 @@ def host_us(fn, calls=100, spin_ms=50.0):
 
 def flash_row(dev, launches, worst, card):
     """The kernels-line row of flash_attention: times of the tensor-core
-    route at the serving and the long shape (bf16, causal), by CUDA events
-    and queued behind a spin, beside the SIMT kernel that served them
-    before, timed on the same inputs; the row's own numbers are the serving
-    shape's."""
+    route (bf16) at each FLASH_TIMED shape, by CUDA events and queued
+    behind a spin, beside the SIMT kernel that served them before, timed
+    on the same inputs, and beside scaled_dot_product_attention; the row's
+    own numbers are the first (serving) shape's."""
     rng = np.random.default_rng(29)
     out = {}
     for label, shape in FLASH_TIMED.items():
+        causal = shape[6]
         q, k, v = flash_inputs(rng, shape, torch.bfloat16, dev)
         check(fa.flash_route(q.dtype, q.shape[-1]) == "wgmma",
               f"{label} does not take the tensor-core route")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        got = fa.flash_attention(q, k, v)
+        got = fa.flash_attention(q, k, v, causal=causal)
         simt_out = torch.empty_like(q)
-        flash_simt(q, k, v, simt_out)
+        flash_simt(q, k, v, simt_out, causal)
         torch.testing.assert_close(simt_out.float(), got.float(),
                                    **FLASH_TOL[torch.bfloat16])
-        t_k = time_ms(lambda: fa.flash_attention(q, k, v))
-        t_s = time_ms(lambda: flash_simt(q, k, v, simt_out), iters=10)
-        t_p = time_ms(lambda: kref.flash_attention_ref(q, k, v), iters=5)
+        t_k = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        t_s = time_ms(lambda: flash_simt(q, k, v, simt_out, causal),
+                      iters=10)
+        t_p = time_ms(lambda: kref.flash_attention_ref(q, k, v,
+                                                       causal=causal),
+                      iters=5)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         t_l = time_ms(sdpa)
-        d_k = queued_ms(lambda: fa.flash_attention(q, k, v))
+        d_k = queued_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
         d_l = queued_ms(sdpa)
-        d_s = queued_ms(lambda: flash_simt(q, k, v, simt_out), iters=10)
-        flops, nbytes_ = flash_work(q, k)
+        d_s = queued_ms(lambda: flash_simt(q, k, v, simt_out, causal),
+                        iters=10)
+        flops, nbytes_ = flash_work(q, k, causal)
         b_ms, b_by = bound(flops, nbytes_, BF16_FLOPS_PER_S)
         print(f"[time] flash_attention {label}, tensor-core route: kernel "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, library "
@@ -1776,7 +2105,8 @@ def flash_row(dev, launches, worst, card):
                   f"{enc * LM_LAYERS_SMOLLM:.1f} us per SmolLM prefill of "
                   f"{LM_LAYERS_SMOLLM} calls", flush=True)
             out[label]["host_us"] = host
-    serve, long_, olmoe = (out[k] for k in FLASH_TIMED)
+    shapes = dict(zip(FLASH_TIMED_KEYS, out.values()))
+    serve = shapes["serving"]
     src, replaces = SOURCES["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -1787,14 +2117,13 @@ def flash_row(dev, launches, worst, card):
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "(is_causal, enable_gqa), a yardstick only",
             "kernel_routes": {
-                "wgmma": "bf16 at head dim 64, 128: "
+                "wgmma": "bf16 at head dim 64, 96 (on the 128 tiles), 128: "
                          "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                 "simt": "fp32, and bf16 at head dim 32: "
                         "src/repro_torch/kernels/csrc/flash_attention.cu"},
             "max_abs_err_by_route": worst,
             "device_ms": serve["device_ms"],
-            "library_device_ms": serve["library_device_ms"],
-            "serving": serve, "long": long_, "olmoe_prefill": olmoe}
+            "library_device_ms": serve["library_device_ms"], **shapes}
 
 
 def host_ms(fn, reps=5):
@@ -4583,7 +4912,11 @@ def main() -> None:
                                          arch=HYBRID_ARCH,
                                          layers=HYBRID_LAYERS)
 
-    # --------------------------------------------------------- 18. times
+    # ------------------------------------- 18-19. serve-audio, serve-vlm
+    audio_launches, _ = serve_audio_phase(dev, card)
+    vlm_launches, _ = serve_vlm_phase(dev, card)
+
+    # --------------------------------------------------------- 20. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -5149,13 +5482,15 @@ def main() -> None:
                   "NVIDIA H100 80GB HBM3, 700 W), not measured in this run",
                   flush=True)
         rows.append(row)
-    # the MoE and hybrid paths' prefills join flash_attention's count, and
-    # are given apart too
-    flash = flash_row(dev, flash_launches + moe_launches + hybrid_launches,
-                      flash_err, card)
+    # the MoE, hybrid, encoder-decoder and vision paths' prefills join
+    # flash_attention's count, and are given apart too
+    flash = flash_row(dev, flash_launches + moe_launches + hybrid_launches
+                      + audio_launches + vlm_launches, flash_err, card)
     flash.update(serve_lm_launches=flash_launches,
                  serve_moe_launches=moe_launches,
-                 serve_hybrid_launches=hybrid_launches)
+                 serve_hybrid_launches=hybrid_launches,
+                 serve_audio_launches=audio_launches,
+                 serve_vlm_launches=vlm_launches)
     rows.append(flash)
 
     # the terms of the GraSp cost rule (core/costs.py), measured on each

@@ -7,7 +7,7 @@ Takes the reference's parameter trees (GCN `{"l1": {"w", "b"}, "l2":
 `{"l1": {"w_self", "w_neigh", "b"[, "w_pool", "b_pool"]}, ...}`), its GCN,
 GAT and SAGE tier calibrations, its GraSp block structures and its LM
 parameters (`lm_params_from_jax`: attention and SSM mixers, MLPs and
-MoEs) with numpy leaves, and gives parameters back as numpy
+MoEs, cross-attention and the encoder) with numpy leaves, and gives parameters back as numpy
 (`params_to_numpy`), so weights the port trained can run through the
 reference; nothing here knows of JAX.
 """
@@ -42,14 +42,16 @@ def params_to_numpy(tree: Any) -> Any:
     -> numpy arrays on the host (copies; dtypes kept), in the same nesting
     of dicts and lists, named tuples as dicts of their fields, None kept.
     An `LMParams` gives the reference's fields (`embed`, `stack`,
-    `final_norm`, `unembed`), without the derived `logits_w`."""
+    `final_norm`, `unembed`, and `encoder` where there is one), without
+    the derived `logits_w`."""
     if tree is None:
         return None
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy().copy()
     if isinstance(tree, LMParams):
-        tree = {k: getattr(tree, k)
-                for k in ("embed", "stack", "final_norm", "unembed")}
+        keys = ("embed", "stack", "final_norm", "unembed") + (
+            ("encoder",) if tree.encoder is not None else ())
+        tree = {k: getattr(tree, k) for k in keys}
     if isinstance(tree, list):
         return [params_to_numpy(v) for v in tree]
     return {k: params_to_numpy(v) for k, v in _fields(tree).items()}
@@ -100,7 +102,9 @@ def lm_params_from_jax(tree: Any, *, device: DeviceLike = None) -> LMParams:
     kept: `stack` is a list over superblock positions whose leaves carry
     the leading num_superblocks axis, so index i of one is index i of the
     other. A mixer is an SSM's when it has `w_zx`, else attention's; an
-    `mlp` with `w_router` is a MoE, with its shared expert if any."""
+    `mlp` with `w_router` is a MoE, with its shared expert if any; a
+    `cross` is an attention. The `encoder` subtree (`{"stack",
+    "final_norm"}`) takes the same layout."""
     dev = resolve_device(device)
 
     def tensor(a):
@@ -112,12 +116,17 @@ def lm_params_from_jax(tree: Any, *, device: DeviceLike = None) -> LMParams:
         f = _fields(node)
         return cls(**{k: tensor(f.get(k)) for k in cls._fields})
 
+    def norm(node):
+        return {n: tensor(a) for n, a in _fields(node).items()}
+
     def layer(node):
         out = {}
         for k, v in _fields(node).items():
             if k == "mixer":
                 out[k] = tensors(v, SSMParams if "w_zx" in _fields(v)
                                  else AttnParams)
+            elif k == "cross":
+                out[k] = tensors(v, AttnParams)
             elif k == "mlp" and "w_router" in _fields(v):
                 f = _fields(v)
                 out[k] = MoEParams(
@@ -126,20 +135,18 @@ def lm_params_from_jax(tree: Any, *, device: DeviceLike = None) -> LMParams:
                     shared=tensors(f.get("shared"), MLPParams))
             elif k == "mlp":
                 out[k] = tensors(v, MLPParams)
-            elif k.endswith("norm") and k != "pre_cross_norm":
-                out[k] = {n: tensor(a) for n, a in _fields(v).items()}
+            elif k.endswith("norm"):
+                out[k] = norm(v)
             else:
-                raise NotImplementedError(
-                    f"layer field {k!r} (cross-attention) is not ported "
-                    "yet (ROADMAP queue 1 item 14)")
+                raise ValueError(f"unknown layer field {k!r}")
         return out
 
     f = _fields(tree)
-    if f.get("encoder") is not None:
-        raise NotImplementedError("the encoder is not ported yet (ROADMAP "
-                                  "queue 1 item 14)")
+    enc = f.get("encoder")
     return LMParams(embed=tensor(f["embed"]),
                     stack=[layer(pos) for pos in f["stack"]],
-                    final_norm={n: tensor(a)
-                                for n, a in _fields(f["final_norm"]).items()},
-                    unembed=tensor(f.get("unembed")))
+                    final_norm=norm(f["final_norm"]),
+                    unembed=tensor(f.get("unembed")),
+                    encoder=None if enc is None else {
+                        "stack": [layer(pos) for pos in _fields(enc)["stack"]],
+                        "final_norm": norm(_fields(enc)["final_norm"])})

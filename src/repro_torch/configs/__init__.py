@@ -1,21 +1,22 @@
 """Model configs: the paper's GNNs (`configs/gnn.py`) and the LM
 architecture registry (`ARCHS`, `get_config`, `reduced`).
 
-The registry holds the dense, moe, ssm and hybrid families, each with its
-published dimensions: smollm-135m, qwen3-4b, gemma2-27b, chatglm3-6b,
-olmoe-1b-7b, llama4-scout-17b-a16e, mamba2-2.7b and jamba-v0.1-52b. The
-reference's vision and audio architectures come with ROADMAP queue 1 item
-14; `get_config` names that item for them.
+The registry holds every family of the reference, each with its
+published dimensions: smollm-135m, qwen3-4b, gemma2-27b, chatglm3-6b
+(dense), olmoe-1b-7b, llama4-scout-17b-a16e (moe), mamba2-2.7b (ssm),
+jamba-v0.1-52b (hybrid), phi-3-vision-4.2b (vlm) and whisper-base (audio,
+encoder-decoder).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.nn.config import ArchConfig
+from repro_torch.nn.config import ArchConfig, EncoderConfig
 
 from . import (chatglm3_6b, gemma2_27b, jamba_v0p1_52b, llama4_scout_17b_a16e,
-               mamba2_2p7b, olmoe_1b_7b, qwen3_4b, smollm_135m)
+               mamba2_2p7b, olmoe_1b_7b, phi3_vision_4p2b, qwen3_4b,
+               smollm_135m, whisper_base)
 
 ARCHS: Dict[str, ArchConfig] = {
     "gemma2-27b": gemma2_27b.CONFIG,
@@ -26,14 +27,12 @@ ARCHS: Dict[str, ArchConfig] = {
     "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.CONFIG,
     "jamba-v0.1-52b": jamba_v0p1_52b.CONFIG,
+    "phi-3-vision-4.2b": phi3_vision_4p2b.CONFIG,
+    "whisper-base": whisper_base.CONFIG,
 }
-UNPORTED = ("phi-3-vision-4.2b", "whisper-base")
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in UNPORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP queue 1 "
-                       f"item 14); ported: {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
@@ -46,7 +45,8 @@ def reduced(cfg: ArchConfig, *, layers: int | None = None) -> ArchConfig:
     float32. A MoE keeps at most 8 experts and top-2 at width 128, in
     groups of 64 with capacity factor 4.0 (no token drops, so a prefill
     group and a decode group route alike); an SSM takes d_state 16,
-    headdim 16 and chunk 32."""
+    headdim 16 and chunk 32; a vision model 16 patches, an encoder 2
+    layers over 64 frames."""
     sb = len(cfg.superblock)
     nl = layers if layers is not None else 2 * sb
     nl = max(sb, (nl // sb) * sb)
@@ -67,7 +67,9 @@ def reduced(cfg: ArchConfig, *, layers: int | None = None) -> ArchConfig:
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(
             cfg.ssm, d_state=16, headdim=16, chunk=32)
+    if cfg.encoder is not None:
+        changes["encoder"] = EncoderConfig(num_layers=2, frames=64)
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCHS", "UNPORTED", "get_config", "reduced", "ArchConfig"]
+__all__ = ["ARCHS", "get_config", "reduced", "ArchConfig"]

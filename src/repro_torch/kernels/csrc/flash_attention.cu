@@ -16,9 +16,9 @@
 // row's q and accumulator in registers (dims lane, lane + 4, ...), so a
 // score is a quad's partial dot products summed by two shuffles, which
 // leave the same float in all four lanes; each lane then runs the row's
-// online softmax itself. K and V tiles (64 keys, 32 at D = 128) are
-// staged in shared memory as fp32, 32 KB, and read by every row of the
-// CTA. The query head reads KV head h / group; nothing is repeated in
+// online softmax itself. K and V tiles (64 keys, 32 at D 96 and 128) are
+// staged in shared memory as fp32, 16 to 32 KB, and read by every row of
+// the CTA. The query head reads KV head h / group; nothing is repeated in
 // memory. Sq and Skv are taken as they are: rows past Sq are not stored,
 // keys past Skv weigh 0.
 //
@@ -183,7 +183,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int sq, int skv, int heads, int kv_heads,
                    float scale, float cap, int causal, int window,
                    int q_offset, cudaStream_t stream) {
-  constexpr int KK = D == 128 ? 32 : 64;   // 32 KB of K and V tiles
+  constexpr int KK = D >= 96 ? 32 : 64;    // 16 to 32 KB of K and V tiles
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
   flash_kernel<T, D, KK><<<grid, kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, skv, heads,
@@ -204,6 +204,9 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
     case 64:
       return launch<T, 64>(q, k, v, out, batch, sq, skv, heads, kv_heads,
                            scale, cap, causal, window, q_offset, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, out, batch, sq, skv, heads, kv_heads,
+                           scale, cap, causal, window, q_offset, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, batch, sq, skv, heads, kv_heads,
                             scale, cap, causal, window, q_offset, stream);
@@ -219,7 +222,7 @@ cudaError_t launch_d(int head_dim, const void* q, const void* k,
 // head_dim); all contiguous, bf16 when `bf16` is 1 and fp32 when 0, on CUDA
 // ordinal `device` with `stream`. `window` 0 means none, `softcap` 0 none.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a head_dim other than 32, 64 or 128.
+// for a head_dim other than 32, 64, 96 or 128.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int batch,
                                    int sq, int skv, int heads, int kv_heads,

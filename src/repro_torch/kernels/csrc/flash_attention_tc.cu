@@ -1,5 +1,5 @@
 // flash_attention, tensor-core route: GQA attention of the LM prefill for
-// bf16 operands at head dim 64 or 128, fp32 softmax statistics and
+// bf16 operands at head dim 64, 96 or 128, fp32 softmax statistics and
 // accumulator, on Hopper's wgmma and TMA:
 //   out[b, i, h, :] = sum_j softmax_j(s[i, j]) * v[b, j, h / group, :]
 //   s[i, j] = cap(scale * q[b, i, h, :] . k[b, j, h / group, :]), masked
@@ -44,6 +44,12 @@
 //    element by element.
 //  - Store: acc / max(l, 1e-12) in bf16, rows < Sq only; Sq and Skv are
 //    taken as they are.
+//  - Head dim 96 (Phi-3-vision) runs on the D 128 layout: the tensor maps
+//    have an inner extent of 96, so the second 64-column box of each Q, K
+//    and V tile reads 32 real columns and TMA fills the 32 past them with
+//    zeros. S = Q K^T takes only the 6 k-steps of the real columns; P V
+//    runs both boxes, and the epilogue stores 96 columns of each row. That
+//    costs a third more P V work and shared memory than a true 96.
 //
 // Bound (H100 SXM): q, k, v read once and out written once at 3.35 TB/s,
 // or 4 * D operations per reachable (row, key) pair at the 989 TFLOP/s of
@@ -201,7 +207,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// D: head dim (64 or 128); KK: keys per tile (128 at D 64, 64 at D 128).
+// D: the head dim of the layout (64 or 128); KK: keys per tile (128 at D
+// 64, 64 at D 128).
 template <int D, int KK>
 struct Layout {
   static constexpr int kDBoxes = D / kBox;        // 64-column boxes of D
@@ -216,7 +223,9 @@ struct Layout {
   static constexpr int kBytes = kBar + 64 + 1024;          // + alignment
 };
 
-template <int D, int KK>
+// DR: the operands' head dim (64, 96 or 128), D: the layout's (DR rounded
+// up to a whole 64-column box).
+template <int DR, int D, int KK>
 __global__ void __launch_bounds__(kThreads)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -309,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int h = 0; h < L::kKeyHalves; ++h) {
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < DR / 16; ++ks) {
         const int box = ks / 4, within = (ks % 4) * 32;
         const uint64_t da = make_desc(
             sq_addr + box * kRows * kBoxRowBytes + within, 16, 1024);
@@ -411,11 +420,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     const int qi = r0 + ra + 8 * r;
     if (qi >= sq) continue;
-    __nv_bfloat16* row = out + (((size_t)bz * sq + qi) * heads + hd) * D;
+    __nv_bfloat16* row = out + (((size_t)bz * sq + qi) * heads + hd) * DR;
 #pragma unroll
     for (int c = 0; c < L::kDBoxes; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (c * kBox + 8 * j >= DR) continue;      // the zero-filled columns
         const int e = 4 * j + 2 * r;
         *reinterpret_cast<__nv_bfloat162*>(row + c * kBox + 8 * j + cq) =
             __floats2bfloat162_rn(o[c][e] / l[r], o[c][e + 1] / l[r]);
@@ -462,40 +472,43 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-template <int D, int KK>
+template <int DR, int KK>
 cudaError_t encode_maps(Maps* m, const void* q, const void* k, const void* v,
                         int batch, int sq, int skv, int heads, int kv_heads) {
-  cudaError_t err = encode(&m->q, q, batch, sq, heads, D, kRows);
-  if (err == cudaSuccess) err = encode(&m->k, k, batch, skv, kv_heads, D, KK);
-  if (err == cudaSuccess) err = encode(&m->v, v, batch, skv, kv_heads, D, KK);
+  cudaError_t err = encode(&m->q, q, batch, sq, heads, DR, kRows);
+  if (err == cudaSuccess) err = encode(&m->k, k, batch, skv, kv_heads, DR, KK);
+  if (err == cudaSuccess) err = encode(&m->v, v, batch, skv, kv_heads, DR, KK);
   return err;
 }
 
-// Whether the kernel (by D: 64, 128) has opted in to more than 48 KB of
-// shared memory. Internal linkage on purpose: a static local of the
-// template below would be one symbol (GNU unique) across every library in
-// the process that instantiates it.
-static bool g_sized[2] = {false, false};
+// Whether the kernel has opted in to more than 48 KB of shared memory, one
+// slot per instantiation (by DR: 64, 96, 128 -> 0, 1, 2). Internal linkage
+// on purpose: a static local of the template below would be one symbol
+// (GNU unique) across every library in the process that instantiates it.
+static bool g_sized[3] = {false, false, false};
 
-template <int D, int KK>
+template <int DR, int D, int KK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int sq, int skv, int heads, int kv_heads,
                    float scale, float cap, int causal, int window,
                    int q_offset, cudaStream_t stream) {
   using L = Layout<D, KK>;
-  if (!g_sized[D == 128]) {
+  constexpr int kSlot = DR / 32 - 2;
+  static_assert(DR % 32 == 0 && kSlot >= 0 && kSlot < 3 && DR <= D,
+                "head dim 64, 96 or 128");
+  if (!g_sized[kSlot]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D, KK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::kBytes);
+        flash_tc_kernel<DR, D, KK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return err;
-    g_sized[D == 128] = true;
+    g_sized[kSlot] = true;
   }
   Maps m;
   const cudaError_t err =
-      encode_maps<D, KK>(&m, q, k, v, batch, sq, skv, heads, kv_heads);
+      encode_maps<DR, KK>(&m, q, k, v, batch, sq, skv, heads, kv_heads);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
-  flash_tc_kernel<D, KK><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_tc_kernel<DR, D, KK><<<grid, kThreads, L::kBytes, stream>>>(
       m.q, m.k, m.v, (__nv_bfloat16*)out, sq, skv, heads, kv_heads, scale,
       cap, causal, window, q_offset);
   return cudaGetLastError();
@@ -508,7 +521,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // head_dim); all contiguous bf16 with 16-byte-aligned base addresses, on
 // CUDA ordinal `device` with `stream`. `window` 0 means none, `softcap` 0
 // none. Returns cudaGetLastError() after the launch, or an error for a
-// head_dim other than 64 or 128 or a tensor map the driver refuses.
+// head_dim other than 64, 96 or 128 or a tensor map the driver refuses.
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int sq, int skv, int heads,
@@ -522,13 +535,17 @@ extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
   const cudaStream_t s = (cudaStream_t)stream;
   switch (head_dim) {
     case 64:
-      return (int)launch<64, 128>(q, k, v, out, batch, sq, skv, heads,
-                                  kv_heads, scale, softcap, causal, window,
-                                  q_offset, s);
+      return (int)launch<64, 64, 128>(q, k, v, out, batch, sq, skv, heads,
+                                      kv_heads, scale, softcap, causal,
+                                      window, q_offset, s);
+    case 96:
+      return (int)launch<96, 128, 64>(q, k, v, out, batch, sq, skv, heads,
+                                      kv_heads, scale, softcap, causal,
+                                      window, q_offset, s);
     case 128:
-      return (int)launch<128, 64>(q, k, v, out, batch, sq, skv, heads,
-                                  kv_heads, scale, softcap, causal, window,
-                                  q_offset, s);
+      return (int)launch<128, 128, 64>(q, k, v, out, batch, sq, skv, heads,
+                                       kv_heads, scale, softcap, causal,
+                                       window, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

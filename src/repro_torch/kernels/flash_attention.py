@@ -7,14 +7,15 @@ Port of the TPU kernel `flash_attention` (reference
 CTA per (64-row q tile, head, batch), the KV sweep a loop inside it, an
 online softmax with fp32 running max, sum and accumulator per row, and the
 key tiles that no row of the q tile may reach skipped. It takes bf16 (the
-serving dtype) and fp32 operands, D in {32, 64, 128}, and Sq and Skv as
-they are: the TPU wrapper's divisibility assert does not carry over.
+serving dtype) and fp32 operands, D in {32, 64, 96, 128}, and Sq and Skv
+as they are: the TPU wrapper's divisibility assert does not carry over.
 
 Two routes, chosen by `flash_route(dtype, head_dim)` and nothing else:
-- "wgmma" (`csrc/flash_attention_tc.cu`): bf16 at D 64 or 128, the serving
-  path. Both products on the bf16 tensor cores (wgmma), Q, K and V tiles
-  by TMA through an mbarrier ring. TMA needs 16-byte-aligned bases, so the
-  wrapper raises on any other.
+- "wgmma" (`csrc/flash_attention_tc.cu`): bf16 at D 64, 96 or 128, the
+  serving path. Both products on the bf16 tensor cores (wgmma), Q, K and
+  V tiles by TMA through an mbarrier ring; D 96 runs on the D 128 tiles,
+  their last 32 columns zero-filled by TMA. TMA needs 16-byte-aligned
+  bases, so the wrapper raises on any other.
 - "simt" (`csrc/flash_attention.cu`): fp32 at every D, whose 2e-5 bar no
   bf16 or TF32 product meets, and bf16 at D 32 (the reduced configs):
   fp32 FMAs on K/V tiles staged in shared memory.
@@ -41,15 +42,15 @@ from .ref import flash_attention_ref
 LAUNCHES = 0                      # kernel launches by `flash_attention`
 TC_LAUNCHES = 0                   # ... of them on the "wgmma" route
 SIMT_LAUNCHES = 0                 # ... of them on the "simt" route
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 96, 128)
 _LIBRARY = {"wgmma": "flash_attention_tc", "simt": "flash_attention"}
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that CUDA operands of `dtype` and `head_dim` launch:
-    "wgmma" (tensor cores) for bf16 at D 64 or 128, else "simt"; raises
+    "wgmma" (tensor cores) for bf16 at D 64, 96 or 128, else "simt"; raises
     for what neither takes."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: q is {dtype}, the kernel takes "

@@ -1,5 +1,7 @@
-"""Serving launcher: bucketed batch inference of the dense, moe, ssm and
-hybrid LM families (`--arch` any of `configs.ARCHS`).
+"""Serving launcher: bucketed batch inference of the dense, moe, ssm,
+hybrid and vlm LM families (`--arch` any of `configs.ARCHS` but the
+encoder-decoder whisper-base, which `Server` refuses; a vision model is
+served on its text backbone, without patches).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --requests 8

@@ -13,11 +13,17 @@ the two differ by rounding (ROADMAP queue 3).
 
 Decode (`decode_attention`, Sq == 1) is a plain einsum and softmax over
 the cache, as in the reference, which runs it outside any Pallas kernel.
-Cross-attention (whisper) waits for ROADMAP queue 1 item 14.
+
+Cross-attention (whisper's decoder over its encoder, `cross_kv=` and
+`cross=True`) projects only q, with no rope, and attends over the
+encoder's K and V, non-causal: in a prefill through the same
+`kops.flash_attention` as self-attention (Sq the decoder's length, Skv
+the encoder's frames), in a decode step through `decode_attention` over
+every frame.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,18 +92,31 @@ def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
 
 def attn_forward(p: AttnParams, cfg: ArchConfig, x: torch.Tensor, *,
                  kind: str, positions: torch.Tensor,
-                 attention: Optional[Callable] = None):
+                 attention: Optional[Callable] = None,
+                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Prefill attention. x: (B, S, d) in the compute dtype. Returns
     (out (B, S, d), rope'd k, v (B, S, KV, hd)): the prefill writes the
     decode caches from the k and v it attended over. `attention` replaces
     `kops.flash_attention` (None), for example by its plain version, to
-    compare the two on the same layer."""
+    compare the two on the same layer.
+
+    `cross_kv` (k, v), each (B, enc_len, KV, hd): cross-attention over
+    them instead (no rope, non-causal; `kind` and `positions` unused),
+    returning them as the k and v."""
+    attention = attention or kops.flash_attention
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = _proj(x, p.wq, cfg.dtype)
+        if p.q_norm is not None:
+            q = common.rms_norm(q, p.q_norm)
+        out = attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=False)
+        return _out_proj(out, p.wo, cfg.dtype), k, v
     q, k, v = _project_qkv(p, cfg, x)
     q = common.apply_rope(q, positions, theta=cfg.rope_theta,
                           fraction=cfg.rope_fraction)
     k = common.apply_rope(k, positions, theta=cfg.rope_theta,
                           fraction=cfg.rope_fraction)
-    attention = attention or kops.flash_attention
     out = attention(q.contiguous(), k.contiguous(), v.contiguous(),
                     causal=kind != "attn_bidir", window=_window(cfg, kind),
                     softcap=cfg.attn_softcap)
@@ -133,11 +152,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attn_decode(p: AttnParams, cfg: ArchConfig, x: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
-                pos: torch.Tensor, *, kind: str):
+                pos: torch.Tensor, *, kind: str, cross: bool = False):
     """One-token decode. x: (B, 1, d); pos: scalar or (B,) write cursors.
     Writes this token's K and V into the caches IN PLACE at pos (the
     reference returns updated copies; its jitted step donates them) and
-    returns (out, k_cache, v_cache)."""
+    returns (out, k_cache, v_cache).
+
+    `cross`: the caches are the encoder's K and V; the token attends over
+    every frame (no rope, nothing written, `pos` unused)."""
+    if cross:
+        q = _proj(x, p.wq, cfg.dtype)
+        if p.q_norm is not None:
+            q = common.rms_norm(q, p.q_norm)
+        last = torch.tensor(k_cache.shape[1] - 1, device=x.device)
+        out = decode_attention(q, k_cache, v_cache, window=None,
+                               attn_softcap=None, pos=last)
+        return _out_proj(out, p.wo, cfg.dtype), k_cache, v_cache
     q, k, v = _project_qkv(p, cfg, x)
     b = x.shape[0]
     posv = pos[None] if pos.dim() == 0 else pos[:, None]     # (1,) or (B, 1)

@@ -1,12 +1,13 @@
 """Architecture configuration of the LM substrate, as data.
 
 `ArchConfig` describes every family the reference covers (dense, ssm, moe,
-hybrid, vlm, audio); the port serves the dense, moe, ssm and hybrid
-families and refuses the encoder (and with it cross-attention) and the
-vision and audio frontends where it would run them (ROADMAP queue 1 item
-14). Layer heterogeneity is a *superblock*, the smallest repeating
-pattern of layer kinds; parameters carry a leading `num_superblocks`
-axis.
+hybrid, vlm, audio), and the port runs them all: an `encoder` makes the
+model an encoder-decoder (whisper: an encoder stack over stub frame
+embeddings and cross-attention in every decoder layer), a `frontend`
+names the stub whose embeddings the caller passes in (vision patches as a
+prefix of `num_patches` positions, or audio frames for the encoder).
+Layer heterogeneity is a *superblock*, the smallest repeating pattern of
+layer kinds; parameters carry a leading `num_superblocks` axis.
 
 The reference's knobs of its multi-pod dry run and training (remat, loss,
 query and KV chunk sizes, scan unrolling, block skip, bf16 logits, the
@@ -185,18 +186,3 @@ class ArchConfig:
         idle = (m.num_experts - m.top_k) * mult * self.d_model * m.d_ff_expert
         return int(self.param_count() - n_moe * idle)
 
-
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless `cfg` lies on a ported serving path: the encoder
-    (whisper's, and with it cross-attention) and the frontends (vision,
-    audio) are not ported."""
-    if cfg.encoder is not None:
-        what = "the encoder and cross-attention"
-    elif cfg.frontend is not None:
-        what = f"the {cfg.frontend!r} frontend"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name} needs {what}, which the port does not have yet "
-        "(ROADMAP queue 1 item 14); it serves the dense, moe, ssm and "
-        "hybrid families")

@@ -1,9 +1,16 @@
-"""Top-level language model of the dense, moe, ssm and hybrid families:
-embeddings, the superblock stack, logits, and the serving pair prefill /
-decode step.
+"""Top-level language model of every family: embeddings, the superblock
+stack, logits, and the serving pair prefill / decode step.
 
-The vision prefix (`prefix_embeds`), the audio encoder (`enc_embeds`) and
-the training loss (`chunked_xent`, `lm_loss`) wait for ROADMAP queue 1
+  vlm (phi-3-vision)  — optional `prefix_embeds` (stub patch embeddings,
+                        (B, P, d)) go in front of the token embeddings;
+                        positions and the caches then count P + S.
+  audio (whisper)     — optional `enc_embeds` (stub frame embeddings, (B,
+                        frames, d)) run the real encoder (`encdec`); every
+                        decoder layer cross-attends over its K and V,
+                        which `ServeState.enc_kv` carries to the decode
+                        steps.
+
+The training loss (`chunked_xent`, `lm_loss`) waits for ROADMAP queue 1
 item 14.
 """
 from __future__ import annotations
@@ -14,9 +21,10 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from . import transformer as tfm
+from . import encdec, transformer as tfm
+from .attention import AttnParams
 from .common import dense_param, softcap, take_embedding
-from .config import ArchConfig, require_ported
+from .config import ArchConfig
 from .mlp import MLPParams
 from .moe import MoEParams
 from .ssm import SSMParams
@@ -27,6 +35,8 @@ class LMParams(NamedTuple):
     stack: List[Dict[str, Any]]
     final_norm: Dict[str, torch.Tensor]
     unembed: Optional[torch.Tensor] = None   # (d, V) when not tied
+    # the encoder of an encoder-decoder: {"stack", "final_norm"}
+    encoder: Optional[Dict[str, Any]] = None
     # (d, V) float32 copy of the compute-dtype unembedding, made once by
     # `to_compute_dtype`; None: `hidden_to_logits` rounds on every call
     logits_w: Optional[torch.Tensor] = None
@@ -45,20 +55,24 @@ def lm_init(cfg: ArchConfig, *, seed: int = 0, device: DeviceLike = None,
     as they are made, so no float32 copy of the model is ever whole; the
     leaves the reference reads in float32 (norm scales, the SSM's conv,
     dt, A and skip) stay float32, and `to_compute_dtype` then changes
-    nothing."""
-    require_ported(cfg)
+    nothing. An encoder-decoder draws its decoder's cross-attention with
+    each layer and its encoder last."""
     device = resolve_device(device)
     g = torch.Generator(device=device if dtype is not None else "cpu")
     g.manual_seed(seed)
     wdt = dtype if dtype is not None else torch.float32
     embed = dense_param((cfg.vocab_size, cfg.d_model), g, scale=1.0,
                         device=device, dtype=wdt)
+    stack = tfm.stack_init(cfg, g, device=device, dtype=wdt,
+                           cross=cfg.is_encdec)
+    unembed = (None if cfg.tie_embeddings else
+               dense_param((cfg.d_model, cfg.vocab_size), g, device=device,
+                           dtype=wdt))
     return LMParams(
-        embed=embed, stack=tfm.stack_init(cfg, g, device=device, dtype=wdt),
-        final_norm=tfm.norm_init(cfg, device=device),
-        unembed=(None if cfg.tie_embeddings else
-                 dense_param((cfg.d_model, cfg.vocab_size), g,
-                             device=device, dtype=wdt)))
+        embed=embed, stack=stack,
+        final_norm=tfm.norm_init(cfg, device=device), unembed=unembed,
+        encoder=(encdec.encoder_init(cfg, g, device=device, dtype=wdt)
+                 if cfg.is_encdec else None))
 
 
 def embed_tokens(p: LMParams, cfg: ArchConfig,
@@ -89,14 +103,19 @@ def _round_layer(node: Dict[str, Any], dt: torch.dtype) -> Dict[str, Any]:
 
     def mlp(m: MLPParams) -> MLPParams:
         return MLPParams(*(cast(w) for w in m))
+
+    def attn(a: AttnParams) -> AttnParams:
+        return a._replace(wq=cast(a.wq), wk=cast(a.wk), wv=cast(a.wv),
+                          wo=cast(a.wo))
     out = dict(node)
     m = node["mixer"]
     if isinstance(m, SSMParams):
         out["mixer"] = m._replace(w_zx=cast(m.w_zx), w_bc=cast(m.w_bc),
                                   w_dt=cast(m.w_dt), w_out=cast(m.w_out))
     else:
-        out["mixer"] = m._replace(wq=cast(m.wq), wk=cast(m.wk),
-                                  wv=cast(m.wv), wo=cast(m.wo))
+        out["mixer"] = attn(m)
+    if "cross" in node:
+        out["cross"] = attn(node["cross"])
     if isinstance(node.get("mlp"), MoEParams):
         e = node["mlp"]
         out["mlp"] = MoEParams(
@@ -110,46 +129,83 @@ def _round_layer(node: Dict[str, Any], dt: torch.dtype) -> Dict[str, Any]:
 
 def to_compute_dtype(p: LMParams, cfg: ArchConfig) -> LMParams:
     """The same parameters with the embedding and every projection matrix
-    (attention, SSM in/out projections, MLP, router and experts) rounded
-    to the compute dtype once, and `logits_w` made, so that a prefill or
-    decode step converts no weight. Every call rounded them the same way,
+    (attention and cross-attention, SSM in/out projections, MLP, router
+    and experts, the encoder's too) rounded to the compute dtype once,
+    and `logits_w` made, so that a prefill or decode step converts no
+    weight. Every call rounded them the same way,
     so the results are bit for bit those of `p`. Norm scales and the
     SSM's conv, dt, A and skip leaves stay float32, as the reference
     reads them."""
     dt = cfg.dtype
     unembed = p.embed.T if p.unembed is None else p.unembed
+    encoder = None
+    if p.encoder is not None:
+        encoder = dict(p.encoder,
+                       stack=[_round_layer(n, dt) for n in p.encoder["stack"]])
     return p._replace(embed=p.embed.to(dt),
                       stack=[_round_layer(n, dt) for n in p.stack],
-                      logits_w=unembed.to(dt).float())
+                      encoder=encoder, logits_w=unembed.to(dt).float())
 
 
-def lm_hidden(p: LMParams, cfg: ArchConfig, tokens: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Returns (final-normed hidden (B, S, d), moe_aux, prefix_len 0)."""
+def _encode(p: LMParams, cfg: ArchConfig, enc_embeds: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder over the stub frames, then the decoder's cross K and V
+    (each (nsb, B, frames, KV, hd))."""
+    enc_out = encdec.encoder_forward(p.encoder, cfg, enc_embeds.to(cfg.dtype))
+    return encdec.cross_kv(p.stack, cfg, enc_out)
+
+
+def _inputs(p: LMParams, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor],
+            enc_embeds: Optional[torch.Tensor]):
+    """(the embedded prefix and tokens (B, P + S, d), their positions, the
+    encoder's cross K and V or None, P)."""
     x = embed_tokens(p, cfg, tokens)
+    plen = 0
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
+        plen = prefix_embeds.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
-    h, aux = tfm.stack_forward(p.stack, cfg, x, positions=positions)
-    return tfm.apply_norm(p.final_norm, cfg, h), aux, 0
+    enc_kv = _encode(p, cfg, enc_embeds) if enc_embeds is not None else None
+    return x, positions, enc_kv, plen
+
+
+def lm_hidden(p: LMParams, cfg: ArchConfig, tokens: torch.Tensor, *,
+              prefix_embeds: Optional[torch.Tensor] = None,
+              enc_embeds: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Returns (final-normed hidden (B, P + S, d), moe_aux, prefix_len
+    P), P = 0 without `prefix_embeds`."""
+    x, positions, enc_kv, plen = _inputs(p, cfg, tokens, prefix_embeds,
+                                         enc_embeds)
+    h, aux = tfm.stack_forward(p.stack, cfg, x, positions=positions,
+                               enc_kv_stacked=enc_kv)
+    return tfm.apply_norm(p.final_norm, cfg, h), aux, plen
 
 
 class ServeState(NamedTuple):
     caches: List[Any]                        # KV dicts and SSMCaches
     pos: torch.Tensor                        # int32 scalar or (B,)
+    enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # whisper
 
 
 def lm_prefill(p: LMParams, cfg: ArchConfig, tokens: torch.Tensor, *,
-               max_len: int) -> Tuple[torch.Tensor, ServeState]:
+               max_len: int, prefix_embeds: Optional[torch.Tensor] = None,
+               enc_embeds: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, ServeState]:
     """Run the prompt, build the caches. Returns (logits of the last
-    position (B, V), state)."""
-    x = embed_tokens(p, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    position (B, V), state). With `prefix_embeds` (B, P, d) the prompt
+    is P + S positions long, so `max_len` must hold them; with
+    `enc_embeds` the state carries the encoder's cross K and V."""
+    x, positions, enc_kv, _ = _inputs(p, cfg, tokens, prefix_embeds,
+                                      enc_embeds)
     h, caches = tfm.stack_prefill(p.stack, cfg, x, positions=positions,
-                                  max_len=max_len)
+                                  max_len=max_len, enc_kv_stacked=enc_kv)
     h = tfm.apply_norm(p.final_norm, cfg, h[:, -1:])
     logits = hidden_to_logits(p, cfg, h)
     return logits[:, 0], ServeState(
         caches=caches, pos=torch.full((), x.shape[1], dtype=torch.int32,
-                                      device=x.device))
+                                      device=x.device), enc_kv=enc_kv)
 
 
 def lm_decode_step(p: LMParams, cfg: ArchConfig, token: torch.Tensor,
@@ -157,10 +213,12 @@ def lm_decode_step(p: LMParams, cfg: ArchConfig, token: torch.Tensor,
     """token: (B,) int. One step; the caches are written in place at
     state.pos."""
     x = embed_tokens(p, cfg, token[:, None])
-    h, caches = tfm.stack_decode(p.stack, cfg, x, state.caches, state.pos)
+    h, caches = tfm.stack_decode(p.stack, cfg, x, state.caches, state.pos,
+                                 enc_kv_stacked=state.enc_kv)
     h = tfm.apply_norm(p.final_norm, cfg, h)
     logits = hidden_to_logits(p, cfg, h)[:, 0]
-    return logits, ServeState(caches=caches, pos=state.pos + 1)
+    return logits, ServeState(caches=caches, pos=state.pos + 1,
+                              enc_kv=state.enc_kv)
 
 
 def greedy_generate(p: LMParams, cfg: ArchConfig, prompt: torch.Tensor, *,

@@ -8,10 +8,14 @@ the same way: (num_superblocks, B, S_max, KV, hd) K and V per attention
 position, an `SSMCache` (conv window and float32 state) per SSM position,
 written in place.
 
-The port covers the 'attn', 'attn_local' and 'ssm' layer kinds, each
-followed by the dense MLP or a MoE (`cfg.layer_uses_moe`), or by nothing
-(Mamba2), with sandwich `post_norms` and `zero_centered_norm`.
-Cross-attention raises NotImplementedError (ROADMAP queue 1 item 14).
+The port covers the 'attn', 'attn_local' and 'ssm' layer kinds (and
+'attn_bidir', the encoder's), each followed by the dense MLP or a MoE
+(`cfg.layer_uses_moe`), or by nothing (Mamba2), with sandwich
+`post_norms` and `zero_centered_norm`. An encoder-decoder's decoder
+layers (`cross=True`) put a cross-attention step between the mixer and
+the MLP, over the encoder's K and V of their superblock
+(`enc_kv_stacked`: (k, v), each (nsb, B, enc_len, KV, hd), from
+`encdec.cross_kv`).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import layer_norm, rms_norm
-from .config import ArchConfig, require_ported
+from .config import ArchConfig
 from .mlp import mlp_forward, mlp_init
 
 
@@ -46,12 +50,11 @@ def apply_norm(p: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 
 def layer_init(cfg: ArchConfig, pos: int, generator: torch.Generator, *,
-               device: DeviceLike = None,
-               dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+               device: DeviceLike = None, dtype: torch.dtype = torch.float32,
+               cross: bool = False) -> Dict[str, Any]:
     """One layer at superblock position `pos`: its mixer (attention or
-    SSM), then the MLP, a MoE or nothing, and the norms; the projection
-    matrices in `dtype`."""
-    require_ported(cfg)
+    SSM), with `cross` a cross-attention, then the MLP, a MoE or nothing,
+    and the norms; the projection matrices in `dtype`."""
     device = resolve_device(device)
     kind = cfg.superblock[pos]
     init = attn_mod.attn_init if kind.startswith("attn") else ssm_mod.ssm_init
@@ -60,6 +63,10 @@ def layer_init(cfg: ArchConfig, pos: int, generator: torch.Generator, *,
                                        dtype=dtype)}
     if cfg.post_norms:
         p["post_norm"] = norm_init(cfg, device=device)
+    if cross:
+        p["pre_cross_norm"] = norm_init(cfg, device=device)
+        p["cross"] = attn_mod.attn_init(cfg, generator, device=device,
+                                        dtype=dtype)
     if cfg.layer_uses_moe(pos, kind):
         p["pre_mlp_norm"] = norm_init(cfg, device=device)
         p["mlp"] = moe_mod.moe_init(cfg, generator, device=device,
@@ -100,30 +107,32 @@ def slice_block(tree: Any, blk: int) -> Any:
 
 
 def stack_init(cfg: ArchConfig, generator: torch.Generator, *,
-               device: DeviceLike = None,
-               dtype: torch.dtype = torch.float32) -> List[Dict[str, Any]]:
+               device: DeviceLike = None, dtype: torch.dtype = torch.float32,
+               cross: bool = False) -> List[Dict[str, Any]]:
     """A list over superblock positions; each leaf has a leading
     num_superblocks axis. Layers are drawn in block-major order."""
     device = resolve_device(device)
     sb = len(cfg.superblock)
-    layers = [[layer_init(cfg, pos, generator, device=device, dtype=dtype)
+    layers = [[layer_init(cfg, pos, generator, device=device, dtype=dtype,
+                          cross=cross)
                for pos in range(sb)] for _ in range(cfg.num_superblocks)]
     return [_stack([blk[pos] for blk in layers]) for pos in range(sb)]
 
 
-def _refuse_cross(p: Dict[str, Any]) -> None:
-    if "cross" in p:
-        raise NotImplementedError(
-            "cross-attention layers are not ported yet (ROADMAP queue 1 "
-            "item 14)")
+def _block_kv(enc_kv_stacked: Optional[Tuple[torch.Tensor, torch.Tensor]],
+              blk: int) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Superblock `blk`'s cross-attention K and V (views)."""
+    if enc_kv_stacked is None:
+        return None
+    return enc_kv_stacked[0][blk], enc_kv_stacked[1][blk]
 
 
 def mixer_residual(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor, *,
                    kind: str, positions: torch.Tensor,
                    attention: Optional[Callable] = None) -> torch.Tensor:
     """x plus the layer's mixer branch (attention or SSM), the input of
-    its MLP or MoE branch; `attention` as in `attn_forward`."""
-    _refuse_cross(p)
+    its cross-attention, MLP or MoE branch; `attention` as in
+    `attn_forward`."""
     h = apply_norm(p["pre_norm"], cfg, x)
     if kind.startswith("attn"):
         h, _, _ = attn_mod.attn_forward(p["mixer"], cfg, h, kind=kind,
@@ -133,6 +142,24 @@ def mixer_residual(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor, *,
         h = ssm_mod.ssm_forward(p["mixer"], cfg, h)
     if cfg.post_norms:
         h = apply_norm(p["post_norm"], cfg, h)
+    return x + h
+
+
+def cross_residual(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
+                   enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                   ) -> torch.Tensor:
+    """x plus the layer's cross-attention branch over the encoder's
+    (k, v) of its superblock; x itself for a layer without one. The
+    reference runs a cross layer as causal self-attention when no frames
+    were given; the port raises."""
+    if "cross" not in p:
+        return x
+    if enc_kv is None:
+        raise ValueError("a cross-attention layer needs the encoder's K and "
+                         "V: pass enc_embeds (the stub frame embeddings)")
+    h = apply_norm(p["pre_cross_norm"], cfg, x)
+    h, _, _ = attn_mod.attn_forward(p["cross"], cfg, h, kind="attn",
+                                    positions=None, cross_kv=enc_kv)
     return x + h
 
 
@@ -154,25 +181,29 @@ def mlp_residual(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor
 
 
 def _layer_forward(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor, *,
-                   kind: str, positions: torch.Tensor
+                   kind: str, positions: torch.Tensor,
+                   enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm residual layer. Returns (x, moe_aux), aux 0 without a
     MoE."""
-    x, aux = mlp_residual(p, cfg, mixer_residual(p, cfg, x, kind=kind,
-                                                 positions=positions))
+    x = mixer_residual(p, cfg, x, kind=kind, positions=positions)
+    x, aux = mlp_residual(p, cfg, cross_residual(p, cfg, x, enc_kv))
     return x, (torch.zeros((), device=x.device) if aux is None else aux)
 
 
 def stack_forward(stacked: List[Dict[str, Any]], cfg: ArchConfig,
-                  x: torch.Tensor, *, positions: torch.Tensor
+                  x: torch.Tensor, *, positions: torch.Tensor,
+                  enc_kv_stacked: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (hidden, moe_aux_sum)."""
     aux = torch.zeros((), device=x.device)
     for blk in range(cfg.num_superblocks):
         params = slice_block(stacked, blk)
+        enc_kv = _block_kv(enc_kv_stacked, blk)
         for pos, kind in enumerate(cfg.superblock):
             x, a = _layer_forward(params[pos], cfg, x, kind=kind,
-                                  positions=positions)
+                                  positions=positions, enc_kv=enc_kv)
             aux = aux + a
     return x, aux
 
@@ -181,7 +212,6 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 device: DeviceLike = None) -> List[Any]:
     """Per superblock position: K and V caches (nsb, B, S_max, KV, hd), or
     an SSMCache whose leaves carry the leading nsb axis."""
-    require_ported(cfg)
     device = resolve_device(device)
     nsb = cfg.num_superblocks
     shape = (nsb, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
@@ -200,7 +230,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
 
 
 def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
-                  x: torch.Tensor, *, positions: torch.Tensor, max_len: int
+                  x: torch.Tensor, *, positions: torch.Tensor, max_len: int,
+                  enc_kv_stacked: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, List[Any]]:
     """Prefill: forward and the decode caches. x: (B, S, d); KV cache rows
     [S, max_len) stay zero; an SSM position's cache is its state after
@@ -210,9 +242,9 @@ def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
     caches = init_caches(cfg, b, max_len, device=x.device)
     for blk in range(cfg.num_superblocks):
         params = slice_block(stacked, blk)
+        enc_kv = _block_kv(enc_kv_stacked, blk)
         for pos, kind in enumerate(cfg.superblock):
             p = params[pos]
-            _refuse_cross(p)
             hn = apply_norm(p["pre_norm"], cfg, x)
             if kind.startswith("attn"):
                 hn, k, v = attn_mod.attn_forward(p["mixer"], cfg, hn,
@@ -227,21 +259,25 @@ def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                 caches[pos].state[blk] = c.state
             if cfg.post_norms:
                 hn = apply_norm(p["post_norm"], cfg, hn)
-            x, _ = mlp_residual(p, cfg, x + hn)
+            x, _ = mlp_residual(p, cfg, cross_residual(p, cfg, x + hn,
+                                                       enc_kv))
     return x, caches
 
 
 def stack_decode(stacked: List[Dict[str, Any]], cfg: ArchConfig,
-                 x: torch.Tensor, caches: List[Any], pos: torch.Tensor
+                 x: torch.Tensor, caches: List[Any], pos: torch.Tensor,
+                 enc_kv_stacked: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, List[Any]]:
     """One-token decode. x: (B, 1, d); pos: scalar or (B,) write cursors
     (an SSM layer reads none: its state has taken every position so far).
-    The caches are updated in place and returned."""
+    The caches are updated in place and returned; a cross-attention layer
+    reads its superblock's encoder K and V from `enc_kv_stacked`."""
     for blk in range(cfg.num_superblocks):
         params = slice_block(stacked, blk)
+        enc_kv = _block_kv(enc_kv_stacked, blk)
         for i, kind in enumerate(cfg.superblock):
             p = params[i]
-            _refuse_cross(p)
             hn = apply_norm(p["pre_norm"], cfg, x)
             if kind.startswith("attn"):
                 hn, _, _ = attn_mod.attn_decode(
@@ -255,5 +291,15 @@ def stack_decode(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                 c.state.copy_(new.state)
             if cfg.post_norms:
                 hn = apply_norm(p["post_norm"], cfg, hn)
-            x, _ = mlp_residual(p, cfg, x + hn)
+            x = x + hn
+            if "cross" in p:
+                if enc_kv is None:
+                    raise ValueError("a cross-attention layer needs the "
+                                     "encoder's K and V (ServeState.enc_kv)")
+                hn = apply_norm(p["pre_cross_norm"], cfg, x)
+                hn, _, _ = attn_mod.attn_decode(p["cross"], cfg, hn,
+                                                *enc_kv, pos, kind="attn",
+                                                cross=True)
+                x = x + hn
+            x, _ = mlp_residual(p, cfg, x)
     return x, caches

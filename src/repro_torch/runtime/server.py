@@ -1,5 +1,5 @@
 """LM serving runtime: bucketed prefill and batched decode with per-slot
-cursors, for the dense, moe, ssm and hybrid families.
+cursors, for the dense, moe, ssm, hybrid and vlm families.
 
   * Prompts are right-padded to one of a fixed set of BUCKET lengths and
     the KV cache to one max_len, so the server keeps one prefill callable
@@ -22,6 +22,13 @@ Two scheduling modes, as the reference:
     right-padded, and the state integrates the padded positions too
     (ROADMAP queue 3), as the reference's does.
 
+A vision model (phi-3-vision) is served on its text backbone alone, with
+no patches, as the reference's server serves it; its patch prefix goes
+through `lm_prefill(prefix_embeds=)` directly. An encoder-decoder
+(whisper) is refused: this server takes no frames, and the reference's
+fails at its first decode step (its cross layers find no encoder K and
+V); its path is `lm_prefill(enc_embeds=)` and `lm_decode_step`.
+
 Prefill runs its attention through the hand-written `flash_attention`
 kernel on the card (`nn/attention.py`). The server records, per wave, the
 time from the wave's start to its first token on the host (`ttft_s`, with
@@ -38,7 +45,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn import lm
-from repro_torch.nn.config import ArchConfig, require_ported
+from repro_torch.nn.config import ArchConfig
 
 
 @dataclasses.dataclass
@@ -64,7 +71,11 @@ class Server:
     def __init__(self, cfg: ArchConfig, sc: ServeConfig,
                  params: Optional[lm.LMParams] = None, *, seed: int = 0,
                  device: DeviceLike = None):
-        require_ported(cfg)
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: the Server takes no "
+                "frames; serve it through lm_prefill(enc_embeds=) and "
+                "lm_decode_step")
         self.cfg = cfg
         self.sc = sc
         if cfg.attention_free or cfg.layer_pattern in ("ssm", "jamba"):

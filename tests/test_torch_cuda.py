@@ -1319,6 +1319,16 @@ FLASH_CASES = {
     "q_offset_d128": (3, 65, 200, 8, 2, 128, True, None, None, 135),
     "window_past_keys_d64": (2, 64, 129, 6, 2, 64, True, 40, None, 130),
     "window_past_keys_d128": (1, 65, 65, 4, 4, 128, False, 30, None, 100),
+    # head dim 96 (Phi-3-vision's 32 heads of 96): on the tensor-core route
+    # the D 128 tiles with the last 32 columns zero-filled
+    "phi3v_heads_d96": (2, 130, 130, 32, 32, 96, True, None, None, 0),
+    "ragged_65_d96": (2, 65, 65, 8, 4, 96, True, None, None, 0),
+    "noncausal_65x129_d96": (2, 65, 129, 8, 4, 96, False, None, None, 0),
+    "window_softcap_d96": (1, 65, 129, 8, 4, 96, True, 30, 50.0, 64),
+    # whisper: the encoder over 1500 frames and the decoder's cross-
+    # attention over them, non-causal, 1500 a multiple of no key tile
+    "whisper_cross_256x1500": (2, 256, 1500, 8, 8, 64, False, None, None, 0),
+    "whisper_encoder_1500": (1, 1500, 1500, 8, 8, 64, False, None, None, 0),
 }
 
 
@@ -1334,8 +1344,8 @@ def test_flash_attention_matches_plain(card, case, dtype):
     v = _arr(rng, b, skv, kv, d).to(card, dtype)
     opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
     route = fa_mod.flash_route(dtype, d)
-    assert route == ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
-                     else "simt")
+    assert route == ("wgmma" if dtype == torch.bfloat16
+                     and d in (64, 96, 128) else "simt")
     counter = "TC_LAUNCHES" if route == "wgmma" else "SIMT_LAUNCHES"
     before = (fa_mod.LAUNCHES, getattr(fa_mod, counter))
     got = fa_mod.flash_attention(q, k, v, **opts)

@@ -54,7 +54,9 @@ def test_port_file_list_covers_every_slice():
             "examples/quickstart.py", "examples/quality_tiers.py",
             "nn/moe.py", "nn/ssm.py", "configs/olmoe_1b_7b.py",
             "configs/mamba2_2p7b.py", "configs/jamba_v0p1_52b.py",
-            "configs/llama4_scout_17b_a16e.py", "nn/layerwise.py"} <= names
+            "configs/llama4_scout_17b_a16e.py", "nn/layerwise.py",
+            "nn/encdec.py", "nn/multimodal.py", "configs/whisper_base.py",
+            "configs/phi3_vision_4p2b.py"} <= names
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):

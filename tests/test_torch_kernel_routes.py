@@ -2,8 +2,8 @@
 on the CPU with no card.
 
 `flash_attention` picks its kernel by dtype and head dim alone
-(`flash_route`): the bf16 tensor-core route at D 64 and 128, the SIMT route
-otherwise. `block_matmul` runs 3xTF32 on the TF32 tensor cores; its
+(`flash_route`): the bf16 tensor-core route at D 64, 96 and 128, the SIMT
+route otherwise. `block_matmul` runs 3xTF32 on the TF32 tensor cores; its
 arithmetic is emulated here in numpy on the Cora GCN's four serving
 products: cvt.rna.tf32 as round to nearest, ties away, to 10 mantissa
 bits; each m16n8k8 step's eight products summed exactly and added to its
@@ -52,7 +52,7 @@ CARD = dict(rtol=1e-4, atol=1e-5)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_flash_route(dtype, head_dim):
-    want = ("wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128)
+    want = ("wgmma" if dtype == torch.bfloat16 and head_dim in (64, 96, 128)
             else "simt")
     assert fa.flash_route(dtype, head_dim) == want
 
@@ -63,7 +63,7 @@ def test_flash_route_rejects_dtype(dtype):
         fa.flash_route(dtype, 64)
 
 
-@pytest.mark.parametrize("head_dim", [16, 48, 96, 256])
+@pytest.mark.parametrize("head_dim", [16, 48, 80, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_flash_route_rejects_head_dim(dtype, head_dim):
@@ -71,7 +71,7 @@ def test_flash_route_rejects_head_dim(dtype, head_dim):
         fa.flash_route(dtype, head_dim)
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128])
 def test_cpu_operands_launch_nothing_on_either_route(head_dim):
     """On the CPU every route runs the plain version and counts nothing."""
     rng = np.random.default_rng(head_dim)

@@ -479,30 +479,27 @@ def test_server_tokens_and_counters_match_reference(name, mode):
 
 
 def test_unported_archs_and_layers_raise():
-    """Only the vision and audio architectures stay unported; the encoder
-    (cross-attention) and a frontend raise where they would run. The
-    "ssm" layer pattern serves now (`tests/test_torch_moe_ssm.py::
-    test_ssm_layer_pattern_serves`)."""
-    for name in ("phi-3-vision-4.2b", "whisper-base"):
-        with pytest.raises(KeyError, match="item 14"):
-            get_config(name)
-    for name in ("mamba2-2.7b", "olmoe-1b-7b", "jamba-v0.1-52b",
-                 "llama4-scout-17b-a16e"):
+    """No architecture stays unported: the vision and audio ones serve
+    too, and a config with an encoder or a frontend builds where it
+    raised before (the encoder and the cross layers are drawn; the
+    refusal `_refuse_cross` is gone). What still raises: an unknown arch,
+    a Server for an encoder-decoder (it takes no frames), a prompt past
+    the largest bucket."""
+    for name in ("phi-3-vision-4.2b", "whisper-base", "mamba2-2.7b",
+                 "olmoe-1b-7b", "jamba-v0.1-52b", "llama4-scout-17b-a16e"):
         assert get_config(name).name == name
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
     cfg = reduced(get_config("smollm-135m"))
     whisper = dataclasses.replace(
         cfg, encoder=tconfig.EncoderConfig(num_layers=2, frames=64))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
+    with pytest.raises(ValueError, match="encoder-decoder"):
         tserver.Server(whisper, tserver.ServeConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlm.lm_init(whisper, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlm.lm_init(dataclasses.replace(cfg, frontend="vision_stub"),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        ttfm._refuse_cross({"cross": None})
+    p = tlm.lm_init(whisper, device="cpu")
+    assert "cross" in p.stack[0] and len(p.encoder["stack"]) == 1
+    vision = dataclasses.replace(cfg, frontend="vision_stub")
+    assert tlm.lm_init(vision, device="cpu").encoder is None
+    assert not hasattr(ttfm, "_refuse_cross")
     server = tserver.Server(cfg, tserver.ServeConfig(buckets=(8,)),
                             device="cpu")
     with pytest.raises(ValueError, match="largest bucket"):

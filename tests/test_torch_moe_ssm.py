@@ -48,7 +48,8 @@ from repro.nn import transformer as rtfm
 from repro.nn.common import Param
 from repro.runtime import server as rserver
 from repro_torch import bridge
-from repro_torch.configs import ARCHS, UNPORTED, get_config, reduced
+from repro_torch import configs
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.nn import config as tconfig
@@ -667,9 +668,11 @@ def test_ssm_layer_pattern_serves():
 
 
 def test_only_vision_and_audio_stay_unported():
-    assert set(UNPORTED) == {"phi-3-vision-4.2b", "whisper-base"}
-    assert set(ARCHS) | set(UNPORTED) == set(RARCHS)
-    for name in FAMILIES:
+    """The vision and audio architectures are ported now too: the registry
+    holds every reference architecture, and `UNPORTED` is gone."""
+    assert set(ARCHS) == set(RARCHS)
+    assert not hasattr(configs, "UNPORTED")
+    for name in FAMILIES + ("phi-3-vision-4.2b", "whisper-base"):
         assert get_config(name) == ARCHS[name]
 
 
