@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths, its
-node-classifier training and its LM serving (dense, MoE, SSM, hybrid,
-encoder-decoder and vision-prefix families) on one NVIDIA card.
+node-classifier training, its LM serving (dense, MoE, SSM, hybrid,
+encoder-decoder and vision-prefix families) and its LM training on one
+NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
@@ -279,7 +280,29 @@ last line; there is no CPU path):
      head dim 96 on the tensor-core route, the logits check and times as
      phase 18; then one text-only wave through `Server`, as the
      reference's server serves this config (32 launches, its counters);
-  20. times — CUDA-event times of each kernel, its plain version and the
+  20. train-lm — `flash_attention_bwd` (the gradient of flash_attention,
+     `csrc/flash_attention_bwd.cu`) against its plain version
+     (`flash_attention_bwd_ref`) at SmolLM's training shape (B 4, S 1024,
+     9/3 heads of 64, bf16, causal), Whisper's encoder (non-causal, S
+     1500) and cross-attention (256 x 1500), Phi-3-vision's head dim 96,
+     a reduced gemma2 with window 64 and softcap 50, fp32 at head dim 32
+     and 64, and rows that no key may reach: dq, dk and dv each within
+     twice the plain version's error against a float64 autograd oracle,
+     in the same dtype. Then SmolLM-135M at full width and depth (30
+     layers, float32 parameters from `lm_init`, bf16 compute, remat):
+     one step of 8 x 1024 tokens in 2 microbatches through the kernels,
+     with every count 0 just before (flash_attention 2 x 30 x 2 launches,
+     flash_attention_bwd 30 x 2, nothing else, and the plain attention
+     never called on a CUDA tensor), its loss and every leaf's gradient
+     against the same step through the plain attention (max |difference|
+     at most 5e-2 of the leaf's max |entry|, every leaf's gradient
+     nonzero); then `Trainer.run()`: 20 steps at lr 1e-3, warmup 5,
+     checkpoints every 5 steps into a temporary directory under `build/`,
+     a failure injected at step 12 and restored from step 10 (restarts
+     1, the loss falling, the launches exact); prints ms a step by CUDA
+     events, tokens/s, the device idle share and the backward kernel's
+     share of the step's device time (torch.profiler), peak card memory;
+  21. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape, at B 1, S 4096, 32/8 heads
      of 128, and at the Whisper encoder's, Whisper cross-attention's and
@@ -303,7 +326,12 @@ last line; there is no CPU path):
      kernels' on their earlier SIMT body, the int8 kernels' on their
      earlier __dp4a tile, fused_sage's on its earlier SIMT combine, the
      GCN layers' on their earlier SIMT products and the GraSp kernels' on
-     their earlier SIMT walk, copied from PERF.md and printed as copied.
+     their earlier SIMT walk, copied from PERF.md and printed as copied;
+     flash_attention_bwd at SmolLM's training shape and Phi-3-vision's
+     prefill shape by CUDA events and queued behind a spin, beside its
+     plain version, the backward of scaled_dot_product_attention
+     (`torch.autograd.grad` through it, a yardstick only) and its bounds
+     on the bf16 tensor cores and in fp32 FMA over the five products.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -318,6 +346,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from collections import Counter
@@ -384,6 +413,9 @@ from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig)
 from repro_torch.runtime.scheduler import PipelineConfig  # noqa: E402
 from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
+from repro_torch.runtime import trainer  # noqa: E402
+from repro_torch.ckpt import tree_items  # noqa: E402
+from repro_torch.data.synthetic import TokenStream  # noqa: E402
 from repro_torch.runtime.slo import SLOConfig  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3, fp32 outside the tensor
@@ -1199,9 +1231,11 @@ def lm_params_np(cfg, rng):
             "unembed": unembed}
 
 
-def device_kernels(fn, iters=1):
+def device_kernels(fn, iters=1, host=None):
     """The CUDA kernels of `iters` calls of `fn`, from torch.profiler:
-    {kernel name: (own device ms summed, launches)}."""
+    {kernel name: (own device ms summed, launches)}. A dict passed as
+    `host` gets the host's operators likewise: {name: (own CPU ms under
+    the profiler, calls)}."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1214,6 +1248,9 @@ def device_kernels(fn, iters=1):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = out.get(e.key, (0.0, 0))
             out[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        elif host is not None:
+            ms, n = host.get(e.key, (0.0, 0))
+            host[e.key] = (ms + e.self_cpu_time_total / 1e3, n + e.count)
     return out
 
 
@@ -3912,6 +3949,417 @@ def partition_model(part, cfg, widths, compress):
                                     compress=compress)
 
 
+# [train-lm]: flash_attention_bwd against its plain version on the card,
+# each (dq, dk, dv) within BWD_ERR_FACTOR times the plain version's error
+# against a float64 autograd oracle, in the same dtype (the bar the GAT
+# kernels took against float64). (B, Sq, Skv, H, KV, D), causal, window,
+# softcap, q_offset, dtype: SmolLM's training shape, Whisper's encoder and
+# cross-attention, Phi-3-vision's head dim 96, the reduced gemma2 with its
+# window and softcap, an fp32 case at head dim 32, and rows that no key
+# may reach at head dim 64 and 128
+BWD_ERR_FACTOR = 2.0
+BWD_CASES = {
+    "smollm train (B 4, S 1024, 9/3 heads of 64)": (
+        (4, 1024, 1024, 9, 3, 64), True, None, None, 0, torch.bfloat16),
+    "whisper encoder (B 4, S 1500, 8/8 heads of 64, non-causal)": (
+        (4, 1500, 1500, 8, 8, 64), False, None, None, 0, torch.bfloat16),
+    "whisper cross (B 4, 256 x 1500, 8/8 heads of 64, non-causal)": (
+        (4, 256, 1500, 8, 8, 64), False, None, None, 0, torch.bfloat16),
+    "phi3v (B 2, S 1280, 32/32 heads of 96)": (
+        (2, 1280, 1280, 32, 32, 96), True, None, None, 0, torch.bfloat16),
+    "reduced gemma2 (B 2, S 256, 4/2 heads of 32, window 64, softcap 50)": (
+        (2, 256, 256, 4, 2, 32), True, 64, 50.0, 0, torch.bfloat16),
+    "fp32 (B 2, S 256, 4/2 heads of 32)": (
+        (2, 256, 256, 4, 2, 32), True, None, None, 0, torch.float32),
+    "fp32 smollm heads (B 1, S 200, 9/3 heads of 64)": (
+        (1, 200, 200, 9, 3, 64), True, None, None, 0, torch.float32),
+    "window past the keys (B 1, 64 x 256, q_offset 250, window 48)": (
+        (1, 64, 256, 4, 2, 64), True, 48, None, 250, torch.bfloat16),
+    "D128 non-causal, window past the keys (65 x 129, q_offset 120)": (
+        (1, 65, 129, 8, 4, 128), False, 30, None, 120, torch.float32),
+    "qwen3 heads (B 2, S 129, 32/8 heads of 128)": (
+        (2, 129, 129, 32, 8, 128), True, None, None, 0, torch.bfloat16),
+}
+# (B, Sq, Skv, H, KV, D, causal) of the backward's timed shapes: SmolLM's
+# training microbatch and Phi-3-vision's prefill
+BWD_TIMED = {"smollm_train": (4, 1024, 1024, 9, 3, 64, True),
+             "phi3v": (4, 1280, 1280, 32, 32, 96, True)}
+
+
+def attention_f64_grads(q, k, v, dout, *, causal=True, window=None,
+                        softcap=None, q_offset=0):
+    """(dq, dk, dv) of the exact attention in float64 (the -1e9 mask, no
+    rounding anywhere): the oracle both the kernel and the plain
+    backward are held against."""
+    leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    qq, kk, vv = leaves
+    b, sq, h, d = q.shape
+    skv, group = k.shape[1], h // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", qq,
+                     kk.repeat_interleave(group, 2)) * d ** -0.5
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~mask, -1e9), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv.repeat_interleave(group, 2))
+    return torch.autograd.grad(out, leaves, dout.double())
+
+
+def bwd_check_phase(dev):
+    """[train-lm] step 1: flash_attention_bwd against flash_attention_bwd_ref
+    and both against float64 at every BWD_CASES case. Returns the kernel's
+    largest abs difference from the plain version, its largest abs error
+    against float64 and its largest ratio to the plain version's."""
+    rng = np.random.default_rng(37)
+    worst, worst_ratio, worst_plain = 0.0, 0.0, 0.0
+    for label, (shape, causal, window, cap, off, dtype) in BWD_CASES.items():
+        opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+        q, k, v = flash_inputs(rng, shape, dtype, dev)
+        dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+            np.float32)).to(dev, dtype)
+        before = fa.BWD_LAUNCHES
+        got = fa.flash_attention_bwd(q, k, v, dout, **opts)
+        torch.cuda.synchronize()
+        check(fa.BWD_LAUNCHES == before + 1,
+              f"[train-lm] {label}: flash_attention_bwd did not launch")
+        plain = kref.flash_attention_bwd_ref(q, k, v, dout, **opts)
+        exact = attention_f64_grads(q, k, v, dout, **opts)
+        parts = []
+        for name, g, p_, x in zip(("dq", "dk", "dv"), got, plain, exact):
+            check(g.dtype == dtype and g.shape == x.shape,
+                  f"[train-lm] {label}: {name} is {g.dtype} {tuple(g.shape)}")
+            e_k = (g.double() - x).abs().max().item()
+            e_p = (p_.double() - x).abs().max().item()
+            worst_plain = max(worst_plain,
+                              (g.double() - p_.double()).abs().max().item())
+            ratio = e_k / e_p if e_p > 0 else (0.0 if e_k == 0 else math.inf)
+            worst, worst_ratio = max(worst, e_k), max(worst_ratio, ratio)
+            parts.append(f"{name} {e_k:.3e} (plain {e_p:.3e}, {ratio:.2f}x)")
+            check(e_k <= BWD_ERR_FACTOR * e_p,
+                  f"[train-lm] {label}: flash_attention_bwd's {name} is "
+                  f"{e_k:.3e} from float64, more than {BWD_ERR_FACTOR} x the "
+                  f"plain version's {e_p:.3e}")
+        print(f"[train-lm] flash_attention_bwd {label}, {str(dtype)[6:]}: "
+              "max abs error against float64 " + ", ".join(parts),
+              flush=True)
+        del q, k, v, dout, got, plain, exact
+    free_card()
+    return worst_plain, worst, worst_ratio
+
+
+def bwd_work(q, k, causal=True, window=None, q_offset=0):
+    """(operations, bytes) of one flash_attention_bwd call: the five
+    products (q k^T, dout v^T, dS k, dS^T q, P^T dout) at 2 D operations
+    each per reachable (row, key) pair; q, k, v, dout read and dq, dk, dv
+    written once."""
+    fwd_ops, _ = flash_work(q, k, causal, window, q_offset)
+    return fwd_ops * 10.0 / 4.0, 3 * nbytes(q) + 4 * nbytes(k)
+
+
+def bwd_row(dev, launches, errors, card):
+    """The kernels-line row of flash_attention_bwd: its time at each
+    BWD_TIMED shape in bf16 by CUDA events and queued behind a spin,
+    beside the plain backward, the backward of
+    scaled_dot_product_attention (a yardstick only) and the bounds on the
+    bf16 tensor cores and in fp32 FMA; the row's own numbers are SmolLM's
+    training shape's."""
+    rng = np.random.default_rng(41)
+    shapes = {}
+    for key, shape in BWD_TIMED.items():
+        causal = shape[6]
+        q, k, v = flash_inputs(rng, shape, torch.bfloat16, dev)
+        dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, dout, causal=causal)
+        t_k = time_ms(kernel, iters=10)
+        d_k = queued_ms(kernel, iters=10)
+        t_p = time_ms(lambda: kref.flash_attention_bwd_ref(
+            q, k, v, dout, causal=causal), iters=3)
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=True)
+        dout_t = dout.transpose(1, 2).contiguous()
+
+        def library():
+            return torch.autograd.grad(out, leaves, dout_t,
+                                       retain_graph=True)
+        t_l = time_ms(library, iters=10)
+        d_l = queued_ms(library, iters=10)
+        ops, nb = bwd_work(q, k, causal)
+        b_tc, by_tc = bound(ops, nb, BF16_FLOPS_PER_S)
+        b_fma, by_fma = bound(ops, nb, FP32_FLOPS_PER_S)
+        print(f"[time] flash_attention_bwd {key} {tuple(shape[:6])}, bf16: "
+              f"kernel {t_k:.4f} ms (queued behind a spin "
+              f"{ms_or_not(d_k)}), plain {t_p:.4f} ms, library (autograd "
+              f"through scaled_dot_product_attention, enable_gqa) "
+              f"{t_l:.4f} ms (queued {ms_or_not(d_l)}); bound on the bf16 "
+              f"tensor cores {b_tc:.4f} ms ({by_tc}), in fp32 FMA "
+              f"{b_fma:.4f} ms ({by_fma}); {ops / t_k / 1e9:.1f} TFLOP/s of "
+              f"the five products; {card}", flush=True)
+        shapes[key] = {"shape": tuple(shape[:6]), "ms": t_k,
+                       "device_ms": d_k, "plain_ms": t_p, "library_ms": t_l,
+                       "library_device_ms": d_l, "bound_ms": b_tc,
+                       "bound_by": by_tc, "bound_fp32_fma_ms": b_fma,
+                       "bound_fp32_fma_by": by_fma,
+                       "tflops": ops / t_k / 1e9}
+        del q, k, v, dout, leaves, out, dout_t
+        free_card()
+    row = shapes["smollm_train"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "no TPU kernel; the reference's autodiff of "
+                        "chunked_attention (src/repro/nn/attention.py:63)",
+            "launches": launches, "max_abs_err": errors[0],
+            "max_abs_err_vs_float64": errors[1],
+            "error_ratio_to_plain_vs_float64": errors[2], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "per": "one causal bf16 backward call at SmolLM's training "
+                   "microbatch (B 4, S 1024, 9/3 heads of 64)",
+            "library": "torch.autograd.grad through torch.nn.functional."
+                       "scaled_dot_product_attention (is_causal, enable_gqa),"
+                       " a yardstick only",
+            "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"], **shapes}
+
+
+# [train-lm]: SmolLM-135M at full width and depth trained on the card: the
+# step's gradients against the same step with the plain attention (the LM
+# phases' bf16 bar per leaf), then Trainer.run() with a failure injected
+# and restored from the checkpoint before it
+TRAIN_LM_ARCH = "smollm-135m"
+TRAIN_LM = dict(steps=20, seq_len=1024, global_batch=8, microbatches=2,
+                lr=1e-3, warmup_steps=5, ckpt_every=5)
+TRAIN_LM_FAIL_AT, TRAIN_LM_RESTORED = 12, 10
+TRAIN_GRAD_BAR = LM_LOGIT_BAR
+# the __global__ names of flash_attention_bwd.cu, as torch.profiler
+# reports them
+BWD_KERNELS = ("dq_kernel", "dkv_kernel")
+
+
+class RefOnCard:
+    """Wraps the plain attention versions in `kernels.flash_attention` and
+    `kernels.ref` for a block, counting their calls on CUDA tensors."""
+
+    NAMES = ("flash_attention_ref", "flash_attention_bwd_ref")
+
+    def __enter__(self):
+        self.calls = Counter()
+        self.saved = [(m, n, getattr(m, n)) for m in (fa, kref)
+                      for n in self.NAMES]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._counting(name, fn))
+        return self
+
+    def _counting(self, name, fn):
+        def counted(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                self.calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def train_lm_phase(dev, card):
+    """[train-lm] steps 2 and 3: one full-width step through the kernels
+    against the plain attention route, then Trainer.run() with a restart.
+    Returns (flash_attention launches, flash_attention_bwd launches,
+    timing)."""
+    t_phase = time.perf_counter()
+    tag = "train-lm"
+    free_card()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_LM_ARCH)
+    tc = trainer.TrainConfig(**TRAIN_LM)
+    n_micro = tc.microbatches
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, seed=tc.seed, device=dev)
+    torch.cuda.synchronize()
+    keys = [k for k, _ in tree_items(params)]
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim_}, vocab {cfg.vocab_size}; {cfg.param_count():,} "
+          f"parameters in {len(keys)} float32 leaves (lm_init on the host "
+          f"generator, {time.perf_counter() - t0:.1f} s), compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat}, loss_chunk "
+          f"{cfg.loss_chunk}; batch {tc.global_batch} x {tc.seq_len} in "
+          f"{n_micro} microbatches", flush=True)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=tc.seq_len,
+                         global_batch=tc.global_batch, seed=tc.seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(0).items()}
+
+    # the step through the kernels, then through the plain attention
+    torch.cuda.synchronize()
+    reset_launches()
+    fa.BWD_LAUNCHES = 0
+    with RefOnCard() as ref_calls:
+        loss_k, grads_k = trainer.loss_and_grads(cfg, params, batch, n_micro)
+        torch.cuda.synchronize()
+    launches, bwd_launches = launches_now(), fa.BWD_LAUNCHES
+    fwd_passes = 2 if cfg.remat else 1      # remat recomputes each forward
+    want = dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention": fwd_passes * cfg.num_layers * n_micro}
+    print(f"[{tag}] one step through the kernels: loss {loss_k.item():.6f}; "
+          f"launches {launches}, flash_attention_bwd {bwd_launches} "
+          f"(expected {want}, {cfg.num_layers * n_micro}: the forward "
+          f"{fwd_passes} times a layer, the backward once); plain "
+          f"attention on CUDA tensors {dict(ref_calls.calls)}", flush=True)
+    check(launches == want, f"[{tag}] launches {launches} != {want}")
+    check(bwd_launches == cfg.num_layers * n_micro,
+          f"[{tag}] flash_attention_bwd launched {bwd_launches} times")
+    check(not ref_calls.calls, f"[{tag}] the plain attention ran on the "
+          f"card in the kernel route: {dict(ref_calls.calls)}")
+    saved_fa = kops.flash_attention
+    kops.flash_attention = kref.flash_attention_ref
+    try:
+        loss_p, grads_p = trainer.loss_and_grads(cfg, params, batch, n_micro)
+        torch.cuda.synchronize()
+    finally:
+        kops.flash_attention = saved_fa
+    worst, dead = 0.0, []
+    for key, gk, gp in zip(keys, grads_k, grads_p):
+        scale = gp.abs().max().item()
+        rel = (gk - gp).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if gk.abs().max().item() == 0:
+            dead.append(key)
+        check(rel <= TRAIN_GRAD_BAR, f"[{tag}] gradient of {key}: max "
+              f"|kernel - plain| is {rel:.3e} of max |plain|, above "
+              f"{TRAIN_GRAD_BAR}")
+    dloss = abs(loss_k.item() - loss_p.item())
+    print(f"[{tag}] the same step through the plain attention: loss "
+          f"{loss_p.item():.6f} (|difference| {dloss:.3e}); the largest "
+          f"gradient difference, relative to the leaf's largest |entry|, "
+          f"{worst:.3e} (bar {TRAIN_GRAD_BAR}) over {len(keys)} leaves; "
+          f"leaves with no gradient: {dead}", flush=True)
+    check(not dead, f"[{tag}] no gradient reached {dead}")
+    check(dloss <= TRAIN_GRAD_BAR * abs(loss_p.item()),
+          f"[{tag}] loss {loss_k.item()} against plain {loss_p.item()}")
+    del grads_k, grads_p, batch
+    free_card()
+
+    # Trainer.run(): 20 steps, a failure at step 12, restored from 10
+    failed = []
+
+    def injector(step):
+        if step == TRAIN_LM_FAIL_AT and not failed:
+            failed.append(step)
+            raise RuntimeError(f"injected failure at step {step}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+        # the same init as the Trainer's own (lm_init from tc.seed)
+        tr = trainer.Trainer(cfg, dataclasses.replace(tc, ckpt_dir=ckpt_dir),
+                             params=params, failure_injector=injector,
+                             device=dev)
+        del params
+        reset_launches()
+        fa.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches, run_bwd = launches_now(), fa.BWD_LAUNCHES
+        steps_run = len(tr.history)
+        s = tr.summary()
+        saved = tr.ckpt.saved_steps
+    hist = [(r.step, round(r.loss, 4)) for r in tr.history]
+    print(f"[{tag}] Trainer.run(): {s}; steps run {steps_run} (losses by "
+          f"step {hist}); checkpoints at {saved}; {run_s:.1f} s in all; "
+          f"launches {run_launches}, flash_attention_bwd {run_bwd}",
+          flush=True)
+    check(failed == [TRAIN_LM_FAIL_AT] and s["restarts"] == 1
+          and s["steps"] == tc.steps, f"[{tag}] restart drill: {s}")
+    check([r.step for r in tr.history] == list(range(TRAIN_LM_FAIL_AT))
+          + list(range(TRAIN_LM_RESTORED, tc.steps)),
+          f"[{tag}] the restart did not resume at step {TRAIN_LM_RESTORED}:"
+          f" {[r.step for r in tr.history]}")
+    check(all(math.isfinite(r.loss) for r in tr.history)
+          and s["last_loss"] < s["first_loss"],
+          f"[{tag}] the loss did not fall: {s}")
+    per_pass = cfg.num_layers * n_micro
+    check(run_launches == dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention": fwd_passes * per_pass * steps_run}
+          and run_bwd == per_pass * steps_run,
+          f"[{tag}] Trainer launches {run_launches}, bwd {run_bwd}")
+
+    # one step's time by CUDA events, its device kernels by torch.profiler
+    batch = tr.batch_at(0)
+
+    def step():
+        return tr.train_step(tr.params, tr.opt, batch, torch.tensor(0))
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / reps
+    host_ops = {}
+    ks = device_kernels(step, host=host_ops)
+    busy_ms = sum(ms for ms, _ in ks.values())
+    n_kernels = sum(n for _, n in ks.values())
+    n_aten = sum(n for name, (_, n) in host_ops.items()
+                 if name.startswith("aten::"))
+    top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:8]
+    bwd_ms = sum(ms for name, (ms, _) in ks.items()
+                 if any(k in name for k in BWD_KERNELS))
+    fwd_ms = sum(ms for name, (ms, _) in ks.items()
+                 if any(k in name for k in FLASH_KERNELS))
+    top = sorted(ks.items(), key=lambda kv: -kv[1][0])[:8]
+    tokens = tc.global_batch * tc.seq_len
+    seen = busy_ms > 0                 # else the profiler saw no kernel
+    timing = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+              "device_busy_ms": busy_ms if seen else None,
+              "idle_share": max(0.0, 1.0 - busy_ms / step_ms) if seen
+              else None,
+              "bwd_kernel_ms": bwd_ms if seen else None,
+              "bwd_share": bwd_ms / busy_ms if seen else None,
+              "fwd_kernel_ms": fwd_ms if seen else None,
+              "fwd_share": fwd_ms / busy_ms if seen else None,
+              "device_kernels": n_kernels, "host_aten_calls": n_aten,
+              "first_loss": s["first_loss"], "last_loss": s["last_loss"],
+              "restarts": s["restarts"], "run_s": run_s,
+              "mean_step_s": s["mean_step_s"]}
+    print(f"[{tag}] one training step ({tc.global_batch} x {tc.seq_len} "
+          f"tokens, {n_micro} microbatches, AdamW; CUDA events over "
+          f"{reps}): {step_ms:.2f} ms, {timing['tokens_per_s']:.0f} "
+          f"tokens/s; " + (f"device busy {busy_ms:.2f} ms in {n_kernels} "
+          f"kernels (torch.profiler), "
+          f"idle share {timing['idle_share']:.3f}; flash_attention_bwd "
+          f"{bwd_ms:.2f} ms ({timing['bwd_share']:.3f} of the device "
+          f"time), flash_attention {fwd_ms:.2f} ms "
+          f"({timing['fwd_share']:.3f})" if seen else "device time not "
+          "measured (the profiler saw no kernel)") + "; largest kernels "
+          + ", ".join(
+              f"{name[:60]} {ms:.2f} ms x{n}" for name, (ms, n) in top)
+          + f"; {card}", flush=True)
+    print(f"[{tag}] the same step's host side (torch.profiler, which slows "
+          f"it): {n_aten} aten calls; largest own CPU times " + ", ".join(
+              f"{name[:50]} {ms:.1f} ms x{n}" for name, (ms, n) in top_host)
+          + f"; {card}", flush=True)
+    del tr, batch
+    phase_memory(tag, t_phase, base, timing)
+    return (launches["flash_attention"] + run_launches["flash_attention"],
+            bwd_launches + run_bwd, timing)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -4916,7 +5364,11 @@ def main() -> None:
     audio_launches, _ = serve_audio_phase(dev, card)
     vlm_launches, _ = serve_vlm_phase(dev, card)
 
-    # --------------------------------------------------------- 20. times
+    # ------------------------------------------------------ 20. train-lm
+    bwd_errors = bwd_check_phase(dev)
+    train_lm_launches, bwd_launches, _ = train_lm_phase(dev, card)
+
+    # --------------------------------------------------------- 21. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -5482,16 +5934,20 @@ def main() -> None:
                   "NVIDIA H100 80GB HBM3, 700 W), not measured in this run",
                   flush=True)
         rows.append(row)
-    # the MoE, hybrid, encoder-decoder and vision paths' prefills join
-    # flash_attention's count, and are given apart too
+    # the MoE, hybrid, encoder-decoder and vision paths' prefills and the
+    # LM training's forwards join flash_attention's count, and are given
+    # apart too
     flash = flash_row(dev, flash_launches + moe_launches + hybrid_launches
-                      + audio_launches + vlm_launches, flash_err, card)
+                      + audio_launches + vlm_launches + train_lm_launches,
+                      flash_err, card)
     flash.update(serve_lm_launches=flash_launches,
                  serve_moe_launches=moe_launches,
                  serve_hybrid_launches=hybrid_launches,
                  serve_audio_launches=audio_launches,
-                 serve_vlm_launches=vlm_launches)
+                 serve_vlm_launches=vlm_launches,
+                 train_lm_launches=train_lm_launches)
     rows.append(flash)
+    rows.append(bwd_row(dev, bwd_launches, bwd_errors, card))
 
     # the terms of the GraSp cost rule (core/costs.py), measured on each
     # bucket's serving batch, queued behind a spin: a launch's fixed cost

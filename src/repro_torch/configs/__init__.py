@@ -42,11 +42,11 @@ def reduced(cfg: ArchConfig, *, layers: int | None = None) -> ArchConfig:
     """The reference's smoke-test shrink: the same layer pattern and
     feature flags (GQA ratio, qk-norm, softcaps, partial rope, sandwich
     norms, MoE top-k and shared expert, SSD grouping), tiny widths,
-    float32. A MoE keeps at most 8 experts and top-2 at width 128, in
-    groups of 64 with capacity factor 4.0 (no token drops, so a prefill
-    group and a decode group route alike); an SSM takes d_state 16,
-    headdim 16 and chunk 32; a vision model 16 patches, an encoder 2
-    layers over 64 frames."""
+    float32, the loss in chunks of 64 and no remat. A MoE keeps at most 8
+    experts and top-2 at width 128, in groups of 64 with capacity factor
+    4.0 (no token drops, so a prefill group and a decode group route
+    alike); an SSM takes d_state 16, headdim 16 and chunk 32; a vision
+    model 16 patches, an encoder 2 layers over 64 frames."""
     sb = len(cfg.superblock)
     nl = layers if layers is not None else 2 * sb
     nl = max(sb, (nl // sb) * sb)
@@ -57,7 +57,7 @@ def reduced(cfg: ArchConfig, *, layers: int | None = None) -> ArchConfig:
         num_layers=nl, d_model=128, num_heads=heads, num_kv_heads=kv,
         head_dim=32, d_ff=(256 if cfg.d_ff > 0 else 0), vocab_size=512,
         local_window=(64 if cfg.local_window else None), num_patches=16,
-        compute_dtype="float32")
+        loss_chunk=64, remat=False, compute_dtype="float32")
     if cfg.moe is not None:
         changes["moe"] = dataclasses.replace(
             cfg.moe, num_experts=min(cfg.moe.num_experts, 8),

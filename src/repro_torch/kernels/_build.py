@@ -43,6 +43,8 @@ ENTRY_POINTS = {
                         "pppp" "iiiiiiiiii" "ff" "ip"),
     "flash_attention_tc": ("flash_attention_tc_fwd",
                            "pppp" "iiiiiiiii" "ff" "ip"),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "pppppppp" "iiiiiiiiii" "ff" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

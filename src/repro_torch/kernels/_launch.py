@@ -6,8 +6,9 @@ the operands must be contiguous CUDA tensors of the kernel's dtypes on one
 card, and the kernel launches or an exception says why not. There is no
 fallback.
 
-The kernels have no backward: `no_backward` guards the public entries
-against operands that require grad (see `ops`).
+The GNN kernels have no backward: `no_backward` guards their public
+entries against operands that require grad (see `ops`). `flash_attention`
+has one (`kernels/flash_attention.py`).
 """
 from __future__ import annotations
 
@@ -72,8 +73,8 @@ def launch(kernel: str, fn, device: torch.device, *args: int) -> None:
 
 
 class NoBackward(RuntimeError):
-    """A kernel entry was given an operand that requires grad in grad
-    mode; the kernels have no backward."""
+    """A GNN kernel entry was given an operand that requires grad in grad
+    mode; those kernels have no backward."""
 
 
 _cuts = threading.local()

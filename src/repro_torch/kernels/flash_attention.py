@@ -27,21 +27,35 @@ average over every key (ROADMAP queue 3).
 `flash_attention` is the wrapper: CPU operands run the plain version,
 CUDA operands launch their route's kernel or raise. `LAUNCHES` counts
 every launch, `TC_LAUNCHES` and `SIMT_LAUNCHES` each route's.
+
+The gradient. The reference trains by autodiff of its pure-JAX
+`chunked_attention` (its Pallas kernel has no VJP); the port trains
+through this entry:
+- CPU operands: `flash_attention_ref` under ordinary autograd.
+- CUDA operands that need a gradient: `FlashAttention`, a
+  `torch.autograd.Function` whose forward launches the route above and
+  saves the q, k and v it read, and whose backward launches
+  `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`, two SIMT launches:
+  dq, then dk and dv summed over each KV head's group) or raises. Nothing
+  on the card falls back to the plain version or to autograd through it.
+`flash_attention_bwd` is also an entry of its own (CPU operands run
+`ref.flash_attention_bwd_ref`); `BWD_LAUNCHES` counts its launches, one
+per backward call.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from ._launch import (check_cuda, check_int32, launch, no_backward,
-                      on_cpu)
-from .ref import flash_attention_ref
+from ._launch import check_cuda, check_int32, launch, on_cpu
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 LAUNCHES = 0                      # kernel launches by `flash_attention`
 TC_LAUNCHES = 0                   # ... of them on the "wgmma" route
 SIMT_LAUNCHES = 0                 # ... of them on the "simt" route
+BWD_LAUNCHES = 0                  # launches by `flash_attention_bwd`
 HEAD_DIMS = (32, 64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (64, 96, 128)
@@ -85,20 +99,49 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          ">= 0")
 
 
-@no_backward
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """Attention of q over k, v; see the module docstring. Returns a
-    tensor of q's shape and dtype."""
-    global LAUNCHES, TC_LAUNCHES, SIMT_LAUNCHES
+    tensor of q's shape and dtype, differentiable in q, k and v."""
     _check_shapes(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
     if on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale,
-                                   q_offset=q_offset)
+        return flash_attention_ref(q, k, v, **opts)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, opts)
+    return _launch_forward(q, k, v, **opts)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel route with a gradient: the forward kernel, and
+    `flash_attention_bwd` for the backward, on the q, k and v the forward
+    read."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = opts
+        return _launch_forward(q, k, v, **opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: Optional[int],
+                    softcap: Optional[float], scale: Optional[float],
+                    q_offset: int) -> torch.Tensor:
+    """Launch the forward kernel of q's route on CUDA operands."""
+    global LAUNCHES, TC_LAUNCHES, SIMT_LAUNCHES
     b, sq, h, d = q.shape
     route = flash_route(q.dtype, d)
     device = check_cuda("flash_attention", floating=q.dtype, q=q, k=k, v=v)
@@ -129,3 +172,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         SIMT_LAUNCHES += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None, q_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention(q, k, v, **options)` for the
+    output gradient `dout` (q's shape and dtype), each in its operand's
+    shape and dtype. CPU operands run `flash_attention_bwd_ref`; CUDA
+    operands launch `csrc/flash_attention_bwd.cu` or raise."""
+    _check_shapes(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} is "
+                         f"not q's shape {tuple(q.shape)}")
+    if on_cpu(q, k, v, dout):
+        return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window, softcap=softcap,
+                                       scale=scale, q_offset=q_offset)
+    return _launch_backward(q, k, v, dout, causal=causal, window=window,
+                            softcap=softcap, scale=scale, q_offset=q_offset)
+
+
+def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor, *, causal: bool,
+                     window: Optional[int], softcap: Optional[float],
+                     scale: Optional[float], q_offset: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel on CUDA operands."""
+    global BWD_LAUNCHES
+    b, sq, h, d = q.shape
+    flash_route(q.dtype, d)                    # raises for what neither takes
+    device = check_cuda("flash_attention_bwd", floating=q.dtype, q=q, k=k,
+                        v=v, dout=dout)
+    skv, kvh = k.shape[1], k.shape[2]
+    check_int32("flash_attention_bwd", batch=b, sq=sq, skv=skv, heads=h,
+                q_offset=q_offset, window=window or 0,
+                positions=q_offset + sq + (window or 0))
+    dq = torch.empty_like(q)
+    if not q.numel():
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=device)
+    launch("flash_attention_bwd", _build.load("flash_attention_bwd"), device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b,
+           sq, skv, h, kvh, d, int(q.dtype == torch.bfloat16), int(causal),
+           window or 0, q_offset, scale if scale is not None else d ** -0.5,
+           softcap or 0.0)
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

@@ -19,14 +19,16 @@ is the same. Entries accept a leading batch dimension, which stands in
 for the reference's `vmap`. `flash_attention` takes its shapes as they
 are (the reference's kernel asserts tile multiples).
 
-The kernels have no backward (nor has the reference's Pallas kernels), so
-every entry refuses, with `NoBackward`, an operand that requires grad
-while grad mode is on: its result would cut the gradient of whatever lies
-upstream of that operand. Inside `record_grad_cuts()` the entry records
-the operand instead and runs without a path back, on either device;
-`train_node_classifier` uses it to name every parameter a forward cuts.
-The guard (`_launch.no_backward`) sits on these entries and on the
-`flash_attention` wrapper, which this module exports as it is.
+The GNN kernels have no backward (nor have the reference's Pallas
+kernels), so every GNN entry refuses, with `NoBackward`, an operand that
+requires grad while grad mode is on: its result would cut the gradient of
+whatever lies upstream of that operand. Inside `record_grad_cuts()` the
+entry records the operand instead and runs without a path back, on either
+device; `train_node_classifier` uses it to name every parameter a forward
+cuts. The guard (`_launch.no_backward`) sits on these entries.
+`flash_attention`, which this module exports as it is, has a gradient: on
+the card its hand-written backward kernel, on the CPU autograd through its
+plain version (see its module).
 """
 from __future__ import annotations
 

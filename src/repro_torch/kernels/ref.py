@@ -3,7 +3,8 @@
 `bitmap_spmm_block_ref`, `gat_attention_ref`, `sage_max_ref`, the dense
 and QuantGr branches of `fused_gcn_layer_ref`, `fused_gcn_grasp_layer_ref`,
 `fused_gat_layer_ref`, `fused_sage_layer_ref` and
-`flash_attention_ref`).
+`flash_attention_ref`), and `flash_attention_bwd_ref`, the plain gradient
+of `flash_attention_ref`, which the reference takes by autodiff.
 
 They take the unpadded shapes the layers see, not the tile-padded ones the
 kernels take, and are written independently of the kernels' plain
@@ -216,3 +217,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attn = torch.softmax(logits, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", attn, vr.float())
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            scale: Optional[float] = None,
+                            q_offset: int = 0):
+    """(dq, dk, dv) of `flash_attention_ref` for the output gradient
+    `dout`: `torch.autograd.grad` through it, the plain version of
+    `flash_attention_bwd` and the oracle of its checks. Its roundings are
+    autograd's of the plain forward's casts: the weights' gradient
+    rounded to v's dtype, and a GQA group's dk and dv summed in the
+    operands' dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=q_offset)
+        return torch.autograd.grad(out, leaves, dout)

@@ -9,7 +9,9 @@ the kernel route on the card. One difference of rounding: the reference's
 `chunked_attention` multiplies q by `scale` in the compute dtype before
 the product, the kernel (as the TPU kernel) scales the float32 scores
 after it. At head_dim 64 the scale is 0.125, exact in bf16; at 32 and 128
-the two differ by rounding (ROADMAP queue 3).
+the two differ by rounding (ROADMAP queue 3). Under grad (training) the
+same entry carries the gradient: on the card its backward kernel
+`flash_attention_bwd`, on the CPU autograd through the plain version.
 
 Decode (`decode_attention`, Sq == 1) is a plain einsum and softmax over
 the cache, as in the reference, which runs it outside any Pallas kernel.

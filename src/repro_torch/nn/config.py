@@ -9,9 +9,14 @@ prefix of `num_patches` positions, or audio frames for the encoder).
 Layer heterogeneity is a *superblock*, the smallest repeating pattern of
 layer kinds; parameters carry a leading `num_superblocks` axis.
 
-The reference's knobs of its multi-pod dry run and training (remat, loss,
-query and KV chunk sizes, scan unrolling, block skip, bf16 logits, the
-flash stub) have no meaning on this path and are not fields here.
+Two training knobs are fields, with the reference's defaults: `remat`
+(each superblock's activations recomputed in the backward, the
+reference's `jax.checkpoint` of its scan body, here
+`torch.utils.checkpoint`) and `loss_chunk` (the sequence positions whose
+logits `lm.chunked_xent` makes at a time). The reference's other knobs of
+its multi-pod dry run (query and KV chunk sizes, scan unrolling, block
+skip, bf16 logits, the flash stub) have no meaning on this path and are
+not fields here.
 """
 from __future__ import annotations
 
@@ -83,6 +88,8 @@ class ArchConfig:
     gated_mlp: bool = True
     tie_embeddings: bool = True
     compute_dtype: str = "bfloat16"
+    remat: bool = True               # recompute each superblock in backward
+    loss_chunk: int = 512            # positions per cross-entropy chunk
 
     @property
     def head_dim_(self) -> int:

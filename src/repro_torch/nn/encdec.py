@@ -8,6 +8,9 @@ bidirectional attention layers ('attn_bidir', rope over the frame
 positions, every attention through `kops.flash_attention`, non-causal)
 with their MLPs, then a final norm.
 
+In training each encoder superblock is rematerialised as the decoder's
+are (`transformer.superblock_forward`, `cfg.remat`).
+
 The decoder's cross-attention K and V are computed once from the encoder
 output, per decoder superblock, stacked along the leading superblock axis
 (`cross_kv`): a prefill attends over them through the kernel, and every
@@ -50,11 +53,12 @@ def encoder_forward(enc_params: Dict[str, Any], cfg: ArchConfig,
     ecfg = encoder_cfg(cfg)
     h = frame_embeds
     positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), device=h.device)
+    kinds = ("attn_bidir",) * len(ecfg.superblock)
     for blk in range(ecfg.num_superblocks):
-        params = tfm.slice_block(enc_params["stack"], blk)
-        for pos in range(len(ecfg.superblock)):
-            h, _ = tfm._layer_forward(params[pos], ecfg, h,
-                                      kind="attn_bidir", positions=positions)
+        h, aux = tfm.superblock_forward(
+            tfm.slice_block(enc_params["stack"], blk), ecfg, h, aux,
+            positions, kinds=kinds)
     return tfm.apply_norm(enc_params["final_norm"], ecfg, h)
 
 

@@ -10,14 +10,21 @@ stack, logits, and the serving pair prefill / decode step.
                         which `ServeState.enc_kv` carries to the decode
                         steps.
 
-The training loss (`chunked_xent`, `lm_loss`) waits for ROADMAP queue 1
-item 14.
+Training: `lm_loss` is the reference's loss over token positions (after
+a vision prefix) plus the MoE aux loss; `chunked_xent` computes its
+cross-entropy over `cfg.loss_chunk` positions at a time, each chunk under
+`torch.utils.checkpoint`, so (B, S, V) logits never exist. Training
+differentiates float32 parameters (from `lm_init(dtype=None)` or the
+bridge), cast to the compute dtype at use; it reads no `logits_w`, the
+serving copy that `to_compute_dtype` makes, which would cut the tied
+embedding's gradient.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -181,6 +188,57 @@ def lm_hidden(p: LMParams, cfg: ArchConfig, tokens: torch.Tensor, *,
     h, aux = tfm.stack_forward(p.stack, cfg, x, positions=positions,
                                enc_kv_stacked=enc_kv)
     return tfm.apply_norm(p.final_norm, cfg, h), aux, plen
+
+
+def _chunk_nll(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, final_softcap: Optional[float]
+               ) -> torch.Tensor:
+    """The summed masked negative log-likelihood of one chunk: float32
+    logits from the compute-dtype hidden states, as `hidden_to_logits`
+    makes them, less the gold logit (a label < 0 reads class 0)."""
+    logits = softcap(h.float() @ w, final_softcap)
+    gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
+    return ((torch.logsumexp(logits, dim=-1) - gold[..., 0]) * mask).sum()
+
+
+def chunked_xent(p: LMParams, cfg: ArchConfig, h: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the positions where `mask` is set. h: (B,
+    S, d) final-normed hidden states; labels, mask: (B, S). The logits
+    are made `cfg.loss_chunk` positions at a time (S must be a multiple
+    of the chunk, as in the reference), each chunk under
+    `torch.utils.checkpoint` when grad mode is on, so at most one chunk's
+    (B, chunk, V) float32 logits exist, in the forward or the backward."""
+    s = h.shape[1]
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_xent: sequence {s} is not a multiple of "
+                         f"loss_chunk {c}")
+    w = (p.embed.T if p.unembed is None else p.unembed).to(cfg.dtype).float()
+    maskf = mask.to(torch.float32)
+    total = torch.zeros((), device=h.device)
+    for i in range(0, s, c):
+        args = (h[:, i:i + c], w, labels[:, i:i + c], maskf[:, i:i + c],
+                cfg.final_softcap)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(*args)
+    return total / torch.clamp_min(maskf.sum(), 1.0)
+
+
+def lm_loss(p: LMParams, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens, labels and mask (B, S), and for vlm `patches` (B, P,
+    d) or for audio `frames` (B, frames, d). The cross-entropy is over the
+    token positions only (a vision prefix is left out). Returns (ce +
+    moe_aux, {"ce", "moe_aux"})."""
+    h, aux, plen = lm_hidden(p, cfg, batch["tokens"],
+                             prefix_embeds=batch.get("patches"),
+                             enc_embeds=batch.get("frames"))
+    ce = chunked_xent(p, cfg, h[:, plen:], batch["labels"], batch["mask"])
+    return ce + aux, {"ce": ce, "moe_aux": aux}
 
 
 class ServeState(NamedTuple):

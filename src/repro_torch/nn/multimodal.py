@@ -8,7 +8,8 @@ and dtype, unit normal over sqrt(d_model), from a `torch.Generator` on the
 caller's device; the reference's `jax.random` draws differ, so tests feed
 both packages the same numpy embeddings. The reference's dry-run
 ShapeDtypeStructs (`vision_spec`, `audio_spec`) wait for the port's
-`launch/specs.py` (ROADMAP queue 1 item 14).
+`launch/specs.py`, which goes with the multi-pod dry run (ROADMAP queue
+1 item 16).
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 Parameters are built per superblock *position* and stacked along a leading
 `num_superblocks` axis, as in the reference, so the reference's stacked
 trees map onto the port's one index for one index; the forward is a Python
-loop over superblocks where the reference scans. Decode caches are stacked
+loop over superblocks where the reference scans, each superblock under
+`torch.utils.checkpoint` in training when `cfg.remat` (the reference's
+`jax.checkpoint` of its scan body). Decode caches are stacked
 the same way: (num_superblocks, B, S_max, KV, hd) K and V per attention
 position, an `SSMCache` (conv window and float32 state) per SSM position,
 written in place.
@@ -22,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -191,20 +194,45 @@ def _layer_forward(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor, *,
     return x, (torch.zeros((), device=x.device) if aux is None else aux)
 
 
+def superblock_forward(params: List[Dict[str, Any]], cfg: ArchConfig,
+                       x: torch.Tensor, aux: torch.Tensor,
+                       positions: torch.Tensor,
+                       enc_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                       kinds: Optional[Tuple[str, ...]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One superblock's layers (`kinds`, default `cfg.superblock`) on x,
+    adding each layer's MoE aux loss to `aux`, as the reference's scan
+    body does. Under `cfg.remat` and grad mode, `torch.utils.checkpoint`
+    (non-reentrant) keeps only the superblock's inputs and recomputes its
+    activations in the backward, the counterpart of the reference's
+    `jax.checkpoint`; either way the arithmetic is the same."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(_superblock, params, cfg, x, aux, positions, enc_kv,
+                          kinds, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _superblock(params, cfg, x, aux, positions, enc_kv, kinds)
+
+
+def _superblock(params, cfg, x, aux, positions, enc_kv, kinds):
+    for pos, kind in enumerate(kinds or cfg.superblock):
+        x, a = _layer_forward(params[pos], cfg, x, kind=kind,
+                              positions=positions, enc_kv=enc_kv)
+        aux = aux + a
+    return x, aux
+
+
 def stack_forward(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                   x: torch.Tensor, *, positions: torch.Tensor,
                   enc_kv_stacked: Optional[Tuple[torch.Tensor,
                                                  torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (hidden, moe_aux_sum)."""
+    """x: (B, S, d). Returns (hidden, moe_aux_sum); each superblock
+    rematerialised as `superblock_forward` says."""
     aux = torch.zeros((), device=x.device)
     for blk in range(cfg.num_superblocks):
-        params = slice_block(stacked, blk)
-        enc_kv = _block_kv(enc_kv_stacked, blk)
-        for pos, kind in enumerate(cfg.superblock):
-            x, a = _layer_forward(params[pos], cfg, x, kind=kind,
-                                  positions=positions, enc_kv=enc_kv)
-            aux = aux + a
+        x, aux = superblock_forward(slice_block(stacked, blk), cfg, x, aux,
+                                    positions, _block_kv(enc_kv_stacked, blk))
     return x, aux
 
 

@@ -3,9 +3,8 @@ gate and the serving latency bank (DESIGN.md §14).
 
 Port of the reference's `runtime/ewma.py`, plain Python. Two consumers:
 
-* `StragglerGate`: the trainer's per-step straggler detector over a
-  bias-corrected baseline (the trainer arrives with ROADMAP queue 1 item
-  13; the gate is here for it).
+* `StragglerGate`: the trainer's (`runtime/trainer.py`) per-step
+  straggler detector over a bias-corrected baseline.
 * `LatencyBank`: the serving cost oracle. Per batch key it keeps a
   bias-corrected EWMA of measured `_execute_batch` spans, seeded (for
   prediction only; the seed never blends into the average) from the

@@ -26,6 +26,10 @@ Training: a step's gradients on the card against the same step on the
 CPU at rtol=1e-4 and atol=1e-5 * max|g| (cuBLAS, and the baselines'
 atomic `index_add`, sum in other orders than the CPU); the edge-list GCN
 against the dense one at the reference's bar, CARD.
+`flash_attention_bwd`: dq, dk and dv each within BWD_FACTOR times the
+plain backward's error against float64; an LM training step through the
+two kernels against the plain attention within LM_GRAD_BAR of each
+leaf's largest |gradient| (bf16).
 """
 
 import dataclasses
@@ -1723,3 +1727,119 @@ def test_training_through_kernels_on_card_names_every_cut(card, kind, t,
     w = torch.ones(8, 8, device=card, requires_grad=True)
     with pytest.raises(kops.NoBackward, match="^matmul: "):
         kops.matmul(torch.ones(8, 8, device=card), w)
+
+
+# ------------------------------------------------ flash_attention's gradient
+
+# the gradient's bar: each of dq, dk and dv within BWD_FACTOR times the
+# plain backward's largest error against float64, in the same dtype
+BWD_FACTOR = 2.0
+# one training step through the kernels against the plain attention, bf16:
+# the largest gradient difference of a leaf within LM_GRAD_BAR of its
+# largest |entry| (the LM phases' bf16 bar)
+LM_GRAD_BAR = 5e-2
+
+
+def _attention_f64_grads(q, k, v, dout, *, causal, window, softcap,
+                         q_offset):
+    leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    qq, kk, vv = leaves
+    b, sq, h, d = q.shape
+    skv, group = k.shape[1], h // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", qq,
+                     kk.repeat_interleave(group, 2)) * d ** -0.5
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~mask, -1e9), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv.repeat_interleave(group, 2))
+    return torch.autograd.grad(out, leaves, dout.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_bwd_against_float64(card, case, dtype):
+    b, sq, skv, h, kv, d, causal, window, cap, off = FLASH_CASES[case]
+    rng = np.random.default_rng(13)
+    q = _arr(rng, b, sq, h, d).to(card, dtype)
+    k = _arr(rng, b, skv, kv, d).to(card, dtype)
+    v = _arr(rng, b, skv, kv, d).to(card, dtype)
+    dout = _arr(rng, b, sq, h, d).to(card, dtype)
+    opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    before = fa_mod.BWD_LAUNCHES
+    got = fa_mod.flash_attention_bwd(q, k, v, dout, **opts)
+    torch.cuda.synchronize()
+    assert fa_mod.BWD_LAUNCHES == before + 1
+    plain = kref.flash_attention_bwd_ref(q, k, v, dout, **opts)
+    exact = _attention_f64_grads(q, k, v, dout, **opts)
+    for g, p_, x in zip(got, plain, exact):
+        assert g.dtype == dtype and g.shape == x.shape
+        e_k = (g.double() - x).abs().max().item()
+        e_p = (p_.double() - x).abs().max().item()
+        assert e_k <= BWD_FACTOR * e_p, (e_k, e_p)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_both_kernels(card):
+    """Under grad a CUDA forward goes through the forward kernel and its
+    backward through flash_attention_bwd, whose result it returns."""
+    rng = np.random.default_rng(14)
+    q, k, v = (_arr(rng, *s).to(card, torch.bfloat16).requires_grad_(True)
+               for s in ((2, 96, 9, 64), (2, 96, 3, 64), (2, 96, 3, 64)))
+    dout = _arr(rng, 2, 96, 9, 64).to(card, torch.bfloat16)
+    before = (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES)
+    out = kops.flash_attention(q, k, v, window=40)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = fa_mod.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                      dout, window=40)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "gemma2-27b",
+                                  "whisper-base"])
+def test_lm_training_step_on_card(card, name, monkeypatch):
+    """A reduced model in bf16: one step's loss and gradients through the
+    two kernels against the same step through the plain attention, with
+    the forward launched twice a layer under remat and the backward once
+    (whisper: its encoder's and cross layers' too)."""
+    from repro_torch.runtime import trainer as ttrainer
+    cfg = dataclasses.replace(reduced(get_config(name)),
+                              compute_dtype="bfloat16", remat=True)
+    params = tlm.lm_init(cfg, seed=3, device=card)
+    rng = np.random.default_rng(15)
+    toks = rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(card),
+             "labels": torch.from_numpy(toks[:, 1:]).to(card),
+             "mask": torch.ones(4, 64, dtype=torch.int32, device=card)}
+    if cfg.encoder is not None:
+        batch["frames"] = _arr(rng, 4, cfg.encoder.frames, cfg.d_model,
+                               scale=cfg.d_model ** -0.5).to(card)
+    before = (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES)
+    loss_k, grads_k = ttrainer.loss_and_grads(cfg, params, batch, 2)
+    torch.cuda.synchronize()
+    # attention calls a forward: whisper's decoder layers self- and
+    # cross-attend, and its encoder layers attend once
+    layers = (cfg.num_layers if cfg.encoder is None else
+              2 * cfg.num_layers + cfg.encoder.num_layers)
+    assert (fa_mod.LAUNCHES - before[0], fa_mod.BWD_LAUNCHES - before[1]) \
+        == (2 * 2 * layers, 2 * layers)
+    monkeypatch.setattr(kops, "flash_attention", kref.flash_attention_ref)
+    loss_p, grads_p = ttrainer.loss_and_grads(cfg, params, batch, 2)
+    assert abs(loss_k.item() - loss_p.item()) <= LM_GRAD_BAR * abs(
+        loss_p.item())
+    for gk, gp in zip(grads_k, grads_p):
+        assert gk.abs().max() > 0
+        assert (gk - gp).abs().max() <= LM_GRAD_BAR * gp.abs().max()

@@ -56,7 +56,9 @@ def test_port_file_list_covers_every_slice():
             "configs/mamba2_2p7b.py", "configs/jamba_v0p1_52b.py",
             "configs/llama4_scout_17b_a16e.py", "nn/layerwise.py",
             "nn/encdec.py", "nn/multimodal.py", "configs/whisper_base.py",
-            "configs/phi3_vision_4p2b.py"} <= names
+            "configs/phi3_vision_4p2b.py", "data/synthetic.py",
+            "ckpt/checkpoint.py", "runtime/trainer.py", "launch/train.py",
+            "examples/train_lm.py"} <= names
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):
