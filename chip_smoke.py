@@ -280,26 +280,33 @@ last line; there is no CPU path):
      head dim 96 on the tensor-core route, the logits check and times as
      phase 18; then one text-only wave through `Server`, as the
      reference's server serves this config (32 launches, its counters);
-  20. train-lm — `flash_attention_bwd` (the gradient of flash_attention,
+  20. train-lm — `flash_attention_bwd` (the gradient of flash_attention;
+     bf16 at head dim 64, 96 and 128 on the tensor-core route
+     `csrc/flash_attention_bwd_tc.cu`, the rest on the SIMT route
      `csrc/flash_attention_bwd.cu`) against its plain version
      (`flash_attention_bwd_ref`) at SmolLM's training shape (B 4, S 1024,
      9/3 heads of 64, bf16, causal), Whisper's encoder (non-causal, S
      1500) and cross-attention (256 x 1500), Phi-3-vision's head dim 96,
      a reduced gemma2 with window 64 and softcap 50, fp32 at head dim 32
-     and 64, and rows that no key may reach: dq, dk and dv each within
-     twice the plain version's error against a float64 autograd oracle,
-     in the same dtype. Then SmolLM-135M at full width and depth (30
+     and 64, rows that no key may reach, and on the tensor-core route D 64
+     with window 64 and softcap 50 and D 128 with softcap 30, Sq != Skv
+     and q_offset: dq, dk and dv each within twice the plain version's
+     error against a float64 autograd oracle, in the same dtype, each case
+     on the route it was meant to take (its route counter), and a second
+     call bit-equal to the first. Then SmolLM-135M at full width and depth (30
      layers, float32 parameters from `lm_init`, bf16 compute, remat):
      one step of 8 x 1024 tokens in 2 microbatches through the kernels,
      with every count 0 just before (flash_attention 2 x 30 x 2 launches,
-     flash_attention_bwd 30 x 2, nothing else, and the plain attention
+     flash_attention_bwd 30 x 2, all on the tensor-core route, nothing
+     else, and the plain attention
      never called on a CUDA tensor), its loss and every leaf's gradient
      against the same step through the plain attention (max |difference|
      at most 5e-2 of the leaf's max |entry|, every leaf's gradient
      nonzero); then `Trainer.run()`: 20 steps at lr 1e-3, warmup 5,
      checkpoints every 5 steps into a temporary directory under `build/`,
      a failure injected at step 12 and restored from step 10 (restarts
-     1, the loss falling, the launches exact); prints ms a step by CUDA
+     1, the loss falling, the launches exact, every backward on the
+     tensor-core route); prints ms a step by CUDA
      events, tokens/s, the device idle share and the backward kernel's
      share of the step's device time (torch.profiler), peak card memory;
   21. times — CUDA-event times of each kernel, its plain version and the
@@ -328,10 +335,12 @@ last line; there is no CPU path):
      GCN layers' on their earlier SIMT products and the GraSp kernels' on
      their earlier SIMT walk, copied from PERF.md and printed as copied;
      flash_attention_bwd at SmolLM's training shape and Phi-3-vision's
-     prefill shape by CUDA events and queued behind a spin, beside its
-     plain version, the backward of scaled_dot_product_attention
-     (`torch.autograd.grad` through it, a yardstick only) and its bounds
-     on the bf16 tensor cores and in fp32 FMA over the five products.
+     prefill shape by CUDA events and queued behind a spin, on its
+     tensor-core route, beside its plain version, the backward of
+     scaled_dot_product_attention (`torch.autograd.grad` through it, a
+     yardstick only) and its bounds on the bf16 tensor cores and in fp32
+     FMA over the five products, and its SIMT route, which took bf16 at
+     head dim 64 before, at SmolLM's shape on the same inputs.
 
 Output: progress lines, the card's name and power limit, one
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -467,12 +476,14 @@ SOURCES = {"block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
                                "flash_attention_tc.cu",
                                "src/repro/kernels/flash_attention.py:94")}
 # the libraries redesigned for the card's tensor cores and the SASS
-# instructions that show it (cuobjdump -sass; 0 fails the run): flash's
-# bf16 route, block_matmul's 3xTF32 tile (also fused_sage's combine, both
-# launches of fused_gcn_dense and of fused_gcn_grasp, and the GraSp walk
-# of bitmap_spmm), the GAT attention body and the s8 tile of the two int8
-# kernels (mma.sync m16n8k32: IMMA.16832.S8.S8)
-SASS = {"flash_attention_tc": {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)},
+# instructions that show it (cuobjdump -sass; 0 fails the run): the bf16
+# routes of flash_attention and of its backward, block_matmul's 3xTF32
+# tile (also fused_sage's combine, both launches of fused_gcn_dense and of
+# fused_gcn_grasp, and the GraSp walk of bitmap_spmm), the GAT attention
+# body and the s8 tile of the two int8 kernels (mma.sync m16n8k32:
+# IMMA.16832.S8.S8)
+SASS = {**{lib: {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}
+           for lib in ("flash_attention_tc", "flash_attention_bwd_tc")},
         **{lib: {"HMMA TF32": ("HMMA", "TF32")}
            for lib in ("block_matmul", "gat_attention", "fused_gat_full",
                        "fused_gat_precombined", "fused_sage",
@@ -3953,32 +3964,46 @@ def partition_model(part, cfg, widths, compress):
 # each (dq, dk, dv) within BWD_ERR_FACTOR times the plain version's error
 # against a float64 autograd oracle, in the same dtype (the bar the GAT
 # kernels took against float64). (B, Sq, Skv, H, KV, D), causal, window,
-# softcap, q_offset, dtype: SmolLM's training shape, Whisper's encoder and
-# cross-attention, Phi-3-vision's head dim 96, the reduced gemma2 with its
-# window and softcap, an fp32 case at head dim 32, and rows that no key
-# may reach at head dim 64 and 128
+# softcap, q_offset, dtype, and the route the case must take: SmolLM's
+# training shape, Whisper's encoder and cross-attention, Phi-3-vision's
+# head dim 96, the reduced gemma2 with its window and softcap, fp32 cases
+# at head dim 32 and 64, rows that no key may reach at head dim 64 and
+# 128, and the tensor-core route's softcap at D 64 (with a window) and
+# D 128 (Sq != Skv, q_offset)
 BWD_ERR_FACTOR = 2.0
 BWD_CASES = {
     "smollm train (B 4, S 1024, 9/3 heads of 64)": (
-        (4, 1024, 1024, 9, 3, 64), True, None, None, 0, torch.bfloat16),
+        (4, 1024, 1024, 9, 3, 64), True, None, None, 0, torch.bfloat16,
+        "wgmma"),
     "whisper encoder (B 4, S 1500, 8/8 heads of 64, non-causal)": (
-        (4, 1500, 1500, 8, 8, 64), False, None, None, 0, torch.bfloat16),
+        (4, 1500, 1500, 8, 8, 64), False, None, None, 0, torch.bfloat16,
+        "wgmma"),
     "whisper cross (B 4, 256 x 1500, 8/8 heads of 64, non-causal)": (
-        (4, 256, 1500, 8, 8, 64), False, None, None, 0, torch.bfloat16),
+        (4, 256, 1500, 8, 8, 64), False, None, None, 0, torch.bfloat16,
+        "wgmma"),
     "phi3v (B 2, S 1280, 32/32 heads of 96)": (
-        (2, 1280, 1280, 32, 32, 96), True, None, None, 0, torch.bfloat16),
+        (2, 1280, 1280, 32, 32, 96), True, None, None, 0, torch.bfloat16,
+        "wgmma"),
     "reduced gemma2 (B 2, S 256, 4/2 heads of 32, window 64, softcap 50)": (
-        (2, 256, 256, 4, 2, 32), True, 64, 50.0, 0, torch.bfloat16),
+        (2, 256, 256, 4, 2, 32), True, 64, 50.0, 0, torch.bfloat16, "simt"),
     "fp32 (B 2, S 256, 4/2 heads of 32)": (
-        (2, 256, 256, 4, 2, 32), True, None, None, 0, torch.float32),
+        (2, 256, 256, 4, 2, 32), True, None, None, 0, torch.float32, "simt"),
     "fp32 smollm heads (B 1, S 200, 9/3 heads of 64)": (
-        (1, 200, 200, 9, 3, 64), True, None, None, 0, torch.float32),
+        (1, 200, 200, 9, 3, 64), True, None, None, 0, torch.float32, "simt"),
     "window past the keys (B 1, 64 x 256, q_offset 250, window 48)": (
-        (1, 64, 256, 4, 2, 64), True, 48, None, 250, torch.bfloat16),
+        (1, 64, 256, 4, 2, 64), True, 48, None, 250, torch.bfloat16,
+        "wgmma"),
     "D128 non-causal, window past the keys (65 x 129, q_offset 120)": (
-        (1, 65, 129, 8, 4, 128), False, 30, None, 120, torch.float32),
+        (1, 65, 129, 8, 4, 128), False, 30, None, 120, torch.float32,
+        "simt"),
     "qwen3 heads (B 2, S 129, 32/8 heads of 128)": (
-        (2, 129, 129, 32, 8, 128), True, None, None, 0, torch.bfloat16),
+        (2, 129, 129, 32, 8, 128), True, None, None, 0, torch.bfloat16,
+        "wgmma"),
+    "D64 window 64, softcap 50 (B 2, S 256, 8/4 heads)": (
+        (2, 256, 256, 8, 4, 64), True, 64, 50.0, 0, torch.bfloat16, "wgmma"),
+    "D128 softcap 30, 200 x 330, q_offset 130 (B 2, 8/2 heads)": (
+        (2, 200, 330, 8, 2, 128), True, None, 30.0, 130, torch.bfloat16,
+        "wgmma"),
 }
 # (B, Sq, Skv, H, KV, D, causal) of the backward's timed shapes: SmolLM's
 # training microbatch and Phi-3-vision's prefill
@@ -4013,21 +4038,31 @@ def attention_f64_grads(q, k, v, dout, *, causal=True, window=None,
 
 def bwd_check_phase(dev):
     """[train-lm] step 1: flash_attention_bwd against flash_attention_bwd_ref
-    and both against float64 at every BWD_CASES case. Returns the kernel's
-    largest abs difference from the plain version, its largest abs error
-    against float64 and its largest ratio to the plain version's."""
+    and both against float64 at every BWD_CASES case, each on its route
+    (the route's counter) and a second call bit-equal to the first.
+    Returns the kernel's largest abs difference from the plain version,
+    its largest abs error against float64 and its largest ratio to the
+    plain version's."""
     rng = np.random.default_rng(37)
     worst, worst_ratio, worst_plain = 0.0, 0.0, 0.0
-    for label, (shape, causal, window, cap, off, dtype) in BWD_CASES.items():
+    for label, (shape, causal, window, cap, off, dtype,
+                route) in BWD_CASES.items():
         opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
         q, k, v = flash_inputs(rng, shape, dtype, dev)
         dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
             np.float32)).to(dev, dtype)
-        before = fa.BWD_LAUNCHES
+        before = (fa.BWD_LAUNCHES, fa.BWD_TC_LAUNCHES, fa.BWD_SIMT_LAUNCHES)
         got = fa.flash_attention_bwd(q, k, v, dout, **opts)
         torch.cuda.synchronize()
-        check(fa.BWD_LAUNCHES == before + 1,
-              f"[train-lm] {label}: flash_attention_bwd did not launch")
+        tc = route == "wgmma"
+        check((fa.BWD_LAUNCHES, fa.BWD_TC_LAUNCHES, fa.BWD_SIMT_LAUNCHES)
+              == (before[0] + 1, before[1] + tc, before[2] + (not tc)),
+              f"[train-lm] {label}: flash_attention_bwd did not launch once "
+              f"on the {route} route")
+        again = fa.flash_attention_bwd(q, k, v, dout, **opts)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"[train-lm] {label}: two calls of flash_attention_bwd differ")
         plain = kref.flash_attention_bwd_ref(q, k, v, dout, **opts)
         exact = attention_f64_grads(q, k, v, dout, **opts)
         parts = []
@@ -4045,10 +4080,10 @@ def bwd_check_phase(dev):
                   f"[train-lm] {label}: flash_attention_bwd's {name} is "
                   f"{e_k:.3e} from float64, more than {BWD_ERR_FACTOR} x the "
                   f"plain version's {e_p:.3e}")
-        print(f"[train-lm] flash_attention_bwd {label}, {str(dtype)[6:]}: "
-              "max abs error against float64 " + ", ".join(parts),
-              flush=True)
-        del q, k, v, dout, got, plain, exact
+        print(f"[train-lm] flash_attention_bwd {label}, {str(dtype)[6:]}, "
+              f"route {route}, two calls bit-equal: max abs error against "
+              "float64 " + ", ".join(parts), flush=True)
+        del q, k, v, dout, got, again, plain, exact
     free_card()
     return worst_plain, worst, worst_ratio
 
@@ -4062,12 +4097,26 @@ def bwd_work(q, k, causal=True, window=None, q_offset=0):
     return fwd_ops * 10.0 / 4.0, 3 * nbytes(q) + 4 * nbytes(k)
 
 
+def bwd_simt(q, k, v, dout, grads, causal=True):
+    """One call of the SIMT flash_attention_bwd library, launched directly
+    and counted nowhere: the kernels that took bf16 at head dim 64, 96 and
+    128 before the tensor-core route, timed beside it."""
+    b, sq, h, d = q.shape
+    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", _build.load("flash_attention_bwd"),
+           q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           dout.data_ptr(), *(g.data_ptr() for g in grads),
+           stats.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d,
+           int(q.dtype == torch.bfloat16), int(causal), 0, 0, d ** -0.5, 0.0)
+
+
 def bwd_row(dev, launches, errors, card):
     """The kernels-line row of flash_attention_bwd: its time at each
-    BWD_TIMED shape in bf16 by CUDA events and queued behind a spin,
-    beside the plain backward, the backward of
+    BWD_TIMED shape in bf16 on the tensor-core route by CUDA events and
+    queued behind a spin, beside the plain backward, the backward of
     scaled_dot_product_attention (a yardstick only) and the bounds on the
-    bf16 tensor cores and in fp32 FMA; the row's own numbers are SmolLM's
+    bf16 tensor cores and in fp32 FMA, and the SIMT route's time at
+    SmolLM's shape on the same inputs; the row's own numbers are SmolLM's
     training shape's."""
     rng = np.random.default_rng(41)
     shapes = {}
@@ -4076,11 +4125,22 @@ def bwd_row(dev, launches, errors, card):
         q, k, v = flash_inputs(rng, shape, torch.bfloat16, dev)
         dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
             np.float32)).to(dev, torch.bfloat16)
+        check(fa.flash_route(q.dtype, q.shape[3]) == "wgmma",
+              f"[time] flash_attention_bwd {key} is not on the wgmma route")
 
         def kernel():
             return fa.flash_attention_bwd(q, k, v, dout, causal=causal)
         t_k = time_ms(kernel, iters=10)
         d_k = queued_ms(kernel, iters=10)
+        simt = {}
+        if key == "smollm_train":
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            t_s = time_ms(lambda: bwd_simt(q, k, v, dout, grads, causal),
+                          iters=3)
+            d_s = queued_ms(lambda: bwd_simt(q, k, v, dout, grads, causal),
+                            iters=3)
+            simt = {"simt_ms": t_s, "simt_device_ms": d_s}
+            del grads
         t_p = time_ms(lambda: kref.flash_attention_bwd_ref(
             q, k, v, dout, causal=causal), iters=3)
         leaves = [t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -4098,24 +4158,30 @@ def bwd_row(dev, launches, errors, card):
         b_tc, by_tc = bound(ops, nb, BF16_FLOPS_PER_S)
         b_fma, by_fma = bound(ops, nb, FP32_FLOPS_PER_S)
         print(f"[time] flash_attention_bwd {key} {tuple(shape[:6])}, bf16: "
-              f"kernel {t_k:.4f} ms (queued behind a spin "
+              f"kernel (wgmma route) {t_k:.4f} ms (queued behind a spin "
               f"{ms_or_not(d_k)}), plain {t_p:.4f} ms, library (autograd "
               f"through scaled_dot_product_attention, enable_gqa) "
               f"{t_l:.4f} ms (queued {ms_or_not(d_l)}); bound on the bf16 "
               f"tensor cores {b_tc:.4f} ms ({by_tc}), in fp32 FMA "
               f"{b_fma:.4f} ms ({by_fma}); {ops / t_k / 1e9:.1f} TFLOP/s of "
-              f"the five products; {card}", flush=True)
+              f"the five products; " + (
+                  f"the SIMT route (csrc/flash_attention_bwd.cu, launched "
+                  f"directly) {t_s:.4f} ms (queued {ms_or_not(d_s)}); "
+                  if simt else "") + card, flush=True)
         shapes[key] = {"shape": tuple(shape[:6]), "ms": t_k,
                        "device_ms": d_k, "plain_ms": t_p, "library_ms": t_l,
                        "library_device_ms": d_l, "bound_ms": b_tc,
                        "bound_by": by_tc, "bound_fp32_fma_ms": b_fma,
                        "bound_fp32_fma_by": by_fma,
-                       "tflops": ops / t_k / 1e9}
+                       "tflops": ops / t_k / 1e9, **simt}
         del q, k, v, dout, leaves, out, dout_t
         free_card()
     row = shapes["smollm_train"]
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "flash_attention_bwd_tc.cu",
+            "simt_source": "src/repro_torch/kernels/csrc/"
+                           "flash_attention_bwd.cu",
             "replaces": "no TPU kernel; the reference's autodiff of "
                         "chunked_attention (src/repro/nn/attention.py:63)",
             "launches": launches, "max_abs_err": errors[0],
@@ -4129,7 +4195,8 @@ def bwd_row(dev, launches, errors, card):
                        "scaled_dot_product_attention (is_causal, enable_gqa),"
                        " a yardstick only",
             "device_ms": row["device_ms"],
-            "library_device_ms": row["library_device_ms"], **shapes}
+            "library_device_ms": row["library_device_ms"],
+            "simt_ms": row["simt_ms"], **shapes}
 
 
 # [train-lm]: SmolLM-135M at full width and depth trained on the card: the
@@ -4141,9 +4208,9 @@ TRAIN_LM = dict(steps=20, seq_len=1024, global_batch=8, microbatches=2,
                 lr=1e-3, warmup_steps=5, ckpt_every=5)
 TRAIN_LM_FAIL_AT, TRAIN_LM_RESTORED = 12, 10
 TRAIN_GRAD_BAR = LM_LOGIT_BAR
-# the __global__ names of flash_attention_bwd.cu, as torch.profiler
-# reports them
-BWD_KERNELS = ("dq_kernel", "dkv_kernel")
+# the __global__ names of flash_attention_bwd_tc.cu (the route every
+# backward of the step takes), as torch.profiler reports them
+BWD_KERNELS = ("flash_bwd_tc::dq_kernel", "flash_bwd_tc::dkv_kernel")
 
 
 class RefOnCard:
@@ -4204,22 +4271,27 @@ def train_lm_phase(dev, card):
     # the step through the kernels, then through the plain attention
     torch.cuda.synchronize()
     reset_launches()
-    fa.BWD_LAUNCHES = 0
+    fa.BWD_LAUNCHES = fa.BWD_TC_LAUNCHES = fa.BWD_SIMT_LAUNCHES = 0
     with RefOnCard() as ref_calls:
         loss_k, grads_k = trainer.loss_and_grads(cfg, params, batch, n_micro)
         torch.cuda.synchronize()
     launches, bwd_launches = launches_now(), fa.BWD_LAUNCHES
+    bwd_routes = {"wgmma": fa.BWD_TC_LAUNCHES, "simt": fa.BWD_SIMT_LAUNCHES}
     fwd_passes = 2 if cfg.remat else 1      # remat recomputes each forward
     want = dict.fromkeys(COUNTERS, 0) | {
         "flash_attention": fwd_passes * cfg.num_layers * n_micro}
     print(f"[{tag}] one step through the kernels: loss {loss_k.item():.6f}; "
           f"launches {launches}, flash_attention_bwd {bwd_launches} "
           f"(expected {want}, {cfg.num_layers * n_micro}: the forward "
-          f"{fwd_passes} times a layer, the backward once); plain "
+          f"{fwd_passes} times a layer, the backward once), by route "
+          f"{bwd_routes}; plain "
           f"attention on CUDA tensors {dict(ref_calls.calls)}", flush=True)
     check(launches == want, f"[{tag}] launches {launches} != {want}")
     check(bwd_launches == cfg.num_layers * n_micro,
           f"[{tag}] flash_attention_bwd launched {bwd_launches} times")
+    check(bwd_routes == {"wgmma": bwd_launches, "simt": 0},
+          f"[{tag}] flash_attention_bwd's launches by route {bwd_routes}: "
+          "every one must take the tensor-core route")
     check(not ref_calls.calls, f"[{tag}] the plain attention ran on the "
           f"card in the kernel route: {dict(ref_calls.calls)}")
     saved_fa = kops.flash_attention
@@ -4266,20 +4338,22 @@ def train_lm_phase(dev, card):
                              device=dev)
         del params
         reset_launches()
-        fa.BWD_LAUNCHES = 0
+        fa.BWD_LAUNCHES = fa.BWD_TC_LAUNCHES = fa.BWD_SIMT_LAUNCHES = 0
         t0 = time.perf_counter()
         tr.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         run_launches, run_bwd = launches_now(), fa.BWD_LAUNCHES
+        run_routes = {"wgmma": fa.BWD_TC_LAUNCHES,
+                      "simt": fa.BWD_SIMT_LAUNCHES}
         steps_run = len(tr.history)
         s = tr.summary()
         saved = tr.ckpt.saved_steps
     hist = [(r.step, round(r.loss, 4)) for r in tr.history]
     print(f"[{tag}] Trainer.run(): {s}; steps run {steps_run} (losses by "
           f"step {hist}); checkpoints at {saved}; {run_s:.1f} s in all; "
-          f"launches {run_launches}, flash_attention_bwd {run_bwd}",
-          flush=True)
+          f"launches {run_launches}, flash_attention_bwd {run_bwd} (by "
+          f"route {run_routes})", flush=True)
     check(failed == [TRAIN_LM_FAIL_AT] and s["restarts"] == 1
           and s["steps"] == tc.steps, f"[{tag}] restart drill: {s}")
     check([r.step for r in tr.history] == list(range(TRAIN_LM_FAIL_AT))
@@ -4292,8 +4366,10 @@ def train_lm_phase(dev, card):
     per_pass = cfg.num_layers * n_micro
     check(run_launches == dict.fromkeys(COUNTERS, 0) | {
         "flash_attention": fwd_passes * per_pass * steps_run}
-          and run_bwd == per_pass * steps_run,
-          f"[{tag}] Trainer launches {run_launches}, bwd {run_bwd}")
+          and run_bwd == per_pass * steps_run
+          and run_routes == {"wgmma": run_bwd, "simt": 0},
+          f"[{tag}] Trainer launches {run_launches}, bwd {run_bwd} by route "
+          f"{run_routes}")
 
     # one step's time by CUDA events, its device kernels by torch.profiler
     batch = tr.batch_at(0)

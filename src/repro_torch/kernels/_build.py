@@ -45,6 +45,8 @@ ENTRY_POINTS = {
                            "pppp" "iiiiiiiii" "ff" "ip"),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "pppppppp" "iiiiiiiiii" "ff" "ip"),
+    "flash_attention_bwd_tc": ("flash_attention_bwd_tc",
+                               "pppppppp" "iiiiiiiii" "ff" "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -35,12 +35,22 @@ through this entry:
 - CUDA operands that need a gradient: `FlashAttention`, a
   `torch.autograd.Function` whose forward launches the route above and
   saves the q, k and v it read, and whose backward launches
-  `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`, two SIMT launches:
-  dq, then dk and dv summed over each KV head's group) or raises. Nothing
-  on the card falls back to the plain version or to autograd through it.
+  `flash_attention_bwd` or raises. Nothing on the card falls back to the
+  plain version or to autograd through it.
 `flash_attention_bwd` is also an entry of its own (CPU operands run
-`ref.flash_attention_bwd_ref`); `BWD_LAUNCHES` counts its launches, one
-per backward call.
+`ref.flash_attention_bwd_ref`). It takes the forward's routes, by
+`flash_route` again, each two launches on one stream with no atomics
+(dq with the rows' softmax statistics, then dk and dv summed over each KV
+head's group), so two calls give bit-equal results:
+- "wgmma" (`csrc/flash_attention_bwd_tc.cu`): bf16 at D 64, 96 or 128,
+  every product on wgmma, the tiles by TMA (16-byte-aligned bases, as the
+  forward's); P rounded to bf16 and dS as a bf16 pair (hi + lo) as the
+  products' A operands.
+- "simt" (`csrc/flash_attention_bwd.cu`): fp32 at every D, whose bar is
+  twice the plain fp32 backward's error, which no bf16 product meets, and
+  bf16 at D 32: fp32 FMAs on tiles staged in shared memory.
+`BWD_LAUNCHES` counts its launches, one per backward call,
+`BWD_TC_LAUNCHES` and `BWD_SIMT_LAUNCHES` each route's.
 """
 from __future__ import annotations
 
@@ -56,10 +66,15 @@ LAUNCHES = 0                      # kernel launches by `flash_attention`
 TC_LAUNCHES = 0                   # ... of them on the "wgmma" route
 SIMT_LAUNCHES = 0                 # ... of them on the "simt" route
 BWD_LAUNCHES = 0                  # launches by `flash_attention_bwd`
+BWD_TC_LAUNCHES = 0               # ... of them on the "wgmma" route
+BWD_SIMT_LAUNCHES = 0             # ... of them on the "simt" route
 HEAD_DIMS = (32, 64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (64, 96, 128)
 _LIBRARY = {"wgmma": "flash_attention_tc", "simt": "flash_attention"}
+_BWD_LIBRARY = {"wgmma": "flash_attention_bwd_tc",
+                "simt": "flash_attention_bwd"}
+TC_TILE = 64                      # the wgmma backward's q rows per tile
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -136,6 +151,17 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _check_aligned(kernel: str, **tensors: torch.Tensor) -> None:
+    """The "wgmma" routes load by TMA, which needs 16-byte-aligned
+    bases."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{kernel}: {name} starts at an address that is not 16-byte "
+                "aligned; the tensor-core route loads by TMA, which needs "
+                "16-byte-aligned bases")
+
+
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: Optional[int],
                     softcap: Optional[float], scale: Optional[float],
@@ -153,12 +179,7 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not out.numel():
         return out
     if route == "wgmma":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(
-                    f"flash_attention: {name} starts at an address that is "
-                    "not 16-byte aligned; the tensor-core route loads by "
-                    "TMA, which needs 16-byte-aligned bases")
+        _check_aligned("flash_attention", q=q, k=k, v=v)
         dims = (b, sq, skv, h, kvh, d)
     else:
         dims = (b, sq, skv, h, kvh, d, int(q.dtype == torch.bfloat16))
@@ -183,7 +204,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of `flash_attention(q, k, v, **options)` for the
     output gradient `dout` (q's shape and dtype), each in its operand's
     shape and dtype. CPU operands run `flash_attention_bwd_ref`; CUDA
-    operands launch `csrc/flash_attention_bwd.cu` or raise."""
+    operands launch their route's kernels or raise."""
     _check_shapes(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
     if dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} is "
@@ -201,10 +222,12 @@ def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: Optional[int], softcap: Optional[float],
                      scale: Optional[float], q_offset: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel on CUDA operands."""
-    global BWD_LAUNCHES
+    """Launch the backward kernels of q's route on CUDA operands. The
+    rows' statistics (m, 1 / l, Delta) are scratch allocated here: (3, B,
+    H, Sq) for "simt", Sq rounded up to a whole q tile for "wgmma"."""
+    global BWD_LAUNCHES, BWD_TC_LAUNCHES, BWD_SIMT_LAUNCHES
     b, sq, h, d = q.shape
-    flash_route(q.dtype, d)                    # raises for what neither takes
+    route = flash_route(q.dtype, d)
     device = check_cuda("flash_attention_bwd", floating=q.dtype, q=q, k=k,
                         v=v, dout=dout)
     skv, kvh = k.shape[1], k.shape[2]
@@ -215,12 +238,22 @@ def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.numel():
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=device)
-    launch("flash_attention_bwd", _build.load("flash_attention_bwd"), device,
+    if route == "wgmma":
+        _check_aligned("flash_attention_bwd", q=q, k=k, v=v, dout=dout)
+        rows = -(-sq // TC_TILE) * TC_TILE
+        dims = (b, sq, skv, h, kvh, d)
+    else:
+        rows = sq
+        dims = (b, sq, skv, h, kvh, d, int(q.dtype == torch.bfloat16))
+    stats = torch.empty((3, b, h, rows), dtype=torch.float32, device=device)
+    launch("flash_attention_bwd", _build.load(_BWD_LIBRARY[route]), device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b,
-           sq, skv, h, kvh, d, int(q.dtype == torch.bfloat16), int(causal),
-           window or 0, q_offset, scale if scale is not None else d ** -0.5,
-           softcap or 0.0)
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+           *dims, int(causal), window or 0, q_offset,
+           scale if scale is not None else d ** -0.5, softcap or 0.0)
     BWD_LAUNCHES += 1
+    if route == "wgmma":
+        BWD_TC_LAUNCHES += 1
+    else:
+        BWD_SIMT_LAUNCHES += 1
     return dq, dk, dv

@@ -27,9 +27,11 @@ CPU at rtol=1e-4 and atol=1e-5 * max|g| (cuBLAS, and the baselines'
 atomic `index_add`, sum in other orders than the CPU); the edge-list GCN
 against the dense one at the reference's bar, CARD.
 `flash_attention_bwd`: dq, dk and dv each within BWD_FACTOR times the
-plain backward's error against float64; an LM training step through the
-two kernels against the plain attention within LM_GRAD_BAR of each
-leaf's largest |gradient| (bf16).
+plain backward's error against float64, on the route `flash_route` names
+(the tensor-core one for bf16 at head dim 64, 96 and 128), two calls
+bit-equal; an LM training step through the two kernels against the
+plain attention within LM_GRAD_BAR of each leaf's largest |gradient|
+(bf16).
 """
 
 import dataclasses
@@ -1762,6 +1764,11 @@ def _attention_f64_grads(q, k, v, dout, *, causal, window, softcap,
     return torch.autograd.grad(out, leaves, dout.double())
 
 
+def _bwd_counters():
+    return (fa_mod.BWD_LAUNCHES, fa_mod.BWD_TC_LAUNCHES,
+            fa_mod.BWD_SIMT_LAUNCHES)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -1774,10 +1781,12 @@ def test_flash_attention_bwd_against_float64(card, case, dtype):
     v = _arr(rng, b, skv, kv, d).to(card, dtype)
     dout = _arr(rng, b, sq, h, d).to(card, dtype)
     opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
-    before = fa_mod.BWD_LAUNCHES
+    tc = fa_mod.flash_route(dtype, d) == "wgmma"
+    before = _bwd_counters()
     got = fa_mod.flash_attention_bwd(q, k, v, dout, **opts)
     torch.cuda.synchronize()
-    assert fa_mod.BWD_LAUNCHES == before + 1
+    assert _bwd_counters() == (before[0] + 1, before[1] + tc,
+                               before[2] + (not tc))
     plain = kref.flash_attention_bwd_ref(q, k, v, dout, **opts)
     exact = _attention_f64_grads(q, k, v, dout, **opts)
     for g, p_, x in zip(got, plain, exact):
@@ -1788,6 +1797,41 @@ def test_flash_attention_bwd_against_float64(card, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_flash_attention_bwd_is_deterministic(card, d):
+    """Every output element has one owner CTA and no atomics: two calls
+    (each route, causal with GQA and a window, and non-causal Sq != Skv)
+    give bit-equal dq, dk and dv."""
+    rng = np.random.default_rng(16)
+    for b, sq, skv, h, kv, causal, window in ((2, 200, 200, 9, 3, True, 80),
+                                              (1, 96, 300, 4, 4, False,
+                                               None)):
+        q = _arr(rng, b, sq, h, d).to(card, torch.bfloat16)
+        k = _arr(rng, b, skv, kv, d).to(card, torch.bfloat16)
+        v = _arr(rng, b, skv, kv, d).to(card, torch.bfloat16)
+        dout = _arr(rng, b, sq, h, d).to(card, torch.bfloat16)
+        first = fa_mod.flash_attention_bwd(q, k, v, dout, causal=causal,
+                                           window=window)
+        second = fa_mod.flash_attention_bwd(q, k, v, dout, causal=causal,
+                                            window=window)
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_tensor_core_refuses_unaligned(card):
+    """The tensor-core route loads by TMA: an operand whose base is not
+    16-byte aligned raises, and nothing launches."""
+    q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=card)
+    odd = torch.zeros(64 * 2 * 64 + 1, dtype=torch.bfloat16,
+                      device=card)[1:].view(1, 64, 2, 64)
+    before = _bwd_counters()
+    with pytest.raises(ValueError, match="dout starts at an address"):
+        fa_mod.flash_attention_bwd(q, q, q, odd)
+    assert _bwd_counters() == before
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_runs_both_kernels(card):
     """Under grad a CUDA forward goes through the forward kernel and its
     backward through flash_attention_bwd, whose result it returns."""
@@ -1795,12 +1839,13 @@ def test_flash_attention_autograd_runs_both_kernels(card):
     q, k, v = (_arr(rng, *s).to(card, torch.bfloat16).requires_grad_(True)
                for s in ((2, 96, 9, 64), (2, 96, 3, 64), (2, 96, 3, 64)))
     dout = _arr(rng, 2, 96, 9, 64).to(card, torch.bfloat16)
-    before = (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES)
+    before = (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES, fa_mod.BWD_TC_LAUNCHES)
     out = kops.flash_attention(q, k, v, window=40)
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (fa_mod.LAUNCHES, fa_mod.BWD_LAUNCHES,
+            fa_mod.BWD_TC_LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                        before[2] + 1)
     want = fa_mod.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
                                       dout, window=40)
     for g, w in zip(got, want):
@@ -1838,6 +1883,39 @@ def test_lm_training_step_on_card(card, name, monkeypatch):
         == (2 * 2 * layers, 2 * layers)
     monkeypatch.setattr(kops, "flash_attention", kref.flash_attention_ref)
     loss_p, grads_p = ttrainer.loss_and_grads(cfg, params, batch, 2)
+    assert abs(loss_k.item() - loss_p.item()) <= LM_GRAD_BAR * abs(
+        loss_p.item())
+    for gk, gp in zip(grads_k, grads_p):
+        assert gk.abs().max() > 0
+        assert (gk - gp).abs().max() <= LM_GRAD_BAR * gp.abs().max()
+
+
+@pytest.mark.cuda
+def test_lm_training_step_on_card_tensor_core_backward(card):
+    """The reduced smollm at SmolLM-135M's head dim 64 in bf16: every
+    backward of the step on the tensor-core route, the step's loss and
+    gradients against the same step through the plain attention."""
+    from repro_torch.runtime import trainer as ttrainer
+    cfg = dataclasses.replace(reduced(get_config("smollm-135m")),
+                              head_dim=64, compute_dtype="bfloat16",
+                              remat=True)
+    params = tlm.lm_init(cfg, seed=3, device=card)
+    rng = np.random.default_rng(17)
+    toks = rng.integers(0, cfg.vocab_size, (4, 129)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(card),
+             "labels": torch.from_numpy(toks[:, 1:]).to(card),
+             "mask": torch.ones(4, 128, dtype=torch.int32, device=card)}
+    before = _bwd_counters()
+    loss_k, grads_k = ttrainer.loss_and_grads(cfg, params, batch, 2)
+    torch.cuda.synchronize()
+    n = 2 * cfg.num_layers
+    assert _bwd_counters() == (before[0] + n, before[1] + n, before[2])
+    saved = kops.flash_attention
+    kops.flash_attention = kref.flash_attention_ref
+    try:
+        loss_p, grads_p = ttrainer.loss_and_grads(cfg, params, batch, 2)
+    finally:
+        kops.flash_attention = saved
     assert abs(loss_k.item() - loss_p.item()) <= LM_GRAD_BAR * abs(
         loss_p.item())
     for gk, gp in zip(grads_k, grads_p):
