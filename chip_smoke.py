@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's GCN, GAT and GraphSAGE serving paths, its
-node-classifier training, its LM serving (dense, MoE, SSM, hybrid,
-encoder-decoder and vision-prefix families) and its LM training on one
+node-classifier training, its LM serving (every arch of
+`configs.ARCHS`: the dense, MoE, SSM, hybrid, encoder-decoder and
+vision-prefix families), its serving examples and its LM training on one
 NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
@@ -26,7 +27,7 @@ last line; there is no CPU path):
      attention body
      (gat_tile.cuh's GAT_PRODUCTS and GAT_EXP, and TC_SPLIT_INT) and five
      of fused_sage (fused_sage.cu's SAGE_WALK, SAGE_COMBINE,
-     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 20
+     SAGE_SELF_LOOP, SAGE_NEIGH_LOOP and SAGE_SPLIT), timed in phase 24
      (`[breakdown]`);
   2. kernels — `block_matmul` and `fused_gcn_dense` (both 3xTF32 on the
      tensor cores; the layer at every activation) against their plain
@@ -221,7 +222,9 @@ last line; there is no CPU path):
      encoder (B 4, non-causal over 1500 frames) and cross-attention (256
      queries over the 1500 frames), Phi-3-vision's prefill (32/32 heads of
      96 at S 1280) and head dim 96 at a ragged S 65 and non-causal 65 x
-     129;
+     129, chatglm3's 32/2 and Llama-4-Scout's 40/8 heads of 128 at B 4, S
+     256, and gemma2's long wave (B 1, S 4608, 32/16 heads, window 4096,
+     softcap 50);
   14. serve-lm — an LM Server with SmolLM-135M at full width (30 layers,
      d_model 576, 9/3 heads, vocab 49152; random fp32 weights from numpy,
      bf16 compute), buckets (64, 128, 256), max_len 512, 4 slots: after a
@@ -280,7 +283,35 @@ last line; there is no CPU path):
      head dim 96 on the tensor-core route, the logits check and times as
      phase 18; then one text-only wave through `Server`, as the
      reference's server serves this config (32 launches, its counters);
-  20. train-lm — `flash_attention_bwd` (the gradient of flash_attention;
+  20. serve-dense — qwen3-4b (36 layers, 32/8 heads of 128, qk-norm,
+     vocab 151936), chatglm3-6b (28 layers, 32/2 heads of 128, half-width
+     rope, untied head) and gemma2-27b (46 layers alternating a 4096-key
+     local window and global attention, 32/16 heads of 128, softcaps 50
+     and 30, sandwich norms; 54.4 GB in bf16), each at full width and
+     depth with bf16 weights drawn on the card, served as phase 15 serves
+     OLMoE: one flash_attention launch per attention layer and wave, all
+     on the tensor-core route, nothing else, the counters, the last
+     wave's prefill logits against the plain attention (LM_LOGIT_BAR;
+     gemma2's before its final softcap, which caps every logit at 30),
+     the float32 attention's beside them as a control, times and idle
+     shares. Then gemma2-27b's long wave: one slot, one
+     4608-token prompt in bucket 4608 and 3 decode steps, so its local
+     layers mask keys past the window in the kernel and in the plain
+     decode; 46 tensor-core launches, its first token against a rerun of
+     the prefill, and the prefill against the plain attention layer by
+     layer (`nn/layerwise.py`: a whole-model plain prefill does not fit
+     beside the weights); each model prints its seconds and peak memory;
+  21. serve-scout — Llama-4-Scout at full width (d_model 5120, 40/8
+     heads of 128, 16 experts top-1 of 8192 and a shared expert in every
+     layer, vocab 202048, untied head) cut to 12 of its 48 layers (28.5 B
+     of 107.8 B parameters), through phase 15's checks: launches, routes,
+     counters, times, and the route agreement layer by layer at phase
+     15's bars;
+  22. examples — the port's serving examples (`repro_torch.examples.`
+     serve_llm, dynamic_graph_serving, sparse_serving, async_pipeline),
+     each in a subprocess with `--device cuda`, all four at once: each
+     must exit 0, its own assertions held;
+  23. train-lm — `flash_attention_bwd` (the gradient of flash_attention;
      bf16 at head dim 64, 96 and 128 on the tensor-core route
      `csrc/flash_attention_bwd_tc.cu`, the rest on the SIMT route
      `csrc/flash_attention_bwd.cu`) against its plain version
@@ -309,11 +340,13 @@ last line; there is no CPU path):
      tensor-core route); prints ms a step by CUDA
      events, tokens/s, the device idle share and the backward kernel's
      share of the step's device time (torch.profiler), peak card memory;
-  21. times — CUDA-event times of each kernel, its plain version and the
+  24. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape, at B 1, S 4096, 32/8 heads
-     of 128, and at the Whisper encoder's, Whisper cross-attention's and
-     Phi-3-vision prefill's shapes), and the dense and GraSp aggregation times per bucket queued
+     of 128, at the Whisper encoder's, Whisper cross-attention's,
+     Phi-3-vision prefill's and Llama-4-Scout prefill's shapes, and at
+     gemma2's long wave, where SDPA is not timed: it takes no softcap),
+     and the dense and GraSp aggregation times per bucket queued
      behind a spin, with the GraSp cost rule's terms they measure (`[agg]`:
      a launch's fixed cost from bitmap_spmm with every count 0, the walk's
      and the dense products' rates); for the redesigned kernels also the
@@ -414,7 +447,8 @@ from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sage_max as sm  # noqa: E402
 from repro_torch.nn import lm  # noqa: E402
 from repro_torch.nn import moe, multimodal, ssm  # noqa: E402
-from repro_torch.nn.layerwise import compare_attention_paths  # noqa: E402
+from repro_torch.nn.layerwise import (  # noqa: E402
+    compare_attention_paths, exact_attention)
 from repro_torch.runtime.cache import (  # noqa: E402
     estimate_dense_entry_bytes)
 from repro_torch.runtime import gnn_server as gserver  # noqa: E402
@@ -1118,9 +1152,18 @@ FLASH_CASES = {
     "phi3v S1280 D96": (4, 1280, 1280, 32, 32, 96, True, None, None, 0),
     "D96 ragged S65": (4, 65, 65, 32, 32, 96, True, None, None, 0),
     "D96 non-causal 65x129": (4, 65, 129, 32, 32, 96, False, None, None, 0),
+    # [serve-dense]'s and [serve-scout]'s head layouts at full width:
+    # chatglm3's group of 16 (32/2), Llama-4-Scout's group of 5 (40/8),
+    # and gemma2's long wave, whose local layers mask keys past the 4096
+    # window
+    "chatglm3 32/2 D128 S256": (4, 256, 256, 32, 2, 128, True, None, None,
+                                0),
+    "llama4 40/8 D128 S256": (4, 256, 256, 40, 8, 128, True, None, None, 0),
+    "gemma2 S4608 window 4096 softcap 50": (1, 4608, 4608, 32, 16, 128,
+                                            True, 4096, 50.0, 0),
 }
-# (B, Sq, Skv, H, KV, D, causal) timed in [time]: the row's own numbers
-# are the first's
+# (B, Sq, Skv, H, KV, D, causal[, window, softcap]) timed in [time]: the
+# row's own numbers are the first's
 FLASH_TIMED = {"serving (B 4, S 256, 9/3 heads of 64)": (4, 256, 256, 9, 3,
                                                         64, True),
                "long (B 1, S 4096, 32/8 heads of 128)": (1, 4096, 4096, 32,
@@ -1132,10 +1175,16 @@ FLASH_TIMED = {"serving (B 4, S 256, 9/3 heads of 64)": (4, 256, 256, 9, 3,
                "whisper cross (B 4, 256 x 1500, 8/8 heads of 64, "
                "non-causal)": (4, 256, 1500, 8, 8, 64, False),
                "phi3v prefill (B 4, S 1280, 32/32 heads of 96)": (
-                   4, 1280, 1280, 32, 32, 96, True)}
+                   4, 1280, 1280, 32, 32, 96, True),
+               "llama4 prefill (B 4, S 256, 40/8 heads of 128)": (
+                   4, 256, 256, 40, 8, 128, True),
+               "gemma2 long wave (B 1, S 4608, 32/16 heads of 128, window "
+               "4096, softcap 50)": (1, 4608, 4608, 32, 16, 128, True, 4096,
+                                     50.0)}
 # the [time] keys of the FLASH_TIMED shapes in the kernels line
 FLASH_TIMED_KEYS = ("serving", "long", "olmoe_prefill", "whisper_encoder",
-                    "whisper_cross", "phi3v_prefill")
+                    "whisper_cross", "phi3v_prefill", "llama4_prefill",
+                    "gemma2_long")
 # the __global__ names of flash_attention.cu and flash_attention_tc.cu, as
 # torch.profiler reports them
 FLASH_KERNELS = ("flash_kernel", "flash_tc_kernel")
@@ -1371,24 +1420,12 @@ def serve_lm_phase(dev, card):
             "decode step": lambda: lm.lm_decode_step(
                 sp, cfg, got.argmax(-1), state)}
         busy = {k: device_busy(fn) for k, fn in steps.items()}
-        kernel = kops.flash_attention
-        kops.flash_attention = kref.flash_attention_ref
-        try:
-            want_l, _ = lm.lm_prefill(sp, cfg, toks_d, max_len=LM_MAX_LEN)
-        finally:
-            kops.flash_attention = kernel
     check(bool(torch.isfinite(got).all()) and got.shape == (
         LM_SLOTS, cfg.vocab_size), "prefill logits not finite or misshaped")
     check(np.array_equal(got.argmax(-1).cpu().numpy(),
                          [r.output[0] for r in wave]),
           "the served first tokens differ from a rerun of the prefill")
-    rel = ((got - want_l).abs().max() / want_l.abs().max()).item()
-    same = int((got.argmax(-1) == want_l.argmax(-1)).sum())
-    print(f"[serve-lm] bucket-256 prefill logits, kernel vs plain "
-          f"attention: max |diff| / max |logit| = {rel:.3e} (bar "
-          f"{LM_LOGIT_BAR}), max |logit| {want_l.abs().max().item():.2f}, "
-          f"argmax equal in {same} of {LM_SLOTS}", flush=True)
-    check(rel <= LM_LOGIT_BAR, f"prefill logits differ by {rel}")
+    rel = plain_logit_check("serve-lm", cfg, sp, toks_d, LM_MAX_LEN)
 
     ttft = {}
     for bucket, sec in server.metrics["ttft_s"]:
@@ -1522,8 +1559,7 @@ def serve_waves(tag, cfg, params, dev, prompts, rng):
     run_s = time.perf_counter() - t0
     launches, routes = launches_now(), flash_routes_now()
     s = server.summary()
-    n_attn = cfg.num_superblocks * sum(k.startswith("attn")
-                                       for k in cfg.superblock)
+    n_attn = attention_layers(cfg)
     want = dict.fromkeys(COUNTERS, 0) | {
         "flash_attention": s["prefills"] * n_attn}
     print(f"[{tag}] mode {server.sc.mode}: {len(done)} requests in "
@@ -1691,14 +1727,21 @@ def route_check(tag, cfg, params, toks):
 
 
 def serve_moe_phase(dev, card, tag="serve-moe", arch=MOE_ARCH, layers=None):
-    """[serve-moe] (OLMoE-1B-7B, every layer MoE, at full width and depth)
-    and [serve-hybrid] (Jamba, one superblock): serve a dozen requests,
+    """[serve-moe] (OLMoE-1B-7B, every layer MoE, at full width and depth),
+    [serve-hybrid] (Jamba, one superblock) and [serve-scout]
+    (Llama-4-Scout, 12 layers): serve a dozen requests,
     time them, the dispatch's share, the route check. Returns
     (flash_attention launches, summary)."""
     t_phase = time.perf_counter()
     cfg = get_config(arch)
     if layers is not None:
+        full = cfg
         cfg = dataclasses.replace(cfg, num_layers=layers)
+        print(f"[{tag}] {cfg.name}: depth cut to {layers} of "
+              f"{full.num_layers} layers at full width: "
+              f"{cfg.param_count():,} of {full.param_count():,} parameters "
+              f"({cfg.active_param_count():,} of "
+              f"{full.active_param_count():,} active a token)", flush=True)
     rng = np.random.default_rng(31)
     params = card_model(tag, cfg, dev, seed=31)
     server, done, launches, run_s = serve_waves(
@@ -2051,7 +2094,250 @@ def serve_vlm_phase(dev, card):
     return want["flash_attention"] + cfg.num_layers, timing
 
 
-def flash_simt(q, k, v, out, causal=True):
+# [serve-dense]: the three dense archs the earlier phases do not serve, at
+# full width and depth, bf16 weights drawn on the card (qwen3-4b 8.0 GB,
+# chatglm3-6b 12.5 GB, gemma2-27b 54.4 GB); then gemma2-27b's long wave:
+# one slot, one prompt of LONG_S tokens in one bucket, LONG_NEW tokens, so
+# its 23 local layers mask the keys more than 4096 positions back, in the
+# kernel (prefill) and in the plain decode. The long wave's prefill is held
+# against the plain attention layer by layer (`nn/layerwise.py`): the
+# plain attention's float32 scores at S 4608 (about 10 GB a call) beside
+# the 54.4 GB of weights and the 8.8 GB earlier phases hold leave no room
+# for a whole-model plain prefill with its cache.
+# [serve-scout]: Llama-4-Scout at full width, SCOUT_LAYERS of its 48
+# layers (each about 2.2 B parameters, 4.4 GB in bf16; with the untied
+# embedding and head about 57 GB), through [serve-moe]'s phase.
+DENSE_ARCHS = ("qwen3-4b", "chatglm3-6b", "gemma2-27b")
+LONG_ARCH, LONG_S, LONG_NEW = "gemma2-27b", 4608, 4
+SCOUT_ARCH, SCOUT_LAYERS = "llama4-scout-17b-a16e", 12
+# the port's versions of the reference's serving examples, each run once on
+# the card in a subprocess with --device cuda, all four at once
+EXAMPLES = ("serve_llm", "dynamic_graph_serving", "sparse_serving",
+            "async_pipeline")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def attention_layers(cfg):
+    """flash_attention calls a prefill makes: one per attention layer."""
+    return cfg.num_superblocks * sum(k.startswith("attn")
+                                     for k in cfg.superblock)
+
+
+def plain_logit_check(tag, cfg, params, toks, max_len):
+    """A prefill of `toks` with the kernel against one with the plain
+    attention, both in the compute dtype: the largest difference relative
+    to the largest |logit|, held to LM_LOGIT_BAR. A model with a final
+    softcap (gemma2: 30 tanh(x / 30), the same monotone map on both
+    paths) is compared before it: the cap bounds every logit by 30, so the
+    largest |logit| stops measuring the logits' scale. Beside it, printed:
+    the capped logits, and the control, the float32 attention rounded once
+    against the plain one."""
+    raw = dataclasses.replace(cfg, final_softcap=None)
+    out = {}
+    kernel = kops.flash_attention
+    with torch.inference_mode():
+        for name, attn in (("kernel", kernel),
+                           ("plain", kref.flash_attention_ref),
+                           ("exact", exact_attention)):
+            kops.flash_attention = attn
+            try:
+                out[name] = lm.lm_prefill(params, raw, toks,
+                                          max_len=max_len)[0].float()
+            finally:
+                kops.flash_attention = kernel
+    got, want = out["kernel"], out["plain"]
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          f"[{tag}] prefill logits not finite or misshaped")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    r, r_exact = rel(got, want), rel(out["exact"], want)
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    capped = ""
+    if cfg.final_softcap:
+        cap = cfg.final_softcap
+        c_got, c_want, c_exact = (torch.tanh(t / cap) * cap
+                                  for t in (got, want, out["exact"]))
+        capped = (f"; after the final softcap {cap}: {rel(c_got, c_want):.3e}"
+                  f" (control {rel(c_exact, c_want):.3e}), max |logit| "
+                  f"{c_want.abs().max().item():.2f}")
+    print(f"[{tag}] bucket-{toks.shape[1]} prefill logits"
+          f"{' before the final softcap' if cfg.final_softcap else ''}, "
+          f"kernel vs plain attention: max |diff| / max |logit| = {r:.3e} "
+          f"(bar {LM_LOGIT_BAR}; control, float32 attention vs plain "
+          f"{r_exact:.3e}), max |logit| {want.abs().max().item():.2f}, "
+          f"argmax equal in {same} of {toks.shape[0]}{capped}", flush=True)
+    check(r <= LM_LOGIT_BAR, f"[{tag}] prefill logits differ by {r}")
+    return r
+
+
+def long_wave(tag, cfg, params, dev, card):
+    """gemma2-27b's long wave (see [serve-dense]): the launches, routes and
+    counters of one LONG_S-token prefill and LONG_NEW - 1 decode steps, the
+    served first token against a rerun of the prefill, and the prefill
+    against the plain attention layer by layer. Returns (flash_attention
+    launches, timing)."""
+    rng = np.random.default_rng(47)
+    sc = ServeConfig(buckets=(LONG_S,), max_len=LONG_S + LONG_NEW,
+                     batch_slots=1)
+    prompt = rng.integers(0, cfg.vocab_size, LONG_S).astype(np.int32)
+    warm = Server(cfg, sc, params=params, device=dev)
+    warm.submit(rng.integers(0, cfg.vocab_size, LONG_S), max_new_tokens=2)
+    warm.run()
+    del warm
+    server = Server(cfg, sc, params=params, device=dev)
+    server.submit(prompt, max_new_tokens=LONG_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, routes = launches_now(), flash_routes_now()
+    s = server.summary()
+    n_attn = attention_layers(cfg)
+    local = cfg.num_superblocks * sum(k == "attn_local"
+                                      for k in cfg.superblock)
+    want = dict.fromkeys(COUNTERS, 0) | {"flash_attention": n_attn}
+    print(f"[{tag}] long wave: 1 prompt of {LONG_S} tokens (bucket "
+          f"{LONG_S}, max_len {sc.max_len}), {LONG_NEW} tokens; {local} "
+          f"local layers with window {cfg.local_window} < {LONG_S}, so they "
+          f"mask the keys more than {cfg.local_window} back; launches "
+          f"{launches}, expected {want}; flash_attention by route {routes}; "
+          f"summary " + json.dumps(s), flush=True)
+    check(local > 0 and cfg.local_window < LONG_S,
+          f"[{tag}] the long wave reaches no local window")
+    check(launches == want, f"[{tag}] long wave launches {launches} != "
+          f"{want}")
+    check(routes == {"wgmma": n_attn, "simt": 0},
+          f"[{tag}] long wave routes {routes}: every prefill layer should "
+          "take the tensor-core route")
+    check(s["prefills"] == 1 and s["compiled_blobs"] <= 2
+          and s["tokens_out"] == LONG_NEW
+          and s["decode_steps"] == LONG_NEW - 1,
+          f"[{tag}] long wave counters {s}")
+    out = done[0].output
+    check(out.shape == (LONG_NEW,) and out.min() >= 0
+          and out.max() < cfg.vocab_size,
+          f"[{tag}] long wave output {out} is not {LONG_NEW} tokens")
+    ttft_ms = server.metrics["ttft_s"][0][1] * 1e3
+    step_ms = server.metrics["decode_s"] / s["decode_steps"] * 1e3
+    sp = server.params
+    del server, done
+    toks = torch.from_numpy(prompt[None]).long().to(dev)
+    with torch.inference_mode():
+        got, _ = lm.lm_prefill(sp, cfg, toks, max_len=sc.max_len)
+        check(bool(torch.isfinite(got).all())
+              and int(got.argmax(-1)[0]) == int(out[0]),
+              f"[{tag}] the long wave's first token differs from a rerun "
+              "of its prefill")
+        del got
+        dev_ms, n_ops, fa_ms, fa_n = device_busy(
+            lambda: lm.lm_prefill(sp, cfg, toks, max_len=sc.max_len))
+    print(f"[{tag}] long wave: time to first token {ttft_ms:.2f} ms (wave "
+          f"start to its first token on the host), decode {step_ms:.3f} ms "
+          f"a step of 1 slot over {LONG_S}+ cached positions; the prefill "
+          f"{dev_ms:.3f} ms of device time in {n_ops} operations "
+          f"(torch.profiler), idle share {1 - dev_ms / ttft_ms:.3f}, "
+          f"flash_attention {fa_n} launches, {fa_ms:.3f} ms "
+          f"({fa_ms / dev_ms if dev_ms else 0.0:.3f} of it); run "
+          f"{run_s:.3f} s; {card}",
+          flush=True)
+    # the prefill against the plain attention, layer by layer on the same
+    # input (see [serve-dense] for why not the whole model), on the drawn
+    # bf16 weights: the server's copy adds only the float32 head (4.7 GB)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = compare_attention_paths(params, cfg, toks)
+    worst = max(diffs, key=lambda d: d.mixer_diff / d.mixer_max)
+    for d in diffs:
+        check(d.mixer_diff <= LM_LOGIT_BAR * d.mixer_max
+              and d.max_abs_diff <= LM_LOGIT_BAR * d.max_abs_out,
+              f"[{tag}] long wave layer {d.layer} ({d.kind}): kernel and "
+              f"plain attention paths differ: {d}")
+    rel_out = max(d.max_abs_diff / d.max_abs_out for d in diffs)
+    print(f"[{tag}] long wave prefill, kernel vs plain attention layer by "
+          f"layer (nn/layerwise.py, {len(diffs)} layers on the same input "
+          f"each): x + attention max |diff| at most {worst.mixer_diff:.4g} "
+          f"of {worst.mixer_max:.4g} "
+          f"({worst.mixer_diff / worst.mixer_max:.3e}, layer {worst.layer}, "
+          f"{worst.kind}); layer outputs at most "
+          f"{rel_out:.3e} of their max (bar {LM_LOGIT_BAR} each)",
+          flush=True)
+    return n_attn, {"ttft_ms": ttft_ms, "decode_ms_per_step": step_ms,
+                    "prefill_device_ms": dev_ms,
+                    "idle_share": 1 - dev_ms / ttft_ms,
+                    "mixer_rel_max": worst.mixer_diff / worst.mixer_max,
+                    "output_rel_max": rel_out}
+
+
+def serve_dense_phase(dev, card):
+    """[serve-dense]: qwen3-4b, chatglm3-6b and gemma2-27b at full width and
+    depth, served as [serve-moe] serves OLMoE (buckets 64/128/256, 4 slots,
+    12 requests after a warm-up wave per bucket): launches, routes and
+    counters (`serve_waves`), times and idle shares (`serve_timing`), the
+    last wave's prefill logits against the plain attention; then
+    gemma2-27b's long wave. Returns (flash_attention launches, timings)."""
+    launches, timings = 0, {}
+    for arch in DENSE_ARCHS:
+        t_phase = time.perf_counter()
+        free_card()
+        base = torch.cuda.memory_allocated()
+        tag = f"serve-dense {arch}"
+        cfg = get_config(arch)
+        rng = np.random.default_rng(37)
+        params = card_model(tag, cfg, dev, seed=37)
+        server, done, n, run_s = serve_waves(
+            tag, cfg, params, dev, lm_prompts(rng, cfg.vocab_size), rng)
+        timing, toks, _ = serve_timing(tag, cfg, server, done, dev, card,
+                                       run_s)
+        timing["logit_rel_diff"] = plain_logit_check(tag, cfg, server.params,
+                                                     toks, LM_MAX_LEN)
+        launches += n
+        del server, done, toks
+        if arch == LONG_ARCH:
+            n_long, timing["long_wave"] = long_wave(tag, cfg, params, dev,
+                                                    card)
+            launches += n_long
+        del params
+        phase_memory(tag, t_phase, base, timing)
+        timings[arch] = timing
+    return launches, timings
+
+
+def examples_phase(card):
+    """[examples]: the port's serving examples, each once on the card in a
+    subprocess with --device cuda, all started together; fails if any
+    exits non-zero or outlives EXAMPLE_TIMEOUT_S."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}",
+                 "--device", "cuda"], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for name, (t0, proc) in procs.items():
+            log, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            tail = "\n    ".join(log.strip().splitlines()[-4:])
+            print(f"[examples] repro_torch.examples.{name} --device cuda: "
+                  f"exit {proc.returncode} after "
+                  f"{time.perf_counter() - t0:.1f} s; last lines:\n    "
+                  f"{tail}", flush=True)
+            check(proc.returncode == 0, f"[examples] {name} exited "
+                  f"{proc.returncode}:\n{log[-4000:]}")
+    finally:                            # no example outlives the script
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    print(f"[examples] phase took {time.perf_counter() - t_phase:.1f} s "
+          f"({len(EXAMPLES)} scripts at once); {card}", flush=True)
+
+
+def flash_simt(q, k, v, out, causal=True, window=None, softcap=None):
     """One call of the SIMT flash_attention library, launched directly and
     counted nowhere: the kernel that served bf16 at head dim 64 and 128
     before the tensor-core route, timed beside it."""
@@ -2059,7 +2345,7 @@ def flash_simt(q, k, v, out, causal=True):
     launch("flash_attention", _build.load("flash_attention"), q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
            k.shape[1], h, k.shape[2], d, int(q.dtype == torch.bfloat16),
-           int(causal), 0, 0, d ** -0.5, 0.0)
+           int(causal), window or 0, 0, d ** -0.5, softcap or 0.0)
 
 
 def host_us(fn, calls=100, spin_ms=50.0):
@@ -2086,46 +2372,54 @@ def flash_row(dev, launches, worst, card):
     out = {}
     for label, shape in FLASH_TIMED.items():
         causal = shape[6]
+        window, cap = (tuple(shape[7:]) + (None, None))[:2]
+        opts = dict(causal=causal, window=window, softcap=cap)
         q, k, v = flash_inputs(rng, shape, torch.bfloat16, dev)
         check(fa.flash_route(q.dtype, q.shape[-1]) == "wgmma",
               f"{label} does not take the tensor-core route")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        got = fa.flash_attention(q, k, v, causal=causal)
+        got = fa.flash_attention(q, k, v, **opts)
         simt_out = torch.empty_like(q)
-        flash_simt(q, k, v, simt_out, causal)
+        flash_simt(q, k, v, simt_out, causal, window, cap)
         torch.testing.assert_close(simt_out.float(), got.float(),
                                    **FLASH_TOL[torch.bfloat16])
-        t_k = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
-        t_s = time_ms(lambda: flash_simt(q, k, v, simt_out, causal),
-                      iters=10)
-        t_p = time_ms(lambda: kref.flash_attention_ref(q, k, v,
-                                                       causal=causal),
+        t_k = time_ms(lambda: fa.flash_attention(q, k, v, **opts))
+        t_s = time_ms(lambda: flash_simt(q, k, v, simt_out, causal, window,
+                                         cap), iters=10)
+        t_p = time_ms(lambda: kref.flash_attention_ref(q, k, v, **opts),
                       iters=5)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
-        t_l = time_ms(sdpa)
-        d_k = queued_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
-        d_l = queued_ms(sdpa)
-        d_s = queued_ms(lambda: flash_simt(q, k, v, simt_out, causal),
-                        iters=10)
-        flops, nbytes_ = flash_work(q, k, causal)
+        # no one PyTorch call computes gemma2's attention
+        no_library = (None if cap is None and window is None else
+                      "scaled_dot_product_attention takes no tanh softcap "
+                      "or sliding window")
+        t_l = None if no_library else time_ms(sdpa)
+        d_k = queued_ms(lambda: fa.flash_attention(q, k, v, **opts))
+        d_l = None if no_library else queued_ms(sdpa)
+        d_s = queued_ms(lambda: flash_simt(q, k, v, simt_out, causal,
+                                           window, cap), iters=10)
+        flops, nbytes_ = flash_work(q, k, causal, window)
         b_ms, b_by = bound(flops, nbytes_, BF16_FLOPS_PER_S)
+        lib = (f"not timed: {no_library}" if no_library else
+               f"{t_l:.4f} ms")
         print(f"[time] flash_attention {label}, tensor-core route: kernel "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, library "
-              f"(scaled_dot_product_attention) {t_l:.4f} ms, bound "
+              f"(scaled_dot_product_attention) {lib}, bound "
               f"{b_ms:.4f} ms ({b_by}); {flops / t_k / 1e9:.1f} TFLOP/s; "
               f"the SIMT kernel it replaced, on the same inputs {t_s:.4f} "
               f"ms; {card}", flush=True)
         print(f"[time] flash_attention {label}, queued behind a spin so "
               f"that no launch gap counts: kernel {ms_or_not(d_k)}, library "
-              f"{ms_or_not(d_l)}, the SIMT kernel {ms_or_not(d_s)}; "
-              f"the event times above are launch-bound where they exceed "
-              f"these; {card}", flush=True)
+              f"{'not timed' if no_library else ms_or_not(d_l)}, the SIMT "
+              f"kernel {ms_or_not(d_s)}; the event times above are "
+              f"launch-bound where they exceed these; {card}", flush=True)
         out[label] = {"shape": label, "ms": t_k, "device_ms": d_k,
                       "plain_ms": t_p, "library_ms": t_l,
-                      "library_device_ms": d_l, "bound_ms": b_ms,
+                      "library_device_ms": d_l, "no_library": no_library,
+                      "bound_ms": b_ms,
                       "bound_by": b_by, "tflops": flops / t_k / 1e9,
                       "tflops_queued": (None if d_k is None
                                         else flops / d_k / 1e9),
@@ -5440,11 +5734,17 @@ def main() -> None:
     audio_launches, _ = serve_audio_phase(dev, card)
     vlm_launches, _ = serve_vlm_phase(dev, card)
 
-    # ------------------------------------------------------ 20. train-lm
+    # ----------------------- 20-22. serve-dense, serve-scout, examples
+    dense_launches, _ = serve_dense_phase(dev, card)
+    scout_launches, _ = serve_moe_phase(dev, card, tag="serve-scout",
+                                        arch=SCOUT_ARCH, layers=SCOUT_LAYERS)
+    examples_phase(card)
+
+    # ------------------------------------------------------ 23. train-lm
     bwd_errors = bwd_check_phase(dev)
     train_lm_launches, bwd_launches, _ = train_lm_phase(dev, card)
 
-    # --------------------------------------------------------- 21. times
+    # --------------------------------------------------------- 24. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
         operands are batched, else with the batch folded into the rows."""
@@ -6014,13 +6314,15 @@ def main() -> None:
     # LM training's forwards join flash_attention's count, and are given
     # apart too
     flash = flash_row(dev, flash_launches + moe_launches + hybrid_launches
-                      + audio_launches + vlm_launches + train_lm_launches,
-                      flash_err, card)
+                      + audio_launches + vlm_launches + dense_launches
+                      + scout_launches + train_lm_launches, flash_err, card)
     flash.update(serve_lm_launches=flash_launches,
                  serve_moe_launches=moe_launches,
                  serve_hybrid_launches=hybrid_launches,
                  serve_audio_launches=audio_launches,
                  serve_vlm_launches=vlm_launches,
+                 serve_dense_launches=dense_launches,
+                 serve_scout_launches=scout_launches,
                  train_lm_launches=train_lm_launches)
     rows.append(flash)
     rows.append(bwd_row(dev, bwd_launches, bwd_errors, card))

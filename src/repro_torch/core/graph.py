@@ -21,6 +21,7 @@ plan (`core.models.ExecutionPlan.trace_count`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -238,6 +239,35 @@ def pad_labels(y: np.ndarray, capacity: int, *, fill: int = -1) -> np.ndarray:
     return out
 
 
+class Deferred:
+    """A value built on first read: `build(*args, **kwargs)`."""
+
+    __slots__ = ("build",)
+
+    def __init__(self, build, *args, **kwargs):
+        self.build = functools.partial(build, *args, **kwargs)
+
+
+class _BuiltOnRead:
+    """Descriptor of a `PaddedGraph` field that may hold a `Deferred`: the
+    first read builds it and keeps the value, so a path that never reads
+    the field never pays for it. Other values are stored as given."""
+
+    def __set_name__(self, owner, name):
+        self.slot = "_" + name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:                     # a required dataclass field
+            raise AttributeError(self.slot[1:])
+        v = obj.__dict__[self.slot]
+        if isinstance(v, Deferred):
+            v = obj.__dict__[self.slot] = v.build()
+        return v
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.slot] = value
+
+
 @dataclasses.dataclass
 class PaddedGraph:
     """Device-ready NodePad'ded graph: every array statically (cap, ·)-shaped.
@@ -245,28 +275,52 @@ class PaddedGraph:
     `norm_adj` is the GrAd *input* form — a runtime operand of the plan,
     never baked into it — so edge updates re-run only host preprocessing
     (the paper's recompile-free dynamic-graph path).
+
+    `pad_graph` leaves `norm_adj` and `adj` to be built from the edge list
+    on first read (`built` says whether they were): the CacheG path packs
+    from the edge keys and never reads either (cap, cap) matrix. The
+    fields are the reference's, so `dataclasses.asdict` gives its
+    `PaddedGraph`'s arguments (building both).
     """
 
     capacity: int
     num_nodes: int
     features: np.ndarray      # (cap, F)
-    norm_adj: np.ndarray      # (cap, cap)  Â (PreG-normalized)
-    adj: np.ndarray           # (cap, cap)  raw 0/1 (no self loops) for GAT masks
+    norm_adj: np.ndarray = _BuiltOnRead()   # (cap, cap)  Â (PreG-normalized)
+    adj: np.ndarray = _BuiltOnRead()        # (cap, cap)  raw 0/1 (no self loops) for GAT masks
     node_mask: np.ndarray     # (cap,) 1.0 for real nodes
     labels: Optional[np.ndarray] = None
     train_mask: Optional[np.ndarray] = None
     test_mask: Optional[np.ndarray] = None
 
+    def built(self, name: str) -> bool:
+        """Whether the field `name` holds its value (not a `Deferred`)."""
+        return not isinstance(self.__dict__["_" + name], Deferred)
+
+
+def _norm_adjacency(edge_index: np.ndarray, num_nodes: int, capacity: int,
+                    norm: str) -> np.ndarray:
+    if norm == "gcn":
+        return gcn_norm_adjacency(edge_index, num_nodes, capacity)
+    return mean_adjacency(edge_index, num_nodes, capacity)
+
+
+def _deferred_structure(edge_index: np.ndarray, num_nodes: int,
+                        capacity: int, norm: str) -> dict:
+    """`norm_adj` and `adj` of a padded graph, built on first read from a
+    copy of its edge list (a caller may reuse its array)."""
+    if norm not in ("gcn", "mean"):
+        raise ValueError(f"unknown norm {norm!r}")
+    e = np.array(edge_index, copy=True)
+    return {"norm_adj": Deferred(_norm_adjacency, e, num_nodes, capacity,
+                                 norm),
+            "adj": Deferred(dense_adjacency, e, capacity, self_loops=False)}
+
 
 def pad_graph(g: Graph, *, capacity: Optional[int] = None, slack: float = 0.0,
               norm: str = "gcn") -> PaddedGraph:
     cap = capacity if capacity is not None else node_bucket(g.num_nodes, slack=slack)
-    if norm == "gcn":
-        na = gcn_norm_adjacency(g.edge_index, g.num_nodes, cap)
-    elif norm == "mean":
-        na = mean_adjacency(g.edge_index, g.num_nodes, cap)
-    else:
-        raise ValueError(f"unknown norm {norm!r}")
+    structure = _deferred_structure(g.edge_index, g.num_nodes, cap, norm)
     mask = np.zeros((cap,), dtype=np.float32)
     mask[: g.num_nodes] = 1.0
 
@@ -281,8 +335,7 @@ def pad_graph(g: Graph, *, capacity: Optional[int] = None, slack: float = 0.0,
         capacity=cap,
         num_nodes=g.num_nodes,
         features=pad_features(g.features, cap),
-        norm_adj=na,
-        adj=dense_adjacency(g.edge_index, cap, self_loops=False),
+        **structure,
         node_mask=mask,
         labels=None if g.labels is None else pad_labels(g.labels, cap),
         train_mask=_pad_bool(g.train_mask),
@@ -351,8 +404,9 @@ class BucketLadder:
         """
         if num_nodes <= pg.capacity:
             upd = update_edges(pg, edge_index, num_nodes, norm=norm)
-            upd = dataclasses.replace(
-                upd, features=pad_features(features, pg.capacity))
+            # a fresh object: set in place, as `dataclasses.replace` would
+            # build the deferred matrices to copy them
+            upd.features = pad_features(features, pg.capacity)
             return upd, False
         # Re-bucket: carry the supervision arrays across the move. Nodes
         # beyond the old capacity are new and unlabeled (fill -1 / False) —
@@ -569,13 +623,9 @@ def update_edges(pg: PaddedGraph, edge_index: np.ndarray, num_nodes: int,
     if num_nodes > pg.capacity:
         raise ValueError(
             f"graph grew to {num_nodes} nodes > capacity {pg.capacity}; re-bucket")
-    if norm == "gcn":
-        na = gcn_norm_adjacency(edge_index, num_nodes, pg.capacity)
-    else:
-        na = mean_adjacency(edge_index, num_nodes, pg.capacity)
+    structure = _deferred_structure(edge_index, num_nodes, pg.capacity,
+                                    norm if norm == "gcn" else "mean")
     mask = np.zeros((pg.capacity,), dtype=np.float32)
     mask[:num_nodes] = 1.0
-    return dataclasses.replace(
-        pg, num_nodes=num_nodes, norm_adj=na,
-        adj=dense_adjacency(edge_index, pg.capacity, self_loops=False),
-        node_mask=mask)
+    return dataclasses.replace(pg, num_nodes=num_nodes, node_mask=mask,
+                               **structure)

@@ -313,15 +313,21 @@ def gcn_degree(adj: np.ndarray, num_nodes: int,
     explicit (i, i) edge counts once, as `masks.adj_with_self_loops` does,
     without building that (cap, cap) copy. With `keys`
     (`graph.adjacency_keys` of the 0/1 `adj`) it counts them instead."""
-    cap = adj.shape[0]
-    if keys is None:
-        deg = adj.sum(axis=1, dtype=np.float32)
-        diag = np.diagonal(adj)
-    else:
-        row, col = np.divmod(keys, cap)
-        deg = np.bincount(row, minlength=cap).astype(np.float32)
-        diag = np.zeros((cap,), np.float32)
-        diag[row[row == col]] = 1.0
+    if keys is not None:
+        return keys_degree(keys, adj.shape[0], num_nodes)
+    deg = adj.sum(axis=1, dtype=np.float32)
+    deg[:num_nodes] += 1.0 - np.diagonal(adj)[:num_nodes]
+    return deg
+
+
+def keys_degree(keys: np.ndarray, capacity: int,
+                num_nodes: int) -> np.ndarray:
+    """`gcn_degree` from a graph's `graph.adjacency_keys` alone, with no
+    (cap, cap) matrix read or built."""
+    row, col = np.divmod(keys, capacity)
+    deg = np.bincount(row, minlength=capacity).astype(np.float32)
+    diag = np.zeros((capacity,), np.float32)
+    diag[row[row == col]] = 1.0
     deg[:num_nodes] += 1.0 - diag[:num_nodes]
     return deg
 
@@ -364,8 +370,9 @@ def compact_operands(pg: PaddedGraph, cfg: GNNConfig, *,
                              "(symmetric) adjacency")
         packed = (symg_pack_adjacency_bits(pg.adj, check=False)
                   if keys is None else symg_pack_keys(keys, cap))
-        degree = (gcn_degree(pg.adj, pg.num_nodes, keys)
-                  if cfg.kind == "gcn" else np.zeros((cap,), np.float32))
+        degree = (np.zeros((cap,), np.float32) if cfg.kind != "gcn"
+                  else gcn_degree(pg.adj, pg.num_nodes) if keys is None
+                  else keys_degree(keys, cap, pg.num_nodes))
         triangular = True
     return CompactOperands(
         packed=torch.from_numpy(packed), degree=torch.from_numpy(degree),

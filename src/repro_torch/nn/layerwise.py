@@ -52,7 +52,9 @@ class LayerDiff:
     max_abs_out: float        # of the plain path's output
 
 
-def _exact(q, k, v, **kw):
+def exact_attention(q, k, v, **kw):
+    """The plain attention in float32, rounded once to the operands'
+    dtype: the closest any attention in that dtype can come."""
     return kref.flash_attention_ref(q.float(), k.float(), v.float(),
                                     **kw).to(q.dtype)
 
@@ -81,7 +83,7 @@ def compare_attention_paths(params: lm.LMParams, cfg: ArchConfig,
                 paths = {"kernel": None}
                 if kind.startswith("attn"):
                     paths.update(plain=kref.flash_attention_ref,
-                                 exact=_exact)
+                                 exact=exact_attention)
                 res = {name: tfm.mixer_residual(p, cfg, x, kind=kind,
                                                 positions=positions,
                                                 attention=fn)

@@ -82,19 +82,6 @@ def layer_init(cfg: ArchConfig, pos: int, generator: torch.Generator, *,
     return p
 
 
-def _stack(trees: List[Any]) -> Any:
-    """Stack per-layer trees (dicts, NamedTuples, tensors, None) along a
-    new leading axis; one tree is viewed, not copied."""
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return first[None] if len(trees) == 1 else torch.stack(trees)
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return type(first)(*(_stack(list(f)) for f in zip(*trees)))
-
-
 def slice_block(tree: Any, blk: int) -> Any:
     """One superblock's parameters (or caches) out of the stacked tree:
     views, no copies."""
@@ -113,13 +100,45 @@ def stack_init(cfg: ArchConfig, generator: torch.Generator, *,
                device: DeviceLike = None, dtype: torch.dtype = torch.float32,
                cross: bool = False) -> List[Dict[str, Any]]:
     """A list over superblock positions; each leaf has a leading
-    num_superblocks axis. Layers are drawn in block-major order."""
+    num_superblocks axis. Layers are drawn in block-major order, each
+    copied into its slot of the stacked leaves as it is drawn, so the
+    model is never held twice (a gemma2-27b in bf16 is 54 GB)."""
     device = resolve_device(device)
-    sb = len(cfg.superblock)
-    layers = [[layer_init(cfg, pos, generator, device=device, dtype=dtype,
-                          cross=cross)
-               for pos in range(sb)] for _ in range(cfg.num_superblocks)]
-    return [_stack([blk[pos] for blk in layers]) for pos in range(sb)]
+    sb, nsb = len(cfg.superblock), cfg.num_superblocks
+    stacked: List[Any] = [None] * sb
+    for blk in range(nsb):
+        for pos in range(sb):
+            layer = layer_init(cfg, pos, generator, device=device,
+                               dtype=dtype, cross=cross)
+            if blk == 0:
+                stacked[pos] = _empty_stack(layer, nsb)
+            _put_layer(stacked[pos], blk, layer)
+    return stacked
+
+
+def _empty_stack(tree: Any, n: int) -> Any:
+    """Uninitialised leaves of `tree`'s shapes with a leading axis of n."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.new_empty((n, *tree.shape))
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return type(tree)(*(_empty_stack(v, n) for v in tree))
+
+
+def _put_layer(stacked: Any, i: int, tree: Any) -> None:
+    """Copy one layer's `tree` into slot i of `stacked` (`_empty_stack`)."""
+    if tree is None:
+        return
+    if isinstance(tree, torch.Tensor):
+        stacked[i].copy_(tree)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _put_layer(stacked[k], i, v)
+    else:
+        for dst, v in zip(stacked, tree):
+            _put_layer(dst, i, v)
 
 
 def _block_kv(enc_kv_stacked: Optional[Tuple[torch.Tensor, torch.Tensor]],

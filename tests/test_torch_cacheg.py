@@ -798,3 +798,111 @@ def test_edge_keys_give_the_dense_products(n, e, seed, undirected):
             b = tmodels.compact_operands(pg, _cfgs(kind)[1])
             assert torch.equal(a.packed, b.packed)
             assert torch.equal(a.degree, b.degree)
+
+
+# ------------------------------------------------- the lazy host structure
+
+@pytest.mark.parametrize("kind", ["gcn", "gat"])
+def test_cacheg_burst_never_builds_the_dense_structure(kind):
+    """CacheG packs an undirected graph from its edge keys: after `run()`
+    no request's padded graph, one-shot or attached, has built its dense
+    Â or adjacency. The answers equal the reference's and the eager
+    path's (which builds Â) at the 1e-5 bar."""
+    models = ((kind, kind, {}, dict(fusion="layer"), 5),
+              (f"{kind}_none", kind, {}, {}, 5))
+    ref, port = _engines()
+    _register(ref, port, models)
+    script = _one_shots_and_queries((kind, f"{kind}_none"))
+    out = _run_both(ref, port, script)
+    _assert_same(ref, port, out)
+    done = out[1][1]
+    assert len(done) == 2 * len(SIZES) + 2
+    for r in done:
+        assert not r.pg.built("norm_adj") and not r.pg.built("adj"), r.uid
+    assert not any(pg.built("norm_adj") or pg.built("adj")
+                   for _, pg in port.graphs.values())
+    eager = tserve.GraphServe(tserve.GraphServeConfig(
+        ladder=tg.BucketLadder(buckets=BUCKETS), batch_slots=SLOTS,
+        return_logits=True, use_cacheg=False), device="cpu")
+    for name, k, cfg_kw, kw, seed in models:
+        eager.register_model(name, _cfgs(k, **cfg_kw)[1],
+                             bridge.params_from_jax(_weights(k, seed),
+                                                    device="cpu"), **kw)
+    eager.warmup()
+    script("torch", eager)
+    by_uid = {r.uid: r for r in eager.run()}
+    assert sorted(by_uid) == sorted(r.uid for r in done)
+    assert eager.summary()["operand_bytes_h2d"] > port.summary()[
+        "operand_bytes_h2d"]
+    for r in done:
+        np.testing.assert_array_equal(r.preds, by_uid[r.uid].preds)
+        np.testing.assert_allclose(r.logits, by_uid[r.uid].logits, **TOL)
+    read = "norm_adj" if kind == "gcn" else "adj"     # the eager build's
+    assert all(r.pg.built(read) for r in by_uid.values())
+
+
+@pytest.mark.parametrize("norm", ["gcn", "mean"])
+@pytest.mark.parametrize("n,cap,seed,directed", [
+    (40, 128, 0, False), (128, 128, 1, True), (200, 256, 2, False),
+    (1, 128, 3, True)])
+def test_deferred_structure_equals_reference_pad_graph(n, cap, seed,
+                                                       directed, norm):
+    """`pad_graph` builds Â and the adjacency only when read, and then
+    they equal the reference's `pad_graph` bit for bit: duplicate edges,
+    explicit self-loops and directed graphs included. A caller that
+    reuses its edge array after padding does not change them."""
+    rng = np.random.default_rng(seed)
+    ei = rng.integers(0, n, (2, 3 * n)).astype(np.int32)
+    ei = np.concatenate([ei, np.asarray([[0, n - 1], [0, n - 1]], np.int32),
+                         ei[:, :5]], axis=1)
+    if not directed:
+        ei = np.concatenate([ei, ei[::-1]], axis=1)
+    feats = rng.standard_normal((n, 6)).astype(np.float32)
+    pg = tg.pad_graph(tg.Graph(edge_index=ei, num_nodes=n, features=feats),
+                      capacity=cap, norm=norm)
+    want = rg.pad_graph(rg.Graph(edge_index=ei.copy(), num_nodes=n,
+                                 features=feats), capacity=cap, norm=norm)
+    assert not pg.built("norm_adj") and not pg.built("adj")
+    kept = ei.copy()
+    ei[:] = 0                                   # the caller reuses its array
+    for name in ("adj", "norm_adj"):
+        got = getattr(pg, name)
+        assert pg.built(name)
+        assert got.dtype == getattr(want, name).dtype
+        assert np.array_equal(got, getattr(want, name)), name
+        assert getattr(pg, name) is got         # built once, then kept
+    for name in ("features", "node_mask"):
+        assert np.array_equal(getattr(pg, name), getattr(want, name))
+    conv = rg.PaddedGraph(**dataclasses.asdict(tg.pad_graph(
+        tg.Graph(edge_index=kept, num_nodes=n, features=feats),
+        capacity=cap, norm=norm)))               # the tests' conversion
+    assert np.array_equal(conv.norm_adj, want.norm_adj)
+    assert np.array_equal(conv.adj, want.adj)
+
+
+def test_deferred_structure_through_updates_and_unknown_norm():
+    """`update_edges` and `BucketLadder.grow` keep the matrices deferred
+    and give the reference's values when read; an unknown norm raises at
+    `pad_graph`, as the reference's does."""
+    g1, g2 = _graph(60, 1), _graph(100, 2)
+    ladder_t, ladder_r = tg.BucketLadder(buckets=BUCKETS), rg.BucketLadder(
+        buckets=BUCKETS)
+    pt, pr = ladder_t.pad(g1), ladder_r.pad(_as("jax", g1))
+    for norm in ("gcn", "mean"):
+        ut = tg.update_edges(pt, g2.edge_index, g2.num_nodes, norm=norm)
+        ur = rg.update_edges(pr, g2.edge_index, g2.num_nodes, norm=norm)
+        assert not ut.built("norm_adj") and not ut.built("adj")
+        assert np.array_equal(ut.norm_adj, ur.norm_adj)
+        assert np.array_equal(ut.adj, ur.adj)
+    for grown in (_graph(110, 3), _graph(200, 4)):
+        (gt, bt), (gr, br) = (
+            ladder_t.grow(pt, grown.edge_index, grown.num_nodes,
+                          grown.features),
+            ladder_r.grow(pr, grown.edge_index, grown.num_nodes,
+                          grown.features))
+        assert bt == br and gt.capacity == gr.capacity
+        assert not gt.built("norm_adj") and not gt.built("adj")
+        for name in ("features", "norm_adj", "adj", "node_mask", "labels"):
+            assert np.array_equal(getattr(gt, name), getattr(gr, name)), name
+    with pytest.raises(ValueError, match="unknown norm"):
+        tg.pad_graph(g1, capacity=128, norm="sym")

@@ -1364,6 +1364,36 @@ def test_flash_attention_matches_plain(card, case, dtype):
         **FLASH_TOL[dtype])
 
 
+# chip_smoke.py's FLASH_CASES at the full-width head layouts served on
+# the card: chatglm3's group of 16, Llama-4-Scout's group of 5, and
+# gemma2's long prefill, whose local window masks keys past 4096
+SERVED_FLASH_CASES = {
+    "chatglm3 32/2 D128 S256": (4, 256, 256, 32, 2, 128, True, None, None,
+                                0),
+    "llama4 40/8 D128 S256": (4, 256, 256, 40, 8, 128, True, None, None, 0),
+    "gemma2 S4608 window 4096 softcap 50": (1, 4608, 4608, 32, 16, 128,
+                                            True, 4096, 50.0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SERVED_FLASH_CASES))
+def test_flash_attention_matches_plain_at_served_layouts(card, case):
+    b, sq, skv, h, kv, d, causal, window, cap, off = SERVED_FLASH_CASES[case]
+    rng = np.random.default_rng(14)
+    q, k, v = (_arr(rng, b, s, n, d).to(card, torch.bfloat16)
+               for s, n in ((sq, h), (skv, kv), (skv, kv)))
+    opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    before = (fa_mod.LAUNCHES, fa_mod.TC_LAUNCHES)
+    got = fa_mod.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert (fa_mod.LAUNCHES, fa_mod.TC_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    torch.testing.assert_close(
+        got.float(), kref.flash_attention_ref(q, k, v, **opts).float(),
+        **FLASH_TOL[torch.bfloat16])
+
+
 @pytest.mark.cuda
 def test_flash_attention_rejects_bad_operands(card):
     q = torch.zeros(1, 64, 4, 64, device=card)

@@ -58,7 +58,10 @@ def test_port_file_list_covers_every_slice():
             "nn/encdec.py", "nn/multimodal.py", "configs/whisper_base.py",
             "configs/phi3_vision_4p2b.py", "data/synthetic.py",
             "ckpt/checkpoint.py", "runtime/trainer.py", "launch/train.py",
-            "examples/train_lm.py"} <= names
+            "examples/train_lm.py", "examples/serve_llm.py",
+            "examples/dynamic_graph_serving.py",
+            "examples/sparse_serving.py",
+            "examples/async_pipeline.py"} <= names
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):

@@ -159,7 +159,20 @@ FLASH_CASES = {
     "ragged_200": (1, 200, 200, 3, 1, 32, True, None, None, 0),
     # rows from q position 111 on can reach no key: compared in ref mode
     "window_past_keys": (1, 32, 96, 4, 2, 32, True, 16, None, 100),
+    # the full-width head layouts served on the card: chatglm3's group of
+    # 16 (32/2) and Llama-4-Scout's group of 5 (40/8) at head dim 128, and
+    # gemma2's heads (32/16) with a window that masks keys and softcap 50
+    "chatglm3_32_2_d128_s65": (1, 65, 65, 32, 2, 128, True, None, None, 0),
+    "chatglm3_32_2_d128_s129": (1, 129, 129, 32, 2, 128, True, None, None,
+                                0),
+    "llama4_40_8_d128_s65": (1, 65, 65, 40, 8, 128, True, None, None, 0),
+    "llama4_40_8_d128_s129": (1, 129, 129, 40, 8, 128, True, None, None, 0),
+    "gemma2_window_softcap50_d128": (1, 129, 129, 32, 16, 128, True, 48,
+                                     50.0, 0),
 }
+# the TPU kernel's tiles where S is no multiple of min(128, S) and not 200
+FLASH_TILES = {"chatglm3_32_2_d128_s129": 43, "llama4_40_8_d128_s129": 43,
+               "gemma2_window_softcap50_d128": 43}
 
 
 def _flash_inputs(case, seed=0):
@@ -191,7 +204,8 @@ def test_flash_attention_plain_matches_reference(kernel_mode, case):
         # the TPU kernel asserts tile multiples: 40-row tiles for S = 200;
         # it averages the keys of the blocks it visits for a row that no
         # key may reach, so those rows are compared in ref mode only
-        tiles = dict(bq=40, bk=40) if sq % min(128, sq) else {}
+        tile = FLASH_TILES.get(case, 40)
+        tiles = dict(bq=tile, bk=tile) if sq % min(128, sq) else {}
         want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          interpret=True, **tiles, **opts)
         rows = _reachable_rows(sq, skv, causal, window, off)
