@@ -186,6 +186,24 @@ last line; there is no CPU path):
      `update_delta` on the 4 x 3072 graph whose slices and logits must
      equal a sharded rebuild under the kept partition bit for bit, with
      the delta-halo counters equal to their formula;
+  11b. mesh — the same sharded serving on a mesh of processes
+     (`GraphServe(mesh=)`, one rank per (replica, shard) cell, started by
+     `launch.shard_serve.spawn_local`; every rank on this card through
+     gloo, whose CUDA all_reduce crosses the host): the Cora GCN at 4 x
+     3072 (fp32 and int8, the halo's int8 wire off and on, and an
+     `update_delta` whose patched row blocks must equal a mesh rebuild),
+     GAT, SAGE-max and SAGE-mean at 2 x 3072 (fp32 and int8, and the
+     GAT's `update()` from 2,000 nodes into 2 x 3072 and back), and the
+     GCN on a 2 x 2 replica mesh. Each rank's answers must equal the
+     single-process engine's on the same calls bit for bit, its launches
+     of block_matmul, int8_matmul and sage_max its batch log's (the sum
+     over the phase nonzero), the lead's counters the single-process
+     engine's; per rank it prints the cache residency, one dispatch's
+     CUDA-event ms with the all_reduce time apart, beside the
+     single-process dispatch and `modelled_sharded_latency`, and the
+     bytes handed to all_reduce beside `ring_psum_nbytes`' price. Then
+     the group collectives on an NCCL world of one rank, bit for bit,
+     and NCCL's answer to two ranks on one card, printed;
   12. train — the paper's four Cora models (GCN 1433 -> 64 -> 7, GAT 8
      heads of 8 then 1 of 7, SAGE-max and SAGE-mean over 10 sampled
      neighbours) trained on the card from a seeded init, 100 epochs of
@@ -392,6 +410,7 @@ import tempfile
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -435,6 +454,7 @@ from repro_torch.data.graphs import (citeseer_like,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._launch import launch  # noqa: E402
 from repro_torch.kernels.timing import card_line, queued_ms  # noqa: E402
+from repro_torch.launch import shard_serve as ss  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 from repro_torch.kernels import bitmap_spmm as bs  # noqa: E402
 from repro_torch.kernels import block_matmul as bm  # noqa: E402
@@ -3938,6 +3958,145 @@ def shard_phase(dev, card, cfg, params, gcfg, gparams, scfg, sparams, cora):
     return shard_launches, rect_row
 
 
+# [mesh]: the sharded GNN path on a mesh of processes, one rank per
+# (replica, shard) cell, every rank on this one card through gloo (NCCL
+# refuses two ranks on one device), each rank's answers held bit for bit
+# against the single-process (stacked) sharded engine on the same calls
+MESH_TIMEOUT_S = 300
+MESH_CONFIGS = (
+    ("GCN 4 x 3072", ss.BurstSpec(kinds=("gcn",), nodes=SHARD_GCN_NODES,
+                                  shards=4, delta=True), "both"),
+    ("GAT/SAGE 2 x 3072", ss.BurstSpec(
+        kinds=("gat", "sage-max", "sage-mean"), nodes=SHARD_NODES,
+        shards=2, grow=(SHARD_SMALL_NODES, SHARD_NODES)), "off"),
+    ("GCN 2 x 2 x 3072", ss.BurstSpec(kinds=("gcn",), nodes=SHARD_NODES,
+                                      shards=2, replicas=2), "off"),
+)
+
+
+def mesh_launch_want(batch_log):
+    """A rank's launches of SHARD_KERNELS from its batch log: each sharded
+    dispatch launches, on every rank, what one stacked dispatch does."""
+    want = dict.fromkeys(SHARD_KERNELS, 0)
+    for model, tier in batch_log:
+        kind = {"sage-max": "sage/max", "sage-mean": "sage/mean"}.get(model,
+                                                                     model)
+        for k, v in SHARD_LAUNCHES[(kind, tier == "int8")].items():
+            want[k] += v
+    return want
+
+
+def mesh_phase(dev, card):
+    """[mesh]: GraphServe(mesh=) on gloo ranks sharing this card (4 x
+    3072 GCN with both wires and an update_delta, GAT and SAGE at 2 x
+    3072 with update() across the boundary, the GCN on a 2 x 2 replica
+    mesh): every rank's answers, checks, launches and the lead's counters
+    against the single-process engine; per rank the cache residency, a
+    dispatch's ms (all_reduce apart) and the bytes handed to all_reduce;
+    then the group collectives on an NCCL world of one rank, and NCCL's
+    answer to two ranks on one card. Returns the ranks' launches of
+    SHARD_KERNELS, summed."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(SHARD_KERNELS, 0)
+    for label, spec, wire in MESH_CONFIGS:
+        free_card()
+        world = spec.shards * spec.replicas
+        t0 = time.perf_counter()
+        outs = [ss.last_json(o) for o in ss.spawn_local(
+            world, ss.burst_args(spec, wire) + [
+                "--backend", "gloo", "--device", str(dev)], MESH_TIMEOUT_S)]
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wires = {"both": (False, True), "off": (False,)}[wire]
+        ref = ss.serve(spec, wires=wires, device=dev)
+        ref_s = time.perf_counter() - t0
+        print(f"[mesh] {label}: {world} gloo ranks on {dev} in {mesh_s:.1f} "
+              f"s; the single-process engine on the same calls in "
+              f"{ref_s:.1f} s", flush=True)
+        for w, r in ref.items():
+            want_sum = json.loads(json.dumps(r["summary"]))
+            for o in outs:
+                got = o["wires"][w]
+                tag = f"[mesh] {label} wire {w}, rank {o['rank']} {o['coords']}"
+                check(got["answers"] and all(
+                    r["answers"].get(k) == v
+                    for k, v in got["answers"].items()),
+                      f"{tag}: an answer differs from the single-process "
+                      f"engine's")
+                check(all(got["checks"].values()), f"{tag}: checks "
+                      f"{got['checks']}")
+                check(got["batch_log"] == r["batch_log"], f"{tag}: batch log "
+                      f"{got['batch_log']} != {r['batch_log']}")
+                want_l = mesh_launch_want(got["batch_log"])
+                check(got["launches"] == want_l, f"{tag}: launches "
+                      f"{got['launches']} != the batch log's {want_l}")
+                for k in SHARD_KERNELS:
+                    total[k] += got["launches"][k]
+                print(f"{tag}: host seconds of the engine's build "
+                      f"{got['stages']['engine_s']:.1f}, the burst "
+                      f"{got['stages']['burst_s']:.1f}, the timing "
+                      f"{got['stages']['timing_s']:.1f} (single-process "
+                      f"{r['stages']['engine_s']:.1f}, "
+                      f"{r['stages']['burst_s']:.1f}, "
+                      f"{r['stages']['timing_s']:.1f})", flush=True)
+                if o["rank"] == 0:
+                    check(set(got["answers"]) == set(r["answers"]),
+                          f"{tag}: the lead answered {sorted(got['answers'])}")
+                    check(got["summary"] == want_sum, f"{tag}: summary "
+                          f"{got['summary']} != {want_sum}")
+                for model, d in got["dispatch"].items():
+                    rd = r["dispatch"][model]
+                    print(f"{tag} {model}: cache_resident_bytes "
+                          f"{got['cache_resident_bytes']} (single-process "
+                          f"{r['cache_resident_bytes']}); one fp32 dispatch "
+                          f"{ms_or_not(d['dispatch_ms'], 3)} = all_reduce "
+                          f"{ms_or_not(d['allreduce_ms'], 3)} + the rest "
+                          f"{ms_or_not(d['rest_ms'], 3)} (CUDA events), "
+                          f"single-process [shard] dispatch "
+                          f"{ms_or_not(rd['dispatch_ms'], 3)}, "
+                          f"modelled {d['modelled_ms']:.4f} ms (a model); "
+                          f"{d['wire_bytes']} bytes to all_reduce in "
+                          f"{d['wire_calls']} calls (ring_psum_nbytes "
+                          f"prices {d['ring_price_bytes']:.0f}); launches "
+                          f"{got['launches']}; {card}", flush=True)
+            print(f"[mesh] {label} wire {w}: {len(r['answers'])} answers of "
+                  f"every rank bit-equal to the single-process engine's, "
+                  f"checks {sorted(outs[0]['wires'][w]['checks'])} hold, "
+                  f"the lead's counters equal (halo "
+                  f"{want_sum['halo_bytes_exchanged']}, sharded_batches "
+                  f"{want_sum['sharded_batches']})", flush=True)
+    check(all(total[k] > 0 for k in SHARD_KERNELS),
+          f"[mesh] a kernel of {SHARD_KERNELS} never launched: {total}")
+
+    # NCCL, both worlds at once: the group forms on a world of one rank,
+    # and two ranks on this one card (NCCL's answer is recorded, not
+    # required)
+    def nccl(world):
+        return ss.spawn_local(world, [
+            "--collectives", "--backend", "nccl", "--device", str(dev),
+            "--shards", str(world)], MESH_TIMEOUT_S)
+
+    with ThreadPoolExecutor(2) as pool:
+        one, two = pool.submit(nccl, 1), pool.submit(nccl, 2)
+        o = ss.last_json(one.result()[0])
+        try:
+            two.result()
+            nccl2 = "ran"
+        except RuntimeError as exc:
+            nccl2 = "refused: " + next(
+                (ln.strip() for ln in str(exc).splitlines()
+                 if "Duplicate" in ln), str(exc).splitlines()[0])
+    check(o["backend"] == "nccl" and not any(o["collectives"].values()),
+          f"[mesh] NCCL world of one: {o['collectives']}")
+    print(f"[mesh] NCCL, a world of one rank: the group forms equal the "
+          f"stacked ones bit for bit ({sorted(o['collectives'])})",
+          flush=True)
+    print(f"[mesh] NCCL, two ranks on one card: {nccl2}", flush=True)
+    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 def train_forward(cfg, ops_, t, fusion="none", quant=None, tier_ops=None):
     return lambda p, x: gmodels.forward_grannite(p, cfg, x, ops_, t, quant,
                                                  tier_ops, fusion)
@@ -5715,6 +5874,9 @@ def main() -> None:
     shard_launches, rect_row = shard_phase(dev, card, cfg, params, gcfg,
                                            gparams, scfg, sparams, cora)
 
+    # ------------------------------------------------------------ 11b. mesh
+    mesh_launches = mesh_phase(dev, card)
+
     # ----------------------------------------------------------- 12. train
     train_launches = train_phase(dev, card)
 
@@ -6016,9 +6178,11 @@ def main() -> None:
                       + ", ".join(cases)}
         if kernel in SHARD_KERNELS:
             # the sharded path's launches ([shard]) join the count, and are
-            # given apart too
-            row["launches"] += shard_launches[kernel]
+            # given apart too; so do its ranks' on a mesh ([mesh], summed
+            # over the ranks)
+            row["launches"] += shard_launches[kernel] + mesh_launches[kernel]
             row["shard_launches"] = shard_launches[kernel]
+            row["mesh_launches"] = mesh_launches[kernel]
         if kernel in TRAIN_KERNELS:
             # likewise the trained models' evaluation ([train])
             row["launches"] += train_launches[kernel]

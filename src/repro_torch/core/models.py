@@ -25,8 +25,11 @@ Sharded execution (the end of the module): a graph partitioned across S
 shards (`core.partition`) runs as S row blocks of its operands
 (`build_sharded_operands`) through a sharded plan (`build_sharded_plan`,
 `forward_grannite_sharded`), the halo exchange between layers
-(`halo_exchange`). One card holds every shard: the shard axis is a
-leading tensor dimension.
+(`halo_exchange`). On one card the shard axis is a leading tensor
+dimension and one process holds every shard; on a mesh of ranks
+(`launch.mesh.make_shard_mesh`, `build_sharded_plan(mesh=)`) each rank
+holds its own row block and the exchange is an `all_reduce` over the
+shard group.
 """
 from __future__ import annotations
 
@@ -36,9 +39,12 @@ from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.compress import INV_INT8_MAX, quantize_wire
+from repro_torch.dist.compress import (INV_INT8_MAX, pmax, psum,
+                                       quantize_wire)
+from repro_torch.dist.sharding import assemble
 from repro_torch.kernels import ops as kops
 
 from . import effop, layers, masks
@@ -713,7 +719,8 @@ class DeltaSpec:
                              self.touched, self.degree))
 
 
-def patch_operands(ops: GranniteOperands, d: DeltaSpec) -> GranniteOperands:
+def patch_operands(ops: GranniteOperands, d: DeltaSpec, *,
+                   row0: Optional[int] = None) -> GranniteOperands:
     """One graph's cached dense operands patched by a delta, as new
     tensors on their device.
 
@@ -723,7 +730,14 @@ def patch_operands(ops: GranniteOperands, d: DeltaSpec) -> GranniteOperands:
     renormalized as (d_i * a_ij) * d_j, the materializer's order; the
     other entries keep their bits. GAT: the 0/1 mask is A + I, so the
     flips scatter straight in, and into the 0/-1e9 bias at the same
-    places."""
+    places.
+
+    `row0` patches a ROW BLOCK, rows [row0, row0 + rows) of the matrices
+    `d` describes (a rank's shard of a sharded graph): the same entries
+    are written with the same expressions, so the block equals those rows
+    of the whole patched matrix bit for bit."""
+    if row0 is not None:
+        return _patch_row_block(ops, d, row0)
     if "norm_adj" in d.fields:
         na = ops.norm_adj.clone()
         awl = (ops.norm_adj != 0).to(torch.float32)
@@ -742,6 +756,45 @@ def patch_operands(ops: GranniteOperands, d: DeltaSpec) -> GranniteOperands:
             m[i, j] = d.flip_v
             bias[i, j] = b
         ops = dataclasses.replace(ops, mask_mult=m, bias_add=bias)
+    return ops
+
+
+def _patch_row_block(ops: GranniteOperands, d: DeltaSpec,
+                     row0: int) -> GranniteOperands:
+    """`patch_operands` on rows [row0, row0 + rows): an index of a row
+    outside the block goes to a scratch row past its end, dropped after,
+    so the scatters keep their static widths."""
+    rows = getattr(ops, d.fields[0]).shape[0]
+
+    def local(i):
+        li = i.long() - row0
+        return torch.where((li >= 0) & (li < rows), li, rows)
+
+    def grown(t):
+        return torch.cat([t, t.new_zeros((1, t.shape[1]))])
+
+    fi, fj = local(d.flip_i), local(d.flip_j)
+    if "norm_adj" in d.fields:
+        na = grown(ops.norm_adj)
+        awl = (na != 0).to(torch.float32)
+        awl[fi, d.flip_j] = d.flip_v
+        awl[fj, d.flip_i] = d.flip_v
+        dis = inv_sqrt_degree(d.degree)
+        t, lt = d.touched, local(d.touched)
+        dis_t = dis.index_select(0, t)
+        na[lt, :] = (dis_t[:, None] * awl.index_select(0, lt)) * dis[None, :]
+        dis_r = dis[row0:row0 + rows]
+        na[:rows, t] = ((dis_r[:, None] * awl[:rows].index_select(1, t))
+                        * dis_t[None, :])
+        ops = dataclasses.replace(ops, norm_adj=na[:rows])
+    if "bias_add" in d.fields:
+        m, bias = grown(ops.mask_mult), grown(ops.bias_add)
+        b = torch.where(d.flip_v > 0, 0.0, masks.NEG_INF)
+        for i, j in ((fi, d.flip_j), (fj, d.flip_i)):
+            m[i, j] = d.flip_v
+            bias[i, j] = b
+        ops = dataclasses.replace(ops, mask_mult=m[:rows],
+                                  bias_add=bias[:rows])
     return ops
 
 
@@ -773,10 +826,10 @@ class DeltaPatcher:
     def _trace(self, *sig) -> None:
         _count_trace(self, sig)
 
-    def __call__(self, ops: GranniteOperands, d: DeltaSpec
-                 ) -> GranniteOperands:
+    def __call__(self, ops: GranniteOperands, d: DeltaSpec, *,
+                 row0: Optional[int] = None) -> GranniteOperands:
         self._trace("operands", _sig(ops), _sig(d))
-        return patch_operands(ops, d)
+        return patch_operands(ops, d, row0=row0)
 
     def patch_tier(self, tops: TierOperands, norm_adj: torch.Tensor,
                    rows: torch.Tensor) -> TierOperands:
@@ -1056,8 +1109,10 @@ def build_plan(cfg: GNNConfig, capacity: int, t: Techniques, *,
 # tiers, match the single-device path; the only sharding-induced error is
 # the wire compression (<= scale/2 per element, none when `compress` is
 # off). On one card the shard axis is a leading tensor dimension, as the
-# reference simulates it with `vmap` below its device count; the
-# multi-card placement is ROADMAP queue 1 item 16.
+# reference simulates it with `vmap` below its device count. On a mesh
+# of ranks (`mesh=`), the counterpart of the reference's `shard_map`
+# placement, each rank runs its own block and the exchange is a sum over
+# the shard group's ranks; both placements give the same bits.
 # ---------------------------------------------------------------------------
 
 
@@ -1075,7 +1130,8 @@ class ShardSlice:
 def build_sharded_operands(g, part, cfg: GNNConfig, *,
                            pg: Optional[PaddedGraph] = None,
                            keys: Optional[np.ndarray] = None,
-                           device: DeviceLike = None
+                           device: DeviceLike = None,
+                           shard: Optional[int] = None
                            ) -> Tuple[ShardSlice, ...]:
     """N-way GraphSplit's operand row blocks, on `device`.
 
@@ -1092,7 +1148,9 @@ def build_sharded_operands(g, part, cfg: GNNConfig, *,
     a patched slice equals a rebuild bit for bit. Padding is interleaved
     per shard; padded rows and columns are zero, hence inert. `keys`
     (`graph.adjacency_keys` at full_rows) let the compact path read the
-    edge list."""
+    edge list. `shard` keeps only that shard's row block (a 1-tuple), as a
+    rank of a mesh does: the full-capacity operands are still built, and
+    only its rows are gathered from them."""
     _check_kind(cfg)
     dev = resolve_device(device)
     full, c = part.full_rows, part.shard_cap
@@ -1106,19 +1164,23 @@ def build_sharded_operands(g, part, cfg: GNNConfig, *,
     ho = prepare_host_operands(pg, cfg, keys=keys, device=dev)
     ops = (materialize_operands(ho.compact.to(dev))
            if ho.compact is not None else ho.eager)
-    perm = torch.from_numpy(np.asarray(part.perm, np.int64)).to(dev)
-    mats = {f: getattr(ops, f).index_select(0, perm).index_select(1, perm)
+    perm_np = np.asarray(part.perm, np.int64)
+    shards = range(part.shards) if shard is None else (shard,)
+    rows_np = perm_np if shard is None else perm_np[shard * c:(shard + 1) * c]
+    perm = torch.from_numpy(perm_np).to(dev)
+    rows = torch.from_numpy(rows_np).to(dev)
+    mats = {f: getattr(ops, f).index_select(0, rows).index_select(1, perm)
             for f in OPERAND_FIELDS[cfg.kind]}
     del ops
-    feats = torch.from_numpy(pg.features[part.perm]).to(dev)
-    mask = torch.from_numpy((part.perm < pg.num_nodes).astype(
+    feats = torch.from_numpy(pg.features[rows_np]).to(dev)
+    mask = torch.from_numpy((rows_np < pg.num_nodes).astype(
         np.float32)).to(dev)
     return tuple(
-        ShardSlice(x=feats[s * c:(s + 1) * c],
-                   ops=GranniteOperands(**{f: m[s * c:(s + 1) * c]
+        ShardSlice(x=feats[i * c:(i + 1) * c],
+                   ops=GranniteOperands(**{f: m[i * c:(i + 1) * c]
                                            for f, m in mats.items()}),
-                   node_mask=mask[s * c:(s + 1) * c])
-        for s in range(part.shards))
+                   node_mask=mask[i * c:(i + 1) * c])
+        for i, _ in enumerate(shards))
 
 
 def _stack_blocks(ts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -1151,10 +1213,14 @@ def stack_shard_slices(slices: Sequence[ShardSlice]
             _stack_blocks([s.node_mask for s in slices]))
 
 
-def unshard_logits(stacked, part) -> np.ndarray:
+def unshard_logits(stacked, part, mesh=None) -> np.ndarray:
     """(shards, shard_cap, classes) slot-ordered logits -> (num_nodes,
     classes) in the original node order (the inverse of `part.perm`), on
-    the host."""
+    the host. With `mesh`, `stacked` is this rank's (shard_cap, classes)
+    block, gathered over the shard group first (`dist.sharding.
+    assemble`)."""
+    if mesh is not None:
+        stacked = assemble(stacked, ("shard", None), mesh)
     if isinstance(stacked, torch.Tensor):
         stacked = stacked.cpu().numpy()
     flat = np.asarray(stacked).reshape(part.full_rows, -1)
@@ -1164,7 +1230,7 @@ def unshard_logits(stacked, part) -> np.ndarray:
 
 
 def halo_exchange(h_own: torch.Tensor, node_mask: torch.Tensor, *,
-                  compress: bool = True) -> torch.Tensor:
+                  compress: bool = True, group=None) -> torch.Tensor:
     """The full (full_rows, width) matrix from the shards' row blocks.
 
     h_own: (R, S, shard_cap, width), node_mask: (R, S, shard_cap) ->
@@ -1180,7 +1246,18 @@ def halo_exchange(h_own: torch.Tensor, node_mask: torch.Tensor, *,
     each element within scale/2 of the exact exchange. Without, the masked
     rows exactly. Padded rows are zeroed first, so softmax garbage in pad
     rows (GAT) never inflates the shared scale.
+
+    With `group` (a mesh's shard group) h_own is this rank's (1, 1,
+    shard_cap, width) block and the exchange runs as the reference's:
+    each rank writes its masked rows into its slot range of a zeroed
+    (S * shard_cap, width) buffer and the group sums the buffers with one
+    `all_reduce`. With `compress` the scale is the group's pmax and the
+    buffer is int8 on the wire: one non-zero term per element, so the sum
+    is exact in int8 and the wire moves a quarter of the fp32 bytes. The
+    result equals the stacked form's bit for bit.
     """
+    if group is not None:
+        return _group_exchange(h_own, node_mask, compress, group)
     r, s, c, w = h_own.shape
     buf = (h_own * node_mask[..., None]).reshape(r, s * c, w)
     if compress:
@@ -1189,6 +1266,23 @@ def halo_exchange(h_own: torch.Tensor, node_mask: torch.Tensor, *,
         return quantize_wire(buf, scale) * scale
     # + 0.0: the reference's sum of a -0.0 with the other shards' zeros
     return buf + 0.0
+
+
+def _group_exchange(h_own: torch.Tensor, node_mask: torch.Tensor,
+                    compress: bool, group) -> torch.Tensor:
+    """`halo_exchange` over a process group: (1, 1, C, w) -> (1, S*C, w)."""
+    c, w = h_own.shape[-2:]
+    idx, s = dist.get_rank(group), dist.get_world_size(group)
+    buf = (h_own * node_mask[..., None]).reshape(c, w)
+    if compress:
+        scale = torch.clamp_min(pmax(buf.abs().amax(), group),
+                                1e-12) * INV_INT8_MAX
+        wire = buf.new_zeros((s * c, w), dtype=torch.int8)
+        wire[idx * c:(idx + 1) * c] = quantize_wire(buf, scale).to(torch.int8)
+        return (psum(wire, group).to(buf.dtype) * scale)[None]
+    full = buf.new_zeros((s * c, w))
+    full[idx * c:(idx + 1) * c] = buf
+    return psum(full, group)[None]
 
 
 def _head_scores(h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -1205,13 +1299,15 @@ def _head_scores(h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def sharded_layer(params: Dict, cfg: GNNConfig, v_own: torch.Tensor,
                   ops_: GranniteOperands, node_mask: torch.Tensor,
                   t: Techniques, quant: Optional[Dict] = None, *,
-                  layer: int, compress: bool = True) -> torch.Tensor:
+                  layer: int, compress: bool = True,
+                  group=None) -> torch.Tensor:
     """Layer `layer` (1 or 2) of the sharded forward, before its
     activation: v_own (R, S, shard_cap, F) -> (R, S, shard_cap, w).
     `params` and `quant` are the model's (the layer picks its own);
-    see `forward_grannite_sharded`."""
+    see `forward_grannite_sharded`. With `group` (a mesh's shard group)
+    R = S = 1: this rank's block, exchanged over the group."""
     r, s, c = node_mask.shape
-    full = s * c
+    full = c * (s if group is None else dist.get_world_size(group))
     tq = (quant or {}) if t.quantgr else {}
     p = params[f"l{layer}"]
     uk = t.use_pallas
@@ -1222,7 +1318,7 @@ def sharded_layer(params: Dict, cfg: GNNConfig, v_own: torch.Tensor,
 
     def exchange(h_own):               # (R*S, C, w) -> (R, full, w)
         return halo_exchange(h_own.reshape(r, s, c, -1), node_mask,
-                             compress=compress)
+                             compress=compress, group=group)
 
     def mm(a, b):
         return kops.matmul(a, b) if uk else a @ b
@@ -1291,8 +1387,10 @@ def sharded_layer(params: Dict, cfg: GNNConfig, v_own: torch.Tensor,
 def forward_grannite_sharded(params: Dict, cfg: GNNConfig, x: torch.Tensor,
                              ops_: GranniteOperands, node_mask: torch.Tensor,
                              t: Techniques, quant: Optional[Dict] = None, *,
-                             compress: bool = True) -> torch.Tensor:
-    """The shards' sharded GraNNite forward (DESIGN.md §12), all at once.
+                             compress: bool = True,
+                             group=None) -> torch.Tensor:
+    """The shards' sharded GraNNite forward (DESIGN.md §12), all at once,
+    or with `group` one rank's shard of it.
 
     x: (R, S, shard_cap, F) feature rows; `ops_` fields (R, S, shard_cap,
     full_rows) rectangular operand row blocks; node_mask (R, S,
@@ -1316,10 +1414,11 @@ def forward_grannite_sharded(params: Dict, cfg: GNNConfig, x: torch.Tensor,
     replicas. What every shard computes from the exchanged matrix alone
     (GAT's source scores, SAGE-max's pool combine) is computed once per
     replica and read by its shards: the reference computes the same
-    values in every shard.
+    values in every shard, and so does a rank of a mesh (`group`, with R
+    = S = 1 here: its own block), on the same bits.
     """
     act = torch.nn.functional.elu if cfg.kind == "gat" else torch.relu
-    kw = dict(t=t, quant=quant, compress=compress)
+    kw = dict(t=t, quant=quant, compress=compress, group=group)
     h = act(sharded_layer(params, cfg, x, ops_, node_mask, layer=1, **kw))
     return sharded_layer(params, cfg, h, ops_, node_mask, layer=2, **kw)
 
@@ -1327,7 +1426,8 @@ def forward_grannite_sharded(params: Dict, cfg: GNNConfig, x: torch.Tensor,
 def build_sharded_plan(cfg: GNNConfig, shard_cap: int, shards: int,
                        t: Techniques, *, compress: bool = True,
                        replicas: int = 1,
-                       device: DeviceLike = None) -> ExecutionPlan:
+                       device: DeviceLike = None,
+                       mesh=None) -> ExecutionPlan:
     """Sharded ExecutionPlan on `device`: every shard's aggregate and
     combine, the halo exchange between layers (DESIGN.md §12).
 
@@ -1342,8 +1442,21 @@ def build_sharded_plan(cfg: GNNConfig, shard_cap: int, shards: int,
     call, each exchanging within itself, so every replica row equals its
     single-replica dispatch bit for bit. `replicas=1` takes no replica
     dim.
+
+    `mesh` (`launch.mesh.make_shard_mesh(shards, replicas)`) places the
+    plan as the reference's `shard_map` does, one rank per (replica,
+    shard) cell: every rank calls the plan with its OWN block, x
+    (shard_cap, F), the kind's (shard_cap, full_rows) row blocks and the
+    (shard_cap,) node mask, and gets its (shard_cap, classes) logits; the
+    halo exchange is a sum over the mesh's shard group, and the weights
+    and the calibration are the same on every rank (replicated, the
+    reference's `P()`). `device` defaults to the mesh's. A rank's logits
+    equal its rows of the stacked plan's bit for bit.
     """
     _check_kind(cfg)
+    if mesh is not None:
+        return _mesh_sharded_plan(cfg, shard_cap, shards, t, compress,
+                                  replicas, device, mesh)
     dev = resolve_device(device)
     plan = ExecutionPlan(cfg=cfg, techniques=t, capacity=shard_cap,
                          batch_size=0, backend="dense", fusion="none",
@@ -1363,6 +1476,43 @@ def build_sharded_plan(cfg: GNNConfig, shard_cap: int, shards: int,
         out = forward_grannite_sharded(params, cfg, x, ops_, node_mask, t,
                                        quant, compress=compress)
         return out[0] if replicas == 1 else out
+
+    plan.fn = _forward
+    return plan
+
+
+def _mesh_sharded_plan(cfg, shard_cap, shards, t, compress, replicas,
+                       device, mesh) -> ExecutionPlan:
+    """`build_sharded_plan`'s mesh branch: this rank's block of the
+    (replicas, shards) layout."""
+    want = {"shard": shards, **({"replica": replicas} if replicas > 1
+                                else {})}
+    if dict(mesh.shape) != want:
+        raise ValueError(f"a plan of {replicas} x {shards} on a mesh of "
+                         f"shape {dict(mesh.shape)}")
+    dev = resolve_device(device if device is not None else mesh.device)
+    group = mesh.group("shard")
+    plan = ExecutionPlan(cfg=cfg, techniques=t, capacity=shard_cap,
+                         batch_size=0, backend="dense", fusion="none",
+                         shards=shards)
+    fields = OPERAND_FIELDS[cfg.kind]
+
+    def _forward(params, x, ops_, node_mask, quant):
+        for name, v in [("x", x), ("node_mask", node_mask)] + [
+                (f, getattr(ops_, f)) for f in fields]:
+            if v.device != dev:
+                raise ValueError(f"plan on {dev} called with {name} on "
+                                 f"{v.device}")
+        if x.shape[0] != shard_cap or node_mask.shape != (shard_cap,):
+            raise ValueError(f"a rank's block is ({shard_cap}, ...); got x "
+                             f"{tuple(x.shape)}, node_mask "
+                             f"{tuple(node_mask.shape)}")
+        cell = GranniteOperands(**{f: getattr(ops_, f)[None, None]
+                                   for f in fields})
+        out = forward_grannite_sharded(params, cfg, x[None, None], cell,
+                                       node_mask[None, None], t, quant,
+                                       compress=compress, group=group)
+        return out[0, 0]
 
     plan.fn = _forward
     return plan

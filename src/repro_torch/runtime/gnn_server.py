@@ -117,8 +117,27 @@ graph's materialized Â permuted into slot order on the device.
 `update()` crosses the sharding boundary both ways; `update_delta`
 patches the row blocks under the kept partition, bit-equal to a sharded
 rebuild, and counts the boundary-dirty rows and the halo bytes a
-distributed deployment would move (`delta_halo_bytes_*`). A placement
-across several cards is ROADMAP queue 1 item 16.
+distributed deployment would move (`delta_halo_bytes_*`).
+
+On a mesh of ranks (`GraphServe(mesh=)`, `launch.mesh.make_shard_mesh`,
+DESIGN.md §12, §15) the same engine runs SPMD, one process per (replica,
+shard) cell: every rank makes the same calls in the same order (attach,
+submit/query, run, update, update_delta, detach), with the same weights
+and graphs. Each rank caches and serves only its own row block of every
+sharded graph, runs its products through the same kernels, exchanges the
+halo over the shard group (`build_sharded_plan(mesh=)`), and the logits
+are gathered over the mesh. The rank at the mesh's origin (the lead)
+takes every decision that reads a clock or the latency bank (the expiry
+sweep, the batch, and the tier the router or governor picked), and
+broadcasts each sharded batch's uids and tier before its first
+collective, so ranks whose clocks differ still run the same batches. It
+alone serves unsharded requests: the other ranks give such a submit or
+query its uid and skip it, as they skip the unsharded warmup. Partitions
+are deterministic, and attach() and update() check that every rank's
+equals the lead's. The lead's `summary()` equals a single-process
+engine's on the same calls, apart from `cache_resident_bytes`, which
+holds one row block of each sharded graph. The pipeline scheduler, which
+batches by timing, is not available on a mesh (ROADMAP queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -130,6 +149,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import costs
 from repro_torch.core.costs import transfer_cost
@@ -161,6 +181,7 @@ from repro_torch.core.sparsity import (BlockSparse, block_stats,
                                        grasp_max_nnz, select_agg_backend)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.compress import ring_psum_nbytes
+from repro_torch.dist.sharding import assemble
 from repro_torch.runtime.cache import (CacheAdmissionError,
                                        DeviceCacheManager,
                                        estimate_dense_entry_bytes,
@@ -187,6 +208,9 @@ AGG_BACKEND_MODES = ("dense", "auto", "grasp")
 
 # (model, bucket, tier, agg backend, fusion mode, shard count — 0 unsharded)
 BatchKey = Tuple[str, int, str, str, str, int]
+
+# the lead's messages to the other ranks of a mesh (`GraphServe._tell`)
+_DONE, _BATCH = 0, 1
 
 
 def best_fill_key(stats: Dict[BatchKey, Tuple[int, int]], batch_slots: int,
@@ -322,8 +346,9 @@ class GNNRequest:
     deadline_missed: bool = False          # §14: expired unserved (preds is
     # None) or finished past its deadline (preds still delivered)
     shards: int = 0                        # >0: a sharded dispatch (§12);
-    # then `ops` holds the STACKED (S, C, full) operand row blocks and the
-    # three fields below carry the rest of the sharded calling convention
+    # then `ops` holds the STACKED (S, C, full) operand row blocks (on a
+    # mesh, this rank's (C, full) block) and the three fields below carry
+    # the rest of the sharded calling convention
     part: Optional[GraphShards] = None     # the partition (unshard map)
     shard_x: Optional[torch.Tensor] = None  # (S, C, F) stacked features
     shard_mask: Optional[torch.Tensor] = None  # (S, C) real-row masks
@@ -378,7 +403,8 @@ class _ModelEntry:
 class GraphServe:
     def __init__(self, sc: Optional[GraphServeConfig] = None, *, seed: int = 0,
                  clock: Optional[Clock] = None,
-                 slo: Optional[SLOConfig] = None, device: DeviceLike = None):
+                 slo: Optional[SLOConfig] = None, device: DeviceLike = None,
+                 mesh=None):
         self.sc = sc or GraphServeConfig()
         if self.sc.admission not in ("evict", "reject"):
             raise ValueError(f"unknown admission policy "
@@ -390,6 +416,12 @@ class GraphServe:
         if self.sc.replica_groups < 1:
             raise ValueError(f"replica_groups must be >= 1, got "
                              f"{self.sc.replica_groups}")
+        # the mesh of ranks this engine is one of (None: one process);
+        # `device` defaults to the mesh's
+        self.mesh = mesh
+        if mesh is not None:
+            self._check_mesh(mesh)
+            device = device if device is not None else mesh.device
         self.device = resolve_device(device)
         self.seed = seed
         # every timestamp, deadline and latency sample reads this clock;
@@ -440,6 +472,8 @@ class GraphServe:
         self._gid = 0
         self._dispatch_serial = 0
         self._last_dispatch: Dict[str, int] = {}   # model -> dispatch serial
+        # the lead's sharded uids expired since its last message (a mesh)
+        self._expired_out: List[int] = []
         self.metrics = {"batches": 0, "slots_filled": 0, "slots_total": 0,
                         "rebucket_events": 0, "latency_s": [],
                         "first_submit_s": None, "last_finish_s": None,
@@ -460,6 +494,66 @@ class GraphServe:
                         "delta_halo_bytes_exchanged": 0,
                         "delta_halo_bytes_full": 0,
                         "delta_dirty_rows": 0}
+
+    def _check_mesh(self, mesh) -> None:
+        """Raise unless this config serves on `mesh`: its shape is
+        (replica_groups x) shards, and the one shard count is the mesh's."""
+        want = {"shard": mesh.shape.get("shard")}
+        if self.sc.replica_groups > 1:
+            want = {"replica": self.sc.replica_groups, **want}
+        if dict(mesh.shape) != want:
+            raise ValueError(f"replica_groups={self.sc.replica_groups} "
+                             f"serves on a mesh of shape {want}, not "
+                             f"{dict(mesh.shape)}")
+        if tuple(self.sc.shard_counts) != (mesh.shape["shard"],):
+            raise ValueError(f"on a mesh of {mesh.shape['shard']} shards, "
+                             f"shard_counts must be ({mesh.shape['shard']},)"
+                             f", not {tuple(self.sc.shard_counts)}: every "
+                             f"sharded graph takes one rank per shard")
+
+    @property
+    def _lead(self) -> bool:
+        """Whether this engine takes the decisions and serves unsharded
+        requests: one process, or the mesh's origin rank."""
+        return self.mesh is None or self.mesh.is_first
+
+    def _mesh_group(self):
+        """The process group of every rank of the mesh."""
+        return self.mesh.group(*self.mesh.axis_names)
+
+    def _row0(self, shard_cap: int) -> int:
+        """This rank's first slot row of a sharded graph."""
+        return self.mesh.coords["shard"] * shard_cap
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """The lead's `t` on every rank of the mesh (in place)."""
+        dist.broadcast(t, src=self.mesh.first_rank, group=self._mesh_group())
+        return t
+
+    def _agree_partition(self, part: GraphShards) -> None:
+        """On a mesh: raise on every rank unless every rank's partition
+        is the lead's (`partition_for_ladder` is deterministic, so they
+        are; a rank that differed would exchange the wrong rows)."""
+        if self.mesh is None:
+            return
+        perm = torch.from_numpy(np.asarray(part.perm, np.int64)).to(
+            self.device)
+        differs = (self._broadcast(perm.clone()) != perm).any()
+        differs = differs.to(torch.int64).reshape(1)
+        dist.all_reduce(differs, op=dist.ReduceOp.MAX,
+                        group=self._mesh_group())
+        if differs.item():
+            raise RuntimeError("the ranks of the mesh partitioned a graph "
+                               "differently")
+
+    def _skip(self) -> int:
+        """A request a non-lead rank of a mesh does not serve (unsharded):
+        it takes its uid, so the ranks' uids stay equal, and nothing
+        else."""
+        with self._lock:
+            uid = self._uid
+            self._uid += 1
+        return uid
 
     def _count(self, name: str, delta=1) -> None:
         with self._lock:
@@ -680,7 +774,8 @@ class GraphServe:
             if key not in self._plans:
                 self._plans[key] = build_sharded_plan(
                     e.cfg, bucket, shards, t, compress=self.sc.halo_compress,
-                    replicas=self.sc.replica_groups, device=self.device)
+                    replicas=self.sc.replica_groups, device=self.device,
+                    mesh=self.mesh)
             return self._plans[key]
         self._seed_bank(model, bucket, tier_name, backend, fusion)
         key = (e.cfg, bucket, self.sc.batch_slots, t, backend, fusion, 0)
@@ -726,13 +821,15 @@ class GraphServe:
         warms every sharded plan (shard count x bucket x tier) on
         placeholder row blocks, and the delta patcher at each full row
         count (`_warm_sharded`), so a graph that shards after warmup and
-        mixed sharded/unsharded traffic replay warm. Returns
+        mixed sharded/unsharded traffic replay warm. On a mesh every rank
+        warms the sharded leg (its plans exchange, so all ranks call
+        warmup() together) and only the lead the unsharded one. Returns
         `compiled_blobs`."""
         buckets = buckets if buckets is not None else self.sc.ladder.buckets
         b = self.sc.batch_slots
         warm_cal: Dict[Tuple[str, str], Dict] = {}
         warmed: set = set()
-        for bucket in buckets:
+        for bucket in (buckets if self._lead else ()):
             empty = pad_graph(Graph(edge_index=np.zeros((2, 0), np.int32),
                                     num_nodes=1,
                                     features=np.zeros((1, 1), np.float32)),
@@ -793,20 +890,23 @@ class GraphServe:
         """Warm one model's sharded plans at (shards, bucket) on
         placeholder inputs of the sharded calling convention: (R?, S, C,
         F) features, (R?, S, C, S*C) row blocks for the kind's fields,
-        all-padding node masks (R only with `replica_groups` > 1). An
-        uncalibrated QuantGr tier warms against the unsharded leg's
-        throwaway calibration. A GCN or GAT model also
-        warms the delta patcher at the (full, full) matrices a sharded
-        delta patches."""
+        all-padding node masks (R only with `replica_groups` > 1); on a
+        mesh, this rank's (C, F), (C, S*C) and (C,) block. An uncalibrated
+        QuantGr tier warms against the unsharded leg's throwaway
+        calibration (made here where that leg did not run). A GCN or GAT
+        model also warms the delta patcher at the (full, full) matrices a
+        sharded delta patches (a rank's (C, full) row block)."""
         full = shards * bucket
-        lead = ((self.sc.replica_groups,) if self.sc.replica_groups > 1
-                else ())
+        lead = ((self.sc.replica_groups, shards)
+                if self.sc.replica_groups > 1 else (shards,))
+        if self.mesh is not None:
+            lead = ()                       # this rank's block alone
         dev = self.device
         fields = OPERAND_FIELDS[e.cfg.kind]
-        x = torch.zeros((*lead, shards, bucket, e.cfg.in_feats), device=dev)
-        mask = torch.zeros((*lead, shards, bucket), device=dev)
+        x = torch.zeros((*lead, bucket, e.cfg.in_feats), device=dev)
+        mask = torch.zeros((*lead, bucket), device=dev)
         ops = GranniteOperands(**{
-            f: torch.zeros((*lead, shards, bucket, full), device=dev)
+            f: torch.zeros((*lead, bucket, full), device=dev)
             for f in fields})
         for tier, t in e.tiers.items():
             plan = self.plan_for(name, bucket, tier, shards=shards)
@@ -815,7 +915,15 @@ class GraphServe:
             warmed.add((name, plan.key))
             quant = e.calibrations.get(tier)
             if quant is None and t.quantgr:
-                # the unsharded leg made this placeholder calibration
+                if (name, tier) not in warm_cal:
+                    empty = pad_graph(Graph(
+                        edge_index=np.zeros((2, 0), np.int32), num_nodes=1,
+                        features=np.zeros((1, 1), np.float32)),
+                        capacity=bucket)
+                    warm_cal[(name, tier)] = calibrate_tier(
+                        e.params, e.cfg, torch.zeros(
+                            (bucket, e.cfg.in_feats), device=dev),
+                        build_operands(empty, e.cfg, device=dev))
                 quant = warm_cal[(name, tier)]
             plan(e.params, x, ops, quant, node_mask=mask)
         if (self.sc.delta_pad_rows > 0 and e.cfg.kind in ("gcn", "gat")
@@ -823,12 +931,14 @@ class GraphServe:
             warmed.add(("delta", full, fields))
             kt, ke = self._delta_pads(full)
             zeros = np.zeros((ke,), np.int32)
+            rows, row0 = ((full, None) if self.mesh is None
+                          else (bucket, self._row0(bucket)))
             self._delta_patcher(
-                GranniteOperands(**{f: torch.zeros((full, full), device=dev)
+                GranniteOperands(**{f: torch.zeros((rows, full), device=dev)
                                     for f in fields}),
                 self._delta_spec(full, fields, zeros, zeros,
                                  zeros.astype(np.float32), zeros[:kt],
-                                 np.zeros((full,), np.float32)))
+                                 np.zeros((full,), np.float32)), row0=row0)
 
     def _delta_pads(self, cap: int) -> Tuple[int, int]:
         """(touched, flip) pad widths of the delta patcher at one capacity:
@@ -1206,7 +1316,10 @@ class GraphServe:
                tolerance: Optional[float] = None) -> int:
         """One-shot inference request over a static graph. `deadline_ms`
         (from now) and `tolerance` (most accuracy points the tier router
-        may trade) opt the request into the §14 SLO machinery."""
+        may trade) opt the request into the §14 SLO machinery. On a mesh
+        only the lead serves it (the others take its uid)."""
+        if not self._lead:
+            return self._skip()
         return self._push(self.prepare_submit(g, model=model, tier=tier,
                                               fusion=fusion,
                                               deadline_ms=deadline_ms,
@@ -1274,10 +1387,13 @@ class GraphServe:
 
     def _partition(self, g: Graph) -> GraphShards:
         """The configured N-way partition of a graph above the top bucket
-        (`partition_for_ladder`; raises when no shard count fits)."""
-        return partition_for_ladder(g.edge_index, g.num_nodes,
+        (`partition_for_ladder`; raises when no shard count fits), checked
+        equal on every rank of a mesh."""
+        part = partition_for_ladder(g.edge_index, g.num_nodes,
                                     self.sc.ladder, self.sc.shard_counts,
                                     method=self.sc.partition_method)
+        self._agree_partition(part)
+        return part
 
     def _projected_primary_bytes(self, model: str, pg: PaddedGraph,
                                  part: Optional[GraphShards] = None) -> int:
@@ -1288,9 +1404,10 @@ class GraphServe:
         cfg = self.models[model].cfg
         nf = len(OPERAND_FIELDS[cfg.kind])
         if part is not None:
-            return estimate_shard_entry_bytes(part.shards, part.shard_cap,
-                                              part.full_rows, nf,
-                                              cfg.in_feats)
+            # a rank of a mesh holds one row block
+            return estimate_shard_entry_bytes(
+                part.shards if self.mesh is None else 1, part.shard_cap,
+                part.full_rows, nf, cfg.in_feats)
         return estimate_dense_entry_bytes(nf, pg.capacity)
 
     @staticmethod
@@ -1562,7 +1679,9 @@ class GraphServe:
         permuted), and cut into row blocks again. Features and node masks
         are untouched: an edge delta moves no node, and the partition is
         deliberately KEPT (a fresh partition would reshuffle the slots and
-        owe a full rebuild). Returns the tuple and the spec's bytes."""
+        owe a full rebuild). On a mesh the rank patches its own row block
+        alone (`patch_operands(row0=)`), equal to those rows of the whole
+        patch. Returns the tuple and the spec's bytes."""
         full, c = part.full_rows, part.shard_cap
         invperm = np.empty((full,), np.int64)
         invperm[part.perm] = np.arange(full)
@@ -1571,6 +1690,10 @@ class GraphServe:
                                 invperm[delta.flip_j], delta.flip_v,
                                 np.sort(invperm[delta.touched]),
                                 degree[part.perm])
+        if self.mesh is not None:
+            sl = slices[0]
+            return (dataclasses.replace(sl, ops=self._delta_patcher(
+                sl.ops, spec, row0=self._row0(c))),), spec.nbytes
         _, stacked, _ = stack_shard_slices(slices)
         patched = self._delta_patcher(
             GranniteOperands(**{f: getattr(stacked, f).reshape(full, full)
@@ -1760,7 +1883,9 @@ class GraphServe:
         sharded GCN int8 path derives the int8 Â from its complete row
         blocks in the forward, so no sharded tier operand is cached.
         Backend is always dense and fusion "none": the batch key's shard
-        element keeps these dispatches apart from unsharded ones."""
+        element keeps these dispatches apart from unsharded ones. On a
+        mesh the cached tuple holds this rank's row block alone, and the
+        tier resolved here is replaced by the lead's at dispatch."""
         part, g = sharded
         e = self.models[model]
         resolved = self._route_tier(model, tier, tolerance, part.shard_cap)
@@ -1769,12 +1894,17 @@ class GraphServe:
             self.metrics["operand_cache_hits" if slices is not None
                          else "operand_cache_misses"] += 1
         if slices is None:
-            slices = build_sharded_operands(g, part, e.cfg, pg=pg, keys=keys,
-                                            device=self.device)
+            slices = build_sharded_operands(
+                g, part, e.cfg, pg=pg, keys=keys, device=self.device,
+                shard=None if self.mesh is None
+                else self.mesh.coords["shard"])
             nb = self._shard_entry_nbytes(slices)
             self._publish("shard", graph_id, ver, slices, nbytes=nb,
                           remat_s=transfer_cost(nb))
-        x, ops, mask = stack_shard_slices(slices)
+        if self.mesh is None:
+            x, ops, mask = stack_shard_slices(slices)
+        else:
+            x, ops, mask = slices[0].x, slices[0].ops, slices[0].node_mask
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
         with self._lock:
@@ -1794,7 +1924,14 @@ class GraphServe:
               fusion: Optional[str] = None,
               deadline_ms: Optional[float] = None,
               tolerance: Optional[float] = None) -> int:
-        """Enqueue inference over an attached graph (see `prepare_query`)."""
+        """Enqueue inference over an attached graph (see `prepare_query`).
+        On a mesh every rank prepares a query over a sharded graph (its
+        own row block) and only the lead one over an unsharded graph."""
+        if not self._lead:
+            with self._lock:
+                sharded = graph_id in self._sharded
+            if not sharded:
+                return self._skip()
         return self._push(self.prepare_query(graph_id, tier=tier,
                                              fusion=fusion,
                                              deadline_ms=deadline_ms,
@@ -1802,9 +1939,67 @@ class GraphServe:
 
     # --------------------------------------------------------------- execution
     def run(self) -> List[GNNRequest]:
+        """Serve the queue. On a mesh every rank calls it together: the
+        lead runs the batches and tells the others each sharded batch it
+        picked (`_tell`), which they follow (`_follow`)."""
+        if not self._lead:
+            self._follow()
+            return self.finished
         while self.queue:
             self._run_batch()
+        if self.mesh is not None:
+            self._tell(_DONE)
         return self.finished
+
+    def _tell(self, op: int, batch: Sequence[GNNRequest] = ()) -> None:
+        """The lead's message to the mesh: `op`, a sharded batch's uids
+        and the tier it serves at, and the sharded requests expired since
+        the last message. A header of 4 int64 then the uids, broadcast
+        before the batch's first collective."""
+        expired, self._expired_out = self._expired_out, []
+        tier = (list(self.models[batch[0].model].tiers).index(batch[0].tier)
+                if batch else 0)
+        self._broadcast(torch.tensor([op, len(batch), len(expired), tier],
+                                     dtype=torch.int64, device=self.device))
+        if batch or expired:
+            self._broadcast(torch.tensor([r.uid for r in batch] + expired,
+                                         dtype=torch.int64,
+                                         device=self.device))
+
+    def _follow(self) -> None:
+        """A non-lead rank's `run()`: take the lead's messages in order,
+        finish the requests it expired, and run each sharded batch it
+        picked, at its tier, until it is done. The queue must then be
+        empty: every rank queued the same sharded requests."""
+        while True:
+            op, nb, ne, tier = self._broadcast(torch.zeros(
+                4, dtype=torch.int64, device=self.device)).tolist()
+            uids = (self._broadcast(torch.zeros(
+                nb + ne, dtype=torch.int64, device=self.device)).tolist()
+                if nb + ne else [])
+            gone = set(uids[nb:])
+            if gone:
+                self._complete_expired([r for r in self.queue
+                                        if r.uid in gone], self.clock.now())
+            by_uid = {r.uid: r for r in self.queue if r.uid not in gone}
+            if op == _DONE:
+                if by_uid:
+                    raise RuntimeError(
+                        f"rank {dist.get_rank()} still holds requests "
+                        f"{sorted(by_uid)} the lead never dispatched")
+                self.queue = []
+                return
+            missing = [u for u in uids[:nb] if u not in by_uid]
+            if missing:
+                raise RuntimeError(f"rank {dist.get_rank()} has no request "
+                                   f"{missing} of the lead's batch")
+            batch = [by_uid[u] for u in uids[:nb]]
+            name = list(self.models[batch[0].model].tiers)[tier]
+            for r in batch:
+                r.tier = name
+            taken = set(uids)
+            self.queue = [r for r in self.queue if r.uid not in taken]
+            self._execute_sharded(batch)
 
     def _complete_expired(self, expired: List[GNNRequest],
                           now: float) -> None:
@@ -1840,6 +2035,7 @@ class GraphServe:
             gone = {r.uid for r in expired}
             self.queue = [r for r in self.queue if r.uid not in gone]
             self._complete_expired(expired, now)
+            self._expired_out.extend(r.uid for r in expired if r.shards)
             if not self.queue:
                 return
         # best-filling key first, with slack as the tie-break; tier, backend
@@ -1854,6 +2050,8 @@ class GraphServe:
                      r.shards) == key][:take]
         taken = {r.uid for r in batch}
         self.queue = [r for r in self.queue if r.uid not in taken]
+        if self.mesh is not None and key[5]:
+            self._tell(_BATCH, batch)
         self._execute_batch(batch)
 
     def _execute_batch(self, batch: List[GNNRequest]) -> None:
@@ -1954,7 +2152,11 @@ class GraphServe:
         requests, one per replica row; junk rows repeat the last real
         request and their outputs are dropped. Each replica exchanges
         within itself, so the collective bytes are counted per REAL
-        request: what the int8 wire moves and what exact fp32 would."""
+        request: what the int8 wire moves and what exact fp32 would. On a
+        mesh the rank at (replica r, shard s) runs shard s of the batch's
+        r-th request, and the (R, S, C, classes) logits are gathered over
+        the mesh (`dist.sharding.assemble`), so every rank answers every
+        request of the batch."""
         head = batch[0]
         r_width = self.sc.replica_groups
         bkey = self._bank_key(head.model, head.bucket, head.tier, "dense",
@@ -1968,7 +2170,17 @@ class GraphServe:
             plan = self.plan_for(head.model, head.bucket, head.tier,
                                  shards=head.shards)
             quant = e.calibrations.get(head.tier)
-            if r_width == 1:
+            if self.mesh is not None:
+                slots = batch + [batch[-1]] * (r_width - len(batch))
+                mine = slots[self.mesh.coords.get("replica", 0)]
+                block = plan(e.params, mine.shard_x, mine.ops, quant,
+                             node_mask=mine.shard_mask)
+                logits = (assemble(block[None, None], ("replica", "shard",
+                                                       None, None),
+                                   self.mesh) if r_width > 1 else
+                          assemble(block[None], ("shard", None, None),
+                                   self.mesh))
+            elif r_width == 1:
                 logits = plan(e.params, head.shard_x, head.ops, quant,
                               node_mask=head.shard_mask)
             else:
@@ -2026,7 +2238,15 @@ class GraphServe:
         `runtime.scheduler.PipelineScheduler` whose host workers run this
         engine's `prepare_submit`/`prepare_query` while its dispatcher
         runs `_execute_batch`. Use it as a context manager; the sync
-        `submit`/`query` + `run()` path stays usable beside it."""
+        `submit`/`query` + `run()` path stays usable beside it. Not on a
+        mesh: it batches by timing, which the ranks cannot agree on; its
+        mesh form is ROADMAP queue 1 item 16."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the pipeline scheduler batches by timing, which the ranks "
+                "of a mesh would not agree on; serve a mesh through "
+                "submit/query + run() (the pipeline on a mesh is ROADMAP "
+                "queue 1 item 16)")
         from repro_torch.runtime.scheduler import PipelineScheduler
         return PipelineScheduler(self, pc)
 

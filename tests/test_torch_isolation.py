@@ -61,7 +61,28 @@ def test_port_file_list_covers_every_slice():
             "examples/train_lm.py", "examples/serve_llm.py",
             "examples/dynamic_graph_serving.py",
             "examples/sparse_serving.py",
-            "examples/async_pipeline.py"} <= names
+            "examples/async_pipeline.py", "launch/mesh.py",
+            "dist/sharding.py", "launch/shard_serve.py"} <= names
+
+
+def test_mesh_rank_program_imports_no_jax_and_no_reference():
+    """The rank processes of tests/test_torch_mesh.py run without JAX."""
+    path = ROOT / "tests" / "torch_mesh_rank.py"
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"tests/torch_mesh_rank.py imports {bad}"
+
+
+def test_mesh_modules_load_no_jax():
+    """Importing the mesh, the distribution rules and the per-rank entry
+    point loads no JAX or reference module."""
+    code = ("import sys\n"
+            "import repro_torch.launch.mesh, repro_torch.dist.sharding\n"
+            "import repro_torch.launch.shard_serve\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
 
 
 def _serve_on_cpu_without_jax(kind, aggregator="mean"):
