@@ -4069,8 +4069,9 @@ def mesh_phase(dev, card):
           f"[mesh] a kernel of {SHARD_KERNELS} never launched: {total}")
 
     # NCCL, both worlds at once: the group forms on a world of one rank,
-    # and two ranks on this one card (NCCL's answer is recorded, not
-    # required)
+    # and two ranks on this one card. Of the two, NCCL's refusal of a
+    # second rank on the card ("Duplicate GPU detected") is recorded;
+    # any other failure fails the phase, and a run is checked as one
     def nccl(world):
         return ss.spawn_local(world, [
             "--collectives", "--backend", "nccl", "--device", str(dev),
@@ -4078,16 +4079,19 @@ def mesh_phase(dev, card):
 
     with ThreadPoolExecutor(2) as pool:
         one, two = pool.submit(nccl, 1), pool.submit(nccl, 2)
-        o = ss.last_json(one.result()[0])
+        runs = [ss.last_json(one.result()[0])]
         try:
-            two.result()
-            nccl2 = "ran"
+            runs += [ss.last_json(t) for t in two.result()]
+            nccl2 = "ran, the group forms equal the stacked ones"
         except RuntimeError as exc:
-            nccl2 = "refused: " + next(
-                (ln.strip() for ln in str(exc).splitlines()
-                 if "Duplicate" in ln), str(exc).splitlines()[0])
-    check(o["backend"] == "nccl" and not any(o["collectives"].values()),
-          f"[mesh] NCCL world of one: {o['collectives']}")
+            dup = [ln.strip() for ln in str(exc).splitlines()
+                   if "Duplicate GPU" in ln]
+            if not dup:
+                raise
+            nccl2 = "refused: " + dup[0]
+    for o in runs:
+        check(o["backend"] == "nccl" and not any(o["collectives"].values()),
+              f"[mesh] NCCL rank {o.get('rank')}: {o['collectives']}")
     print(f"[mesh] NCCL, a world of one rank: the group forms equal the "
           f"stacked ones bit for bit ({sorted(o['collectives'])})",
           flush=True)

@@ -44,7 +44,6 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.compress import (INV_INT8_MAX, pmax, psum,
                                        quantize_wire)
-from repro_torch.dist.sharding import assemble
 from repro_torch.kernels import ops as kops
 
 from . import effop, layers, masks
@@ -720,7 +719,7 @@ class DeltaSpec:
 
 
 def patch_operands(ops: GranniteOperands, d: DeltaSpec, *,
-                   row0: Optional[int] = None) -> GranniteOperands:
+                   row0: int = 0) -> GranniteOperands:
     """One graph's cached dense operands patched by a delta, as new
     tensors on their device.
 
@@ -732,38 +731,12 @@ def patch_operands(ops: GranniteOperands, d: DeltaSpec, *,
     flips scatter straight in, and into the 0/-1e9 bias at the same
     places.
 
-    `row0` patches a ROW BLOCK, rows [row0, row0 + rows) of the matrices
-    `d` describes (a rank's shard of a sharded graph): the same entries
-    are written with the same expressions, so the block equals those rows
-    of the whole patched matrix bit for bit."""
-    if row0 is not None:
-        return _patch_row_block(ops, d, row0)
-    if "norm_adj" in d.fields:
-        na = ops.norm_adj.clone()
-        awl = (ops.norm_adj != 0).to(torch.float32)
-        awl[d.flip_i, d.flip_j] = d.flip_v
-        awl[d.flip_j, d.flip_i] = d.flip_v
-        dis = inv_sqrt_degree(d.degree)
-        t = d.touched
-        dis_t = dis.index_select(0, t)
-        na[t, :] = (dis_t[:, None] * awl.index_select(0, t)) * dis[None, :]
-        na[:, t] = (dis[:, None] * awl.index_select(1, t)) * dis_t[None, :]
-        ops = dataclasses.replace(ops, norm_adj=na)
-    if "bias_add" in d.fields:
-        m, bias = ops.mask_mult.clone(), ops.bias_add.clone()
-        b = torch.where(d.flip_v > 0, 0.0, masks.NEG_INF)
-        for i, j in ((d.flip_i, d.flip_j), (d.flip_j, d.flip_i)):
-            m[i, j] = d.flip_v
-            bias[i, j] = b
-        ops = dataclasses.replace(ops, mask_mult=m, bias_add=bias)
-    return ops
-
-
-def _patch_row_block(ops: GranniteOperands, d: DeltaSpec,
-                     row0: int) -> GranniteOperands:
-    """`patch_operands` on rows [row0, row0 + rows): an index of a row
-    outside the block goes to a scratch row past its end, dropped after,
-    so the scatters keep their static widths."""
+    The operands hold rows [row0, row0 + rows) of the matrices `d`
+    describes: the whole graph at `row0=0`, or a rank's shard of a
+    sharded graph. An index of a row outside the block goes to a scratch
+    row past its end, dropped after, so the scatters keep their static
+    widths; a block equals those rows of the whole patched matrix bit for
+    bit."""
     rows = getattr(ops, d.fields[0]).shape[0]
 
     def local(i):
@@ -827,7 +800,7 @@ class DeltaPatcher:
         _count_trace(self, sig)
 
     def __call__(self, ops: GranniteOperands, d: DeltaSpec, *,
-                 row0: Optional[int] = None) -> GranniteOperands:
+                 row0: int = 0) -> GranniteOperands:
         self._trace("operands", _sig(ops), _sig(d))
         return patch_operands(ops, d, row0=row0)
 
@@ -1213,14 +1186,11 @@ def stack_shard_slices(slices: Sequence[ShardSlice]
             _stack_blocks([s.node_mask for s in slices]))
 
 
-def unshard_logits(stacked, part, mesh=None) -> np.ndarray:
+def unshard_logits(stacked, part) -> np.ndarray:
     """(shards, shard_cap, classes) slot-ordered logits -> (num_nodes,
     classes) in the original node order (the inverse of `part.perm`), on
-    the host. With `mesh`, `stacked` is this rank's (shard_cap, classes)
-    block, gathered over the shard group first (`dist.sharding.
-    assemble`)."""
-    if mesh is not None:
-        stacked = assemble(stacked, ("shard", None), mesh)
+    the host. On a mesh a rank's (shard_cap, classes) block is gathered
+    over the shard group first (`dist.sharding.assemble`)."""
     if isinstance(stacked, torch.Tensor):
         stacked = stacked.cpu().numpy()
     flat = np.asarray(stacked).reshape(part.full_rows, -1)

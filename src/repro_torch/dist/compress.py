@@ -46,11 +46,8 @@ INT8_MAX = 127.0
 INV_INT8_MAX = float(torch.tensor(1.0 / INT8_MAX, dtype=torch.float32))
 
 # what this process handed to all_reduce (`psum`, `pmax`): calls and
-# bytes, read by the per-rank wire accounting of the serving mesh; while
-# "events" is a list, each all_reduce of a CUDA tensor appends a (start,
-# end) pair of CUDA events around itself (`launch.shard_serve` times the
-# exchange apart from the rest of a dispatch with them)
-WIRE = {"calls": 0, "bytes": 0, "events": None}
+# bytes, read by the per-rank wire accounting of the serving mesh
+WIRE = {"calls": 0, "bytes": 0}
 
 
 def ring_psum_nbytes(shards: int, elems: float, *,
@@ -69,16 +66,7 @@ def ring_psum_nbytes(shards: int, elems: float, *,
 def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
     WIRE["calls"] += 1
     WIRE["bytes"] += t.numel() * t.element_size()
-    events = WIRE["events"]
-    if events is None or not t.is_cuda:
-        dist.all_reduce(t, op=op, group=group)
-        return t
-    span = (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-    span[0].record()
     dist.all_reduce(t, op=op, group=group)
-    span[1].record()
-    events.append(span)
     return t
 
 

@@ -30,6 +30,7 @@ every rank of a one-card machine, with gloo); none means `cuda:{rank}`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -261,6 +262,30 @@ def run_burst(eng: GraphServe, spec: BurstSpec):
     return answers, log, checks, gids
 
 
+@contextlib.contextmanager
+def timed_all_reduces(spans: List):
+    """While open, each all_reduce that `dist.compress` makes of a CUDA
+    tensor appends a (start, end) pair of CUDA events around itself to
+    `spans`: the exchange timed apart from the rest of a dispatch."""
+    inner = compress._all_reduce
+
+    def timed(t, op, group):
+        if not t.is_cuda:
+            return inner(t, op, group)
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
+        inner(t, op, group)
+        span[1].record()
+        spans.append(span)
+        return t
+    compress._all_reduce = timed
+    try:
+        yield spans
+    finally:
+        compress._all_reduce = inner
+
+
 def time_dispatches(eng: GraphServe, gids: Dict[str, int],
                     iters: int) -> Dict[str, Dict]:
     """Per model, one sharded fp32 dispatch of its graph's plan on this
@@ -311,15 +336,12 @@ def time_dispatches(eng: GraphServe, gids: Dict[str, int],
             spans = []
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            compress.WIRE["events"] = spans
-            try:
+            with timed_all_reduces(spans):
                 start.record()
                 for _ in range(iters):
                     call()
                 end.record()
                 end.synchronize()
-            finally:
-                compress.WIRE["events"] = None
             total = start.elapsed_time(end) / iters
             ar = sum(a.elapsed_time(b) for a, b in spans) / iters
             row.update(dispatch_ms=total, allreduce_ms=ar,

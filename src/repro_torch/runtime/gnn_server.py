@@ -127,8 +127,9 @@ and graphs. Each rank caches and serves only its own row block of every
 sharded graph, runs its products through the same kernels, exchanges the
 halo over the shard group (`build_sharded_plan(mesh=)`), and the logits
 are gathered over the mesh. The rank at the mesh's origin (the lead)
-takes every decision that reads a clock or the latency bank (the expiry
-sweep, the batch, and the tier the router or governor picked), and
+takes every decision that reads a clock, the latency bank or its cache
+(the expiry sweep, the batch, the tier the router or governor picked, and
+attach()'s admission under a byte budget, which it broadcasts), and
 broadcasts each sharded batch's uids and tier before its first
 collective, so ranks whose clocks differ still run the same batches. It
 alone serves unsharded requests: the other ranks give such a submit or
@@ -931,7 +932,7 @@ class GraphServe:
             warmed.add(("delta", full, fields))
             kt, ke = self._delta_pads(full)
             zeros = np.zeros((ke,), np.int32)
-            rows, row0 = ((full, None) if self.mesh is None
+            rows, row0 = ((full, 0) if self.mesh is None
                           else (bucket, self._row0(bucket)))
             self._delta_patcher(
                 GranniteOperands(**{f: torch.zeros((rows, full), device=dev)
@@ -1345,7 +1346,8 @@ class GraphServe:
         `CacheAdmissionError`; under `admission="reject"` one that would
         overflow the CURRENT residency raises too, while
         `admission="evict"` admits it and lets insert-time eviction make
-        room on first query."""
+        room on first query. On a mesh every rank calls attach() and the
+        lead's decision, on its own residency, holds for all of them."""
         if model not in self.models:
             raise KeyError(f"unknown model {model!r}")
         part = None
@@ -1362,9 +1364,17 @@ class GraphServe:
                 reject = (not self._cache.fits(projected)
                           or (self.sc.admission == "reject"
                               and self._cache.would_overflow(projected)))
-                if reject:
-                    self.metrics["cache_admission_rejects"] += 1
+            if self.mesh is not None:
+                # the lead's residency decides for every rank: the ranks
+                # hold different bytes (the lead alone holds unsharded
+                # graphs), and a rank that refused alone would number the
+                # next graph apart from the others
+                reject = bool(self._broadcast(torch.tensor(
+                    [int(reject)], dtype=torch.int64,
+                    device=self.device)).item())
             if reject:
+                with self._lock:
+                    self.metrics["cache_admission_rejects"] += 1
                 raise CacheAdmissionError(
                     f"graph with projected primary operand entry of "
                     f"{projected} bytes cannot be admitted under "

@@ -47,6 +47,7 @@ from repro_torch.core import graph as tg
 from repro_torch.core import models as tmodels
 from repro_torch.core import partition as tp
 from repro_torch.core import quant as tquant
+from repro_torch.dist import compress as tcompress
 from repro_torch.dist import sharding as tsharding
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import shard_serve as ss
@@ -674,6 +675,24 @@ def test_other_clock_alone_decides_otherwise():
         [(t, e) for t, e, _ in other.values()]
 
 
+def test_ranks_take_the_leads_admission_decision(decision_ranks):
+    """Under a byte budget with admission="reject", the lead alone holds
+    an unsharded graph's entry, which overflows the budget for a sharded
+    graph on the lead but not on the other rank: every rank refuses it
+    as the lead does, numbers the graphs alike, and answers a later query
+    of that graph as the clock-skewed burst's fp32 query of it."""
+    (_, lead), (_, other) = decision_ranks
+    la, oa = lead["admission"], other["admission"]
+    assert la["resident"] + la["shard_bytes"] > la["budget"]
+    assert oa["resident"] + oa["shard_bytes"] <= oa["budget"]
+    for arrays, facts in decision_ranks:
+        a = facts["admission"]
+        assert a["refused"] and a["rejects"] == 1
+        assert a["gids"] == la["gids"]
+        np.testing.assert_array_equal(arrays["admission"],
+                                      arrays[facts["fp32_uid"]])
+
+
 def test_pipeline_refuses_a_mesh(decision_ranks):
     for _, facts in decision_ranks:
         assert "ROADMAP queue 1 item 16" in facts["pipeline"]
@@ -688,6 +707,25 @@ def test_engine_refuses_a_mesh_it_cannot_serve():
         tserve.GraphServe(tserve.GraphServeConfig(shard_counts=(2,),
                                                   replica_groups=2),
                           device="cpu", mesh=mesh)
+
+
+def test_timed_all_reduces_wraps_the_collective_and_restores_it(
+        monkeypatch):
+    """`shard_serve.timed_all_reduces` wraps `dist.compress`'s all_reduce
+    only while it is open; a CPU tensor passes through untimed."""
+    seen = []
+
+    def fake(t, op, group):
+        seen.append(group)
+        return t
+    monkeypatch.setattr(tcompress, "_all_reduce", fake)
+    spans = []
+    with ss.timed_all_reduces(spans):
+        assert tcompress._all_reduce is not fake
+        out = tcompress.psum(torch.ones(3), "g")
+    assert tcompress._all_reduce is fake
+    assert seen == ["g"] and spans == []
+    assert torch.equal(out, torch.ones(3))
 
 
 # ------------------------------------------------------------- failures

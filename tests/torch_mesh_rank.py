@@ -20,8 +20,9 @@ build them alike. Scenarios:
              host mesh, meshes larger than the world (a shard mesh, the
              production mesh);
   decisions  2 ranks whose fake clocks differ: tolerance routing, the SLO
-             governor and deadlines through `GraphServe(mesh=)`, and the
-             pipeline scheduler's refusal.
+             governor and deadlines through `GraphServe(mesh=)`, the
+             pipeline scheduler's refusal, and attach()'s admission under
+             a byte budget that only the lead's residency overflows.
 """
 from __future__ import annotations
 
@@ -47,6 +48,9 @@ from repro_torch.launch import shard_serve as ss  # noqa: E402
 from repro_torch.launch.mesh import (init_distributed,  # noqa: E402
                                      make_host_mesh, make_production_mesh,
                                      make_shard_mesh)
+from repro_torch.runtime.cache import (CacheAdmissionError,  # noqa: E402
+                                       estimate_dense_entry_bytes,
+                                       estimate_shard_entry_bytes)
 from repro_torch.runtime.clock import Clock  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig,
@@ -120,7 +124,7 @@ def scenario_plans(mesh, arrays, facts):
         block = mesh_block(d, mesh, compress)
         arrays[f"{case}|{tier}|{compress}"] = block.numpy()
         arrays[f"{case}|{tier}|{compress}|nodes"] = tmodels.unshard_logits(
-            block, d["part"], mesh=mesh)
+            assemble(block, ("shard", None), mesh), d["part"])
     calls = {}
     for case, tier in PALLAS_CASES:
         d = plan_inputs(case, tier, pallas=True)
@@ -235,6 +239,49 @@ def decisions_burst(eng):
             for u in uids}
 
 
+def admission_burst(mesh):
+    """attach() under a byte budget with admission="reject": the lead
+    alone holds an unsharded graph's entry, and that entry tips the
+    budget for the next sharded graph on the lead only. Every rank then
+    detaches the unsharded graph, attaches the sharded one again and
+    queries it at fp32. Returns this rank's residency before the refused
+    attach, whether it refused, the ids of the attaches and the query's
+    logits."""
+    cfg = config("gcn")
+    small, big = graph(100, 77), graph(200, 4)
+    ladder = BucketLadder(buckets=(BUCKET,))
+    part = tp.partition_for_ladder(big.edge_index, big.num_nodes, ladder,
+                                   (2,))
+    nf = len(tmodels.OPERAND_FIELDS["gcn"])
+    shard_b = estimate_shard_entry_bytes(1, part.shard_cap, part.full_rows,
+                                         nf, IN_FEATS)
+    budget = shard_b + estimate_dense_entry_bytes(nf, BUCKET) // 2
+    eng = GraphServe(GraphServeConfig(
+        ladder=ladder, batch_slots=2, return_logits=True, shard_counts=(2,),
+        halo_compress=False, device_cache_budget_bytes=budget,
+        admission="reject"), device="cpu", mesh=mesh)
+    eng.register_model("m", cfg, params_from_jax(ss.model_weights(cfg, 0),
+                                                 device="cpu"),
+                       tiers=("fp32",))
+    gids = [eng.attach(small, model="m", calibrate=False)]
+    eng.query(gids[0])
+    eng.run()
+    resident = eng.summary()["cache_resident_bytes"]
+    try:
+        gids.append(eng.attach(big, model="m", calibrate=False))
+        refused = False
+    except CacheAdmissionError:
+        refused = True
+    eng.detach(gids[0])
+    gids.append(eng.attach(big, model="m", calibrate=False))
+    uid = eng.query(gids[-1])
+    eng.run()
+    (done,) = [r for r in eng.finished if r.uid == uid]
+    return dict(budget=budget, shard_bytes=shard_b, resident=resident,
+                refused=refused, gids=gids,
+                rejects=eng.summary()["cache_admission_rejects"]), done.logits
+
+
 def scenario_decisions(mesh, arrays, facts):
     eng = decisions_engine(mesh.coords["shard"], mesh)
     out = decisions_burst(eng)
@@ -250,6 +297,8 @@ def scenario_decisions(mesh, arrays, facts):
         facts["pipeline"] = None
     except NotImplementedError as exc:
         facts["pipeline"] = str(exc)
+    facts["fp32_uid"] = str(next(iter(out)))
+    facts["admission"], arrays["admission"] = admission_burst(mesh)
 
 
 SCENARIOS = {"plans": ((2, 1), scenario_plans),
