@@ -358,6 +358,37 @@ last line; there is no CPU path):
      tensor-core route); prints ms a step by CUDA
      events, tokens/s, the device idle share and the backward kernel's
      share of the step's device time (torch.profiler), peak card memory;
+  23b. mesh-lm — the LM's placement: SmolLM-135M at full width trained
+     on ("data", "model") meshes of gloo ranks sharing this card
+     (`python -m repro_torch.launch.train --mesh DxM`, started by
+     `spawn_local`): 3 steps of 8 x 1024 tokens in 2 microbatches, lr
+     1e-3, on (1, 2), (2, 1) and (2, 2), each rank holding its blocks of
+     the parameters and AdamW's moments and gathering one superblock at a
+     time. Held against the single-process step on the card (the same
+     seed's weights and batches): each rank's losses and gradient norms
+     within 5e-2 of the single process's; after the steps (the
+     checkpoint the mesh's origin assembles) each leaf's AdamW first
+     moment (a fixed sum of the steps' clipped gradients) within 5e-2 of
+     its largest, at most 5% of a leaf's entries beyond 5e-2 of its
+     largest update, and every entry within 2 lr a step (two AdamW runs
+     part by at most that whatever their gradients); the check first
+     refuses three planted states (the parameters at init, the update
+     reversed, m halved); the first loss on (1, 2) bit-equal;
+     every rank of a mesh alike; each rank's flash_attention and
+     flash_attention_bwd launches equal to its batch log (2 x 30 x 2 and
+     30 x 2 a step), all on the tensor-core route. A checkpoint written on
+     (2, 1) after 2 steps is restored on (1, 2) and its third step held to
+     the single-process one. Then `python -m repro_torch.launch.serve
+     --mesh 1x2`: a greedy batch (4 prompts of 256 tokens, 8 new tokens)
+     on the placement, its tokens equal to the single-process greedy
+     tokens on the card. Prints per rank ms a step (CUDA events), the
+     all_reduce's ms and share, the bytes handed to all_reduce, the
+     parameter bytes and peak card memory;
+  23c. dryrun — `python -m repro_torch.launch.dryrun --all --mesh both
+     --jobs N` (every arch x shape on (16, 16) and (2, 16, 16), run as the
+     origin rank of an abstract mesh on meta tensors, on the host's
+     cores): exits 0 with no FAILED row; prints its table of per-rank
+     argument bytes and H100 time terms;
   24. times — CUDA-event times of each kernel, its plain version and the
      matching library call at the serving shapes, beside the card's bound
      (flash_attention at the serving shape, at B 1, S 4096, 32/8 heads
@@ -404,6 +435,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -477,7 +509,9 @@ from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
 from repro_torch.runtime.scheduler import PipelineConfig  # noqa: E402
 from repro_torch.runtime.server import ServeConfig, Server  # noqa: E402
 from repro_torch.runtime import trainer  # noqa: E402
-from repro_torch.ckpt import tree_items  # noqa: E402
+from repro_torch.ckpt import (restore_checkpoint, tree_items,  # noqa: E402
+                              tree_replace)
+from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.data.synthetic import TokenStream  # noqa: E402
 from repro_torch.runtime.slo import SLOConfig  # noqa: E402
 
@@ -4893,6 +4927,326 @@ def train_lm_phase(dev, card):
             bwd_launches + run_bwd, timing)
 
 
+MESH_LM_ARCH = "smollm-135m"
+MESH_LM = dict(steps=3, seq_len=1024, global_batch=8, microbatches=2,
+               lr=1e-3)
+MESH_LM_SHAPES = ((1, 2), (2, 1), (2, 2))
+MESH_LM_SERVE = dict(requests=4, length=256, max_new=8)
+MESH_LM_TIMEOUT_S = 420
+MESH_LM_BAR = LM_LOGIT_BAR          # of the loss, of a leaf's largest
+#                                     first moment and update
+# the largest share of a leaf's entries whose update may differ from the
+# single process's by more than MESH_LM_BAR of the leaf's largest update
+MESH_LM_SHARE = 0.05
+MESH_LM_ARGS = ()                   # more launcher arguments (a rehearsal's)
+DRYRUN_TIMEOUT_S = 600
+
+
+def mesh_name(shape):
+    return "x".join(map(str, shape))
+
+
+def mesh_lm_train(shape, dev, steps, ckpt_dir, every):
+    """`launch/train.py --mesh` on gloo ranks sharing this card: each
+    rank's JSON record."""
+    tc = MESH_LM
+    args = ["--arch", MESH_LM_ARCH, "--mesh", mesh_name(shape), "--steps",
+            str(steps), "--batch", str(tc["global_batch"]), "--seq",
+            str(tc["seq_len"]), "--microbatches", str(tc["microbatches"]),
+            "--lr", str(tc["lr"]), "--ckpt-dir", ckpt_dir, "--ckpt-every",
+            str(every), "--backend", "gloo", "--device", str(dev),
+            *MESH_LM_ARGS]
+    return [ss.last_json(o) for o in ss.spawn_local(
+        math.prod(shape), args, MESH_LM_TIMEOUT_S,
+        program=("-m", "repro_torch.launch.train"))]
+
+
+def mesh_state_readings(ref, init, got):
+    """A mesh run's state against the single process's, leaf by leaf.
+    `ref` and `got` map "params/<leaf>" and "opt/m/<leaf>" to CPU
+    tensors, `init` maps "<leaf>" to the parameters before step 1. The
+    readings, each its worst (value, leaf):
+      m:     max |difference| of AdamW's first moment over the leaf's
+             max |m|. m is a fixed positive sum of the steps' clipped
+             gradients, so §2's bar on a gradient holds it; AdamW's
+             division by each entry's own RMS comes after it;
+      share: the share of entries whose parameter differs by more than
+             MESH_LM_BAR of the leaf's largest update;
+      moved: max |difference| of the parameters."""
+    worst = {"m": (0.0, None), "share": (0.0, None), "moved": (0.0, None)}
+
+    def keep(name, value, key):
+        if value > worst[name][0]:
+            worst[name] = (value, key)
+    for key, p0 in init.items():
+        want, have = ref[f"params/{key}"], got[f"params/{key}"]
+        top = (want - p0).abs().max().clamp_min(1e-30)
+        diff = (have - want).abs()
+        keep("moved", diff.max().item(), key)
+        keep("share", (diff > MESH_LM_BAR * top).float().mean().item(), key)
+        m_want = ref[f"opt/m/{key}"]
+        keep("m", ((got[f"opt/m/{key}"] - m_want).abs().max()
+                   / m_want.abs().max().clamp_min(1e-30)).item(), key)
+    return worst
+
+
+def mesh_state_faults(worst, adam_bound):
+    """The readings of `mesh_state_readings` beyond their limits."""
+    limits = {"m": MESH_LM_BAR, "share": MESH_LM_SHARE, "moved": adam_bound}
+    return [f"{name}: {worst[name][0]:.3e} at {worst[name][1]} beyond "
+            f"{limit:.3e}" for name, limit in limits.items()
+            if worst[name][0] > limit]
+
+
+def fmt_state(worst):
+    v = {k: f"{x:.3e} ({leaf})" for k, (x, leaf) in worst.items()}
+    return (f"first moments within {v['m']} of a leaf's largest, "
+            f"{v['share']} of a leaf's entries beyond {MESH_LM_BAR} of its "
+            f"largest update, parameters within {v['moved']}")
+
+
+def mesh_lm_phase(dev, card):
+    """[mesh-lm]: SmolLM-135M trained and served on meshes of gloo ranks
+    sharing this card, against the single-process steps on the card.
+    Returns the ranks' (flash_attention, flash_attention_bwd) launches."""
+    t_phase = time.perf_counter()
+    tag = "mesh-lm"
+    free_card()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(MESH_LM_ARCH)
+    tc = trainer.TrainConfig(**MESH_LM)
+    n_micro = tc.microbatches
+    # the single-process step on the card: the launcher's settings
+    params = lm.lm_init(cfg, seed=tc.seed, device=dev)
+    opt = trainer.init_opt_state(params)
+    step_fn = trainer.make_train_step(cfg, tc)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=tc.seq_len,
+                         global_batch=tc.global_batch, seed=tc.seed)
+    ref_loss, ref_norm, ref_ms = [], [], []
+    for step in range(tc.steps):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in stream.batch_at(step).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = step_fn(params, opt, batch,
+                                       torch.tensor(step))
+        end.record()
+        end.synchronize()
+        ref_ms.append(start.elapsed_time(end))
+        ref_loss.append(float(metrics["loss"]))
+        ref_norm.append(float(metrics["grad_norm"]))
+    ref_state = {f"params/{k}": t.detach().cpu()
+                 for k, t in tree_items(params)}
+    ref_state.update({f"opt/m/{k}": t.cpu()
+                      for k, t in tree_items(opt["m"])})
+    init_params = {k: t.cpu() for k, t in tree_items(
+        lm.lm_init(cfg, seed=tc.seed, device="cpu"))}
+    adam_bound = 2 * sum(float(trainer.linear_warmup_cosine(
+        s_, base_lr=tc.lr, warmup_steps=max(1, tc.steps // 4)
+        if tc.warmup_steps >= tc.steps else tc.warmup_steps,
+        total_steps=tc.steps)) for s_ in range(tc.steps))
+    full_bytes = sum(t.numel() * t.element_size()
+                     for t in init_params.values())
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, batch
+    free_card()
+    print(f"[{tag}] single process: losses {ref_loss}, gradient norms "
+          f"{ref_norm}, ms a step "
+          f"{[round(m, 1) for m in ref_ms]} (CUDA events), parameters "
+          f"{full_bytes / 1e9:.3f} GB float32, peak card memory "
+          f"{ref_peak:.2f} GB; {card}", flush=True)
+
+    per_step = 2 * cfg.num_layers * n_micro if cfg.remat else (
+        cfg.num_layers * n_micro)
+    fwd_total = bwd_total = 0
+
+    def rank_checks(label, o, steps):
+        nonlocal fwd_total, bwd_total
+        l = o["launches"]
+        want_fwd, want_bwd = per_step * steps, cfg.num_layers * n_micro * steps
+        check(l["LAUNCHES"] == l["TC_LAUNCHES"] == want_fwd
+              and l["SIMT_LAUNCHES"] == 0,
+              f"[{tag}] {label} rank {o['rank']}: flash_attention launches "
+              f"{l} != {want_fwd} on the tensor-core route")
+        check(l["BWD_LAUNCHES"] == l["BWD_TC_LAUNCHES"] == want_bwd
+              and l["BWD_SIMT_LAUNCHES"] == 0,
+              f"[{tag}] {label} rank {o['rank']}: flash_attention_bwd "
+              f"launches {l} != {want_bwd} on the tensor-core route")
+        fwd_total += l["LAUNCHES"]
+        bwd_total += l["BWD_LAUNCHES"]
+
+    def state_of(ckpt_dir, step):
+        """The parameters and first moments a mesh run saved at `step`."""
+        template = _cpu_like(lm.lm_init(cfg, device="meta"))
+        got = restore_checkpoint(ckpt_dir, {"params": template,
+                                            "opt": {"m": template}},
+                                 step=step)[1]
+        return dict(tree_items(got))
+
+    # the check refuses, by the reading named, states a faulty mesh step
+    # would leave
+    planted = {
+        "the parameters left at their init": ("share", lambda k, t: (
+            init_params[k[7:]] if k.startswith("params/") else t)),
+        "the update reversed": ("share", lambda k, t: (
+            2 * init_params[k[7:]] - t if k.startswith("params/") else t)),
+        "the first moment halved (one of two data ranks' gradient)":
+            ("m", lambda k, t: t / 2 if k.startswith("opt/m/") else t)}
+    for what, (by, plant) in planted.items():
+        worst = mesh_state_readings(
+            ref_state, init_params,
+            {k: plant(k, t) for k, t in ref_state.items()})
+        refused = [f.split(":")[0] for f in mesh_state_faults(worst,
+                                                             adam_bound)]
+        print(f"[{tag}] planted, {what}: {fmt_state(worst)}; refused by "
+              f"{refused}", flush=True)
+        check(by in refused, f"[{tag}] the state check's {by} reading "
+              f"accepts {what}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for shape in MESH_LM_SHAPES:
+            label = mesh_name(shape)
+            t0 = time.perf_counter()
+            outs = mesh_lm_train(shape, dev, tc.steps, f"{tmp}/{label}", 2)
+            run_s = time.perf_counter() - t0
+            losses = [[l for _, l in o["losses"]] for o in outs]
+            check(all(l == losses[0] for l in losses), f"[{tag}] {label}: "
+                  f"the ranks' losses differ: {losses}")
+            check([s for s, _ in outs[0]["losses"]] == list(range(tc.steps)),
+                  f"[{tag}] {label}: steps {outs[0]['losses']}")
+            for got, want in zip(losses[0], ref_loss):
+                check(abs(got - want) <= MESH_LM_BAR * abs(want),
+                      f"[{tag}] {label}: loss {got} against the single "
+                      f"process's {want}")
+            if shape[0] == 1:
+                check(losses[0][0] == ref_loss[0], f"[{tag}] {label}: the "
+                      f"first loss {losses[0][0]} is not the single "
+                      f"process's {ref_loss[0]} bit for bit")
+            for o in outs:
+                rank_checks(label, o, tc.steps)
+            norms = [n for _, n in outs[0]["grad_norms"]]
+            for got, want in zip(norms, ref_norm):
+                check(abs(got - want) <= MESH_LM_BAR * abs(want),
+                      f"[{tag}] {label}: gradient norm {got} against the "
+                      f"single process's {want}")
+            worst = mesh_state_readings(
+                ref_state, init_params, state_of(f"{tmp}/{label}", tc.steps))
+            print(f"[{tag}] {label}: {len(outs)} gloo ranks on {dev} in "
+                  f"{run_s:.1f} s; losses {losses[0]} (single process "
+                  f"{ref_loss}); gradient norms {norms}; after {tc.steps} "
+                  f"steps {fmt_state(worst)}", flush=True)
+            faults = mesh_state_faults(worst, adam_bound)
+            check(not faults, f"[{tag}] {label}: {faults}")
+            for o in outs:
+                ms = o["step_ms"][1:]
+                mean_ms = sum(ms) / len(ms)
+                ar = o["allreduce_ms"]
+                mean_ar = None if ar is None else sum(ar[1:]) / len(ar[1:])
+                peak = o["peak_bytes"]
+                print(f"[{tag}] {label} rank {o['rank']} {o['coords']}: "
+                      f"{mean_ms:.1f} ms a step (CUDA events, steps 2-"
+                      f"{tc.steps}; step 1 {o['step_ms'][0]:.1f} ms), of it "
+                      + ("all_reduce not measured" if mean_ar is None else
+                         f"all_reduce {mean_ar:.1f} ms (share "
+                         f"{mean_ar / mean_ms:.3f})")
+                      + f"; {o['allreduce_bytes'] / 1e9:.3f} GB handed to "
+                      f"all_reduce in {o['allreduce_calls']} calls over "
+                      f"{tc.steps} steps; parameter blocks "
+                      f"{o['param_block_bytes'] / 1e9:.3f} GB (of "
+                      f"{full_bytes / 1e9:.3f}); peak card memory "
+                      + ("not measured" if peak is None else
+                         f"{peak / 1e9:.2f} GB")
+                      + f"; launches {o['launches']}; {card}", flush=True)
+
+        # (2, 1)'s checkpoint of step 2 continues on (1, 2)
+        ckpt_dir = f"{tmp}/resume"
+        os.makedirs(ckpt_dir)
+        shutil.copytree(f"{tmp}/2x1/step_{2:010d}",
+                        f"{ckpt_dir}/step_{2:010d}")
+        outs = mesh_lm_train((1, 2), dev, tc.steps, ckpt_dir, 100)
+        for o in outs:
+            check(o["start"] == 2 and [s for s, _ in o["losses"]] == [2],
+                  f"[{tag}] resume: rank {o['rank']} started at "
+                  f"{o['start']}, steps {o['losses']}")
+            got = o["losses"][0][1]
+            check(abs(got - ref_loss[2]) <= MESH_LM_BAR * abs(ref_loss[2]),
+                  f"[{tag}] resume: step 3's loss {got} against the single "
+                  f"process's {ref_loss[2]}")
+            rank_checks("resume 1x2", o, 1)
+        print(f"[{tag}] resume: 2 steps on (2, 1) saved at step 2, step 3 "
+              f"restored on (1, 2): loss {outs[0]['losses'][0][1]} "
+              f"(single process {ref_loss[2]})", flush=True)
+
+    # a greedy batch on (1, 2) against the single process's tokens
+    sv = MESH_LM_SERVE
+    args = ["--arch", MESH_LM_ARCH, "--mesh", "1x2", "--requests",
+            str(sv["requests"]), "--buckets", str(sv["length"]),
+            "--max-new", str(sv["max_new"]), "--backend", "gloo",
+            "--device", str(dev), *MESH_LM_ARGS]
+    outs = [ss.last_json(o) for o in ss.spawn_local(
+        2, args, MESH_LM_TIMEOUT_S, program=("-m", "repro_torch.launch.serve"))]
+    sparams = lm.lm_init(cfg, seed=0, device=dev, dtype=cfg.dtype)
+    toks = torch.from_numpy(serve_launch.prompts(
+        cfg, sv["requests"], sv["length"], 0)).to(dev)
+    with torch.no_grad():
+        want = lm.greedy_generate(sparams, cfg, toks, steps=sv["max_new"],
+                                  max_len=sv["length"] + sv["max_new"])
+    del sparams
+    for o in outs:
+        check(o["tokens"] == want.tolist(), f"[{tag}] serve 1x2 rank "
+              f"{o['rank']}: tokens {o['tokens']} != the single process's "
+              f"{want.tolist()}")
+        l = o["launches"]
+        check(l["LAUNCHES"] == l["TC_LAUNCHES"] == cfg.num_layers,
+              f"[{tag}] serve 1x2 rank {o['rank']}: prefill launches {l}")
+        fwd_total += l["LAUNCHES"]
+        dec = o["decode_step_ms"][1:]
+        print(f"[{tag}] serve 1x2 rank {o['rank']}: greedy tokens equal the "
+              f"single process's; prefill {o['prefill_ms']:.1f} ms, a decode "
+              f"step {sum(dec) / len(dec):.1f} ms (CUDA events), "
+              f"{o['allreduce_bytes'] / 1e9:.3f} GB handed to all_reduce; "
+              f"{card}", flush=True)
+    timing = {}
+    phase_memory(tag, t_phase, base, timing)
+    return fwd_total, bwd_total
+
+
+def _cpu_like(tree):
+    """Empty CPU tensors of `tree`'s shapes and dtypes (a restore's
+    template)."""
+    return tree_replace(tree, {k: torch.empty(t.shape, dtype=t.dtype)
+                               for k, t in tree_items(tree)})
+
+
+def dryrun_phase(card):
+    """[dryrun]: every arch x shape x production mesh on meta tensors, in
+    a subprocess over the host's cores; exits 0, no FAILED row."""
+    t0 = time.perf_counter()
+    jobs = os.cpu_count() or 8
+    out = ROOT / "build" / "dryrun.jsonl"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--mesh", "both", "--jobs", str(jobs), "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=DRYRUN_TIMEOUT_S, cwd=ROOT)
+    took = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    table = lines[lines.index("") + 1:] if "" in lines else lines[-90:]
+    for line in table:
+        print(f"[dryrun] {line}")
+    check(proc.returncode == 0, f"[dryrun] exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rows = [json.loads(l) for l in out.read_text().splitlines()]
+    failed = [r for r in rows if r["status"] == "FAILED"]
+    check(not failed and len(rows) == 80, f"[dryrun] {len(rows)} rows, "
+          f"FAILED: {[(r['arch'], r['shape'], r['mesh']) for r in failed]}")
+    print(f"[dryrun] {len(rows)} cells ({sum(r['status'] == 'ok' for r in rows)}"
+          f" ok) in {took:.1f} s on {jobs} host processes (meta tensors: no "
+          f"card); priced at core/costs.py's H100 rates; {card}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -5910,6 +6264,10 @@ def main() -> None:
     bwd_errors = bwd_check_phase(dev)
     train_lm_launches, bwd_launches, _ = train_lm_phase(dev, card)
 
+    # ------------------------------------------------ 23b-c. mesh-lm, dryrun
+    mesh_lm_fwd, mesh_lm_bwd = mesh_lm_phase(dev, card)
+    dryrun_phase(card)
+
     # --------------------------------------------------------- 24. times
     def int_mm(a, b):
         """torch._int_mm over the same product: per graph when both
@@ -6483,7 +6841,8 @@ def main() -> None:
     # apart too
     flash = flash_row(dev, flash_launches + moe_launches + hybrid_launches
                       + audio_launches + vlm_launches + dense_launches
-                      + scout_launches + train_lm_launches, flash_err, card)
+                      + scout_launches + train_lm_launches + mesh_lm_fwd,
+                      flash_err, card)
     flash.update(serve_lm_launches=flash_launches,
                  serve_moe_launches=moe_launches,
                  serve_hybrid_launches=hybrid_launches,
@@ -6491,9 +6850,12 @@ def main() -> None:
                  serve_vlm_launches=vlm_launches,
                  serve_dense_launches=dense_launches,
                  serve_scout_launches=scout_launches,
-                 train_lm_launches=train_lm_launches)
+                 train_lm_launches=train_lm_launches,
+                 mesh_lm_launches=mesh_lm_fwd)
     rows.append(flash)
-    rows.append(bwd_row(dev, bwd_launches, bwd_errors, card))
+    bwd = bwd_row(dev, bwd_launches + mesh_lm_bwd, bwd_errors, card)
+    bwd.update(train_lm_launches=bwd_launches, mesh_lm_launches=mesh_lm_bwd)
+    rows.append(bwd)
 
     # the terms of the GraSp cost rule (core/costs.py), measured on each
     # bucket's serving batch, queued behind a spin: a launch's fixed cost

@@ -23,8 +23,16 @@ names — the reference's keys for the same nesting, so a dict-of-arrays
 checkpoint written by either package restores in the other. numpy has no
 bfloat16: a bfloat16 tensor is stored as its int16 bit pattern under the
 manifest dtype "bfloat16" and viewed back on restore, so it restores bit
-for bit. Restore places each leaf on its template leaf's device. There is
-no `shardings=` argument: placement across cards is ROADMAP item 16.
+for bit. Restore places each leaf on its template leaf's device.
+
+On a mesh of ranks (`specs=` and `mesh=`, a tree of specs in the tree's
+structure, the counterpart of the reference's `shardings=`): a save
+assembles each leaf from the ranks' blocks (`dist.sharding.assemble`,
+collective, every rank calls it) and the mesh's origin writes the full
+arrays, synchronously, before every rank passes a barrier; a restore
+reads the full, topology-free arrays on every rank and keeps its
+`local_block` of each. So a checkpoint written on a (2, 1) mesh restores
+on (1, 2), or in one process without `specs`.
 """
 from __future__ import annotations
 
@@ -37,6 +45,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import assemble, local_block, map_specs
 
 BF16 = "bfloat16"
 
@@ -45,22 +56,28 @@ def _is_namedtuple(node: Any) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def tree_items(tree: Any, prefix: str = "", *,
+               is_leaf=None) -> Iterator[Tuple[str, Any]]:
     """(key, leaf) for every leaf of `tree` (None is none), in the
-    reference's order."""
+    reference's order. `is_leaf` marks nodes that are leaves whatever
+    their type (`nn.common.is_axes` for an axes tree, whose leaves are
+    tuples)."""
     def join(k):
         return f"{prefix}/{k}" if prefix else str(k)
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from tree_items(tree[k], join(k))
+            yield from tree_items(tree[k], join(k), is_leaf=is_leaf)
     elif _is_namedtuple(tree):
         for k in tree._fields:
-            yield from tree_items(getattr(tree, k), join(k))
+            yield from tree_items(getattr(tree, k), join(k),
+                                  is_leaf=is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from tree_items(v, join(i))
+            yield from tree_items(v, join(i), is_leaf=is_leaf)
     else:
         yield prefix, tree
 
@@ -134,9 +151,28 @@ def _write(directory: str, step: int, host: Dict[str, Tuple[np.ndarray, str]],
 
 
 def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3,
-                    symg_pack: bool = True) -> str:
-    """Atomic synchronous save. Returns the final checkpoint path."""
-    return _write(directory, step, _host_tree(tree), keep, symg_pack)
+                    symg_pack: bool = True, specs: Any = None,
+                    mesh: Any = None) -> Optional[str]:
+    """Atomic synchronous save. Returns the final checkpoint path (on a
+    mesh: the origin's; None on the other ranks)."""
+    if mesh is None:
+        return _write(directory, step, _host_tree(tree), keep, symg_pack)
+    full = _assembled(tree, specs, mesh)
+    path = (_write(directory, step, _host_tree(full), keep, symg_pack)
+            if mesh.is_first else None)
+    _barrier(mesh)
+    return path
+
+
+def _assembled(tree: Any, specs: Any, mesh: Any) -> Any:
+    """Every leaf of `tree` assembled from the mesh's blocks."""
+    return map_specs(lambda t, s: assemble(t, s, mesh)
+                     if isinstance(t, torch.Tensor) else t, tree, specs)
+
+
+def _barrier(mesh: Any) -> None:
+    """Wait for every rank of the mesh (after the origin's write)."""
+    dist.barrier(group=mesh.group(*mesh.axis_names))
 
 
 def _cleanup(directory: str, keep: int) -> None:
@@ -163,10 +199,15 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, tree: Any, *,
-                       step: Optional[int] = None) -> Tuple[int, Any]:
+                       step: Optional[int] = None, specs: Any = None,
+                       mesh: Any = None) -> Tuple[int, Any]:
     """Restore into the structure of `tree` (values replaced; each leaf on
     its template leaf's device, a numpy template leaf as numpy) from
-    `step`, the latest by default. Returns (step, tree)."""
+    `step`, the latest by default. Returns (step, tree). With `specs` and
+    `mesh`, each tensor leaf is this rank's `local_block` of the saved
+    array (the template's leaves are blocks)."""
+    spec_of = ({} if specs is None else
+               dict(tree_items(specs, is_leaf=lambda n: type(n) is tuple)))
     s = step if step is not None else latest_step(directory)
     if s is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -198,6 +239,8 @@ def restore_checkpoint(directory: str, tree: Any, *,
             value = torch.from_numpy(arr) if isinstance(
                 leaf, torch.Tensor) else arr
         if isinstance(leaf, torch.Tensor):
+            if key in spec_of:
+                value = local_block(value, spec_of[key], mesh).clone()
             value = value.to(leaf.device)
         leaves[key] = value
     return s, tree_replace(tree, leaves)
@@ -213,12 +256,20 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self.saved_steps: List[int] = []
 
-    def maybe_save(self, step: int, tree: Any, *, force: bool = False) -> bool:
+    def maybe_save(self, step: int, tree: Any, *, force: bool = False,
+                   specs: Any = None, mesh: Any = None) -> bool:
         """Save at every `every`-th step (or when forced): the tree is
-        copied to the host now and written on a background thread."""
+        copied to the host now and written on a background thread. On a
+        mesh (`specs`, `mesh`) the save is `save_checkpoint`'s, written
+        by the origin before every rank goes on."""
         if not force and (self.every <= 0 or step % self.every != 0):
             return False
         self.wait()
+        if mesh is not None:
+            save_checkpoint(self.directory, step, tree, keep=self.keep,
+                            specs=specs, mesh=mesh)
+            self.saved_steps.append(step)
+            return True
         host = _host_tree(tree)
 
         def work():
@@ -234,8 +285,10 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, tree: Any) -> Tuple[Optional[int], Any]:
+    def restore_latest(self, tree: Any, *, specs: Any = None,
+                       mesh: Any = None) -> Tuple[Optional[int], Any]:
         self.wait()
         if latest_step(self.directory) is None:
             return None, tree
-        return restore_checkpoint(self.directory, tree)
+        return restore_checkpoint(self.directory, tree, specs=specs,
+                                  mesh=mesh)

@@ -7,10 +7,12 @@ cost and a launch's fixed cost; the int8 rate that, with `DENSE_RATE` and
 `HBM_BW`, prices the latency bank's modelled seed
 (`runtime.gnn_server.GraphServe._modelled_batch_s`); and the host link
 that `transfer_cost` prices for the CacheG manager's re-materialization
-tie-break (`runtime.cache`); and the terms of the GraphSplit planners
+tie-break (`runtime.cache`); the terms of the GraphSplit planners
 (`core.partition`): the host's scalar rate and a gather's bytes for the
 host/device stage cut, and the card-to-card link and a collective's fixed
-cost for `modelled_sharded_latency`'s halo exchange. The reference's
+cost for `modelled_sharded_latency`'s halo exchange; and the bf16 peak
+that, with `HBM_BW` and the card-to-card link, prices the LM dry run's
+cells (`launch.roofline`). The reference's
 `costs.py` models a TPU-v4 part; none of its numbers is copied. Its
 `MXU_RATE` is `DENSE_RATE` here. `agg_cost_model`, `transfer_cost`, the
 bank's seed and the partition planners read these names at call time, so
@@ -32,6 +34,11 @@ DENSE_RATE = 48.66e12
 GRASP_RATE = 61.86e12
 # HBM3 bytes/s (NVIDIA H100 SXM data sheet).
 HBM_BW = 3.35e12
+# bf16 operations per second of the tensor cores, dense (NVIDIA H100 SXM
+# data sheet: 989 TFLOPS, 1,979 with sparsity), at the 700 W limit. A
+# peak, not a measurement: the dry run's pricer (`launch/roofline.py`)
+# divides a step's operations by it.
+PEAK_BF16 = 989e12
 # int8 operations per second of the int8 tensor cores, dense (NVIDIA H100
 # SXM data sheet: 1,979 TOPS, 3,958 with sparsity). A peak, not a
 # measurement: the bank's seed only orders cold keys, and the first

@@ -37,7 +37,8 @@ backend, checked bit for bit by `tests/test_torch_partition.py`):
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,6 +49,22 @@ INV_INT8_MAX = float(torch.tensor(1.0 / INT8_MAX, dtype=torch.float32))
 # what this process handed to all_reduce (`psum`, `pmax`): calls and
 # bytes, read by the per-rank wire accounting of the serving mesh
 WIRE = {"calls": 0, "bytes": 0}
+
+
+class AbstractGroup:
+    """The process group of an abstract mesh (`launch.mesh.abstract_mesh`):
+    its axes and size, and no ranks. `psum` and `pmax` over it move
+    nothing: they append the bytes they were handed to `handed` and
+    return their input, so a step run on meta tensors as one rank of a
+    mesh that no machine here has reads its own collectives back."""
+
+    def __init__(self, axes: Tuple[str, ...], size: int):
+        self.axes, self.size = tuple(axes), int(size)
+        self.handed: list = []
+
+    def record(self, t: torch.Tensor) -> torch.Tensor:
+        self.handed.append(t.numel() * t.element_size())
+        return t
 
 
 def ring_psum_nbytes(shards: int, elems: float, *,
@@ -70,16 +87,47 @@ def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
     return t
 
 
+@contextlib.contextmanager
+def timed_all_reduces(spans: List):
+    """While open, each all_reduce that `psum` or `pmax` makes of a CUDA
+    tensor appends a (start, end) pair of CUDA events around itself to
+    `spans`: the exchange timed apart from the rest of a step."""
+    global _all_reduce
+    inner = _all_reduce
+
+    def timed(t, op, group):
+        if not t.is_cuda:
+            return inner(t, op, group)
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
+        inner(t, op, group)
+        span[1].record()
+        spans.append(span)
+        return t
+    _all_reduce = timed
+    try:
+        yield spans
+    finally:
+        _all_reduce = inner
+
+
 def psum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of `t` over the ranks of `group`, on each of them (a new
     tensor). A floating sum gets + 0.0, so a -0.0 comes back +0.0 also
-    from a group of one rank, as from a sum that starts from 0."""
+    from a group of one rank, as from a sum that starts from 0. Over an
+    `AbstractGroup`: `t` itself, the bytes recorded."""
+    if isinstance(group, AbstractGroup):
+        return group.record(t)
     out = _all_reduce(t.clone(), dist.ReduceOp.SUM, group)
     return out + 0.0 if out.is_floating_point() else out
 
 
 def pmax(t: torch.Tensor, group) -> torch.Tensor:
-    """The elementwise max of `t` over the ranks of `group`."""
+    """The elementwise max of `t` over the ranks of `group` (`t` itself
+    over an `AbstractGroup`, the bytes recorded)."""
+    if isinstance(group, AbstractGroup):
+        return group.record(t)
     return _all_reduce(t.clone(), dist.ReduceOp.MAX, group)
 
 

@@ -16,15 +16,31 @@ a spec to XLA, which moves the data, here each rank holds its own block
 spec's process group (`assemble`): exact, since disjoint blocks and zeros
 add exactly, and built on `all_reduce` alone, which every backend has
 (gloo has no `all_gather` of CUDA tensors).
+
+The LM's placement. A rank keeps its `local_block` of every parameter
+(specs from `param_specs` over `nn.lm.lm_axes`) and of AdamW's moments
+(`optimizer_specs`), and its rows of each batch (`batch_specs`). Its
+compute reads full parameters through `Placement`: the model gathers one
+superblock's weights at a time, and the embedding once per microbatch,
+with `gather`, an autograd Function whose forward is `assemble` of the
+block and whose backward is `local_block` of the gradient. That backward
+needs no collective where the spec splits only the "model" axis: the
+ranks of one model group compute the same rows and hold equal
+gradients; a dim split over a data axis (the experts, when
+`set_expert_axis("data")`) sums its gradient over that axis first. So
+compute is ZeRO-3 (FSDP) over "model": every rank of a model group
+computes its data rows through the whole model, and the reference's
+tensor-parallel partitioning of the compute has no counterpart here.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils import _pytree as pytree
 
 from repro_torch.dist.compress import psum
 
@@ -97,13 +113,50 @@ def spec_for_axes(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...],
     return tuple(entries)
 
 
+def map_specs(fn: Callable, tree: Any, specs: Any) -> Any:
+    """`tree` with fn(leaf, its entry of `specs`) in place of each leaf:
+    `specs` has the structure of `tree` (dicts, lists, tuples, named
+    tuples; None is no leaf) with any value where `tree` has a leaf, a
+    spec or a tuple of axis names."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, v, s)
+                            for v, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
 def param_specs(axes_tree, params, mesh):
     """A tree of specs, one per tensor of `params`: `axes_tree` has the
     structure of `params` with a tuple of logical axis names in place of
     each tensor (the reference keeps them together in its `Param`)."""
-    return pytree.tree_map(
+    return map_specs(
         lambda p, axes: spec_for_axes(axes, tuple(p.shape), mesh),
         params, axes_tree)
+
+
+def scalar_spec() -> Spec:
+    """A scalar's spec: replicated."""
+    return ()
+
+
+def optimizer_specs(pspecs):
+    """AdamW's state: the moments mirror the parameters' specs, the step
+    count replicates."""
+    return {"m": pspecs, "v": pspecs, "count": scalar_spec()}
+
+
+def block_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of `shape` under
+    `spec`."""
+    out = list(shape)
+    for d, axes in _split_dims(spec):
+        out[d] //= _block_index(axes, mesh)[1]
+    return tuple(out)
 
 
 def mesh_batch_axes(mesh) -> Tuple[str, ...]:
@@ -111,7 +164,7 @@ def mesh_batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
 
 
-def _data_size(mesh) -> int:
+def data_size(mesh) -> int:
     return math.prod(mesh.shape[a] for a in mesh_batch_axes(mesh))
 
 
@@ -123,19 +176,32 @@ def batch_spec(mesh, *, ndim: int) -> Tuple[Any, ...]:
     return (lead,) + (None,) * (ndim - 1)
 
 
-def cache_specs(tree, mesh, *, seq_sharded: bool = False):
-    """Decode-cache specs: dim 0 (the batch) over the data axes where it
-    divides. When the batch cannot fill the data axes (`seq_sharded`),
-    the cache replicates: correctness first."""
-    n = _data_size(mesh)
+def cache_specs(tree, mesh, *, seq_sharded: bool = False,
+                batch_dim: int = 0):
+    """Decode-cache specs: dim `batch_dim` (the batch: 0 in the
+    reference's caches, 1 in the port's stacked ones) over the data axes
+    where it divides. When the batch cannot fill the data axes
+    (`seq_sharded`), the cache replicates: correctness first."""
+    n = data_size(mesh)
 
-    def one(leaf):
+    def one(leaf, _):
         ndim = getattr(leaf, "ndim", 0)
-        if ndim >= 1 and not seq_sharded and leaf.shape[0] % n == 0:
-            return batch_spec(mesh, ndim=ndim)
+        if (ndim > batch_dim and not seq_sharded
+                and leaf.shape[batch_dim] % n == 0):
+            return (None,) * batch_dim + tuple(
+                batch_spec(mesh, ndim=ndim - batch_dim))
         return ()
 
-    return pytree.tree_map(one, tree)
+    return map_specs(one, tree, tree)
+
+
+def batch_specs(batch: Dict[str, Any], mesh) -> Dict[str, Spec]:
+    """The specs of a dict of batch leaves: dim 0 over the data axes where
+    it divides, else replicated (the reference's `batch_shardings`)."""
+    n = data_size(mesh)
+    return {k: (batch_spec(mesh, ndim=v.ndim)
+                if v.ndim >= 1 and v.shape[0] % n == 0 else ())
+            for k, v in batch.items()}
 
 
 @contextlib.contextmanager
@@ -201,3 +267,80 @@ def assemble(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     full = block.new_zeros(shape)
     local_block(full, spec, mesh).copy_(block)
     return psum(full, mesh.group(*full_axes))
+
+
+class _Gather(torch.autograd.Function):
+    """A rank's block -> the full tensor (`assemble`); the backward is this
+    rank's block of the full gradient, summed first over the data axes
+    the spec splits (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, block, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return assemble(block, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data = [a for _, axes in _split_dims(ctx.spec) for a in axes
+                if a in mesh_batch_axes(ctx.mesh) and ctx.mesh.shape[a] > 1]
+        if data:
+            grad = psum(grad, ctx.mesh.group(*data))
+        return local_block(grad, ctx.spec, ctx.mesh).clone(), None, None
+
+
+def gather(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full tensor of this rank's `block` under `spec`, differentiable
+    in the block; the block itself where the spec splits nothing, or
+    only over axes of size 1."""
+    if all(_block_index(axes, mesh)[1] == 1 for _, axes in _split_dims(spec)):
+        return block
+    return _Gather.apply(block, spec, mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A model's parameters placed on `mesh`: `specs` is the spec tree of
+    the parameters (the structure of `nn.lm.LMParams`), this rank holds
+    the `local_block` of each. The model's entries (`lm_loss`,
+    `lm_prefill`, `lm_decode_step`) take one as `place=`."""
+    mesh: Any
+    specs: Any
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return mesh_batch_axes(self.mesh)
+
+    @property
+    def data_size(self) -> int:
+        return data_size(self.mesh)
+
+    def gather(self, tree: Any, specs: Any) -> Any:
+        """`tree` of blocks (under `specs`) -> the full tensors."""
+        return map_specs(lambda t, s: gather(t, s, self.mesh), tree, specs)
+
+    def block_gather(self, stacked: Any, specs: Any) -> Callable:
+        """The `gather` of `transformer.stack_forward`: one superblock's
+        blocks of the stacked `stacked` (whose specs lead with the
+        "layers" entry, which no rule splits) -> its full parameters."""
+        sliced = map_specs(lambda t, s: s[1:], stacked, specs)
+        return functools.partial(self.gather, specs=sliced)
+
+    def blocks(self, tree: Any, specs: Any) -> Any:
+        """This rank's blocks of the full tensors of `tree`, as tensors of
+        their own (not views of the full ones)."""
+        return map_specs(
+            lambda t, s: local_block(t, s, self.mesh).clone(), tree, specs)
+
+    def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str,
+                                                           torch.Tensor]:
+        """This rank's rows of each batch leaf (`batch_specs`)."""
+        specs = batch_specs(batch, self.mesh)
+        return {k: local_block(v, specs[k], self.mesh)
+                for k, v in batch.items()}
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the ranks of this rank's data group (a
+        group of one rank: t + 0.0, as `psum` gives)."""
+        if self.data_size == 1:
+            return t + 0.0
+        return psum(t, self.mesh.group(*self.data_axes))

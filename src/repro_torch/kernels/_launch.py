@@ -1,10 +1,11 @@
 """Operand checks and the launch call shared by the kernel wrappers.
 
 Routing is by the tensors' device and nothing else: a wrapper takes its
-plain PyTorch version only when every operand lies on the CPU; otherwise
-the operands must be contiguous CUDA tensors of the kernel's dtypes on one
-card, and the kernel launches or an exception says why not. There is no
-fallback.
+plain PyTorch version only when every operand lies on the CPU, and
+`flash_attention`'s entries take a shape-only route when every operand
+lies on the `meta` device (the dry run); otherwise the operands must be
+contiguous CUDA tensors of the kernel's dtypes on one card, and the
+kernel launches or an exception says why not. There is no fallback.
 
 The GNN kernels have no backward: `no_backward` guards their public
 entries against operands that require grad (see `ops`). `flash_attention`
@@ -24,6 +25,12 @@ INT32_MAX = 2 ** 31 - 1
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """Every operand on the `meta` device: a wrapper that has a meta route
+    returns outputs of the right shapes there and computes nothing."""
+    return all(t.device.type == "meta" for t in tensors)
 
 
 def check_cuda(kernel: str, *, int8: Sequence[str] = (),

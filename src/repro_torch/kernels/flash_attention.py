@@ -51,15 +51,26 @@ head's group), so two calls give bit-equal results:
   bf16 at D 32: fp32 FMAs on tiles staged in shared memory.
 `BWD_LAUNCHES` counts its launches, one per backward call,
 `BWD_TC_LAUNCHES` and `BWD_SIMT_LAUNCHES` each route's.
+
+The meta route. Operands on the `meta` device (the dry run,
+`launch/dryrun.py`) get outputs of the right shapes and dtypes and
+nothing is computed or launched; each call adds the kernel's work
+(`forward_work`, `backward_work`: operations and bytes for these shapes
+and this mask) to `META_WORK`, which the dry run reads, since no
+operation counter sees inside a kernel. No launch counter moves. Any
+device other than the CPU, CUDA or meta raises.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
-from ._launch import check_cuda, check_int32, launch, on_cpu
+from ._launch import check_cuda, check_int32, launch, on_cpu, on_meta
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 LAUNCHES = 0                      # kernel launches by `flash_attention`
@@ -75,6 +86,50 @@ _LIBRARY = {"wgmma": "flash_attention_tc", "simt": "flash_attention"}
 _BWD_LIBRARY = {"wgmma": "flash_attention_bwd_tc",
                 "simt": "flash_attention_bwd"}
 TC_TILE = 64                      # the wgmma backward's q rows per tile
+# the work of the meta route's calls: operations and bytes (the dry run)
+META_WORK = {"flops": 0.0, "bytes": 0.0, "calls": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _pairs(sq: int, skv: int, causal: bool, window: Optional[int],
+           q_offset: int) -> int:
+    """(row, key) pairs the mask lets through; a row that no key may reach
+    averages every key, as the kernels do."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.where(lo <= hi, hi - lo + 1, skv).sum())
+
+
+def forward_work(q_shape, k_shape, *, causal: bool = True,
+                 window: Optional[int] = None, q_offset: int = 0,
+                 itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of one `flash_attention` call: 4 D operations
+    per (row, key) pair the mask lets through and per head (q k^T and
+    P v), q, k, v read and out written once."""
+    b, sq, h, d = q_shape
+    pairs = _pairs(sq, k_shape[1], causal, window, q_offset)
+    qn, kn = math.prod(q_shape), math.prod(k_shape)
+    return 4.0 * d * b * h * pairs, float(itemsize * (2 * qn + 2 * kn))
+
+
+def backward_work(q_shape, k_shape, **opts) -> Tuple[float, float]:
+    """(operations, bytes) of one `flash_attention_bwd` call: its five
+    products (q k^T, dout v^T, dS k, dS^T q, P^T dout), 10 D operations
+    per pair and head; q, k, v, dout read and dq, dk, dv written once."""
+    ops, _ = forward_work(q_shape, k_shape, **opts)
+    itemsize = opts.get("itemsize", 2)
+    qn, kn = math.prod(q_shape), math.prod(k_shape)
+    return ops * 10.0 / 4.0, float(itemsize * (3 * qn + 4 * kn))
+
+
+def _meta_work(work, q, k, opts) -> None:
+    ops, nbytes = work(tuple(q.shape), tuple(k.shape),
+                       causal=opts["causal"], window=opts["window"],
+                       q_offset=opts["q_offset"], itemsize=q.element_size())
+    META_WORK["flops"] += ops
+    META_WORK["bytes"] += nbytes
+    META_WORK["calls"] += 1
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -126,6 +181,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q_offset=q_offset)
     if on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, **opts)
+    if on_meta(q, k, v):
+        return MetaAttention.apply(q, k, v, opts)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, opts)
@@ -149,6 +206,22 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, dout.contiguous(),
                                          **ctx.opts)
         return dq, dk, dv, None
+
+
+class MetaAttention(torch.autograd.Function):
+    """The meta route: outputs of the right shapes, the work recorded."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = opts
+        _meta_work(forward_work, q, k, opts)
+        return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, dout, **ctx.opts), None)
 
 
 def _check_aligned(kernel: str, **tensors: torch.Tensor) -> None:
@@ -213,6 +286,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                        window=window, softcap=softcap,
                                        scale=scale, q_offset=q_offset)
+    if on_meta(q, k, v, dout):
+        _meta_work(backward_work, q, k, dict(causal=causal, window=window,
+                                             q_offset=q_offset))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _launch_backward(q, k, v, dout, causal=causal, window=window,
                             softcap=softcap, scale=scale, q_offset=q_offset)
 

@@ -18,11 +18,18 @@ a caller may name one card for every rank (`cuda:0`, as `chip_smoke.py`
 does on a one-card machine, with gloo) or the CPU. The backend is
 explicit too: NCCL by default on a CUDA device, gloo on the CPU, and a
 failure of either raises; nothing switches backend or device quietly.
+
+`abstract_mesh` is a mesh with no ranks behind it: the shape, the axis
+names and the origin's coordinates, on the `meta` device, whose groups
+(`dist.compress.AbstractGroup`) record what a collective was handed and
+move nothing. The dry run runs a step as the origin rank of the (16, 16)
+and (2, 16, 16) production meshes on it.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 from typing import Dict, Optional, Tuple
@@ -31,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
+from repro_torch.dist.compress import AbstractGroup
 
 BACKENDS = ("nccl", "gloo")
 
@@ -104,9 +112,10 @@ class Mesh:
     """This rank's view of a mesh of ranks (see the module docstring).
 
     `shape` maps each axis name to its size, in axis order; `coords` is
-    this rank's index along each axis; `groups` holds, per axis, the
-    process group of the ranks that share this rank's other coordinates,
-    and under the key of every axis at once the group of the whole mesh.
+    this rank's index along each axis; `groups` holds, per set of axes
+    (a tuple in axis order), the process group of the ranks that share
+    this rank's other coordinates; the key of every axis at once holds
+    the group of the whole mesh.
     """
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -155,17 +164,16 @@ def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *,
     rank = dist.get_rank()
     ids = torch.arange(need).reshape(shape)
     groups: Dict[Tuple[str, ...], object] = {}
-    for k, name in enumerate(axis_names):
-        # one line per combination of the other coordinates
-        lines = ids.movedim(k, -1).reshape(-1, shape[k])
+    for sub in _axis_sets(len(shape)):
+        # one line per combination of the other coordinates, the ranks in
+        # row-major order of the set's coordinates
+        rest = [k for k in range(len(shape)) if k not in sub]
+        lines = ids.permute(*rest, *sub).reshape(
+            -1, math.prod(shape[k] for k in sub))
         for line in lines.tolist():
             g = dist.new_group(line)
             if rank in line:
-                groups[(name,)] = g
-    if len(axis_names) > 1:
-        g = dist.new_group(list(range(need)))
-        if rank < need:
-            groups[tuple(axis_names)] = g
+                groups[tuple(axis_names[k] for k in sub)] = g
     if rank >= need:
         return None
     pos = (ids == rank).nonzero()[0].tolist()
@@ -175,6 +183,39 @@ def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *,
                 device=rank_device(device), ranks=tuple(range(need)))
 
 
+def _axis_sets(n: int):
+    """Every non-empty set of axis indices, by size, in axis order."""
+    for r in range(1, n + 1):
+        yield from itertools.combinations(range(n), r)
+
+
+def abstract_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...]
+                  ) -> Mesh:
+    """The origin rank's view of a mesh of `shape` with no ranks behind it
+    (see the module docstring): coordinates 0, the `meta` device, and an
+    `AbstractGroup` for every set of axes."""
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} and axes {axis_names} differ in "
+                         f"length")
+    groups = {}
+    for sub in _axis_sets(len(shape)):
+        key = tuple(axis_names[k] for k in sub)
+        groups[key] = AbstractGroup(key, math.prod(shape[k] for k in sub))
+    return Mesh(axis_names=tuple(axis_names),
+                shape=dict(zip(axis_names, shape)),
+                coords=dict.fromkeys(axis_names, 0), groups=groups,
+                device=torch.device("meta"),
+                ranks=tuple(range(math.prod(shape))))
+
+
+def production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production layout: (16, 16) ("data",
+    "model"), or with `multi_pod` (2, 16, 16) ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: DeviceLike = None) -> Optional[Mesh]:
     """The production layout: (16, 16) ("data", "model"), or (2, 16, 16)
@@ -182,9 +223,7 @@ def make_production_mesh(*, multi_pod: bool = False,
     data-parallel across pods; "model" is innermost, so tensor-parallel
     collectives stay among neighbouring ranks. Raises without 256 (512)
     ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+    return make_mesh(*production_shape(multi_pod), device=device)
 
 
 def make_host_mesh(*, data: Optional[int] = None, model: int = 1,

@@ -30,7 +30,6 @@ every rank of a one-card machine, with gloo); none means `cuda:{rank}`.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -54,6 +53,7 @@ from repro_torch.core.models import GNNConfig
 from repro_torch.core.partition import modelled_sharded_latency
 from repro_torch.data.graphs import clustered_like
 from repro_torch.dist import compress
+from repro_torch.dist.compress import timed_all_reduces
 from repro_torch.dist.sharding import assemble, local_block
 from repro_torch.kernels import block_matmul, int8_matmul, sage_max
 from repro_torch.launch.mesh import init_distributed, make_shard_mesh
@@ -260,30 +260,6 @@ def run_burst(eng: GraphServe, spec: BurstSpec):
         labels = {"grow/unsharded": eng.query(gid)}
         _serve(eng, labels, answers, log)
     return answers, log, checks, gids
-
-
-@contextlib.contextmanager
-def timed_all_reduces(spans: List):
-    """While open, each all_reduce that `dist.compress` makes of a CUDA
-    tensor appends a (start, end) pair of CUDA events around itself to
-    `spans`: the exchange timed apart from the rest of a dispatch."""
-    inner = compress._all_reduce
-
-    def timed(t, op, group):
-        if not t.is_cuda:
-            return inner(t, op, group)
-        span = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        span[0].record()
-        inner(t, op, group)
-        span[1].record()
-        spans.append(span)
-        return t
-    compress._all_reduce = timed
-    try:
-        yield spans
-    finally:
-        compress._all_reduce = inner
 
 
 def time_dispatches(eng: GraphServe, gids: Dict[str, int],

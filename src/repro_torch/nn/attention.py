@@ -66,6 +66,14 @@ def attn_init(cfg: ArchConfig, generator: torch.Generator, *,
                       q_norm=ones(), k_norm=ones())
 
 
+def attn_axes(cfg: ArchConfig) -> AttnParams:
+    """The logical axes of `attn_init`'s tensors, the reference's."""
+    norm = (None,) if cfg.qk_norm else None
+    return AttnParams(wq=("embed", "heads", None), wk=("embed", "kv", None),
+                      wv=("embed", "kv", None), wo=("heads", None, "embed"),
+                      q_norm=norm, k_norm=norm)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") in the compute dtype."""
     d, h, k = w.shape

@@ -2,8 +2,17 @@
 embeddings, soft-capping and the embedding lookup.
 
 Norms compute in float32 and cast back to the input's dtype, as the
-reference does. The reference's logical-axis `Param` machinery is multi-card
-placement (ROADMAP queue 1 item 16): here a parameter is a plain tensor.
+reference does.
+
+A parameter is a plain tensor. Its logical axis names, which the
+reference keeps beside the value in a `Param`, live in a tree of their
+own: each init has an `*_axes` twin (`attention.attn_axes`, `mlp.
+mlp_axes`, ... up to `lm.lm_axes`) whose tree has the init's structure
+with a tuple of names in place of each tensor, the stacked leaves led by
+"layers" (`lead_layers`). `dist.sharding.param_specs` maps the names onto
+a mesh and `dist.sharding.Placement` gathers a rank's blocks where the
+model reads them. On the `meta` device an init draws nothing and makes
+shapes only (`launch.specs.abstract_params`).
 """
 from __future__ import annotations
 
@@ -23,12 +32,50 @@ def dense_param(shape: Sequence[int], generator: torch.Generator, *,
     card): the port's own init; it does not reproduce `jax.random`. The
     draws are float32, made on the generator's device, and rounded to
     `dtype` at once."""
+    device = resolve_device(device)
+    if device.type == "meta":            # shapes only: nothing is drawn
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(scale).to(resolve_device(device), dtype)
+    return t.mul_(scale).to(device, dtype)
+
+
+def draw_generator(device: torch.device, on_host: bool
+                   ) -> Optional[torch.Generator]:
+    """The generator an init draws from: on the host (`on_host`) or on
+    `device`; None on the `meta` device, where nothing is drawn."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device="cpu" if on_host else device)
+
+
+def is_axes(node) -> bool:
+    """Whether `node` is one leaf of an axes tree: a plain tuple of
+    logical names (named tuples are containers)."""
+    return type(node) is tuple
+
+
+def map_axes(fn, tree):
+    """`tree` (dicts, lists, named tuples, None) with fn applied to each
+    axes leaf."""
+    if tree is None:
+        return None
+    if is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_axes(fn, v) for v in tree]
+    return type(tree)(*(map_axes(fn, v) for v in tree))
+
+
+def lead_layers(tree):
+    """The axes of a stacked tree: a leading "layers" axis on each leaf,
+    as the reference's `stack_params` gives its Params."""
+    return map_axes(lambda axes: ("layers",) + axes, tree)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,

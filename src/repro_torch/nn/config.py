@@ -17,6 +17,11 @@ logits `lm.chunked_xent` makes at a time). The reference's other knobs of
 its multi-pod dry run (query and KV chunk sizes, scan unrolling, block
 skip, bf16 logits, the flash stub) have no meaning on this path and are
 not fields here.
+
+`ShapeConfig` and `SHAPES` are the reference's four input cells of the
+dry run (`launch/dryrun.py`): a training batch, a long prefill, a decode
+step against a long cache, and a 512k-token decode for the
+sub-quadratic families.
 """
 from __future__ import annotations
 
@@ -193,3 +198,24 @@ class ArchConfig:
         idle = (m.num_experts - m.top_k) * mult * self.d_model * m.d_ff_expert
         return int(self.param_count() - n_moe * idle)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input cell of the dry run."""
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

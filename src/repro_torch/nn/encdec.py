@@ -19,7 +19,7 @@ decode step reads the same tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,19 +46,28 @@ def encoder_init(cfg: ArchConfig, generator: torch.Generator, *,
             "final_norm": tfm.norm_init(ecfg, device=device)}
 
 
+def encoder_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The logical axes of `encoder_init`'s tree."""
+    ecfg = encoder_cfg(cfg)
+    return {"stack": tfm.stack_axes(ecfg), "final_norm": tfm.norm_axes(ecfg)}
+
+
 def encoder_forward(enc_params: Dict[str, Any], cfg: ArchConfig,
-                    frame_embeds: torch.Tensor) -> torch.Tensor:
+                    frame_embeds: torch.Tensor, *,
+                    gather: Optional[Callable] = None) -> torch.Tensor:
     """frame_embeds: (B, frames, d) stub output in the compute dtype ->
-    the encoder's final-normed hidden states (B, frames, d)."""
+    the encoder's final-normed hidden states (B, frames, d). `gather` (on
+    a mesh) turns one encoder superblock's blocks into its parameters, as
+    `transformer.stack_forward`'s does."""
     ecfg = encoder_cfg(cfg)
     h = frame_embeds
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), device=h.device)
     kinds = ("attn_bidir",) * len(ecfg.superblock)
-    for blk in range(ecfg.num_superblocks):
-        h, aux = tfm.superblock_forward(
-            tfm.slice_block(enc_params["stack"], blk), ecfg, h, aux,
-            positions, kinds=kinds)
+    for params in tfm.unstack_blocks(enc_params["stack"],
+                                     ecfg.num_superblocks):
+        h, aux = tfm.superblock_forward(params, ecfg, h, aux, positions,
+                                        kinds=kinds, gather=gather)
     return tfm.apply_norm(enc_params["final_norm"], ecfg, h)
 
 

@@ -33,6 +33,13 @@ def mlp_init(cfg: ArchConfig, generator: torch.Generator, *,
                      w_out=dense(ff, d))
 
 
+def mlp_axes(cfg: ArchConfig) -> MLPParams:
+    """The logical axes of `mlp_init`'s tensors, the reference's."""
+    return MLPParams(w_in=("embed", "ff"),
+                     w_up=("embed", "ff") if cfg.gated_mlp else None,
+                     w_out=("ff", "embed"))
+
+
 def mlp_forward(p: MLPParams, cfg: ArchConfig, x: torch.Tensor
                 ) -> torch.Tensor:
     dt = cfg.dtype

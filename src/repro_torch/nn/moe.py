@@ -16,9 +16,12 @@ Tokens go in groups of `group_size` G, so the dispatch costs T*G*k*cf*d
 operations rather than T^2*k*cf*d. The groups are one batched einsum over
 their leading axis (the reference's `vmap`). The reference computes all
 of it as plain einsums outside any Pallas kernel; the port does the same
-with `torch.einsum`. Its sharding constraint on the groups is the
-identity outside a device mesh, which the port does not have (ROADMAP
-queue 1 item 16).
+with `torch.einsum`. On a mesh of ranks the experts are placed by
+their logical axes (`moe_axes`: "experts" over the axis
+`dist.sharding.set_expert_axis` names) and gathered a superblock at a
+time (`dist.sharding.Placement`), so every rank computes its rows
+through every expert; the reference's sharding constraint on the groups
+has no counterpart.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .common import activation, dense_param
 from .config import ArchConfig, MoEConfig
-from .mlp import MLPParams, mlp_forward, mlp_init
+from .mlp import MLPParams, mlp_axes, mlp_forward, mlp_init
 
 
 class MoEParams(NamedTuple):
@@ -60,6 +63,17 @@ def moe_init(cfg: ArchConfig, generator: torch.Generator, *,
         shared=(mlp_init(cfg, generator, device=device,
                          d_ff=m.shared_expert_ff, dtype=dtype)
                 if m.shared_expert_ff else None))
+
+
+def moe_axes(cfg: ArchConfig) -> MoEParams:
+    """The logical axes of `moe_init`'s tensors, the reference's."""
+    m = cfg.moe
+    expert = ("experts", "embed", "ff")
+    return MoEParams(
+        w_router=("embed", None), w_in=expert,
+        w_up=expert if cfg.gated_mlp else None,
+        w_out=("experts", "ff", "embed"),
+        shared=mlp_axes(cfg) if m.shared_expert_ff else None)
 
 
 def capacity(m: MoEConfig, group: int) -> int:

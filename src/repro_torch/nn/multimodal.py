@@ -6,10 +6,10 @@ frame embeddings, the caller passes to `lm_prefill` (`prefix_embeds=`,
 `enc_embeds=`). These make seeded synthetic embeddings of the right shape
 and dtype, unit normal over sqrt(d_model), from a `torch.Generator` on the
 caller's device; the reference's `jax.random` draws differ, so tests feed
-both packages the same numpy embeddings. The reference's dry-run
-ShapeDtypeStructs (`vision_spec`, `audio_spec`) wait for the port's
-`launch/specs.py`, which goes with the multi-pod dry run (ROADMAP queue
-1 item 16).
+both packages the same numpy embeddings. `vision_spec` and `audio_spec`
+are the dry run's stand-ins (`launch/specs.py`): tensors of the same
+shapes and dtype on the `meta` device, where the reference makes
+ShapeDtypeStructs.
 """
 from __future__ import annotations
 
@@ -43,3 +43,16 @@ def audio_frame_embeddings(cfg: ArchConfig, batch: int, frames: int, *,
     """Stub conv-frontend output: (B, frames, d_model) in the compute
     dtype; drawn from seed + 1, as the reference's."""
     return _stub(cfg, (batch, frames, cfg.d_model), seed + 1, device)
+
+
+def vision_spec(cfg: ArchConfig, batch: int) -> torch.Tensor:
+    """(B, num_patches, d_model) in the compute dtype, on the meta
+    device."""
+    return torch.empty((batch, cfg.num_patches, cfg.d_model),
+                       dtype=cfg.dtype, device="meta")
+
+
+def audio_spec(cfg: ArchConfig, batch: int, frames: int) -> torch.Tensor:
+    """(B, frames, d_model) in the compute dtype, on the meta device."""
+    return torch.empty((batch, frames, cfg.d_model), dtype=cfg.dtype,
+                       device="meta")

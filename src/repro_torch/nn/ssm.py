@@ -76,11 +76,15 @@ def ssm_init(cfg: ArchConfig, generator: torch.Generator, *,
         return dense_param(shape, generator, device=device, dtype=dtype)
     w_zx, w_bc, w_dt = dense(d, 2 * d_in), dense(d, 2 * g * n), dense(
         d, n_heads)
-    # dt bias: softplus(dt_bias) spans [1e-3, 1e-1] (Mamba2's default)
-    u = torch.rand(n_heads, generator=generator, device=generator.device)
-    lo, hi = math.log(1e-3), math.log(0.1)
-    dt0 = torch.exp(u * (hi - lo) + lo)
-    dt_bias = (dt0 + torch.log(-torch.expm1(-dt0))).to(device)
+    if device.type == "meta":            # shapes only: nothing is drawn
+        dt_bias = torch.empty(n_heads, device=device)
+    else:
+        # dt bias: softplus(dt_bias) spans [1e-3, 1e-1] (Mamba2's default)
+        u = torch.rand(n_heads, generator=generator,
+                       device=generator.device)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt0 = torch.exp(u * (hi - lo) + lo)
+        dt_bias = (dt0 + torch.log(-torch.expm1(-dt0))).to(device)
     conv_w = dense_param((s.conv_kernel, conv_ch), generator,
                          scale=1.0 / s.conv_kernel, device=device)
     return SSMParams(
@@ -90,6 +94,16 @@ def ssm_init(cfg: ArchConfig, generator: torch.Generator, *,
                                      device=device)),
         d_skip=torch.ones(n_heads, device=device), dt_bias=dt_bias,
         norm=torch.ones(d_in, device=device), w_out=dense(d_in, d))
+
+
+def ssm_axes(cfg: ArchConfig) -> SSMParams:
+    """The logical axes of `ssm_init`'s tensors, the reference's."""
+    heads = ("ssm_heads",)
+    return SSMParams(w_zx=("embed", "ssm_in"), w_bc=("embed", None),
+                     w_dt=("embed", "ssm_heads"), conv_w=(None, None),
+                     conv_b=(None,), a_log=heads, d_skip=heads,
+                     dt_bias=heads, norm=("ssm_in",),
+                     w_out=("ssm_in", "embed"))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,14 @@ layers (`cross=True`) put a cross-attention step between the mixer and
 the MLP, over the encoder's K and V of their superblock
 (`enc_kv_stacked`: (k, v), each (nsb, B, enc_len, KV, hd), from
 `encdec.cross_kv`).
+
+On a mesh of ranks each rank holds its blocks of the stacked leaves
+(`dist.sharding.Placement`): `stack_forward`, `stack_prefill` and
+`stack_decode` then take a `gather`, which turns one superblock's blocks
+into its full parameters. It runs inside the superblock's remat region,
+so the backward gathers again rather than keeping the whole model, and
+only one superblock's full weights exist at a time. With no `gather`
+the stack reads its parameters as they are.
 """
 from __future__ import annotations
 
@@ -31,9 +39,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import layer_norm, rms_norm
+from .common import layer_norm, lead_layers, rms_norm
 from .config import ArchConfig
-from .mlp import mlp_forward, mlp_init
+from .mlp import mlp_axes, mlp_forward, mlp_init
 
 
 def norm_init(cfg: ArchConfig, *, device: DeviceLike = None
@@ -42,6 +50,13 @@ def norm_init(cfg: ArchConfig, *, device: DeviceLike = None
     p = {"scale": torch.ones(cfg.d_model, device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(cfg.d_model, device=device)
+    return p
+
+
+def norm_axes(cfg: ArchConfig) -> Dict[str, tuple]:
+    p = {"scale": (None,)}
+    if cfg.norm == "layernorm":
+        p["bias"] = (None,)
     return p
 
 
@@ -82,6 +97,37 @@ def layer_init(cfg: ArchConfig, pos: int, generator: torch.Generator, *,
     return p
 
 
+def layer_axes(cfg: ArchConfig, pos: int, *, cross: bool = False
+               ) -> Dict[str, Any]:
+    """The logical axes of `layer_init`'s tree, the reference's."""
+    kind = cfg.superblock[pos]
+    p: Dict[str, Any] = {"pre_norm": norm_axes(cfg),
+                         "mixer": (attn_mod.attn_axes(cfg)
+                                   if kind.startswith("attn")
+                                   else ssm_mod.ssm_axes(cfg))}
+    if cfg.post_norms:
+        p["post_norm"] = norm_axes(cfg)
+    if cross:
+        p["pre_cross_norm"] = norm_axes(cfg)
+        p["cross"] = attn_mod.attn_axes(cfg)
+    if cfg.layer_uses_moe(pos, kind):
+        p["pre_mlp_norm"] = norm_axes(cfg)
+        p["mlp"] = moe_mod.moe_axes(cfg)
+    elif cfg.d_ff > 0:
+        p["pre_mlp_norm"] = norm_axes(cfg)
+        p["mlp"] = mlp_axes(cfg)
+    if cfg.post_norms and "mlp" in p:
+        p["post_mlp_norm"] = norm_axes(cfg)
+    return p
+
+
+def stack_axes(cfg: ArchConfig, *, cross: bool = False) -> List[Any]:
+    """The logical axes of `stack_init`'s tree: each position's layer
+    axes behind a leading "layers" axis."""
+    return [lead_layers(layer_axes(cfg, pos, cross=cross))
+            for pos in range(len(cfg.superblock))]
+
+
 def slice_block(tree: Any, blk: int) -> Any:
     """One superblock's parameters (or caches) out of the stacked tree:
     views, no copies."""
@@ -94,6 +140,24 @@ def slice_block(tree: Any, blk: int) -> Any:
     if isinstance(tree, list):
         return [slice_block(v, blk) for v in tree]
     return type(tree)(*(slice_block(v, blk) for v in tree))
+
+
+def unstack_blocks(tree: Any, n: int) -> List[Any]:
+    """The n superblocks' trees out of the stacked tree, each leaf split
+    by one `torch.unbind`: views, as `slice_block`'s, but under autograd
+    the n gradients are stacked once, where n slices would each add a
+    stack-sized gradient (n^2 stack rows written in a backward)."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree))
+    if isinstance(tree, dict):
+        parts = {k: unstack_blocks(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    parts = [unstack_blocks(v, n) for v in tree]
+    if type(tree) in (list, tuple):
+        return [type(tree)(v[i] for v in parts) for i in range(n)]
+    return [type(tree)(*(v[i] for v in parts)) for i in range(n)]
 
 
 def stack_init(cfg: ArchConfig, generator: torch.Generator, *,
@@ -218,22 +282,27 @@ def superblock_forward(params: List[Dict[str, Any]], cfg: ArchConfig,
                        positions: torch.Tensor,
                        enc_kv: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                       kinds: Optional[Tuple[str, ...]] = None
+                       kinds: Optional[Tuple[str, ...]] = None,
+                       gather: Optional[Callable] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One superblock's layers (`kinds`, default `cfg.superblock`) on x,
     adding each layer's MoE aux loss to `aux`, as the reference's scan
     body does. Under `cfg.remat` and grad mode, `torch.utils.checkpoint`
     (non-reentrant) keeps only the superblock's inputs and recomputes its
     activations in the backward, the counterpart of the reference's
-    `jax.checkpoint`; either way the arithmetic is the same."""
+    `jax.checkpoint`; either way the arithmetic is the same. `gather`
+    (on a mesh) turns `params`, this rank's blocks, into the full
+    parameters inside that region."""
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(_superblock, params, cfg, x, aux, positions, enc_kv,
-                          kinds, use_reentrant=False,
+                          kinds, gather, use_reentrant=False,
                           preserve_rng_state=False)
-    return _superblock(params, cfg, x, aux, positions, enc_kv, kinds)
+    return _superblock(params, cfg, x, aux, positions, enc_kv, kinds, gather)
 
 
-def _superblock(params, cfg, x, aux, positions, enc_kv, kinds):
+def _superblock(params, cfg, x, aux, positions, enc_kv, kinds, gather):
+    if gather is not None:
+        params = gather(params)
     for pos, kind in enumerate(kinds or cfg.superblock):
         x, a = _layer_forward(params[pos], cfg, x, kind=kind,
                               positions=positions, enc_kv=enc_kv)
@@ -244,15 +313,23 @@ def _superblock(params, cfg, x, aux, positions, enc_kv, kinds):
 def stack_forward(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                   x: torch.Tensor, *, positions: torch.Tensor,
                   enc_kv_stacked: Optional[Tuple[torch.Tensor,
-                                                 torch.Tensor]] = None
+                                                 torch.Tensor]] = None,
+                  gather: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (hidden, moe_aux_sum); each superblock
-    rematerialised as `superblock_forward` says."""
+    rematerialised, and gathered on a mesh, as `superblock_forward`
+    says."""
     aux = torch.zeros((), device=x.device)
-    for blk in range(cfg.num_superblocks):
-        x, aux = superblock_forward(slice_block(stacked, blk), cfg, x, aux,
-                                    positions, _block_kv(enc_kv_stacked, blk))
+    nsb = cfg.num_superblocks
+    for params, kv in zip(unstack_blocks(stacked, nsb),
+                          unstack_blocks(enc_kv_stacked, nsb)):
+        x, aux = superblock_forward(params, cfg, x, aux, positions, kv,
+                                    gather=gather)
     return x, aux
+
+
+def _gathered(params: Any, gather: Optional[Callable]) -> Any:
+    return params if gather is None else gather(params)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -279,16 +356,17 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
 def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                   x: torch.Tensor, *, positions: torch.Tensor, max_len: int,
                   enc_kv_stacked: Optional[Tuple[torch.Tensor,
-                                                 torch.Tensor]] = None
+                                                 torch.Tensor]] = None,
+                  gather: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, List[Any]]:
     """Prefill: forward and the decode caches. x: (B, S, d); KV cache rows
     [S, max_len) stay zero; an SSM position's cache is its state after
-    the last of the S positions."""
+    the last of the S positions. `gather` as in `stack_forward`."""
     b, s, _ = x.shape
     assert max_len >= s, f"cache capacity {max_len} < prompt length {s}"
     caches = init_caches(cfg, b, max_len, device=x.device)
     for blk in range(cfg.num_superblocks):
-        params = slice_block(stacked, blk)
+        params = _gathered(slice_block(stacked, blk), gather)
         enc_kv = _block_kv(enc_kv_stacked, blk)
         for pos, kind in enumerate(cfg.superblock):
             p = params[pos]
@@ -314,14 +392,16 @@ def stack_prefill(stacked: List[Dict[str, Any]], cfg: ArchConfig,
 def stack_decode(stacked: List[Dict[str, Any]], cfg: ArchConfig,
                  x: torch.Tensor, caches: List[Any], pos: torch.Tensor,
                  enc_kv_stacked: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
+                                                torch.Tensor]] = None,
+                 gather: Optional[Callable] = None
                  ) -> Tuple[torch.Tensor, List[Any]]:
     """One-token decode. x: (B, 1, d); pos: scalar or (B,) write cursors
     (an SSM layer reads none: its state has taken every position so far).
     The caches are updated in place and returned; a cross-attention layer
-    reads its superblock's encoder K and V from `enc_kv_stacked`."""
+    reads its superblock's encoder K and V from `enc_kv_stacked`.
+    `gather` as in `stack_forward`."""
     for blk in range(cfg.num_superblocks):
-        params = slice_block(stacked, blk)
+        params = _gathered(slice_block(stacked, blk), gather)
         enc_kv = _block_kv(enc_kv_stacked, blk)
         for i, kind in enumerate(cfg.superblock):
             p = params[i]

@@ -13,7 +13,7 @@ gradients.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
@@ -54,12 +54,21 @@ def adamw_update(params: Tree, grads: Tree, state: OptState, *,
     return new_p, {"m": new_m, "v": new_v, "count": count}
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float, *,
+                        gnorm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in tree_leaves(grads)))
+    """grads scaled so that their global norm is at most `max_norm`, and
+    the norm. `gnorm` given (on a mesh: the norm over every rank's
+    blocks) replaces the norm of `grads` themselves."""
+    if gnorm is None:
+        gnorm = torch.sqrt(sum_of_squares(tree_leaves(grads)))
     scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
+
+
+def sum_of_squares(leaves) -> torch.Tensor:
+    """The float32 sum of every entry's square over `leaves`."""
+    return sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
 
 
 def cosine_schedule(step: Union[int, torch.Tensor], *, base_lr: float,

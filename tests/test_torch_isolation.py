@@ -62,7 +62,9 @@ def test_port_file_list_covers_every_slice():
             "examples/dynamic_graph_serving.py",
             "examples/sparse_serving.py",
             "examples/async_pipeline.py", "launch/mesh.py",
-            "dist/sharding.py", "launch/shard_serve.py"} <= names
+            "dist/sharding.py", "launch/shard_serve.py",
+            "launch/specs.py", "launch/roofline.py",
+            "launch/dryrun.py"} <= names
 
 
 def test_mesh_rank_program_imports_no_jax_and_no_reference():
@@ -70,6 +72,28 @@ def test_mesh_rank_program_imports_no_jax_and_no_reference():
     path = ROOT / "tests" / "torch_mesh_rank.py"
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"tests/torch_mesh_rank.py imports {bad}"
+
+
+def test_lm_mesh_rank_program_imports_no_jax_and_no_reference():
+    """The rank processes of tests/test_torch_mesh_train.py run without
+    JAX."""
+    path = ROOT / "tests" / "torch_mesh_lm_rank.py"
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"tests/torch_mesh_lm_rank.py imports {bad}"
+
+
+def test_dry_run_modules_load_no_jax():
+    """Importing the dry run, its specs and pricer, and the mesh entry
+    points of training and serving loads no JAX or reference module."""
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.specs\n"
+            "import repro_torch.launch.roofline, repro_torch.launch.train\n"
+            "import repro_torch.launch.serve\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
 
 
 def test_mesh_modules_load_no_jax():

@@ -3,7 +3,7 @@
 the PyTorch port's LM serving at full width, its serving examples and its
 GNN intake after a change.
 
-Phases, in the order given (default: all but intake):
+Phases, in the order given (default: flash, dense, scout, examples):
   flash     chip_smoke's FLASH_CASES whose label starts with one of
             FLASH_PREFIXES (the full-width head layouts of chatglm3,
             Llama-4-Scout and gemma2's long wave), kernel against plain
@@ -14,12 +14,17 @@ Phases, in the order given (default: all but intake):
   intake    [intake]: the host pieces and the fp32 GCN bursts with and
             without CacheG (the check that CacheG's intake is not above
             the eager path's)
+  mesh-lm   [mesh-lm]: SmolLM-135M trained and served on meshes of gloo
+            ranks sharing the card, against the single-process steps
+  dryrun    [dryrun]: every arch x shape x production mesh on meta
+            tensors (host cores only)
 
 `--root DIR` imports chip_smoke.py and its `src/` from another checkout
 (for example the parent commit unpacked under `build/`), so that two
 trees' [intake] can be compared in one call, each in its own process:
 
     python3 tools/serve_probe.py dense scout
+    python3 tools/serve_probe.py mesh-lm dryrun
     python3 tools/serve_probe.py intake --root build/parent
 
 Run from the repo root on a machine with a card. Any failed check exits
@@ -35,14 +40,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("flash", "dense", "scout", "examples", "intake")
+PHASES = ("flash", "dense", "scout", "examples", "intake", "mesh-lm",
+          "dryrun")
+DEFAULT = ("flash", "dense", "scout", "examples")
 FLASH_PREFIXES = ("chatglm3", "llama4", "gemma2 S4608")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*", choices=PHASES,
-                    default=[p for p in PHASES if p != "intake"])
+                    default=list(DEFAULT))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose chip_smoke.py and src/ to run")
     args = ap.parse_args(argv)
@@ -78,6 +85,11 @@ def main(argv=None) -> None:
                                arch=cs.SCOUT_ARCH, layers=cs.SCOUT_LAYERS)
         elif phase == "examples":
             cs.examples_phase(card)
+        elif phase == "mesh-lm":
+            print(f"[mesh-lm] launches {cs.mesh_lm_phase(dev, card)}",
+                  flush=True)
+        elif phase == "dryrun":
+            cs.dryrun_phase(card)
         else:
             cora, others = cs.graphs()
             rng = np.random.default_rng(0)
