@@ -204,6 +204,18 @@ last line; there is no CPU path):
      bytes handed to all_reduce beside `ring_psum_nbytes`' price. Then
      the group collectives on an NCCL world of one rank, bit for bit,
      and NCCL's answer to two ranks on one card, printed;
+  11c. mesh-pipeline — the pipeline scheduler on a mesh
+     (`GraphServe(mesh=).scheduler(PipelineConfig(host_workers=2,
+     window_ms=2.0))`, `shard_serve --pipeline 2`): the Cora GCN on 4
+     gloo ranks at 4 x 3072 (an `update_delta` while it is open) and on
+     the 2 x 2 x 3072 replica mesh, fp32 and int8 queries through the
+     lead's batches, tiers and expiries, then a burst with 0.001 ms
+     deadlines. Each rank's pipelined answers must equal its sync mesh
+     run()'s bit for bit, its batch log (uids included) the lead's, its
+     launches of block_matmul and int8_matmul its batch log's, the
+     deadline burst expired alike on every rank, accepted == completed;
+     per rank it prints the pipelined burst's wall seconds beside the
+     sync run()'s, host_busy_s, device_busy_s and the idle share;
   12. train — the paper's four Cora models (GCN 1433 -> 64 -> 7, GAT 8
      heads of 8 then 1 of 7, SAGE-max and SAGE-mean over 10 sampled
      neighbours) trained on the card from a seeded init, 100 epochs of
@@ -4135,6 +4147,88 @@ def mesh_phase(dev, card):
     return total
 
 
+# [mesh-pipeline]: the pipeline scheduler on [mesh]'s GCN meshes: each
+# rank serves the burst through run() and then through
+# scheduler(PipelineConfig(host_workers=2, window_ms=2.0)), then a burst
+# of 0.001 ms deadlines, which the lead expires
+MESH_PIPELINE_CONFIGS = (
+    ("GCN 4 x 3072", ss.BurstSpec(kinds=("gcn",), nodes=SHARD_GCN_NODES,
+                                  shards=4, delta=True, pipeline=2)),
+    ("GCN 2 x 2 x 3072", ss.BurstSpec(kinds=("gcn",), nodes=SHARD_NODES,
+                                      shards=2, replicas=2, pipeline=2)),
+)
+
+
+def mesh_pipeline_phase(dev, card):
+    """[mesh-pipeline]: `GraphServe(mesh=).scheduler()` on gloo ranks
+    sharing this card, the Cora GCN at 4 x 3072 (with an `update_delta`
+    while the scheduler is open) and on the 2 x 2 x 3072 replica mesh.
+    Each rank's pipelined answers must equal its sync mesh run()'s bit
+    for bit, its batch log (uids included) the lead's, its launches of
+    SHARD_KERNELS over the pipelined burst its batch log's, the deadline
+    burst expired alike on every rank, and accepted == completed. Prints
+    per rank the pipelined burst's wall seconds beside the sync burst's,
+    host_busy_s, device_busy_s and the idle share. Returns the ranks'
+    launches of SHARD_KERNELS over the pipelined bursts, summed."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(SHARD_KERNELS, 0)
+    for label, spec in MESH_PIPELINE_CONFIGS:
+        free_card()
+        world = spec.shards * spec.replicas
+        t0 = time.perf_counter()
+        outs = [ss.last_json(o) for o in ss.spawn_local(
+            world, ss.burst_args(spec, "off") + [
+                "--backend", "gloo", "--device", str(dev)], MESH_TIMEOUT_S)]
+        print(f"[mesh-pipeline] {label}: {world} gloo ranks on {dev} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        lead = outs[0]["wires"]["off"]["pipeline"]
+        for o in outs:
+            got = o["wires"]["off"]
+            p = got["pipeline"]
+            tag = f"[mesh-pipeline] {label}, rank {o['rank']} {o['coords']}"
+            check(p["answers"] and all(got["answers"].get(k) == v
+                                       for k, v in p["answers"].items()),
+                  f"{tag}: a pipelined answer differs from the sync run's")
+            check(set(p["answers"]) == set(got["answers"]),
+                  f"{tag}: answered {sorted(p['answers'])}, the sync run "
+                  f"{sorted(got['answers'])}")
+            check(all(p["checks"].values()), f"{tag}: checks {p['checks']}")
+            check(p["batch_log"] == lead["batch_log"], f"{tag}: batch log "
+                  f"{p['batch_log']} != the lead's {lead['batch_log']}")
+            want_l = mesh_launch_want([e[:2] for e in p["batch_log"]])
+            check(p["launches"] == want_l, f"{tag}: launches "
+                  f"{p['launches']} != the batch log's {want_l}")
+            check(p["expired"] == lead["expired"]
+                  and len(p["expired"]) == 2 and all(p["expired"].values()),
+                  f"{tag}: the deadline burst expired {p['expired']}, the "
+                  f"lead {lead['expired']}")
+            c = p["counters"]
+            check(c["accepted"] == c["completed"], f"{tag}: accepted "
+                  f"{c['accepted']} != completed {c['completed']}")
+            for k in SHARD_KERNELS:
+                total[k] += p["launches"][k]
+            st = got["stages"]
+            print(f"{tag}: pipelined burst {p['burst_s']:.4f} s against the "
+                  f"sync run()'s {st['burst_s']:.4f} s "
+                  f"({p['burst_s'] / st['burst_s']:.3f}x); host_busy_s "
+                  f"{c['host_busy_s']:.4f}, device_busy_s "
+                  f"{p['device_busy_s']:.4f}, idle share "
+                  f"{1 - p['device_busy_s'] / p['burst_s']:.4f} (sync: "
+                  f"device_busy_s {st['device_busy_s']:.4f}, idle "
+                  f"{1 - st['device_busy_s'] / st['burst_s']:.4f}); "
+                  f"{len(p['batch_log'])} sharded batches, launches "
+                  f"{p['launches']}; {card}", flush=True)
+        print(f"[mesh-pipeline] {label}: {len(lead['answers'])} answers of "
+              f"every rank bit-equal to its sync run()'s, batch logs "
+              f"{[e[2] for e in lead['batch_log']]} alike, deadline burst "
+              f"expired alike", flush=True)
+    check(all(total[k] > 0 for k in ("block_matmul", "int8_matmul")),
+          f"[mesh-pipeline] a GCN kernel never launched: {total}")
+    print(f"[mesh-pipeline] phase took {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return total
+
+
 def train_forward(cfg, ops_, t, fusion="none", quant=None, tier_ops=None):
     return lambda p, x: gmodels.forward_grannite(p, cfg, x, ops_, t, quant,
                                                  tier_ops, fusion)
@@ -6235,6 +6329,9 @@ def main() -> None:
     # ------------------------------------------------------------ 11b. mesh
     mesh_launches = mesh_phase(dev, card)
 
+    # -------------------------------------------------- 11c. mesh-pipeline
+    mesh_pipe_launches = mesh_pipeline_phase(dev, card)
+
     # ----------------------------------------------------------- 12. train
     train_launches = train_phase(dev, card)
 
@@ -6541,10 +6638,13 @@ def main() -> None:
         if kernel in SHARD_KERNELS:
             # the sharded path's launches ([shard]) join the count, and are
             # given apart too; so do its ranks' on a mesh ([mesh], summed
-            # over the ranks)
-            row["launches"] += shard_launches[kernel] + mesh_launches[kernel]
+            # over the ranks) and through the pipeline there
+            # ([mesh-pipeline])
+            row["launches"] += (shard_launches[kernel] + mesh_launches[kernel]
+                                + mesh_pipe_launches[kernel])
             row["shard_launches"] = shard_launches[kernel]
             row["mesh_launches"] = mesh_launches[kernel]
+            row["mesh_pipeline_launches"] = mesh_pipe_launches[kernel]
         if kernel in TRAIN_KERNELS:
             # likewise the trained models' evaluation ([train])
             row["launches"] += train_launches[kernel]

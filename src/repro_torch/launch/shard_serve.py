@@ -21,6 +21,16 @@ CPU they read null, not measured). `--collectives` runs only the group
 forms of `dist.compress` and the halo exchange against their stacked
 forms (`collective_check`), the check of an NCCL world of one card.
 
+`--pipeline N` serves the burst a second time on the same engine, through
+`GraphServe.scheduler(PipelineConfig(host_workers=N))` (with
+`--deterministic`, the inline pipeline), attach, `update_delta` and
+`update()` arriving while it is open, then a burst of queries with a
+0.001 ms deadline, which the lead expires; the JSON line adds, per wire,
+the pipelined answers' digests, its batch log ([model, tier, uids] of
+each sharded batch this rank ran, in order), its launches, which
+deadline queries expired, its wall seconds, the engine's device-busy
+seconds over it and the scheduler's `summary()["pipeline"]`.
+
 The graph, the weights (made in numpy from `--seed`, replicated on every
 rank as the reference's `P()` replicates them) and the calibration are
 the same on every rank. `--device` is the rank's device (`cuda:0` for
@@ -59,6 +69,7 @@ from repro_torch.kernels import block_matmul, int8_matmul, sage_max
 from repro_torch.launch.mesh import init_distributed, make_shard_mesh
 from repro_torch.runtime.gnn_server import (GraphServe, GraphServeConfig,
                                             tier_techniques)
+from repro_torch.runtime.scheduler import PipelineConfig
 
 # model names of --kind -> (GNNConfig kind, its extra fields)
 KINDS = {"gcn": ("gcn", {}), "gat": ("gat", {}),
@@ -98,6 +109,8 @@ class BurstSpec:
     grow: Tuple[int, ...] = ()    # (small, mid): update() there and back
     slots: int = 4
     seed: int = 0
+    pipeline: int = 0             # host workers of a pipelined burst (0: none)
+    deterministic: bool = False   # the pipelined burst inline
 
 
 def model_config(kind: str, spec: BurstSpec) -> GNNConfig:
@@ -163,9 +176,17 @@ def digest(a: np.ndarray) -> str:
 
 
 def _serve(eng: GraphServe, labels: Dict[str, int], answers: Dict,
-           log: List) -> None:
-    """run(), then each label's logits (where this rank answers it) and
-    the sharded batches this run dispatched, per (model, tier)."""
+           log: List, sched=None) -> None:
+    """run() (or the scheduler's drain(), `labels` then naming tickets),
+    then each label's logits (where this rank answers it) and, for run(),
+    the sharded batches it dispatched, per (model, tier)."""
+    if sched is not None:
+        sched.drain()
+        for label, ticket in labels.items():
+            req = sched.request(ticket)
+            if req is not None:
+                answers[label] = req.logits
+        return
     before = len(eng.finished)
     eng.run()
     done = eng.finished[before:]
@@ -209,24 +230,26 @@ def _same_slices(got, want) -> bool:
                for a, b in zip(got, want, strict=True))
 
 
-def run_burst(eng: GraphServe, spec: BurstSpec):
-    """The burst every rank (and the single-process reference) serves:
-    returns ({label: logits} of the requests this rank answers, the batch
-    log [[model, tier], ...] of its sharded dispatches, {name: bool} of
+def run_burst(eng: GraphServe, spec: BurstSpec, sched=None):
+    """The burst every rank (and the single-process reference) serves,
+    through run() or, given one, the scheduler `sched`: returns ({label:
+    logits} of the requests this rank answers, the batch log [[model,
+    tier], ...] of its sharded dispatches under run(), {name: bool} of
     its own checks, {model: graph_id})."""
     answers: Dict[str, np.ndarray] = {}
     log: List = []
     checks: Dict[str, bool] = {}
+    ask = eng.query if sched is None else sched.query
     big = make_graph(spec.nodes, spec)
     gids = {k: eng.attach(big, model=k, calibrate=False)
             for k in spec.kinds}
     labels = {}
     for k, gid in gids.items():
         for tier in TIERS:
-            labels[f"{k}/{tier}"] = eng.query(gid, tier=tier)
+            labels[f"{k}/{tier}"] = ask(gid, tier=tier)
         if spec.replicas > 1:   # a second query, so a batch fills R rows
-            labels[f"{k}/fp32/2"] = eng.query(gid, tier="fp32")
-    _serve(eng, labels, answers, log)
+            labels[f"{k}/fp32/2"] = ask(gid, tier="fp32")
+    _serve(eng, labels, answers, log, sched)
     if spec.delta:
         labels = {}
         for k in [k for k in spec.kinds if KINDS[k][0] in ("gcn", "gat")]:
@@ -245,21 +268,63 @@ def run_burst(eng: GraphServe, spec: BurstSpec):
             checks[f"{k}/delta_equals_rebuild"] = _same_slices(
                 eng._shard_cache[(gid, ver)], rebuilt)
             for tier in TIERS:
-                labels[f"{k}/{tier}/delta"] = eng.query(gid, tier=tier)
-        _serve(eng, labels, answers, log)
+                labels[f"{k}/{tier}/delta"] = ask(gid, tier=tier)
+        _serve(eng, labels, answers, log, sched)
     if spec.grow:
         small, mid = (make_graph(n, spec) for n in spec.grow)
         k = spec.kinds[0]
         gid = eng.attach(small, model=k, calibrate=False)
         checks["grow/into_sharded"] = eng.update(
             gid, mid.edge_index, mid.num_nodes, mid.features)
-        labels = {"grow/sharded": eng.query(gid)}
-        _serve(eng, labels, answers, log)
+        labels = {"grow/sharded": ask(gid)}
+        _serve(eng, labels, answers, log, sched)
         checks["grow/back"] = eng.update(
             gid, small.edge_index, small.num_nodes, small.features)
-        labels = {"grow/unsharded": eng.query(gid)}
-        _serve(eng, labels, answers, log)
+        labels = {"grow/unsharded": ask(gid)}
+        _serve(eng, labels, answers, log, sched)
     return answers, log, checks, gids
+
+
+def deadline_burst(sched, gids: Dict[str, int]) -> Dict[str, bool]:
+    """Per model, a query of each tier with a deadline of 0.001 ms, which
+    passes before its host stage ends: {label: expired} of the ones this
+    rank holds (the lead expires them all; the others follow)."""
+    labels = {f"{k}/{tier}/deadline": sched.query(gid, tier=tier,
+                                                  deadline_ms=0.001)
+              for k, gid in gids.items() for tier in TIERS}
+    sched.drain()
+    out = {}
+    for label, ticket in labels.items():
+        req = sched.request(ticket)
+        if req is not None:
+            out[label] = bool(req.deadline_missed and req.preds is None)
+    return out
+
+
+def pipelined(eng: GraphServe, spec: BurstSpec) -> Dict:
+    """`run_burst` again on `eng` through its scheduler (`spec.pipeline`
+    host workers, `spec.deterministic`), then `deadline_burst`: the
+    answers' logits, the batch log [[model, tier, uids], ...] of the
+    sharded batches this rank ran, its launches, checks, expiries, wall
+    seconds, the engine's device-busy seconds over it and the
+    scheduler's own counters."""
+    pc = PipelineConfig(host_workers=spec.pipeline,
+                        deterministic=spec.deterministic)
+    before = {n: m.LAUNCHES for n, m in KERNELS.items()}
+    busy0 = eng.metrics["device_busy_s"]
+    t0 = time.perf_counter()
+    with eng.scheduler(pc) as sched:
+        answers, _, checks, gids = run_burst(eng, spec, sched)
+        burst_s = time.perf_counter() - t0
+        launches = {n: m.LAUNCHES - before[n] for n, m in KERNELS.items()}
+        expired = deadline_burst(sched, gids)
+        counters = sched.summary()["pipeline"]
+        log = [[m, t, uids] for uids, m, t, shards in sched.dispatch_log
+               if shards]
+    return dict(logits=answers, batch_log=log, launches=launches,
+                checks=checks, expired=expired, burst_s=burst_s,
+                device_busy_s=eng.metrics["device_busy_s"] - busy0,
+                counters=counters)
 
 
 def time_dispatches(eng: GraphServe, gids: Dict[str, int],
@@ -331,8 +396,10 @@ def serve(spec: BurstSpec, *, wires: Sequence[bool], device=None,
     """The burst once per halo wire setting (False exact, True int8), each
     on a fresh engine: {"off"/"on": {answers (digests), the partitions'
     digests, logits, batch log, checks, launches, summary counters,
-    dispatch times, and the host seconds of its stages: the engine's
-    build (registration, calibration, warmup), the burst, the timing}}."""
+    dispatch times, the host seconds of its stages: the engine's build
+    (registration, calibration, warmup), the burst (and the engine's
+    device-busy seconds over it), the timing, and with
+    `spec.pipeline` the pipelined burst (`pipelined`), else None}}."""
     out = {}
     for wire in wires:
         t0 = time.perf_counter()
@@ -340,13 +407,17 @@ def serve(spec: BurstSpec, *, wires: Sequence[bool], device=None,
                            mesh=mesh)
         t1 = time.perf_counter()
         before = {n: m.LAUNCHES for n, m in KERNELS.items()}
+        busy0 = eng.metrics["device_busy_s"]
         answers, log, checks, gids = run_burst(eng, spec)
         launches = {n: m.LAUNCHES - before[n] for n, m in KERNELS.items()}
         t2 = time.perf_counter()
+        busy = eng.metrics["device_busy_s"] - busy0
         dispatch = time_dispatches(eng, gids, TIME_ITERS)
         s = eng.summary()
         stages = {"engine_s": t1 - t0, "burst_s": t2 - t1,
-                  "timing_s": time.perf_counter() - t2}
+                  "timing_s": time.perf_counter() - t2,
+                  "device_busy_s": busy}
+        piped = pipelined(eng, spec) if spec.pipeline else None
         eng.assert_warm()
         out["on" if wire else "off"] = dict(
             answers={k: digest(v) for k, v in answers.items()},
@@ -356,7 +427,7 @@ def serve(spec: BurstSpec, *, wires: Sequence[bool], device=None,
             launches=launches, dispatch=dispatch,
             summary={k: s[k] for k in COUNTERS},
             cache_resident_bytes=s["cache_resident_bytes"],
-            stages=stages)
+            stages=stages, pipeline=piped)
         del eng
         gc.collect()
         if torch.cuda.is_available():
@@ -490,6 +561,10 @@ def burst_args(spec: BurstSpec, wire: str = "both") -> List[str]:
         args.append("--delta")
     if spec.grow:
         args += ["--grow", ",".join(map(str, spec.grow))]
+    if spec.pipeline:
+        args += ["--pipeline", str(spec.pipeline)]
+    if spec.deterministic:
+        args.append("--deterministic")
     return args
 
 
@@ -519,6 +594,11 @@ def main(argv=None) -> None:
                     help="small,mid node counts for update() there and back")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pipeline", type=int, default=0,
+                    help="host workers of a pipelined burst (0: none)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="the pipelined burst inline (PipelineConfig("
+                         "deterministic=True))")
     ap.add_argument("--collectives", action="store_true",
                     help="only the group forms against the stacked ones")
     ap.add_argument("--out", default=None,
@@ -550,7 +630,8 @@ def main(argv=None) -> None:
                 shards=args.shards, replicas=args.replicas,
                 cal_nodes=args.cal_nodes, delta=args.delta,
                 grow=tuple(int(n) for n in args.grow.split(",") if n),
-                slots=args.slots, seed=args.seed)
+                slots=args.slots, seed=args.seed, pipeline=args.pipeline,
+                deterministic=args.deterministic)
             wires = {"off": (False,), "on": (True,),
                      "both": (False, True)}[args.wire]
             t0 = time.perf_counter()
@@ -558,6 +639,11 @@ def main(argv=None) -> None:
             res["serve_s"] = time.perf_counter() - t0
             for wire, r in res["wires"].items():
                 logits = r.pop("logits")
+                if r["pipeline"] is not None:
+                    piped = r["pipeline"].pop("logits")
+                    r["pipeline"]["answers"] = {k: digest(v)
+                                                for k, v in piped.items()}
+                    logits.update({f"pipe|{k}": v for k, v in piped.items()})
                 if args.out:
                     np.savez(Path(args.out) / f"rank{args.rank}_{wire}.npz",
                              **{k.replace("/", "|"): v

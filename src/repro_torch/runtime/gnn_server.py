@@ -137,8 +137,17 @@ query its uid and skip it, as they skip the unsharded warmup. Partitions
 are deterministic, and attach() and update() check that every rank's
 equals the lead's. The lead's `summary()` equals a single-process
 engine's on the same calls, apart from `cache_resident_bytes`, which
-holds one row block of each sharded graph. The pipeline scheduler, which
-batches by timing, is not available on a mesh (ROADMAP queue 1 item 16).
+holds one row block of each sharded graph. The pipeline scheduler runs on
+a mesh too (`scheduler()`, `runtime.scheduler`): the lead batches by its
+own timing and tells the mesh each sharded batch, which the others run
+in its order. On a mesh a scheduler's uids are bound at intake, in call
+order, and a query reads its graph's version there, so every rank serves
+the same request under the same uid whatever its host workers' timing.
+While one is open, the caller's thread issues its collectives (attach()'s
+admission, the partition check, the scheduler's intake and close) on a
+gloo group of its own, made when the first scheduler opens, and the
+dispatcher's thread alone uses the mesh's groups (the lead's messages,
+the halo exchange, the gather of the logits).
 """
 from __future__ import annotations
 
@@ -210,8 +219,10 @@ AGG_BACKEND_MODES = ("dense", "auto", "grasp")
 # (model, bucket, tier, agg backend, fusion mode, shard count — 0 unsharded)
 BatchKey = Tuple[str, int, str, str, str, int]
 
-# the lead's messages to the other ranks of a mesh (`GraphServe._tell`)
-_DONE, _BATCH = 0, 1
+# the lead's messages to the other ranks of a mesh (`GraphServe._tell`):
+# the end of serving, a sharded batch, or no batch (the expiries alone;
+# in the deterministic pipeline also the end of the lead's inline drive)
+_DONE, _BATCH, _PAUSE = 0, 1, 2
 
 
 def best_fill_key(stats: Dict[BatchKey, Tuple[int, int]], batch_slots: int,
@@ -475,6 +486,10 @@ class GraphServe:
         self._last_dispatch: Dict[str, int] = {}   # model -> dispatch serial
         # the lead's sharded uids expired since its last message (a mesh)
         self._expired_out: List[int] = []
+        # on a mesh: the caller thread's own gloo group, made when the
+        # first scheduler opens, and the scheduler open now
+        self._caller_group = None
+        self._open_scheduler = None
         self.metrics = {"batches": 0, "slots_filled": 0, "slots_total": 0,
                         "rebucket_events": 0, "latency_s": [],
                         "first_submit_s": None, "last_finish_s": None,
@@ -526,10 +541,23 @@ class GraphServe:
         """This rank's first slot row of a sharded graph."""
         return self.mesh.coords["shard"] * shard_cap
 
-    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """The lead's `t` on every rank of the mesh (in place)."""
-        dist.broadcast(t, src=self.mesh.first_rank, group=self._mesh_group())
+    def _broadcast(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """The lead's `t` on every rank of the mesh (in place), over
+        `group` (default the mesh's)."""
+        dist.broadcast(t, src=self.mesh.first_rank,
+                       group=group if group is not None
+                       else self._mesh_group())
         return t
+
+    def _caller_comm(self):
+        """(group, device) of the collectives the caller's thread issues:
+        the mesh's group and device, or, once a scheduler made it, the
+        caller's own gloo group on the CPU (a scheduler's dispatcher
+        thread holds the mesh's groups; gloo pairs a group's collectives
+        by their order, so two threads never share one)."""
+        if self._caller_group is None:
+            return self._mesh_group(), self.device
+        return self._caller_group, torch.device("cpu")
 
     def _agree_partition(self, part: GraphShards) -> None:
         """On a mesh: raise on every rank unless every rank's partition
@@ -537,23 +565,55 @@ class GraphServe:
         are; a rank that differed would exchange the wrong rows)."""
         if self.mesh is None:
             return
-        perm = torch.from_numpy(np.asarray(part.perm, np.int64)).to(
-            self.device)
-        differs = (self._broadcast(perm.clone()) != perm).any()
+        group, dev = self._caller_comm()
+        perm = torch.from_numpy(np.asarray(part.perm, np.int64)).to(dev)
+        differs = (self._broadcast(perm.clone(), group) != perm).any()
         differs = differs.to(torch.int64).reshape(1)
-        dist.all_reduce(differs, op=dist.ReduceOp.MAX,
-                        group=self._mesh_group())
+        dist.all_reduce(differs, op=dist.ReduceOp.MAX, group=group)
         if differs.item():
             raise RuntimeError("the ranks of the mesh partitioned a graph "
                                "differently")
 
-    def _skip(self) -> int:
-        """A request a non-lead rank of a mesh does not serve (unsharded):
-        it takes its uid, so the ranks' uids stay equal, and nothing
-        else."""
+    def _agree_call(self, row: Sequence[int], decision: int) -> int:
+        """On a mesh, from the caller's thread: every rank's `row` (what
+        call it makes, and where) and the lead's `decision`, gathered;
+        raises on every rank unless the rows are equal, else returns the
+        lead's decision on every rank."""
+        group, dev = self._caller_comm()
+        mine = torch.tensor([*row, decision], dtype=torch.int64, device=dev)
+        rows = [torch.empty_like(mine)
+                for _ in range(dist.get_world_size(group))]
+        dist.all_gather(rows, mine, group=group)
+        calls = [tuple(r[:-1].tolist()) for r in rows]
+        if len(set(calls)) > 1:
+            raise RuntimeError(f"the ranks of the mesh made different calls"
+                               f" (rank: call, uid, sharded): "
+                               f"{dict(enumerate(calls))}")
+        return int(rows[0][-1])
+
+    def _agree_ready(self, ok: bool) -> bool:
+        """From the dispatcher's thread, before a sharded batch's first
+        collective: whether every rank of the mesh holds the batch."""
+        t = torch.tensor([int(ok)], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._mesh_group())
+        return bool(t.item())
+
+    def _take_uid(self) -> int:
+        """The next request uid."""
         with self._lock:
             uid = self._uid
             self._uid += 1
+        return uid
+
+    def _stamp(self, submitted_s: float, uid: Optional[int]) -> int:
+        """The end of a host stage: the request's uid (`uid`, bound at
+        intake, or the next one) and the first submit's time."""
+        with self._lock:
+            if uid is None:
+                uid = self._uid
+                self._uid += 1
+            if self.metrics["first_submit_s"] is None:
+                self.metrics["first_submit_s"] = submitted_s
         return uid
 
     def _count(self, name: str, delta=1) -> None:
@@ -1248,7 +1308,8 @@ class GraphServe:
                  submitted_s: Optional[float] = None,
                  keys: Optional[np.ndarray] = None,
                  deadline_ms: Optional[float] = None,
-                 tolerance: Optional[float] = None) -> GNNRequest:
+                 tolerance: Optional[float] = None,
+                 uid: Optional[int] = None) -> GNNRequest:
         """Host-stage tail shared by every intake path, for a resolved
         `tier`: resolve the fusion mode; when the caller passes no
         operands, resolve the aggregation backend and build them (from
@@ -1257,8 +1318,9 @@ class GraphServe:
         over to the dispatch stream. A caller that passes operands passes
         the `backend` they were derived for. `submitted_s` lets the
         scheduler date the request at intake, and `deadline_ms` counts
-        from that instant, so queue wait spends it. Returns the request
-        without queueing it."""
+        from that instant, so queue wait spends it; on a mesh the
+        scheduler binds `uid` there too. Returns the request without
+        queueing it."""
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
         fusion = self._resolve_fusion(model, fusion)
@@ -1268,11 +1330,7 @@ class GraphServe:
             # one-shot request: derive without caching (nothing to key on)
             tier_ops = self._agg_quantizer(ops.norm_adj)
         x = self._upload_features(pg)
-        with self._lock:
-            uid = self._uid
-            self._uid += 1
-            if self.metrics["first_submit_s"] is None:
-                self.metrics["first_submit_s"] = submitted_s
+        uid = self._stamp(submitted_s, uid)
         deadline_s = (submitted_s + deadline_ms * 1e-3
                       if deadline_ms is not None else None)
         return self._hand_over(GNNRequest(
@@ -1299,7 +1357,8 @@ class GraphServe:
                        fusion: Optional[str] = None,
                        submitted_s: Optional[float] = None,
                        deadline_ms: Optional[float] = None,
-                       tolerance: Optional[float] = None) -> GNNRequest:
+                       tolerance: Optional[float] = None,
+                       uid: Optional[int] = None) -> GNNRequest:
         """HOST stage of a one-shot request: NodePad padding, the tier
         (router-aware, §14), operand build and upload (CacheG: packed from
         the edge list) and the feature upload. Callable from any
@@ -1309,7 +1368,7 @@ class GraphServe:
             model, pg, self._route_tier(model, tier, tolerance, pg.capacity),
             fusion=fusion, submitted_s=submitted_s,
             keys=self._keys_for(g.edge_index, pg), deadline_ms=deadline_ms,
-            tolerance=tolerance)
+            tolerance=tolerance, uid=uid)
 
     def submit(self, g: Graph, *, model: str, tier: Optional[str] = None,
                fusion: Optional[str] = None,
@@ -1320,7 +1379,8 @@ class GraphServe:
         may trade) opt the request into the §14 SLO machinery. On a mesh
         only the lead serves it (the others take its uid)."""
         if not self._lead:
-            return self._skip()
+            # the lead alone serves it; its uid keeps the ranks' equal
+            return self._take_uid()
         return self._push(self.prepare_submit(g, model=model, tier=tier,
                                               fusion=fusion,
                                               deadline_ms=deadline_ms,
@@ -1369,9 +1429,10 @@ class GraphServe:
                 # hold different bytes (the lead alone holds unsharded
                 # graphs), and a rank that refused alone would number the
                 # next graph apart from the others
+                group, dev = self._caller_comm()
                 reject = bool(self._broadcast(torch.tensor(
-                    [int(reject)], dtype=torch.int64,
-                    device=self.device)).item())
+                    [int(reject)], dtype=torch.int64, device=dev),
+                    group).item())
             if reject:
                 with self._lock:
                     self.metrics["cache_admission_rejects"] += 1
@@ -1811,11 +1872,21 @@ class GraphServe:
                                 if ho.compact is not None else None))
         return ops
 
+    def _snapshot(self, graph_id: int):
+        """An attached graph as a query reads it: (model, padded graph,
+        version, keys, (partition, Graph) or None when unsharded)."""
+        with self._lock:
+            model, pg = self.graphs[graph_id]
+            return (model, pg, self._graph_version[graph_id],
+                    self._graph_keys[graph_id], self._sharded.get(graph_id))
+
     def prepare_query(self, graph_id: int, *, tier: Optional[str] = None,
                       fusion: Optional[str] = None,
                       submitted_s: Optional[float] = None,
                       deadline_ms: Optional[float] = None,
-                      tolerance: Optional[float] = None) -> GNNRequest:
+                      tolerance: Optional[float] = None,
+                      uid: Optional[int] = None,
+                      snapshot=None) -> GNNRequest:
         """HOST stage of a query over an attached graph: device operands,
         a QuantGr tier's int8 Â, and a grasp-capable model's backend
         decision and block structure (derived on the card from the cached
@@ -1828,12 +1899,10 @@ class GraphServe:
         snapshot is taken under the engine lock, forms are built outside
         it, and a built form is cached only while its version is current
         (`_publish`). A request racing an update serves the snapshot it
-        read."""
-        with self._lock:
-            model, pg = self.graphs[graph_id]
-            ver = self._graph_version[graph_id]
-            keys = self._graph_keys[graph_id]
-            sharded = self._sharded.get(graph_id)
+        read; on a mesh the scheduler reads it at intake (`snapshot`), so
+        every rank serves the version of the same call."""
+        model, pg, ver, keys, sharded = (snapshot if snapshot is not None
+                                         else self._snapshot(graph_id))
         if sharded is not None:
             if fusion not in (None, "none"):
                 raise ValueError(
@@ -1843,7 +1912,7 @@ class GraphServe:
             return self._prepare_sharded(
                 graph_id, ver, model, pg, keys, sharded, tier=tier,
                 submitted_s=submitted_s, deadline_ms=deadline_ms,
-                tolerance=tolerance)
+                tolerance=tolerance, uid=uid)
         key = (graph_id, ver)
         ops = self._primary_operands(graph_id, ver, model, pg, keys)
         resolved = self._route_tier(model, tier, tolerance, pg.capacity)
@@ -1871,7 +1940,8 @@ class GraphServe:
         return self._prepare(model, pg, resolved, ops, backend=backend,
                              tier_ops=tops, fusion=fusion,
                              submitted_s=submitted_s,
-                             deadline_ms=deadline_ms, tolerance=tolerance)
+                             deadline_ms=deadline_ms, tolerance=tolerance,
+                             uid=uid)
 
     def _prepare_sharded(self, graph_id: int, ver: int, model: str,
                          pg: PaddedGraph, keys: Optional[np.ndarray],
@@ -1879,7 +1949,8 @@ class GraphServe:
                          tier: Optional[str],
                          submitted_s: Optional[float],
                          deadline_ms: Optional[float] = None,
-                         tolerance: Optional[float] = None) -> GNNRequest:
+                         tolerance: Optional[float] = None,
+                         uid: Optional[int] = None) -> GNNRequest:
         """HOST stage of a query over an auto-sharded graph (§12).
 
         The cached unit is the tuple of per-shard `ShardSlice`s, built
@@ -1917,11 +1988,7 @@ class GraphServe:
             x, ops, mask = slices[0].x, slices[0].ops, slices[0].node_mask
         now = self.clock.now()
         submitted_s = submitted_s if submitted_s is not None else now
-        with self._lock:
-            uid = self._uid
-            self._uid += 1
-            if self.metrics["first_submit_s"] is None:
-                self.metrics["first_submit_s"] = submitted_s
+        uid = self._stamp(submitted_s, uid)
         deadline_s = (submitted_s + deadline_ms * 1e-3
                       if deadline_ms is not None else None)
         return self._hand_over(GNNRequest(
@@ -1941,7 +2008,7 @@ class GraphServe:
             with self._lock:
                 sharded = graph_id in self._sharded
             if not sharded:
-                return self._skip()
+                return self._take_uid()
         return self._push(self.prepare_query(graph_id, tier=tier,
                                              fusion=fusion,
                                              deadline_ms=deadline_ms,
@@ -1951,7 +2018,12 @@ class GraphServe:
     def run(self) -> List[GNNRequest]:
         """Serve the queue. On a mesh every rank calls it together: the
         lead runs the batches and tells the others each sharded batch it
-        picked (`_tell`), which they follow (`_follow`)."""
+        picked (`_tell`), which they follow (`_follow`). Not on a mesh
+        while a scheduler is open: its dispatcher holds the mesh's
+        groups."""
+        if self.mesh is not None and self._open_scheduler is not None:
+            raise RuntimeError("run() on a mesh while a scheduler is open: "
+                               "serve through the scheduler, or close it")
         if not self._lead:
             self._follow()
             return self.finished
@@ -1965,8 +2037,10 @@ class GraphServe:
         """The lead's message to the mesh: `op`, a sharded batch's uids
         and the tier it serves at, and the sharded requests expired since
         the last message. A header of 4 int64 then the uids, broadcast
-        before the batch's first collective."""
-        expired, self._expired_out = self._expired_out, []
+        before the batch's first collective, from the thread that runs
+        the batches (`run()`, or a scheduler's dispatcher)."""
+        with self._lock:
+            expired, self._expired_out = self._expired_out, []
         tier = (list(self.models[batch[0].model].tiers).index(batch[0].tier)
                 if batch else 0)
         self._broadcast(torch.tensor([op, len(batch), len(expired), tier],
@@ -1976,18 +2050,31 @@ class GraphServe:
                                          dtype=torch.int64,
                                          device=self.device))
 
+    def _hear(self) -> Tuple[int, List[int], List[int], int]:
+        """A non-lead rank's read of one `_tell`: (op, the batch's uids,
+        the expired uids, the tier's index)."""
+        op, nb, ne, tier = self._broadcast(torch.zeros(
+            4, dtype=torch.int64, device=self.device)).tolist()
+        uids = (self._broadcast(torch.zeros(
+            nb + ne, dtype=torch.int64, device=self.device)).tolist()
+            if nb + ne else [])
+        return op, uids[:nb], uids[nb:], tier
+
+    def _run_told(self, batch: List[GNNRequest], tier: int) -> None:
+        """A non-lead rank runs the lead's sharded batch at its tier."""
+        name = list(self.models[batch[0].model].tiers)[tier]
+        for r in batch:
+            r.tier = name
+        self._execute_sharded(batch)
+
     def _follow(self) -> None:
         """A non-lead rank's `run()`: take the lead's messages in order,
         finish the requests it expired, and run each sharded batch it
         picked, at its tier, until it is done. The queue must then be
         empty: every rank queued the same sharded requests."""
         while True:
-            op, nb, ne, tier = self._broadcast(torch.zeros(
-                4, dtype=torch.int64, device=self.device)).tolist()
-            uids = (self._broadcast(torch.zeros(
-                nb + ne, dtype=torch.int64, device=self.device)).tolist()
-                if nb + ne else [])
-            gone = set(uids[nb:])
+            op, uids, gone, tier = self._hear()
+            gone = set(gone)
             if gone:
                 self._complete_expired([r for r in self.queue
                                         if r.uid in gone], self.clock.now())
@@ -1999,17 +2086,13 @@ class GraphServe:
                         f"{sorted(by_uid)} the lead never dispatched")
                 self.queue = []
                 return
-            missing = [u for u in uids[:nb] if u not in by_uid]
+            missing = [u for u in uids if u not in by_uid]
             if missing:
                 raise RuntimeError(f"rank {dist.get_rank()} has no request "
                                    f"{missing} of the lead's batch")
-            batch = [by_uid[u] for u in uids[:nb]]
-            name = list(self.models[batch[0].model].tiers)[tier]
-            for r in batch:
-                r.tier = name
-            taken = set(uids)
+            taken = set(uids) | gone
             self.queue = [r for r in self.queue if r.uid not in taken]
-            self._execute_sharded(batch)
+            self._run_told([by_uid[u] for u in uids], tier)
 
     def _complete_expired(self, expired: List[GNNRequest],
                           now: float) -> None:
@@ -2019,7 +2102,9 @@ class GraphServe:
         in `deadline_misses`; their submit-to-expiry latency still feeds
         the metrics and the governor, which exists to see that overload.
         On the card the dispatch stream waits on their host stages'
-        events, so their memory is not reused while that work runs."""
+        events, so their memory is not reused while that work runs. The
+        lead of a mesh keeps the sharded ones for its next message
+        (`_tell`), whichever sweep expired them."""
         for r in expired:
             if r.ready is not None:
                 self._dispatch_stream.wait_event(r.ready)
@@ -2034,6 +2119,8 @@ class GraphServe:
                 if self.governor is not None:
                     self.governor.observe(now - r.submitted_s)
             self.metrics["last_finish_s"] = now
+            if self.mesh is not None and self._lead:
+                self._expired_out.extend(r.uid for r in expired if r.shards)
 
     def _run_batch(self) -> None:
         # the expiry sweep first (§14): requests past their deadline
@@ -2045,7 +2132,6 @@ class GraphServe:
             gone = {r.uid for r in expired}
             self.queue = [r for r in self.queue if r.uid not in gone]
             self._complete_expired(expired, now)
-            self._expired_out.extend(r.uid for r in expired if r.shards)
             if not self.queue:
                 return
         # best-filling key first, with slack as the tie-break; tier, backend
@@ -2248,16 +2334,21 @@ class GraphServe:
         `runtime.scheduler.PipelineScheduler` whose host workers run this
         engine's `prepare_submit`/`prepare_query` while its dispatcher
         runs `_execute_batch`. Use it as a context manager; the sync
-        `submit`/`query` + `run()` path stays usable beside it. Not on a
-        mesh: it batches by timing, which the ranks cannot agree on; its
-        mesh form is ROADMAP queue 1 item 16."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the pipeline scheduler batches by timing, which the ranks "
-                "of a mesh would not agree on; serve a mesh through "
-                "submit/query + run() (the pipeline on a mesh is ROADMAP "
-                "queue 1 item 16)")
+        `submit`/`query` + `run()` path stays usable beside it. On a mesh
+        every rank opens it together and makes the same calls on it: the
+        lead batches, the others run the lead's sharded batches in its
+        order (see the scheduler's module docstring); one scheduler at a
+        time, and `run()` waits until it is closed. The first one makes
+        the caller's gloo group (`dist.new_group`, a collective of the
+        whole world)."""
         from repro_torch.runtime.scheduler import PipelineScheduler
+        if self.mesh is not None:
+            if self._open_scheduler is not None:
+                raise RuntimeError("a scheduler is already open on this "
+                                   "mesh engine: close it first")
+            if self._caller_group is None:
+                self._caller_group = dist.new_group(list(self.mesh.ranks),
+                                                    backend="gloo")
         return PipelineScheduler(self, pc)
 
     # ---------------------------------------------------------------- metrics

@@ -1951,3 +1951,30 @@ def test_lm_training_step_on_card_tensor_core_backward(card):
     for gk, gp in zip(grads_k, grads_p):
         assert gk.abs().max() > 0
         assert (gk - gp).abs().max() <= LM_GRAD_BAR * gp.abs().max()
+
+
+@pytest.mark.cuda
+def test_mesh_pipeline_on_card_equals_sync_run(card):
+    """`launch/shard_serve.py --pipeline 2` on 2 gloo ranks sharing the
+    card, at small widths: a sharded GCN's fp32 and int8 queries and an
+    `update_delta` through the pipeline scheduler on the mesh, then a
+    burst of 0.001 ms deadlines. Every rank's pipelined answers are
+    bit-equal to its sync run()'s, every rank ran the lead's batches, the
+    deadline burst expired alike, and every accepted request completed."""
+    from repro_torch.launch import shard_serve as ss
+    spec = ss.BurstSpec(kinds=("gcn",), nodes=200, feats=12, hidden=16,
+                        heads=2, classes=4, ladder=(128,), shards=2,
+                        cal_nodes=100, delta=True, slots=2, pipeline=2)
+    outs = [ss.last_json(o) for o in ss.spawn_local(
+        2, ss.burst_args(spec, "off") + ["--backend", "gloo", "--device",
+                                         str(card)], 300)]
+    lead = outs[0]["wires"]["off"]["pipeline"]
+    for o in outs:
+        got = o["wires"]["off"]
+        p = got["pipeline"]
+        assert p["answers"] and p["answers"] == got["answers"]
+        assert all(p["checks"].values())
+        assert p["batch_log"] == lead["batch_log"]
+        assert p["expired"] == lead["expired"] and all(
+            p["expired"].values())
+        assert p["counters"]["accepted"] == p["counters"]["completed"]

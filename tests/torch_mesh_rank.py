@@ -20,16 +20,30 @@ build them alike. Scenarios:
              host mesh, meshes larger than the world (a shard mesh, the
              production mesh);
   decisions  2 ranks whose fake clocks differ: tolerance routing, the SLO
-             governor and deadlines through `GraphServe(mesh=)`, the
-             pipeline scheduler's refusal, and attach()'s admission under
-             a byte budget that only the lead's residency overflows.
+             governor and deadlines through `GraphServe(mesh=)`, an fp32
+             query through the deterministic pipeline on the mesh, and
+             attach()'s admission under a byte budget that only the
+             lead's residency overflows;
+  pipeline   2 ranks: the pipeline scheduler on the mesh. The inline
+             (deterministic) pipeline through `shard_serve.serve`
+             (`PIPE_SPEC`), the threaded pipeline with 4 host workers and
+             slowed followers against the sync run() of the same calls
+             (`threaded_burst`, attach() while it is open), ranks whose
+             fake clocks differ (`clocked_pipeline`: deadlines, the
+             governor's tier and shed, `QueueFull` under "reject"), a
+             follower whose host stage fails for a uid the lead names,
+             and ranks that make different calls (`fault_bursts`);
+  pipeline22 4 ranks: the inline and the threaded pipeline on the 2 x 2
+             replica mesh.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import random
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +69,8 @@ from repro_torch.runtime.clock import Clock  # noqa: E402
 from repro_torch.runtime.gnn_server import (GraphServe,  # noqa: E402
                                             GraphServeConfig,
                                             tier_techniques)
+from repro_torch.runtime.scheduler import (PipelineConfig,  # noqa: E402
+                                           QueueFull)
 from repro_torch.runtime.slo import SLOConfig  # noqa: E402
 
 IN_FEATS, HIDDEN, HEADS, CLASSES = 12, 16, 2, 4
@@ -202,16 +218,17 @@ class SkewClock(Clock):
 CLOCKS = ((0.009, 0.002), (0.001, 0.005))
 
 
-def decisions_engine(rank, mesh=None):
+def decisions_engine(rank, mesh=None, **slo):
     """A 2-shard fp32/int8 GCN engine on rank `rank`'s skewed clock, with
-    an SLO governor whose 3 ms p99 target the slower rank breaches."""
+    an SLO governor whose 3 ms p99 target the slower rank breaches (`slo`
+    sets more of its fields)."""
     cfg = config("gcn")
     eng = GraphServe(GraphServeConfig(
         ladder=BucketLadder(buckets=(BUCKET,)), batch_slots=2,
         return_logits=True, shard_counts=(2,), halo_compress=False),
         clock=SkewClock(*CLOCKS[rank]),
-        slo=SLOConfig(target_p99_ms=3.0, window=4, min_samples=1,
-                      breach_checks=1, clear_checks=8),
+        slo=SLOConfig(**{**dict(target_p99_ms=3.0, window=4, min_samples=1,
+                                breach_checks=1, clear_checks=8), **slo}),
         device="cpu", mesh=mesh)
     eng.register_model("m", cfg, params_from_jax(ss.model_weights(cfg, 0),
                                                  device="cpu"),
@@ -292,18 +309,235 @@ def scenario_decisions(mesh, arrays, facts):
             arrays[str(u)] = lg
     facts["summary"] = {k: eng.summary()[k] for k in (
         "batches", "sharded_batches", "deadline_misses", "slo_downgrades")}
-    try:
-        eng.scheduler()
-        facts["pipeline"] = None
-    except NotImplementedError as exc:
-        facts["pipeline"] = str(exc)
+    gid = eng.attach(graph(200, 4), model="m", calibrate=False)
+    with eng.scheduler(PipelineConfig(deterministic=True)) as sched:
+        ticket = sched.query(gid, tier="fp32")
+        sched.drain()
+        arrays["pipeline"] = sched.request(ticket).logits
+        facts["pipeline"] = sched.summary()["pipeline"]
     facts["fp32_uid"] = str(next(iter(out)))
     facts["admission"], arrays["admission"] = admission_burst(mesh)
 
 
+# the inline pipeline's burst through `shard_serve.serve` on each mesh
+PIPE_SPEC = ss.BurstSpec(kinds=("gcn", "sage-max"), nodes=200,
+                         feats=IN_FEATS, hidden=HIDDEN, heads=HEADS,
+                         classes=CLASSES, ladder=(BUCKET,), shards=2,
+                         cal_nodes=100, delta=True, grow=(90, 200), slots=2,
+                         pipeline=1, deterministic=True)
+PIPE_SPEC22 = dataclasses.replace(PIPE_SPEC, kinds=("gcn",), replicas=2,
+                                  delta=False, grow=())
+TIERS = ("fp32", "int8")
+
+
+def pipe_engine(mesh):
+    """A warm fp32/int8 GCN engine ("m") on the mesh's shard count and
+    replica rows, under a byte budget it never fills (so attach() runs its
+    admission broadcast)."""
+    cfg = config("gcn")
+    eng = GraphServe(GraphServeConfig(
+        ladder=BucketLadder(buckets=(BUCKET,)), batch_slots=2,
+        return_logits=True, shard_counts=(mesh.shape["shard"],),
+        halo_compress=False, replica_groups=mesh.shape.get("replica", 1),
+        device_cache_budget_bytes=1 << 40), device="cpu", mesh=mesh)
+    eng.register_model("m", cfg, params_from_jax(ss.model_weights(cfg, 0),
+                                                 device="cpu"),
+                       tiers=TIERS)
+    eng.calibrate("m", graph(100, 77))
+    eng.warmup()
+    return eng
+
+
+def slow_followers(eng, seed):
+    """A follower's host stage of a sharded query sleeps 2-20 ms first, so
+    its 4 workers finish out of order and behind the lead's."""
+    if eng.mesh.is_first:
+        return
+    real, rng = eng._prepare_sharded, random.Random(seed)
+
+    def slowed(*a, **kw):
+        time.sleep(rng.uniform(0.002, 0.02))
+        return real(*a, **kw)
+    eng._prepare_sharded = slowed
+
+
+def threaded_burst(mesh, arrays):
+    """The same calls through the threaded pipeline (4 host workers, a
+    2-deep ready buffer, the 2 ms window; an `update_delta` and a sharded
+    graph attached while it is open; two queries with a 0.001 ms
+    deadline, which the lead expires) and then through submit/query + run(): per label, the uid
+    and, where this rank answers it, the logits of each path (arrays
+    "pipe|label", "sync|label"), the expired labels, the pipeline's
+    sharded batch log and counters."""
+    eng = pipe_engine(mesh)
+    slow_followers(eng, dist_rank())
+    bigs, small = (graph(200, 4), graph(190, 9)), graph(100, 77)
+    facts = {}
+    for mode in ("pipe", "sync"):
+        gids = [eng.attach(g, model="m", calibrate=False) for g in bigs]
+        sgid = eng.attach(small, model="m", calibrate=False)
+        sched = (eng.scheduler(PipelineConfig(host_workers=4, window_ms=2.0,
+                                              max_ready=2))
+                 if mode == "pipe" else None)
+        query = eng.query if sched is None else sched.query
+        submit = eng.submit if sched is None else sched.submit
+        labels = {}
+        for i in range(12):
+            labels[f"q{i}"] = query(gids[i % 2], tier=TIERS[i // 2 % 2])
+            if i % 4 == 3:
+                labels[f"s{i}"] = submit(small, model="m")
+                labels[f"u{i}"] = query(sgid)
+        # a delta while those queries may still be in the host stage: each
+        # serves the version of its call, as in run()
+        part, g = eng._sharded[gids[0]]
+        add, rm = ss._cross_delta(g, part, 5)
+        eng.update_delta(gids[0], add_edges=add, remove_edges=rm)
+        for tier in TIERS:
+            labels[f"delta/{tier}"] = query(gids[0], tier=tier)
+        late = eng.attach(graph(210, 11), model="m", calibrate=False)
+        for tier in TIERS:
+            labels[f"late/{tier}"] = query(late, tier=tier)
+            labels[f"deadline/{tier}"] = query(gids[0], tier=tier,
+                                               deadline_ms=0.001)
+        if sched is not None:
+            sched.drain(timeout=60)
+            reqs = {k: sched.request(t) for k, t in labels.items()}
+            facts["log"] = [e for e in sched.dispatch_log if e[3]]
+            facts["counters"] = sched.summary()["pipeline"]
+            sched.close()
+        else:
+            eng.run()
+            by_uid = {r.uid: r for r in eng.finished}
+            reqs = {k: by_uid.get(u) for k, u in labels.items()}
+        facts[mode] = {k: None if r is None else r.uid
+                       for k, r in reqs.items()}
+        facts[f"{mode}_expired"] = sorted(
+            k for k, r in reqs.items() if r is not None
+            and r.deadline_missed and r.preds is None)
+        for k, r in reqs.items():
+            if r is not None and r.logits is not None:
+                arrays[f"{mode}|{k}"] = r.logits
+    eng.assert_warm()
+    return facts
+
+
+def clocked_pipeline(eng):
+    """The inline pipeline on a rank's skewed clock (`SLOConfig` ladder
+    fp32/int8, shedding at a queue depth of 3), `max_pending` 3 under
+    "reject": a burst past the intake first (rejects), explicit tiers,
+    tolerance-routed, default-tier and deadline-bound queries, then a
+    burst with the governor at its floor (sheds). Returns per label
+    "reject", "shed" or (tier served, expired, logits), and the counters.
+    """
+    gid = eng.attach(graph(200, 4), model="m", calibrate=False)
+    out, tickets = {}, {}
+    pc = PipelineConfig(deterministic=True, max_pending=3,
+                        backpressure="reject")
+    with eng.scheduler(pc) as sched:
+        def ask(label, **kw):
+            try:
+                tickets[label] = sched.query(gid, **kw)
+            except QueueFull as exc:
+                out[label] = "shed" if "shedding" in str(exc) else "reject"
+
+        for i in range(5):
+            ask(f"burst{i}")
+        sched.drain()
+        ask("fp32", tier="fp32")
+        ask("int8", tier="int8")
+        sched.drain()
+        for i in range(3):
+            ask(f"tol{i}", tolerance=100.0)
+            ask(f"default{i}")
+            ask(f"deadline{i}", deadline_ms=4.0)
+            sched.drain()
+        for i in range(5):
+            ask(f"floor{i}")
+        sched.drain()
+        for label, t in tickets.items():
+            r = sched.request(t)
+            out[label] = (r.tier, r.preds is None, r.logits)
+        counters = sched.summary()["pipeline"]
+    counters["shed_requests"] = eng.summary()["shed_requests"]
+    return out, counters
+
+
+def fault_bursts(mesh):
+    """A follower whose host stage fails for the second of three queries,
+    which the lead names in a batch: every rank raises at that batch
+    (drain, then close). Then ranks that make different calls (the lead a
+    sharded query, the others a one-shot submit): every rank raises at
+    that intake, and closes. Returns each rank's messages."""
+    eng = pipe_engine(mesh)
+    gid = eng.attach(graph(200, 4), model="m", calibrate=False)
+    bad = eng._uid + 1
+    if not mesh.is_first:
+        real = eng._prepare_sharded
+
+        def failing(*a, uid=None, **kw):
+            if uid == bad:
+                raise RuntimeError(f"planted host-stage fault at uid {uid}")
+            return real(*a, uid=uid, **kw)
+        eng._prepare_sharded = failing
+    out = {}
+    t0 = time.perf_counter()
+    sched = eng.scheduler(PipelineConfig(host_workers=2))
+    for _ in range(3):
+        sched.query(gid, tier="fp32")
+    try:
+        sched.drain(timeout=60)
+        out["drain"] = None
+    except RuntimeError as exc:
+        out["drain"] = str(exc)
+    try:
+        sched.close()
+        out["close"] = None
+    except RuntimeError as exc:
+        out["close"] = str(exc)
+    out["fault_s"] = time.perf_counter() - t0
+    with eng.scheduler(PipelineConfig(deterministic=True)) as sched:
+        try:
+            if mesh.is_first:
+                sched.query(gid)
+            else:
+                sched.submit(graph(100, 77), model="m")
+            out["differ"] = None
+        except RuntimeError as exc:
+            out["differ"] = str(exc)
+    out["uid_after"] = eng._uid
+    return out
+
+
+def scenario_pipeline(mesh, arrays, facts):
+    spec = PIPE_SPEC22 if "replica" in mesh.shape else PIPE_SPEC
+    det = ss.serve(spec, wires=(False,), device="cpu", mesh=mesh)["off"]
+    piped = det["pipeline"].pop("logits")
+    arrays.update({f"det|{k}": v for k, v in piped.items()})
+    facts["det"] = dict(det["pipeline"], sync=det["answers"],
+                        answers={k: ss.digest(v) for k, v in piped.items()})
+    facts["threads"] = threaded_burst(mesh, arrays)
+    if "replica" in mesh.shape:
+        return
+    out, counters = clocked_pipeline(decisions_engine(
+        mesh.coords["shard"], mesh, ladder=TIERS, max_queue_depth=3))
+    facts["clocks"] = {k: v if isinstance(v, str) else list(v[:2])
+                       for k, v in out.items()}
+    facts["clock_counters"] = counters
+    arrays.update({f"clock|{k}": v[2] for k, v in out.items()
+                   if not isinstance(v, str) and v[2] is not None})
+    facts["faults"] = fault_bursts(mesh)
+
+
+def dist_rank():
+    return torch.distributed.get_rank()
+
+
 SCENARIOS = {"plans": ((2, 1), scenario_plans),
              "replicas": ((2, 2), scenario_replicas),
-             "decisions": ((2, 1), scenario_decisions)}
+             "decisions": ((2, 1), scenario_decisions),
+             "pipeline": ((2, 1), scenario_pipeline),
+             "pipeline22": ((2, 2), scenario_pipeline)}
+
 
 
 def main():

@@ -16,6 +16,9 @@ Phases, in the order given (default: flash, dense, scout, examples):
             the eager path's)
   mesh-lm   [mesh-lm]: SmolLM-135M trained and served on meshes of gloo
             ranks sharing the card, against the single-process steps
+  mesh-pipeline [mesh-pipeline]: the pipeline scheduler on the GCN's
+            meshes of gloo ranks sharing the card, against each rank's
+            sync run()
   dryrun    [dryrun]: every arch x shape x production mesh on meta
             tensors (host cores only)
 
@@ -25,6 +28,7 @@ trees' [intake] can be compared in one call, each in its own process:
 
     python3 tools/serve_probe.py dense scout
     python3 tools/serve_probe.py mesh-lm dryrun
+    python3 tools/serve_probe.py mesh-pipeline
     python3 tools/serve_probe.py intake --root build/parent
 
 Run from the repo root on a machine with a card. Any failed check exits
@@ -41,7 +45,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PHASES = ("flash", "dense", "scout", "examples", "intake", "mesh-lm",
-          "dryrun")
+          "mesh-pipeline", "dryrun")
 DEFAULT = ("flash", "dense", "scout", "examples")
 FLASH_PREFIXES = ("chatglm3", "llama4", "gemma2 S4608")
 
@@ -88,6 +92,9 @@ def main(argv=None) -> None:
         elif phase == "mesh-lm":
             print(f"[mesh-lm] launches {cs.mesh_lm_phase(dev, card)}",
                   flush=True)
+        elif phase == "mesh-pipeline":
+            print(f"[mesh-pipeline] launches "
+                  f"{cs.mesh_pipeline_phase(dev, card)}", flush=True)
         elif phase == "dryrun":
             cs.dryrun_phase(card)
         else:
